@@ -1,0 +1,113 @@
+"""Where the PyTorch port's detector spends its time on the card.
+
+    python tools/torch_detect_profile.py [--chips 8] [--seed 0] [--out DIR]
+
+Runs SyntheticSource -> pack -> detect_packed on ``--chips`` full-size
+Landsat chips (1985-2017, T=768) once to warm up, once timed by the host
+clock, then once under ``torch.profiler`` (CPU and CUDA activities).
+Prints and writes to ``DIR/torch_detect_profile.json``: the wall times of
+the plain and the profiled run, the summed device time of every kernel by
+name (the hand-written kernels and PyTorch's own), and the device's busy
+share of the profiled wall time.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from firebird_tpu_torch.ccd import cuda_ops, kernel  # noqa: E402
+from firebird_tpu_torch.ingest import SyntheticSource, pack  # noqa: E402
+
+
+GROUPS = (                      # (group, substrings of the kernel name)
+    ("monitor_chain_scored", ("monitor_kernel",)),
+    ("lasso_fit", ("lasso_fit_kernel",)),
+    ("init_window", ("init_kernel",)),
+    ("sorts", ("Sort",)),
+    ("reductions", ("reduce_kernel",)),
+    ("gathers and scatters", ("scatter_gather", "index")),
+    ("scans", ("scan",)),
+    ("memcpy/memset", ("Memcpy", "Memset")),
+)
+
+
+def group(rows) -> dict:
+    """Device milliseconds of the profile's rows summed by kind; what no
+    group names is PyTorch's elementwise glue."""
+    out = {g: 0.0 for g, _ in GROUPS}
+    out["elementwise"] = 0.0
+    for r in rows:
+        g = next((g for g, keys in GROUPS
+                  if any(k in r["name"] for k in keys)), "elementwise")
+        out[g] += r["device_ms"]
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--chips", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="chiprun_out")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("torch_detect_profile: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    src = SyntheticSource(args.seed, start="1985-01-01", end="2017-12-31")
+    packed = pack([src.chip(1000 * c, 2000) for c in range(args.chips)],
+                  bucket=64)
+    staged = kernel.stage_packed(packed)
+    cuda_ops.build()
+    kernel.detect_packed(packed, staged=staged)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kernel.detect_packed(packed, staged=staged)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda_ops.reset_launches()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        seg = kernel.detect_packed(packed, staged=staged)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Only the device-side entries (kernels, memcpy, memset): an operator's
+    # host-side entry carries its kernels' time again.
+    rows = [dict(name=ev.key, calls=ev.count,
+                 device_ms=ev.self_device_time_total / 1e3)
+            for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows) / 1e3
+    out = dict(device=smi, chips=args.chips, pixels=int(seg.n_segments.numel()),
+               T=int(packed.spectra.shape[-1]), rounds=int(seg.rounds[0]),
+               round_counts=seg.round_counts[0].tolist(),
+               launches=dict(cuda_ops.LAUNCHES), wall_s=wall,
+               wall_unprofiled_s=wall_plain,
+               device_busy_s=busy, device_busy_share=busy / wall,
+               groups=group(rows), kernels=rows)
+    print(f"{smi}: {args.chips} chips, wall {wall:.3f} s profiled "
+          f"({wall_plain:.3f} s not), device busy {busy:.3f} s "
+          f"({100 * busy / wall:.1f}% of the profiled wall)")
+    for r in rows[:20]:
+        print(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d}  {r['name'][:90]}")
+    Path(args.out).mkdir(parents=True, exist_ok=True)
+    (Path(args.out) / "torch_detect_profile.json").write_text(
+        json.dumps(out, indent=1))
+
+
+if __name__ == "__main__":
+    main()
