@@ -6,19 +6,24 @@ From the root of a checkout, on a machine with a CUDA card:
 
 1. prints the card (nvidia-smi name and power limit) and the torch / CUDA
    versions;
-2. builds the three CUDA kernels from ``firebird_tpu_torch/csrc`` (one nvcc
+2. builds the five CUDA kernels from ``firebird_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and times the build;
 3. kernel phase: runs each kernel's wrapper at the main path's full width
    (``--chips`` chips of 100x100 pixels from ``SyntheticSource(--seed)``,
    1985-2017, T=768, the archive's window cap) on round states drawn from
-   the seed with numpy, holds the result against the kernel's plain
-   PyTorch version on the same inputs, and times both with CUDA events;
-4. main path: ``SyntheticSource`` -> ``pack`` -> ``detect_packed`` on the
-   card for the same full-size Landsat chips, with the launch counters
-   set to 0 just before and read just after; the same batch through the
-   plain versions on the card, and the fraction of pixels whose decision
-   fields agree; egress packing and decoding and the store's table frames
-   for one chip;
+   the seed with numpy (the fused kernels' events come from the plain
+   monitor and INIT on those states), holds the result against the
+   kernel's plain PyTorch version on the same inputs, and times both with
+   CUDA events;
+4. main paths, one for each round route (``fused`` 0, 1 and "mon"):
+   ``SyntheticSource`` -> ``pack`` -> ``detect_packed`` on the card for
+   the same full-size Landsat chips, with the launch counters set to 0
+   just before and read just after, and held to the route's set of
+   kernels; the same batch through the plain versions on the card, and
+   the fraction of pixels whose decision fields agree.  Route 1 must equal
+   route 0 byte for byte, route "mon" in every field but seg_mag (held to
+   rtol 5e-3, atol 1e-2).  On route 0, egress packing and decoding and
+   the store's table frames for one chip;
 5. a small input (two 10x10 chips) through the card and through the plain
    versions on the CPU, decision fields compared.
 
@@ -54,7 +59,23 @@ KERNEL_INFO = {
     "lasso_fit": f"{PALLAS}:375",
     "monitor_chain_scored": f"{PALLAS}:706",
     "init_window": f"{PALLAS}:976",
+    "fused_fit_close": f"{PALLAS}:1426",
+    "fused_round": f"{PALLAS}:1727",
 }
+# The kernels each round route launches on the main path (route "mon"
+# fits the prologue's snow / insufficient-clear pixels with lasso_fit).
+ROUTES = {
+    0: {"lasso_fit", "monitor_chain_scored", "init_window"},
+    1: {"lasso_fit", "monitor_chain_scored", "init_window",
+        "fused_fit_close"},
+    "mon": {"lasso_fit", "init_window", "fused_round"},
+}
+# The route whose main-path launches a kernel's JSON row reports.
+HOME_ROUTE = {"lasso_fit": 0, "monitor_chain_scored": 0, "init_window": 0,
+              "fused_fit_close": 1, "fused_round": "mon"}
+SEGMENT_FIELDS = ("n_segments", "seg_meta", "seg_rmse", "seg_mag",
+                  "seg_coef", "mask", "procedure", "rounds", "vario",
+                  "round_counts")
 
 
 def check(cond, msg):
@@ -94,7 +115,7 @@ def kernel_inputs(seed, staged, W):
     """Full-width kernel inputs: the main path's staged batch (spectra,
     dates, QA) and round states drawn from the seed — alive sets from the
     QA's clear observations, a model fitted by the plain Lasso over them,
-    random cursors and phases."""
+    random cursors, phases, segment counts and result buffers."""
     rng = np.random.default_rng(seed + 1)
     days, n_obs, spectra, qa = staged
     dev = spectra.device
@@ -111,7 +132,19 @@ def kernel_inputs(seed, staged, W):
     cut = g(rng.integers(T // 8, T // 2, (C, P)).astype(np.int32))
     ar = torch.arange(T, device=dev)[None, :, None]
     included = alive & (ar < cut[:, None, :])
+    # Half the pixels were last fit on their included count (they reach a
+    # refit point), half on more than the series holds (they end in a
+    # tail or a break).
+    n_last_fit = torch.where(g(rng.random((C, P)) < 0.5),
+                             included.sum(1, dtype=torch.int32).clamp_min(1),
+                             4 * T)
+    S = kernel.MAX_SEGMENTS
+    bufs = tuple(g(rng.standard_normal((C, P, S) + k).astype(np.float32))
+                 for k in ((6,), (B,), (B,), (B, 8)))
     return dict(
+        coefs=coefs, rmse=rmse, bufs=bufs,
+        first_seg=g(rng.random((C, P)) < 0.5),
+        nseg=g(rng.integers(0, S + 1, (C, P)).astype(np.int32)),
         T=T, W=W, X=X, Xt=Xt, t=t, Yt=Yt, vario=vario, alive=alive,
         w=(alive & (ar < g(rng.integers(T // 4, T, (C, P)))[:, None, :])).float(),
         coefmask=coefmask_for(g(rng.integers(12, 30, (C, P)))),
@@ -119,7 +152,7 @@ def kernel_inputs(seed, staged, W):
         coefs_d=coefs[:, :, det].contiguous(),
         dden=torch.maximum(rmse, vario)[:, :, det].contiguous(),
         included=included, cur_k=cut,
-        n_last_fit=included.sum(1, dtype=torch.int32).clamp_min(1),
+        n_last_fit=n_last_fit,
         in_mon=g(rng.random((C, P)) < 0.7),
         cur_i=g(rng.integers(0, T // 2, (C, P)).astype(np.int32)),
         in_init=g(rng.random((C, P)) < 0.6))
@@ -168,7 +201,7 @@ def kernel_phase(inp, reps):
     a = (inp["Yd"], inp["coefs_d"], inp["dden"], inp["X"], inp["alive"],
          inp["included"], inp["cur_k"], inp["n_last_fit"], inp["in_mon"])
     got = cuda_ops.monitor_chain_scored(*a, **kw_mon)
-    want = cuda_ops.monitor_chain_scored_plain(*a, **kw_mon)
+    want = mon = cuda_ops.monitor_chain_scored_plain(*a, **kw_mon)
     torch.cuda.synchronize()
     for k in want:
         n_diff = int((got[k] != want[k]).sum())
@@ -183,7 +216,7 @@ def kernel_phase(inp, reps):
          inp["Xt"], inp["Yt"], inp["vario"])
     kw_init = dict(W=inp["W"], sensor=LANDSAT_ARD)
     got = cuda_ops.init_window(*a, **kw_init)
-    want = cuda_ops.init_window_plain(*a, **kw_init)
+    want = init = cuda_ops.init_window_plain(*a, **kw_init)
     torch.cuda.synchronize()
     for k in ("init_nowin", "init_tm", "has_adv", "i_next_tm", "i_adv", "j",
               "n_ok", "w_stab", "alive_init"):
@@ -202,17 +235,14 @@ def kernel_phase(inp, reps):
     by = float(nz.sum()) * 5 * 2 + nbytes(*a[:6], inp["vario"],
                                           *got.values())
     rows.append(("init_window", a, kw_init, err, 0.0, fl, by))
+    rows += fused_rows(inp, mon, init, kw_mon, report)
 
-    plain = {"lasso_fit": cuda_ops.lasso_fit_plain,
-             "monitor_chain_scored": cuda_ops.monitor_chain_scored_plain,
-             "init_window": cuda_ops.init_window_plain}
-    wrap = {"lasso_fit": cuda_ops.lasso_fit,
-            "monitor_chain_scored": cuda_ops.monitor_chain_scored,
-            "init_window": cuda_ops.init_window}
     out = {}
     for name, args, kw, err, rel, fl, by in rows:
-        ms = cuda_ms(lambda: wrap[name](*args, **kw), reps)
-        plain_ms = cuda_ms(lambda: plain[name](*args, **kw), max(reps // 4, 3))
+        ms = cuda_ms(lambda: getattr(cuda_ops.KERNELS, name)(*args, **kw),
+                     reps)
+        plain_ms = cuda_ms(lambda: getattr(cuda_ops.PLAIN, name)(*args, **kw),
+                           max(reps // 4, 3))
         b_ms, b_by = bound(by, fl)
         out[name] = dict(name=name, route="cuda",
                          source=f"firebird_tpu_torch/csrc/{name}.cu",
@@ -226,8 +256,109 @@ def kernel_phase(inp, reps):
     return out, report
 
 
+def fit_work(w, do_fit, B):
+    """Bytes and float operations of the shared refit: the fitting pixels'
+    window spectra and weights, the Gram, 50 CD sweeps and the RMSE (the
+    lasso_fit count, over the fitting pixels only)."""
+    wf = w * do_fit[:, None, :]
+    nnz, n_fit = float(wf.sum()), float(do_fit.sum())
+    T = w.shape[1]
+    fl = nnz * (36 * 2 + B * 17 + 1) + n_fit * B * 50 * 8 * 20 + nnz * B * 19
+    return nnz * B * 2 + n_fit * T * 4, fl
+
+
+def fused_rows(inp, mon, init, kw_mon, report):
+    """The fused kernels at full width on one round: the events and the
+    INIT handoff come from the plain monitor and init_window results of
+    the kernel phase's states.  Buffers are cloned for each call (the
+    kernels write them in place)."""
+    C, B, T, P = inp["Yt"].shape
+    K = 8
+    S = inp["bufs"][0].shape[2]
+    clone = lambda: tuple(b.clone() for b in inp["bufs"])
+    in_mon, init_ok, is_refit = inp["in_mon"], init["init_ok"], mon["is_refit"]
+    incm = inp["included"] | (mon["inc_q"] & in_mon[:, None, :])
+    do_fit = init_ok | is_refit
+    w_fit = torch.where(init_ok[:, None, :], init["w_stab"],
+                        incm & is_refit[:, None, :]).float()
+    close = mon["is_tail"] | mon["is_brk"]
+    n_rows = float((close & (inp["nseg"] < S)).sum())
+    row_bytes = (6 + 2 * B + B * K) * 4
+    vec_bytes = C * P * (B * K + B) * 4 * 2      # model in and out
+    rows = []
+
+    # ---- fused_fit_close ----
+    a = (inp["Yt"], inp["X"], inp["t"], w_fit, do_fit,
+         torch.where(init_ok, init["n_ok"], mon["n_rf"]), incm, inp["coefs"],
+         inp["rmse"], cuda_ops.peek_run_mags(inp["Yt"], inp["X"], inp["alive"],
+                                             inp["coefs"], mon["ev_rank"],
+                                             mon["m"]),
+         mon["is_tail"], mon["is_brk"], mon["pos_ev"], mon["n_exceed"],
+         inp["first_seg"], inp["nseg"])
+    got = cuda_ops.fused_fit_close(*a, clone())
+    want = cuda_ops.fused_fit_close_plain(*a, clone())
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        check(torch.equal(g, w), f"fused_fit_close buffer {i} differs")
+    check(torch.equal(got[1], want[1]), "fused_fit_close nseg differs")
+    for i, nm in ((2, "coefs"), (3, "rmse")):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-2, atol=1e-2,
+                                   msg=lambda m: f"fused_fit_close {nm}: {m}")
+    err = max(float((got[i] - want[i]).abs().max()) for i in (2, 3))
+    rel = max(float((got[i] - want[i]).abs().max() / want[i].abs().max())
+              for i in (2, 3))
+    by, fl = fit_work(w_fit, do_fit, B)
+    by += (float(close.sum()) * T + n_rows * row_bytes + vec_bytes
+           + C * P * (B * 4 + 4 * 7) + nbytes(inp["X"], inp["t"]))
+    rows.append(("fused_fit_close", a + (clone(),), {}, err, rel, fl, by))
+
+    # ---- fused_round ----
+    a = (inp["Yt"], inp["X"], inp["t"], inp["alive"], inp["included"],
+         inp["cur_k"], inp["n_last_fit"], in_mon, inp["coefs"], inp["rmse"],
+         inp["vario"], init_ok, init["w_stab"], init["n_ok"],
+         inp["first_seg"], inp["nseg"])
+    got = cuda_ops.fused_round(*a, clone(), **kw_mon)
+    want = cuda_ops.fused_round_plain(*a, clone(), **kw_mon)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        if i == 2:
+            torch.testing.assert_close(
+                g, w, rtol=5e-3, atol=1e-2,
+                msg=lambda m: f"fused_round seg_mag: {m}")
+        else:
+            check(torch.equal(g, w), f"fused_round buffer {i} differs")
+    check(torch.equal(got[1], want[1]), "fused_round nseg differs")
+    for k in want[4]:
+        n_diff = int((got[4][k] != want[4][k]).sum())
+        check(n_diff == 0, f"fused_round {k}: {n_diff} differ")
+    for i, nm in ((2, "coefs"), (3, "rmse")):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-2, atol=1e-2,
+                                   msg=lambda m: f"fused_round {nm}: {m}")
+    err = max(float((got[i] - want[i]).abs().max()) for i in (2, 3))
+    rel = max(float((got[i] - want[i]).abs().max() / want[i].abs().max())
+              for i in (2, 3))
+    report["fused_round_seg_mag_max_abs_err"] = float(
+        (got[0][2] - want[0][2]).abs().max())
+    report["fused_round_events"] = {
+        k: int(want[4][k].sum()) for k in ("is_tail", "is_brk", "is_refit",
+                                           "do_fit")}
+    do_fit_r = want[4]["do_fit"]
+    w_round = torch.where(init_ok[:, None, :], init["w_stab"],
+                          want[4]["included_mon"]
+                          & want[4]["is_refit"][:, None, :]).float()
+    by, fl = fit_work(w_round, do_fit_r, B)
+    n_alive_mon = float((inp["alive"] & in_mon[:, None, :]).sum())
+    close_r = want[4]["is_tail"] | want[4]["is_brk"]
+    n_rows = float((close_r & (inp["nseg"] < S)).sum())
+    fl += n_alive_mon * 5 * 19
+    by += (n_alive_mon * 5 * 2 + 4 * C * T * P + n_rows * row_bytes
+           + vec_bytes + C * P * (B * 4 + 4 * 12) + nbytes(inp["X"], inp["t"]))
+    rows.append(("fused_round", a + (clone(),), kw_mon, err, rel, fl, by))
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# Main path
+# Main paths
 # ---------------------------------------------------------------------------
 
 def decision_agreement(a, b):
@@ -266,32 +397,86 @@ def make_batch(seed, n_chips, dev):
     return packed, staged, gen_s
 
 
-def main_path(packed, staged, smi):
+def route_path(packed, staged, smi, fused):
+    """One round route's main path: ``detect_packed`` on the card with the
+    launch counters read around it, then the same route through the plain
+    versions on the card."""
     C, B, P, T = packed.spectra.shape
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launches()
     t0 = time.perf_counter()
-    seg = kernel.detect_packed(packed, staged=staged)
+    seg = kernel.detect_packed(packed, staged=staged, fused=fused)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(cuda_ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    # Again, with the allocator's cache warm from the first run (the first
+    # route pays the cold start after the kernel phase).
+    t0 = time.perf_counter()
+    kernel.detect_packed(packed, staged=staged, fused=fused)
+    torch.cuda.synchronize()
+    warm_secs = time.perf_counter() - t0
+    launched = {k for k, n in launches.items() if n > 0}
+    check(launched == ROUTES[fused],
+          f"route {fused!r} launched {sorted(launched)}, expected "
+          f"{sorted(ROUTES[fused])}")
     check_result(seg, C, P, T)
 
     t0 = time.perf_counter()
-    ref = kernel.detect_packed(packed, staged=staged, ops=cuda_ops.PLAIN)
+    ref = kernel.detect_packed(packed, staged=staged, ops=cuda_ops.PLAIN,
+                               fused=fused)
     torch.cuda.synchronize()
     plain_secs = time.perf_counter() - t0
     agree, n_dis = decision_agreement(seg, ref)
-    print(f"main path: {C} chips x {P} px, T={T}: {secs:.3f} s, "
-          f"{C * P / secs:.1f} px/s on {smi}, rounds {int(seg.rounds[0])}, "
-          f"launches {launches}, peak {peak / 2**30:.2f} GiB; plain route "
-          f"{plain_secs:.3f} s; decision agreement {agree} "
-          f"({n_dis} pixels differ)", flush=True)
-    check(agree >= 0.999, f"decision agreement {agree} < 0.999")
+    print(f"main path, route {fused!r}: {C} chips x {P} px, T={T}: "
+          f"{secs:.3f} s, {C * P / secs:.1f} px/s on {smi} (again: "
+          f"{warm_secs:.3f} s), rounds "
+          f"{int(seg.rounds[0])}, launches {launches}, peak "
+          f"{peak / 2**30:.2f} GiB; plain route {plain_secs:.3f} s; decision "
+          f"agreement {agree} ({n_dis} pixels differ)", flush=True)
+    check(agree >= 0.999, f"route {fused!r}: decision agreement {agree} "
+          f"< 0.999")
+    return seg, dict(route=str(fused), chips=C, pixels=C * P, T=T,
+                     seconds=secs, pixels_per_s=C * P / secs,
+                     seconds_again=warm_secs,
+                     rounds=int(seg.rounds[0]),
+                     round_counts=seg.round_counts[0].tolist(),
+                     segments=int(seg.n_segments.sum()), launches=launches,
+                     peak_bytes=peak, plain_seconds=plain_secs,
+                     decision_agreement=agree, pixels_disagreeing=n_dis)
 
+
+def compare_routes(seg, base, fused):
+    """A fused route against route 0 on the card: route 1 equal in every
+    field; route "mon" in every field but seg_mag, which the in-kernel
+    median holds to rtol 5e-3, atol 1e-2.  Returns the fields that differ
+    and the count of pixels that differ in any per-pixel field."""
+    C, P = base.n_segments.shape
+    differ = torch.zeros(C, P, dtype=torch.bool, device=base.n_segments.device)
+    fields = []
+    for f in SEGMENT_FIELDS:
+        a, b = getattr(seg, f), getattr(base, f)
+        if not torch.equal(a, b):
+            fields.append(f)
+            if a.shape[:2] == (C, P):
+                differ |= (a != b).reshape(C, P, -1).any(-1)
+    n_px = int(differ.sum())
+    print(f"route {fused!r} vs route 0: fields differing {fields}, "
+          f"{n_px} pixels differ", flush=True)
+    allowed = [] if fused == 1 else ["seg_mag"]
+    check(set(fields) <= set(allowed),
+          f"route {fused!r} differs from route 0 in {fields}")
+    if "seg_mag" in fields:
+        torch.testing.assert_close(seg.seg_mag, base.seg_mag, rtol=5e-3,
+                                   atol=1e-2)
+    return dict(fields_differing=fields, pixels_differing=n_px)
+
+
+def egress(seg, packed):
+    """Egress packing and decoding and the store's table frames of one
+    chip."""
+    T = packed.spectra.shape[-1]
+    P = packed.spectra.shape[2]
     worst = int(seg.n_segments.max())
     s_eff = kernel.egress_bucket(worst, seg.seg_meta.shape[2])
     tables = kernel.pack_egress(seg, s_eff)
@@ -303,14 +488,7 @@ def main_path(packed, staged, smi):
     frames = fmt.batch_frames(packed, dec, n_real=1)
     n_rows = len(frames[0][1]["segment"]["sday"])
     check(n_rows >= P, "segment frame rows")
-    return dict(chips=C, pixels=C * P, T=T, seconds=secs,
-                pixels_per_s=C * P / secs, rounds=int(seg.rounds[0]),
-                round_counts=seg.round_counts[0].tolist(),
-                segments=int(seg.n_segments.sum()), launches=launches,
-                peak_bytes=peak, plain_seconds=plain_secs,
-                decision_agreement=agree, pixels_disagreeing=n_dis,
-                egress_s_eff=s_eff,
-                segment_rows_chip0=n_rows)
+    return dict(egress_s_eff=s_eff, segment_rows_chip0=n_rows)
 
 
 def small_input(seed, dev):
@@ -362,11 +540,18 @@ def main(argv=None):
     kernels, kreport = kernel_phase(inp, args.reps)
     del inp
     torch.cuda.empty_cache()
-    mp = main_path(packed, staged, smi)
-    mp["chip_generation_seconds"] = gen_s
+    paths, segs = {}, {}
+    for fused in ROUTES:
+        segs[fused], paths[str(fused)] = route_path(packed, staged, smi, fused)
+    paths["0"].update(egress(segs[0], packed),
+                      chip_generation_seconds=gen_s)
+    for fused in (1, "mon"):
+        paths[str(fused)]["vs_route_0"] = compare_routes(segs[fused], segs[0],
+                                                         fused)
+    del segs
     small = small_input(args.seed, dev)
     for name, row in kernels.items():
-        row["launches"] = mp["launches"][name]
+        row["launches"] = paths[str(HOME_ROUTE[name])]["launches"][name]
 
     ptxas = {n: (cuda_ops.BUILD_DIR / f"{n}.ptxas.txt").read_text()
              for n in cuda_ops.SOURCES
@@ -376,7 +561,7 @@ def main(argv=None):
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_seconds=build_s, kernels=kernels, kernel_report=kreport,
-        main_path=mp, small_input=small, ptxas=ptxas), indent=1))
+        main_paths=paths, small_input=small, ptxas=ptxas), indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",

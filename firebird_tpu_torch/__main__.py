@@ -1,11 +1,13 @@
 """Command line of the PyTorch port.
 
     python -m firebird_tpu_torch detect --chips N --start 1985-01-01 \\
-        --end 2017-12-31 [--seed S] [--sensor landsat-ard] [--device cuda]
+        --end 2017-12-31 [--seed S] [--sensor landsat-ard] [--device cuda] \\
+        [--fused {0,1,mon}]
 
 ``detect`` runs SyntheticSource -> pack -> detect_packed -> batch_frames
 on the device (CUDA unless ``--device cpu``) and prints one JSON summary:
-chips, pixels, segments, rounds and seconds.
+chips, pixels, segments, rounds and seconds.  ``--fused`` picks the round
+route (kernel.fused_mode); without it FIREBIRD_FUSED_FIT decides.
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ def detect(args) -> dict:
     t0 = time.perf_counter()
     packed = pack([src.chip(3000 * c, 0) for c in range(args.chips)])
     t_pack = time.perf_counter()
-    seg = kernel.detect_packed(packed, device=dev)
+    fused = None if args.fused is None else {"0": 0, "1": 1,
+                                             "mon": "mon"}[args.fused]
+    seg = kernel.detect_packed(packed, device=dev, fused=fused)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_det = time.perf_counter()
@@ -38,6 +42,7 @@ def detect(args) -> dict:
     return dict(
         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu"),
+        route=kernel.fused_mode(fused),
         chips=args.chips, pixels=int(seg.n_segments.numel()),
         T=int(packed.spectra.shape[-1]),
         segments=int(seg.n_segments.sum()), rounds=int(seg.rounds[0]),
@@ -58,6 +63,10 @@ def main(argv=None) -> None:
     d.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions)")
+    d.add_argument("--fused", default=None, choices=("0", "1", "mon"),
+                   help="round route: 0 separate monitor/close/refit, 1 "
+                        "fused close+refit, mon the whole round fused "
+                        "(default: FIREBIRD_FUSED_FIT, unset = 0)")
     args = ap.parse_args(argv)
     print(json.dumps(detect(args)))
 

@@ -30,9 +30,9 @@ _BUF_KEYS = ("meta", "rmse", "mag", "coef")
 
 
 def _tensor(a, dtype, device):
-    # A copy: the arrays may be read-only views of another framework's
-    # buffers.
-    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    # A contiguous copy: the arrays may be read-only or transposed views of
+    # another framework's buffers.
+    return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
 def _from_one(key, a, device):
@@ -66,15 +66,8 @@ def round_state_from_numpy(res: dict, st: dict, device="cpu"):
     st_t = {k: _from_one(k, add(v), device) for k, v in st.items()
             if k != "bufs"}
     if "bufs" in st:
-        C, P = st_t["nseg"].shape
-        B = st_t["coefs"].shape[2]
-        K = st_t["coefs"].shape[3]
-        meta, rmse, mag, coef = (add(b) for b in st["bufs"])
-        S = meta.shape[-1] // 6
-        shapes = ((C, P, S, 6), (C, P, S, B), (C, P, S, B), (C, P, S, B, K))
-        st_t["bufs"] = tuple(_tensor(np.asarray(b).reshape(s), torch.float32,
-                                     device)
-                             for b, s in zip((meta, rmse, mag, coef), shapes))
+        st_t["bufs"] = bufs_from_flat(tuple(add(b) for b in st["bufs"]),
+                                      st_t["coefs"].shape[2], device)
     return res_t, st_t
 
 
@@ -84,9 +77,43 @@ def round_state_to_numpy(res: dict, st: dict):
     res_n = {k: _to_one(k, v) for k, v in res.items()}
     st_n = {k: _to_one(k, v) for k, v in st.items() if k != "bufs"}
     if "bufs" in st:
-        st_n["bufs"] = tuple(b.cpu().numpy().reshape(b.shape[0], b.shape[1], -1)
-                             for b in st["bufs"])
+        st_n["bufs"] = bufs_to_flat(st["bufs"])
     return res_n, st_n
+
+
+def bufs_from_flat(bufs, B: int, device="cpu") -> tuple:
+    """The JAX package's flat result buffers (meta [P,S*6], rmse and mag
+    [P,S*B], coef [P,S*B*8]; or with a leading chip axis) -> this
+    package's (meta [C,P,S,6], rmse [C,P,S,B], mag [C,P,S,B], coef
+    [C,P,S,B,8]) float32 tensors."""
+    meta, rmse, mag, coef = (np.asarray(b) for b in bufs)
+    if meta.ndim == 2:
+        meta, rmse, mag, coef = (b[None] for b in (meta, rmse, mag, coef))
+    C, P = meta.shape[:2]
+    S = meta.shape[-1] // 6
+    K = coef.shape[-1] // (S * B)
+    shapes = ((C, P, S, 6), (C, P, S, B), (C, P, S, B), (C, P, S, B, K))
+    return tuple(_tensor(b.reshape(s), torch.float32, device)
+                 for b, s in zip((meta, rmse, mag, coef), shapes))
+
+
+def bufs_to_flat(bufs) -> tuple:
+    """The inverse of :func:`bufs_from_flat`: flat [C,P,S*k] numpy
+    arrays."""
+    return tuple(b.cpu().numpy().reshape(b.shape[0], b.shape[1], -1)
+                 for b in bufs)
+
+
+def plane_from_numpy(a, dtype=torch.bool, device="cpu"):
+    """A JAX time plane [P,T] (or [C,P,T]) -> a [C,T,P] tensor."""
+    a = np.asarray(a)
+    return _tensor(np.swapaxes(a if a.ndim == 3 else a[None], -1, -2),
+                   dtype, device)
+
+
+def plane_to_numpy(v) -> np.ndarray:
+    """A [C,T,P] tensor -> the JAX layout [C,P,T]."""
+    return np.swapaxes(v.cpu().numpy(), -1, -2)
 
 
 def segments_from_numpy(seg, device="cpu") -> kernel.ChipSegments:

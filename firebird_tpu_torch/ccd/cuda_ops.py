@@ -1,7 +1,8 @@
-"""The detector's three CUDA kernels, their wrappers and plain versions.
+"""The detector's CUDA kernels, their wrappers and plain versions.
 
-The counterpart of ``firebird_tpu/ccd/pallas_ops.py`` for the route this
-package runs (the JAX package's ``FIREBIRD_PALLAS=fit,score,init``):
+The counterpart of ``firebird_tpu/ccd/pallas_ops.py`` for the routes this
+package runs (the JAX package's ``FIREBIRD_PALLAS=fit,score,init``, with
+``FIREBIRD_FUSED_FIT`` off, ``1`` or ``mon``):
 
 - :func:`lasso_fit` — Gram + correlation + coordinate-descent Lasso +
   RMSE per pixel (``csrc/lasso_fit.cu``; Pallas ``lasso_fit``).
@@ -10,6 +11,10 @@ package runs (the JAX package's ``FIREBIRD_PALLAS=fit,score,init``):
   ``monitor_chain_scored``).
 - :func:`init_window` — the INIT round: window search, Tmask IRLS screen
   and stability fit (``csrc/init_window.cu``; Pallas ``init_window``).
+- :func:`fused_fit_close` — a round's segment close and shared refit in
+  one launch (``csrc/fused_fit_close.cu``; Pallas ``fused_fit_close``).
+- :func:`fused_round` — the whole post-INIT round, monitor + close +
+  refit, in one launch (``csrc/fused_round.cu``; Pallas ``fused_round``).
 
 Each wrapper checks its tensors' device, dtype, shape and contiguity, then
 runs its plain PyTorch version (``*_plain``, same contract) when they lie
@@ -22,7 +27,8 @@ wrapper.
 
 Layouts (one thread per pixel, the pixel axis fastest): spectra
 ``[C,B,T,P]`` int16, time planes ``[C,T,P]``, per-pixel vectors ``[C,P]``,
-designs ``[C,T,K]``.
+designs ``[C,T,K]``, segment result buffers ``[C,P,S,k]``.  The fused
+kernels (and their plain versions) update the result buffers in place.
 """
 
 from __future__ import annotations
@@ -38,8 +44,9 @@ from pathlib import Path
 import torch
 
 from firebird_tpu_torch.ccd import params
-from firebird_tpu_torch.ccd.primitives import (dot_cols, fdiv,
-                                               first_at_or_after, take_plane,
+from firebird_tpu_torch.ccd.primitives import (coefmask_for, dot_cols, fdiv,
+                                               first_at_or_after, last_true,
+                                               masked_median, take_plane,
                                                take_t, tmask_bad)
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD
 
@@ -48,7 +55,8 @@ NT = params.TMASK_COEFS
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "firebird_tpu_torch"
-SOURCES = ("lasso_fit", "monitor_chain_scored", "init_window")
+SOURCES = ("lasso_fit", "monitor_chain_scored", "init_window",
+           "fused_fit_close", "fused_round")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The largest init window the init_window kernel is instantiated for (its
@@ -66,6 +74,8 @@ _ARGTYPES = {
     "fb_lasso_fit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fb_monitor_chain_scored": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],
     "fb_init_window": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
+    "fb_fused_fit_close": [_P] * 23 + [_I] * 5 + [_P],
+    "fb_fused_round": [_P] * 26 + [_I] * 5 + [_F, _F, _P],
 }
 
 
@@ -524,12 +534,291 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
     return dict(d, w_stab=w_stab, alive_init=alive_init)
 
 
-# The three functions the detector's rounds call, as kernels (the
-# wrappers above) or as their plain versions; kernel.detect_packed takes
-# either.
+# ---------------------------------------------------------------------------
+# The segment close (shared by the round loop and the fused kernels' plain
+# versions)
+# ---------------------------------------------------------------------------
+
+def peek_run_mags(Yt, X, alive, coefs, ev_rank, m):
+    """Break magnitudes [C,P,B]: per band, the median residual of the
+    closing model over the PEEK run, the alive observations of ranks
+    ``ev_rank`` .. ``ev_rank + PEEK_SIZE - 1`` below ``m`` —
+    kernel._close_mags in its wire-resident form.  The run members are
+    gathered by position from the int16 spectra (each member is one
+    observation, as the JAX one-hot selection is)."""
+    C, T, P = alive.shape
+    dev = alive.device
+    acum = torch.cumsum(alive, 1, dtype=torch.int32).transpose(1, 2).contiguous()
+    relk = ev_rank[..., None] + torch.arange(
+        params.PEEK_SIZE, device=dev, dtype=torch.int32)        # [C,P,K]
+    run_ok = relk < m[..., None]
+    pos = torch.searchsorted(acum, (relk + 1).contiguous(), side="left")
+    exists = pos < T
+    pos = pos.clamp_max(T - 1)
+    ci = torch.arange(C, device=dev)[:, None, None]
+    pi = torch.arange(P, device=dev)[None, :, None]
+    X_run = X[ci, pos]                                          # [C,P,K,8]
+    X_run = torch.where(exists[..., None], X_run, torch.zeros_like(X_run))
+    Y_run = torch.stack([Yt[:, b][ci, pos, pi].float()
+                         for b in range(Yt.shape[1])], 2)       # [C,P,B,K]
+    Y_run = torch.where(exists[:, :, None, :], Y_run, torch.zeros_like(Y_run))
+    pred_run = dot_cols(coefs[:, :, :, None, :], X_run[:, :, None])
+    return masked_median(Y_run - pred_run, run_ok[:, :, None, :])
+
+
+def close_meta(t, included_mon, is_brk, pos_ev, n_exceed, first_seg):
+    """The closing segments' meta rows [C,P,6] (sday, eday, bday, chprob,
+    curqa, nobs) — kernel._close_block's meta_new.  The segment spans the
+    round's included observations (first -> 0, last -> T-1 where none)."""
+    last_inc = last_true(included_mon)
+    _, first_inc = first_at_or_after(included_mon, torch.zeros_like(pos_ev))
+    end_day = take_t(t, last_inc)
+    qa_tail = params.CURVE_QA_END + torch.where(
+        first_seg, params.CURVE_QA_START, 0)
+    qa_brk = torch.where(first_seg, params.CURVE_QA_START,
+                         params.CURVE_QA_INSIDE)
+    f32 = torch.float32
+    return torch.stack([
+        take_t(t, first_inc), end_day,
+        torch.where(is_brk, take_t(t, pos_ev), end_day),
+        torch.where(is_brk, torch.ones_like(end_day),
+                    fdiv(n_exceed.to(f32), params.PEEK_SIZE)),
+        torch.where(is_brk, qa_brk, qa_tail).to(f32),
+        included_mon.sum(1).to(f32)], -1)
+
+
+def write_slot(bufs, nseg, close, rows):
+    """Append one row per closing pixel at its slot ``nseg`` of the
+    [C,P,S,k] buffers, in place — kernel._write_seg.  ``rows`` are (meta
+    [C,P,6], rmse [C,P,B], mag [C,P,B], coef [C,P,B,K]).  Rows past the
+    capacity S are dropped, but ``nseg`` counts every close (the contract
+    kernel.capacity_retry relies on).  Returns (bufs, nseg')."""
+    S = bufs[0].shape[2]
+    ci, pi = torch.nonzero(close & (nseg < S), as_tuple=True)
+    si = nseg[ci, pi].long()
+    for buf, row in zip(bufs, rows):
+        buf[ci, pi, si] = row[ci, pi]
+    return bufs, nseg + close.to(torch.int32)
+
+
+def _check_bufs(bufs, C, P, B, dev):
+    S = bufs[0].shape[2] if bufs[0].dim() == 4 else -1
+    for nm, v, k in zip(("meta", "rmse_b", "mag_b", "coef_b"), bufs,
+                        ((6,), (B,), (B,), (B, K))):
+        _check(v, nm, torch.float32, (C, P, S) + k, dev)
+    return S
+
+
+# ---------------------------------------------------------------------------
+# fused_fit_close
+# ---------------------------------------------------------------------------
+
+def fused_fit_close_plain(Yt, X, t, w_fit, do_fit, n_full, included_mon,
+                          coefs, rmse, mags, is_tail, is_brk, pos_ev,
+                          n_exceed, first_seg, nseg, bufs):
+    """Plain version of :func:`fused_fit_close`: the close row write
+    (kernel._close_block with the given magnitudes), the Lasso fit of
+    :func:`lasso_fit_plain` over ``w_fit``, and the ``do_fit`` merge."""
+    meta = close_meta(t, included_mon, is_brk, pos_ev, n_exceed, first_seg)
+    mag_new = torch.where(is_brk[..., None], mags, torch.zeros_like(mags))
+    bufs, nseg_n = write_slot(bufs, nseg, is_tail | is_brk,
+                              (meta, rmse, mag_new, coefs))
+    return (bufs, nseg_n) + _refit(Yt, w_fit, X, n_full, do_fit, coefs, rmse)
+
+
+def _refit(Yt, w, X, n_full, do_fit, coefs, rmse):
+    """The shared fit's do_fit merge: a new :func:`lasso_fit_plain` model
+    where ``do_fit``, the current one elsewhere (no fit at all when no
+    pixel fits)."""
+    if not bool(do_fit.any()):
+        return coefs, rmse
+    cfull, rfull = lasso_fit_plain(Yt, w, X, coefmask_for(n_full))
+    return (torch.where(do_fit[..., None, None], cfull, coefs),
+            torch.where(do_fit[..., None], rfull, rmse))
+
+
+def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
+                    rmse, mags, is_tail, is_brk, pos_ev, n_exceed, first_seg,
+                    nseg, bufs):
+    """One round's segment close and shared Lasso refit in one launch.
+
+    The closing pixels (``is_tail | is_brk``) append their segment — the
+    meta row, the current model's rmse and coefficients, the break
+    magnitudes ``mags`` where ``is_brk`` — at slot ``nseg``; the pixels
+    with ``do_fit`` get a new fit over ``w_fit`` with the 4/6/8
+    coefficients that ``n_full`` allows, the others keep their model.
+
+    Args:
+        Yt: [C,B,T,P] int16 resident spectra; X: [C,T,8], t: [C,T] f32.
+        w_fit: [C,T,P] float32 0/1 fit windows.
+        do_fit: [C,P] bool; n_full: [C,P] int32 the fit's count.
+        included_mon: [C,T,P] bool the round's included plane.
+        coefs [C,P,B,8], rmse [C,P,B]: the current model (it closes the
+            segment); mags [C,P,B] break magnitudes (kernel._close_mags).
+        is_tail, is_brk, first_seg: [C,P] bool; pos_ev, n_exceed, nseg:
+            [C,P] int32.
+        bufs: (meta [C,P,S,6], rmse [C,P,S,B], mag [C,P,S,B],
+            coef [C,P,S,B,8]) float32, updated in place.
+    Returns:
+        (bufs, nseg' [C,P] int32, coefs' [C,P,B,8], rmse' [C,P,B]).
+    """
+    C, B, T, P = Yt.shape
+    dev = Yt.device
+    _check(Yt, "Yt", torch.int16, (C, B, T, P), dev)
+    _check(X, "X", torch.float32, (C, T, K), dev)
+    _check(t, "t", torch.float32, (C, T), dev)
+    _check(w_fit, "w_fit", torch.float32, (C, T, P), dev)
+    _check(included_mon, "included_mon", torch.bool, (C, T, P), dev)
+    _check(coefs, "coefs", torch.float32, (C, P, B, K), dev)
+    for nm, v in (("rmse", rmse), ("mags", mags)):
+        _check(v, nm, torch.float32, (C, P, B), dev)
+    for nm, v in (("do_fit", do_fit), ("is_tail", is_tail),
+                  ("is_brk", is_brk), ("first_seg", first_seg)):
+        _check(v, nm, torch.bool, (C, P), dev)
+    for nm, v in (("n_full", n_full), ("pos_ev", pos_ev),
+                  ("n_exceed", n_exceed), ("nseg", nseg)):
+        _check(v, nm, torch.int32, (C, P), dev)
+    S = _check_bufs(bufs, C, P, B, dev)
+    if dev.type == "cpu":
+        return fused_fit_close_plain(Yt, X, t, w_fit, do_fit, n_full,
+                                     included_mon, coefs, rmse, mags, is_tail,
+                                     is_brk, pos_ev, n_exceed, first_seg,
+                                     nseg, bufs)
+    if B != 7:
+        raise ValueError(f"fused_fit_close is built for 7 bands, got {B}")
+    nseg_o = torch.empty_like(nseg)
+    coefs_o = torch.empty_like(coefs)
+    rmse_o = torch.empty_like(rmse)
+    _launch("fused_fit_close", *map(_ptr, (
+        Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs, rmse, mags,
+        is_tail, is_brk, pos_ev, n_exceed, first_seg, nseg, *bufs, nseg_o,
+        coefs_o, rmse_o)), C, B, T, P, S)
+    return bufs, nseg_o, coefs_o, rmse_o
+
+
+# ---------------------------------------------------------------------------
+# fused_round
+# ---------------------------------------------------------------------------
+
+_EV_KEYS = ("is_tail", "is_brk", "is_refit", "pos_ev", "do_fit", "n_full")
+_EV_BOOL = ("is_tail", "is_brk", "is_refit", "do_fit")
+
+
+def fused_round_plain(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon,
+                      coefs, rmse, vario, init_ok, w_stab, n_ok, first_seg,
+                      nseg, bufs, *, change_thr, outlier_thr,
+                      sensor=LANDSAT_ARD):
+    """Plain version of :func:`fused_round`: :func:`monitor_chain_scored_plain`
+    with the event outputs zeroed where a pixel does not monitor
+    (kernel._mon_zeros), the include/remove update, the PEEK-run close
+    (:func:`peek_run_mags`, :func:`close_meta`, :func:`write_slot`), then
+    :func:`lasso_fit_plain` on the init-ok / refit windows."""
+    det = list(sensor.detection_bands)
+    dden = torch.maximum(rmse, vario)[:, :, det].contiguous()
+    mon = monitor_chain_scored_plain(
+        Yt[:, det].contiguous(), coefs[:, :, det].contiguous(), dden, X,
+        alive, included, cur_k, n_last_fit, in_mon, change_thr=change_thr,
+        outlier_thr=outlier_thr)
+    zero = lambda v: torch.where(in_mon, v, torch.zeros_like(v))
+    is_tail, is_brk, is_refit = mon["is_tail"], mon["is_brk"], mon["is_refit"]
+    pos_ev, n_rf = zero(mon["pos_ev"]), zero(mon["n_rf"])
+    included_mon = included | (mon["inc_q"] & in_mon[:, None, :])
+    alive_mon = alive & ~(mon["rem_q"] & in_mon[:, None, :])
+
+    mags = torch.zeros_like(rmse)
+    if bool(is_brk.any()):
+        mags = torch.where(is_brk[..., None], peek_run_mags(
+            Yt, X, alive, coefs, mon["ev_rank"], mon["m"]), mags)
+    meta = close_meta(t, included_mon, is_brk, pos_ev, mon["n_exceed"],
+                      first_seg)
+    bufs, nseg_n = write_slot(bufs, nseg, is_tail | is_brk,
+                              (meta, rmse, mags, coefs))
+
+    do_fit = init_ok | is_refit
+    n_full = torch.where(init_ok, n_ok, n_rf)
+    w = torch.where(init_ok[:, None, :], w_stab,
+                    included_mon & is_refit[:, None, :])
+    coefs_n, rmse_n = _refit(Yt, w.float(), X, n_full, do_fit, coefs, rmse)
+    ev = dict(is_tail=is_tail, is_brk=is_brk, is_refit=is_refit,
+              pos_ev=pos_ev, do_fit=do_fit, n_full=n_full,
+              included_mon=included_mon, alive_mon=alive_mon)
+    return bufs, nseg_n, coefs_n, rmse_n, ev
+
+
+def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
+                rmse, vario, init_ok, w_stab, n_ok, first_seg, nseg, bufs, *,
+                change_thr, outlier_thr, sensor=LANDSAT_ARD):
+    """The whole post-INIT round in one launch: the monitoring pixels'
+    score and event chain, the segment close of the pixels that end in a
+    tail or a break (magnitudes from the PEEK run), and the shared Lasso
+    refit of the init-ok pixels (over ``w_stab``) and the refitting ones
+    (over the round's included observations).
+
+    Args:
+        Yt: [C,B,T,P] int16 resident spectra; X: [C,T,8], t: [C,T] f32.
+        alive, included: [C,T,P] bool state planes.
+        cur_k, n_last_fit: [C,P] int32; in_mon: [C,P] bool.
+        coefs [C,P,B,8], rmse [C,P,B]: the current model; vario [C,P,B].
+        init_ok: [C,P] bool, w_stab: [C,T,P] bool, n_ok: [C,P] int32 —
+            the INIT block's fit handoff.
+        first_seg: [C,P] bool; nseg: [C,P] int32.
+        bufs: the four [C,P,S,k] result buffers, updated in place.
+    Returns:
+        (bufs, nseg', coefs', rmse', ev): ``ev`` holds is_tail, is_brk,
+        is_refit, do_fit [C,P] bool, pos_ev, n_full [C,P] int32 (0 for a
+        pixel that neither monitors nor initialized) and included_mon,
+        alive_mon [C,T,P] bool.
+    """
+    C, B, T, P = Yt.shape
+    dev = Yt.device
+    _check(Yt, "Yt", torch.int16, (C, B, T, P), dev)
+    _check(X, "X", torch.float32, (C, T, K), dev)
+    _check(t, "t", torch.float32, (C, T), dev)
+    for nm, v in (("alive", alive), ("included", included),
+                  ("w_stab", w_stab)):
+        _check(v, nm, torch.bool, (C, T, P), dev)
+    for nm, v in (("cur_k", cur_k), ("n_last_fit", n_last_fit),
+                  ("n_ok", n_ok), ("nseg", nseg)):
+        _check(v, nm, torch.int32, (C, P), dev)
+    for nm, v in (("in_mon", in_mon), ("init_ok", init_ok),
+                  ("first_seg", first_seg)):
+        _check(v, nm, torch.bool, (C, P), dev)
+    _check(coefs, "coefs", torch.float32, (C, P, B, K), dev)
+    for nm, v in (("rmse", rmse), ("vario", vario)):
+        _check(v, nm, torch.float32, (C, P, B), dev)
+    S = _check_bufs(bufs, C, P, B, dev)
+    if dev.type == "cpu":
+        return fused_round_plain(
+            Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
+            rmse, vario, init_ok, w_stab, n_ok, first_seg, nseg, bufs,
+            change_thr=change_thr, outlier_thr=outlier_thr, sensor=sensor)
+    _check_landsat_roles(sensor)
+    nseg_o = torch.empty_like(nseg)
+    coefs_o = torch.empty_like(coefs)
+    rmse_o = torch.empty_like(rmse)
+    ev = torch.empty(len(_EV_KEYS), C, P, dtype=torch.int32, device=dev)
+    incm = torch.empty(C, T, P, dtype=torch.bool, device=dev)
+    alm = torch.empty(C, T, P, dtype=torch.bool, device=dev)
+    _launch("fused_round", *map(_ptr, (
+        Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs, rmse,
+        vario, init_ok, w_stab, n_ok, first_seg, nseg, *bufs, nseg_o,
+        coefs_o, rmse_o, ev, incm, alm)), C, B, T, P, S,
+        float(change_thr), float(outlier_thr))
+    d = {k: (ev[i] != 0 if k in _EV_BOOL else ev[i])
+         for i, k in enumerate(_EV_KEYS)}
+    return bufs, nseg_o, coefs_o, rmse_o, dict(d, included_mon=incm,
+                                               alive_mon=alm)
+
+
+# The functions the detector's rounds call, as kernels (the wrappers above)
+# or as their plain versions; kernel.detect_packed takes either.
 KERNELS = types.SimpleNamespace(lasso_fit=lasso_fit,
                                 monitor_chain_scored=monitor_chain_scored,
-                                init_window=init_window)
+                                init_window=init_window,
+                                fused_fit_close=fused_fit_close,
+                                fused_round=fused_round)
 PLAIN = types.SimpleNamespace(lasso_fit=lasso_fit_plain,
                               monitor_chain_scored=monitor_chain_scored_plain,
-                              init_window=init_window_plain)
+                              init_window=init_window_plain,
+                              fused_fit_close=fused_fit_close_plain,
+                              fused_round=fused_round_plain)

@@ -22,23 +22,28 @@ per gate).  The chip axis ``C`` is a batch dimension of every tensor.
 Layouts: the wire spectra arrive as ``[C,B,P,T]`` int16 (the packer's
 layout) and stay resident as ``[C,B,T,P]``; per-pixel time planes are
 ``[C,T,P]``; results use the JAX package's ``ChipSegments`` layout
-(``[C,P,...]``, mask ``[C,P,T]``).  Compaction, the fused round kernels and
-mixed precision are not part of this package; its results equal the JAX
-package's with compaction off, which are row-identical to compaction on.
+(``[C,P,...]``, mask ``[C,P,T]``).  After INIT a round runs one of three
+routes, as the JAX package's FIREBIRD_FUSED_FIT selects them
+(:func:`fused_mode`): the separate monitor / close / refit steps above
+(0, the default), the close and refit as one ``cuda_ops.fused_fit_close``
+launch (1), or the whole post-INIT round as one ``cuda_ops.fused_round``
+launch ("mon").  Compaction and mixed precision are not part of this
+package; its results equal the JAX package's with compaction off, which
+are row-identical to compaction on.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 
 import numpy as np
 import torch
 
 from firebird_tpu_torch.ccd import cuda_ops, harmonic, params
 from firebird_tpu_torch.ccd.primitives import (coefmask_for, dedup_first,
-                                               dot_cols, fdiv,
-                                               first_at_or_after,
+                                               fdiv, first_at_or_after,
                                                last_true, masked_median,
                                                take_t, variogram)
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD, chi2_thresholds
@@ -59,6 +64,29 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the plain PyTorch versions on the CPU")
     return dev
+
+
+# The JAX package's knob for the fused round routes.
+FUSED_ENV = "FIREBIRD_FUSED_FIT"
+
+
+def fused_mode(fused=None):
+    """The round route: 0 (monitor, close and refit as separate steps), 1
+    (close and refit as one ``fused_fit_close`` launch, byte-identical to
+    0) or "mon" (the whole post-INIT round as one ``fused_round`` launch;
+    decision-exact, with seg_mag inside the f32 envelope) —
+    kernel.fused_mode and its ``fused=`` resolution.  ``None`` reads
+    FIREBIRD_FUSED_FIT ("" or "0" -> 0, "mon" or "2" -> "mon", any other
+    value -> 1); an explicit value maps "mon" and 2 to "mon", other true
+    values to 1, false ones to 0."""
+    if fused is None:
+        v = os.environ.get(FUSED_ENV, "")
+        if v in ("", "0"):
+            return 0
+        return "mon" if v in ("2", "mon") else 1
+    if fused in ("mon", 2):
+        return "mon"
+    return 1 if fused else 0
 
 
 def _exact_f32() -> None:
@@ -364,68 +392,45 @@ def _mon_zeros(st):
 
 def _close_mags(res, st, mon):
     """Break magnitudes: the median full-band residual over the PEEK_SIZE
-    run at the break — kernel._close_mags in its wire-resident form.  The
-    run members are gathered by position from the int16 spectra (each
-    member is one observation, as the JAX one-hot selection is)."""
-    alive = st["alive"]
-    C, T, P = alive.shape
-    dev = alive.device
-    acum = torch.cumsum(alive, 1, dtype=torch.int32).transpose(1, 2).contiguous()
-    relk = mon["ev_rank"][..., None] + torch.arange(
-        params.PEEK_SIZE, device=dev, dtype=torch.int32)        # [C,P,K]
-    run_ok = relk < mon["m"][..., None]
-    pos = torch.searchsorted(acum, (relk + 1).contiguous(), side="left")
-    exists = pos < T
-    pos = pos.clamp_max(T - 1)
-    ci = torch.arange(C, device=dev)[:, None, None]
-    pi = torch.arange(P, device=dev)[None, :, None]
-    X_run = res["X"][ci, pos]                                   # [C,P,K,8]
-    X_run = torch.where(exists[..., None], X_run, torch.zeros_like(X_run))
-    Yt = res["Yt"]
-    Y_run = torch.stack([Yt[:, b][ci, pos, pi].float()
-                         for b in range(Yt.shape[1])], 2)       # [C,P,B,K]
-    Y_run = torch.where(exists[:, :, None, :], Y_run, torch.zeros_like(Y_run))
-    pred_run = dot_cols(st["coefs"][:, :, :, None, :], X_run[:, :, None])
-    return masked_median(Y_run - pred_run, run_ok[:, :, None, :])
+    run at the break — kernel._close_mags (cuda_ops.peek_run_mags)."""
+    return cuda_ops.peek_run_mags(res["Yt"], res["X"], st["alive"],
+                                  st["coefs"], mon["ev_rank"], mon["m"])
 
 
 def _close_block(res, st, mon):
     """Segment close: break magnitudes and the segment row write for the
     pixels whose monitoring ended in a tail or a break —
     kernel._close_block."""
-    t = res["t"]
     is_tail, is_brk = mon["is_tail"], mon["is_brk"]
-    included_mon = mon["included_mon"]
     mags = _close_mags(res, st, mon)
-    last_inc = last_true(included_mon)
-    _, first_inc = first_at_or_after(included_mon,
-                                     torch.zeros_like(mon["pos_ev"]))
-    end_day = take_t(t, last_inc)
-    start_day = take_t(t, first_inc)
-    close = is_tail | is_brk
-    first = st["first_seg"]
-    qa_tail = params.CURVE_QA_END + torch.where(
-        first, params.CURVE_QA_START, 0)
-    qa_brk = torch.where(first, params.CURVE_QA_START, params.CURVE_QA_INSIDE)
-    f32 = torch.float32
-    meta_new = torch.stack([
-        start_day, end_day,
-        torch.where(is_brk, take_t(t, mon["pos_ev"]), end_day),
-        torch.where(is_brk, torch.ones_like(end_day),
-                    fdiv(mon["n_exceed"].to(f32), params.PEEK_SIZE)),
-        torch.where(is_brk, qa_brk, qa_tail).to(f32),
-        included_mon.sum(1).to(f32)], -1)
+    meta_new = cuda_ops.close_meta(res["t"], mon["included_mon"], is_brk,
+                                   mon["pos_ev"], mon["n_exceed"],
+                                   st["first_seg"])
     mag_new = torch.where(is_brk[..., None], mags, torch.zeros_like(mags))
-    return _write_seg(st["bufs"], st["nseg"], close, meta_new, st["rmse"],
-                      mag_new, st["coefs"])
+    return _write_seg(st["bufs"], st["nseg"], is_tail | is_brk, meta_new,
+                      st["rmse"], mag_new, st["coefs"])
+
+
+def _round_zeros(st):
+    """fused_round's outputs on a round where no pixel monitors or
+    initialized: state passed through, no events (kernel._skip_round)."""
+    zb = torch.zeros_like(st["cur_i"], dtype=torch.bool)
+    zi = torch.zeros_like(st["cur_i"])
+    return (st["bufs"], st["nseg"], st["coefs"], st["rmse"],
+            dict(is_tail=zb, is_brk=zb, is_refit=zb, pos_ev=zi, do_fit=zb,
+                 n_full=zi, included_mon=st["included"],
+                 alive_mon=st["alive"]))
 
 
 def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
-                  variogram_mode, ops):
+                  variogram_mode, ops, fused=0):
     """A chip batch: designs [C,T,*], resident spectra ``Yt`` [C,B,T,P]
     int16, ``qa`` [C,T,P] -> ChipSegments with [C, ...] leading axes —
-    kernel._detect_batch_impl with compaction, the fused kernels and
-    mixed precision left out."""
+    kernel._detect_batch_impl with compaction and mixed precision left
+    out.  ``fused`` picks what runs after INIT (see :func:`fused_mode`):
+    0 the monitor, close and refit as separate steps, 1 the close and
+    refit as one ``ops.fused_fit_close`` call, "mon" the whole post-INIT
+    round as one ``ops.fused_round`` call."""
     C, B, T, P = Yt.shape
     det = list(sensor.detection_bands)
     change_thr, outlier_thr = chi2_thresholds(len(det))
@@ -446,35 +451,75 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
                                    Yt, res["vario"], W=W, sensor=sensor)
         else:
             init = _init_zeros(st)
-        if bool(in_mon.any()):
-            mon = _mon_block(res, st, sensor=sensor, change_thr=change_thr,
-                             outlier_thr=outlier_thr, ops=ops)
-        else:
-            mon = _mon_zeros(st)
+        init_ok = init["init_ok"]
 
-        is_tail, is_brk = mon["is_tail"], mon["is_brk"]
-        close = is_tail | is_brk
-        any_close = bool(close.any())
-        init_ok, is_refit = init["init_ok"], mon["is_refit"]
-        do_fit = init_ok | is_refit
-        any_fit = bool(do_fit.any())
-        n_full = torch.where(init_ok, init["n_ok"], mon["n_rf"])
-
-        if any_close:
-            bufs, nseg = _close_block(res, st, mon)
+        if fused == "mon":
+            # Monitor, close and refit as one launch; INIT stays outside
+            # and hands its fit window over.  The results come back
+            # merged, the events in ``mon``.
+            if bool((in_mon | init_ok).any()):
+                bufs, nseg, coefs_n, rmse_n, mon = ops.fused_round(
+                    Yt, X, t, st["alive"], st["included"], st["cur_k"],
+                    st["n_last_fit"], in_mon, st["coefs"], st["rmse"],
+                    res["vario"], init_ok, init["w_stab"], init["n_ok"],
+                    st["first_seg"], st["nseg"], st["bufs"],
+                    change_thr=change_thr, outlier_thr=outlier_thr,
+                    sensor=sensor)
+            else:
+                bufs, nseg, coefs_n, rmse_n, mon = _round_zeros(st)
+            is_tail, is_brk = mon["is_tail"], mon["is_brk"]
+            close = is_tail | is_brk
+            do_fit, n_full = mon["do_fit"], mon["n_full"]
+            any_close, any_fit = (bool(v) for v in torch.stack(
+                [close.any(), do_fit.any()]).tolist())
         else:
+            if bool(in_mon.any()):
+                mon = _mon_block(res, st, sensor=sensor, change_thr=change_thr,
+                                 outlier_thr=outlier_thr, ops=ops)
+            else:
+                mon = _mon_zeros(st)
+            is_tail, is_brk = mon["is_tail"], mon["is_brk"]
+            close = is_tail | is_brk
+            any_close = bool(close.any())
+            do_fit = init_ok | mon["is_refit"]
+            any_fit = bool(do_fit.any())
+            n_full = torch.where(init_ok, init["n_ok"], mon["n_rf"])
+            w_fit = lambda: torch.where(
+                init_ok[:, None, :], init["w_stab"],
+                mon["included_mon"] & mon["is_refit"][:, None, :]).float()
+
+        if fused == "mon":
+            pass                      # merged in ops.fused_round above
+        elif fused and (any_close or any_fit):
+            # Close and refit as one launch.  The break magnitudes stay on
+            # the program route 0 runs, so the two routes' results are
+            # byte-identical.
+            mags = (_close_mags(res, st, mon) if bool(is_brk.any())
+                    else torch.zeros_like(st["rmse"]))
+            bufs, nseg, coefs_n, rmse_n = ops.fused_fit_close(
+                Yt, X, t, w_fit(), do_fit, n_full, mon["included_mon"],
+                st["coefs"], st["rmse"], mags, is_tail, is_brk,
+                mon["pos_ev"], mon["n_exceed"], st["first_seg"], st["nseg"],
+                st["bufs"])
+        elif fused:
             bufs, nseg = st["bufs"], st["nseg"]
-        if any_fit:
-            w = torch.where(init_ok[:, None, :], init["w_stab"],
-                            mon["included_mon"] & is_refit[:, None, :])
-            cfull, rfull = ops.lasso_fit(Yt, w.float(), X,
-                                         coefmask_for(n_full))
-            coefs_n = torch.where(do_fit[..., None, None], cfull, st["coefs"])
-            rmse_n = torch.where(do_fit[..., None], rfull, st["rmse"])
-        else:
             coefs_n, rmse_n = st["coefs"], st["rmse"]
+        else:
+            if any_close:
+                bufs, nseg = _close_block(res, st, mon)
+            else:
+                bufs, nseg = st["bufs"], st["nseg"]
+            if any_fit:
+                cfull, rfull = ops.lasso_fit(Yt, w_fit(), X,
+                                             coefmask_for(n_full))
+                coefs_n = torch.where(do_fit[..., None, None], cfull,
+                                      st["coefs"])
+                rmse_n = torch.where(do_fit[..., None], rfull, st["rmse"])
+            else:
+                coefs_n, rmse_n = st["coefs"], st["rmse"]
 
         # ---------------- next state ----------------
+        is_refit = mon["is_refit"]
         done = init["init_nowin"] | (init["init_bad"] & ~init["has_adv"])
         phase_n = torch.where(
             done, PHASE_DONE,
@@ -525,11 +570,13 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
 
 def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
                   max_segments=MAX_SEGMENTS,
-                  variogram_mode=params.VARIOGRAM_DEFAULT, ops=None):
+                  variogram_mode=params.VARIOGRAM_DEFAULT, ops=None,
+                  fused=None):
     """Detect from the staged integer wire on its device: ``days`` [C,T]
     int32, ``n_obs`` [C] int32, ``spectra`` [C,B,P,T] int16, ``qa``
     [C,P,T] uint8.  The designs are built on the device, the spectra are
-    made resident as [C,B,T,P]."""
+    made resident as [C,B,T,P].  ``fused`` picks the round route
+    (:func:`fused_mode`)."""
     _exact_f32()
     ops = cuda_ops.KERNELS if ops is None else ops
     if variogram_mode not in ("adjusted", "plain"):
@@ -541,13 +588,14 @@ def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
     with torch.no_grad():
         return _detect_batch(X, Xt, t, valid, Yt, qa_t, W=W, sensor=sensor,
                              max_segments=max_segments,
-                             variogram_mode=variogram_mode, ops=ops)
+                             variogram_mode=variogram_mode, ops=ops,
+                             fused=fused_mode(fused))
 
 
 def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
                   check_capacity: bool = True, staged: tuple | None = None,
                   variogram_mode: str = params.VARIOGRAM_DEFAULT,
-                  ops=None) -> ChipSegments:
+                  ops=None, fused=None) -> ChipSegments:
     """Run the detector over a PackedChips batch -> ChipSegments with
     leading chip axis [C, P, ...], on ``device`` (default CUDA).
 
@@ -558,14 +606,18 @@ def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
     "adjusted" (default) or "plain".  ``ops`` names the three round
     functions: :data:`cuda_ops.KERNELS` (default; the CUDA kernels on a
     CUDA device, their plain versions on the CPU) or
-    :data:`cuda_ops.PLAIN` (the plain versions wherever the tensors are)."""
+    :data:`cuda_ops.PLAIN` (the plain versions wherever the tensors are).
+    ``fused`` picks the round route: None defers to FIREBIRD_FUSED_FIT
+    (unset: route 0), else 0, 1 or "mon" (:func:`fused_mode`)."""
     dev = resolve_device(device)
     args = staged if staged is not None else stage_packed(packed, dev)
     sensor = getattr(packed, "sensor", LANDSAT_ARD)
     W = window_cap(packed)
+    fused = fused_mode(fused)
     dispatch = lambda S: detect_staged(*args, W=W, sensor=sensor,
                                        max_segments=S,
-                                       variogram_mode=variogram_mode, ops=ops)
+                                       variogram_mode=variogram_mode, ops=ops,
+                                       fused=fused)
     if not check_capacity:
         return dispatch(max(max_segments, 1))
     return capacity_retry(dispatch, lambda seg: int(seg.n_segments.max()),

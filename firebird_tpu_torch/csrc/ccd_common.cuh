@@ -23,6 +23,9 @@ constexpr int NT = 5;           // Tmask design columns (params.TMASK_COEFS)
 constexpr int BLOCK = 128;      // threads (pixels) per block
 constexpr int LASSO_ITERS = 50;
 constexpr float LASSO_ALPHA = 1.0f;
+constexpr int PEEK = 6;         // params.PEEK_SIZE
+constexpr int NUM_OBS_FACTOR = 3;
+constexpr int MID_COEFS = 6;
 
 __device__ __forceinline__ float pmax(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
@@ -31,6 +34,42 @@ __device__ __forceinline__ float pmax(float a, float b) {
 __device__ __forceinline__ float fsign(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
 }
+
+// Median of v[0..n) — numpy's even-count average, 0 when n == 0, NaN
+// when any value is NaN (the min/max sorting network's contract).
+// Insertion sort into a local array of NMAX slots.
+template <int NMAX>
+__device__ float median(const float* v, int n) {
+  if (n == 0) return 0.f;
+  float s[NMAX];
+  for (int a = 0; a < n; ++a) {
+    const float x = v[a];
+    if (isnan(x)) return NAN;
+    int b = a;
+    while (b > 0 && s[b - 1] > x) {
+      s[b] = s[b - 1];
+      --b;
+    }
+    s[b] = x;
+  }
+  return 0.5f * (s[(n - 1) / 2] + s[n / 2]);
+}
+
+// The allowed coefficients for a fit over n observations: 4, 6 or 8
+// columns by NUM_OBS_FACTOR per coefficient — kernel._coefmask_for.
+__device__ __forceinline__ void coef_mask(int n, bool mask[K]) {
+  const int nc = n >= K * NUM_OBS_FACTOR ? K
+                 : (n >= MID_COEFS * NUM_OBS_FACTOR ? MID_COEFS : 4);
+#pragma unroll
+  for (int k = 0; k < K; ++k) mask[k] = k < nc;
+}
+
+// A [T, P] float weight plane read at pixel p (chip base pointer).
+struct PlaneWeight {
+  const float* w;
+  int P, p;
+  __device__ float operator()(int t) const { return w[(size_t)t * P + p]; }
+};
 
 // Weighted Gram X^T diag(w) X and correlations X^T diag(w) y_b of one
 // pixel, accumulated one observation at a time — the accumulation half of
@@ -122,6 +161,66 @@ __device__ void lasso_cd(const Gram<NB>& g, const bool mask[K],
 #pragma unroll
     for (int k = 0; k < K; ++k) beta[b][k] = bb[k];
   }
+}
+
+// One pixel's weighted Lasso fit of every band and its windowed RMSE —
+// the body of lasso_fit, shared with the fused round kernels so that a
+// fit runs the same instructions in all three (the fused routes' results
+// equal the per-component route's only because of this).  wt(t) is the
+// window weight of time step t, zero outside the window; zero steps are
+// skipped in both passes.  Yc is the chip's [NB, T, P] spectra, Xc its
+// [T, K] design.  Writes coef_out [NB*K] and rmse_out [NB] (zeros when
+// !with_rmse).
+template <int NB, class Weight>
+__device__ void fit_window(const int16_t* Yc, const float* Xc,
+                           const Weight& wt, int T, int P, int p,
+                           const bool mask[K], float* coef_out,
+                           float* rmse_out, bool with_rmse) {
+  Gram<NB> g;
+  g.zero();
+  for (int t = 0; t < T; ++t) {
+    const float w = wt(t);
+    if (w == 0.f) continue;
+    float x[K], y[NB];
+#pragma unroll
+    for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + t * K + k);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) y[b] = (float)Yc[((size_t)b * T + t) * P + p];
+    g.add(x, y, w);
+  }
+  g.finish();
+  float beta[NB][K];
+  lasso_cd<NB>(g, mask, beta);
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int k = 0; k < K; ++k) coef_out[b * K + k] = beta[b][k];
+
+  if (!with_rmse) {
+#pragma unroll
+    for (int b = 0; b < NB; ++b) rmse_out[b] = 0.f;
+    return;
+  }
+  float acc[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+  for (int t = 0; t < T; ++t) {
+    const float w = wt(t);
+    if (w == 0.f) continue;
+    float x[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + t * K + k);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      float pred = beta[b][0] * x[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) pred = pred + beta[b][k] * x[k];
+      const float r = (float)Yc[((size_t)b * T + t) * P + p] - pred;
+      acc[b] = acc[b] + r * r * w;
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) rmse_out[b] = sqrtf(pmax(acc[b] / g.n, 0.f));
 }
 
 }  // namespace fb

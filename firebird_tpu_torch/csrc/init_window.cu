@@ -38,25 +38,6 @@ constexpr float STAB = 3.0f;                         // STABILITY_FACTOR
 // Tmask bands (green, swir1) as indices into the detection bands.
 constexpr int TM0 = 0, TM1 = 3;
 
-// Median of v[0..n) — numpy's even-count average, 0 when n == 0, NaN
-// when any value is NaN (the min/max sorting network's contract).
-template <int WMAX>
-__device__ float median(const float* v, int n) {
-  if (n == 0) return 0.f;
-  float s[WMAX];
-  for (int a = 0; a < n; ++a) {
-    const float x = v[a];
-    if (isnan(x)) return NAN;
-    int b = a;
-    while (b > 0 && s[b - 1] > x) {
-      s[b] = s[b - 1];
-      --b;
-    }
-    s[b] = x;
-  }
-  return 0.5f * (s[(n - 1) / 2] + s[n / 2]);
-}
-
 // Solve G beta = c for the 5x5 SPD G (lower half filled) by unrolled
 // Cholesky — kernel._chol_solve_small.  A pivot that is not > 0 makes
 // the whole solution NaN.

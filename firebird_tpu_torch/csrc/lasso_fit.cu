@@ -12,7 +12,9 @@
 // neighbouring addresses.  The Gram takes ~100 flops per weighted
 // observation and the CD loop ~50*8*B*16 per pixel, on register-resident
 // state.  This first version reads the spectra of the window twice (Gram
-// pass, RMSE pass) and skips the zero-weight steps of both.
+// pass, RMSE pass) and skips the zero-weight steps of both; the per-pixel
+// body is fb::fit_window (ccd_common.cuh), which the fused round kernels
+// run too.
 #include "ccd_common.cuh"
 
 namespace {
@@ -32,57 +34,12 @@ lasso_fit_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ w,
   const float* wc = w + (size_t)c * T * P;
   const float* Xc = X + (size_t)c * T * K;
 
-  Gram<B> g;
-  g.zero();
-  for (int t = 0; t < T; ++t) {
-    const float wt = wc[(size_t)t * P + p];
-    if (wt == 0.f) continue;
-    float x[K], y[B];
-#pragma unroll
-    for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + t * K + k);
-#pragma unroll
-    for (int b = 0; b < B; ++b) y[b] = (float)Yc[((size_t)b * T + t) * P + p];
-    g.add(x, y, wt);
-  }
-  g.finish();
   bool m[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) m[k] = mask[((size_t)c * P + p) * K + k] != 0;
-  float beta[B][K];
-  lasso_cd<B>(g, m, beta);
-
-  float* out = coefs + ((size_t)c * P + p) * B * K;
-#pragma unroll
-  for (int b = 0; b < B; ++b)
-#pragma unroll
-    for (int k = 0; k < K; ++k) out[b * K + k] = beta[b][k];
-
-  float* rout = rmse + ((size_t)c * P + p) * B;
-  if (!with_rmse) {
-#pragma unroll
-    for (int b = 0; b < B; ++b) rout[b] = 0.f;
-    return;
-  }
-  float acc[B];
-#pragma unroll
-  for (int b = 0; b < B; ++b) acc[b] = 0.f;
-  for (int t = 0; t < T; ++t) {
-    const float wt = wc[(size_t)t * P + p];
-    if (wt == 0.f) continue;
-    float x[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + t * K + k);
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      float pred = beta[b][0] * x[0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) pred = pred + beta[b][k] * x[k];
-      const float r = (float)Yc[((size_t)b * T + t) * P + p] - pred;
-      acc[b] = acc[b] + r * r * wt;
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < B; ++b) rout[b] = sqrtf(pmax(acc[b] / g.n, 0.f));
+  fit_window<B>(Yc, Xc, PlaneWeight{wc, P, p}, T, P, p, m,
+                coefs + ((size_t)c * P + p) * B * K,
+                rmse + ((size_t)c * P + p) * B, with_rmse != 0);
 }
 
 }  // namespace

@@ -5,45 +5,27 @@
 // (_monitor_scored_block, _mon_scored_logic, _monitor_logic).  Per pixel:
 // the chi-square score of every alive observation against the current model,
 // sum over detection bands of ((y - X beta) / max(rmse, vario))^2; the break
-// search (a run of >= PEEK_SIZE exceedances in the alive sequence, found by a
-// backward scan that carries the next non-exceeding rank, as the reverse
-// cummin does); the refit search (absorbed count crossing REFIT_FACTOR x the
-// last fit's count, by a running sum); the tail/break/refit choice; and the
-// include/remove partition of the observations before the event.
+// search, the refit search, the tail/break/refit choice and the
+// include/remove partition of the observations before the event.  The
+// per-pixel body is fb::monitor_chain (monitor_chain.cuh), which the
+// fused_round kernel runs too.
 //
 // Bound: bytes.  The detection-band int16 spectra [nb,T,P] are read three
 // times (the score is recomputed in each scan rather than staged: T floats
 // a thread would not fit in registers), the alive/included planes once or
 // twice; everything after the score is integer.
-#include "ccd_common.cuh"
+#include "monitor_chain.cuh"
 
 namespace {
 
-constexpr int PEEK = 6;
-constexpr float REFIT_FACTOR = 1.33f;
-
-template <int NB>
-struct Scorer {
-  const int16_t* Y;   // chip base [NB, T, P]
-  const float* X;     // chip base [T, K]
-  float coef[NB][fb::K];
-  float dden[NB];
-  int T, P, p;
-
-  __device__ float operator()(int t) const {
-    float x[fb::K];
-#pragma unroll
-    for (int k = 0; k < fb::K; ++k) x[k] = X[t * fb::K + k];
-    float s = 0.f;
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      float pred = x[0] * coef[b][0];
-#pragma unroll
-      for (int k = 1; k < fb::K; ++k) pred = pred + x[k] * coef[b][k];
-      const float r = ((float)Y[((size_t)b * T + t) * P + p] - pred) / dden[b];
-      s = (b == 0) ? r * r : s + r * r;
-    }
-    return s;
+// Writes the include / remove partition as two [T, P] planes.
+struct PartitionSink {
+  uint8_t* iq;
+  uint8_t* rq;
+  int P, p;
+  __device__ void operator()(int t, bool in_q, bool rm_q) const {
+    iq[(size_t)t * P + p] = in_q;
+    rq[(size_t)t * P + p] = rm_q;
   }
 };
 
@@ -62,8 +44,6 @@ monitor_kernel(const int16_t* __restrict__ Yd, const float* __restrict__ coefs_d
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= P) return;
   const size_t cp = (size_t)c * P + p;
-  const uint8_t* al = alive + (size_t)c * T * P;
-  const uint8_t* inc = included + (size_t)c * T * P;
 
   Scorer<NB> score;
   score.Y = Yd + (size_t)c * NB * T * P;
@@ -77,117 +57,21 @@ monitor_kernel(const int16_t* __restrict__ Yd, const float* __restrict__ coefs_d
 #pragma unroll
     for (int k = 0; k < K; ++k) score.coef[b][k] = coefs_d[(cp * NB + b) * K + k];
   }
-  const int ck = cur_k[cp];
-  const int nl = nlast[cp];
-  const bool mon = in_mon[cp] != 0;
-  const int INF = T + 1;
-  const float refit_thr = REFIT_FACTOR * (float)nl;
-
-  // Pass 1: alive count m, cursor rank kq, included count n0.
-  int m = 0, kq = 0, n0 = 0;
-  for (int t = 0; t < T; ++t) {
-    const bool a = al[(size_t)t * P + p] != 0;
-    m += a;
-    kq += (a && t < ck);
-    n0 += inc[(size_t)t * P + p] != 0;
-  }
-
-  // Pass 2 (forward): refit crossing.  n_inc[t] = n0 + #absorbed <= t.
-  int ninc = n0, ninc0 = n0, total_absq = 0;
-  bool has_refit = false;
-  int f_abs = 0, f_rank = 0, ninc_f = 0;
-  int rank = -1;
-  for (int t = 0; t < T; ++t) {
-    if (al[(size_t)t * P + p] != 0) {
-      ++rank;
-      const float s = score(t);
-      const bool absq = rank >= kq && !(s > outlier_thr);
-      if (absq) {
-        ++ninc;
-        ++total_absq;
-        if (!has_refit && (float)ninc >= refit_thr) {
-          has_refit = true;
-          f_abs = t;
-          f_rank = rank;
-          ninc_f = ninc;
-        }
-      }
-    }
-    if (t == 0) ninc0 = ninc;
-  }
-
-  // Pass 3 (backward): the first confirmed break.  nrr carries the rank of
-  // the next alive non-exceeding observation (the reverse cummin).
-  bool has_brk = false;
-  int b_abs = 0, b_rank = 0, ninc_b = 0;
-  int nrr = INF, after = 0, absq_after = 0;
-  for (int t = T - 1; t >= 0; --t) {
-    if (al[(size_t)t * P + p] == 0) continue;
-    const int r = m - 1 - after;
-    const float s = score(t);
-    const bool ex = s > change_thr;
-    if (!ex) nrr = min(nrr, r);
-    const int runlen = min(nrr, m) - r;
-    const bool elig = r >= kq;
-    if (elig && ex && runlen >= PEEK) {
-      has_brk = true;
-      b_abs = t;
-      b_rank = r;
-      ninc_b = n0 + total_absq - absq_after;
-    }
-    absq_after += (elig && !(s > outlier_thr));
-    ++after;
-  }
-
-  // The event choice (kernel._monitor_chain).
-  const int q_tail = max(m - (PEEK - 1), kq);
-  const int b_ev = has_brk ? b_rank : INF;
-  const int f_ev = has_refit ? f_rank : INF;
-  const bool is_tail = mon && q_tail <= min(b_ev, f_ev);
-  const bool is_brk = mon && !is_tail && has_brk && b_ev <= f_ev;
-  const bool is_refit = mon && !is_tail && !is_brk && has_refit;
-  const int ev_rank = is_tail ? q_tail : (is_brk ? b_ev : f_ev);
-  const int normal_hi = is_refit ? ev_rank + 1 : ev_rank;
-  const int pos_ev = is_brk ? b_abs : f_abs;
-  // n_inc at pos_ev: f_abs defaults to 0 when no refit crossing exists.
-  const int n_rf = is_brk ? ninc_b : (has_refit ? ninc_f : ninc0);
-
-  // Pass 4 (forward): the include/remove partition.
-  uint8_t* iq = inc_q + (size_t)c * T * P;
-  uint8_t* rq = rem_q + (size_t)c * T * P;
-  int n_exceed = 0;
-  rank = -1;
-  for (int t = 0; t < T; ++t) {
-    bool in_q = false, rm_q = false;
-    if (al[(size_t)t * P + p] != 0) {
-      ++rank;
-      if (rank >= kq) {
-        const float s = score(t);
-        const bool o = s > outlier_thr;
-        const bool normalq = rank < normal_hi;
-        in_q = normalq && !o;
-        rm_q = normalq && o;
-        if (is_tail && rank >= q_tail) {
-          const bool tail_ex = s > change_thr;
-          in_q = in_q || !tail_ex;
-          rm_q = rm_q || tail_ex;
-          n_exceed += tail_ex;
-        }
-      }
-    }
-    iq[(size_t)t * P + p] = in_q;
-    rq[(size_t)t * P + p] = rm_q;
-  }
+  PartitionSink sink{inc_q + (size_t)c * T * P, rem_q + (size_t)c * T * P, P,
+                     p};
+  const MonitorEvent e = monitor_chain<NB>(
+      score, alive + (size_t)c * T * P, included + (size_t)c * T * P, T, P, p,
+      cur_k[cp], nlast[cp], in_mon[cp] != 0, change_thr, outlier_thr, sink);
 
   const size_t CP = (size_t)C * P;
-  out[0 * CP + cp] = m;
-  out[1 * CP + cp] = is_tail;
-  out[2 * CP + cp] = is_brk;
-  out[3 * CP + cp] = is_refit;
-  out[4 * CP + cp] = ev_rank;
-  out[5 * CP + cp] = pos_ev;
-  out[6 * CP + cp] = n_exceed;
-  out[7 * CP + cp] = n_rf;
+  out[0 * CP + cp] = e.m;
+  out[1 * CP + cp] = e.is_tail;
+  out[2 * CP + cp] = e.is_brk;
+  out[3 * CP + cp] = e.is_refit;
+  out[4 * CP + cp] = e.ev_rank;
+  out[5 * CP + cp] = e.pos_ev;
+  out[6 * CP + cp] = e.n_exceed;
+  out[7 * CP + cp] = e.n_rf;
 }
 
 }  // namespace

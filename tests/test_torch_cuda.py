@@ -126,15 +126,132 @@ def test_wrappers_refuse_bad_tensors(dev):
         cuda_ops.lasso_fit(Yt, w.contiguous().cpu(), X, mask)
 
 
-def test_detect_on_card_matches_cpu(dev):
+def _tiny_packed():
     src = SyntheticSource(4, start="1995-01-01", end="1999-06-01",
                           sensor=LANDSAT_ARD_TINY, n_changes=2)
-    packed = pack([src.chip(100, 200), src.chip(3100, 200)], bucket=32)
+    return pack([src.chip(100, 200), src.chip(3100, 200)], bucket=32)
+
+
+def test_detect_on_card_matches_cpu(dev):
+    packed = _tiny_packed()
     cuda_ops.reset_launches()
-    a = kernel.detect_packed(packed)
-    assert all(n > 0 for n in cuda_ops.LAUNCHES.values())
+    a = kernel.detect_packed(packed, fused=0)
+    route0 = {"lasso_fit", "monitor_chain_scored", "init_window"}
+    assert {k for k, n in cuda_ops.LAUNCHES.items() if n > 0} == route0
     b = kernel.detect_packed(packed, device="cpu")
     for f in ("n_segments", "procedure", "mask", "seg_meta", "rounds"):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     torch.testing.assert_close(a.seg_rmse.cpu(), b.seg_rmse, rtol=1e-4,
                                atol=1e-3)
+
+
+def _round_args(rng, dev, C=2, B=7, T=96, P=141, S=3):
+    """Mid-loop round state: a per-pixel model, spectra from it plus noise
+    (a step of 800 half way through every fifth pixel), cursors, included
+    sets and segment buffers."""
+    t, X, _ = _designs(rng, C, T, dev)
+    beta = np.zeros((C, P, B, 8), np.float32)
+    beta[..., 0] = rng.uniform(500, 3000, (C, P, B))
+    beta[..., 2:6] = rng.normal(0, 150, (C, P, B, 4))
+    Y = (np.einsum("cpbk,ctk->cbtp", beta, X.cpu().numpy())
+         + rng.normal(0, 20, (C, B, T, P)))
+    Y[:, :, T // 2:, ::5] += 800
+    alive = rng.random((C, T, P)) < 0.9
+    cur_k = rng.integers(4, 30, (C, P)).astype(np.int32)
+    included = alive & (np.arange(T)[None, :, None] < cur_k[:, None, :])
+    bufs = tuple(_t(rng.standard_normal((C, P, S) + k).astype(np.float32), dev)
+                 for k in ((6,), (B,), (B,), (B, 8)))
+    return dict(t=t, X=X, Yt=_t(Y.astype(np.int16), dev),
+                alive=_t(alive, dev), included=_t(included, dev),
+                cur_k=_t(cur_k, dev), coefs=_t(beta, dev), bufs=bufs,
+                first_seg=_t(rng.random((C, P)) < 0.5, dev),
+                nseg=_t(rng.integers(0, S + 1, (C, P)).astype(np.int32), dev))
+
+
+def _clone(bufs):
+    return tuple(b.clone() for b in bufs)
+
+
+def test_fused_fit_close_matches_plain(dev):
+    rng = np.random.default_rng(21)
+    a = _round_args(rng, dev)
+    C, B, T, P = a["Yt"].shape
+    kind = rng.integers(0, 3, (C, P))
+    args = (a["Yt"], a["X"], a["t"],
+            _t((rng.random((C, T, P)) < 0.7).astype(np.float32), dev),
+            _t(rng.random((C, P)) < 0.5, dev),
+            _t(rng.integers(12, 30, (C, P)).astype(np.int32), dev),
+            a["included"], a["coefs"],
+            _t(rng.uniform(10, 40, (C, P, B)).astype(np.float32), dev),
+            _t(rng.normal(0, 300, (C, P, B)).astype(np.float32), dev),
+            _t(kind == 1, dev), _t(kind == 2, dev),
+            _t(rng.integers(0, T, (C, P)).astype(np.int32), dev),
+            _t(rng.integers(0, 7, (C, P)).astype(np.int32), dev),
+            a["first_seg"], a["nseg"])
+    before = cuda_ops.LAUNCHES["fused_fit_close"]
+    got = cuda_ops.fused_fit_close(*args, _clone(a["bufs"]))
+    assert cuda_ops.LAUNCHES["fused_fit_close"] == before + 1
+    want = cuda_ops.fused_fit_close_plain(*args, _clone(a["bufs"]))
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=1e-2, atol=1e-2)
+
+
+def test_fused_round_matches_plain(dev):
+    rng = np.random.default_rng(22)
+    a = _round_args(rng, dev)
+    C, B, T, P = a["Yt"].shape
+    in_mon = rng.random((C, P)) < 0.7
+    init_ok = ~in_mon & (rng.random((C, P)) < 0.5)
+    w_stab = (a["alive"].cpu().numpy() & (rng.random((C, T, P)) < 0.7)
+              & init_ok[:, None, :])
+    nlast = np.where(rng.random((C, P)) < 0.4,
+                     a["included"].sum(1).cpu().numpy(), 1000)
+    args = (a["Yt"], a["X"], a["t"], a["alive"], a["included"], a["cur_k"],
+            _t(nlast.astype(np.int32), dev), _t(in_mon, dev), a["coefs"],
+            torch.full((C, P, B), 20.0, device=dev),
+            _t(rng.uniform(15, 25, (C, P, B)).astype(np.float32), dev),
+            _t(init_ok, dev), _t(w_stab, dev),
+            _t(w_stab.sum(1).astype(np.int32), dev), a["first_seg"],
+            a["nseg"])
+    kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR)
+    got = cuda_ops.fused_round(*args, _clone(a["bufs"]), **kw)
+    want = cuda_ops.fused_round_plain(*args, _clone(a["bufs"]), **kw)
+    assert all(want[4][k].any() for k in ("is_tail", "is_brk", "is_refit"))
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        if i == 2:      # seg_mag: the in-kernel PEEK-run median
+            torch.testing.assert_close(g, w, rtol=5e-3, atol=1e-2)
+        else:
+            assert torch.equal(g, w), i
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2:4], want[2:4]):
+        torch.testing.assert_close(g, w, rtol=1e-2, atol=1e-2)
+    assert set(got[4]) == set(want[4])
+    for k in want[4]:
+        assert torch.equal(got[4][k], want[4][k]), k
+
+
+@pytest.mark.parametrize("fused", [1, "mon"])
+def test_fused_routes_on_card(dev, fused):
+    """Route 1 is byte-identical to route 0 on the card; route "mon"
+    equals it in every field but seg_mag, and launches no
+    monitor_chain_scored."""
+    packed = _tiny_packed()
+    base = kernel.detect_packed(packed, fused=0)
+    cuda_ops.reset_launches()
+    seg = kernel.detect_packed(packed, fused=fused)
+    launched = {k for k, n in cuda_ops.LAUNCHES.items() if n > 0}
+    if fused == 1:
+        assert launched == {"lasso_fit", "monitor_chain_scored",
+                            "init_window", "fused_fit_close"}
+    else:
+        assert launched == {"lasso_fit", "init_window", "fused_round"}
+    for f in ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
+              "mask", "procedure", "rounds", "vario", "round_counts"):
+        a, b = getattr(seg, f), getattr(base, f)
+        if fused == "mon" and f == "seg_mag":
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-2)
+        else:
+            assert torch.equal(a, b), f

@@ -45,6 +45,19 @@ def test_port_sources_are_present():
     assert {f"{n}.cu" for n in cuda_ops.SOURCES} <= names
 
 
+def test_every_kernel_has_a_wrapper_a_plain_version_and_a_counter():
+    kernels = {"lasso_fit", "monitor_chain_scored", "init_window",
+               "fused_fit_close", "fused_round"}
+    assert set(cuda_ops.SOURCES) == kernels
+    assert set(vars(cuda_ops.KERNELS)) == kernels
+    assert set(vars(cuda_ops.PLAIN)) == kernels
+    assert set(cuda_ops.LAUNCHES) == kernels
+    assert {f"fb_{n}" for n in kernels} == set(cuda_ops._ARGTYPES)
+    for n in kernels:
+        src = (ROOT / "firebird_tpu_torch" / "csrc" / f"{n}.cu").read_text()
+        assert f'extern "C" int fb_{n}(' in src, n
+
+
 def test_params_constants_equal_jax():
     names = [n for n in dir(jparams) if n.isupper()]
     assert len(names) > 30
@@ -130,6 +143,36 @@ def test_round_state_roundtrip():
                 np.testing.assert_array_equal(a[0], b)
         else:
             np.testing.assert_array_equal(st_n[k][0], v, err_msg=k)
+
+
+def test_flat_bufs_and_planes_roundtrip():
+    rng = np.random.default_rng(4)
+    P, S, B = 5, 3, 7
+    flat = tuple(rng.random((P, S * k)).astype(np.float32)
+                 for k in (6, B, B, B * 8))
+    bufs = convert.bufs_from_flat(flat, B)
+    assert [tuple(b.shape) for b in bufs] == [
+        (1, P, S, 6), (1, P, S, B), (1, P, S, B), (1, P, S, B, 8)]
+    np.testing.assert_array_equal(bufs[3][0, 2, 1, 4],
+                                  flat[3][2, (1 * B + 4) * 8:(1 * B + 5) * 8])
+    for a, b in zip(convert.bufs_to_flat(bufs), flat):
+        np.testing.assert_array_equal(a[0], b)
+    plane = rng.random((P, 11)) < 0.5
+    t = convert.plane_from_numpy(plane)
+    assert t.shape == (1, 11, P) and t.is_contiguous()
+    np.testing.assert_array_equal(convert.plane_to_numpy(t)[0], plane)
+
+
+def test_cli_fused_flag_picks_the_route(capsys):
+    import json
+
+    from firebird_tpu_torch.__main__ import main
+
+    main(["detect", "--chips", "1", "--start", "1995-01-01", "--end",
+          "1996-06-01", "--sensor", "landsat-ard-tiny", "--device", "cpu",
+          "--fused", "mon"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["route"] == "mon" and out["pixels"] == 100
 
 
 def test_segments_roundtrip():

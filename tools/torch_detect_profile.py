@@ -1,14 +1,17 @@
 """Where the PyTorch port's detector spends its time on the card.
 
     python tools/torch_detect_profile.py [--chips 8] [--seed 0] [--out DIR]
+        [--fused {0,1,mon}]
 
-Runs SyntheticSource -> pack -> detect_packed on ``--chips`` full-size
+Runs SyntheticSource -> pack -> detect_packed (round route ``--fused``,
+default 0) on ``--chips`` full-size
 Landsat chips (1985-2017, T=768) once to warm up, once timed by the host
 clock, then once under ``torch.profiler`` (CPU and CUDA activities).
 Prints and writes to ``DIR/torch_detect_profile.json``: the wall times of
 the plain and the profiled run, the summed device time of every kernel by
 name (the hand-written kernels and PyTorch's own), and the device's busy
-share of the profiled wall time.  Needs a CUDA device.
+share of the profiled wall time, to ``DIR/torch_detect_profile[_ROUTE].json``
+(suffixed for routes other than 0).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ GROUPS = (                      # (group, substrings of the kernel name)
     ("monitor_chain_scored", ("monitor_kernel",)),
     ("lasso_fit", ("lasso_fit_kernel",)),
     ("init_window", ("init_kernel",)),
+    ("fused_fit_close", ("fused_fit_close_kernel",)),
+    ("fused_round", ("fused_round_kernel",)),
     ("sorts", ("Sort",)),
     ("reductions", ("reduce_kernel",)),
     ("gathers and scatters", ("scatter_gather", "index")),
@@ -57,7 +62,9 @@ def main(argv=None):
     ap.add_argument("--chips", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--fused", default="0", choices=("0", "1", "mon"))
     args = ap.parse_args(argv)
+    fused = {"0": 0, "1": 1, "mon": "mon"}[args.fused]
     if not torch.cuda.is_available():
         sys.exit("torch_detect_profile: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -68,10 +75,10 @@ def main(argv=None):
                   bucket=64)
     staged = kernel.stage_packed(packed)
     cuda_ops.build()
-    kernel.detect_packed(packed, staged=staged)            # warm-up
+    kernel.detect_packed(packed, staged=staged, fused=fused)      # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    kernel.detect_packed(packed, staged=staged)
+    kernel.detect_packed(packed, staged=staged, fused=fused)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
@@ -80,7 +87,7 @@ def main(argv=None):
     cuda_ops.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        seg = kernel.detect_packed(packed, staged=staged)
+        seg = kernel.detect_packed(packed, staged=staged, fused=fused)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Only the device-side entries (kernels, memcpy, memset): an operator's
@@ -92,20 +99,23 @@ def main(argv=None):
             and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows) / 1e3
-    out = dict(device=smi, chips=args.chips, pixels=int(seg.n_segments.numel()),
+    out = dict(device=smi, route=args.fused, chips=args.chips,
+               pixels=int(seg.n_segments.numel()),
                T=int(packed.spectra.shape[-1]), rounds=int(seg.rounds[0]),
                round_counts=seg.round_counts[0].tolist(),
                launches=dict(cuda_ops.LAUNCHES), wall_s=wall,
                wall_unprofiled_s=wall_plain,
                device_busy_s=busy, device_busy_share=busy / wall,
                groups=group(rows), kernels=rows)
-    print(f"{smi}: {args.chips} chips, wall {wall:.3f} s profiled "
+    print(f"{smi}: route {args.fused}, {args.chips} chips, wall {wall:.3f} s "
+          f"profiled "
           f"({wall_plain:.3f} s not), device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}% of the profiled wall)")
     for r in rows[:20]:
         print(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d}  {r['name'][:90]}")
     Path(args.out).mkdir(parents=True, exist_ok=True)
-    (Path(args.out) / "torch_detect_profile.json").write_text(
+    suffix = "" if args.fused == "0" else f"_{args.fused}"
+    (Path(args.out) / f"torch_detect_profile{suffix}.json").write_text(
         json.dumps(out, indent=1))
 
 
