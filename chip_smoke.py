@@ -256,15 +256,13 @@ def kernel_phase(inp, reps):
     return out, report
 
 
-def fit_work(w, do_fit, B):
-    """Bytes and float operations of the shared refit: the fitting pixels'
-    window spectra and weights, the Gram, 50 CD sweeps and the RMSE (the
-    lasso_fit count, over the fitting pixels only)."""
-    wf = w * do_fit[:, None, :]
-    nnz, n_fit = float(wf.sum()), float(do_fit.sum())
-    T = w.shape[1]
-    fl = nnz * (36 * 2 + B * 17 + 1) + n_fit * B * 50 * 8 * 20 + nnz * B * 19
-    return nnz * B * 2 + n_fit * T * 4, fl
+def fit_flops(w, do_fit, B):
+    """Float operations of the shared refit over the fitting pixels'
+    windows: the Gram, 50 CD sweeps and the RMSE (the lasso_fit count,
+    over the fitting pixels only)."""
+    nnz = float((w * do_fit[:, None, :]).sum())
+    n_fit = float(do_fit.sum())
+    return nnz * (36 * 2 + B * 17 + 1) + n_fit * B * 50 * 8 * 20 + nnz * B * 19
 
 
 def fused_rows(inp, mon, init, kw_mon, report):
@@ -307,9 +305,13 @@ def fused_rows(inp, mon, init, kw_mon, report):
     err = max(float((got[i] - want[i]).abs().max()) for i in (2, 3))
     rel = max(float((got[i] - want[i]).abs().max() / want[i].abs().max())
               for i in (2, 3))
-    by, fl = fit_work(w_fit, do_fit, B)
-    by += (float(close.sum()) * T + n_rows * row_bytes + vec_bytes
-           + C * P * (B * 4 + 4 * 7) + nbytes(inp["X"], inp["t"]))
+    # The fitting pixels' window spectra and f32 weight columns, the
+    # closing pixels' included columns, the written rows and the rest.
+    fl = fit_flops(w_fit, do_fit, B)
+    by = (float((w_fit * do_fit[:, None, :]).sum()) * B * 2
+          + float(do_fit.sum()) * T * 4 + float(close.sum()) * T
+          + n_rows * row_bytes + vec_bytes + C * P * (B * 4 + 4 * 7)
+          + nbytes(inp["X"], inp["t"]))
     rows.append(("fused_fit_close", a + (clone(),), {}, err, rel, fl, by))
 
     # ---- fused_round ----
@@ -345,14 +347,23 @@ def fused_rows(inp, mon, init, kw_mon, report):
     do_fit_r = want[4]["do_fit"]
     w_round = torch.where(init_ok[:, None, :], init["w_stab"],
                           want[4]["included_mon"]
-                          & want[4]["is_refit"][:, None, :]).float()
-    by, fl = fit_work(w_round, do_fit_r, B)
-    n_alive_mon = float((inp["alive"] & in_mon[:, None, :]).sum())
+                          & want[4]["is_refit"][:, None, :])
+    fl = fit_flops(w_round.float(), do_fit_r, B)
+    # Spectra: the 5 detection bands where the monitor or the fit reads
+    # them, the other bands in the fit windows only.  Weights: the init-ok
+    # pixels' u8 w_stab columns; a refit reads back its own included_mon
+    # output.  Then the alive / included planes in and out, the written
+    # rows and the rest.
+    mon_obs = inp["alive"] & in_mon[:, None, :]
+    fit_obs = w_round & do_fit_r[:, None, :]
+    n_alive_mon = float(mon_obs.sum())
     close_r = want[4]["is_tail"] | want[4]["is_brk"]
     n_rows = float((close_r & (inp["nseg"] < S)).sum())
     fl += n_alive_mon * 5 * 19
-    by += (n_alive_mon * 5 * 2 + 4 * C * T * P + n_rows * row_bytes
-           + vec_bytes + C * P * (B * 4 + 4 * 12) + nbytes(inp["X"], inp["t"]))
+    by = (2 * (5 * float((mon_obs | fit_obs).sum())
+               + (B - 5) * float(fit_obs.sum()))
+          + float(init_ok.sum()) * T + 4 * C * T * P + n_rows * row_bytes
+          + vec_bytes + C * P * (B * 4 + 4 * 12) + nbytes(inp["X"], inp["t"]))
     rows.append(("fused_round", a + (clone(),), kw_mon, err, rel, fl, by))
     return rows
 

@@ -589,10 +589,13 @@ def close_meta(t, included_mon, is_brk, pos_ev, n_exceed, first_seg):
 
 def write_slot(bufs, nseg, close, rows):
     """Append one row per closing pixel at its slot ``nseg`` of the
-    [C,P,S,k] buffers, in place — kernel._write_seg.  ``rows`` are (meta
-    [C,P,6], rmse [C,P,B], mag [C,P,B], coef [C,P,B,K]).  Rows past the
-    capacity S are dropped, but ``nseg`` counts every close (the contract
-    kernel.capacity_retry relies on).  Returns (bufs, nseg')."""
+    [C,P,S,k] buffers, in place — kernel._write_seg.  The one slot writer
+    of the port: the prologue's alternate-procedure segment, route 0's
+    close block and the fused kernels' plain versions all use it.
+    ``rows`` are (meta [C,P,6], rmse [C,P,B], mag [C,P,B], coef
+    [C,P,B,K]).  Rows past the capacity S are dropped, but ``nseg`` counts
+    every close (the contract kernel.capacity_retry relies on).  Returns
+    (bufs, nseg')."""
     S = bufs[0].shape[2]
     ci, pi = torch.nonzero(close & (nseg < S), as_tuple=True)
     si = nseg[ci, pi].long()

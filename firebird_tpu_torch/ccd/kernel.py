@@ -239,23 +239,6 @@ def _qa_bit(qa, bit):
     return ((qa >> bit) & 1) == 1
 
 
-def _write_seg(bufs, nseg, wmask, meta, rmse_s, mag_s, coef_s):
-    """Append one segment row (where ``wmask``) at slot ``nseg`` of the
-    [C,P,S,k] result buffers — kernel._write_seg."""
-    meta_b, rmse_b, mag_b, coef_b = bufs
-    S = meta_b.shape[2]
-    oh = ((nseg[..., None] == torch.arange(S, device=nseg.device))
-          & wmask[..., None])                                   # [C,P,S]
-
-    def upd(buf, val):
-        o = oh.reshape(oh.shape + (1,) * (buf.dim() - 3))
-        return torch.where(o, val[:, :, None], buf)
-
-    bufs = (upd(meta_b, meta), upd(rmse_b, rmse_s), upd(mag_b, mag_s),
-            upd(coef_b, coef_s))
-    return bufs, nseg + wmask.to(torch.int32)
-
-
 def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
     """Pre-loop work for all chips: QA triage, usable sets, the one-shot
     snow / insufficient-clear fit, variogram and the standard procedure's
@@ -327,9 +310,10 @@ def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
         torch.where(is_snow, float(params.CURVE_QA_PERSIST_SNOW),
                     float(params.CURVE_QA_INSUF_CLEAR)).to(f32),
         alt_n.to(f32)], -1)
-    bufs, nseg = _write_seg(bufs, nseg0, alt_fit, alt_meta, alt_rmse,
-                            torch.zeros(C, P, B, dtype=f32, device=dev),
-                            alt_coefs)
+    bufs, nseg = cuda_ops.write_slot(
+        bufs, nseg0, alt_fit,
+        (alt_meta, alt_rmse, torch.zeros(C, P, B, dtype=f32, device=dev),
+         alt_coefs))
 
     # ---------------- standard procedure state ----------------
     is_std = procedure == PROC_STANDARD
@@ -407,8 +391,8 @@ def _close_block(res, st, mon):
                                    mon["pos_ev"], mon["n_exceed"],
                                    st["first_seg"])
     mag_new = torch.where(is_brk[..., None], mags, torch.zeros_like(mags))
-    return _write_seg(st["bufs"], st["nseg"], is_tail | is_brk, meta_new,
-                      st["rmse"], mag_new, st["coefs"])
+    return cuda_ops.write_slot(st["bufs"], st["nseg"], is_tail | is_brk,
+                               (meta_new, st["rmse"], mag_new, st["coefs"]))
 
 
 def _round_zeros(st):

@@ -1,6 +1,6 @@
 // The segment close, shared by the fused_fit_close and fused_round kernels:
 // the closing segment's meta row and its one-slot append into the
-// [C, P, S, k] result buffers (kernel._close_block + _write_seg, the
+// [C, P, S, k] result buffers (cuda_ops.write_slot, the
 // contract of pallas_ops._close_logic), and the break magnitudes over the
 // PEEK run (kernel._close_mags).
 #pragma once
