@@ -6,30 +6,38 @@ From the root of a checkout, on a machine with a CUDA card:
 
 1. prints the card (nvidia-smi name and power limit) and the torch / CUDA
    versions;
-2. builds the five CUDA kernels from ``firebird_tpu_torch/csrc`` (one nvcc
+2. builds the nine CUDA kernels from ``firebird_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and times the build;
 3. kernel phase: runs each kernel's wrapper at the main path's full width
    (``--chips`` chips of 100x100 pixels from ``SyntheticSource(--seed)``,
    1985-2017, T=768, the archive's window cap) on round states drawn from
    the seed with numpy (the fused kernels' events come from the plain
-   monitor and INIT on those states), holds the result against the
-   kernel's plain PyTorch version on the same inputs, and times both with
-   CUDA events;
-4. main paths, one for each round route (``fused`` 0, 1 and "mon"):
-   ``SyntheticSource`` -> ``pack`` -> ``detect_packed`` on the card for
-   the same full-size Landsat chips, with the launch counters set to 0
-   just before and read just after, and held to the route's set of
-   kernels; the same batch through the plain versions on the card, and
-   the fraction of pixels whose decision fields agree.  Route 1 must equal
-   route 0 byte for byte, route "mon" in every field but seg_mag (held to
-   rtol 5e-3, atol 1e-2).  On route 0, egress packing and decoding and
-   the store's table frames for one chip;
+   monitor and INIT on those states; ``detect_mega`` starts from the
+   batch's own prologue state), holds the result against the kernel's
+   plain PyTorch version on the same inputs, and times both with CUDA
+   events;
+4. main paths, one for each route: the round routes ``fused`` 0, 1 and
+   "mon", the whole-loop route ``pallas="mega"`` and the component route
+   ``pallas="lasso,monitor,tmask"``.  Each is ``SyntheticSource`` ->
+   ``pack`` -> ``detect_packed`` on the card for the same full-size
+   Landsat chips, with the launch counters set to 0 just before and read
+   just after, and held to the route's set of kernels (the mega route to
+   one ``detect_mega`` launch per dispatch); the same batch through the
+   route's plain versions on the card, and the fraction of pixels whose
+   decision fields agree.  Route 1 must equal route 0 byte for byte, route
+   "mon" in every field but seg_mag (held to rtol 5e-3, atol 1e-2), the
+   mega route route "mon" in every field but the per-chip rounds and
+   round_counts (their maximum over chips is route 0's rounds), the
+   component route route 0 in the decisions of at least 0.999 of the
+   pixels.  On route 0, egress packing and decoding and the store's table
+   frames for one chip;
 5. a small input (two 10x10 chips) through the card and through the plain
    versions on the CPU, decision fields compared.
 
-Any failed check raises before the result.  The line before the last is
-the kernels' JSON summary, the last line the device JSON.  A longer report
-goes to ``chiprun_out/chip_smoke.json``.
+Any failed check raises before the result.  The last three lines are the
+kernels' JSON summary, the card's name and power limit as nvidia-smi gives
+them, and the device JSON.  A longer report goes to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -61,18 +70,33 @@ KERNEL_INFO = {
     "init_window": f"{PALLAS}:976",
     "fused_fit_close": f"{PALLAS}:1426",
     "fused_round": f"{PALLAS}:1727",
+    "lasso_cd": f"{PALLAS}:170",
+    "monitor_chain": f"{PALLAS}:652",
+    "tmask_bad": f"{PALLAS}:1225",
+    "detect_mega": f"{PALLAS}:2283",
 }
-# The kernels each round route launches on the main path (route "mon"
-# fits the prologue's snow / insufficient-clear pixels with lasso_fit).
+COMPONENTS = "lasso,monitor,tmask"
+# Each main path: its detect_packed arguments and the kernels it launches
+# (the routes after "0" fit the prologue's snow / insufficient-clear
+# pixels with lasso_fit; the component route with lasso_cd).
 ROUTES = {
-    0: {"lasso_fit", "monitor_chain_scored", "init_window"},
-    1: {"lasso_fit", "monitor_chain_scored", "init_window",
-        "fused_fit_close"},
-    "mon": {"lasso_fit", "init_window", "fused_round"},
+    "0": (dict(pallas="1", fused=0),
+          {"lasso_fit", "monitor_chain_scored", "init_window"}),
+    "1": (dict(pallas="1", fused=1),
+          {"lasso_fit", "monitor_chain_scored", "init_window",
+           "fused_fit_close"}),
+    "mon": (dict(pallas="1", fused="mon"),
+            {"lasso_fit", "init_window", "fused_round"}),
+    "mega": (dict(pallas="mega"), {"lasso_fit", "detect_mega"}),
+    COMPONENTS: (dict(pallas=COMPONENTS, fused=0),
+                 {"lasso_cd", "monitor_chain", "tmask_bad"}),
 }
 # The route whose main-path launches a kernel's JSON row reports.
-HOME_ROUTE = {"lasso_fit": 0, "monitor_chain_scored": 0, "init_window": 0,
-              "fused_fit_close": 1, "fused_round": "mon"}
+HOME_ROUTE = {"lasso_fit": "0", "monitor_chain_scored": "0",
+              "init_window": "0", "fused_fit_close": "1",
+              "fused_round": "mon", "lasso_cd": COMPONENTS,
+              "monitor_chain": COMPONENTS, "tmask_bad": COMPONENTS,
+              "detect_mega": "mega"}
 SEGMENT_FIELDS = ("n_segments", "seg_meta", "seg_rmse", "seg_mag",
                   "seg_coef", "mask", "procedure", "rounds", "vario",
                   "round_counts")
@@ -174,7 +198,7 @@ def window_sizes(inp):
     return torch.where(has_i & has_w & inp["in_init"], n, torch.zeros_like(n))
 
 
-def kernel_phase(inp, reps):
+def kernel_phase(inp, staged, reps):
     C, B, T, P = inp["Yt"].shape
     rows, report = [], {}
     kw_mon = dict(zip(("change_thr", "outlier_thr"),
@@ -229,20 +253,22 @@ def kernel_phase(inp, reps):
     err = max(float((got[k].int() - want[k].int()).abs().max()) for k in want)
     n = window_sizes(inp).double()
     nz = n[n > 0]
-    lg = torch.log2(nz.clamp_min(2))
-    fl = float((12 * (nz * 42 + 110) + 10 * (nz * 17 + 2 * nz * lg)
-                + 24 * nz + nz * 158 + 5 * 50 * 8 * 20 + 5 * nz * 19).sum())
+    fl = init_flops(nz)
     by = float(nz.sum()) * 5 * 2 + nbytes(*a[:6], inp["vario"],
                                           *got.values())
     rows.append(("init_window", a, kw_init, err, 0.0, fl, by))
     rows += fused_rows(inp, mon, init, kw_mon, report)
+    rows += component_rows(inp, kw_mon)
+    rows.append(mega_row(staged, inp["W"], kw_mon, report))
 
     out = {}
-    for name, args, kw, err, rel, fl, by in rows:
+    for name, args, kw, err, rel, fl, by, *timing in rows:
+        tm = dict(reps=reps, plain_reps=max(reps // 4, 3), plain_warm=1)
+        tm.update(*timing)
         ms = cuda_ms(lambda: getattr(cuda_ops.KERNELS, name)(*args, **kw),
-                     reps)
+                     tm["reps"])
         plain_ms = cuda_ms(lambda: getattr(cuda_ops.PLAIN, name)(*args, **kw),
-                           max(reps // 4, 3))
+                           tm["plain_reps"], tm["plain_warm"])
         b_ms, b_by = bound(by, fl)
         out[name] = dict(name=name, route="cuda",
                          source=f"firebird_tpu_torch/csrc/{name}.cu",
@@ -254,6 +280,23 @@ def kernel_phase(inp, reps):
               f"{b_ms:.4f} ms by {b_by}), max abs err {err}, max rel err "
               f"{rel}", flush=True)
     return out, report
+
+
+def tmask_flops(nz):
+    """Float operations of the Tmask screen over windows of ``nz`` members:
+    12 weighted 5x5 solves (Gram, correlations, Cholesky), 10 residual
+    passes with their medians (insertion sorts) and the final flags."""
+    lg = torch.log2(nz.clamp_min(2))
+    return float((12 * (nz * 42 + 110) + 10 * (nz * 17 + 2 * nz * lg)
+                  + 24 * nz).sum())
+
+
+def init_flops(nz):
+    """Float operations of the INIT body over windows of ``nz`` members:
+    the Tmask screen, then the stability fit (Gram, 50 CD sweeps of the 5
+    detection bands, the window's residuals)."""
+    return tmask_flops(nz) + float((nz * 158 + 5 * 50 * 8 * 20
+                                    + 5 * nz * 19).sum())
 
 
 def fit_flops(w, do_fit, B):
@@ -368,12 +411,135 @@ def fused_rows(inp, mon, init, kw_mon, report):
     return rows
 
 
+def component_rows(inp, kw_mon):
+    """The component route's kernels at full width: ``lasso_cd`` on the
+    Gram of the kernel phase's fit windows, ``monitor_chain`` on the score
+    plane of its monitor states, ``tmask_bad`` on the windows of its
+    initializing pixels."""
+    C, B, T, P = inp["Yt"].shape
+    rows = []
+
+    # ---- lasso_cd ----
+    G, c, _ = cuda_ops.gram_plain(inp["Yt"], inp["w"], inp["X"])
+    diag = torch.diagonal(G, dim1=-2, dim2=-1).clamp_min(1e-12).contiguous()
+    a = (G, c, diag, inp["coefmask"])
+    got = cuda_ops.lasso_cd(*a)
+    want = cuda_ops.lasso_cd_plain(*a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               msg=lambda m: f"lasso_cd: {m}")
+    err = float((got - want).abs().max())
+    rows.append(("lasso_cd", a, {}, err, err / float(want.abs().max()),
+                 C * P * B * 50 * 8 * 20, nbytes(*a, got)))
+
+    # ---- monitor_chain ----
+    s = cuda_ops.score_plain(inp["Yd"], inp["coefs_d"], inp["dden"],
+                             inp["X"])
+    a = (s, inp["alive"], inp["included"], inp["cur_k"], inp["n_last_fit"],
+         inp["in_mon"])
+    got = cuda_ops.monitor_chain(*a, **kw_mon)
+    want = cuda_ops.monitor_chain_plain(*a, **kw_mon)
+    torch.cuda.synchronize()
+    for k in want:
+        n_diff = int((got[k] != want[k]).sum())
+        check(n_diff == 0, f"monitor_chain {k}: {n_diff} differ")
+    # Integer counts and threshold compares only: no float arithmetic.
+    rows.append(("monitor_chain", a, kw_mon, 0.0, 0.0, 0.0,
+                 nbytes(*a, *got.values())))
+
+    # ---- tmask_bad ----
+    win = cuda_ops.init_window_gather(
+        inp["alive"], inp["cur_i"], inp["in_init"], inp["t"], inp["X"],
+        inp["Xt"], inp["Yt"], W=inp["W"])
+    a = cuda_ops.tmask_args(win, inp["vario"])
+    got = cuda_ops.tmask_bad(*a)
+    want = cuda_ops.tmask_bad_plain(*a)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    check(n_diff == 0, f"tmask_bad: {n_diff} flags differ")
+    n = win["n_win"].double()
+    rows.append(("tmask_bad", a, {}, 0.0, 0.0, tmask_flops(n[n > 0]),
+                 nbytes(*a, got)))
+    return rows
+
+
+def mega_row(staged, W, kw_mon, report):
+    """``detect_mega`` at full width: one launch on the prologue state of
+    the main path's batch, against its plain lockstep loop (one run: it
+    takes seconds).  The kernel sums its fits' Grams in another order than
+    the plain einsum, so the two are held to decision agreement >= 0.999
+    (printed) and, on the pixels that agree, the float fields to the fit
+    envelope.  The operations bound sums the INIT, monitor and fit work of
+    the plain run's rounds; the bytes bound counts the spectra and state
+    once and the result buffers at the slots written."""
+    days, n_obs, spectra, qa = staged
+    X, Xt, t, valid = kernel.device_designs(days, n_obs)
+    Yt = spectra.transpose(2, 3).contiguous()
+    qa_t = qa.transpose(1, 2).contiguous().to(torch.int32)
+    S = kernel.MAX_SEGMENTS
+    res, st = kernel._prologue(X, Xt, t, valid, Yt, qa_t, sensor=LANDSAT_ARD,
+                               S=S, variogram_mode=params.VARIOGRAM_DEFAULT,
+                               ops=cuda_ops.KERNELS)
+    C, B, T, P = Yt.shape
+    clone = lambda: tuple(b.clone() for b in st["bufs"])
+    a = (Yt, st["phase"], st["cur_i"], st["alive"], st["nseg"])
+    tail = (t, X, Xt, res["vario"])
+    kw = dict(W=W, sensor=LANDSAT_ARD, **kw_mon)
+    got = cuda_ops.detect_mega(*a, clone(), *tail, **kw)
+    work = dict(init=0.0, monitor=0.0, fit=0.0)
+
+    def count(s, init, ev):
+        in_init = s["phase"] == cuda_ops.PHASE_INIT
+        n = window_sizes(dict(alive=s["alive"], t=t, cur_i=s["cur_i"],
+                              in_init=in_init)).double()
+        work["init"] += init_flops(n[n > 0])
+        in_mon = s["phase"] == cuda_ops.PHASE_MONITOR
+        work["monitor"] += float((s["alive"] & in_mon[:, None, :]).sum()) * 5 * 19
+        w = torch.where(init["init_ok"][:, None, :], init["w_stab"],
+                        ev["included_mon"] & ev["is_refit"][:, None, :])
+        work["fit"] += fit_flops(w.float(), ev["do_fit"], B)
+
+    want = cuda_ops.detect_mega_plain(*a, clone(), *tail, **kw,
+                                      on_round=count)
+    torch.cuda.synchronize()
+    view = lambda o: types.SimpleNamespace(
+        n_segments=o["nseg"], seg_meta=o["meta"], procedure=res["procedure"],
+        mask=o["alive"].transpose(1, 2))
+    same = agreeing(view(got), view(want))
+    agree, n_dis = float(same.float().mean()), int((~same).sum())
+    print(f"detect_mega vs its plain loop: decision agreement {agree} "
+          f"({n_dis} pixels differ), rounds {got['rounds'].tolist()} / "
+          f"{want['rounds'].tolist()}", flush=True)
+    check(agree >= 0.999, f"detect_mega decision agreement {agree} < 0.999")
+    err = rel = 0.0
+    for k in ("rmse", "mag", "coef"):
+        g, w = got[k][same], want[k][same]
+        tol = (dict(rtol=5e-3, atol=1e-2) if k == "mag"
+               else dict(rtol=1e-2, atol=1e-2))
+        torch.testing.assert_close(g, w, **tol,
+                                   msg=lambda m: f"detect_mega {k}: {m}")
+        e = float((g - w).abs().max())
+        err, rel = max(err, e), max(rel, e / float(w.abs().max()))
+    report["detect_mega"] = dict(
+        decision_agreement=agree, pixels_disagreeing=n_dis,
+        rounds=got["rounds"].tolist(), rounds_plain=want["rounds"].tolist(),
+        counts=got["counts"].tolist(), counts_plain=want["counts"].tolist(),
+        flops=work)
+    row_bytes = (6 + 2 * B + B * 8) * 4
+    n_rows = float((got["nseg"].clamp_max(S) - st["nseg"].clamp_max(S)).sum())
+    by = (nbytes(*a, *tail, got["nseg"], got["rounds"]) + C * T * P
+          + n_rows * row_bytes + C * 3 * (2 * T + 8) * 4)
+    return ("detect_mega", a + (clone(),) + tail, kw, err, rel,
+            sum(work.values()), by,
+            dict(reps=3, plain_reps=1, plain_warm=0))
+
+
 # ---------------------------------------------------------------------------
 # Main paths
 # ---------------------------------------------------------------------------
 
-def decision_agreement(a, b):
-    """Per-pixel agreement of the decision fields of two batched results:
+def agreeing(a, b):
+    """The pixels [C,P] whose decision fields agree in two batched results:
     segment count, procedure, processing mask, and every meta column of
     the closed segments."""
     S = min(a.seg_meta.shape[2], b.seg_meta.shape[2])
@@ -381,8 +547,14 @@ def decision_agreement(a, b):
     slot = torch.arange(S, device=n.device) < n[..., None].clamp_max(S)
     meta_eq = ((a.seg_meta[:, :, :S] == b.seg_meta[:, :, :S]).all(-1)
                | ~slot).all(-1)
-    agree = ((a.n_segments == b.n_segments) & (a.procedure == b.procedure)
-             & (a.mask == b.mask).all(-1) & meta_eq)
+    return ((a.n_segments == b.n_segments) & (a.procedure == b.procedure)
+            & (a.mask == b.mask).all(-1) & meta_eq)
+
+
+def decision_agreement(a, b):
+    """The fraction of pixels whose decision fields agree (:func:`agreeing`)
+    and the count of those that do not."""
+    agree = agreeing(a, b)
     return float(agree.float().mean()), int((~agree).sum())
 
 
@@ -408,15 +580,16 @@ def make_batch(seed, n_chips, dev):
     return packed, staged, gen_s
 
 
-def route_path(packed, staged, smi, fused):
-    """One round route's main path: ``detect_packed`` on the card with the
-    launch counters read around it, then the same route through the plain
+def route_path(packed, staged, smi, name):
+    """One route's main path: ``detect_packed`` on the card with the launch
+    counters read around it, then the same route through the plain
     versions on the card."""
     C, B, P, T = packed.spectra.shape
+    kw, expect = ROUTES[name]
     torch.cuda.reset_peak_memory_stats()
     cuda_ops.reset_launches()
     t0 = time.perf_counter()
-    seg = kernel.detect_packed(packed, staged=staged, fused=fused)
+    seg = kernel.detect_packed(packed, staged=staged, **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(cuda_ops.LAUNCHES)
@@ -424,44 +597,49 @@ def route_path(packed, staged, smi, fused):
     # Again, with the allocator's cache warm from the first run (the first
     # route pays the cold start after the kernel phase).
     t0 = time.perf_counter()
-    kernel.detect_packed(packed, staged=staged, fused=fused)
+    kernel.detect_packed(packed, staged=staged, **kw)
     torch.cuda.synchronize()
     warm_secs = time.perf_counter() - t0
     launched = {k for k, n in launches.items() if n > 0}
-    check(launched == ROUTES[fused],
-          f"route {fused!r} launched {sorted(launched)}, expected "
-          f"{sorted(ROUTES[fused])}")
+    check(launched == expect,
+          f"route {name!r} launched {sorted(launched)}, expected "
+          f"{sorted(expect)}")
+    if name == "mega":
+        # One prologue lasso_fit and one detect_mega a dispatch.
+        check(launches["detect_mega"] == launches["lasso_fit"],
+              f"mega route: {launches['detect_mega']} detect_mega launches "
+              f"for {launches['lasso_fit']} dispatches")
     check_result(seg, C, P, T)
 
     t0 = time.perf_counter()
     ref = kernel.detect_packed(packed, staged=staged, ops=cuda_ops.PLAIN,
-                               fused=fused)
+                               **kw)
     torch.cuda.synchronize()
     plain_secs = time.perf_counter() - t0
     agree, n_dis = decision_agreement(seg, ref)
-    print(f"main path, route {fused!r}: {C} chips x {P} px, T={T}: "
+    print(f"main path, route {name!r}: {C} chips x {P} px, T={T}: "
           f"{secs:.3f} s, {C * P / secs:.1f} px/s on {smi} (again: "
-          f"{warm_secs:.3f} s), rounds "
-          f"{int(seg.rounds[0])}, launches {launches}, peak "
-          f"{peak / 2**30:.2f} GiB; plain route {plain_secs:.3f} s; decision "
-          f"agreement {agree} ({n_dis} pixels differ)", flush=True)
-    check(agree >= 0.999, f"route {fused!r}: decision agreement {agree} "
+          f"{warm_secs:.3f} s), rounds {seg.rounds.tolist()}, launches "
+          f"{launches}, peak {peak / 2**30:.2f} GiB; plain route "
+          f"{plain_secs:.3f} s; decision agreement {agree} ({n_dis} pixels "
+          f"differ)", flush=True)
+    check(agree >= 0.999, f"route {name!r}: decision agreement {agree} "
           f"< 0.999")
-    return seg, dict(route=str(fused), chips=C, pixels=C * P, T=T,
+    return seg, dict(route=name, chips=C, pixels=C * P, T=T,
                      seconds=secs, pixels_per_s=C * P / secs,
                      seconds_again=warm_secs,
-                     rounds=int(seg.rounds[0]),
-                     round_counts=seg.round_counts[0].tolist(),
+                     rounds=seg.rounds.tolist(),
+                     round_counts=seg.round_counts.tolist(),
                      segments=int(seg.n_segments.sum()), launches=launches,
                      peak_bytes=peak, plain_seconds=plain_secs,
                      decision_agreement=agree, pixels_disagreeing=n_dis)
 
 
-def compare_routes(seg, base, fused):
-    """A fused route against route 0 on the card: route 1 equal in every
-    field; route "mon" in every field but seg_mag, which the in-kernel
-    median holds to rtol 5e-3, atol 1e-2.  Returns the fields that differ
-    and the count of pixels that differ in any per-pixel field."""
+def compare_routes(seg, base, label, allowed):
+    """A route against another on the card: every field equal but those
+    in ``allowed``; seg_mag, where allowed to differ, within rtol 5e-3,
+    atol 1e-2 (the in-kernel median).  Returns the fields that differ and
+    the count of pixels that differ in any per-pixel field."""
     C, P = base.n_segments.shape
     differ = torch.zeros(C, P, dtype=torch.bool, device=base.n_segments.device)
     fields = []
@@ -472,15 +650,18 @@ def compare_routes(seg, base, fused):
             if a.shape[:2] == (C, P):
                 differ |= (a != b).reshape(C, P, -1).any(-1)
     n_px = int(differ.sum())
-    print(f"route {fused!r} vs route 0: fields differing {fields}, "
-          f"{n_px} pixels differ", flush=True)
-    allowed = [] if fused == 1 else ["seg_mag"]
-    check(set(fields) <= set(allowed),
-          f"route {fused!r} differs from route 0 in {fields}")
+    print(f"{label}: fields differing {fields}, {n_px} pixels differ",
+          flush=True)
+    check(set(fields) <= set(allowed), f"{label}: differs in {fields}")
+    out = dict(fields_differing=fields, pixels_differing=n_px)
     if "seg_mag" in fields:
+        mag_px = (seg.seg_mag != base.seg_mag).reshape(C, P, -1).any(-1)
+        out["seg_mag_pixels"] = torch.nonzero(mag_px)[:20].tolist()
+        print(f"{label}: seg_mag differs on {int(mag_px.sum())} pixels, "
+              f"first (chip, pixel): {out['seg_mag_pixels']}", flush=True)
         torch.testing.assert_close(seg.seg_mag, base.seg_mag, rtol=5e-3,
                                    atol=1e-2)
-    return dict(fields_differing=fields, pixels_differing=n_px)
+    return out
 
 
 def egress(seg, packed):
@@ -548,21 +729,36 @@ def main(argv=None):
     print(f"batch: {packed.spectra.shape} int16 made in {gen_s:.1f} s",
           flush=True)
     inp = kernel_inputs(args.seed, staged, kernel.window_cap(packed))
-    kernels, kreport = kernel_phase(inp, args.reps)
+    kernels, kreport = kernel_phase(inp, staged, args.reps)
     del inp
     torch.cuda.empty_cache()
     paths, segs = {}, {}
-    for fused in ROUTES:
-        segs[fused], paths[str(fused)] = route_path(packed, staged, smi, fused)
-    paths["0"].update(egress(segs[0], packed),
+    for name in ROUTES:
+        segs[name], paths[name] = route_path(packed, staged, smi, name)
+    paths["0"].update(egress(segs["0"], packed),
                       chip_generation_seconds=gen_s)
-    for fused in (1, "mon"):
-        paths[str(fused)]["vs_route_0"] = compare_routes(segs[fused], segs[0],
-                                                         fused)
+    for name, base, allowed in (
+            ("1", "0", ()), ("mon", "0", ("seg_mag",)),
+            ("mega", "mon", ("rounds", "round_counts", "seg_mag"))):
+        paths[name][f"vs_route_{base}"] = compare_routes(
+            segs[name], segs[base], f"route {name!r} vs route {base!r}",
+            allowed)
+    # The mega route counts rounds per chip: its deepest chip ran as many
+    # rounds as the lockstep loop.
+    check(int(segs["mega"].rounds.max()) == int(segs["0"].rounds[0]),
+          f"mega rounds {segs['mega'].rounds.tolist()} against route 0's "
+          f"{int(segs['0'].rounds[0])}")
+    agree, n_dis = decision_agreement(segs[COMPONENTS], segs["0"])
+    print(f"route {COMPONENTS!r} vs route '0': decision agreement {agree} "
+          f"({n_dis} pixels differ)", flush=True)
+    check(agree >= 0.999, f"component route vs route 0: decision agreement "
+          f"{agree} < 0.999")
+    paths[COMPONENTS]["vs_route_0"] = dict(decision_agreement=agree,
+                                          pixels_disagreeing=n_dis)
     del segs
     small = small_input(args.seed, dev)
     for name, row in kernels.items():
-        row["launches"] = paths[str(HOME_ROUTE[name])]["launches"][name]
+        row["launches"] = paths[HOME_ROUTE[name]]["launches"][name]
 
     ptxas = {n: (cuda_ops.BUILD_DIR / f"{n}.ptxas.txt").read_text()
              for n in cuda_ops.SOURCES

@@ -2,12 +2,15 @@
 
     python -m firebird_tpu_torch detect --chips N --start 1985-01-01 \\
         --end 2017-12-31 [--seed S] [--sensor landsat-ard] [--device cuda] \\
-        [--fused {0,1,mon}]
+        [--fused {0,1,mon}] [--pallas ROUTE]
 
 ``detect`` runs SyntheticSource -> pack -> detect_packed -> batch_frames
 on the device (CUDA unless ``--device cpu``) and prints one JSON summary:
-chips, pixels, segments, rounds and seconds.  ``--fused`` picks the round
-route (kernel.fused_mode); without it FIREBIRD_FUSED_FIT decides.
+chips, pixels, segments, rounds (the most any chip ran) and seconds.
+``--pallas`` picks the kernels (kernel.pallas_components: "1", a component
+list such as ``lasso,monitor,tmask``, or ``mega``); without it
+FIREBIRD_PALLAS decides.  ``--fused`` picks the round route
+(kernel.fused_mode); without it FIREBIRD_FUSED_FIT decides.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ def detect(args) -> dict:
     t_pack = time.perf_counter()
     fused = None if args.fused is None else {"0": 0, "1": 1,
                                              "mon": "mon"}[args.fused]
-    seg = kernel.detect_packed(packed, device=dev, fused=fused)
+    seg = kernel.detect_packed(packed, device=dev, fused=fused,
+                               pallas=args.pallas)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_det = time.perf_counter()
@@ -43,9 +47,10 @@ def detect(args) -> dict:
         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu"),
         route=kernel.fused_mode(fused),
+        pallas=list(kernel.pallas_components(args.pallas).components),
         chips=args.chips, pixels=int(seg.n_segments.numel()),
         T=int(packed.spectra.shape[-1]),
-        segments=int(seg.n_segments.sum()), rounds=int(seg.rounds[0]),
+        segments=int(seg.n_segments.sum()), rounds=int(seg.rounds.max()),
         segment_rows=sum(len(f["segment"]["sday"]) for _, f in frames),
         seconds=dict(source_pack=t_pack - t0, detect=t_det - t_pack,
                      frames=t_end - t_det, total=t_end - t0))
@@ -67,6 +72,10 @@ def main(argv=None) -> None:
                    help="round route: 0 separate monitor/close/refit, 1 "
                         "fused close+refit, mon the whole round fused "
                         "(default: FIREBIRD_FUSED_FIT, unset = 0)")
+    d.add_argument("--pallas", default=None,
+                   help="kernels: 1 (fit,score,init), a component list "
+                        "(lasso,monitor,tmask), or mega, the whole loop in "
+                        "one launch (default: FIREBIRD_PALLAS, unset = 1)")
     args = ap.parse_args(argv)
     print(json.dumps(detect(args)))
 

@@ -1,20 +1,29 @@
 """The detector's CUDA kernels, their wrappers and plain versions.
 
 The counterpart of ``firebird_tpu/ccd/pallas_ops.py`` for the routes this
-package runs (the JAX package's ``FIREBIRD_PALLAS=fit,score,init``, with
-``FIREBIRD_FUSED_FIT`` off, ``1`` or ``mon``):
+package runs (the JAX package's ``FIREBIRD_PALLAS`` routes
+``fit,score,init``, ``lasso,monitor,tmask`` and ``mega``, with
+``FIREBIRD_FUSED_FIT`` off, ``1`` or ``mon``; kernel.pallas_components):
 
 - :func:`lasso_fit` — Gram + correlation + coordinate-descent Lasso +
   RMSE per pixel (``csrc/lasso_fit.cu``; Pallas ``lasso_fit``).
+- :func:`lasso_cd` — the coordinate-descent loop alone on a precomputed
+  Gram (``csrc/lasso_cd.cu``; Pallas ``lasso_cd``).
 - :func:`monitor_chain_scored` — the MONITOR round's score and event
   chain (``csrc/monitor_chain_scored.cu``; Pallas
   ``monitor_chain_scored``).
+- :func:`monitor_chain` — the event chain alone on a precomputed score
+  plane (``csrc/monitor_chain.cu``; Pallas ``monitor_chain``).
 - :func:`init_window` — the INIT round: window search, Tmask IRLS screen
   and stability fit (``csrc/init_window.cu``; Pallas ``init_window``).
+- :func:`tmask_bad` — the Tmask IRLS screen alone on gathered windows
+  (``csrc/tmask_bad.cu``; Pallas ``tmask_bad``).
 - :func:`fused_fit_close` — a round's segment close and shared refit in
   one launch (``csrc/fused_fit_close.cu``; Pallas ``fused_fit_close``).
 - :func:`fused_round` — the whole post-INIT round, monitor + close +
   refit, in one launch (``csrc/fused_round.cu``; Pallas ``fused_round``).
+- :func:`detect_mega` — every pixel's whole event loop in one launch
+  (``csrc/detect_mega.cu``; Pallas ``detect_mega``).
 
 Each wrapper checks its tensors' device, dtype, shape and contiguity, then
 runs its plain PyTorch version (``*_plain``, same contract) when they lie
@@ -47,7 +56,9 @@ from firebird_tpu_torch.ccd import params
 from firebird_tpu_torch.ccd.primitives import (coefmask_for, dot_cols, fdiv,
                                                first_at_or_after, last_true,
                                                masked_median, take_plane,
-                                               take_t, tmask_bad)
+                                               take_t)
+# The plain version of :func:`tmask_bad`.
+from firebird_tpu_torch.ccd.primitives import tmask_bad as tmask_bad_plain
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD
 
 K = params.MAX_COEFS
@@ -56,13 +67,17 @@ NT = params.TMASK_COEFS
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "firebird_tpu_torch"
 SOURCES = ("lasso_fit", "monitor_chain_scored", "init_window",
-           "fused_fit_close", "fused_round")
+           "fused_fit_close", "fused_round", "lasso_cd", "monitor_chain",
+           "tmask_bad", "detect_mega")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# The largest init window the init_window kernel is instantiated for (its
-# register/local arrays are sized by it); window_cap of a 16-day Landsat
-# archive is ~32.
+# The window sizes the init_window, tmask_bad and detect_mega kernels are
+# instantiated for (their register/local arrays are sized by it);
+# window_cap of a 16-day Landsat archive is ~32.
 W_MAX_CHOICES = (32, 64, 128)
+# The event loop's phase codes (kernel._detect_batch's state, the
+# detect_mega kernel's arguments).
+PHASE_INIT, PHASE_MONITOR, PHASE_DONE = 0, 1, 2
 
 LAUNCHES = {name: 0 for name in SOURCES}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -76,6 +91,10 @@ _ARGTYPES = {
     "fb_init_window": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
     "fb_fused_fit_close": [_P] * 23 + [_I] * 5 + [_P],
     "fb_fused_round": [_P] * 26 + [_I] * 5 + [_F, _F, _P],
+    "fb_lasso_cd": [_P] * 5 + [_I] * 2 + [_P],
+    "fb_monitor_chain": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
+    "fb_tmask_bad": [_P] * 5 + [_I] * 3 + [_P],
+    "fb_detect_mega": [_P] * 20 + [_I] * 11 + [_F, _F, _P],
 }
 
 
@@ -160,28 +179,43 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _w_instance(W: int, name: str) -> int:
+    """The smallest W_MAX_CHOICES instance of kernel ``name`` that holds a
+    window of ``W`` members; raises past the largest (there is no other
+    route to fall back to)."""
+    w_max = next((m for m in W_MAX_CHOICES if m >= W), None)
+    if w_max is None:
+        raise ValueError(f"window cap {W} exceeds the largest {name} "
+                         f"instance ({W_MAX_CHOICES[-1]})")
+    return w_max
+
+
 # ---------------------------------------------------------------------------
 # lasso_fit
 # ---------------------------------------------------------------------------
 
-def lasso_fit_plain(Yt, w, X, coefmask, with_rmse=True):
-    """Plain version of :func:`lasso_fit` — kernel._fit_lasso's math.
-
-    Gram ``sum_t w X X^T`` and correlations ``sum_t w y X`` over the time
-    axis, both divided by the window count; LASSO_ITERS cyclic
-    coordinate-descent sweeps (soft threshold LASSO_ALPHA, intercept
-    unpenalized, coordinates outside ``coefmask`` held at zero); then the
-    RMSE over the window."""
+def gram_plain(Yt, w, X):
+    """The weighted Gram ``sum_t w X X^T`` [C,P,8,8] and correlations
+    ``sum_t w y X`` [C,P,B,8] over the time axis, both divided by the
+    window count n = max(sum_t w, 1) [C,P] — kernel._fit_lasso_coefs'
+    Gram.  Returns (G, c, n)."""
     C, B, T, P = Yt.shape
     n = w.sum(1).clamp_min(1.0)                                 # [C,P]
     XX = (X[:, :, :, None] * X[:, :, None, :]).reshape(C, T, K * K)
     G = torch.einsum("ctp,ctk->cpk", w, XX) / n[..., None]      # [C,P,64]
     c = torch.stack([torch.einsum("ctp,ctk->cpk", Yt[:, b].float() * w, X)
                      for b in range(B)], 2) / n[:, :, None, None]  # [C,P,B,K]
-    tiny = torch.tensor(1e-12, dtype=G.dtype, device=G.device)
-    diag = [torch.maximum(G[..., j * K + j], tiny)[..., None] for j in range(K)]
+    return G.reshape(C, P, K, K).contiguous(), c.contiguous(), n
+
+
+def lasso_cd_plain(G, c, diag, coefmask):
+    """Plain version of :func:`lasso_cd` — kernel._lasso_cd_lax: LASSO_ITERS
+    cyclic coordinate-descent sweeps (soft threshold LASSO_ALPHA, intercept
+    unpenalized, coordinates outside ``coefmask`` held at zero), each
+    coordinate's dot over the Gram row summed column by column."""
+    diag = [diag[..., j][..., None] for j in range(K)]
     mask = [coefmask[..., j][..., None] for j in range(K)]
-    Gjk = [[G[..., j * K + k][..., None] for k in range(K)] for j in range(K)]
+    Gjk = [[G[..., j, k][..., None] for k in range(K)] for j in range(K)]
     cj = [c[..., j] for j in range(K)]
     zero = torch.zeros_like(cj[0])
     b = [zero] * K                                              # K x [C,P,B]
@@ -197,15 +231,40 @@ def lasso_fit_plain(Yt, w, X, coefmask, with_rmse=True):
                 bj = torch.sign(rho) * (rho.abs() - params.LASSO_ALPHA
                                         ).clamp_min(0.0) / diag[j]
             b[j] = torch.where(mask[j], bj, zero)
-    beta = torch.stack(b, -1)                                   # [C,P,B,K]
-    if not with_rmse:
-        return beta, torch.zeros(C, P, B, dtype=w.dtype, device=w.device)
+    return torch.stack(b, -1)                                   # [C,P,B,K]
+
+
+def rmse_plain(Yt, w, X, beta, n):
+    """The windowed RMSE [C,P,B] of the model ``beta`` [C,P,B,8] over the
+    weights ``w`` [C,T,P] with window count ``n`` [C,P], each prediction
+    summed column by column."""
     rmse = []
-    for bb in range(B):
+    for bb in range(Yt.shape[1]):
         pred = dot_cols(beta[:, None, :, bb, :], X[:, :, None, :])  # [C,T,P]
         r = Yt[:, bb].float() - pred
         rmse.append(torch.sqrt(((r * r * w).sum(1) / n).clamp_min(0.0)))
-    return beta, torch.stack(rmse, -1)
+    return torch.stack(rmse, -1)
+
+
+def lasso_fit_plain(Yt, w, X, coefmask, with_rmse=True, *, cd=None):
+    """Plain version of :func:`lasso_fit` — kernel._fit_lasso's math:
+    :func:`gram_plain`, the CD loop ``cd`` on the Gram with its diagonal
+    floored at 1e-12 (:func:`lasso_cd_plain` unless given), then
+    :func:`rmse_plain`.
+
+    ``cd`` is how the ``lasso`` component route fits: kernel.pallas_components
+    passes the :func:`lasso_cd` kernel, and the Gram and the RMSE around
+    it are PyTorch ops on the card, as XLA computes them around the Pallas
+    CD kernel in the JAX package (kernel._fit_lasso_coefs)."""
+    cd = lasso_cd_plain if cd is None else cd
+    C, B, T, P = Yt.shape
+    G, c, n = gram_plain(Yt, w, X)
+    tiny = torch.tensor(1e-12, dtype=G.dtype, device=G.device)
+    diag = torch.maximum(torch.diagonal(G, dim1=-2, dim2=-1), tiny)
+    beta = cd(G, c, diag.contiguous(), coefmask)
+    if not with_rmse:
+        return beta, torch.zeros(C, P, B, dtype=w.dtype, device=w.device)
+    return beta, rmse_plain(Yt, w, X, beta, n)
 
 
 def lasso_fit(Yt, w, X, coefmask, with_rmse=True):
@@ -235,6 +294,35 @@ def lasso_fit(Yt, w, X, coefmask, with_rmse=True):
     _launch("lasso_fit", _ptr(Yt), _ptr(w), _ptr(X), _ptr(coefmask),
             _ptr(coefs), _ptr(rmse), C, B, T, P, int(bool(with_rmse)))
     return coefs, rmse
+
+
+def lasso_cd(G, c, diag, coefmask):
+    """The Lasso coordinate-descent loop on precomputed Gram systems, per
+    pixel: LASSO_ITERS cyclic sweeps, soft threshold LASSO_ALPHA, intercept
+    unpenalized, coordinates outside ``coefmask`` held at zero.
+
+    Args:
+        G: [C,P,8,8] float32 normalised Grams.
+        c: [C,P,B,8] float32 normalised correlations per band.
+        diag: [C,P,8] float32 Gram diagonals, floored.
+        coefmask: [C,P,8] bool allowed coefficients.
+    Returns:
+        beta [C,P,B,8] float32.
+    """
+    C, P, B = c.shape[:3]
+    dev = c.device
+    _check(G, "G", torch.float32, (C, P, K, K), dev)
+    _check(c, "c", torch.float32, (C, P, B, K), dev)
+    _check(diag, "diag", torch.float32, (C, P, K), dev)
+    _check(coefmask, "coefmask", torch.bool, (C, P, K), dev)
+    if dev.type == "cpu":
+        return lasso_cd_plain(G, c, diag, coefmask)
+    if B != 7:
+        raise ValueError(f"lasso_cd is built for 7 bands, got {B}")
+    beta = torch.empty(C, P, B, K, dtype=torch.float32, device=dev)
+    _launch("lasso_cd", _ptr(G), _ptr(c), _ptr(diag), _ptr(coefmask),
+            _ptr(beta), C * P, B)
+    return beta
 
 
 # ---------------------------------------------------------------------------
@@ -314,18 +402,66 @@ def monitor_chain_plain(s, alive, included, cur_k, n_last_fit, in_mon, *,
 
 def monitor_chain_scored_plain(Yd, coefs_d, dden, X, alive, included, cur_k,
                                n_last_fit, in_mon, *, change_thr,
-                               outlier_thr):
-    """Plain version of :func:`monitor_chain_scored`: the score plane,
-    then :func:`monitor_chain_plain`."""
+                               outlier_thr, chain=None):
+    """Plain version of :func:`monitor_chain_scored`: the score plane
+    (:func:`score_plain`), then the event chain ``chain``
+    (:func:`monitor_chain_plain` unless given).
+
+    ``chain`` is how the ``monitor`` component route scores:
+    kernel.pallas_components passes the :func:`monitor_chain` kernel, and
+    the score plane is PyTorch ops on the card, as XLA computes it before
+    the Pallas chain kernel in the JAX package (kernel._mon_block)."""
+    chain = monitor_chain_plain if chain is None else chain
     s = score_plain(Yd, coefs_d, dden, X)
-    return monitor_chain_plain(s, alive, included, cur_k, n_last_fit, in_mon,
-                               change_thr=change_thr,
-                               outlier_thr=outlier_thr)
+    return chain(s, alive, included, cur_k, n_last_fit, in_mon,
+                 change_thr=change_thr, outlier_thr=outlier_thr)
 
 
 _MON_KEYS = ("m", "is_tail", "is_brk", "is_refit", "ev_rank", "pos_ev",
              "n_exceed", "n_rf")
 _MON_BOOL = ("is_tail", "is_brk", "is_refit")
+
+
+def _mon_outputs(out, inc_q, rem_q):
+    d = {k: (out[i] != 0 if k in _MON_BOOL else out[i])
+         for i, k in enumerate(_MON_KEYS)}
+    return dict(d, inc_q=inc_q, rem_q=rem_q)
+
+
+def monitor_chain(s, alive, included, cur_k, n_last_fit, in_mon, *,
+                  change_thr, outlier_thr):
+    """The MONITOR event logic on a precomputed score plane: locate each
+    pixel's first event (break / refit / tail) and partition the
+    observations before it.
+
+    Args:
+        s: [C,T,P] float32 score plane.
+        alive, included: [C,T,P] bool.
+        cur_k, n_last_fit: [C,P] int32; in_mon: [C,P] bool.
+    Returns:
+        :func:`monitor_chain_scored`'s dict.  The alive ranks are counted
+        inside (the Pallas kernel takes them as an input plane).
+    """
+    C, T, P = s.shape
+    dev = s.device
+    _check(s, "s", torch.float32, (C, T, P), dev)
+    for nm, v in (("alive", alive), ("included", included)):
+        _check(v, nm, torch.bool, (C, T, P), dev)
+    for nm, v in (("cur_k", cur_k), ("n_last_fit", n_last_fit)):
+        _check(v, nm, torch.int32, (C, P), dev)
+    _check(in_mon, "in_mon", torch.bool, (C, P), dev)
+    if dev.type == "cpu":
+        return monitor_chain_plain(s, alive, included, cur_k, n_last_fit,
+                                   in_mon, change_thr=change_thr,
+                                   outlier_thr=outlier_thr)
+    out = torch.empty(len(_MON_KEYS), C, P, dtype=torch.int32, device=dev)
+    inc_q = torch.empty(C, T, P, dtype=torch.bool, device=dev)
+    rem_q = torch.empty(C, T, P, dtype=torch.bool, device=dev)
+    _launch("monitor_chain", _ptr(s), _ptr(alive), _ptr(included),
+            _ptr(cur_k), _ptr(n_last_fit), _ptr(in_mon), _ptr(out),
+            _ptr(inc_q), _ptr(rem_q), C, T, P, float(change_thr),
+            float(outlier_thr))
+    return _mon_outputs(out, inc_q, rem_q)
 
 
 def monitor_chain_scored(Yd, coefs_d, dden, X, alive, included, cur_k,
@@ -370,9 +506,7 @@ def monitor_chain_scored(Yd, coefs_d, dden, X, alive, included, cur_k,
             _ptr(X), _ptr(alive), _ptr(included), _ptr(cur_k),
             _ptr(n_last_fit), _ptr(in_mon), _ptr(out), _ptr(inc_q),
             _ptr(rem_q), C, nb, T, P, float(change_thr), float(outlier_thr))
-    d = {k: (out[i] != 0 if k in _MON_BOOL else out[i])
-         for i, k in enumerate(_MON_KEYS)}
-    return dict(d, inc_q=inc_q, rem_q=rem_q)
+    return _mon_outputs(out, inc_q, rem_q)
 
 
 # ---------------------------------------------------------------------------
@@ -393,16 +527,15 @@ def window_members(alive, i, W):
     return pos.clamp_max(alive.shape[1] - 1), exists, a_before
 
 
-def init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
-                      sensor=LANDSAT_ARD, fit=lasso_fit_plain):
-    """Plain version of :func:`init_window` — the XLA body of
-    kernel._init_block.
-
-    The window members are gathered by position (each slot holds exactly
-    one observation, as the JAX one-hot selection does); ``fit`` runs the
-    4-coefficient stability fit."""
-    det = list(sensor.detection_bands)
-    tmb = list(sensor.tmask_bands)
+def init_window_gather(alive, cur_i, in_init, t, X, Xt, Yt, *, W):
+    """The INIT block's window, gathered by position — the first half of
+    kernel._init_block: the first alive observation ``i`` at or after the
+    cursor, the window end ``j`` (MEOW_SIZE alive observations spanning
+    INIT_DAYS), the window plane ``w_init`` [C,T,P] of the initializing
+    pixels, and the members' values ``Yw`` [C,P,B,W] and design rows
+    ``Xw8`` [C,P,W,8], ``Xt_w`` [C,P,W,5] with their validity ``valid_w``
+    [C,P,W] (each slot holds exactly one observation, as the JAX one-hot
+    selection does)."""
     C, T, P = alive.shape
     dev = alive.device
     ar = torch.arange(T, device=dev)[None, :, None]
@@ -427,10 +560,44 @@ def init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
     Yw = torch.where(exists[:, :, None, :], Yw, torch.zeros_like(Yw))
     Xw = torch.cat([X, Xt], -1)[ci, pos]                        # [C,P,W,13]
     Xw = torch.where(exists[..., None], Xw, torch.zeros_like(Xw))
-    Xw8, Xt_w = Xw[..., :K], Xw[..., K:]
+    return dict(i=i, t_i=t_i, j=j, has_w=has_w, w_init=w_init, n_win=n_win,
+                valid_w=valid_w, pos=pos, Yw=Yw, Xw8=Xw[..., :K],
+                Xt_w=Xw[..., K:])
 
-    bad_w = tmask_bad(Xt_w, Yw[:, :, tmb], valid_w.float(),
-                      vario[:, :, tmb])                         # [C,P,W]
+
+def tmask_args(win, vario, sensor=LANDSAT_ARD):
+    """The Tmask screen's inputs from a gathered window
+    (:func:`init_window_gather`): (Xtw [C,P,W,5], Y2 [C,P,2,W], w [C,P,W],
+    vario2 [C,P,2]) — kernel._init_block's call of _tmask_bad."""
+    tmb = list(sensor.tmask_bands)
+    return (win["Xt_w"].contiguous(), win["Yw"][:, :, tmb],
+            win["valid_w"].float(), vario[:, :, tmb])
+
+
+def init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
+                      sensor=LANDSAT_ARD, fit=lasso_fit_plain, tmask=None):
+    """Plain version of :func:`init_window` — the XLA body of
+    kernel._init_block: :func:`init_window_gather`, the Tmask screen
+    ``tmask`` (:func:`tmask_bad_plain` unless given), the 4-coefficient
+    stability fit ``fit``, the stability test and the cursor advances.
+
+    ``fit`` and ``tmask`` are how the ``tmask`` component route
+    initializes: kernel.pallas_components passes the :func:`tmask_bad`
+    kernel and the route's fit, and the rest of the block is PyTorch ops on
+    the card, as it is XLA around the Pallas Tmask kernel in the JAX
+    package (kernel._init_block)."""
+    tmask = tmask_bad_plain if tmask is None else tmask
+    det = list(sensor.detection_bands)
+    C, T, P = alive.shape
+    dev = alive.device
+    win = init_window_gather(alive, cur_i, in_init, t, X, Xt, Yt, W=W)
+    i, t_i, j, has_w = win["i"], win["t_i"], win["j"], win["has_w"]
+    w_init, n_win, valid_w = win["w_init"], win["n_win"], win["valid_w"]
+    pos, Yw, Xw8 = win["pos"], win["Yw"], win["Xw8"]
+
+    bad_w = tmask(*tmask_args(win, vario, sensor))              # [C,P,W]
+    ci = torch.arange(C, device=dev)[:, None, None]
+    pi = torch.arange(P, device=dev)[None, :, None]
     bad = torch.zeros(C, T, P, dtype=torch.int32, device=dev)
     bad.index_put_((ci.expand_as(pos), pos, pi.expand_as(pos)),
                    bad_w.to(torch.int32), accumulate=True)
@@ -519,10 +686,7 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
         return init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario,
                                  W=W, sensor=sensor)
     _check_landsat_roles(sensor)
-    w_max = next((m for m in W_MAX_CHOICES if m >= W), None)
-    if w_max is None:
-        raise ValueError(f"window cap {W} exceeds the largest init_window "
-                         f"instance ({W_MAX_CHOICES[-1]})")
+    w_max = _w_instance(W, "init_window")
     out = torch.empty(len(_INIT_KEYS), C, P, dtype=torch.int32, device=dev)
     w_stab = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     alive_init = torch.empty(C, T, P, dtype=torch.bool, device=dev)
@@ -532,6 +696,43 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
     d = {k: (out[i] != 0 if k in _INIT_BOOL else out[i])
          for i, k in enumerate(_INIT_KEYS)}
     return dict(d, w_stab=w_stab, alive_init=alive_init)
+
+
+# ---------------------------------------------------------------------------
+# tmask_bad
+# ---------------------------------------------------------------------------
+
+def tmask_bad(Xtw, Y2, w, vario2):
+    """The Tmask IRLS screen on gathered windows (kernel._tmask_bad):
+    TMASK_IRLS_ITERS Huber reweightings of a 5x5 SPD solve per Tmask band,
+    MAD sigma, a flag where the final residual exceeds TMASK_CONST x the
+    band's variogram.  Slots with weight 0 are no members.
+
+    Args:
+        Xtw: [C,P,W,5] float32 no-trend design rows of the window members.
+        Y2: [C,P,2,W] float32 Tmask-band values.
+        w: [C,P,W] float32 0/1 slot validity.
+        vario2: [C,P,2] float32 the Tmask bands' variogram.
+    Returns:
+        [C,P,W] bool flags.
+    """
+    C, P, W = w.shape
+    dev = w.device
+    _check(Xtw, "Xtw", torch.float32, (C, P, W, NT), dev)
+    _check(Y2, "Y2", torch.float32, (C, P, 2, W), dev)
+    _check(w, "w", torch.float32, (C, P, W), dev)
+    _check(vario2, "vario2", torch.float32, (C, P, 2), dev)
+    if dev.type == "cpu":
+        return tmask_bad_plain(Xtw, Y2, w, vario2)
+    w_max = _w_instance(W, "tmask_bad")
+    # The kernel reads the window planes with the pixel axis fastest.
+    xt = Xtw.permute(3, 2, 0, 1).contiguous()                   # [5,W,C,P]
+    y2 = Y2.permute(2, 3, 0, 1).contiguous()                    # [2,W,C,P]
+    wp = w.permute(2, 0, 1).contiguous()                        # [W,C,P]
+    bad = torch.empty(W, C, P, dtype=torch.bool, device=dev)
+    _launch("tmask_bad", _ptr(xt), _ptr(y2), _ptr(wp), _ptr(vario2),
+            _ptr(bad), C * P, W, w_max)
+    return bad.permute(1, 2, 0).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -813,15 +1014,195 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
                                                alive_mon=alm)
 
 
-# The functions the detector's rounds call, as kernels (the wrappers above)
-# or as their plain versions; kernel.detect_packed takes either.
+# ---------------------------------------------------------------------------
+# The round's state advance (shared by the round loop and detect_mega's
+# plain version)
+# ---------------------------------------------------------------------------
+
+def init_zeros(st):
+    """The INIT block's outputs on a round where no pixel initializes
+    (every consumer masks on in_init-derived flags)."""
+    zb = torch.zeros_like(st["cur_i"], dtype=torch.bool)
+    zi = torch.zeros_like(st["cur_i"])
+    return dict(init_nowin=zb, init_tm=zb, init_ok=zb, init_bad=zb,
+                has_adv=zb, i_next_tm=zi, i_adv=zi, j=zi,
+                w_stab=torch.zeros_like(st["alive"]), n_ok=zi,
+                alive_init=st["alive"])
+
+
+def next_state(st, init, ev, coefs, rmse, nseg, bufs):
+    """The event loop's state after a round — kernel._detect_batch_impl's
+    loop body.  ``st`` is the round-start state, ``init`` the INIT block's
+    outputs, ``ev`` the round's events (is_tail, is_brk, is_refit, pos_ev,
+    do_fit, n_full [C,P]; included_mon, alive_mon [C,T,P]); ``coefs``,
+    ``rmse``, ``nseg`` and ``bufs`` the model and segments after the
+    round's close and refit."""
+    phase = st["phase"]
+    in_init = phase == PHASE_INIT
+    in_mon = phase == PHASE_MONITOR
+    init_ok = init["init_ok"]
+    is_tail, is_brk, is_refit = ev["is_tail"], ev["is_brk"], ev["is_refit"]
+    done = init["init_nowin"] | (init["init_bad"] & ~init["has_adv"])
+    phase_n = torch.where(
+        done, PHASE_DONE,
+        torch.where(init_ok, PHASE_MONITOR,
+                    torch.where(is_tail, PHASE_DONE,
+                                torch.where(is_brk, PHASE_INIT, phase))))
+    cur_i_n = torch.where(
+        init["init_tm"], init["i_next_tm"],
+        torch.where(init["init_bad"] & init["has_adv"], init["i_adv"],
+                    torch.where(is_brk, ev["pos_ev"], st["cur_i"])))
+    cur_k_n = torch.where(init_ok, init["j"] + 1,
+                          torch.where(is_refit, ev["pos_ev"] + 1,
+                                      st["cur_k"]))
+    alive_n = torch.where(in_init[:, None, :], init["alive_init"],
+                          torch.where(in_mon[:, None, :], ev["alive_mon"],
+                                      st["alive"]))
+    included_n = torch.where(
+        init_ok[:, None, :], init["w_stab"],
+        torch.where(is_brk[:, None, :], False,
+                    torch.where(in_mon[:, None, :], ev["included_mon"],
+                                st["included"])))
+    nlast_n = torch.where(ev["do_fit"], ev["n_full"], st["n_last_fit"])
+    i32 = torch.int32
+    return dict(phase=phase_n.to(i32), cur_i=cur_i_n.to(i32),
+                cur_k=cur_k_n.to(i32), alive=alive_n, included=included_n,
+                coefs=coefs, rmse=rmse, n_last_fit=nlast_n.to(i32),
+                first_seg=st["first_seg"] & ~is_brk, nseg=nseg, bufs=bufs)
+
+
+# ---------------------------------------------------------------------------
+# detect_mega
+# ---------------------------------------------------------------------------
+
+def detect_mega_plain(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt,
+                      vario, *, W, change_thr, outlier_thr,
+                      sensor=LANDSAT_ARD, on_round=None):
+    """Plain version of :func:`detect_mega`: the lockstep round loop over
+    :func:`init_window_plain` and :func:`fused_round_plain` (with
+    :func:`next_state`), all pixels of the batch at once, until every
+    pixel is DONE or the loop reaches 2T+8 rounds.  A chip's ``rounds``
+    counts the rounds in which any of its pixels was not DONE, its
+    ``counts`` the rounds in which any of them ran INIT, a fit or a close.
+    ``on_round(st, init, ev)``, when given, sees each round's start state,
+    INIT outputs and events (``chip_smoke.py`` counts the work with it).
+    The buffers are updated in place."""
+    C, B, T, P = Yt.shape
+    dev = Yt.device
+    i32, f32 = torch.int32, torch.float32
+    st = dict(phase=phase0, cur_i=cur_i0,
+              cur_k=torch.zeros(C, P, dtype=i32, device=dev), alive=alive0,
+              included=torch.zeros(C, T, P, dtype=torch.bool, device=dev),
+              coefs=torch.zeros(C, P, B, K, dtype=f32, device=dev),
+              rmse=torch.ones(C, P, B, dtype=f32, device=dev),
+              n_last_fit=torch.ones(C, P, dtype=i32, device=dev),
+              first_seg=torch.ones(C, P, dtype=torch.bool, device=dev),
+              nseg=nseg0, bufs=bufs)
+    rounds = torch.zeros(C, dtype=i32, device=dev)
+    counts = torch.zeros(C, 3, dtype=i32, device=dev)
+    for _ in range(2 * T + 8):
+        active = st["phase"] != PHASE_DONE
+        if not bool(active.any()):
+            break
+        in_init = st["phase"] == PHASE_INIT
+        in_mon = st["phase"] == PHASE_MONITOR
+        init = (init_window_plain(st["alive"], st["cur_i"], in_init, t, X,
+                                  Xt, Yt, vario, W=W, sensor=sensor)
+                if bool(in_init.any()) else init_zeros(st))
+        bufs, nseg, coefs_n, rmse_n, ev = fused_round_plain(
+            Yt, X, t, st["alive"], st["included"], st["cur_k"],
+            st["n_last_fit"], in_mon, st["coefs"], st["rmse"], vario,
+            init["init_ok"], init["w_stab"], init["n_ok"], st["first_seg"],
+            st["nseg"], st["bufs"], change_thr=change_thr,
+            outlier_thr=outlier_thr, sensor=sensor)
+        rounds += active.any(1).to(i32)
+        counts += torch.stack([in_init.any(1), ev["do_fit"].any(1),
+                               (ev["is_tail"] | ev["is_brk"]).any(1)],
+                              1).to(i32)
+        if on_round is not None:
+            on_round(st, init, ev)
+        st = next_state(st, init, ev, coefs_n, rmse_n, nseg, bufs)
+    meta, rmse_b, mag, coef = st["bufs"]
+    return dict(meta=meta, rmse=rmse_b, mag=mag, coef=coef, nseg=st["nseg"],
+                alive=st["alive"], rounds=rounds, counts=counts)
+
+
+def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
+                W, change_thr, outlier_thr, sensor=LANDSAT_ARD):
+    """The whole event loop of every pixel in one launch: from the
+    prologue's start state, each pixel runs its rounds (INIT, monitor,
+    close, refit) until it is DONE or the loop reaches 2T+8 rounds.
+
+    Args:
+        Yt: [C,B,T,P] int16 resident spectra.
+        phase0, cur_i0, nseg0: [C,P] int32 start state (kernel._prologue).
+        alive0: [C,T,P] bool start alive plane.
+        bufs: (meta [C,P,S,6], rmse [C,P,S,B], mag [C,P,S,B], coef
+            [C,P,S,B,8]) float32 result buffers, holding the prologue's
+            rows; updated in place.
+        t: [C,T] float32; X: [C,T,8], Xt: [C,T,5] designs; vario: [C,P,B].
+        W: bound on the init window's member count (kernel.window_cap);
+            past the largest W_MAX_CHOICES instance this raises.
+    Returns:
+        pallas_ops.detect_mega's dict in this package's layouts: meta,
+        rmse, mag, coef (the buffers), nseg [C,P] int32, alive [C,T,P]
+        bool (the final plane), rounds [C] int32 (the most rounds a pixel
+        of the chip ran), counts [C,3] int32 (rounds in which some pixel of
+        the chip ran INIT / a fit / a close).
+    """
+    C, B, T, P = Yt.shape
+    dev = Yt.device
+    _check(Yt, "Yt", torch.int16, (C, B, T, P), dev)
+    for nm, v in (("phase0", phase0), ("cur_i0", cur_i0), ("nseg0", nseg0)):
+        _check(v, nm, torch.int32, (C, P), dev)
+    _check(alive0, "alive0", torch.bool, (C, T, P), dev)
+    _check(t, "t", torch.float32, (C, T), dev)
+    _check(X, "X", torch.float32, (C, T, K), dev)
+    _check(Xt, "Xt", torch.float32, (C, T, NT), dev)
+    _check(vario, "vario", torch.float32, (C, P, B), dev)
+    S = _check_bufs(bufs, C, P, B, dev)
+    if dev.type == "cpu":
+        return detect_mega_plain(Yt, phase0, cur_i0, alive0, nseg0, bufs, t,
+                                 X, Xt, vario, W=W, change_thr=change_thr,
+                                 outlier_thr=outlier_thr, sensor=sensor)
+    _check_landsat_roles(sensor)
+    w_max = _w_instance(W, "detect_mega")
+    max_rounds = 2 * T + 8
+    i32, f32 = torch.int32, torch.float32
+    alive = alive0.clone()
+    included = torch.zeros(C, T, P, dtype=torch.bool, device=dev)
+    w_stab = torch.zeros(C, T, P, dtype=torch.bool, device=dev)
+    coefs = torch.zeros(C, P, B, K, dtype=f32, device=dev)
+    rmse = torch.ones(C, P, B, dtype=f32, device=dev)
+    nseg = torch.empty_like(nseg0)
+    rounds = torch.zeros(C, dtype=i32, device=dev)
+    flags = torch.zeros(C, 3, max_rounds, dtype=i32, device=dev)
+    _launch("detect_mega", *map(_ptr, (
+        Yt, t, X, Xt, vario, phase0, cur_i0, nseg0, *bufs, alive, included,
+        w_stab, coefs, rmse, nseg, rounds, flags)), C, B, T, P, S, W, w_max,
+        max_rounds, PHASE_INIT, PHASE_MONITOR, PHASE_DONE, float(change_thr),
+        float(outlier_thr))
+    meta, rmse_b, mag, coef = bufs
+    return dict(meta=meta, rmse=rmse_b, mag=mag, coef=coef, nseg=nseg,
+                alive=alive, rounds=rounds, counts=flags.sum(-1, dtype=i32))
+
+
+# The functions the detector's routes call, as kernels (the wrappers above)
+# or as their plain versions; kernel.pallas_components builds a route from
+# either.
 KERNELS = types.SimpleNamespace(lasso_fit=lasso_fit,
                                 monitor_chain_scored=monitor_chain_scored,
                                 init_window=init_window,
                                 fused_fit_close=fused_fit_close,
-                                fused_round=fused_round)
+                                fused_round=fused_round, lasso_cd=lasso_cd,
+                                monitor_chain=monitor_chain,
+                                tmask_bad=tmask_bad, detect_mega=detect_mega)
 PLAIN = types.SimpleNamespace(lasso_fit=lasso_fit_plain,
                               monitor_chain_scored=monitor_chain_scored_plain,
                               init_window=init_window_plain,
                               fused_fit_close=fused_fit_close_plain,
-                              fused_round=fused_round_plain)
+                              fused_round=fused_round_plain,
+                              lasso_cd=lasso_cd_plain,
+                              monitor_chain=monitor_chain_plain,
+                              tmask_bad=tmask_bad_plain,
+                              detect_mega=detect_mega_plain)

@@ -1,9 +1,9 @@
 """The CCDC change detector over whole chips, in PyTorch.
 
 The counterpart of ``firebird_tpu/ccd/kernel.py`` on its wire-resident
-per-component route: every pixel of every chip of a batch runs in
-lockstep through an event-horizon loop.  Each round advances every pixel
-to its next model event:
+Pallas routes: every pixel of every chip of a batch runs in lockstep
+through an event-horizon loop.  Each round advances every pixel to its
+next model event:
 
 - INIT pixels find their initialization window, screen it with the Tmask
   IRLS and test the stability of a 4-coefficient fit
@@ -22,26 +22,36 @@ per gate).  The chip axis ``C`` is a batch dimension of every tensor.
 Layouts: the wire spectra arrive as ``[C,B,P,T]`` int16 (the packer's
 layout) and stay resident as ``[C,B,T,P]``; per-pixel time planes are
 ``[C,T,P]``; results use the JAX package's ``ChipSegments`` layout
-(``[C,P,...]``, mask ``[C,P,T]``).  After INIT a round runs one of three
-routes, as the JAX package's FIREBIRD_FUSED_FIT selects them
-(:func:`fused_mode`): the separate monitor / close / refit steps above
-(0, the default), the close and refit as one ``cuda_ops.fused_fit_close``
-launch (1), or the whole post-INIT round as one ``cuda_ops.fused_round``
-launch ("mon").  Compaction and mixed precision are not part of this
-package; its results equal the JAX package's with compaction off, which
-are row-identical to compaction on.
+(``[C,P,...]``, mask ``[C,P,T]``).  The kernels of a round come from the
+JAX package's FIREBIRD_PALLAS (:func:`pallas_components`): the route
+above (``fit,score,init``, the default), the component route
+(``lasso,monitor,tmask``: a PyTorch Gram around the ``lasso_cd`` kernel, a
+PyTorch score plane before the ``monitor_chain`` kernel, a PyTorch INIT
+block around the ``tmask_bad`` kernel) or any mix of the two, or the
+whole loop as one ``cuda_ops.detect_mega`` launch (``mega``).  After INIT
+a round runs one of three routes, as FIREBIRD_FUSED_FIT selects them
+(:func:`fused_mode`): the separate monitor / close / refit steps (0, the
+default), the close and refit as one ``cuda_ops.fused_fit_close`` launch
+(1), or the whole post-INIT round as one ``cuda_ops.fused_round`` launch
+("mon").  Compaction and mixed precision are not part of this package;
+its results equal the JAX package's with compaction off, which are
+row-identical to compaction on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import os
+import types
 
 import numpy as np
 import torch
 
 from firebird_tpu_torch.ccd import cuda_ops, harmonic, params
+from firebird_tpu_torch.ccd.cuda_ops import (PHASE_DONE, PHASE_INIT,
+                                             PHASE_MONITOR)
 from firebird_tpu_torch.ccd.primitives import (coefmask_for, dedup_first,
                                                fdiv, first_at_or_after,
                                                last_true, masked_median,
@@ -52,7 +62,6 @@ log = logging.getLogger(__name__)
 
 MAX_SEGMENTS = 10
 
-PHASE_INIT, PHASE_MONITOR, PHASE_DONE = 0, 1, 2
 PROC_STANDARD, PROC_SNOW, PROC_INSUF, PROC_NODATA = 0, 1, 2, 3
 
 
@@ -87,6 +96,81 @@ def fused_mode(fused=None):
     if fused in ("mon", 2):
         return "mon"
     return 1 if fused else 0
+
+
+# The JAX package's knob for the Pallas component routes, and the
+# components it names.
+PALLAS_ENV = "FIREBIRD_PALLAS"
+COMPONENTS = ("fit", "score", "init", "lasso", "monitor", "tmask", "mega")
+
+
+def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
+    """The route's functions, as FIREBIRD_PALLAS names them —
+    kernel.use_pallas and its supersession rules.
+
+    ``pallas`` (None reads FIREBIRD_PALLAS; unset means "1") is "1" (every
+    per-component kernel: ``fit``, ``score`` and ``init``, which supersede
+    ``lasso``, ``monitor`` and ``tmask``) or a comma list of components.
+    Each of the fit, the monitor and the INIT block takes its fused kernel
+    where the list names it (``fit``, ``score``, ``init``) and its
+    component kernel where only that is named (``lasso``, ``monitor``,
+    ``tmask``).  ``mega`` supersedes every other component and the fused
+    round routes: the whole loop is one ``detect_mega`` launch after the
+    prologue, whose one-shot fit stays on ``lasso_fit``.  A value that
+    leaves the fit, the monitor or the INIT block with no kernel ("0", "",
+    or a list without either name) raises ValueError: this package has no
+    XLA route, and runs plain versions only where the caller passes
+    ``ops=cuda_ops.PLAIN``.
+
+    ``ops`` (default :data:`cuda_ops.KERNELS`) supplies the functions.
+    Returns a namespace with the round functions ``_detect_batch`` calls
+    (``lasso_fit``, ``monitor_chain_scored``, ``init_window``,
+    ``fused_fit_close``, ``fused_round``; ``detect_mega`` on the mega
+    route), ``mega`` and ``components``, the resolved names."""
+    v = os.environ.get(PALLAS_ENV) if pallas is None else str(pallas)
+    v = "1" if v is None else v.strip()
+    if v == "1":
+        names = set(COMPONENTS) - {"mega"}
+    else:
+        names = {c.strip() for c in v.split(",") if c.strip() not in ("", "0")}
+        unknown = names - set(COMPONENTS)
+        if unknown:
+            raise ValueError(f"{PALLAS_ENV}={v!r}: unknown component(s) "
+                             f"{sorted(unknown)}; known: {', '.join(COMPONENTS)}")
+    base = cuda_ops.KERNELS if ops is None else ops
+    if "mega" in names:
+        return types.SimpleNamespace(components=("mega",), mega=True,
+                                     lasso_fit=base.lasso_fit,
+                                     detect_mega=base.detect_mega)
+
+    def pick(fused, component, what):
+        for c in (fused, component):
+            if c in names:
+                return c
+        raise ValueError(
+            f"{PALLAS_ENV}={v!r} leaves the {what} without a kernel: name "
+            f"{fused!r} or {component!r} (this package has no XLA route; "
+            f"ops=cuda_ops.PLAIN runs the plain versions)")
+
+    comps = (pick("fit", "lasso", "fit"), pick("score", "monitor", "monitor"),
+             pick("init", "tmask", "INIT block"))
+    # On the component routes the Gram and RMSE around lasso_cd, the score
+    # plane before monitor_chain and the INIT block around tmask_bad are
+    # PyTorch ops on the card: the JAX package computes them in XLA,
+    # outside any Pallas kernel, on those routes.  They are that route's
+    # program, not plain versions standing in for a kernel.
+    fit = (base.lasso_fit if comps[0] == "fit"
+           else functools.partial(cuda_ops.lasso_fit_plain, cd=base.lasso_cd))
+    mon = (base.monitor_chain_scored if comps[1] == "score"
+           else functools.partial(cuda_ops.monitor_chain_scored_plain,
+                                  chain=base.monitor_chain))
+    init = (base.init_window if comps[2] == "init"
+            else functools.partial(cuda_ops.init_window_plain, fit=fit,
+                                   tmask=base.tmask_bad))
+    return types.SimpleNamespace(
+        components=comps, mega=False, lasso_fit=fit,
+        monitor_chain_scored=mon, init_window=init,
+        fused_fit_close=base.fused_fit_close, fused_round=base.fused_round)
 
 
 def _exact_f32() -> None:
@@ -338,17 +422,6 @@ def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
     return res, state
 
 
-def _init_zeros(st):
-    """The INIT block's outputs on a round where no pixel initializes
-    (every consumer masks on in_init-derived flags)."""
-    zb = torch.zeros_like(st["cur_i"], dtype=torch.bool)
-    zi = torch.zeros_like(st["cur_i"])
-    return dict(init_nowin=zb, init_tm=zb, init_ok=zb, init_bad=zb,
-                has_adv=zb, i_next_tm=zi, i_adv=zi, j=zi,
-                w_stab=torch.zeros_like(st["alive"]), n_ok=zi,
-                alive_init=st["alive"])
-
-
 def _mon_block(res, st, *, sensor, change_thr, outlier_thr, ops):
     """The MONITOR block: score and event chain, then the include/remove
     updates of the monitoring pixels — kernel._mon_block."""
@@ -406,21 +479,48 @@ def _round_zeros(st):
                  alive_mon=st["alive"]))
 
 
+def _segments(res, nseg, bufs, alive, rounds, counts):
+    """The batch's ChipSegments from the loop's final state: the
+    standard procedure's processing mask is its final alive plane, the
+    alternate procedures' their fit window."""
+    meta_b, rmse_b, mag_b, coef_b = bufs
+    is_std, is_alt = res["is_std"], res["is_alt"]
+    final_mask = torch.where(
+        is_std[:, None, :], alive,
+        torch.where(is_alt[:, None, :], res["alt_mask"], False))
+    return ChipSegments(
+        n_segments=nseg, seg_meta=meta_b, seg_rmse=rmse_b, seg_mag=mag_b,
+        seg_coef=coef_b, mask=final_mask.transpose(1, 2).contiguous(),
+        procedure=res["procedure"], rounds=rounds, vario=res["vario"],
+        round_counts=counts)
+
+
 def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
                   variogram_mode, ops, fused=0):
     """A chip batch: designs [C,T,*], resident spectra ``Yt`` [C,B,T,P]
     int16, ``qa`` [C,T,P] -> ChipSegments with [C, ...] leading axes —
     kernel._detect_batch_impl with compaction and mixed precision left
-    out.  ``fused`` picks what runs after INIT (see :func:`fused_mode`):
-    0 the monitor, close and refit as separate steps, 1 the close and
-    refit as one ``ops.fused_fit_close`` call, "mon" the whole post-INIT
-    round as one ``ops.fused_round`` call."""
+    out.  ``ops`` is the route (:func:`pallas_components`).  On the mega
+    route one ``ops.detect_mega`` call runs the whole loop after the
+    prologue (``rounds`` and ``round_counts`` then per chip).  Otherwise
+    ``fused`` picks what runs after INIT (see :func:`fused_mode`): 0 the
+    monitor, close and refit as separate steps, 1 the close and refit as
+    one ``ops.fused_fit_close`` call, "mon" the whole post-INIT round as
+    one ``ops.fused_round`` call."""
     C, B, T, P = Yt.shape
     det = list(sensor.detection_bands)
     change_thr, outlier_thr = chi2_thresholds(len(det))
     res, st = _prologue(X, Xt, t, valid, Yt, qa, sensor=sensor,
                         S=max_segments, variogram_mode=variogram_mode,
                         ops=ops)
+    if ops.mega:
+        out = ops.detect_mega(Yt, st["phase"], st["cur_i"], st["alive"],
+                              st["nseg"], st["bufs"], t, X, Xt, res["vario"],
+                              W=W, change_thr=change_thr,
+                              outlier_thr=outlier_thr, sensor=sensor)
+        return _segments(res, out["nseg"],
+                         (out["meta"], out["rmse"], out["mag"], out["coef"]),
+                         out["alive"], out["rounds"], out["counts"])
     max_rounds = 2 * T + 8
     rounds = 0
     counts = [0, 0, 0]
@@ -434,7 +534,7 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
             init = ops.init_window(st["alive"], st["cur_i"], in_init, t, X, Xt,
                                    Yt, res["vario"], W=W, sensor=sensor)
         else:
-            init = _init_zeros(st)
+            init = cuda_ops.init_zeros(st)
         init_ok = init["init_ok"]
 
         if fused == "mon":
@@ -502,67 +602,33 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
             else:
                 coefs_n, rmse_n = st["coefs"], st["rmse"]
 
-        # ---------------- next state ----------------
-        is_refit = mon["is_refit"]
-        done = init["init_nowin"] | (init["init_bad"] & ~init["has_adv"])
-        phase_n = torch.where(
-            done, PHASE_DONE,
-            torch.where(init_ok, PHASE_MONITOR,
-                        torch.where(is_tail, PHASE_DONE,
-                                    torch.where(is_brk, PHASE_INIT, phase))))
-        cur_i_n = torch.where(
-            init["init_tm"], init["i_next_tm"],
-            torch.where(init["init_bad"] & init["has_adv"], init["i_adv"],
-                        torch.where(is_brk, mon["pos_ev"], st["cur_i"])))
-        cur_k_n = torch.where(init_ok, init["j"] + 1,
-                              torch.where(is_refit, mon["pos_ev"] + 1,
-                                          st["cur_k"]))
-        alive_n = torch.where(in_init[:, None, :], init["alive_init"],
-                              torch.where(in_mon[:, None, :],
-                                          mon["alive_mon"], st["alive"]))
-        included_n = torch.where(
-            init_ok[:, None, :], init["w_stab"],
-            torch.where(is_brk[:, None, :], False,
-                        torch.where(in_mon[:, None, :], mon["included_mon"],
-                                    st["included"])))
-        nlast_n = torch.where(do_fit, n_full, st["n_last_fit"])
-        i32 = torch.int32
-        st = dict(phase=phase_n.to(i32), cur_i=cur_i_n.to(i32),
-                  cur_k=cur_k_n.to(i32), alive=alive_n, included=included_n,
-                  coefs=coefs_n, rmse=rmse_n, n_last_fit=nlast_n.to(i32),
-                  first_seg=st["first_seg"] & ~is_brk, nseg=nseg, bufs=bufs)
+        st = cuda_ops.next_state(st, init, dict(mon, do_fit=do_fit,
+                                                n_full=n_full),
+                                 coefs_n, rmse_n, nseg, bufs)
         counts = [counts[0] + any_init, counts[1] + any_fit,
                   counts[2] + any_close]
         rounds += 1
 
-    meta_b, rmse_b, mag_b, coef_b = st["bufs"]
-    is_std, is_alt = res["is_std"], res["is_alt"]
-    final_mask = torch.where(
-        is_std[:, None, :], st["alive"],
-        torch.where(is_alt[:, None, :], res["alt_mask"], False))
     dev = Yt.device
-    return ChipSegments(
-        n_segments=st["nseg"], seg_meta=meta_b, seg_rmse=rmse_b,
-        seg_mag=mag_b, seg_coef=coef_b,
-        mask=final_mask.transpose(1, 2).contiguous(),
-        procedure=res["procedure"],
-        rounds=torch.full((C,), rounds, dtype=torch.int32, device=dev),
-        vario=res["vario"],
-        round_counts=torch.tensor(counts, dtype=torch.int32,
-                                  device=dev).expand(C, 3).contiguous())
+    return _segments(
+        res, st["nseg"], st["bufs"], st["alive"],
+        torch.full((C,), rounds, dtype=torch.int32, device=dev),
+        torch.tensor(counts, dtype=torch.int32, device=dev).expand(
+            C, 3).contiguous())
 
 
 def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
                   max_segments=MAX_SEGMENTS,
                   variogram_mode=params.VARIOGRAM_DEFAULT, ops=None,
-                  fused=None):
+                  fused=None, pallas=None):
     """Detect from the staged integer wire on its device: ``days`` [C,T]
     int32, ``n_obs`` [C] int32, ``spectra`` [C,B,P,T] int16, ``qa``
     [C,P,T] uint8.  The designs are built on the device, the spectra are
-    made resident as [C,B,T,P].  ``fused`` picks the round route
+    made resident as [C,B,T,P].  ``pallas`` picks the kernels
+    (:func:`pallas_components`, from ``ops``), ``fused`` the round route
     (:func:`fused_mode`)."""
     _exact_f32()
-    ops = cuda_ops.KERNELS if ops is None else ops
+    ops = pallas_components(pallas, ops)
     if variogram_mode not in ("adjusted", "plain"):
         raise ValueError(f"variogram_mode {variogram_mode!r}: 'adjusted' or "
                          f"'plain'")
@@ -579,7 +645,7 @@ def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
 def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
                   check_capacity: bool = True, staged: tuple | None = None,
                   variogram_mode: str = params.VARIOGRAM_DEFAULT,
-                  ops=None, fused=None) -> ChipSegments:
+                  ops=None, fused=None, pallas=None) -> ChipSegments:
     """Run the detector over a PackedChips batch -> ChipSegments with
     leading chip axis [C, P, ...], on ``device`` (default CUDA).
 
@@ -587,13 +653,17 @@ def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
     more segments than that, the batch runs again with doubled capacity
     (``check_capacity=False`` skips the check).  ``staged`` takes the
     device wire tuple of :func:`stage_packed`.  ``variogram_mode`` is
-    "adjusted" (default) or "plain".  ``ops`` names the three round
-    functions: :data:`cuda_ops.KERNELS` (default; the CUDA kernels on a
-    CUDA device, their plain versions on the CPU) or
-    :data:`cuda_ops.PLAIN` (the plain versions wherever the tensors are).
-    ``fused`` picks the round route: None defers to FIREBIRD_FUSED_FIT
-    (unset: route 0), else 0, 1 or "mon" (:func:`fused_mode`)."""
+    "adjusted" (default) or "plain".  ``ops`` supplies the functions:
+    :data:`cuda_ops.KERNELS` (default; the CUDA kernels on a CUDA device,
+    their plain versions on the CPU) or :data:`cuda_ops.PLAIN` (the plain
+    versions wherever the tensors are).  ``pallas`` picks the kernels of
+    the route: None defers to FIREBIRD_PALLAS (unset: "1", the
+    ``fit,score,init`` route), else "1", a component list or "mega"
+    (:func:`pallas_components`).  ``fused`` picks the round route: None
+    defers to FIREBIRD_FUSED_FIT (unset: route 0), else 0, 1 or "mon"
+    (:func:`fused_mode`); the mega route has none."""
     dev = resolve_device(device)
+    pallas_components(pallas, ops)          # refuse a bad route up front
     args = staged if staged is not None else stage_packed(packed, dev)
     sensor = getattr(packed, "sensor", LANDSAT_ARD)
     W = window_cap(packed)
@@ -601,7 +671,7 @@ def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
     dispatch = lambda S: detect_staged(*args, W=W, sensor=sensor,
                                        max_segments=S,
                                        variogram_mode=variogram_mode, ops=ops,
-                                       fused=fused)
+                                       fused=fused, pallas=pallas)
     if not check_capacity:
         return dispatch(max(max_segments, 1))
     return capacity_retry(dispatch, lambda seg: int(seg.n_segments.max()),

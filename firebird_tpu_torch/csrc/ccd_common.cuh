@@ -26,6 +26,8 @@ constexpr float LASSO_ALPHA = 1.0f;
 constexpr int PEEK = 6;         // params.PEEK_SIZE
 constexpr int NUM_OBS_FACTOR = 3;
 constexpr int MID_COEFS = 6;
+constexpr int NBAND = 7;        // Landsat bands, the layout the kernels take
+constexpr int NDET = 5;         // its detection bands, 1..5
 
 __device__ __forceinline__ float pmax(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);
@@ -126,16 +128,16 @@ struct Gram {
   }
 };
 
-// Cyclic coordinate-descent Lasso on a finished Gram: LASSO_ITERS sweeps,
-// soft threshold LASSO_ALPHA, intercept (column 0) unpenalized,
-// coordinates with mask[j] false held at zero — kernel._lasso_cd_lax's
-// update, in the column order of pallas_ops._gram_cd_core.
+// Cyclic coordinate-descent Lasso on a normalised Gram G, correlations c
+// and floored diagonal diag: LASSO_ITERS sweeps, soft threshold
+// LASSO_ALPHA, intercept (column 0) unpenalized, coordinates with mask[j]
+// false held at zero — kernel._lasso_cd_lax's update, in the column order
+// of pallas_ops._gram_cd_core.  The lasso_cd kernel runs it on a Gram
+// computed outside; lasso_cd below on a Gram accumulated here.
 template <int NB>
-__device__ void lasso_cd(const Gram<NB>& g, const bool mask[K],
-                         float beta[NB][K]) {
-  float diag[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) diag[j] = pmax(g.G[j][j], 1e-12f);
+__device__ void cd_loop(const float G[K][K], const float c[NB][K],
+                        const float diag[K], const bool mask[K],
+                        float beta[NB][K]) {
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
     float bb[K];
@@ -145,10 +147,10 @@ __device__ void lasso_cd(const Gram<NB>& g, const bool mask[K],
     for (int it = 0; it < LASSO_ITERS; ++it) {
 #pragma unroll
       for (int j = 0; j < K; ++j) {
-        float acc = g.G[j][0] * bb[0];
+        float acc = G[j][0] * bb[0];
 #pragma unroll
-        for (int k = 1; k < K; ++k) acc = acc + g.G[j][k] * bb[k];
-        const float rho = g.c[b][j] - acc + diag[j] * bb[j];
+        for (int k = 1; k < K; ++k) acc = acc + G[j][k] * bb[k];
+        const float rho = c[b][j] - acc + diag[j] * bb[j];
         float bj;
         if (j == 0) {
           bj = rho / diag[0];
@@ -161,6 +163,17 @@ __device__ void lasso_cd(const Gram<NB>& g, const bool mask[K],
 #pragma unroll
     for (int k = 0; k < K; ++k) beta[b][k] = bb[k];
   }
+}
+
+// cd_loop on a finished Gram, its diagonal floored at 1e-12 (the floor
+// kernel._fit_lasso_coefs applies before the CD loop).
+template <int NB>
+__device__ void lasso_cd(const Gram<NB>& g, const bool mask[K],
+                         float beta[NB][K]) {
+  float diag[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) diag[j] = pmax(g.G[j][j], 1e-12f);
+  cd_loop<NB>(g.G, g.c, diag, mask, beta);
 }
 
 // One pixel's weighted Lasso fit of every band and its windowed RMSE —

@@ -3,62 +3,25 @@
 //
 // Replaces the Pallas kernel firebird_tpu/ccd/pallas_ops.py::fused_round
 // (_fused_round_block, with _mon_scored_logic, _close_logic and
-// _gram_cd_core).  Per pixel:
-//   1. a monitoring pixel runs the event chain (fb::monitor_chain, the code
-//      of monitor_chain_scored) on the detection bands, its score
-//      denominators max(rmse, vario) taken here; it writes the round's
-//      included / alive planes.  Other pixels copy their planes and have
-//      no event (kernel._mon_zeros);
-//   2. a closing pixel appends its segment at slot nseg of the result
-//      buffers, in place; a break's magnitudes are the PEEK run's median
-//      residuals, found by one scan over T (fb::peek_run_mags);
-//   3. a fitting pixel (init-ok from the INIT block, or refit) gets a new
-//      Lasso fit over its window (fb::fit_window, the code of lasso_fit):
-//      w_stab for init-ok, the included plane for a refit.
-// A pixel's result depends on no other pixel: the Pallas kernel's per-block
-// gates (any monitoring / closing / fitting lane) only skip work whose
-// result the pixel discards.
+// _gram_cd_core).  The per-pixel body is fb::round_pixel (fused_round.cuh):
+// the monitor chain of a monitoring pixel, the close of a pixel that ends
+// in a tail or a break, the refit of an init-ok or refitting pixel;
+// detect_mega runs the same body inside its round loop.  Here it writes
+// the round's included / alive planes and the new model to separate
+// outputs.  A pixel's result depends on no other pixel: the Pallas
+// kernel's per-block gates (any monitoring / closing / fitting lane) only
+// skip work whose result the pixel discards.
 //
 // Bound: bytes.  The detection-band spectra are read three times by the
 // monitor (the score is recomputed per scan), the fitting pixels' windows
 // twice more; the alive / included planes in and the two planes out
 // dominate the rest.  The buffers are touched only at the closing pixels'
 // slot.
-#include "monitor_chain.cuh"
-#include "segment_close.cuh"
+#include "fused_round.cuh"
 
 namespace {
 
-constexpr int B = 7;
-constexpr int ND = 5;     // detection bands 1..5 of the Landsat layout
-
-// Writes the round's included / alive planes from the monitor's
-// include / remove partition (a monitoring pixel's).
-struct RoundPlanesSink {
-  const uint8_t* al;
-  const uint8_t* inc;
-  uint8_t* incm;
-  uint8_t* alm;
-  int P, p;
-  __device__ void operator()(int t, bool in_q, bool rm_q) const {
-    const size_t i = (size_t)t * P + p;
-    incm[i] = inc[i] != 0 || in_q;
-    alm[i] = al[i] != 0 && !rm_q;
-  }
-};
-
-// The refit window: w_stab for an init-ok pixel, else the round's
-// included plane (the pixel refits).
-struct RoundWeight {
-  const uint8_t* w_stab;
-  const uint8_t* incm;
-  bool init_ok;
-  int P, p;
-  __device__ float operator()(int t) const {
-    const size_t i = (size_t)t * P + p;
-    return (init_ok ? w_stab[i] : incm[i]) != 0 ? 1.f : 0.f;
-  }
-};
+constexpr int B = fb::NBAND;
 
 __global__ void __launch_bounds__(fb::BLOCK)
 fused_round_kernel(
@@ -80,78 +43,26 @@ fused_round_kernel(
   if (p >= P) return;
   const size_t cp = (size_t)c * P + p;
   const size_t TP = (size_t)T * P;
-  const int16_t* Yc = Yt + (size_t)c * B * TP;
-  const float* Xc = X + (size_t)c * T * K;
-  const uint8_t* al = alive + c * TP;
-  const uint8_t* inc = included + c * TP;
-  // Written here and read back by this thread (close, refit window).
-  uint8_t* incm = incm_out + c * TP;
-  uint8_t* alm = alm_out + c * TP;
-  const float* coef_row = coefs + cp * B * K;
-  const float* rmse_row = rmse + cp * B;
-
-  // 1. MONITOR.
-  MonitorEvent e{};
-  if (in_mon[cp] != 0) {
-    Scorer<ND> score;
-    score.Y = Yc + TP;                  // band 1, the first detection band
-    score.X = Xc;
-    score.T = T;
-    score.P = P;
-    score.p = p;
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      score.dden[d] = pmax(rmse_row[d + 1], vario[cp * B + d + 1]);
-#pragma unroll
-      for (int k = 0; k < K; ++k) score.coef[d][k] = coef_row[(d + 1) * K + k];
-    }
-    RoundPlanesSink sink{al, inc, incm, alm, P, p};
-    e = monitor_chain<ND>(score, al, inc, T, P, p, cur_k[cp], nlast[cp], true,
-                          change_thr, outlier_thr, sink);
-  } else {
-    for (int t = 0; t < T; ++t) {
-      const size_t i = (size_t)t * P + p;
-      incm[i] = inc[i];
-      alm[i] = al[i];
-    }
-  }
-
-  // 2. CLOSE.
-  const bool close = e.is_tail || e.is_brk;
-  const int ns = nseg[cp];
-  if (close) {
-    float mags[B];
-    if (e.is_brk)
-      peek_run_mags<B>(Yc, Xc, al, coef_row, T, P, p, e.ev_rank, e.m, mags);
-    close_segment<B>(incm, tt + (size_t)c * T, T, P, p, cp, e.is_brk,
-                     e.pos_ev, e.n_exceed, first_seg[cp] != 0, ns, rmse_row,
-                     e.is_brk ? mags : nullptr, coef_row, bufs);
-  }
-  nseg_out[cp] = ns + close;
-
-  // 3. Shared refit.
-  const bool iok = init_ok[cp] != 0;
-  const bool do_fit = iok || e.is_refit;
-  const int n_full = iok ? n_ok[cp] : e.n_rf;
-  float* co = coefs_out + cp * B * K;
-  float* ro = rmse_out + cp * B;
-  if (do_fit) {
-    bool m[K];
-    coef_mask(n_full, m);
-    fit_window<B>(Yc, Xc, RoundWeight{w_stab + c * TP, incm, iok, P, p}, T,
-                  P, p, m, co, ro, true);
-  } else {
-    for (int i = 0; i < B * K; ++i) co[i] = coef_row[i];
-    for (int b = 0; b < B; ++b) ro[b] = rmse_row[b];
-  }
+  // incm is written here and read back by this thread (close, refit
+  // window).
+  const RoundPlanes pl{alive + c * TP, included + c * TP, incm_out + c * TP,
+                       alm_out + c * TP, w_stab + c * TP};
+  const RoundIn in{in_mon[cp] != 0, cur_k[cp], nlast[cp], init_ok[cp] != 0,
+                   n_ok[cp], first_seg[cp] != 0, nseg[cp], coefs + cp * B * K,
+                   rmse + cp * B, vario + cp * B};
+  const RoundOut o = round_pixel(Yt + c * B * TP, X + (size_t)c * T * K,
+                                 tt + (size_t)c * T, pl, T, P, p, cp, in, bufs,
+                                 coefs_out + cp * B * K, rmse_out + cp * B,
+                                 change_thr, outlier_thr);
+  nseg_out[cp] = in.nseg + o.close;
 
   const size_t CP = (size_t)C * P;
-  ev[0 * CP + cp] = e.is_tail;
-  ev[1 * CP + cp] = e.is_brk;
-  ev[2 * CP + cp] = e.is_refit;
-  ev[3 * CP + cp] = e.pos_ev;
-  ev[4 * CP + cp] = do_fit;
-  ev[5 * CP + cp] = n_full;
+  ev[0 * CP + cp] = o.e.is_tail;
+  ev[1 * CP + cp] = o.e.is_brk;
+  ev[2 * CP + cp] = o.e.is_refit;
+  ev[3 * CP + cp] = o.e.pos_ev;
+  ev[4 * CP + cp] = o.do_fit;
+  ev[5 * CP + cp] = o.n_full;
 }
 
 }  // namespace

@@ -1,15 +1,16 @@
-// The MONITOR round's per-pixel score and event chain, shared by the
-// monitor_chain_scored and fused_round kernels (one copy of the code, so
-// the two routes take the same decisions from the same inputs).
+// The MONITOR round's per-pixel event chain, shared by the monitor_chain,
+// monitor_chain_scored, fused_round and detect_mega kernels (one copy of
+// the code, so every route takes the same decisions from the same scores).
 //
-// Per pixel: the chi-square score of every alive observation against the
-// current model, sum over detection bands of ((y - X beta) / dden)^2; the
-// break search (a run of >= PEEK exceedances in the alive sequence, found by
-// a backward scan that carries the next non-exceeding rank, as the reverse
-// cummin does); the refit search (absorbed count crossing REFIT_FACTOR x the
-// last fit's count, by a running sum); the tail/break/refit choice; and the
-// include/remove partition of the observations before the event — the
-// contract of pallas_ops._mon_scored_logic / _monitor_logic.
+// Per pixel: the score of every alive observation (a Score functor: the
+// chi-square score against the current model, Scorer, or a precomputed
+// plane, PlaneScore); the break search (a run of >= PEEK exceedances in the
+// alive sequence, found by a backward scan that carries the next
+// non-exceeding rank, as the reverse cummin does); the refit search
+// (absorbed count crossing REFIT_FACTOR x the last fit's count, by a running
+// sum); the tail/break/refit choice (monitor_event); and the include/remove
+// partition of the observations before the event (monitor_partition) — the
+// contract of pallas_ops._monitor_logic.
 //
 // The score is recomputed in each of three scans rather than staged: T
 // floats a thread would not fit in registers.
@@ -21,8 +22,8 @@ namespace fb {
 
 constexpr float REFIT_FACTOR = 1.33f;
 
-// The score of time step t of one pixel: Y is the chip's first detection
-// band [NB, T, P] (band stride T*P), X the chip's design [T, K].
+// The chi-square score of time step t of one pixel: Y is the chip's first
+// detection band [NB, T, P] (band stride T*P), X the chip's design [T, K].
 template <int NB>
 struct Scorer {
   const int16_t* Y;
@@ -48,21 +49,29 @@ struct Scorer {
   }
 };
 
-// kernel._monitor_chain's per-pixel outputs.
-struct MonitorEvent {
-  int m, is_tail, is_brk, is_refit, ev_rank, pos_ev, n_exceed, n_rf;
+// A precomputed [T, P] score plane read at pixel p (chip base pointer).
+struct PlaneScore {
+  const float* s;
+  int P, p;
+  __device__ float operator()(int t) const { return s[(size_t)t * P + p]; }
 };
 
-// One pixel's event chain.  al / inc are the chip's alive / included
-// planes [T, P]; ck the cursor, nl the last fit's count, mon whether the
-// pixel monitors.  sink(t, in_q, rm_q) receives the include / remove
-// partition of every time step, in order.
-template <int NB, class Sink>
-__device__ MonitorEvent monitor_chain(const Scorer<NB>& score,
-                                      const uint8_t* al, const uint8_t* inc,
-                                      int T, int P, int p, int ck, int nl,
-                                      bool mon, float change_thr,
-                                      float outlier_thr, Sink& sink) {
+// kernel._monitor_chain's per-pixel outputs, and the cursor rank kq and
+// tail rank q_tail that the partition pass needs.
+struct MonitorEvent {
+  int m, is_tail, is_brk, is_refit, ev_rank, pos_ev, n_exceed, n_rf;
+  int kq, q_tail;
+};
+
+// Passes 1-3 and the event choice of one pixel.  al / inc are the chip's
+// alive / included planes [T, P]; ck the cursor, nl the last fit's count,
+// mon whether the pixel monitors.  n_exceed is left 0 (monitor_partition
+// counts it).
+template <class Score>
+__device__ MonitorEvent monitor_event(const Score& score, const uint8_t* al,
+                                      const uint8_t* inc, int T, int P, int p,
+                                      int ck, int nl, bool mon,
+                                      float change_thr, float outlier_thr) {
   const int INF = T + 1;
   const float refit_thr = REFIT_FACTOR * (float)nl;
 
@@ -138,22 +147,35 @@ __device__ MonitorEvent monitor_chain(const Scorer<NB>& score,
   e.pos_ev = is_brk ? b_abs : f_abs;
   // n_inc at pos_ev: f_abs defaults to 0 when no refit crossing exists.
   e.n_rf = is_brk ? ninc_b : (has_refit ? ninc_f : ninc0);
-  const int normal_hi = is_refit ? e.ev_rank + 1 : e.ev_rank;
+  e.n_exceed = 0;
+  e.kq = kq;
+  e.q_tail = q_tail;
+  return e;
+}
 
-  // Pass 4 (forward): the include/remove partition.
+// Pass 4 (forward): the include/remove partition of one pixel's event.
+// sink(t, in_q, rm_q) receives the partition of every time step, in
+// order, after the step's alive flag was read (so a sink may update the
+// alive and included planes in place).  Returns n_exceed.
+template <class Score, class Sink>
+__device__ int monitor_partition(const Score& score, const uint8_t* al,
+                                 int T, int P, int p, const MonitorEvent& e,
+                                 float change_thr, float outlier_thr,
+                                 Sink& sink) {
+  const int normal_hi = e.is_refit ? e.ev_rank + 1 : e.ev_rank;
   int n_exceed = 0;
-  rank = -1;
+  int rank = -1;
   for (int t = 0; t < T; ++t) {
     bool in_q = false, rm_q = false;
     if (al[(size_t)t * P + p] != 0) {
       ++rank;
-      if (rank >= kq) {
+      if (rank >= e.kq) {
         const float s = score(t);
         const bool o = s > outlier_thr;
         const bool normalq = rank < normal_hi;
         in_q = normalq && !o;
         rm_q = normalq && o;
-        if (is_tail && rank >= q_tail) {
+        if (e.is_tail && rank >= e.q_tail) {
           const bool tail_ex = s > change_thr;
           in_q = in_q || !tail_ex;
           rm_q = rm_q || tail_ex;
@@ -163,7 +185,20 @@ __device__ MonitorEvent monitor_chain(const Scorer<NB>& score,
     }
     sink(t, in_q, rm_q);
   }
-  e.n_exceed = n_exceed;
+  return n_exceed;
+}
+
+// One pixel's whole event chain: monitor_event, then monitor_partition.
+template <class Score, class Sink>
+__device__ MonitorEvent monitor_chain(const Score& score, const uint8_t* al,
+                                      const uint8_t* inc, int T, int P, int p,
+                                      int ck, int nl, bool mon,
+                                      float change_thr, float outlier_thr,
+                                      Sink& sink) {
+  MonitorEvent e = monitor_event(score, al, inc, T, P, p, ck, nl, mon,
+                                 change_thr, outlier_thr);
+  e.n_exceed = monitor_partition(score, al, T, P, p, e, change_thr,
+                                 outlier_thr, sink);
   return e;
 }
 

@@ -8,7 +8,7 @@
 // search, the refit search, the tail/break/refit choice and the
 // include/remove partition of the observations before the event.  The
 // per-pixel body is fb::monitor_chain (monitor_chain.cuh), which the
-// fused_round kernel runs too.
+// monitor_chain, fused_round and detect_mega kernels run too.
 //
 // Bound: bytes.  The detection-band int16 spectra [nb,T,P] are read three
 // times (the score is recomputed in each scan rather than staged: T floats
@@ -59,7 +59,7 @@ monitor_kernel(const int16_t* __restrict__ Yd, const float* __restrict__ coefs_d
   }
   PartitionSink sink{inc_q + (size_t)c * T * P, rem_q + (size_t)c * T * P, P,
                      p};
-  const MonitorEvent e = monitor_chain<NB>(
+  const MonitorEvent e = monitor_chain(
       score, alive + (size_t)c * T * P, included + (size_t)c * T * P, T, P, p,
       cur_k[cp], nlast[cp], in_mon[cp] != 0, change_thr, outlier_thr, sink);
 

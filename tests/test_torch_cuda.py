@@ -233,6 +233,105 @@ def test_fused_round_matches_plain(dev):
         assert torch.equal(got[4][k], want[4][k]), k
 
 
+def test_lasso_cd_matches_plain(dev):
+    rng = np.random.default_rng(5)
+    C, B, T, P = 2, 7, 60, 141
+    _, X, _ = _designs(rng, C, T, dev)
+    Yt = _t(rng.integers(0, 8000, (C, B, T, P)).astype(np.int16), dev)
+    w = _t((rng.random((C, T, P)) < 0.8).astype(np.float32), dev)
+    mask = _t(np.arange(8) < rng.choice([4, 6, 8], (C, P))[..., None], dev)
+    G, c, _ = cuda_ops.gram_plain(Yt, w, X)
+    diag = torch.diagonal(G, dim1=-2, dim2=-1).clamp_min(1e-12).contiguous()
+    before = cuda_ops.LAUNCHES["lasso_cd"]
+    got = cuda_ops.lasso_cd(G, c, diag, mask)
+    assert cuda_ops.LAUNCHES["lasso_cd"] == before + 1
+    want = cuda_ops.lasso_cd_plain(G, c, diag, mask)
+    # Both run the same sweeps in the same order on the same Gram.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_monitor_chain_matches_plain(dev):
+    rng = np.random.default_rng(14)
+    C, T, P = 2, 96, 137
+    alive = rng.random((C, T, P)) < 0.8
+    args = (_t(rng.gamma(2.0, 6.0, (C, T, P)).astype(np.float32), dev),
+            _t(alive, dev), _t((rng.random((C, T, P)) < 0.4) & alive, dev),
+            _t(rng.integers(0, T, (C, P)).astype(np.int32), dev),
+            _t(rng.integers(1, 40, (C, P)).astype(np.int32), dev),
+            _t(rng.random((C, P)) < 0.7, dev))
+    kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR)
+    got = cuda_ops.monitor_chain(*args, **kw)
+    want = cuda_ops.monitor_chain_plain(*args, **kw)
+    assert set(got) == set(want)
+    assert all(want[k].any() for k in ("is_tail", "is_brk", "is_refit"))
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("W", [24, 40])
+def test_tmask_bad_matches_plain(dev, W):
+    rng = np.random.default_rng(9)
+    C, P = 2, 153
+    Xtw = rng.normal(0, 1, (C, P, W, 5)).astype(np.float32)
+    Xtw[..., 0] = 1.0
+    Y2 = (400 + 80 * rng.normal(0, 1, (C, P, 2, W))).astype(np.float32)
+    Y2[rng.random(Y2.shape) < 0.05] += 900
+    nwin = rng.integers(0, W + 1, (C, P))
+    w = (np.arange(W) < nwin[..., None]).astype(np.float32)
+    Y2[0, 7] = 444.0                   # constant series -> singular Gram
+    args = (_t(Xtw, dev), _t(Y2, dev), _t(w, dev),
+            _t(np.abs(rng.normal(40, 10, (C, P, 2))).astype(np.float32), dev))
+    got = cuda_ops.tmask_bad(*args)
+    want = cuda_ops.tmask_bad_plain(*args)
+    assert want.any() and not want[0, 7].any()
+    assert torch.equal(got, want)
+
+
+def _decisions_equal(a, b):
+    for f in ("n_segments", "procedure", "mask", "seg_meta"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()), f
+
+
+def test_mega_route_on_card(dev):
+    """One detect_mega launch per dispatch after the prologue's lasso_fit;
+    every field equal to route "mon" (the same device code) but the
+    per-chip rounds and round_counts, whose maximum over chips is route
+    0's rounds; decisions equal to the mega route's plain version."""
+    packed = _tiny_packed()
+    base = kernel.detect_packed(packed, fused=0)
+    mon = kernel.detect_packed(packed, fused="mon")
+    cuda_ops.reset_launches()
+    seg = kernel.detect_packed(packed, pallas="mega")
+    assert {k: n for k, n in cuda_ops.LAUNCHES.items() if n > 0} == {
+        "lasso_fit": 1, "detect_mega": 1}
+    for f in ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
+              "mask", "procedure", "vario"):
+        assert torch.equal(getattr(seg, f), getattr(mon, f)), f
+    assert int(seg.rounds.max()) == int(base.rounds[0])
+    ref = kernel.detect_packed(packed, pallas="mega", ops=cuda_ops.PLAIN)
+    _decisions_equal(seg, ref)
+    assert torch.equal(seg.rounds, ref.rounds)
+    assert torch.equal(seg.round_counts, ref.round_counts)
+    torch.testing.assert_close(seg.seg_mag, ref.seg_mag, rtol=5e-3, atol=1e-2)
+
+
+def test_component_route_on_card(dev):
+    """pallas="lasso,monitor,tmask" launches exactly the three component
+    kernels and decides as route 0 and as its own plain version."""
+    packed = _tiny_packed()
+    base = kernel.detect_packed(packed, fused=0)
+    cuda_ops.reset_launches()
+    seg = kernel.detect_packed(packed, pallas="lasso,monitor,tmask")
+    launched = {k for k, n in cuda_ops.LAUNCHES.items() if n > 0}
+    assert launched == {"lasso_cd", "monitor_chain", "tmask_bad"}
+    _decisions_equal(seg, base)
+    ref = kernel.detect_packed(packed, pallas="lasso,monitor,tmask",
+                               ops=cuda_ops.PLAIN)
+    _decisions_equal(seg, ref)
+    torch.testing.assert_close(seg.seg_rmse, ref.seg_rmse, rtol=1e-4,
+                               atol=1e-3)
+
+
 @pytest.mark.parametrize("fused", [1, "mon"])
 def test_fused_routes_on_card(dev, fused):
     """Route 1 is byte-identical to route 0 on the card; route "mon"

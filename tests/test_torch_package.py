@@ -47,7 +47,8 @@ def test_port_sources_are_present():
 
 def test_every_kernel_has_a_wrapper_a_plain_version_and_a_counter():
     kernels = {"lasso_fit", "monitor_chain_scored", "init_window",
-               "fused_fit_close", "fused_round"}
+               "fused_fit_close", "fused_round", "lasso_cd", "monitor_chain",
+               "tmask_bad", "detect_mega"}
     assert set(cuda_ops.SOURCES) == kernels
     assert set(vars(cuda_ops.KERNELS)) == kernels
     assert set(vars(cuda_ops.PLAIN)) == kernels
@@ -173,6 +174,21 @@ def test_cli_fused_flag_picks_the_route(capsys):
           "--fused", "mon"])
     out = json.loads(capsys.readouterr().out)
     assert out["route"] == "mon" and out["pixels"] == 100
+
+
+@pytest.mark.parametrize("pallas, want", [
+    ("mega", ["mega"]), ("lasso,monitor,tmask", ["lasso", "monitor", "tmask"])])
+def test_cli_pallas_flag_picks_the_kernels(capsys, pallas, want):
+    import json
+
+    from firebird_tpu_torch.__main__ import main
+
+    main(["detect", "--chips", "1", "--start", "1995-01-01", "--end",
+          "1996-06-01", "--sensor", "landsat-ard-tiny", "--device", "cpu",
+          "--pallas", pallas])
+    out = json.loads(capsys.readouterr().out)
+    assert out["pallas"] == want and out["pixels"] == 100
+    assert out["rounds"] > 0
 
 
 def test_segments_roundtrip():
