@@ -230,7 +230,8 @@ def kernel_phase(inp, staged, reps):
     for k in want:
         n_diff = int((got[k] != want[k]).sum())
         check(n_diff == 0, f"monitor_chain_scored {k}: {n_diff} differ")
-    n_alive = float(inp["alive"].sum())
+    # The detection bands at the monitoring pixels' alive observations.
+    n_alive = float((inp["alive"] & inp["in_mon"][:, None, :]).sum())
     fl = n_alive * 5 * 19
     by = n_alive * 5 * 2 + nbytes(*a[1:], *got.values())
     rows.append(("monitor_chain_scored", a, kw_mon, 0.0, 0.0, fl, by))
@@ -443,9 +444,11 @@ def component_rows(inp, kw_mon):
     for k in want:
         n_diff = int((got[k] != want[k]).sum())
         check(n_diff == 0, f"monitor_chain {k}: {n_diff} differ")
+    # The score plane at the monitoring pixels' alive observations.
     # Integer counts and threshold compares only: no float arithmetic.
+    n_alive = float((inp["alive"] & inp["in_mon"][:, None, :]).sum())
     rows.append(("monitor_chain", a, kw_mon, 0.0, 0.0, 0.0,
-                 nbytes(*a, *got.values())))
+                 n_alive * 4 + nbytes(*a[1:], *got.values())))
 
     # ---- tmask_bad ----
     win = cuda_ops.init_window_gather(
@@ -458,8 +461,11 @@ def component_rows(inp, kw_mon):
     n_diff = int((got != want).sum())
     check(n_diff == 0, f"tmask_bad: {n_diff} flags differ")
     n = win["n_win"].double()
-    rows.append(("tmask_bad", a, {}, 0.0, 0.0, tmask_flops(n[n > 0]),
-                 nbytes(*a, got)))
+    # The members' design rows and Tmask-band values, the initializing
+    # pixels' slot weights and variograms, and the flags.
+    by = (float(win["valid_w"].sum()) * (5 + 2) * 4
+          + float((n > 0).sum()) * (inp["W"] + 2) * 4 + nbytes(got))
+    rows.append(("tmask_bad", a, {}, 0.0, 0.0, tmask_flops(n[n > 0]), by))
     return rows
 
 
@@ -489,11 +495,11 @@ def mega_row(staged, W, kw_mon, report):
     work = dict(init=0.0, monitor=0.0, fit=0.0)
 
     def count(s, init, ev):
-        in_init = s["phase"] == cuda_ops.PHASE_INIT
+        in_init = s["phase"] == kernel.PHASE_INIT
         n = window_sizes(dict(alive=s["alive"], t=t, cur_i=s["cur_i"],
                               in_init=in_init)).double()
         work["init"] += init_flops(n[n > 0])
-        in_mon = s["phase"] == cuda_ops.PHASE_MONITOR
+        in_mon = s["phase"] == kernel.PHASE_MONITOR
         work["monitor"] += float((s["alive"] & in_mon[:, None, :]).sum()) * 5 * 19
         w = torch.where(init["init_ok"][:, None, :], init["w_stab"],
                         ev["included_mon"] & ev["is_refit"][:, None, :])

@@ -36,8 +36,8 @@ def detect(args) -> dict:
     t_pack = time.perf_counter()
     fused = None if args.fused is None else {"0": 0, "1": 1,
                                              "mon": "mon"}[args.fused]
-    seg = kernel.detect_packed(packed, device=dev, fused=fused,
-                               pallas=args.pallas)
+    route = kernel.pallas_components(args.pallas)
+    seg = kernel.detect_packed(packed, device=dev, fused=fused, ops=route)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_det = time.perf_counter()
@@ -47,7 +47,7 @@ def detect(args) -> dict:
         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu"),
         route=kernel.fused_mode(fused),
-        pallas=list(kernel.pallas_components(args.pallas).components),
+        pallas=list(route.components),
         chips=args.chips, pixels=int(seg.n_segments.numel()),
         T=int(packed.spectra.shape[-1]),
         segments=int(seg.n_segments.sum()), rounds=int(seg.rounds.max()),

@@ -59,6 +59,9 @@ from firebird_tpu_torch.ccd.primitives import (coefmask_for, dot_cols, fdiv,
                                                take_t)
 # The plain version of :func:`tmask_bad`.
 from firebird_tpu_torch.ccd.primitives import tmask_bad as tmask_bad_plain
+from firebird_tpu_torch.ccd.round_state import (PHASE_DONE, PHASE_INIT,
+                                                 PHASE_MONITOR, init_zeros,
+                                                 next_state)
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD
 
 K = params.MAX_COEFS
@@ -73,11 +76,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The window sizes the init_window, tmask_bad and detect_mega kernels are
 # instantiated for (their register/local arrays are sized by it);
-# window_cap of a 16-day Landsat archive is ~32.
+# window_cap of a 1985-2017 Landsat archive is 24, inside the 32 instance.
 W_MAX_CHOICES = (32, 64, 128)
-# The event loop's phase codes (kernel._detect_batch's state, the
-# detect_mega kernel's arguments).
-PHASE_INIT, PHASE_MONITOR, PHASE_DONE = 0, 1, 2
 
 LAUNCHES = {name: 0 for name in SOURCES}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -94,7 +94,7 @@ _ARGTYPES = {
     "fb_lasso_cd": [_P] * 5 + [_I] * 2 + [_P],
     "fb_monitor_chain": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
     "fb_tmask_bad": [_P] * 5 + [_I] * 3 + [_P],
-    "fb_detect_mega": [_P] * 20 + [_I] * 11 + [_F, _F, _P],
+    "fb_detect_mega": [_P] * 20 + [_I] * 8 + [_F, _F, _P],
 }
 
 
@@ -1015,63 +1015,6 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
 
 
 # ---------------------------------------------------------------------------
-# The round's state advance (shared by the round loop and detect_mega's
-# plain version)
-# ---------------------------------------------------------------------------
-
-def init_zeros(st):
-    """The INIT block's outputs on a round where no pixel initializes
-    (every consumer masks on in_init-derived flags)."""
-    zb = torch.zeros_like(st["cur_i"], dtype=torch.bool)
-    zi = torch.zeros_like(st["cur_i"])
-    return dict(init_nowin=zb, init_tm=zb, init_ok=zb, init_bad=zb,
-                has_adv=zb, i_next_tm=zi, i_adv=zi, j=zi,
-                w_stab=torch.zeros_like(st["alive"]), n_ok=zi,
-                alive_init=st["alive"])
-
-
-def next_state(st, init, ev, coefs, rmse, nseg, bufs):
-    """The event loop's state after a round — kernel._detect_batch_impl's
-    loop body.  ``st`` is the round-start state, ``init`` the INIT block's
-    outputs, ``ev`` the round's events (is_tail, is_brk, is_refit, pos_ev,
-    do_fit, n_full [C,P]; included_mon, alive_mon [C,T,P]); ``coefs``,
-    ``rmse``, ``nseg`` and ``bufs`` the model and segments after the
-    round's close and refit."""
-    phase = st["phase"]
-    in_init = phase == PHASE_INIT
-    in_mon = phase == PHASE_MONITOR
-    init_ok = init["init_ok"]
-    is_tail, is_brk, is_refit = ev["is_tail"], ev["is_brk"], ev["is_refit"]
-    done = init["init_nowin"] | (init["init_bad"] & ~init["has_adv"])
-    phase_n = torch.where(
-        done, PHASE_DONE,
-        torch.where(init_ok, PHASE_MONITOR,
-                    torch.where(is_tail, PHASE_DONE,
-                                torch.where(is_brk, PHASE_INIT, phase))))
-    cur_i_n = torch.where(
-        init["init_tm"], init["i_next_tm"],
-        torch.where(init["init_bad"] & init["has_adv"], init["i_adv"],
-                    torch.where(is_brk, ev["pos_ev"], st["cur_i"])))
-    cur_k_n = torch.where(init_ok, init["j"] + 1,
-                          torch.where(is_refit, ev["pos_ev"] + 1,
-                                      st["cur_k"]))
-    alive_n = torch.where(in_init[:, None, :], init["alive_init"],
-                          torch.where(in_mon[:, None, :], ev["alive_mon"],
-                                      st["alive"]))
-    included_n = torch.where(
-        init_ok[:, None, :], init["w_stab"],
-        torch.where(is_brk[:, None, :], False,
-                    torch.where(in_mon[:, None, :], ev["included_mon"],
-                                st["included"])))
-    nlast_n = torch.where(ev["do_fit"], ev["n_full"], st["n_last_fit"])
-    i32 = torch.int32
-    return dict(phase=phase_n.to(i32), cur_i=cur_i_n.to(i32),
-                cur_k=cur_k_n.to(i32), alive=alive_n, included=included_n,
-                coefs=coefs, rmse=rmse, n_last_fit=nlast_n.to(i32),
-                first_seg=st["first_seg"] & ~is_brk, nseg=nseg, bufs=bufs)
-
-
-# ---------------------------------------------------------------------------
 # detect_mega
 # ---------------------------------------------------------------------------
 
@@ -1080,7 +1023,7 @@ def detect_mega_plain(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt,
                       sensor=LANDSAT_ARD, on_round=None):
     """Plain version of :func:`detect_mega`: the lockstep round loop over
     :func:`init_window_plain` and :func:`fused_round_plain` (with
-    :func:`next_state`), all pixels of the batch at once, until every
+    round_state.next_state), all pixels of the batch at once, until every
     pixel is DONE or the loop reaches 2T+8 rounds.  A chip's ``rounds``
     counts the rounds in which any of its pixels was not DONE, its
     ``counts`` the rounds in which any of them ran INIT, a fit or a close.
@@ -1180,8 +1123,7 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
     _launch("detect_mega", *map(_ptr, (
         Yt, t, X, Xt, vario, phase0, cur_i0, nseg0, *bufs, alive, included,
         w_stab, coefs, rmse, nseg, rounds, flags)), C, B, T, P, S, W, w_max,
-        max_rounds, PHASE_INIT, PHASE_MONITOR, PHASE_DONE, float(change_thr),
-        float(outlier_thr))
+        max_rounds, float(change_thr), float(outlier_thr))
     meta, rmse_b, mag, coef = bufs
     return dict(meta=meta, rmse=rmse_b, mag=mag, coef=coef, nseg=nseg,
                 alive=alive, rounds=rounds, counts=flags.sum(-1, dtype=i32))

@@ -50,12 +50,13 @@ import numpy as np
 import torch
 
 from firebird_tpu_torch.ccd import cuda_ops, harmonic, params
-from firebird_tpu_torch.ccd.cuda_ops import (PHASE_DONE, PHASE_INIT,
-                                             PHASE_MONITOR)
 from firebird_tpu_torch.ccd.primitives import (coefmask_for, dedup_first,
                                                fdiv, first_at_or_after,
                                                last_true, masked_median,
                                                take_t, variogram)
+from firebird_tpu_torch.ccd.round_state import (PHASE_DONE, PHASE_INIT,
+                                                 PHASE_MONITOR, init_zeros,
+                                                 next_state)
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD, chi2_thresholds
 
 log = logging.getLogger(__name__)
@@ -122,11 +123,18 @@ def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
     XLA route, and runs plain versions only where the caller passes
     ``ops=cuda_ops.PLAIN``.
 
-    ``ops`` (default :data:`cuda_ops.KERNELS`) supplies the functions.
+    ``ops`` (default :data:`cuda_ops.KERNELS`) supplies the functions; a
+    route this function returned comes back as it is (``pallas`` must then
+    be None), so an entry point resolves the route once and hands it down.
     Returns a namespace with the round functions ``_detect_batch`` calls
     (``lasso_fit``, ``monitor_chain_scored``, ``init_window``,
     ``fused_fit_close``, ``fused_round``; ``detect_mega`` on the mega
     route), ``mega`` and ``components``, the resolved names."""
+    if hasattr(ops, "components"):
+        if pallas is not None:
+            raise ValueError(f"pallas={pallas!r} with a resolved route: "
+                             f"pass one of the two")
+        return ops
     v = os.environ.get(PALLAS_ENV) if pallas is None else str(pallas)
     v = "1" if v is None else v.strip()
     if v == "1":
@@ -534,7 +542,7 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
             init = ops.init_window(st["alive"], st["cur_i"], in_init, t, X, Xt,
                                    Yt, res["vario"], W=W, sensor=sensor)
         else:
-            init = cuda_ops.init_zeros(st)
+            init = init_zeros(st)
         init_ok = init["init_ok"]
 
         if fused == "mon":
@@ -602,9 +610,8 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
             else:
                 coefs_n, rmse_n = st["coefs"], st["rmse"]
 
-        st = cuda_ops.next_state(st, init, dict(mon, do_fit=do_fit,
-                                                n_full=n_full),
-                                 coefs_n, rmse_n, nseg, bufs)
+        st = next_state(st, init, dict(mon, do_fit=do_fit, n_full=n_full),
+                        coefs_n, rmse_n, nseg, bufs)
         counts = [counts[0] + any_init, counts[1] + any_fit,
                   counts[2] + any_close]
         rounds += 1
@@ -625,8 +632,8 @@ def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
     int32, ``n_obs`` [C] int32, ``spectra`` [C,B,P,T] int16, ``qa``
     [C,P,T] uint8.  The designs are built on the device, the spectra are
     made resident as [C,B,T,P].  ``pallas`` picks the kernels
-    (:func:`pallas_components`, from ``ops``), ``fused`` the round route
-    (:func:`fused_mode`)."""
+    (:func:`pallas_components`, from ``ops``, or ``ops`` is a route it
+    already resolved), ``fused`` the round route (:func:`fused_mode`)."""
     _exact_f32()
     ops = pallas_components(pallas, ops)
     if variogram_mode not in ("adjusted", "plain"):
@@ -659,19 +666,20 @@ def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
     versions wherever the tensors are).  ``pallas`` picks the kernels of
     the route: None defers to FIREBIRD_PALLAS (unset: "1", the
     ``fit,score,init`` route), else "1", a component list or "mega"
-    (:func:`pallas_components`).  ``fused`` picks the round route: None
-    defers to FIREBIRD_FUSED_FIT (unset: route 0), else 0, 1 or "mon"
-    (:func:`fused_mode`); the mega route has none."""
+    (:func:`pallas_components`; ``ops`` may be a route it resolved).
+    ``fused`` picks the round route: None defers to FIREBIRD_FUSED_FIT
+    (unset: route 0), else 0, 1 or "mon" (:func:`fused_mode`); the mega
+    route has none."""
     dev = resolve_device(device)
-    pallas_components(pallas, ops)          # refuse a bad route up front
+    route = pallas_components(pallas, ops)  # refuses a bad route up front
     args = staged if staged is not None else stage_packed(packed, dev)
     sensor = getattr(packed, "sensor", LANDSAT_ARD)
     W = window_cap(packed)
     fused = fused_mode(fused)
     dispatch = lambda S: detect_staged(*args, W=W, sensor=sensor,
                                        max_segments=S,
-                                       variogram_mode=variogram_mode, ops=ops,
-                                       fused=fused, pallas=pallas)
+                                       variogram_mode=variogram_mode,
+                                       ops=route, fused=fused)
     if not check_capacity:
         return dispatch(max(max_segments, 1))
     return capacity_retry(dispatch, lambda seg: int(seg.n_segments.max()),

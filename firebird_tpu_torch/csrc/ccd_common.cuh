@@ -28,6 +28,10 @@ constexpr int NUM_OBS_FACTOR = 3;
 constexpr int MID_COEFS = 6;
 constexpr int NBAND = 7;        // Landsat bands, the layout the kernels take
 constexpr int NDET = 5;         // its detection bands, 1..5
+// The event loop's phase codes (ccd/round_state.py).
+constexpr int PHASE_INIT = 0;
+constexpr int PHASE_MONITOR = 1;
+constexpr int PHASE_DONE = 2;
 
 __device__ __forceinline__ float pmax(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);

@@ -50,8 +50,7 @@ mega_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ tt,
             uint8_t* w_stab, float* coefs, float* rmse,
             int* __restrict__ nseg_out, int* __restrict__ rounds,
             int* __restrict__ flags, int C, int T, int P, int W,
-            int max_rounds, int ph_init, int ph_mon, int ph_done,
-            float change_thr, float outlier_thr) {
+            int max_rounds, float change_thr, float outlier_thr) {
   using namespace fb;
   const int c = blockIdx.y;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
@@ -76,16 +75,16 @@ mega_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ tt,
   int nseg = nseg0[cp];
   bool first_seg = true;
   int r = 0;
-  for (; r < max_rounds && phase != ph_done; ++r) {
-    const bool in_init = phase == ph_init;
+  for (; r < max_rounds && phase != PHASE_DONE; ++r) {
+    const bool in_init = phase == PHASE_INIT;
     InitOut io{};
     if (in_init) {
       io = init_pixel<WMAX>(al + p, cur_i, true, tc, Xc, Xtc, Yc + p, vrow, T,
                             P, W, ws + p, al + p);
       fl[r] = 1;
     }
-    const RoundIn in{phase == ph_mon, cur_k, nlast, io.ok != 0, io.n_ok,
-                     first_seg, nseg, coef_row, rmse_row, vrow};
+    const RoundIn in{phase == PHASE_MONITOR, cur_k, nlast, io.ok != 0,
+                     io.n_ok, first_seg, nseg, coef_row, rmse_row, vrow};
     const RoundOut o = round_pixel(Yc, Xc, tc, pl, T, P, p, cp, in, bufs,
                                    coef_row, rmse_row, change_thr,
                                    outlier_thr);
@@ -95,10 +94,10 @@ mega_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ tt,
     // Next state (kernel._detect_batch_impl's loop body).
     const MonitorEvent& e = o.e;
     const bool done = io.nowin || (io.bad && !io.has_adv);
-    const int phase_n = done ? ph_done
-                        : io.ok ? ph_mon
-                        : e.is_tail ? ph_done
-                        : e.is_brk ? ph_init : phase;
+    const int phase_n = done ? PHASE_DONE
+                        : io.ok ? PHASE_MONITOR
+                        : e.is_tail ? PHASE_DONE
+                        : e.is_brk ? PHASE_INIT : phase;
     cur_i = io.tm ? io.i_next_tm
             : (io.bad && io.has_adv) ? io.i_adv
             : e.is_brk ? e.pos_ev : cur_i;
@@ -123,16 +122,16 @@ int launch(const void* Yt, const void* t, const void* X, const void* Xt,
            const void* nseg0, fb::SegBufs bufs, void* alive, void* included,
            void* w_stab, void* coefs, void* rmse, void* nseg_out,
            void* rounds, void* flags, int C, int T, int P, int W,
-           int max_rounds, int ph_init, int ph_mon, int ph_done,
-           float change_thr, float outlier_thr, cudaStream_t stream) {
+           int max_rounds, float change_thr, float outlier_thr,
+           cudaStream_t stream) {
   dim3 grid((P + fb::BLOCK - 1) / fb::BLOCK, C);
   mega_kernel<WMAX><<<grid, fb::BLOCK, 0, stream>>>(
       (const int16_t*)Yt, (const float*)t, (const float*)X, (const float*)Xt,
       (const float*)vario, (const int*)phase0, (const int*)cur_i0,
       (const int*)nseg0, bufs, (uint8_t*)alive, (uint8_t*)included,
       (uint8_t*)w_stab, (float*)coefs, (float*)rmse, (int*)nseg_out,
-      (int*)rounds, (int*)flags, C, T, P, W, max_rounds, ph_init, ph_mon,
-      ph_done, change_thr, outlier_thr);
+      (int*)rounds, (int*)flags, C, T, P, W, max_rounds, change_thr,
+      outlier_thr);
   return (int)cudaGetLastError();
 }
 
@@ -146,15 +145,15 @@ int launch(const void* Yt, const void* t, const void* X, const void* Xt,
 // [C,P,7,8] f32 (zeros in), rmse [C,P,7] f32 (ones in)
 // -> nseg_out [C,P] i32, rounds [C] i32 (zeros in), flags [C,3,max_rounds]
 //    i32 (zeros in).  W is the window cap, w_max the instance (32, 64 or
-//    128) that holds it; ph_* the phase codes.
+//    128) that holds it.
 extern "C" int fb_detect_mega(
     const void* Yt, const void* t, const void* X, const void* Xt,
     const void* vario, const void* phase0, const void* cur_i0,
     const void* nseg0, void* meta_b, void* rmse_b, void* mag_b, void* coef_b,
     void* alive, void* included, void* w_stab, void* coefs, void* rmse,
     void* nseg_out, void* rounds, void* flags, int C, int nb, int T, int P,
-    int S, int W, int w_max, int max_rounds, int ph_init, int ph_mon,
-    int ph_done, float change_thr, float outlier_thr, void* stream) {
+    int S, int W, int w_max, int max_rounds, float change_thr,
+    float outlier_thr, void* stream) {
   if (nb != B || W > w_max || T > 32767) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   fb::SegBufs bufs{(float*)meta_b, (float*)rmse_b, (float*)mag_b,
@@ -162,8 +161,7 @@ extern "C" int fb_detect_mega(
 #define FB_MEGA_LAUNCH(WM)                                                   \
   launch<WM>(Yt, t, X, Xt, vario, phase0, cur_i0, nseg0, bufs, alive,        \
              included, w_stab, coefs, rmse, nseg_out, rounds, flags, C, T, P, \
-             W, max_rounds, ph_init, ph_mon, ph_done, change_thr,            \
-             outlier_thr, s)
+             W, max_rounds, change_thr, outlier_thr, s)
   switch (w_max) {
     case 32:
       return FB_MEGA_LAUNCH(32);

@@ -303,3 +303,22 @@ def test_pallas_values_without_a_kernel_are_refused(value):
     _, tp = _packed("default")
     with pytest.raises(ValueError, match="FIREBIRD_PALLAS"):
         tk.detect_packed(tp, device="cpu", pallas=value)
+
+
+@pytest.mark.parametrize("value", ["1", COMPONENTS, "mega"])
+def test_a_resolved_route_is_resolved_once(monkeypatch, value):
+    """detect_packed resolves the route once and hands it down: a resolved
+    route comes back as it is, whatever FIREBIRD_PALLAS says by then, and
+    refuses a second pallas= beside it."""
+    route = tk.pallas_components(value)
+    monkeypatch.setenv("FIREBIRD_PALLAS", "0")
+    assert tk.pallas_components(None, route) is route
+    with pytest.raises(ValueError, match="resolved route"):
+        tk.pallas_components(value, route)
+    seen = []
+    monkeypatch.setattr(tk, "detect_staged",
+                        lambda *a, ops, **k: seen.append(ops))
+    _, tp = _packed("default")
+    monkeypatch.setenv("FIREBIRD_PALLAS", value)
+    tk.detect_packed(tp, device="cpu", check_capacity=False)
+    assert seen[0].components == route.components

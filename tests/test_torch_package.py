@@ -214,3 +214,16 @@ def test_packbits_matches_numpy():
         m = rng.random((2, 3, T)) < 0.5
         np.testing.assert_array_equal(tk.packbits(torch.from_numpy(m)).numpy(),
                                       np.packbits(m, axis=-1))
+
+
+def test_phase_codes_equal_the_kernels():
+    import re
+
+    from firebird_tpu_torch.ccd import round_state
+
+    src = (ROOT / "firebird_tpu_torch" / "csrc" / "ccd_common.cuh").read_text()
+    codes = dict(re.findall(r"constexpr int (PHASE_\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in codes.items()} == {
+        k: getattr(round_state, k)
+        for k in ("PHASE_INIT", "PHASE_MONITOR", "PHASE_DONE")}
+    assert tk.PHASE_DONE == cuda_ops.PHASE_DONE == round_state.PHASE_DONE

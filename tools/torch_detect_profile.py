@@ -75,7 +75,7 @@ def main(argv=None):
     ops = kernel.pallas_components(args.pallas)
     route = ("mega" if ops.mega
              else "+".join(ops.components) + f"/fused={args.fused}")
-    kw = dict(fused=fused, pallas=args.pallas)
+    kw = dict(fused=fused, ops=ops)
     if not torch.cuda.is_available():
         sys.exit("torch_detect_profile: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
