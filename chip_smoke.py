@@ -6,19 +6,22 @@ From the root of a checkout, on a machine with a CUDA card:
 
 1. prints the card (nvidia-smi name and power limit) and the torch / CUDA
    versions;
-2. builds the nine CUDA kernels from ``firebird_tpu_torch/csrc`` (one nvcc
+2. builds the ten CUDA kernels from ``firebird_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and times the build;
 3. kernel phase: runs each kernel's wrapper at the main path's full width
    (``--chips`` chips of 100x100 pixels from ``SyntheticSource(--seed)``,
    1985-2017, T=768, the archive's window cap) on round states drawn from
    the seed with numpy (the fused kernels' events come from the plain
    monitor and INIT on those states; ``detect_mega`` starts from the
-   batch's own prologue state), holds the result against the kernel's
-   plain PyTorch version on the same inputs, and times both with CUDA
-   events;
+   batch's own prologue state; ``ring_remote_copy`` moves two shards'
+   stage-2 carries of four chips at the 2048-lane bucket), holds the
+   result against the kernel's plain PyTorch version on the same inputs,
+   and times both with CUDA events (``ring_remote_copy`` also against one
+   ``torch._foreach_copy_``);
 4. main paths, one for each route: the round routes ``fused`` 0, 1 and
    "mon", the whole-loop route ``pallas="mega"`` and the component route
-   ``pallas="lasso,monitor,tmask"``.  Each is ``SyntheticSource`` ->
+   ``pallas="lasso,monitor,tmask"``, all with compaction off, and route 0
+   with compaction on ("0+compact").  Each is ``SyntheticSource`` ->
    ``pack`` -> ``detect_packed`` on the card for the same full-size
    Landsat chips, with the launch counters set to 0 just before and read
    just after, and held to the route's set of kernels (the mega route to
@@ -29,9 +32,15 @@ From the root of a checkout, on a machine with a CUDA card:
    mega route route "mon" in every field but the per-chip rounds and
    round_counts (their maximum over chips is route 0's rounds), the
    component route route 0 in the decisions of at least 0.999 of the
-   pixels.  On route 0, egress packing and decoding and the store's table
-   frames for one chip;
-5. a small input (two 10x10 chips) through the card and through the plain
+   pixels, "0+compact" route 0 in every field.  On route 0, egress packing
+   and decoding and the store's table frames for one chip;
+5. the sharded main path: ``detect_sharded`` over two shards on the card
+   (route 0, compaction and the rebalancing ring on) for the same chips,
+   the second shard's four keeping a 10-row strip of land; it must migrate
+   lanes through three ``ring_remote_copy`` hops a dispatch and equal the
+   ring-off dispatch and the unsharded "0+compact" route in the store
+   fields;
+6. a small input (two 10x10 chips) through the card and through the plain
    versions on the CPU, decision fields compared.
 
 Any failed check raises before the result.  The last three lines are the
@@ -43,6 +52,7 @@ them, and the device JSON.  A longer report goes to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -59,6 +69,7 @@ from firebird_tpu_torch.ccd.primitives import (coefmask_for,
 from firebird_tpu_torch.ccd.sensor import (LANDSAT_ARD, LANDSAT_ARD_TINY,
                                            chi2_thresholds)
 from firebird_tpu_torch.ingest import SyntheticSource, pack
+from firebird_tpu_torch.parallel import detect_sharded
 
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 F32_FLOPS_S = 67e12            # H100 SXM float32 outside the tensor cores
@@ -74,29 +85,37 @@ KERNEL_INFO = {
     "monitor_chain": f"{PALLAS}:652",
     "tmask_bad": f"{PALLAS}:1225",
     "detect_mega": f"{PALLAS}:2283",
+    "ring_remote_copy": f"{PALLAS}:1877",
 }
 COMPONENTS = "lasso,monitor,tmask"
+ROUTE_0 = {"lasso_fit", "monitor_chain_scored", "init_window"}
 # Each main path: its detect_packed arguments and the kernels it launches
 # (the routes after "0" fit the prologue's snow / insufficient-clear
-# pixels with lasso_fit; the component route with lasso_cd).
+# pixels with lasso_fit; the component route with lasso_cd).  The five
+# routes run with compaction off, "0+compact" is route 0 with it on.
 ROUTES = {
-    "0": (dict(pallas="1", fused=0),
-          {"lasso_fit", "monitor_chain_scored", "init_window"}),
-    "1": (dict(pallas="1", fused=1),
-          {"lasso_fit", "monitor_chain_scored", "init_window",
-           "fused_fit_close"}),
-    "mon": (dict(pallas="1", fused="mon"),
+    "0": (dict(pallas="1", fused=0, compact=False), ROUTE_0),
+    "1": (dict(pallas="1", fused=1, compact=False),
+          ROUTE_0 | {"fused_fit_close"}),
+    "mon": (dict(pallas="1", fused="mon", compact=False),
             {"lasso_fit", "init_window", "fused_round"}),
-    "mega": (dict(pallas="mega"), {"lasso_fit", "detect_mega"}),
-    COMPONENTS: (dict(pallas=COMPONENTS, fused=0),
+    "mega": (dict(pallas="mega", compact=False), {"lasso_fit", "detect_mega"}),
+    COMPONENTS: (dict(pallas=COMPONENTS, fused=0, compact=False),
                  {"lasso_cd", "monitor_chain", "tmask_bad"}),
+    "0+compact": (dict(pallas="1", fused=0, compact=True), ROUTE_0),
 }
+# The sharded main path: two shards on the one card, route 0, compaction
+# and the rebalancing ring on (its default threshold).
+SHARDS = 2
+SHARDED = dict(pallas="1", fused=0, compact=True)
+STORE_FIELDS = ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
+                "mask", "procedure")
 # The route whose main-path launches a kernel's JSON row reports.
 HOME_ROUTE = {"lasso_fit": "0", "monitor_chain_scored": "0",
               "init_window": "0", "fused_fit_close": "1",
               "fused_round": "mon", "lasso_cd": COMPONENTS,
               "monitor_chain": COMPONENTS, "tmask_bad": COMPONENTS,
-              "detect_mega": "mega"}
+              "detect_mega": "mega", "ring_remote_copy": "sharded"}
 SEGMENT_FIELDS = ("n_segments", "seg_meta", "seg_rmse", "seg_mag",
                   "seg_coef", "mask", "procedure", "rounds", "vario",
                   "round_counts")
@@ -198,7 +217,7 @@ def window_sizes(inp):
     return torch.where(has_i & has_w & inp["in_init"], n, torch.zeros_like(n))
 
 
-def kernel_phase(inp, staged, reps):
+def kernel_phase(inp, staged, reps, seed):
     C, B, T, P = inp["Yt"].shape
     rows, report = [], {}
     kw_mon = dict(zip(("change_thr", "outlier_thr"),
@@ -261,6 +280,7 @@ def kernel_phase(inp, staged, reps):
     rows += fused_rows(inp, mon, init, kw_mon, report)
     rows += component_rows(inp, kw_mon)
     rows.append(mega_row(staged, inp["W"], kw_mon, report))
+    rows.append(ring_row(seed, T, inp["Yt"].device, report))
 
     out = {}
     for name, args, kw, err, rel, fl, by, *timing in rows:
@@ -270,16 +290,18 @@ def kernel_phase(inp, staged, reps):
                      tm["reps"])
         plain_ms = cuda_ms(lambda: getattr(cuda_ops.PLAIN, name)(*args, **kw),
                            tm["plain_reps"], tm["plain_warm"])
+        lib = tm.get("library")
+        library_ms = None if lib is None else cuda_ms(lib, tm["reps"])
         b_ms, b_by = bound(by, fl)
         out[name] = dict(name=name, route="cuda",
                          source=f"firebird_tpu_torch/csrc/{name}.cu",
                          replaces=KERNEL_INFO[name], max_abs_err=err,
                          max_rel_err=rel, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=None, bytes=by, flops=fl)
+                         library_ms=library_ms, bytes=by, flops=fl)
         print(f"kernel {name}: {ms:.3f} ms (plain {plain_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by}), max abs err {err}, max rel err "
-              f"{rel}", flush=True)
+              f"{b_ms:.4f} ms by {b_by}, library {library_ms} ms), max abs "
+              f"err {err}, max rel err {rel}", flush=True)
     return out, report
 
 
@@ -540,6 +562,61 @@ def mega_row(staged, W, kw_mon, report):
             dict(reps=3, plain_reps=1, plain_warm=0))
 
 
+def ring_row(seed, T, dev, report, chips=4, bucket=2048):
+    """``ring_remote_copy`` at full width: the migration-out hop of the
+    sharded path's two shards of ``chips`` chips on the card, each
+    shard's payload a stage-2 carry at the 2048-lane bucket of 100x100
+    chips (route 0's loop state, result buffers and residents, the
+    permutation), its designs and its donation mask, drawn from the seed.
+    Byte-equal to the plain per-tensor copy and to the sources; the
+    library call is one ``torch._foreach_copy_`` over the same tensors."""
+    rng = np.random.default_rng(seed + 2)
+    g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    C, P, B, S = chips, bucket, 7, kernel.MAX_SEGMENTS
+    ints = lambda hi, shape, dt=np.int32: g(rng.integers(0, hi, shape)
+                                            .astype(dt))
+    bits = lambda shape: g(rng.random(shape) < 0.5)
+    flts = lambda shape: g(rng.standard_normal(shape).astype(np.float32))
+    resident = dict(vario=lambda: flts((C, P, B)),
+                    Yt=lambda: ints(8000, (C, B, T, P), np.int16),
+                    Yd=lambda: ints(8000, (C, 5, T, P), np.int16))
+
+    def payload():
+        return [ints(3, (C, P)), ints(T, (C, P)), ints(T, (C, P)),
+                bits((C, T, P)), bits((C, T, P)), flts((C, P, B, 8)),
+                flts((C, P, B)), ints(T, (C, P)), bits((C, P)),
+                ints(S + 1, (C, P)),
+                *(flts((C, P, S) + k) for k in ((6,), (B,), (B,), (B, 8))),
+                *(resident[k]() for k in kernel.resident_keys(0)),
+                ints(P, (C, P), np.int64), ints(P, (C,)),
+                flts((C, T, 8)), flts((C, T, 5)), flts((C, T)), bits((C, P))]
+
+    payloads = [payload() for _ in range(SHARDS)]
+    raw = lambda t: t.reshape(-1).view(torch.uint8)
+    got = cuda_ops.ring_remote_copy(payloads, 1)
+    want = cuda_ops.ring_remote_copy_plain(payloads, 1)
+    torch.cuda.synchronize()
+    for i in range(SHARDS):
+        j = (i + 1) % SHARDS
+        for k, (a, b, src) in enumerate(zip(got[j], want[j], payloads[i])):
+            check(a.device == src.device and a.data_ptr() != src.data_ptr(),
+                  f"ring_remote_copy shard {i} tensor {k}: not a new buffer")
+            check(torch.equal(raw(a), raw(b)) and torch.equal(raw(a), raw(src)),
+                  f"ring_remote_copy shard {i} tensor {k} differs")
+    total = sum(nbytes(*p) for p in payloads)
+    report["ring_remote_copy"] = dict(shards=SHARDS, chips=chips,
+                                      bucket=bucket,
+                                      tensors=len(payloads[0]),
+                                      payload_bytes=total)
+    print(f"ring_remote_copy: {SHARDS} shards x {len(payloads[0])} tensors, "
+          f"{total / 1e6:.1f} MB a hop, byte-equal to its plain version",
+          flush=True)
+    dsts = [torch.empty_like(t) for p in payloads for t in p]
+    srcs = [t for p in payloads for t in p]
+    return ("ring_remote_copy", (payloads, 1), {}, 0.0, 0.0, 0.0, 2 * total,
+            dict(library=lambda: torch._foreach_copy_(dsts, srcs)))
+
+
 # ---------------------------------------------------------------------------
 # Main paths
 # ---------------------------------------------------------------------------
@@ -616,6 +693,9 @@ def route_path(packed, staged, smi, name):
               f"mega route: {launches['detect_mega']} detect_mega launches "
               f"for {launches['lasso_fit']} dispatches")
     check_result(seg, C, P, T)
+    occ = occupancy_summary(seg, P) if kw.get("compact") else None
+    if occ is not None:
+        print(f"route {name!r}: {occ}", flush=True)
 
     t0 = time.perf_counter()
     ref = kernel.detect_packed(packed, staged=staged, ops=cuda_ops.PLAIN,
@@ -638,7 +718,126 @@ def route_path(packed, staged, smi, name):
                      round_counts=seg.round_counts.tolist(),
                      segments=int(seg.n_segments.sum()), launches=launches,
                      peak_bytes=peak, plain_seconds=plain_secs,
-                     decision_agreement=agree, pixels_disagreeing=n_dis)
+                     decision_agreement=agree, pixels_disagreeing=n_dis,
+                     occupancy=occ)
+
+
+def occupancy_summary(seg, P):
+    """A compacted run's compactions and occupancy: the lane-rounds that
+    entered a round still working, those the per-block skip guards would
+    pay for (this port runs no guards: its kernels compute every lane of
+    the current width), the padded width's, and per chip the rounds whose
+    paid lanes fit the stage-2 bucket (the bucketed tail's rounds)."""
+    occ = seg.occupancy.double()
+    bucket = kernel.tail_bucket(P, kernel.compact_floor())
+    ran = (torch.arange(occ.shape[1], device=occ.device)[None, :]
+           < seg.rounds[:, None])
+    return dict(compactions=int(seg.compactions.sum()),
+                rounds=seg.rounds.tolist(), bucket=bucket,
+                rounds_within_bucket=((occ[..., 1] <= bucket) & ran).sum(
+                    1).tolist(),
+                active_lane_rounds=float(occ[..., 0].sum()),
+                paid_lane_rounds=float(occ[..., 1].sum()),
+                padded_lane_rounds=float(P * seg.rounds.sum()))
+
+
+def ragged_batch(packed):
+    """The sharded path's batch: the main path's chips, the second shard's
+    chips keeping a strip of land a tenth of the chip high (10 rows, 1000
+    pixels of a 100x100 chip) with the other rows QA fill, as coastal and
+    CONUS-border chips are mostly water or no data.  It leaves the shards
+    a gap in working lanes at the tail."""
+    qas = packed.qas.copy()
+    qas[packed.n_chips // SHARDS:, qas.shape[1] // 10:, :] = \
+        1 << params.QA_FILL_BIT
+    return dataclasses.replace(packed, qas=qas)
+
+
+def n_dispatches(seg, packed):
+    """The dispatches capacity_retry made to reach ``seg``'s capacity."""
+    S, n, bound = kernel.MAX_SEGMENTS, 1, kernel.capacity_bound(packed)
+    while S < seg.seg_meta.shape[2]:
+        S, n = min(2 * S, bound), n + 1
+    return n
+
+
+def store_diff(seg, base):
+    return [f for f in STORE_FIELDS
+            if not torch.equal(getattr(seg, f), getattr(base, f))]
+
+
+def sharded_path(packed, smi):
+    """The sharded main path: ``detect_sharded`` over two shards on the
+    card (route 0, compaction and the rebalancing ring on), the launch
+    counters set to 0 just before and read just after.  The ring must
+    migrate lanes, with three ``ring_remote_copy`` hops of one launch per
+    shard a dispatch; the store fields must equal the ring-off dispatch
+    and the unsharded "0+compact" route on the same batch, and the same
+    dispatch through the plain versions must agree in the decisions of
+    at least 0.999 of the pixels."""
+    C, B, P, T = packed.spectra.shape
+    devices = ["cuda:0"] * SHARDS
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    seg = detect_sharded(packed, devices, rebalance=True, **SHARDED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    launched = {k for k, n in launches.items() if n > 0}
+    expect = ROUTE_0 | {"ring_remote_copy"}
+    check(launched == expect, f"sharded path launched {sorted(launched)}, "
+          f"expected {sorted(expect)}")
+    hops = 3 * SHARDS * n_dispatches(seg, packed)
+    check(launches["ring_remote_copy"] == hops,
+          f"sharded path: {launches['ring_remote_copy']} ring_remote_copy "
+          f"launches, expected {hops}")
+    migrated = seg.lanes_migrated.tolist()
+    check(sum(migrated) > 0, f"the ring migrated no lanes: {migrated}")
+    check_result(seg, C, P, T)
+    occ = occupancy_summary(seg, P)
+
+    t0 = time.perf_counter()
+    off = detect_sharded(packed, devices, rebalance=False, **SHARDED)
+    torch.cuda.synchronize()
+    off_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = kernel.detect_packed(packed, **SHARDED)
+    torch.cuda.synchronize()
+    whole_secs = time.perf_counter() - t0
+    vs = {}
+    for label, base in (("ring_off", off), ("unsharded_0+compact", whole)):
+        vs[label] = store_diff(seg, base)
+        print(f"sharded vs {label}: store fields differing {vs[label]}",
+              flush=True)
+        check(not vs[label], f"sharded path vs {label}: {vs[label]} differ")
+    del off, whole
+    t0 = time.perf_counter()
+    ref = detect_sharded(packed, devices, rebalance=True, ops=cuda_ops.PLAIN,
+                         **SHARDED)
+    torch.cuda.synchronize()
+    plain_secs = time.perf_counter() - t0
+    agree, n_dis = decision_agreement(seg, ref)
+    print(f"main path 'sharded': {SHARDS} shards on {devices[0]}, {C} chips x "
+          f"{P} px ({int(((packed.qas & 1) == 0).any(-1).sum())} not fill), "
+          f"T={T}: {secs:.3f} s, {C * P / secs:.1f} px/s on {smi}, rounds "
+          f"{seg.rounds.tolist()}, lanes migrated {migrated}, launches "
+          f"{launches}, peak {peak / 2**30:.2f} GiB, {occ}; ring off "
+          f"{off_secs:.3f} s, unsharded {whole_secs:.3f} s; plain route "
+          f"{plain_secs:.3f} s; decision agreement {agree} ({n_dis} pixels "
+          f"differ)", flush=True)
+    check(agree >= 0.999, f"sharded path: decision agreement {agree} < 0.999")
+    return dict(route="sharded", shards=SHARDS, devices=devices, chips=C,
+                pixels=C * P, T=T, seconds=secs, pixels_per_s=C * P / secs,
+                rounds=seg.rounds.tolist(),
+                round_counts=seg.round_counts.tolist(),
+                segments=int(seg.n_segments.sum()), launches=launches,
+                lanes_migrated=migrated, peak_bytes=peak,
+                ring_off_seconds=off_secs, unsharded_seconds=whole_secs,
+                plain_seconds=plain_secs, decision_agreement=agree,
+                pixels_disagreeing=n_dis, store_fields_differing=vs,
+                occupancy=occ)
 
 
 def compare_routes(seg, base, label, allowed):
@@ -735,7 +934,7 @@ def main(argv=None):
     print(f"batch: {packed.spectra.shape} int16 made in {gen_s:.1f} s",
           flush=True)
     inp = kernel_inputs(args.seed, staged, kernel.window_cap(packed))
-    kernels, kreport = kernel_phase(inp, staged, args.reps)
+    kernels, kreport = kernel_phase(inp, staged, args.reps, args.seed)
     del inp
     torch.cuda.empty_cache()
     paths, segs = {}, {}
@@ -761,7 +960,12 @@ def main(argv=None):
           f"{agree} < 0.999")
     paths[COMPONENTS]["vs_route_0"] = dict(decision_agreement=agree,
                                           pixels_disagreeing=n_dis)
+    # Compaction leaves every result field as it was.
+    paths["0+compact"]["vs_route_0"] = compare_routes(
+        segs["0+compact"], segs["0"], "route '0+compact' vs route '0'", ())
     del segs
+    torch.cuda.empty_cache()
+    paths["sharded"] = sharded_path(ragged_batch(packed), smi)
     small = small_input(args.seed, dev)
     for name, row in kernels.items():
         row["launches"] = paths[HOME_ROUTE[name]]["launches"][name]

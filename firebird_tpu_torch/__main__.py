@@ -2,7 +2,7 @@
 
     python -m firebird_tpu_torch detect --chips N --start 1985-01-01 \\
         --end 2017-12-31 [--seed S] [--sensor landsat-ard] [--device cuda] \\
-        [--fused {0,1,mon}] [--pallas ROUTE]
+        [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--shards N]
 
 ``detect`` runs SyntheticSource -> pack -> detect_packed -> batch_frames
 on the device (CUDA unless ``--device cpu``) and prints one JSON summary:
@@ -10,7 +10,12 @@ chips, pixels, segments, rounds (the most any chip ran) and seconds.
 ``--pallas`` picks the kernels (kernel.pallas_components: "1", a component
 list such as ``lasso,monitor,tmask``, or ``mega``); without it
 FIREBIRD_PALLAS decides.  ``--fused`` picks the round route
-(kernel.fused_mode); without it FIREBIRD_FUSED_FIT decides.
+(kernel.fused_mode); without it FIREBIRD_FUSED_FIT decides.  ``--compact``
+turns active-lane compaction on or off (kernel.compact_mode); without it
+FIREBIRD_COMPACT decides (unset: on).  ``--shards N`` runs
+parallel.detect_sharded over N shards laid round-robin over the visible
+cards (N shards on the CPU with ``--device cpu``); FIREBIRD_REBALANCE
+turns its rebalancing ring on.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from firebird_tpu_torch.ccd import format as fmt
 from firebird_tpu_torch.ccd import kernel
 from firebird_tpu_torch.ccd.sensor import SENSORS
 from firebird_tpu_torch.ingest import SyntheticSource, pack
+from firebird_tpu_torch.parallel import detect_sharded
 
 
 def detect(args) -> dict:
@@ -37,7 +43,16 @@ def detect(args) -> dict:
     fused = None if args.fused is None else {"0": 0, "1": 1,
                                              "mon": "mon"}[args.fused]
     route = kernel.pallas_components(args.pallas)
-    seg = kernel.detect_packed(packed, device=dev, fused=fused, ops=route)
+    compact = None if args.compact is None else args.compact == "1"
+    if args.shards:
+        devices = ([dev] * args.shards if dev.type == "cpu" else
+                   [f"cuda:{i % torch.cuda.device_count()}"
+                    for i in range(args.shards)])
+        seg = detect_sharded(packed, devices, fused=fused, ops=route,
+                             compact=compact)
+    else:
+        seg = kernel.detect_packed(packed, device=dev, fused=fused, ops=route,
+                                   compact=compact)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_det = time.perf_counter()
@@ -48,6 +63,9 @@ def detect(args) -> dict:
                 else "cpu"),
         route=kernel.fused_mode(fused),
         pallas=list(route.components),
+        compact=kernel.compact_mode(compact), shards=args.shards or 1,
+        lanes_migrated=(None if seg.lanes_migrated is None
+                        else int(seg.lanes_migrated.sum())),
         chips=args.chips, pixels=int(seg.n_segments.numel()),
         T=int(packed.spectra.shape[-1]),
         segments=int(seg.n_segments.sum()), rounds=int(seg.rounds.max()),
@@ -76,6 +94,13 @@ def main(argv=None) -> None:
                    help="kernels: 1 (fit,score,init), a component list "
                         "(lasso,monitor,tmask), or mega, the whole loop in "
                         "one launch (default: FIREBIRD_PALLAS, unset = 1)")
+    d.add_argument("--compact", default=None, choices=("0", "1"),
+                   help="active-lane compaction (default: FIREBIRD_COMPACT, "
+                        "unset = 1)")
+    d.add_argument("--shards", type=int, default=0,
+                   help="shard the chips over N shards, round-robin over the "
+                        "visible cards (FIREBIRD_REBALANCE=1 turns on the "
+                        "rebalancing ring)")
     args = ap.parse_args(argv)
     print(json.dumps(detect(args)))
 

@@ -24,6 +24,9 @@ package runs (the JAX package's ``FIREBIRD_PALLAS`` routes
   refit, in one launch (``csrc/fused_round.cu``; Pallas ``fused_round``).
 - :func:`detect_mega` — every pixel's whole event loop in one launch
   (``csrc/detect_mega.cu``; Pallas ``detect_mega``).
+- :func:`ring_remote_copy` — one hop of the rebalancing ring: each
+  shard's payload copied into buffers on its ring neighbour's device
+  (``csrc/ring_remote_copy.cu``; Pallas ``ring_remote_copy``).
 
 Each wrapper checks its tensors' device, dtype, shape and contiguity, then
 runs its plain PyTorch version (``*_plain``, same contract) when they lie
@@ -50,13 +53,14 @@ import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from firebird_tpu_torch.ccd import params
 from firebird_tpu_torch.ccd.primitives import (coefmask_for, dot_cols, fdiv,
                                                first_at_or_after, last_true,
                                                masked_median, take_plane,
-                                               take_t)
+                                               take_t, tree_sum)
 # The plain version of :func:`tmask_bad`.
 from firebird_tpu_torch.ccd.primitives import tmask_bad as tmask_bad_plain
 from firebird_tpu_torch.ccd.round_state import (PHASE_DONE, PHASE_INIT,
@@ -71,7 +75,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "firebird_tpu_torch"
 SOURCES = ("lasso_fit", "monitor_chain_scored", "init_window",
            "fused_fit_close", "fused_round", "lasso_cd", "monitor_chain",
-           "tmask_bad", "detect_mega")
+           "tmask_bad", "detect_mega", "ring_remote_copy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The window sizes the init_window, tmask_bad and detect_mega kernels are
@@ -95,6 +99,7 @@ _ARGTYPES = {
     "fb_monitor_chain": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
     "fb_tmask_bad": [_P] * 5 + [_I] * 3 + [_P],
     "fb_detect_mega": [_P] * 20 + [_I] * 8 + [_F, _F, _P],
+    "fb_ring_remote_copy": [_P, _I, _P],
 }
 
 
@@ -237,12 +242,13 @@ def lasso_cd_plain(G, c, diag, coefmask):
 def rmse_plain(Yt, w, X, beta, n):
     """The windowed RMSE [C,P,B] of the model ``beta`` [C,P,B,8] over the
     weights ``w`` [C,T,P] with window count ``n`` [C,P], each prediction
-    summed column by column."""
+    summed column by column and the squares over time in a fixed pairwise
+    order (:func:`tree_sum`)."""
     rmse = []
     for bb in range(Yt.shape[1]):
         pred = dot_cols(beta[:, None, :, bb, :], X[:, :, None, :])  # [C,T,P]
         r = Yt[:, bb].float() - pred
-        rmse.append(torch.sqrt(((r * r * w).sum(1) / n).clamp_min(0.0)))
+        rmse.append(torch.sqrt((tree_sum(r * r * w) / n).clamp_min(0.0)))
     return torch.stack(rmse, -1)
 
 
@@ -1129,6 +1135,121 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
                 alive=alive, rounds=rounds, counts=flags.sum(-1, dtype=i32))
 
 
+# ---------------------------------------------------------------------------
+# ring_remote_copy
+# ---------------------------------------------------------------------------
+
+# The most leaves one launch's table carries (csrc/ring_remote_copy.cu).
+RING_MAX_LEAVES = 128
+_PEERS: set = set()
+
+
+def _shard_device(leaves, i) -> torch.device:
+    if not leaves:
+        raise ValueError(f"ring_remote_copy: shard {i} has no tensors")
+    dev = leaves[0].device
+    for k, t in enumerate(leaves):
+        if t.device != dev:
+            raise ValueError(f"ring_remote_copy: shard {i} tensor {k} is on "
+                             f"{t.device}, the shard's first on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"ring_remote_copy: shard {i} tensor {k} must "
+                             f"be contiguous")
+    return dev
+
+
+def ring_remote_copy_plain(payloads, shift):
+    """Plain version of :func:`ring_remote_copy`: ``dst.copy_(src)`` for
+    each tensor, into a buffer allocated on the receiver's device."""
+    n = len(payloads)
+    devs = [_shard_device(p, i) for i, p in enumerate(payloads)]
+    out = [None] * n
+    for i, leaves in enumerate(payloads):
+        j = (i + shift) % n
+        out[j] = [torch.empty(t.shape, dtype=t.dtype, device=devs[j]).copy_(t)
+                  for t in leaves]
+    return out
+
+
+def _enable_peer(device: int, peer: int) -> None:
+    """Let ``device`` write into ``peer``'s memory (once per pair); raises
+    where the pair has no peer access."""
+    if (device, peer) in _PEERS:
+        return
+    build(("ring_remote_copy",))
+    fn = _LIBS["ring_remote_copy"].fb_ring_enable_peer
+    fn.argtypes, fn.restype = [_I, _I], ctypes.c_int
+    rc = fn(device, peer)
+    if rc != 0:
+        raise RuntimeError(f"ring_remote_copy: cuda:{device} cannot write "
+                           f"to cuda:{peer} (no peer access, CUDA error "
+                           f"{rc}); the ring has no other path")
+    _PEERS.add((device, peer))
+
+
+def ring_remote_copy(payloads, shift):
+    """One hop of the rebalancing ring: every shard sends its payload to
+    the shard ``shift`` places along the ring and receives the payload of
+    the shard ``shift`` places back — ``lax.ppermute`` with the pairs
+    ``(i, (i+shift) % n)``, as the Pallas ``ring_remote_copy`` realizes it
+    with remote DMAs.
+
+    Args:
+        payloads: one list of contiguous tensors per shard, every tensor
+            of a shard on that shard's device (several shards may share a
+            device).
+        shift: the ring offset (+1 rightward, -1 leftward).
+    Returns:
+        A list whose entry ``(i+shift) % n`` holds shard ``i``'s tensors,
+        copied into new buffers on the receiving shard's device.
+
+    On CUDA shards, one launch per source shard writes every tensor into
+    the receiver's buffers, on the source device's current stream; the
+    receiver's current stream waits on an event recorded after it.  Across
+    two devices the source must have peer access to the receiver, or the
+    call raises."""
+    n = len(payloads)
+    devs = [_shard_device(p, i) for i, p in enumerate(payloads)]
+    if all(d.type == "cpu" for d in devs):
+        return ring_remote_copy_plain(payloads, shift)
+    if any(d.type != "cuda" for d in devs):
+        raise ValueError(f"ring_remote_copy: shards on {devs}: all on the "
+                         f"CPU or all on CUDA devices")
+    out = [None] * n
+    for i, leaves in enumerate(payloads):
+        j = (i + shift) % n
+        src, dst_dev = devs[i], devs[j]
+        if len(leaves) > RING_MAX_LEAVES:
+            raise ValueError(f"ring_remote_copy: {len(leaves)} tensors in a "
+                             f"payload, at most {RING_MAX_LEAVES}")
+        if src != dst_dev:
+            _enable_peer(src.index, dst_dev.index)
+        dst = [torch.empty(t.shape, dtype=t.dtype, device=dst_dev)
+               for t in leaves]
+        recv = torch.cuda.current_stream(dst_dev)
+        with torch.cuda.device(src):
+            send = torch.cuda.current_stream(src)
+            if send != recv:
+                # The receiver's buffers were allocated in its stream order.
+                ready = torch.cuda.Event()
+                ready.record(recv)
+                send.wait_event(ready)
+            rows = [(s.data_ptr(), d.data_ptr(), s.numel() * s.element_size())
+                    for s, d in zip(leaves, dst) if s.numel()]
+            if rows:
+                table = np.asarray(rows, dtype=np.int64)
+                _launch("ring_remote_copy", ctypes.c_void_p(table.ctypes.data),
+                        len(rows))
+            if send != recv:
+                done = torch.cuda.Event()
+                done.record(send)
+                recv.wait_event(done)
+                for d in dst:
+                    d.record_stream(send)
+        out[j] = dst
+    return out
+
+
 # The functions the detector's routes call, as kernels (the wrappers above)
 # or as their plain versions; kernel.pallas_components builds a route from
 # either.
@@ -1138,7 +1259,8 @@ KERNELS = types.SimpleNamespace(lasso_fit=lasso_fit,
                                 fused_fit_close=fused_fit_close,
                                 fused_round=fused_round, lasso_cd=lasso_cd,
                                 monitor_chain=monitor_chain,
-                                tmask_bad=tmask_bad, detect_mega=detect_mega)
+                                tmask_bad=tmask_bad, detect_mega=detect_mega,
+                                ring_remote_copy=ring_remote_copy)
 PLAIN = types.SimpleNamespace(lasso_fit=lasso_fit_plain,
                               monitor_chain_scored=monitor_chain_scored_plain,
                               init_window=init_window_plain,
@@ -1147,4 +1269,5 @@ PLAIN = types.SimpleNamespace(lasso_fit=lasso_fit_plain,
                               lasso_cd=lasso_cd_plain,
                               monitor_chain=monitor_chain_plain,
                               tmask_bad=tmask_bad_plain,
-                              detect_mega=detect_mega_plain)
+                              detect_mega=detect_mega_plain,
+                              ring_remote_copy=ring_remote_copy_plain)

@@ -33,9 +33,11 @@ a round runs one of three routes, as FIREBIRD_FUSED_FIT selects them
 (:func:`fused_mode`): the separate monitor / close / refit steps (0, the
 default), the close and refit as one ``cuda_ops.fused_fit_close`` launch
 (1), or the whole post-INIT round as one ``cuda_ops.fused_round`` launch
-("mon").  Compaction and mixed precision are not part of this package;
-its results equal the JAX package's with compaction off, which are
-row-identical to compaction on.
+("mon").  Active-lane compaction (FIREBIRD_COMPACT, on by default as in
+the JAX package; :func:`compact_mode`) permutes the per-pixel state so the
+working pixels form a dense prefix and finishes the long tail in a narrower
+bucketed loop (:class:`BatchLoop`); it applies to every route but mega and
+leaves the results unchanged.  Mixed precision is not part of this package.
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ import numpy as np
 import torch
 
 from firebird_tpu_torch.ccd import cuda_ops, harmonic, params
+from firebird_tpu_torch.ccd.compact import (PIXEL_KEYS, compact_state,
+                                            paid_lanes, pixel_axis,
+                                            slice_pixels, unpermute)
 from firebird_tpu_torch.ccd.primitives import (coefmask_for, dedup_first,
                                                fdiv, first_at_or_after,
                                                last_true, masked_median,
@@ -126,10 +131,11 @@ def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
     ``ops`` (default :data:`cuda_ops.KERNELS`) supplies the functions; a
     route this function returned comes back as it is (``pallas`` must then
     be None), so an entry point resolves the route once and hands it down.
-    Returns a namespace with the round functions ``_detect_batch`` calls
+    Returns a namespace with the round functions :class:`BatchLoop` calls
     (``lasso_fit``, ``monitor_chain_scored``, ``init_window``,
     ``fused_fit_close``, ``fused_round``; ``detect_mega`` on the mega
-    route), ``mega`` and ``components``, the resolved names."""
+    route), the rebalancing ring's hop ``ring_remote_copy``, ``mega`` and
+    ``components``, the resolved names."""
     if hasattr(ops, "components"):
         if pallas is not None:
             raise ValueError(f"pallas={pallas!r} with a resolved route: "
@@ -149,7 +155,8 @@ def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
     if "mega" in names:
         return types.SimpleNamespace(components=("mega",), mega=True,
                                      lasso_fit=base.lasso_fit,
-                                     detect_mega=base.detect_mega)
+                                     detect_mega=base.detect_mega,
+                                     ring_remote_copy=base.ring_remote_copy)
 
     def pick(fused, component, what):
         for c in (fused, component):
@@ -178,7 +185,68 @@ def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
     return types.SimpleNamespace(
         components=comps, mega=False, lasso_fit=fit,
         monitor_chain_scored=mon, init_window=init,
-        fused_fit_close=base.fused_fit_close, fused_round=base.fused_round)
+        fused_fit_close=base.fused_fit_close, fused_round=base.fused_round,
+        ring_remote_copy=base.ring_remote_copy)
+
+
+# The JAX package's compaction and rebalancing knobs (config.py), with its
+# defaults and clamps (params.compact_*), read at each dispatch.
+COMPACT_ENV = "FIREBIRD_COMPACT"
+COMPACT_EVERY_ENV = "FIREBIRD_COMPACT_EVERY"
+COMPACT_MIN_LANES_ENV = "FIREBIRD_COMPACT_MIN_LANES"
+COMPACT_FLOOR_ENV = "FIREBIRD_COMPACT_FLOOR"
+REBALANCE_ENV = "FIREBIRD_REBALANCE"
+REBALANCE_THRESHOLD_ENV = "FIREBIRD_REBALANCE_THRESHOLD"
+
+
+def compact_mode(compact=None) -> bool:
+    """Whether the loop compacts: an explicit value, or FIREBIRD_COMPACT
+    (default "1"; "" and "0" turn it off) — params.compact_default."""
+    if compact is None:
+        return os.environ.get(COMPACT_ENV, "1") not in ("", "0")
+    return bool(compact)
+
+
+def compact_every() -> int:
+    """Rounds between compaction checks (FIREBIRD_COMPACT_EVERY, default
+    4, at least 1)."""
+    return max(int(os.environ.get(COMPACT_EVERY_ENV, "4")), 1)
+
+
+def compact_min_lanes() -> int:
+    """The least pixel count that takes the bucketed tail
+    (FIREBIRD_COMPACT_MIN_LANES, default 1024, at least 1)."""
+    return max(int(os.environ.get(COMPACT_MIN_LANES_ENV, "1024")), 1)
+
+
+def compact_floor() -> float:
+    """The bucket's share of the batch width (FIREBIRD_COMPACT_FLOOR,
+    default 0.125, clamped to [0, 1]; 0 turns the bucketed tail off)."""
+    return min(max(float(os.environ.get(COMPACT_FLOOR_ENV, "0.125")), 0.0),
+               1.0)
+
+
+def tail_bucket(P: int, floor: float) -> int:
+    """The stage-2 bucket: floor * P lanes rounded up to a power of two, at
+    least 8 (P when ``floor`` is 0) — kernel._detect_batch_impl's."""
+    if floor <= 0:
+        return P
+    return 1 << max(int(max(P * floor, 1) - 1).bit_length(), 3)
+
+
+def rebalance_mode(rebalance=None) -> bool:
+    """Whether a sharded dispatch runs the rebalancing ring: an explicit
+    value, or FIREBIRD_REBALANCE (default "0")."""
+    if rebalance is None:
+        return os.environ.get(REBALANCE_ENV, "0") not in ("", "0")
+    return bool(rebalance)
+
+
+def rebalance_threshold() -> float:
+    """The ring's donation threshold (FIREBIRD_REBALANCE_THRESHOLD, default
+    0.25): the alive-count gap, as a share of a shard's stage-2 lanes,
+    beyond which a shard sheds half the gap to its right neighbour."""
+    return float(os.environ.get(REBALANCE_THRESHOLD_ENV, "0.25"))
 
 
 def _exact_f32() -> None:
@@ -213,6 +281,16 @@ class ChipSegments:
     vario: torch.Tensor | None = None         # [.., P, B] variogram
     round_counts: torch.Tensor | None = None  # [.., 3] int32: rounds that
     # ran the INIT block / the shared fit / the segment close
+    occupancy: torch.Tensor | None = None     # [.., 2*T+8, 2] int32: per
+    # round, the lanes entering it still working and the lanes the per-block
+    # skip guards would pay for (paid_lanes; the full width with
+    # compaction off); rows past ``rounds`` are zero; None on the mega route
+    compactions: torch.Tensor | None = None   # [..] int32: the loop's
+    # compactions, on each loop's first chip row (zero elsewhere: the chip
+    # sum is the batch total, also when shards run loops of their own)
+    lanes_migrated: torch.Tensor | None = None  # [..] int32: lanes each chip
+    # donated to its right neighbour through the rebalancing ring; None
+    # unless the dispatch ran with the ring on
 
 
 def chip_slice(seg: ChipSegments, c: int, to_host: bool = False) -> ChipSegments:
@@ -503,44 +581,212 @@ def _segments(res, nseg, bufs, alive, rounds, counts):
         round_counts=counts)
 
 
-def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
-                  variogram_mode, ops, fused=0):
-    """A chip batch: designs [C,T,*], resident spectra ``Yt`` [C,B,T,P]
-    int16, ``qa`` [C,T,P] -> ChipSegments with [C, ...] leading axes —
-    kernel._detect_batch_impl with compaction and mixed precision left
-    out.  ``ops`` is the route (:func:`pallas_components`).  On the mega
-    route one ``ops.detect_mega`` call runs the whole loop after the
-    prologue (``rounds`` and ``round_counts`` then per chip).  Otherwise
-    ``fused`` picks what runs after INIT (see :func:`fused_mode`): 0 the
-    monitor, close and refit as separate steps, 1 the close and refit as
-    one ``ops.fused_fit_close`` call, "mon" the whole post-INIT round as
-    one ``ops.fused_round`` call."""
-    C, B, T, P = Yt.shape
-    det = list(sensor.detection_bands)
-    change_thr, outlier_thr = chi2_thresholds(len(det))
-    res, st = _prologue(X, Xt, t, valid, Yt, qa, sensor=sensor,
-                        S=max_segments, variogram_mode=variogram_mode,
-                        ops=ops)
-    if ops.mega:
-        out = ops.detect_mega(Yt, st["phase"], st["cur_i"], st["alive"],
-                              st["nseg"], st["bufs"], t, X, Xt, res["vario"],
-                              W=W, change_thr=change_thr,
-                              outlier_thr=outlier_thr, sensor=sensor)
-        return _segments(res, out["nseg"],
-                         (out["meta"], out["rmse"], out["mag"], out["coef"]),
-                         out["alive"], out["rounds"], out["counts"])
-    max_rounds = 2 * T + 8
-    rounds = 0
-    counts = [0, 0, 0]
-    while rounds < max_rounds and bool((st["phase"] != PHASE_DONE).any()):
+def resident_keys(fused) -> tuple:
+    """The per-pixel residents a round reads, carried in the loop state and
+    permuted with it (kernel._detect_batch_impl's ``resp_keys``): the
+    variogram and the resident spectra on every route, and the
+    detection-band spectra where a separate monitor reads them (every
+    round route but "mon", whose fused_round reads ``Yt``).  A block
+    reads the per-pixel tensors only from the carried dict, so a resident
+    missing here fails with a KeyError instead of reading the unpermuted
+    original."""
+    return ("vario", "Yt") + (() if fused == "mon" else ("Yd",))
+
+
+class BatchLoop:
+    """A chip batch's event loop (every chip at once, on one device), in
+    the steps that the sharded dispatch interleaves with the rebalancing
+    ring — kernel._detect_batch_impl:
+
+    - :meth:`stage1` runs the loop at the batch's full width.  With
+      compaction on, every ``compact_every()`` rounds it permutes the
+      per-pixel state so each chip's working lanes form a dense prefix,
+      once 1/16 of the width has died since the last compaction.  With
+      the bucketed tail on (compaction, a bucket narrower than the batch,
+      at least ``compact_min_lanes()`` pixels), the loop ends, after a
+      forced compaction, once every chip's working lanes fit the bucket,
+      and :meth:`stage1` returns the stage-2 carry: each per-pixel carry's
+      first ``bucket`` lanes.
+    - :meth:`tail` runs the same loop over a stage-2 carry.
+    - :meth:`result` merges the carry back, inverts the permutation and
+      returns the ChipSegments.
+
+    :meth:`run` takes the three steps in turn (an unsharded dispatch).
+
+    The loop tensors' pixel axes are :func:`pixel_axis`'s.  On
+    the mega route :meth:`stage1` makes the one ``detect_mega`` call and
+    nothing compacts."""
+
+    def __init__(self, X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
+                 variogram_mode, ops, fused=0, compact=False):
+        C, B, T, P = Yt.shape
+        self.C, self.P, self.W, self.sensor = C, P, W, sensor
+        self.ops, self.fused = ops, fused
+        self.thr = chi2_thresholds(len(sensor.detection_bands))
+        self.res, st = _prologue(X, Xt, t, valid, Yt, qa, sensor=sensor,
+                                 S=max_segments,
+                                 variogram_mode=variogram_mode, ops=ops)
+        self.max_rounds = 2 * T + 8
+        self.rounds, self.counts, self.occ = 0, [0, 0, 0], []
+        self.ncomp, self.at_tail, self.mega_out = 0, False, None
+        self.compact = bool(compact) and not ops.mega
+        self.every = compact_every()
+        self.bucket = tail_bucket(P, compact_floor() if self.compact else 0.0)
+        self.cascade = (self.compact and 0 < self.bucket < P
+                        and P >= compact_min_lanes())
+        self.shared = {k: self.res[k] for k in ("X", "Xt", "t")}
+        st["resp"] = {k: self.res[k] for k in resident_keys(fused)}
+        if self.compact:
+            # The running permutation (current lane -> original pixel) and
+            # the alive count at the last compaction, from the full width:
+            # the lanes DONE from round 0 count toward the first one.
+            st["perm"] = torch.arange(P, device=Yt.device).expand(
+                C, P).contiguous()
+            st["base_alive"] = torch.full((C,), P, dtype=torch.int32,
+                                          device=Yt.device)
+        self.st = st
+
+    # ---- the steps ----
+
+    def run(self) -> ChipSegments:
+        st2 = self.stage1()
+        return self.result(None if st2 is None else self.tail(st2))
+
+    def stage1(self):
+        """The loop at full width; returns the stage-2 carry, or None when
+        the bucketed tail is off (the loop then ran to its end)."""
+        if self.ops.mega:
+            st, res = self.st, self.res
+            change_thr, outlier_thr = self.thr
+            self.mega_out = self.ops.detect_mega(
+                res["Yt"], st["phase"], st["cur_i"], st["alive"], st["nseg"],
+                st["bufs"], res["t"], res["X"], res["Xt"], res["vario"],
+                W=self.W, change_thr=change_thr, outlier_thr=outlier_thr,
+                sensor=self.sensor)
+            return None
+        self.st = self._run(self.st, cascade_exit=self.cascade)
+        if not self.cascade:
+            return None
+        st, b = self.st, self.bucket
+        st2 = {k: slice_pixels(st[k], b, pixel_axis(k))
+               for k in PIXEL_KEYS}
+        st2["bufs"] = tuple(slice_pixels(x, b, 1) for x in st["bufs"])
+        st2["resp"] = {k: slice_pixels(v, b, pixel_axis(k))
+                       for k, v in st["resp"].items()}
+        st2["perm"] = slice_pixels(st["perm"], b, 1)
+        st2["base_alive"] = (st2["phase"] != PHASE_DONE).sum(
+            -1, dtype=torch.int32)
+        return st2
+
+    def tail(self, st2, shared=None, pinned=False):
+        """The loop over the stage-2 carry ``st2``.  The rebalancing ring
+        passes its own + guest chips (``shared``: their designs) with
+        ``pinned``: lane positions stay put (the ring's merge back is
+        positional) and the guest chips' occupancy rows fold into their
+        hosts'."""
+        self.at_tail = False
+        return self._run(st2, shared=shared, allow_compact=not pinned,
+                         occ_fold=self.C if pinned else None)
+
+    def result(self, st2=None) -> ChipSegments:
+        """The batch's ChipSegments, with the stage-2 carry ``st2`` merged
+        into the first ``bucket`` lanes and every per-pixel output back in
+        original pixel order."""
+        res, C, dev = self.res, self.C, self.res["t"].device
+        if self.mega_out is not None:
+            out = self.mega_out
+            return _segments(res, out["nseg"],
+                             (out["meta"], out["rmse"], out["mag"],
+                              out["coef"]),
+                             out["alive"], out["rounds"], out["counts"])
+        st = self.st
+        if st2 is not None:
+            b, P = self.bucket, self.P
+            merge = lambda full, part, ax: torch.cat(
+                [part, full.narrow(ax % full.ndim, b, P - b)], ax)
+            st = dict(st, nseg=merge(st["nseg"], st2["nseg"], 1),
+                      alive=merge(st["alive"], st2["alive"], -1),
+                      perm=merge(st["perm"], st2["perm"], 1),
+                      bufs=tuple(merge(f, p, 1)
+                                 for f, p in zip(st["bufs"], st2["bufs"])))
+        nseg, bufs, alive = st["nseg"], st["bufs"], st["alive"]
+        if self.compact:
+            perm = st["perm"]
+            nseg = unpermute(nseg, perm, 1)
+            alive = unpermute(alive, perm, -1)
+            bufs = tuple(unpermute(x, perm, 1) for x in bufs)
+        seg = _segments(
+            res, nseg, bufs, alive,
+            torch.full((C,), self.rounds, dtype=torch.int32, device=dev),
+            torch.tensor(self.counts, dtype=torch.int32, device=dev).expand(
+                C, 3).contiguous())
+        occ = torch.zeros(C, self.max_rounds, 2, dtype=torch.int32,
+                          device=dev)
+        if self.occ:
+            occ[:, :len(self.occ)] = torch.stack(self.occ, 1)
+        seg.occupancy = occ
+        seg.compactions = torch.where(
+            torch.arange(C, device=dev) == 0, self.ncomp, 0).to(torch.int32)
+        return seg
+
+    # ---- the loop ----
+
+    def _run(self, st, *, shared=None, allow_compact=True, cascade_exit=False,
+             occ_fold=None):
+        shared = self.shared if shared is None else shared
+        while (self.rounds < self.max_rounds and not self.at_tail
+               and bool((st["phase"] != PHASE_DONE).any())):
+            self._capture(st["phase"], occ_fold)
+            st = self._round(st, dict(shared, **st["resp"]))
+            if self.compact and allow_compact:
+                st = self._maybe_compact(st, cascade_exit)
+            self.rounds += 1
+        return st
+
+    def _capture(self, phase, fold):
+        """The round's occupancy row: working lanes and paid lanes per
+        chip, a rebalanced tail's guest rows folded into their hosts'."""
+        active = (phase != PHASE_DONE).sum(-1, dtype=torch.int32)
+        paid = (paid_lanes(phase) if self.compact
+                else torch.full_like(active, phase.shape[1]))
+        if fold is not None:
+            active = active[:fold] + active[fold:]
+            paid = paid[:fold] + paid[fold:]
+        self.occ.append(torch.stack([active, paid], -1))
+
+    def _maybe_compact(self, st, cascade_exit):
+        """Compact when 1/16 of the current width died since the last
+        compaction (every ``every`` rounds), or on entering the bucket;
+        entering it ends stage 1."""
+        check_round = (self.rounds + 1) % self.every == 0
+        if not (check_round or cascade_exit):
+            return st
+        n_alive = (st["phase"] != PHASE_DONE).sum(-1, dtype=torch.int32)
+        width = st["phase"].shape[1]
+        dead, most = torch.stack([(st["base_alive"] - n_alive).max(),
+                                  n_alive.max()]).tolist()
+        periodic = check_round and dead >= max(width // 16, 1)
+        ready = cascade_exit and most <= self.bucket
+        if periodic or ready:
+            st = dict(compact_state(st), base_alive=n_alive)
+            self.ncomp += 1
+        self.at_tail = ready
+        return st
+
+    def _round(self, st, r):
+        """One round of the loop body over the state ``st``; ``r`` holds the
+        designs and the carried residents.  Returns the next state."""
+        ops, fused, sensor = self.ops, self.fused, self.sensor
+        change_thr, outlier_thr = self.thr
         phase = st["phase"]
         in_init = phase == PHASE_INIT
         in_mon = phase == PHASE_MONITOR
 
         any_init = bool(in_init.any())
         if any_init:
-            init = ops.init_window(st["alive"], st["cur_i"], in_init, t, X, Xt,
-                                   Yt, res["vario"], W=W, sensor=sensor)
+            init = ops.init_window(st["alive"], st["cur_i"], in_init, r["t"],
+                                   r["X"], r["Xt"], r["Yt"], r["vario"],
+                                   W=self.W, sensor=sensor)
         else:
             init = init_zeros(st)
         init_ok = init["init_ok"]
@@ -551,10 +797,10 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
             # merged, the events in ``mon``.
             if bool((in_mon | init_ok).any()):
                 bufs, nseg, coefs_n, rmse_n, mon = ops.fused_round(
-                    Yt, X, t, st["alive"], st["included"], st["cur_k"],
-                    st["n_last_fit"], in_mon, st["coefs"], st["rmse"],
-                    res["vario"], init_ok, init["w_stab"], init["n_ok"],
-                    st["first_seg"], st["nseg"], st["bufs"],
+                    r["Yt"], r["X"], r["t"], st["alive"], st["included"],
+                    st["cur_k"], st["n_last_fit"], in_mon, st["coefs"],
+                    st["rmse"], r["vario"], init_ok, init["w_stab"],
+                    init["n_ok"], st["first_seg"], st["nseg"], st["bufs"],
                     change_thr=change_thr, outlier_thr=outlier_thr,
                     sensor=sensor)
             else:
@@ -566,7 +812,7 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
                 [close.any(), do_fit.any()]).tolist())
         else:
             if bool(in_mon.any()):
-                mon = _mon_block(res, st, sensor=sensor, change_thr=change_thr,
+                mon = _mon_block(r, st, sensor=sensor, change_thr=change_thr,
                                  outlier_thr=outlier_thr, ops=ops)
             else:
                 mon = _mon_zeros(st)
@@ -586,23 +832,23 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
             # Close and refit as one launch.  The break magnitudes stay on
             # the program route 0 runs, so the two routes' results are
             # byte-identical.
-            mags = (_close_mags(res, st, mon) if bool(is_brk.any())
+            mags = (_close_mags(r, st, mon) if bool(is_brk.any())
                     else torch.zeros_like(st["rmse"]))
             bufs, nseg, coefs_n, rmse_n = ops.fused_fit_close(
-                Yt, X, t, w_fit(), do_fit, n_full, mon["included_mon"],
-                st["coefs"], st["rmse"], mags, is_tail, is_brk,
-                mon["pos_ev"], mon["n_exceed"], st["first_seg"], st["nseg"],
-                st["bufs"])
+                r["Yt"], r["X"], r["t"], w_fit(), do_fit, n_full,
+                mon["included_mon"], st["coefs"], st["rmse"], mags, is_tail,
+                is_brk, mon["pos_ev"], mon["n_exceed"], st["first_seg"],
+                st["nseg"], st["bufs"])
         elif fused:
             bufs, nseg = st["bufs"], st["nseg"]
             coefs_n, rmse_n = st["coefs"], st["rmse"]
         else:
             if any_close:
-                bufs, nseg = _close_block(res, st, mon)
+                bufs, nseg = _close_block(r, st, mon)
             else:
                 bufs, nseg = st["bufs"], st["nseg"]
             if any_fit:
-                cfull, rfull = ops.lasso_fit(Yt, w_fit(), X,
+                cfull, rfull = ops.lasso_fit(r["Yt"], w_fit(), r["X"],
                                              coefmask_for(n_full))
                 coefs_n = torch.where(do_fit[..., None, None], cfull,
                                       st["coefs"])
@@ -610,30 +856,25 @@ def _detect_batch(X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
             else:
                 coefs_n, rmse_n = st["coefs"], st["rmse"]
 
-        st = next_state(st, init, dict(mon, do_fit=do_fit, n_full=n_full),
-                        coefs_n, rmse_n, nseg, bufs)
-        counts = [counts[0] + any_init, counts[1] + any_fit,
-                  counts[2] + any_close]
-        rounds += 1
-
-    dev = Yt.device
-    return _segments(
-        res, st["nseg"], st["bufs"], st["alive"],
-        torch.full((C,), rounds, dtype=torch.int32, device=dev),
-        torch.tensor(counts, dtype=torch.int32, device=dev).expand(
-            C, 3).contiguous())
+        self.counts = [self.counts[0] + any_init, self.counts[1] + any_fit,
+                       self.counts[2] + any_close]
+        return dict(st, **next_state(
+            st, init, dict(mon, do_fit=do_fit, n_full=n_full), coefs_n,
+            rmse_n, nseg, bufs))
 
 
-def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
-                  max_segments=MAX_SEGMENTS,
-                  variogram_mode=params.VARIOGRAM_DEFAULT, ops=None,
-                  fused=None, pallas=None):
-    """Detect from the staged integer wire on its device: ``days`` [C,T]
-    int32, ``n_obs`` [C] int32, ``spectra`` [C,B,P,T] int16, ``qa``
-    [C,P,T] uint8.  The designs are built on the device, the spectra are
-    made resident as [C,B,T,P].  ``pallas`` picks the kernels
-    (:func:`pallas_components`, from ``ops``, or ``ops`` is a route it
-    already resolved), ``fused`` the round route (:func:`fused_mode`)."""
+def staged_loop(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
+                max_segments=MAX_SEGMENTS,
+                variogram_mode=params.VARIOGRAM_DEFAULT, ops=None,
+                fused=None, pallas=None, compact=None) -> BatchLoop:
+    """The :class:`BatchLoop` of a staged integer wire on its device:
+    ``days`` [C,T] int32, ``n_obs`` [C] int32, ``spectra`` [C,B,P,T] int16,
+    ``qa`` [C,P,T] uint8.  The designs are built on the device, the
+    spectra are made resident as [C,B,T,P] and the prologue runs.
+    ``pallas`` picks the kernels (:func:`pallas_components`, from ``ops``,
+    or ``ops`` is a route it already resolved), ``fused`` the round route
+    (:func:`fused_mode`), ``compact`` the compaction (:func:`compact_mode`).
+    Run it under ``torch.no_grad()``."""
     _exact_f32()
     ops = pallas_components(pallas, ops)
     if variogram_mode not in ("adjusted", "plain"):
@@ -642,17 +883,31 @@ def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
     X, Xt, t, valid = device_designs(days, n_obs)
     Yt = spectra.transpose(2, 3).contiguous()                   # [C,B,T,P]
     qa_t = qa.transpose(1, 2).contiguous().to(torch.int32)      # [C,T,P]
+    return BatchLoop(X, Xt, t, valid, Yt, qa_t, W=W, sensor=sensor,
+                     max_segments=max_segments,
+                     variogram_mode=variogram_mode, ops=ops,
+                     fused=fused_mode(fused), compact=compact_mode(compact))
+
+
+def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
+                  max_segments=MAX_SEGMENTS,
+                  variogram_mode=params.VARIOGRAM_DEFAULT, ops=None,
+                  fused=None, pallas=None, compact=None):
+    """Detect from the staged integer wire on its device (the arguments
+    of :func:`staged_loop`) -> ChipSegments."""
     with torch.no_grad():
-        return _detect_batch(X, Xt, t, valid, Yt, qa_t, W=W, sensor=sensor,
-                             max_segments=max_segments,
-                             variogram_mode=variogram_mode, ops=ops,
-                             fused=fused_mode(fused))
+        return staged_loop(days, n_obs, spectra, qa, W=W, sensor=sensor,
+                           max_segments=max_segments,
+                           variogram_mode=variogram_mode, ops=ops,
+                           fused=fused, pallas=pallas,
+                           compact=compact).run()
 
 
 def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
                   check_capacity: bool = True, staged: tuple | None = None,
                   variogram_mode: str = params.VARIOGRAM_DEFAULT,
-                  ops=None, fused=None, pallas=None) -> ChipSegments:
+                  ops=None, fused=None, pallas=None,
+                  compact=None) -> ChipSegments:
     """Run the detector over a PackedChips batch -> ChipSegments with
     leading chip axis [C, P, ...], on ``device`` (default CUDA).
 
@@ -669,17 +924,20 @@ def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
     (:func:`pallas_components`; ``ops`` may be a route it resolved).
     ``fused`` picks the round route: None defers to FIREBIRD_FUSED_FIT
     (unset: route 0), else 0, 1 or "mon" (:func:`fused_mode`); the mega
-    route has none."""
+    route has none.  ``compact`` turns active-lane compaction on or off:
+    None defers to FIREBIRD_COMPACT (unset: on; :func:`compact_mode`);
+    the mega route never compacts."""
     dev = resolve_device(device)
     route = pallas_components(pallas, ops)  # refuses a bad route up front
     args = staged if staged is not None else stage_packed(packed, dev)
     sensor = getattr(packed, "sensor", LANDSAT_ARD)
     W = window_cap(packed)
-    fused = fused_mode(fused)
+    fused, compact = fused_mode(fused), compact_mode(compact)
     dispatch = lambda S: detect_staged(*args, W=W, sensor=sensor,
                                        max_segments=S,
                                        variogram_mode=variogram_mode,
-                                       ops=route, fused=fused)
+                                       ops=route, fused=fused,
+                                       compact=compact)
     if not check_capacity:
         return dispatch(max(max_segments, 1))
     return capacity_retry(dispatch, lambda seg: int(seg.n_segments.max()),

@@ -149,6 +149,20 @@ def dot_cols(coefs, Xc):
     return acc
 
 
+def tree_sum(x, dim=1):
+    """Sum over ``dim`` in a fixed pairwise order (halves added
+    elementwise, an odd last slice carried over), so that each lane's sum
+    does not depend on the tensor's other lanes: torch's own reductions
+    pick their order by the tensor's shape, and a compacted loop runs the
+    same pixel at several widths."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        h = n // 2
+        y = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+        x = torch.cat([y, x.narrow(dim, n - 1, 1)], dim) if n % 2 else y
+    return x.squeeze(dim)
+
+
 def chol_solve_small(G, c):
     """Solve G x = c for SPD ``G`` [..., n*n] (row-major flat), ``c``
     [..., n]: unrolled Cholesky and two substitutions —

@@ -1,6 +1,6 @@
 """The event loop's per-pixel state and its advance after a round.
 
-Shared by the round loop (``kernel._detect_batch``) and the plain version
+Shared by the round loop (``kernel.BatchLoop``) and the plain version
 of the whole-loop kernel (``cuda_ops.detect_mega_plain``).  The state is a
 dict of ``phase``, ``cur_i``, ``cur_k``, ``n_last_fit`` [C,P] int32,
 ``first_seg`` [C,P] bool, ``alive`` and ``included`` [C,T,P] bool,

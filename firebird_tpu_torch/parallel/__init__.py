@@ -1,0 +1,11 @@
+"""Sharded dispatch of the detector over a list of devices, with the
+straggler-rebalancing ring (:mod:`firebird_tpu_torch.parallel.mesh`)."""
+
+from firebird_tpu_torch.parallel.mesh import (RebalanceSpec, detect_sharded,
+                                              rebalance_spec,
+                                              rebalance_tail_back,
+                                              rebalance_tail_out,
+                                              shard_devices)
+
+__all__ = ["RebalanceSpec", "detect_sharded", "rebalance_spec",
+           "rebalance_tail_back", "rebalance_tail_out", "shard_devices"]

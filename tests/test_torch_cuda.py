@@ -7,6 +7,8 @@ only PyTorch (the repository's conftest imports JAX; skip it there):
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -354,3 +356,96 @@ def test_fused_routes_on_card(dev, fused):
             torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-2)
         else:
             assert torch.equal(a, b), f
+
+
+# ---------------------------------------------------------------------------
+# ring_remote_copy, compaction and the sharded path
+# ---------------------------------------------------------------------------
+
+def _ring_payload(rng, dev, i):
+    """Mixed dtypes, byte counts off multiples of 16, a 0-d tensor, an
+    empty one, and a view whose start is not 16-byte aligned."""
+    base = _t(rng.integers(0, 255, (41,)).astype(np.uint8), dev)
+    return [_t(rng.standard_normal((3, 5)).astype(np.float32), dev),
+            _t(rng.integers(-9, 9, (7,)).astype(np.int16), dev),
+            _t(rng.random((2, 3, 3)) < 0.5, dev),
+            torch.tensor(i, dtype=torch.int64, device=dev),
+            _t(rng.integers(0, 2**31, (1000, 37)).astype(np.int32), dev),
+            torch.zeros(0, 4, device=dev), base[3:]]
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_ring_remote_copy_matches_plain(dev, n):
+    """Every shard on the one card: byte-equal to the plain copy and to
+    the sources, one launch per source shard."""
+    rng = np.random.default_rng(n)
+    payloads = [_ring_payload(rng, dev, i) for i in range(n)]
+    raw = lambda t: t.reshape(-1).view(torch.uint8)
+    before = cuda_ops.LAUNCHES["ring_remote_copy"]
+    got = cuda_ops.ring_remote_copy(payloads, 1)
+    assert cuda_ops.LAUNCHES["ring_remote_copy"] == before + n
+    want = cuda_ops.ring_remote_copy_plain(payloads, 1)
+    torch.cuda.synchronize()
+    for i in range(n):
+        for a, b, src in zip(got[(i + 1) % n], want[(i + 1) % n],
+                             payloads[i]):
+            assert a.device == src.device and a.shape == src.shape
+            assert torch.equal(raw(a), raw(b)) and torch.equal(raw(a),
+                                                               raw(src))
+
+
+def test_ring_remote_copy_across_two_cards(dev):
+    """A peer write from cuda:0 into cuda:1 and back (needs two cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(9)
+    devs = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    payloads = [_ring_payload(rng, d, i) for i, d in enumerate(devs)]
+    got = cuda_ops.ring_remote_copy(payloads, 1)
+    torch.cuda.synchronize(devs[0])
+    torch.cuda.synchronize(devs[1])
+    for i in range(2):
+        for a, src in zip(got[(i + 1) % 2], payloads[i]):
+            assert a.device == devs[(i + 1) % 2]
+            assert torch.equal(a.cpu(), src.cpu())
+
+
+def test_compact_on_card_equals_off(dev, monkeypatch):
+    """Compaction and the bucketed tail leave every result field as it
+    was, on route 0 and on route "mon"."""
+    monkeypatch.setenv("FIREBIRD_COMPACT_MIN_LANES", "8")
+    packed = _tiny_packed()
+    for fused in (0, "mon"):
+        off = kernel.detect_packed(packed, fused=fused, compact=False)
+        on = kernel.detect_packed(packed, fused=fused, compact=True)
+        assert int(on.compactions.sum()) > 0
+        for f in ("n_segments", "seg_meta", "seg_rmse", "seg_mag",
+                  "seg_coef", "mask", "procedure", "rounds", "vario",
+                  "round_counts"):
+            assert torch.equal(getattr(on, f), getattr(off, f)), (fused, f)
+
+
+def test_sharded_ring_on_card(dev, monkeypatch):
+    """Two shards on the one card: the ring migrates lanes through three
+    ring_remote_copy hops (one launch per shard each) and leaves the
+    store fields equal to the ring-off and the unsharded dispatch."""
+    from firebird_tpu_torch.parallel import detect_sharded
+
+    monkeypatch.setenv("FIREBIRD_COMPACT_MIN_LANES", "8")
+    packed = _tiny_packed()
+    qas = packed.qas.copy()
+    qas[1, 10:] = 1                     # the second shard: one row of land
+    packed = dataclasses.replace(packed, qas=qas)
+    devices = ["cuda:0", "cuda:0"]
+    cuda_ops.reset_launches()
+    on = detect_sharded(packed, devices, compact=True, rebalance=True,
+                        fused=0, check_capacity=False)
+    assert cuda_ops.LAUNCHES["ring_remote_copy"] == 6
+    assert int(on.lanes_migrated.sum()) > 0
+    off = detect_sharded(packed, devices, compact=True, rebalance=False,
+                         fused=0)
+    whole = kernel.detect_packed(packed, compact=True, fused=0)
+    for f in ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
+              "mask", "procedure"):
+        assert torch.equal(getattr(on, f), getattr(off, f)), f
+        assert torch.equal(getattr(on, f), getattr(whole, f)), f

@@ -207,7 +207,8 @@ def _route(name, fused):
 def test_route_1_byte_identical_to_route_0(name):
     a, b = _route(name, 0), _route(name, 1)
     for f in dataclasses.fields(a):
-        assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        assert (va is None and vb is None) or torch.equal(va, vb), f.name
 
 
 def test_route_mon_matches_jax_mon():

@@ -175,7 +175,10 @@ def test_mega_route_equals_route_mon_but_rounds(name):
     per chip."""
     mega, mon = _route(name), _route(name, pallas="1", fused="mon")
     for f in dataclasses.fields(mega):
-        if f.name not in ("rounds", "round_counts"):
+        if f.name in ("occupancy", "compactions", "lanes_migrated"):
+            # The round loop's capture, which the mega route has none of.
+            assert getattr(mega, f.name) is None, f.name
+        elif f.name not in ("rounds", "round_counts"):
             assert torch.equal(getattr(mega, f.name),
                                getattr(mon, f.name)), f.name
     assert int(mega.rounds.max()) == int(mon.rounds[0])
@@ -203,8 +206,8 @@ def test_mega_route_calls_one_detect_mega_and_supersedes_fused(
     seg = tk.detect_packed(tp, device="cpu", ops=_spy_ops(calls), fused=fused)
     assert sorted(calls) == ["detect_mega", "lasso_fit"]
     for f in dataclasses.fields(seg):
-        assert torch.equal(getattr(seg, f.name),
-                           getattr(_route("default"), f.name)), f.name
+        va, vb = getattr(seg, f.name), getattr(_route("default"), f.name)
+        assert (va is None and vb is None) or torch.equal(va, vb), f.name
 
 
 def test_window_cap_past_the_largest_instance_raises():

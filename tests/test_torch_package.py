@@ -48,7 +48,7 @@ def test_port_sources_are_present():
 def test_every_kernel_has_a_wrapper_a_plain_version_and_a_counter():
     kernels = {"lasso_fit", "monitor_chain_scored", "init_window",
                "fused_fit_close", "fused_round", "lasso_cd", "monitor_chain",
-               "tmask_bad", "detect_mega"}
+               "tmask_bad", "detect_mega", "ring_remote_copy"}
     assert set(cuda_ops.SOURCES) == kernels
     assert set(vars(cuda_ops.KERNELS)) == kernels
     assert set(vars(cuda_ops.PLAIN)) == kernels

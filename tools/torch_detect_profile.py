@@ -1,14 +1,18 @@
 """Where the PyTorch port's detector spends its time on the card.
 
     python tools/torch_detect_profile.py [--chips 8] [--seed 0] [--out DIR]
-        [--fused {0,1,mon}] [--pallas ROUTE]
+        [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--shards N]
 
 Runs SyntheticSource -> pack -> detect_packed (round route ``--fused``,
 default 0; kernels ``--pallas``, default "1": the ``fit,score,init``
 route; ``mega`` or a component list such as ``lasso,monitor,tmask``
-picks another, kernel.pallas_components) on ``--chips`` full-size
-Landsat chips (1985-2017, T=768) once to warm up, once timed by the host
-clock, then once under ``torch.profiler`` (CPU and CUDA activities).
+picks another, kernel.pallas_components; compaction ``--compact``,
+default 0) on ``--chips`` full-size Landsat chips (1985-2017, T=768)
+once to warm up, once timed by the host clock, then once under
+``torch.profiler`` (CPU and CUDA activities).  ``--shards N`` runs
+parallel.detect_sharded instead, over N shards on cuda:0 with the
+rebalancing ring on, on chip_smoke.py's sharded batch (the last 1/N of
+the chips a tenth land); its time includes the host-to-device staging.
 Prints and writes the wall times of the plain and the profiled run, the
 summed device time of every kernel by name (the hand-written kernels and
 PyTorch's own), and the device's busy share of the profiled wall time,
@@ -31,6 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from firebird_tpu_torch.ccd import cuda_ops, kernel  # noqa: E402
 from firebird_tpu_torch.ingest import SyntheticSource, pack  # noqa: E402
+from firebird_tpu_torch.parallel import detect_sharded  # noqa: E402
 
 
 GROUPS = (                      # (group, substrings of the kernel name)
@@ -43,6 +48,7 @@ GROUPS = (                      # (group, substrings of the kernel name)
     ("monitor_chain", ("monitor_plane_kernel",)),
     ("tmask_bad", ("tmask_kernel",)),
     ("detect_mega", ("mega_kernel",)),
+    ("ring_remote_copy", ("ring_copy_kernel",)),
     ("sorts", ("Sort",)),
     ("reductions", ("reduce_kernel",)),
     ("gathers and scatters", ("scatter_gather", "index")),
@@ -70,12 +76,16 @@ def main(argv=None):
     ap.add_argument("--out", default="chiprun_out")
     ap.add_argument("--fused", default="0", choices=("0", "1", "mon"))
     ap.add_argument("--pallas", default="1")
+    ap.add_argument("--compact", default="0", choices=("0", "1"))
+    ap.add_argument("--shards", type=int, default=0)
     args = ap.parse_args(argv)
     fused = {"0": 0, "1": 1, "mon": "mon"}[args.fused]
     ops = kernel.pallas_components(args.pallas)
     route = ("mega" if ops.mega
              else "+".join(ops.components) + f"/fused={args.fused}")
-    kw = dict(fused=fused, ops=ops)
+    route += f"/compact={args.compact}" + (f"/shards={args.shards}"
+                                           if args.shards else "")
+    kw = dict(fused=fused, ops=ops, compact=args.compact == "1")
     if not torch.cuda.is_available():
         sys.exit("torch_detect_profile: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -85,11 +95,20 @@ def main(argv=None):
     packed = pack([src.chip(1000 * c, 2000) for c in range(args.chips)],
                   bucket=64)
     staged = kernel.stage_packed(packed)
+    if args.shards:
+        from chip_smoke import SHARDS, ragged_batch
+
+        assert args.shards == SHARDS, f"the sharded batch is cut for {SHARDS}"
+        ragged = ragged_batch(packed)
+        run = lambda: detect_sharded(ragged, ["cuda:0"] * args.shards,
+                                     rebalance=True, **kw)
+    else:
+        run = lambda: kernel.detect_packed(packed, staged=staged, **kw)
     cuda_ops.build()
-    kernel.detect_packed(packed, staged=staged, **kw)      # warm-up
+    run()                                                   # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    kernel.detect_packed(packed, staged=staged, **kw)
+    run()
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
@@ -98,7 +117,7 @@ def main(argv=None):
     cuda_ops.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        seg = kernel.detect_packed(packed, staged=staged, **kw)
+        seg = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Only the device-side entries (kernels, memcpy, memset): an operator's
@@ -114,6 +133,10 @@ def main(argv=None):
                pixels=int(seg.n_segments.numel()),
                T=int(packed.spectra.shape[-1]), rounds=seg.rounds.tolist(),
                round_counts=seg.round_counts.tolist(),
+               compactions=(None if seg.compactions is None
+                            else int(seg.compactions.sum())),
+               lanes_migrated=(None if seg.lanes_migrated is None
+                               else seg.lanes_migrated.tolist()),
                launches=dict(cuda_ops.LAUNCHES), wall_s=wall,
                wall_unprofiled_s=wall_plain,
                pixels_per_s=seg.n_segments.numel() / wall_plain,
@@ -130,6 +153,8 @@ def main(argv=None):
     suffix = "".join(f"_{v}" for v, default in ((args.fused, "0"),
                                                   (args.pallas, "1"))
                      if v != default).replace(",", "-")
+    suffix += ("_compact" if args.compact == "1" else "") + (
+        f"_shards{args.shards}" if args.shards else "")
     (Path(args.out) / f"torch_detect_profile{suffix}.json").write_text(
         json.dumps(out, indent=1))
 
