@@ -41,7 +41,12 @@ From the root of a checkout, on a machine with a CUDA card:
    ring-off dispatch and the unsharded "0+compact" route in the store
    fields;
 6. a small input (two 10x10 chips) through the card and through the plain
-   versions on the CPU, decision fields compared.
+   versions on the CPU, decision fields compared;
+7. what the redesigned ``fused_round`` and ``ring_remote_copy`` are judged
+   by: registers, stack and spills (the build's ``-Xptxas -v``), shared
+   memory and resident blocks an SM (the CUDA runtime), the ring's
+   achieved TB/s beside ``torch._foreach_copy_``'s, and route "mon"'s
+   wall beside route 0's.
 
 Any failed check raises before the result.  The last three lines are the
 kernels' JSON summary, the card's name and power limit as nvidia-smi gives
@@ -54,6 +59,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -906,6 +912,44 @@ def small_input(seed, dev):
     return dict(agreement=agree, pixels_disagreeing=n_dis)
 
 
+def ptxas_summary(name):
+    """Registers, stack and spill bytes of a kernel's entry function(s) from
+    its build's ``-Xptxas -v`` report."""
+    text = (cuda_ops.BUILD_DIR / f"{name}.ptxas.txt").read_text()
+    grab = lambda pat: [int(v) for v in re.findall(pat, text)]
+    return dict(registers=max(grab(r"Used (\d+) registers"), default=None),
+                stack_bytes=max(grab(r"(\d+) bytes stack frame"), default=0),
+                spill_stores=sum(grab(r"(\d+) bytes spill stores")),
+                spill_loads=sum(grab(r"(\d+) bytes spill loads")))
+
+
+def redesign_report(kernels, paths, T, smi):
+    """What the redesigned fused_round and ring_remote_copy are judged by:
+    registers, shared memory, spills and resident blocks an SM; the ring's
+    achieved rate; route "mon"'s wall beside route 0's."""
+    geo = cuda_ops.kernel_geometry(T)
+    out = {}
+    for name in ("fused_round", "ring_remote_copy"):
+        out[name] = dict(ptxas_summary(name), **geo[name])
+        print(f"{name} on {smi}: {out[name]}", flush=True)
+    ring = kernels["ring_remote_copy"]
+    out["ring_remote_copy"]["tb_per_s"] = ring["bytes"] / ring["ms"] / 1e9
+    out["ring_remote_copy"]["library_tb_per_s"] = (ring["bytes"]
+                                                   / ring["library_ms"] / 1e9)
+    print(f"ring_remote_copy: {out['ring_remote_copy']['tb_per_s']:.3f} TB/s "
+          f"({ring['ms']:.3f} ms), torch._foreach_copy_ "
+          f"{out['ring_remote_copy']['library_tb_per_s']:.3f} TB/s "
+          f"({ring['library_ms']:.3f} ms), peak {HBM_BYTES_S / 1e12} TB/s",
+          flush=True)
+    walls = {r: (paths[r]["seconds"], paths[r]["seconds_again"])
+             for r in ("0", "mon")}
+    out["walls"] = walls
+    print(f"route 'mon' wall {walls['mon'][0]:.3f} s (again "
+          f"{walls['mon'][1]:.3f} s) beside route '0' {walls['0'][0]:.3f} s "
+          f"(again {walls['0'][1]:.3f} s) on {smi}", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -969,6 +1013,7 @@ def main(argv=None):
     small = small_input(args.seed, dev)
     for name, row in kernels.items():
         row["launches"] = paths[HOME_ROUTE[name]]["launches"][name]
+    redesign = redesign_report(kernels, paths, packed.spectra.shape[-1], smi)
 
     ptxas = {n: (cuda_ops.BUILD_DIR / f"{n}.ptxas.txt").read_text()
              for n in cuda_ops.SOURCES
@@ -978,7 +1023,8 @@ def main(argv=None):
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
         build_seconds=build_s, kernels=kernels, kernel_report=kreport,
-        main_paths=paths, small_input=small, ptxas=ptxas), indent=1))
+        main_paths=paths, small_input=small, redesign=redesign,
+        ptxas=ptxas), indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -46,6 +46,7 @@ kernels (and their plain versions) update the result buffers in place.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import shutil
 import subprocess
@@ -99,7 +100,7 @@ _ARGTYPES = {
     "fb_monitor_chain": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
     "fb_tmask_bad": [_P] * 5 + [_I] * 3 + [_P],
     "fb_detect_mega": [_P] * 20 + [_I] * 8 + [_F, _F, _P],
-    "fb_ring_remote_copy": [_P, _I, _P],
+    "fb_ring_remote_copy": [_P, _I, _P, _I, _P, _P],
 }
 
 
@@ -910,6 +911,69 @@ def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
 # fused_round
 # ---------------------------------------------------------------------------
 
+# The fused_round kernel's launch (csrc/fused_round.cu): TILE pixels a
+# block of THREADS threads, at least MIN_BLOCKS blocks an SM (so at most
+# REGS registers a thread), and its dynamic shared memory for T time
+# steps: X and t, a Gram a pixel (65 floats), five bit masks of
+# ceil(T/32) words a pixel and five ints a pixel.
+FUSED_ROUND_TILE = 32
+FUSED_ROUND_THREADS = 256
+FUSED_ROUND_MIN_BLOCKS = 3
+FUSED_ROUND_REGS = 80
+# H100: the most shared memory one block may use, the SM's, and the
+# registers and threads an SM holds.
+SMEM_BLOCK_MAX = 227 * 1024
+SMEM_SM = 228 * 1024
+SMEM_RESERVED = 1024            # the runtime's share of each block
+REGS_SM = 65536
+THREADS_SM = 2048
+
+
+def fused_round_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of one fused_round block at ``T``."""
+    tile, W = FUSED_ROUND_TILE, -(-T // 32)
+    return 4 * (9 * T + tile * (K * K + 1) + 5 * W * tile + 5 * tile + 4)
+
+
+def fused_round_geometry(T: int) -> dict:
+    """The fused_round launch at ``T``: its shared memory and the blocks
+    and warps resident on one SM (the fewer that the register cap and the
+    shared memory allow).  Raises where a block's shared memory exceeds
+    the card's 227 KB (the kernel has no other route)."""
+    smem = fused_round_smem_bytes(T)
+    if smem > SMEM_BLOCK_MAX:
+        raise ValueError(f"fused_round at T={T} needs {smem} bytes of shared "
+                         f"memory a block, more than {SMEM_BLOCK_MAX}")
+    thr = FUSED_ROUND_THREADS
+    blocks = min(THREADS_SM // thr, REGS_SM // (FUSED_ROUND_REGS * thr),
+                 SMEM_SM // (smem + SMEM_RESERVED))
+    return dict(smem_bytes=smem, blocks_per_sm=blocks,
+                warps_per_sm=blocks * thr // 32)
+
+
+def kernel_geometry(T: int) -> dict:
+    """The built kernels' launch geometry on the current card, as the CUDA
+    runtime reports it: fused_round's shared memory, resident blocks an SM,
+    registers and local bytes a thread at ``T``; ring_remote_copy's
+    resident blocks an SM."""
+    build(("fused_round", "ring_remote_copy"))
+    out = (ctypes.c_int * 4)()
+    fn = _LIBS["fused_round"].fb_fused_round_geometry
+    fn.argtypes, fn.restype = [_I, _P], ctypes.c_int
+    rc = fn(T, ctypes.cast(out, _P))
+    if rc != 0:
+        raise RuntimeError(f"fused_round geometry: CUDA error {rc}")
+    blocks = ctypes.c_int()
+    fn = _LIBS["ring_remote_copy"].fb_ring_remote_copy_blocks_per_sm
+    fn.argtypes, fn.restype = [_P], ctypes.c_int
+    rc = fn(ctypes.cast(ctypes.byref(blocks), _P))
+    if rc != 0:
+        raise RuntimeError(f"ring_remote_copy geometry: CUDA error {rc}")
+    return dict(fused_round=dict(smem_bytes=out[0], blocks_per_sm=out[1],
+                                 registers=out[2], local_bytes=out[3]),
+                ring_remote_copy=dict(blocks_per_sm=blocks.value))
+
+
 _EV_KEYS = ("is_tail", "is_brk", "is_refit", "pos_ev", "do_fit", "n_full")
 _EV_BOOL = ("is_tail", "is_brk", "is_refit", "do_fit")
 
@@ -1003,6 +1067,7 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
             rmse, vario, init_ok, w_stab, n_ok, first_seg, nseg, bufs,
             change_thr=change_thr, outlier_thr=outlier_thr, sensor=sensor)
     _check_landsat_roles(sensor)
+    fused_round_geometry(T)             # refuses a T whose block won't fit
     nseg_o = torch.empty_like(nseg)
     coefs_o = torch.empty_like(coefs)
     rmse_o = torch.empty_like(rmse)
@@ -1139,9 +1204,81 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
 # ring_remote_copy
 # ---------------------------------------------------------------------------
 
-# The most leaves one launch's table carries (csrc/ring_remote_copy.cu).
+# The most leaves one launch carries (csrc/ring_remote_copy.cu).
 RING_MAX_LEAVES = 128
+# Each leaf's place in the flat receive buffer is aligned to this many
+# bytes; the payload is cut into spans of at most RING_SPAN bytes.
+RING_ALIGN = 256
+RING_SPAN = 1 << 16
 _PEERS: set = set()
+_RING_PLANS: dict = {}
+
+
+@dataclasses.dataclass(eq=False)
+class RingPlan:
+    """How one payload signature (the leaves' shapes and dtypes, in order)
+    lies in a flat receive buffer: ``offsets[k]`` the byte offset of leaf
+    ``k`` (a multiple of RING_ALIGN), ``nbytes[k]`` its size, ``total`` the
+    buffer's bytes (a multiple of RING_ALIGN), and ``spans`` the copy's
+    table [n, 4] int64 of (destination offset, offset in the leaf, bytes,
+    leaf): the payload cut into RING_SPAN-byte spans, each inside one leaf.
+    ``views`` holds each leaf's (index into ``view_dtypes``, shape, strides,
+    element offset) for :func:`ring_views`; ``device_spans`` caches the
+    table on each source device."""
+
+    offsets: tuple
+    nbytes: tuple
+    total: int
+    spans: np.ndarray
+    view_dtypes: tuple
+    views: tuple
+    device_spans: dict = dataclasses.field(default_factory=dict)
+
+    def spans_on(self, dev: torch.device) -> torch.Tensor:
+        t = self.device_spans.get(dev)
+        if t is None:
+            t = self.device_spans[dev] = torch.from_numpy(self.spans).to(dev)
+        return t
+
+
+def ring_plan(leaves) -> RingPlan:
+    """The :class:`RingPlan` of a payload, built once per signature and
+    reused (the ring's hops repeat the same leaves every dispatch)."""
+    sig = tuple((t.shape, t.dtype) for t in leaves)
+    plan = _RING_PLANS.get(sig)
+    if plan is not None:
+        return plan
+    offsets, sizes, rows, off = [], [], [], 0
+    for k, (shape, dtype) in enumerate(sig):
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        offsets.append(off)
+        sizes.append(n)
+        rows += [(off + b, b, min(RING_SPAN, n - b), k)
+                 for b in range(0, n, RING_SPAN)]
+        off += -(-n // RING_ALIGN) * RING_ALIGN
+    shapes = tuple(tuple(s) for s, _ in sig)
+    dtypes = tuple(d for _, d in sig)
+    view_dtypes = tuple(dict.fromkeys(dtypes))
+    views = tuple(
+        (view_dtypes.index(d), shape,
+         tuple(int(x) for x in np.cumprod((1,) + shape[:0:-1])[::-1])
+         if shape else (), o // d.itemsize)
+        for shape, d, o in zip(shapes, dtypes, offsets))
+    plan = RingPlan(offsets=tuple(offsets),
+                    nbytes=tuple(sizes), total=max(off, RING_ALIGN),
+                    spans=np.asarray(rows, dtype=np.int64).reshape(-1, 4),
+                    view_dtypes=view_dtypes, views=views)
+    _RING_PLANS[sig] = plan
+    return plan
+
+
+def ring_views(buf: torch.Tensor, plan: RingPlan) -> list:
+    """The leaves carved out of a flat uint8 buffer of ``plan.total``
+    bytes: contiguous views with the leaves' shapes and dtypes, at the
+    plan's offsets."""
+    typed = [buf.view(d) for d in plan.view_dtypes]
+    return [typed[i].as_strided(shape, stride, off)
+            for i, shape, stride, off in plan.views]
 
 
 def _shard_device(leaves, i) -> torch.device:
@@ -1187,6 +1324,17 @@ def _enable_peer(device: int, peer: int) -> None:
     _PEERS.add((device, peer))
 
 
+def _ring_launch(leaves, plan, buf, src):
+    """One launch copying ``leaves`` into ``buf`` by ``plan``'s spans, on
+    the current stream of ``src`` (the current device)."""
+    if len(plan.spans):
+        srcs = np.fromiter((t.data_ptr() for t in leaves), dtype=np.int64,
+                           count=len(leaves))
+        _launch("ring_remote_copy", ctypes.c_void_p(srcs.ctypes.data),
+                len(leaves), _ptr(plan.spans_on(src)), len(plan.spans),
+                _ptr(buf))
+
+
 def ring_remote_copy(payloads, shift):
     """One hop of the rebalancing ring: every shard sends its payload to
     the shard ``shift`` places along the ring and receives the payload of
@@ -1201,10 +1349,11 @@ def ring_remote_copy(payloads, shift):
         shift: the ring offset (+1 rightward, -1 leftward).
     Returns:
         A list whose entry ``(i+shift) % n`` holds shard ``i``'s tensors,
-        copied into new buffers on the receiving shard's device.
+        copied into new buffers on the receiving shard's device (views of
+        one flat buffer a shard, :func:`ring_views`).
 
     On CUDA shards, one launch per source shard writes every tensor into
-    the receiver's buffers, on the source device's current stream; the
+    the receiver's buffer, on the source device's current stream; the
     receiver's current stream waits on an event recorded after it.  Across
     two devices the source must have peer access to the receiver, or the
     call raises."""
@@ -1215,7 +1364,7 @@ def ring_remote_copy(payloads, shift):
     if any(d.type != "cuda" for d in devs):
         raise ValueError(f"ring_remote_copy: shards on {devs}: all on the "
                          f"CPU or all on CUDA devices")
-    out = [None] * n
+    out, received = [None] * n, []
     for i, leaves in enumerate(payloads):
         j = (i + shift) % n
         src, dst_dev = devs[i], devs[j]
@@ -1224,29 +1373,31 @@ def ring_remote_copy(payloads, shift):
                              f"payload, at most {RING_MAX_LEAVES}")
         if src != dst_dev:
             _enable_peer(src.index, dst_dev.index)
-        dst = [torch.empty(t.shape, dtype=t.dtype, device=dst_dev)
-               for t in leaves]
-        recv = torch.cuda.current_stream(dst_dev)
-        with torch.cuda.device(src):
-            send = torch.cuda.current_stream(src)
-            if send != recv:
-                # The receiver's buffers were allocated in its stream order.
-                ready = torch.cuda.Event()
-                ready.record(recv)
-                send.wait_event(ready)
-            rows = [(s.data_ptr(), d.data_ptr(), s.numel() * s.element_size())
-                    for s, d in zip(leaves, dst) if s.numel()]
-            if rows:
-                table = np.asarray(rows, dtype=np.int64)
-                _launch("ring_remote_copy", ctypes.c_void_p(table.ctypes.data),
-                        len(rows))
-            if send != recv:
-                done = torch.cuda.Event()
-                done.record(send)
-                recv.wait_event(done)
-                for d in dst:
-                    d.record_stream(send)
-        out[j] = dst
+        plan = ring_plan(leaves)
+        buf = torch.empty(plan.total, dtype=torch.uint8, device=dst_dev)
+        if src == dst_dev and src.index == torch.cuda.current_device():
+            # One device: the copy runs on its current stream, in order.
+            _ring_launch(leaves, plan, buf, src)
+        else:
+            recv = torch.cuda.current_stream(dst_dev)
+            with torch.cuda.device(src):
+                send = torch.cuda.current_stream(src)
+                if send != recv:
+                    # The receiver's buffer was allocated in its stream
+                    # order.
+                    ready = torch.cuda.Event()
+                    ready.record(recv)
+                    send.wait_event(ready)
+                _ring_launch(leaves, plan, buf, src)
+                if send != recv:
+                    done = torch.cuda.Event()
+                    done.record(send)
+                    recv.wait_event(done)
+                    buf.record_stream(send)
+        received.append((j, buf, plan))
+    # The receive views, carved while the copies run.
+    for j, buf, plan in received:
+        out[j] = ring_views(buf, plan)
     return out
 
 

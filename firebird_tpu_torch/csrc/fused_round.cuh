@@ -1,7 +1,9 @@
 // The post-INIT round's per-pixel body — monitor chain, segment close and
-// shared Lasso refit — shared by the fused_round and detect_mega kernels
+// shared Lasso refit — one thread a pixel, as the detect_mega kernel runs it
 // (pallas_ops._fused_round_block's per-lane work, with _mon_scored_logic,
-// _close_logic and _gram_cd_core).
+// _close_logic and _gram_cd_core).  The fused_round kernel (fused_round.cu)
+// computes the same with the same float operations, scheduled over a block:
+// bit-mask events and a fit split over lanes.
 //
 // Per pixel:
 //   1. a monitoring pixel runs the event chain (fb::monitor_event, the code

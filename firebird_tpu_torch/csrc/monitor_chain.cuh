@@ -13,7 +13,8 @@
 // contract of pallas_ops._monitor_logic.
 //
 // The score is recomputed in each of three scans rather than staged: T
-// floats a thread would not fit in registers.
+// floats a thread would not fit in registers.  (The fused_round kernel
+// scores each observation once and keeps two bits of it: fused_round.cu.)
 #pragma once
 
 #include "ccd_common.cuh"
@@ -21,6 +22,27 @@
 namespace fb {
 
 constexpr float REFIT_FACTOR = 1.33f;
+
+// The chi-square score of one observation: design row x, the detection
+// bands' model coef and score denominators dden; y(b) the observation of
+// band b.  Every kernel that scores an observation calls this (the
+// decisions of every route rest on the same floats).
+template <int NB, class Obs>
+__device__ __forceinline__ float score_obs(const float x[K],
+                                           const float coef[NB][K],
+                                           const float dden[NB],
+                                           const Obs& y) {
+  float s = 0.f;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    float pred = x[0] * coef[b][0];
+#pragma unroll
+    for (int k = 1; k < K; ++k) pred = pred + x[k] * coef[b][k];
+    const float r = ((float)y(b) - pred) / dden[b];
+    s = (b == 0) ? r * r : s + r * r;
+  }
+  return s;
+}
 
 // The chi-square score of time step t of one pixel: Y is the chip's first
 // detection band [NB, T, P] (band stride T*P), X the chip's design [T, K].
@@ -36,16 +58,10 @@ struct Scorer {
     float x[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) x[k] = X[t * K + k];
-    float s = 0.f;
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      float pred = x[0] * coef[b][0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) pred = pred + x[k] * coef[b][k];
-      const float r = ((float)Y[((size_t)b * T + t) * P + p] - pred) / dden[b];
-      s = (b == 0) ? r * r : s + r * r;
-    }
-    return s;
+    const int16_t* Yt = Y + (size_t)t * P + p;
+    const size_t TP = (size_t)T * P;
+    return score_obs<NB>(x, coef, dden,
+                         [&](int b) { return Yt[(size_t)b * TP]; });
   }
 };
 

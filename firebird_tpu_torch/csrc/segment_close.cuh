@@ -23,6 +23,37 @@ struct SegBufs {
   int S;
 };
 
+// close_segment's append, given the segment's first / last included
+// observation and their count (the included column already scanned).
+template <int NB>
+__device__ void close_write(const float* tc, int first, int last, int n_obs,
+                            size_t cp, bool is_brk, int pos_ev, int n_exceed,
+                            bool first_seg, int nseg, const float* rmse_row,
+                            const float* mag_row, const float* coef_row,
+                            const SegBufs& bufs) {
+  if (nseg >= bufs.S) return;
+  const float end_day = tc[last];
+  const int qa = is_brk ? (first_seg ? QA_START : QA_INSIDE)
+                        : QA_END + (first_seg ? QA_START : 0);
+  const size_t slot = cp * bufs.S + nseg;
+  float* meta = bufs.meta + slot * 6;
+  meta[0] = tc[first];
+  meta[1] = end_day;
+  meta[2] = is_brk ? tc[pos_ev] : end_day;
+  // A true division: a multiply by the reciprocal is one ulp off.
+  meta[3] = is_brk ? 1.f : __fdiv_rn((float)n_exceed, (float)PEEK);
+  meta[4] = (float)qa;
+  meta[5] = (float)n_obs;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    bufs.rmse[slot * NB + b] = rmse_row[b];
+    bufs.mag[slot * NB + b] = mag_row ? mag_row[b] : 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      bufs.coef[(slot * NB + b) * K + k] = coef_row[b * K + k];
+  }
+}
+
 // Append one pixel's closing segment at slot nseg (cp = c*P + p).  incm is
 // the chip's included_mon plane [T, P], tc its days [T]; rmse_row [NB],
 // coef_row [NB*K] are the closing model and mag_row [NB] its break
@@ -46,26 +77,33 @@ __device__ void close_segment(const uint8_t* incm, const float* tc, int T,
     ++n_obs;
   }
   if (first < 0) first = 0;
-  const float end_day = tc[last];
-  const int qa = is_brk ? (first_seg ? QA_START : QA_INSIDE)
-                        : QA_END + (first_seg ? QA_START : 0);
-  const size_t slot = cp * bufs.S + nseg;
-  float* meta = bufs.meta + slot * 6;
-  meta[0] = tc[first];
-  meta[1] = end_day;
-  meta[2] = is_brk ? tc[pos_ev] : end_day;
-  // A true division: a multiply by the reciprocal is one ulp off.
-  meta[3] = is_brk ? 1.f : __fdiv_rn((float)n_exceed, (float)PEEK);
-  meta[4] = (float)qa;
-  meta[5] = (float)n_obs;
+  close_write<NB>(tc, first, last, n_obs, cp, is_brk, pos_ev, n_exceed,
+                  first_seg, nseg, rmse_row, mag_row, coef_row, bufs);
+}
+
+// The break magnitudes from the PEEK run's time steps ts[0..n) (n <= PEEK,
+// in order): per band, the median residual of the model coef_row.  Xc may
+// lie in global or shared memory.
+template <int NB>
+__device__ void peek_mags_at(const int16_t* Yc, const float* Xc,
+                             const float* coef_row, const int* ts, int n,
+                             int T, int P, int p, float mags[NB]) {
+  float r[NB][PEEK];
+  for (int i = 0; i < n; ++i) {
+    const int t = ts[i];
+    float x[K];
 #pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    bufs.rmse[slot * NB + b] = rmse_row[b];
-    bufs.mag[slot * NB + b] = mag_row ? mag_row[b] : 0.f;
+    for (int k = 0; k < K; ++k) x[k] = Xc[t * K + k];
 #pragma unroll
-    for (int k = 0; k < K; ++k)
-      bufs.coef[(slot * NB + b) * K + k] = coef_row[b * K + k];
+    for (int b = 0; b < NB; ++b) {
+      float pred = coef_row[b * K] * x[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) pred = pred + coef_row[b * K + k] * x[k];
+      r[b][i] = (float)Yc[((size_t)b * T + t) * P + p] - pred;
+    }
   }
+#pragma unroll
+  for (int b = 0; b < NB; ++b) mags[b] = median<PEEK>(r[b], n);
 }
 
 // Break magnitudes: per band, the median residual of the closing model
@@ -79,26 +117,15 @@ __device__ void peek_run_mags(const int16_t* Yc, const float* Xc,
                               const uint8_t* al, const float* coef_row, int T,
                               int P, int p, int ev_rank, int m,
                               float mags[NB]) {
-  float r[NB][PEEK];
+  int ts[PEEK];
   const int hi = min(ev_rank + PEEK, m);
   int n = 0, rank = -1;
   for (int t = 0; t < T && ev_rank + n < hi; ++t) {
     if (al[(size_t)t * P + p] == 0) continue;
     if (++rank < ev_rank) continue;
-    float x[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + t * K + k);
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      float pred = coef_row[b * K] * x[0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) pred = pred + coef_row[b * K + k] * x[k];
-      r[b][n] = (float)Yc[((size_t)b * T + t) * P + p] - pred;
-    }
-    ++n;
+    ts[n++] = t;
   }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) mags[b] = median<PEEK>(r[b], n);
+  peek_mags_at<NB>(Yc, Xc, coef_row, ts, n, T, P, p, mags);
 }
 
 }  // namespace fb

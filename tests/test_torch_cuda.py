@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from firebird_tpu_torch.ccd import cuda_ops, harmonic, kernel, params
+from firebird_tpu_torch.ccd.primitives import coefmask_for
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD_TINY
 from firebird_tpu_torch.ingest import SyntheticSource, pack
 
@@ -235,6 +236,95 @@ def test_fused_round_matches_plain(dev):
         assert torch.equal(got[4][k], want[4][k]), k
 
 
+def _fused_round_case(rng, dev, T, P, mode):
+    """fused_round's inputs at T x P in one of the named modes: "mixed",
+    "all_fit" (every pixel init-ok, none monitoring), "none_mon" (no pixel
+    monitors) or "all_break" (every pixel monitors a step of 800)."""
+    a = _round_args(rng, dev, T=T, P=P)
+    C, B = a["Yt"].shape[:2]
+    in_mon = rng.random((C, P)) < 0.7
+    init_ok = ~in_mon & (rng.random((C, P)) < 0.5)
+    nlast = np.where(rng.random((C, P)) < 0.4,
+                     a["included"].sum(1).cpu().numpy(), 1000)
+    if mode == "all_fit":
+        in_mon, init_ok = np.zeros_like(in_mon), np.ones_like(init_ok)
+    elif mode == "none_mon":
+        in_mon = np.zeros_like(in_mon)
+    elif mode == "all_break":
+        in_mon, init_ok = np.ones_like(in_mon), np.zeros_like(init_ok)
+        nlast = np.full_like(nlast, 10 * T)
+        a["Yt"][:, :, T // 2:] += 800
+    w_stab = (a["alive"].cpu().numpy() & (rng.random((C, T, P)) < 0.7)
+              & init_ok[:, None, :])
+    args = (a["Yt"], a["X"], a["t"], a["alive"], a["included"], a["cur_k"],
+            _t(nlast.astype(np.int32), dev), _t(in_mon, dev), a["coefs"],
+            torch.full((C, P, B), 20.0, device=dev),
+            _t(rng.uniform(15, 25, (C, P, B)).astype(np.float32), dev),
+            _t(init_ok, dev), _t(w_stab, dev),
+            _t(w_stab.sum(1).astype(np.int32), dev), a["first_seg"],
+            a["nseg"])
+    return args, a["bufs"]
+
+
+@pytest.mark.parametrize("mode,T,P", [("all_fit", 96, 141),
+                                      ("none_mon", 96, 141),
+                                      ("all_break", 96, 141),
+                                      ("mixed", 64 + 13, 141),
+                                      ("mixed", 96, 50)])
+def test_fused_round_cases_match_plain(dev, mode, T, P):
+    """The named cases, and T off a multiple of 32 and P off a multiple of
+    the kernel's 32-pixel tile."""
+    args, bufs = _fused_round_case(np.random.default_rng(23), dev, T, P, mode)
+    kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR)
+    got = cuda_ops.fused_round(*args, _clone(bufs), **kw)
+    want = cuda_ops.fused_round_plain(*args, _clone(bufs), **kw)
+    if mode == "all_break":
+        assert want[4]["is_brk"].all()
+    if mode == "all_fit":
+        assert want[4]["do_fit"].all()
+    if mode == "none_mon":
+        assert not (want[4]["is_tail"] | want[4]["is_brk"]).any()
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        if i == 2:
+            torch.testing.assert_close(g, w, rtol=5e-3, atol=1e-2)
+        else:
+            assert torch.equal(g, w), i
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2:4], want[2:4]):
+        torch.testing.assert_close(g, w, rtol=1e-2, atol=1e-2)
+    for k in want[4]:
+        assert torch.equal(got[4][k], want[4][k]), k
+
+
+def test_fused_round_fit_equals_lasso_fit(dev):
+    """The refit's coefficients and RMSE are lasso_fit's bit for bit on the
+    same windows (route "mon" equals route 0 because of it)."""
+    args, bufs = _fused_round_case(np.random.default_rng(24), dev, 96, 141,
+                                   "mixed")
+    kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR)
+    _, _, coefs, rmse, ev = cuda_ops.fused_round(*args, _clone(bufs), **kw)
+    init_ok, w_stab = args[11], args[12]
+    w = torch.where(init_ok[:, None, :], w_stab,
+                    ev["included_mon"] & ev["is_refit"][:, None, :])
+    fit = ev["do_fit"]
+    assert fit.any()
+    want = cuda_ops.lasso_fit(args[0], w.float().contiguous(), args[1],
+                              coefmask_for(ev["n_full"]))
+    assert torch.equal(coefs[fit], want[0][fit])
+    assert torch.equal(rmse[fit], want[1][fit])
+    assert torch.equal(coefs[~fit], args[8][~fit])
+
+
+def test_fused_round_geometry_on_card(dev):
+    """The runtime's shared memory and occupancy agree with the host-side
+    helper's at T=768."""
+    g = cuda_ops.kernel_geometry(768)["fused_round"]
+    assert g["smem_bytes"] == cuda_ops.fused_round_smem_bytes(768)
+    assert g["blocks_per_sm"] >= cuda_ops.FUSED_ROUND_MIN_BLOCKS
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_ops.fused_round_geometry(4096)
+
+
 def test_lasso_cd_matches_plain(dev):
     rng = np.random.default_rng(5)
     C, B, T, P = 2, 7, 60, 141
@@ -390,6 +480,43 @@ def test_ring_remote_copy_matches_plain(dev, n):
         for a, b, src in zip(got[(i + 1) % n], want[(i + 1) % n],
                              payloads[i]):
             assert a.device == src.device and a.shape == src.shape
+            assert torch.equal(raw(a), raw(b)) and torch.equal(raw(a),
+                                                               raw(src))
+
+
+@pytest.mark.parametrize("n_leaves", [1, 128])
+def test_ring_remote_copy_leaf_counts(dev, n_leaves):
+    """One leaf and the most a launch carries, odd sizes, two shards."""
+    rng = np.random.default_rng(n_leaves)
+
+    def payload():
+        return [_t(rng.integers(0, 255, (int(rng.integers(0, 5000)),))
+                   .astype(np.uint8), dev) for _ in range(n_leaves)]
+
+    payloads = [payload(), payload()]
+    got = cuda_ops.ring_remote_copy(payloads, 1)
+    torch.cuda.synchronize()
+    for i in range(2):
+        for a, src in zip(got[(i + 1) % 2], payloads[i]):
+            assert a.shape == src.shape and torch.equal(a, src)
+
+
+def test_ring_remote_copy_unaligned_views(dev):
+    """Sources that start off a 16-byte boundary (views into a larger
+    tensor), of odd sizes, next to large aligned leaves of several spans."""
+    rng = np.random.default_rng(31)
+    big = _t(rng.integers(0, 255, (3 * cuda_ops.RING_SPAN + 77,))
+             .astype(np.uint8), dev)
+    payloads = [[big[1:], big[3:70003], big[16:16 + cuda_ops.RING_SPAN + 5],
+                 _t(rng.standard_normal((257, 129)).astype(np.float32), dev),
+                 big[7:8]] for _ in range(2)]
+    raw = lambda t: t.reshape(-1).view(torch.uint8)
+    got = cuda_ops.ring_remote_copy(payloads, -1)
+    want = cuda_ops.ring_remote_copy_plain(payloads, -1)
+    torch.cuda.synchronize()
+    for j in range(2):
+        for a, b, src in zip(got[j], want[j], payloads[(j + 1) % 2]):
+            assert a.dtype == src.dtype and a.shape == src.shape
             assert torch.equal(raw(a), raw(b)) and torch.equal(raw(a),
                                                                raw(src))
 
