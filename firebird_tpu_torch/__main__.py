@@ -7,6 +7,8 @@
 ``detect`` runs SyntheticSource -> pack -> detect_packed -> batch_frames
 on the device (CUDA unless ``--device cpu``) and prints one JSON summary:
 chips, pixels, segments, rounds (the most any chip ran) and seconds.
+``--sensor sentinel2`` runs the 12-band layout (300 x 300-pixel chips);
+its results have no table frames (the store's schema is Landsat's).
 ``--pallas`` picks the kernels (kernel.pallas_components: "1", a component
 list such as ``lasso,monitor,tmask``, or ``mega``); without it
 FIREBIRD_PALLAS decides.  ``--fused`` picks the round route
@@ -27,7 +29,7 @@ import time
 import torch
 
 from firebird_tpu_torch.ccd import format as fmt
-from firebird_tpu_torch.ccd import kernel
+from firebird_tpu_torch.ccd import kernel, params
 from firebird_tpu_torch.ccd.sensor import SENSORS
 from firebird_tpu_torch.ingest import SyntheticSource, pack
 from firebird_tpu_torch.parallel import detect_sharded
@@ -56,7 +58,11 @@ def detect(args) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t_det = time.perf_counter()
-    frames = fmt.batch_frames(packed, seg)
+    # The table frames are the reference's Landsat segment schema
+    # (format.batch_frames refuses another band layout): a Sentinel-2 run
+    # reports no segment rows.
+    landsat = packed.sensor.band_names == params.BAND_NAMES
+    frames = fmt.batch_frames(packed, seg) if landsat else None
     t_end = time.perf_counter()
     return dict(
         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -69,7 +75,9 @@ def detect(args) -> dict:
         chips=args.chips, pixels=int(seg.n_segments.numel()),
         T=int(packed.spectra.shape[-1]),
         segments=int(seg.n_segments.sum()), rounds=int(seg.rounds.max()),
-        segment_rows=sum(len(f["segment"]["sday"]) for _, f in frames),
+        sensor=packed.sensor.name,
+        segment_rows=(sum(len(f["segment"]["sday"]) for _, f in frames)
+                      if landsat else None),
         seconds=dict(source_pack=t_pack - t0, detect=t_det - t_pack,
                      frames=t_end - t_det, total=t_end - t0))
 

@@ -37,10 +37,15 @@ per source under ``build/firebird_tpu_torch/`` next to the package, and
 bound through ``ctypes``.  ``LAUNCHES`` counts the kernel launches of each
 wrapper.
 
-Layouts (one thread per pixel, the pixel axis fastest): spectra
-``[C,B,T,P]`` int16, time planes ``[C,T,P]``, per-pixel vectors ``[C,P]``,
-designs ``[C,T,K]``, segment result buffers ``[C,P,S,k]``.  The fused
-kernels (and their plain versions) update the result buffers in place.
+Layouts (the pixel axis fastest): spectra ``[C,B,T,P]`` int16, time planes
+``[C,T,P]``, per-pixel vectors ``[C,P]``, designs ``[C,T,K]``, segment
+result buffers ``[C,P,S,k]``.  The fused kernels (and their plain versions)
+update the result buffers in place.  The kernels over a pixel's whole
+spectra are built for B in NB_CHOICES (Landsat ARD's 7 bands, Sentinel-2's
+12); those that take a sensor read its detection and Tmask bands from
+:func:`band_roles`.  ``lasso_fit``, ``monitor_chain_scored`` and
+``fused_round`` run TILE pixels a block (csrc/tile.cuh), the others one
+thread a pixel.
 """
 
 from __future__ import annotations
@@ -83,6 +88,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # instantiated for (their register/local arrays are sized by it);
 # window_cap of a 1985-2017 Landsat archive is 24, inside the 32 instance.
 W_MAX_CHOICES = (32, 64, 128)
+# The band counts the kernels over a pixel's whole spectra are instantiated
+# for (fb::with_nb): Landsat ARD's 7 and Sentinel-2's 12.
+NB_CHOICES = (7, 12)
 
 LAUNCHES = {name: 0 for name in SOURCES}
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -93,13 +101,13 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "fb_lasso_fit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fb_monitor_chain_scored": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],
-    "fb_init_window": [_P] * 11 + [_I, _I, _I, _I, _I, _P],
+    "fb_init_window": [_P] * 12 + [_I] * 6 + [_P],
     "fb_fused_fit_close": [_P] * 23 + [_I] * 5 + [_P],
-    "fb_fused_round": [_P] * 26 + [_I] * 5 + [_F, _F, _P],
+    "fb_fused_round": [_P] * 27 + [_I] * 5 + [_F, _F, _P],
     "fb_lasso_cd": [_P] * 5 + [_I] * 2 + [_P],
     "fb_monitor_chain": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
     "fb_tmask_bad": [_P] * 5 + [_I] * 3 + [_P],
-    "fb_detect_mega": [_P] * 20 + [_I] * 8 + [_F, _F, _P],
+    "fb_detect_mega": [_P] * 21 + [_I] * 8 + [_F, _F, _P],
     "fb_ring_remote_copy": [_P, _I, _P, _I, _P, _P],
 }
 
@@ -185,6 +193,35 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _nb_instance(B: int, name: str) -> None:
+    """Refuses a band count that kernel ``name`` is not instantiated for
+    (NB_CHOICES)."""
+    if B not in NB_CHOICES:
+        raise ValueError(f"{name} is built for {NB_CHOICES} bands, got {B}")
+
+
+def band_roles(sensor, B: int, name: str):
+    """The sensor's band roles as the kernels take them (fb::Roles): the
+    five detection bands' spectra indices, then the two Tmask bands'
+    positions among the detection bands, as a pointer to a ctypes int
+    array (and the array).  Refuses
+    what no kernel instance holds: a band count outside NB_CHOICES, a
+    layout without 5 detection and 2 Tmask bands, or a Tmask band that is
+    not a detection band."""
+    _nb_instance(B, name)
+    det, tm = tuple(sensor.detection_bands), tuple(sensor.tmask_bands)
+    if len(det) != 5 or len(tm) != 2 or not set(tm) <= set(det):
+        raise ValueError(f"{name} takes 5 detection bands and 2 Tmask bands "
+                         f"among them; sensor {sensor.name!r} has {det} and "
+                         f"{tm}")
+    if max(det) >= B:
+        raise ValueError(f"sensor {sensor.name!r}: detection bands {det} "
+                         f"outside {B} bands")
+    # The array is returned beside its pointer: it must outlive the launch.
+    arr = (ctypes.c_int * 7)(*det, *(det.index(b) for b in tm))
+    return ctypes.cast(arr, _P), arr
+
+
 def _w_instance(W: int, name: str) -> int:
     """The smallest W_MAX_CHOICES instance of kernel ``name`` that holds a
     window of ``W`` members; raises past the largest (there is no other
@@ -194,6 +231,52 @@ def _w_instance(W: int, name: str) -> int:
         raise ValueError(f"window cap {W} exceeds the largest {name} "
                          f"instance ({W_MAX_CHOICES[-1]})")
     return w_max
+
+
+# ---------------------------------------------------------------------------
+# The tile kernels' launch (csrc/tile.cuh): fused_round, lasso_fit and
+# monitor_chain_scored
+# ---------------------------------------------------------------------------
+
+# TILE pixels a block of FUSED_ROUND_THREADS threads; each kernel's dynamic
+# shared memory grows with T.  fused_round runs at least
+# FUSED_ROUND_MIN_BLOCKS blocks an SM (so at most FUSED_ROUND_REGS registers
+# a thread).
+TILE = 32
+FUSED_ROUND_THREADS = 256
+FUSED_ROUND_MIN_BLOCKS = 3
+FUSED_ROUND_REGS = 80
+# H100: the most shared memory one block may use, the SM's, and the
+# registers and threads an SM holds.
+SMEM_BLOCK_MAX = 227 * 1024
+SMEM_SM = 228 * 1024
+SMEM_RESERVED = 1024            # the runtime's share of each block
+REGS_SM = 65536
+THREADS_SM = 2048
+
+
+def lasso_fit_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of one lasso_fit block at ``T``: X, a Gram
+    a pixel, one weight mask of ceil(T/32) words a pixel, two ints a pixel
+    and four more."""
+    W = -(-T // 32)
+    return 4 * (8 * T + TILE * (K * K + 1) + W * TILE + 2 * TILE + 4)
+
+
+def monitor_chain_scored_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of one monitor_chain_scored block at
+    ``T``: X, four bit masks of ceil(T/32) words a pixel and two ints a
+    pixel."""
+    W = -(-T // 32)
+    return 4 * (8 * T + 4 * W * TILE + 2 * TILE)
+
+
+def _check_smem(name: str, smem: int) -> None:
+    """Refuses a block whose shared memory exceeds the card's 227 KB (the
+    tile kernels have no other route)."""
+    if smem > SMEM_BLOCK_MAX:
+        raise ValueError(f"{name} needs {smem} bytes of shared memory a "
+                         f"block, more than {SMEM_BLOCK_MAX}")
 
 
 # ---------------------------------------------------------------------------
@@ -294,8 +377,8 @@ def lasso_fit(Yt, w, X, coefmask, with_rmse=True):
     _check(coefmask, "coefmask", torch.bool, (C, P, K), dev)
     if dev.type == "cpu":
         return lasso_fit_plain(Yt, w, X, coefmask, with_rmse)
-    if B != 7:
-        raise ValueError(f"lasso_fit is built for 7 bands, got {B}")
+    _nb_instance(B, "lasso_fit")
+    _check_smem("lasso_fit", lasso_fit_smem_bytes(T))
     coefs = torch.empty(C, P, B, K, dtype=torch.float32, device=dev)
     rmse = torch.empty(C, P, B, dtype=torch.float32, device=dev)
     _launch("lasso_fit", _ptr(Yt), _ptr(w), _ptr(X), _ptr(coefmask),
@@ -324,8 +407,7 @@ def lasso_cd(G, c, diag, coefmask):
     _check(coefmask, "coefmask", torch.bool, (C, P, K), dev)
     if dev.type == "cpu":
         return lasso_cd_plain(G, c, diag, coefmask)
-    if B != 7:
-        raise ValueError(f"lasso_cd is built for 7 bands, got {B}")
+    _nb_instance(B, "lasso_cd")
     beta = torch.empty(C, P, B, K, dtype=torch.float32, device=dev)
     _launch("lasso_cd", _ptr(G), _ptr(c), _ptr(diag), _ptr(coefmask),
             _ptr(beta), C * P, B)
@@ -429,6 +511,16 @@ _MON_KEYS = ("m", "is_tail", "is_brk", "is_refit", "ev_rank", "pos_ev",
 _MON_BOOL = ("is_tail", "is_brk", "is_refit")
 
 
+def monitoring_only(mon, in_mon):
+    """A monitor dict (:func:`monitor_chain_scored`'s) with every field of
+    the pixels that do not monitor set to zero — what the kernel returns
+    for them, and all that any consumer reads of them."""
+    plane = in_mon[:, None, :]
+    return {k: (v & plane if k in ("inc_q", "rem_q")
+                else torch.where(in_mon, v, torch.zeros_like(v)))
+            for k, v in mon.items()}
+
+
 def _mon_outputs(out, inc_q, rem_q):
     d = {k: (out[i] != 0 if k in _MON_BOOL else out[i])
          for i, k in enumerate(_MON_KEYS)}
@@ -486,7 +578,10 @@ def monitor_chain_scored(Yd, coefs_d, dden, X, alive, included, cur_k,
     Returns:
         kernel._monitor_chain's dict: m, ev_rank, pos_ev, n_exceed, n_rf
         [C,P] int32; is_tail, is_brk, is_refit [C,P] bool; inc_q, rem_q
-        [C,T,P] bool.
+        [C,T,P] bool.  A pixel that does not monitor gets zeros from the
+        kernel (kernel._mon_zeros; it scores nothing for it) and, from the
+        plain version, what the Pallas kernel gives it: every consumer
+        masks it on ``in_mon`` (:func:`monitoring_only`).
     """
     C, nb, T, P = Yd.shape
     dev = Yd.device
@@ -506,6 +601,7 @@ def monitor_chain_scored(Yd, coefs_d, dden, X, alive, included, cur_k,
     if nb != 5:
         raise ValueError(f"monitor_chain_scored is built for 5 detection "
                          f"bands, got {nb}")
+    _check_smem("monitor_chain_scored", monitor_chain_scored_smem_bytes(T))
     out = torch.empty(len(_MON_KEYS), C, P, dtype=torch.int32, device=dev)
     inc_q = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     rem_q = torch.empty(C, T, P, dtype=torch.bool, device=dev)
@@ -654,13 +750,6 @@ _INIT_KEYS = ("init_nowin", "init_tm", "init_ok", "init_bad", "has_adv",
 _INIT_BOOL = ("init_nowin", "init_tm", "init_ok", "init_bad", "has_adv")
 
 
-def _check_landsat_roles(sensor) -> None:
-    if (sensor.n_bands != 7 or tuple(sensor.detection_bands) != (1, 2, 3, 4, 5)
-            or tuple(sensor.tmask_bands) != (1, 4)):
-        raise ValueError(f"the CUDA kernels are built for the Landsat band "
-                         f"layout; sensor {sensor.name!r} differs")
-
-
 def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
                 sensor=LANDSAT_ARD):
     """The INIT round per pixel: find the initialization window (MEOW_SIZE
@@ -692,14 +781,14 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
     if dev.type == "cpu":
         return init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario,
                                  W=W, sensor=sensor)
-    _check_landsat_roles(sensor)
+    roles, _keep = band_roles(sensor, B, "init_window")
     w_max = _w_instance(W, "init_window")
     out = torch.empty(len(_INIT_KEYS), C, P, dtype=torch.int32, device=dev)
     w_stab = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     alive_init = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     _launch("init_window", _ptr(alive), _ptr(cur_i), _ptr(in_init), _ptr(t),
             _ptr(X), _ptr(Xt), _ptr(Yt), _ptr(vario), _ptr(out),
-            _ptr(w_stab), _ptr(alive_init), C, T, P, W, w_max)
+            _ptr(w_stab), _ptr(alive_init), roles, C, B, T, P, W, w_max)
     d = {k: (out[i] != 0 if k in _INIT_BOOL else out[i])
          for i, k in enumerate(_INIT_KEYS)}
     return dict(d, w_stab=w_stab, alive_init=alive_init)
@@ -895,8 +984,7 @@ def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
                                      included_mon, coefs, rmse, mags, is_tail,
                                      is_brk, pos_ev, n_exceed, first_seg,
                                      nseg, bufs)
-    if B != 7:
-        raise ValueError(f"fused_fit_close is built for 7 bands, got {B}")
+    _nb_instance(B, "fused_fit_close")
     nseg_o = torch.empty_like(nseg)
     coefs_o = torch.empty_like(coefs)
     rmse_o = torch.empty_like(rmse)
@@ -911,28 +999,12 @@ def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
 # fused_round
 # ---------------------------------------------------------------------------
 
-# The fused_round kernel's launch (csrc/fused_round.cu): TILE pixels a
-# block of THREADS threads, at least MIN_BLOCKS blocks an SM (so at most
-# REGS registers a thread), and its dynamic shared memory for T time
-# steps: X and t, a Gram a pixel (65 floats), five bit masks of
-# ceil(T/32) words a pixel and five ints a pixel.
-FUSED_ROUND_TILE = 32
-FUSED_ROUND_THREADS = 256
-FUSED_ROUND_MIN_BLOCKS = 3
-FUSED_ROUND_REGS = 80
-# H100: the most shared memory one block may use, the SM's, and the
-# registers and threads an SM holds.
-SMEM_BLOCK_MAX = 227 * 1024
-SMEM_SM = 228 * 1024
-SMEM_RESERVED = 1024            # the runtime's share of each block
-REGS_SM = 65536
-THREADS_SM = 2048
-
-
 def fused_round_smem_bytes(T: int) -> int:
-    """The dynamic shared memory of one fused_round block at ``T``."""
-    tile, W = FUSED_ROUND_TILE, -(-T // 32)
-    return 4 * (9 * T + tile * (K * K + 1) + 5 * W * tile + 5 * tile + 4)
+    """The dynamic shared memory of one fused_round block at ``T``: X and
+    t, a Gram a pixel (65 floats), five bit masks of ceil(T/32) words a
+    pixel and five ints a pixel."""
+    W = -(-T // 32)
+    return 4 * (9 * T + TILE * (K * K + 1) + 5 * W * TILE + 5 * TILE + 4)
 
 
 def fused_round_geometry(T: int) -> dict:
@@ -941,9 +1013,7 @@ def fused_round_geometry(T: int) -> dict:
     shared memory allow).  Raises where a block's shared memory exceeds
     the card's 227 KB (the kernel has no other route)."""
     smem = fused_round_smem_bytes(T)
-    if smem > SMEM_BLOCK_MAX:
-        raise ValueError(f"fused_round at T={T} needs {smem} bytes of shared "
-                         f"memory a block, more than {SMEM_BLOCK_MAX}")
+    _check_smem("fused_round", smem)
     thr = FUSED_ROUND_THREADS
     blocks = min(THREADS_SM // thr, REGS_SM // (FUSED_ROUND_REGS * thr),
                  SMEM_SM // (smem + SMEM_RESERVED))
@@ -951,16 +1021,16 @@ def fused_round_geometry(T: int) -> dict:
                 warps_per_sm=blocks * thr // 32)
 
 
-def kernel_geometry(T: int) -> dict:
+def kernel_geometry(T: int, nb: int = 7) -> dict:
     """The built kernels' launch geometry on the current card, as the CUDA
     runtime reports it: fused_round's shared memory, resident blocks an SM,
-    registers and local bytes a thread at ``T``; ring_remote_copy's
-    resident blocks an SM."""
+    registers and local bytes a thread at ``T`` (its ``nb``-band
+    instance); ring_remote_copy's resident blocks an SM."""
     build(("fused_round", "ring_remote_copy"))
     out = (ctypes.c_int * 4)()
     fn = _LIBS["fused_round"].fb_fused_round_geometry
-    fn.argtypes, fn.restype = [_I, _P], ctypes.c_int
-    rc = fn(T, ctypes.cast(out, _P))
+    fn.argtypes, fn.restype = [_I, _I, _P], ctypes.c_int
+    rc = fn(nb, T, ctypes.cast(out, _P))
     if rc != 0:
         raise RuntimeError(f"fused_round geometry: CUDA error {rc}")
     blocks = ctypes.c_int()
@@ -1066,7 +1136,7 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
             Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
             rmse, vario, init_ok, w_stab, n_ok, first_seg, nseg, bufs,
             change_thr=change_thr, outlier_thr=outlier_thr, sensor=sensor)
-    _check_landsat_roles(sensor)
+    roles, _keep = band_roles(sensor, B, "fused_round")
     fused_round_geometry(T)             # refuses a T whose block won't fit
     nseg_o = torch.empty_like(nseg)
     coefs_o = torch.empty_like(coefs)
@@ -1077,7 +1147,7 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
     _launch("fused_round", *map(_ptr, (
         Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs, rmse,
         vario, init_ok, w_stab, n_ok, first_seg, nseg, *bufs, nseg_o,
-        coefs_o, rmse_o, ev, incm, alm)), C, B, T, P, S,
+        coefs_o, rmse_o, ev, incm, alm)), roles, C, B, T, P, S,
         float(change_thr), float(outlier_thr))
     d = {k: (ev[i] != 0 if k in _EV_BOOL else ev[i])
          for i, k in enumerate(_EV_KEYS)}
@@ -1179,7 +1249,7 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
         return detect_mega_plain(Yt, phase0, cur_i0, alive0, nseg0, bufs, t,
                                  X, Xt, vario, W=W, change_thr=change_thr,
                                  outlier_thr=outlier_thr, sensor=sensor)
-    _check_landsat_roles(sensor)
+    roles, _keep = band_roles(sensor, B, "detect_mega")
     w_max = _w_instance(W, "detect_mega")
     max_rounds = 2 * T + 8
     i32, f32 = torch.int32, torch.float32
@@ -1193,8 +1263,8 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
     flags = torch.zeros(C, 3, max_rounds, dtype=i32, device=dev)
     _launch("detect_mega", *map(_ptr, (
         Yt, t, X, Xt, vario, phase0, cur_i0, nseg0, *bufs, alive, included,
-        w_stab, coefs, rmse, nseg, rounds, flags)), C, B, T, P, S, W, w_max,
-        max_rounds, float(change_thr), float(outlier_thr))
+        w_stab, coefs, rmse, nseg, rounds, flags)), roles, C, B, T, P, S, W,
+        w_max, max_rounds, float(change_thr), float(outlier_thr))
     meta, rmse_b, mag, coef = bufs
     return dict(meta=meta, rmse=rmse_b, mag=mag, coef=coef, nseg=nseg,
                 alive=alive, rounds=rounds, counts=flags.sum(-1, dtype=i32))

@@ -14,6 +14,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace fb {
@@ -26,12 +27,44 @@ constexpr float LASSO_ALPHA = 1.0f;
 constexpr int PEEK = 6;         // params.PEEK_SIZE
 constexpr int NUM_OBS_FACTOR = 3;
 constexpr int MID_COEFS = 6;
-constexpr int NBAND = 7;        // Landsat bands, the layout the kernels take
-constexpr int NDET = 5;         // its detection bands, 1..5
+constexpr int NDET = 5;         // detection bands of every sensor layout
+constexpr int NTM = 2;          // Tmask bands, a subset of the detection bands
 // The event loop's phase codes (ccd/round_state.py).
 constexpr int PHASE_INIT = 0;
 constexpr int PHASE_MONITOR = 1;
 constexpr int PHASE_DONE = 2;
+
+// A sensor's band roles (cuda_ops.band_roles builds them from its Sensor):
+// det[d] the spectra index of detection band d, tm[q] the position of Tmask
+// band q among the detection bands.  Kernels take them by value.
+struct Roles {
+  int det[NDET];
+  int tm[NTM];
+};
+
+// The Roles from the host array of NDET + NTM ints a C entry receives.
+inline Roles roles_from(const void* host) {
+  const int* r = static_cast<const int*>(host);
+  Roles o;
+  for (int d = 0; d < NDET; ++d) o.det[d] = r[d];
+  for (int q = 0; q < NTM; ++q) o.tm[q] = r[NDET + q];
+  return o;
+}
+
+// The band counts the kernels are instantiated for: Landsat ARD's 7 and
+// Sentinel-2's 12 (cuda_ops.NB_CHOICES).  f(std::integral_constant<int,
+// NB>) for the instance of nb; an nb outside them is refused.
+template <class F>
+int with_nb(int nb, F&& f) {
+  switch (nb) {
+    case 7:
+      return f(std::integral_constant<int, 7>{});
+    case 12:
+      return f(std::integral_constant<int, 12>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 __device__ __forceinline__ float pmax(float a, float b) {
   return (isnan(a) || isnan(b)) ? NAN : fmaxf(a, b);

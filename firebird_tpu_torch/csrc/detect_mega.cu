@@ -38,9 +38,7 @@
 
 namespace {
 
-constexpr int B = fb::NBAND;
-
-template <int WMAX>
+template <int B, int WMAX>
 __global__ void __launch_bounds__(fb::BLOCK)
 mega_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ tt,
             const float* __restrict__ X, const float* __restrict__ Xt,
@@ -49,8 +47,8 @@ mega_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ tt,
             fb::SegBufs bufs, uint8_t* alive, uint8_t* included,
             uint8_t* w_stab, float* coefs, float* rmse,
             int* __restrict__ nseg_out, int* __restrict__ rounds,
-            int* __restrict__ flags, int C, int T, int P, int W,
-            int max_rounds, float change_thr, float outlier_thr) {
+            int* __restrict__ flags, fb::Roles roles, int C, int T, int P,
+            int W, int max_rounds, float change_thr, float outlier_thr) {
   using namespace fb;
   const int c = blockIdx.y;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
@@ -79,15 +77,15 @@ mega_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ tt,
     const bool in_init = phase == PHASE_INIT;
     InitOut io{};
     if (in_init) {
-      io = init_pixel<WMAX>(al + p, cur_i, true, tc, Xc, Xtc, Yc + p, vrow, T,
-                            P, W, ws + p, al + p);
+      io = init_pixel<WMAX>(al + p, cur_i, true, tc, Xc, Xtc, Yc + p, vrow,
+                            roles, T, P, W, ws + p, al + p);
       fl[r] = 1;
     }
     const RoundIn in{phase == PHASE_MONITOR, cur_k, nlast, io.ok != 0,
                      io.n_ok, first_seg, nseg, coef_row, rmse_row, vrow};
-    const RoundOut o = round_pixel(Yc, Xc, tc, pl, T, P, p, cp, in, bufs,
-                                   coef_row, rmse_row, change_thr,
-                                   outlier_thr);
+    const RoundOut o = round_pixel<B>(Yc, Xc, tc, pl, T, P, p, cp, in, roles,
+                                      bufs, coef_row, rmse_row, change_thr,
+                                      outlier_thr);
     if (o.do_fit) fl[max_rounds + r] = 1;
     if (o.close) fl[2 * max_rounds + r] = 1;
 
@@ -116,61 +114,66 @@ mega_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ tt,
   atomicMax(rounds + c, r);
 }
 
-template <int WMAX>
+template <int B, int WMAX>
 int launch(const void* Yt, const void* t, const void* X, const void* Xt,
            const void* vario, const void* phase0, const void* cur_i0,
            const void* nseg0, fb::SegBufs bufs, void* alive, void* included,
            void* w_stab, void* coefs, void* rmse, void* nseg_out,
-           void* rounds, void* flags, int C, int T, int P, int W,
-           int max_rounds, float change_thr, float outlier_thr,
+           void* rounds, void* flags, const fb::Roles& roles, int C, int T,
+           int P, int W, int max_rounds, float change_thr, float outlier_thr,
            cudaStream_t stream) {
   dim3 grid((P + fb::BLOCK - 1) / fb::BLOCK, C);
-  mega_kernel<WMAX><<<grid, fb::BLOCK, 0, stream>>>(
+  mega_kernel<B, WMAX><<<grid, fb::BLOCK, 0, stream>>>(
       (const int16_t*)Yt, (const float*)t, (const float*)X, (const float*)Xt,
       (const float*)vario, (const int*)phase0, (const int*)cur_i0,
       (const int*)nseg0, bufs, (uint8_t*)alive, (uint8_t*)included,
       (uint8_t*)w_stab, (float*)coefs, (float*)rmse, (int*)nseg_out,
-      (int*)rounds, (int*)flags, C, T, P, W, max_rounds, change_thr,
+      (int*)rounds, (int*)flags, roles, C, T, P, W, max_rounds, change_thr,
       outlier_thr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Yt [C,7,T,P] int16, t [C,T], X [C,T,8], Xt [C,T,5], vario [C,P,7] f32,
-// phase0/cur_i0/nseg0 [C,P] i32; buffers meta [C,P,S,6], rmse_b/mag_b
-// [C,P,S,7], coef_b [C,P,S,7,8] f32 (updated in place); state the kernel
+// Yt [C,nb,T,P] int16, t [C,T], X [C,T,8], Xt [C,T,5], vario [C,P,nb]
+// f32, phase0/cur_i0/nseg0 [C,P] i32; buffers meta [C,P,S,6], rmse_b/mag_b
+// [C,P,S,nb], coef_b [C,P,S,nb,8] f32 (updated in place); state the kernel
 // updates in place: alive [C,T,P] u8 (the start plane in, the final one
 // out), included [C,T,P] u8 (zeros in), w_stab [C,T,P] u8 (scratch), coefs
-// [C,P,7,8] f32 (zeros in), rmse [C,P,7] f32 (ones in)
+// [C,P,nb,8] f32 (zeros in), rmse [C,P,nb] f32 (ones in); roles the host
+// array of the sensor's band roles (fb::roles_from)
 // -> nseg_out [C,P] i32, rounds [C] i32 (zeros in), flags [C,3,max_rounds]
 //    i32 (zeros in).  W is the window cap, w_max the instance (32, 64 or
-//    128) that holds it.
+//    128) that holds it; nb one of fb::with_nb's band counts.
 extern "C" int fb_detect_mega(
     const void* Yt, const void* t, const void* X, const void* Xt,
     const void* vario, const void* phase0, const void* cur_i0,
     const void* nseg0, void* meta_b, void* rmse_b, void* mag_b, void* coef_b,
     void* alive, void* included, void* w_stab, void* coefs, void* rmse,
-    void* nseg_out, void* rounds, void* flags, int C, int nb, int T, int P,
-    int S, int W, int w_max, int max_rounds, float change_thr,
-    float outlier_thr, void* stream) {
-  if (nb != B || W > w_max || T > 32767) return (int)cudaErrorInvalidValue;
+    void* nseg_out, void* rounds, void* flags, const void* roles_h, int C,
+    int nb, int T, int P, int S, int W, int w_max, int max_rounds,
+    float change_thr, float outlier_thr, void* stream) {
+  if (W > w_max || T > 32767) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const fb::Roles roles = fb::roles_from(roles_h);
   fb::SegBufs bufs{(float*)meta_b, (float*)rmse_b, (float*)mag_b,
                    (float*)coef_b, S};
-#define FB_MEGA_LAUNCH(WM)                                                   \
-  launch<WM>(Yt, t, X, Xt, vario, phase0, cur_i0, nseg0, bufs, alive,        \
-             included, w_stab, coefs, rmse, nseg_out, rounds, flags, C, T, P, \
-             W, max_rounds, change_thr, outlier_thr, s)
-  switch (w_max) {
-    case 32:
-      return FB_MEGA_LAUNCH(32);
-    case 64:
-      return FB_MEGA_LAUNCH(64);
-    case 128:
-      return FB_MEGA_LAUNCH(128);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return fb::with_nb(nb, [&](auto nbc) {
+    constexpr int B = decltype(nbc)::value;
+#define FB_MEGA_LAUNCH(WM)                                                  \
+  launch<B, WM>(Yt, t, X, Xt, vario, phase0, cur_i0, nseg0, bufs, alive,    \
+                included, w_stab, coefs, rmse, nseg_out, rounds, flags,     \
+                roles, C, T, P, W, max_rounds, change_thr, outlier_thr, s)
+    switch (w_max) {
+      case 32:
+        return FB_MEGA_LAUNCH(32);
+      case 64:
+        return FB_MEGA_LAUNCH(64);
+      case 128:
+        return FB_MEGA_LAUNCH(128);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
 #undef FB_MEGA_LAUNCH
+  });
 }

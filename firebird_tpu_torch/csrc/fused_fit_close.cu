@@ -24,8 +24,7 @@
 
 namespace {
 
-constexpr int B = 7;
-
+template <int B>
 __global__ void __launch_bounds__(fb::BLOCK)
 fused_fit_close_kernel(
     const int16_t* __restrict__ Yt, const float* __restrict__ X,
@@ -73,12 +72,13 @@ fused_fit_close_kernel(
 
 }  // namespace
 
-// Yt [C,7,T,P] int16, X [C,T,8], t [C,T], w [C,T,P] f32, do_fit [C,P] u8,
-// n_full [C,P] i32, incm [C,T,P] u8, coefs [C,P,7,8], rmse/mags [C,P,7]
+// Yt [C,nb,T,P] int16, X [C,T,8], t [C,T], w [C,T,P] f32, do_fit [C,P] u8,
+// n_full [C,P] i32, incm [C,T,P] u8, coefs [C,P,nb,8], rmse/mags [C,P,nb]
 // f32, is_tail/is_brk [C,P] u8, pos_ev/n_exceed [C,P] i32, first_seg
 // [C,P] u8, nseg [C,P] i32; buffers meta [C,P,S,6], rmse_b/mag_b
-// [C,P,S,7], coef_b [C,P,S,7,8] f32 (updated in place)
-// -> nseg_out [C,P] i32, coefs_out [C,P,7,8], rmse_out [C,P,7] f32.
+// [C,P,S,nb], coef_b [C,P,S,nb,8] f32 (updated in place)
+// -> nseg_out [C,P] i32, coefs_out [C,P,nb,8], rmse_out [C,P,nb] f32; nb
+// one of fb::with_nb's band counts.
 extern "C" int fb_fused_fit_close(
     const void* Yt, const void* X, const void* t, const void* w,
     const void* do_fit, const void* n_full, const void* incm,
@@ -88,16 +88,19 @@ extern "C" int fb_fused_fit_close(
     void* meta_b, void* rmse_b, void* mag_b, void* coef_b, void* nseg_out,
     void* coefs_out, void* rmse_out, int C, int nb, int T, int P, int S,
     void* stream) {
-  if (nb != B) return (int)cudaErrorInvalidValue;
   dim3 grid((P + fb::BLOCK - 1) / fb::BLOCK, C);
   fb::SegBufs bufs{(float*)meta_b, (float*)rmse_b, (float*)mag_b,
                    (float*)coef_b, S};
-  fused_fit_close_kernel<<<grid, fb::BLOCK, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)Yt, (const float*)X, (const float*)t, (const float*)w,
-      (const uint8_t*)do_fit, (const int*)n_full, (const uint8_t*)incm,
-      (const float*)coefs, (const float*)rmse, (const float*)mags,
-      (const uint8_t*)is_tail, (const uint8_t*)is_brk, (const int*)pos_ev,
-      (const int*)n_exceed, (const uint8_t*)first_seg, (const int*)nseg,
-      bufs, (int*)nseg_out, (float*)coefs_out, (float*)rmse_out, T, P);
-  return (int)cudaGetLastError();
+  return fb::with_nb(nb, [&](auto nbc) {
+    fused_fit_close_kernel<decltype(nbc)::value>
+        <<<grid, fb::BLOCK, 0, (cudaStream_t)stream>>>(
+            (const int16_t*)Yt, (const float*)X, (const float*)t,
+            (const float*)w, (const uint8_t*)do_fit, (const int*)n_full,
+            (const uint8_t*)incm, (const float*)coefs, (const float*)rmse,
+            (const float*)mags, (const uint8_t*)is_tail,
+            (const uint8_t*)is_brk, (const int*)pos_ev, (const int*)n_exceed,
+            (const uint8_t*)first_seg, (const int*)nseg, bufs, (int*)nseg_out,
+            (float*)coefs_out, (float*)rmse_out, T, P);
+    return (int)cudaGetLastError();
+  });
 }

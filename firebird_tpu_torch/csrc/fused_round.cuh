@@ -1,9 +1,10 @@
 // The post-INIT round's per-pixel body — monitor chain, segment close and
 // shared Lasso refit — one thread a pixel, as the detect_mega kernel runs it
 // (pallas_ops._fused_round_block's per-lane work, with _mon_scored_logic,
-// _close_logic and _gram_cd_core).  The fused_round kernel (fused_round.cu)
-// computes the same with the same float operations, scheduled over a block:
-// bit-mask events and a fit split over lanes.
+// _close_logic and _gram_cd_core), for NB bands with the sensor's Roles.
+// The fused_round kernel (fused_round.cu) computes the same with the same
+// float operations, scheduled over a block: bit-mask events
+// (word_monitor.cuh) and a fit split over lanes (dense_fit.cuh).
 //
 // Per pixel:
 //   1. a monitoring pixel runs the event chain (fb::monitor_event, the code
@@ -69,7 +70,7 @@ struct RoundWeight {
 
 // One pixel's round state in: the monitor's cursor and last fit count, the
 // INIT block's handoff, the segment count and the current model (coef_row
-// [NBAND*K], rmse_row [NBAND]; vrow [NBAND] the variogram).
+// [NB*K], rmse_row [NB]; vrow [NB] the variogram).
 struct RoundIn {
   bool in_mon;
   int cur_k, nlast;
@@ -88,37 +89,40 @@ struct RoundOut {
   int n_full;
 };
 
-// One pixel's post-INIT round.  Yc is the chip's spectra [NBAND, T, P],
+// One pixel's post-INIT round.  Yc is the chip's spectra [NB, T, P],
 // Xc its design [T, K], tc its days [T]; cp = c*P + p addresses the
-// result buffers.  The new model goes to co [NBAND*K] / ro [NBAND] (which
+// result buffers.  The new model goes to co [NB*K] / ro [NB] (which
 // may be the input rows: the close reads them before the fit writes).
+template <int NB>
 __device__ inline RoundOut round_pixel(const int16_t* Yc, const float* Xc,
                                        const float* tc, const RoundPlanes& pl,
                                        int T, int P, int p, size_t cp,
-                                       const RoundIn& in, const SegBufs& bufs,
-                                       float* co, float* ro, float change_thr,
+                                       const RoundIn& in, const Roles& roles,
+                                       const SegBufs& bufs, float* co,
+                                       float* ro, float change_thr,
                                        float outlier_thr) {
   // 1. MONITOR.
   MonitorEvent e{};
-  float mags[NBAND];
+  float mags[NB];
   if (in.in_mon) {
     Scorer<NDET> score;
-    score.Y = Yc + (size_t)T * P;       // band 1, the first detection band
+    score.Y = Yc;
     score.X = Xc;
     score.T = T;
     score.P = P;
     score.p = p;
 #pragma unroll
     for (int d = 0; d < NDET; ++d) {
-      score.dden[d] = pmax(in.rmse_row[d + 1], in.vrow[d + 1]);
+      const int b = roles.det[d];
+      score.band[d] = b;
+      score.dden[d] = pmax(in.rmse_row[b], in.vrow[b]);
 #pragma unroll
-      for (int k = 0; k < K; ++k)
-        score.coef[d][k] = in.coef_row[(d + 1) * K + k];
+      for (int k = 0; k < K; ++k) score.coef[d][k] = in.coef_row[b * K + k];
     }
     e = monitor_event(score, pl.al, pl.inc, T, P, p, in.cur_k, in.nlast, true,
                       change_thr, outlier_thr);
     if (e.is_brk)
-      peek_run_mags<NBAND>(Yc, Xc, pl.al, in.coef_row, T, P, p, e.ev_rank,
+      peek_run_mags<NB>(Yc, Xc, pl.al, in.coef_row, T, P, p, e.ev_rank,
                            e.m, mags);
     RoundPlanesSink sink{pl.al, pl.inc, pl.incm, pl.alm, P, p};
     e.n_exceed = monitor_partition(score, pl.al, T, P, p, e, change_thr,
@@ -136,7 +140,7 @@ __device__ inline RoundOut round_pixel(const int16_t* Yc, const float* Xc,
   o.e = e;
   o.close = e.is_tail || e.is_brk;
   if (o.close)
-    close_segment<NBAND>(pl.incm, tc, T, P, p, cp, e.is_brk, e.pos_ev,
+    close_segment<NB>(pl.incm, tc, T, P, p, cp, e.is_brk, e.pos_ev,
                          e.n_exceed, in.first_seg, in.nseg, in.rmse_row,
                          e.is_brk ? mags : nullptr, in.coef_row, bufs);
 
@@ -146,11 +150,11 @@ __device__ inline RoundOut round_pixel(const int16_t* Yc, const float* Xc,
   if (o.do_fit) {
     bool m[K];
     coef_mask(o.n_full, m);
-    fit_window<NBAND>(Yc, Xc, RoundWeight{pl.w_stab, pl.incm, in.init_ok, P, p},
+    fit_window<NB>(Yc, Xc, RoundWeight{pl.w_stab, pl.incm, in.init_ok, P, p},
                       T, P, p, m, co, ro, true);
   } else if (co != in.coef_row) {
-    for (int i = 0; i < NBAND * K; ++i) co[i] = in.coef_row[i];
-    for (int b = 0; b < NBAND; ++b) ro[b] = in.rmse_row[b];
+    for (int i = 0; i < NB * K; ++i) co[i] = in.coef_row[i];
+    for (int b = 0; b < NB; ++b) ro[b] = in.rmse_row[b];
   }
   return o;
 }

@@ -26,7 +26,8 @@ init_kernel(const uint8_t* __restrict__ alive, const int* __restrict__ cur_i,
             const float* __restrict__ X, const float* __restrict__ Xt,
             const int16_t* __restrict__ Yt, const float* __restrict__ vario,
             int* __restrict__ out, uint8_t* __restrict__ w_stab,
-            uint8_t* __restrict__ alive_out, int C, int T, int P, int W) {
+            uint8_t* __restrict__ alive_out, fb::Roles roles, int C, int nb,
+            int T, int P, int W) {
   using namespace fb;
   const int c = blockIdx.y;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
@@ -36,7 +37,7 @@ init_kernel(const uint8_t* __restrict__ alive, const int* __restrict__ cur_i,
   const InitOut o = init_pixel<WMAX>(
       alive + c * TP + p, cur_i[cp], in_init[cp] != 0, tt + (size_t)c * T,
       X + (size_t)c * T * K, Xt + (size_t)c * T * NT,
-      Yt + c * NBAND * TP + p, vario + cp * NBAND, T, P, W,
+      Yt + c * nb * TP + p, vario + cp * nb, roles, T, P, W,
       w_stab + c * TP + p, alive_out + c * TP + p);
 
   const size_t CP = (size_t)C * P;
@@ -54,21 +55,23 @@ init_kernel(const uint8_t* __restrict__ alive, const int* __restrict__ cur_i,
 template <int WMAX>
 int launch(const void* alive, const void* cur_i, const void* in_init,
            const void* t, const void* X, const void* Xt, const void* Yt,
-           const void* vario, void* out, void* w_stab, void* alive_out, int C,
-           int T, int P, int W, cudaStream_t stream) {
+           const void* vario, void* out, void* w_stab, void* alive_out,
+           const fb::Roles& roles, int C, int nb, int T, int P, int W,
+           cudaStream_t stream) {
   dim3 grid((P + fb::BLOCK - 1) / fb::BLOCK, C);
   init_kernel<WMAX><<<grid, fb::BLOCK, 0, stream>>>(
       (const uint8_t*)alive, (const int*)cur_i, (const uint8_t*)in_init,
       (const float*)t, (const float*)X, (const float*)Xt,
       (const int16_t*)Yt, (const float*)vario, (int*)out, (uint8_t*)w_stab,
-      (uint8_t*)alive_out, C, T, P, W);
+      (uint8_t*)alive_out, roles, C, nb, T, P, W);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // alive [C,T,P] bool, cur_i [C,P] i32, in_init [C,P] bool, t [C,T] f32,
-// X [C,T,8], Xt [C,T,5] f32, Yt [C,7,T,P] int16, vario [C,P,7] f32
+// X [C,T,8], Xt [C,T,5] f32, Yt [C,nb,T,P] int16, vario [C,P,nb] f32,
+// roles the host array of the sensor's band roles (fb::roles_from)
 // -> out [9,C,P] i32 (init_nowin, init_tm, init_ok, init_bad, has_adv,
 //    i_next_tm, i_adv, j, n_ok), w_stab / alive_out [C,T,P] bool.
 // W is the window cap, w_max the instance (32, 64 or 128) that holds it.
@@ -76,20 +79,22 @@ extern "C" int fb_init_window(const void* alive, const void* cur_i,
                               const void* in_init, const void* t,
                               const void* X, const void* Xt, const void* Yt,
                               const void* vario, void* out, void* w_stab,
-                              void* alive_out, int C, int T, int P, int W,
-                              int w_max, void* stream) {
+                              void* alive_out, const void* roles_h, int C,
+                              int nb, int T, int P, int W, int w_max,
+                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (W > w_max || T > 32767) return (int)cudaErrorInvalidValue;
+  const fb::Roles roles = fb::roles_from(roles_h);
   switch (w_max) {
     case 32:
       return launch<32>(alive, cur_i, in_init, t, X, Xt, Yt, vario, out,
-                        w_stab, alive_out, C, T, P, W, s);
+                        w_stab, alive_out, roles, C, nb, T, P, W, s);
     case 64:
       return launch<64>(alive, cur_i, in_init, t, X, Xt, Yt, vario, out,
-                        w_stab, alive_out, C, T, P, W, s);
+                        w_stab, alive_out, roles, C, nb, T, P, W, s);
     case 128:
       return launch<128>(alive, cur_i, in_init, t, X, Xt, Yt, vario, out,
-                         w_stab, alive_out, C, T, P, W, s);
+                         w_stab, alive_out, roles, C, nb, T, P, W, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -29,8 +29,6 @@ constexpr int TM_ITERS = 5;                          // TMASK_IRLS_ITERS
 constexpr float HUBER_K = 1.345f;
 constexpr float TMASK_CONST = 4.89f;
 constexpr float STAB = 3.0f;                         // STABILITY_FACTOR
-// Tmask bands (green, swir1) as indices into the detection bands.
-constexpr int TM0 = 0, TM1 = 3;
 
 // Solve G beta = c for the 5x5 SPD G (lower half filled) by unrolled
 // Cholesky — kernel._chol_solve_small.  A pivot that is not > 0 makes
@@ -165,15 +163,17 @@ __device__ bool tmask_screen(const Win& win, int n, const float thr[2],
 }
 
 // The INIT body's window as tmask_screen reads it: the Tmask bands of the
-// gathered detection-band values, the design rows at the members'
-// positions, weight 1 for every member.
+// gathered detection-band values (tm: their positions among the detection
+// bands), the design rows at the members' positions, weight 1 for every
+// member.
 template <int WMAX>
 struct InitWindow {
   const float (*Y)[WMAX];       // [NDET][WMAX] detection-band values
   const short* pos;             // member positions
   const float* Xtc;             // the chip's no-trend design [T, NT]
+  int tm[NTM];
   __device__ float x(int s, int k) const { return __ldg(Xtc + pos[s] * NT + k); }
-  __device__ float y(int q, int s) const { return Y[q == 0 ? TM0 : TM1][s]; }
+  __device__ float y(int q, int s) const { return Y[tm[q]][s]; }
   __device__ float w(int) const { return 1.f; }
 };
 
@@ -183,9 +183,10 @@ struct InitOut {
 };
 
 // One pixel's INIT round.  al (the alive column), Yc (the spectra
-// [NBAND, T, P]), ws and ao (the w_stab and alive_init columns out) are
+// [NB, T, P]), ws and ao (the w_stab and alive_init columns out) are
 // offset to the pixel, strided by P; tc [T], Xc [T, K] and Xtc [T, NT] are
-// the chip's days and designs, vrow [NBAND] the pixel's variogram.  ci is
+// the chip's days and designs, vrow [NB] the pixel's variogram, roles the
+// sensor's detection and Tmask bands.  ci is
 // the cursor, init whether the pixel initializes (a pixel that does not
 // gets an empty window's outputs).  ao may be al itself: each step's alive
 // flag is read before its alive_init flag is written.
@@ -193,8 +194,8 @@ template <int WMAX>
 __device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
                               const float* tc, const float* Xc,
                               const float* Xtc, const int16_t* Yc,
-                              const float* vrow, int T, int P, int W,
-                              uint8_t* ws, uint8_t* ao) {
+                              const float* vrow, const Roles& roles, int T,
+                              int P, int W, uint8_t* ws, uint8_t* ao) {
   // 1. i: first alive at or after the cursor (0 when none).
   int i = 0;
   bool has_i = false;
@@ -234,14 +235,15 @@ __device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
     for (int s = 0; s < n; ++s) {
 #pragma unroll
       for (int d = 0; d < NDET; ++d)
-        Y[d][s] = (float)Yc[((size_t)(d + 1) * T + pos[s]) * P];
+        Y[d][s] = (float)Yc[((size_t)roles.det[d] * T + pos[s]) * P];
     }
 
     // 3. Tmask IRLS on the two Tmask bands.
-    const float thr[2] = {TMASK_CONST * vrow[TM0 + 1],
-                          TMASK_CONST * vrow[TM1 + 1]};
-    tm_removed = tmask_screen<WMAX>(InitWindow<WMAX>{Y, pos, Xtc}, n, thr,
-                                    bad);
+    const float thr[2] = {TMASK_CONST * vrow[roles.det[roles.tm[0]]],
+                          TMASK_CONST * vrow[roles.det[roles.tm[1]]]};
+    tm_removed = tmask_screen<WMAX>(
+        InitWindow<WMAX>{Y, pos, Xtc, {roles.tm[0], roles.tm[1]}}, n, thr,
+        bad);
 
     // 4. Stability: 4-coefficient fit of the detection bands over the
     //    window, then the slope / first / last residual tests.
@@ -257,7 +259,7 @@ __device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
         for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + t * K + k);
 #pragma unroll
         for (int d = 0; d < NDET; ++d)
-          y[d] = (float)Yc[((size_t)(d + 1) * T + t) * P];
+          y[d] = (float)Yc[((size_t)roles.det[d] * T + t) * P];
         g.add(x, y, 1.f);
       }
       g.finish();
@@ -285,7 +287,7 @@ __device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
           if (s == cnt - 1) r_last = rr;    // 0 when the last member is past W
         }
         const float r4 = sqrtf(pmax(acc / n4, 0.f));
-        const float denom = STAB * pmax(r4, vrow[d + 1]);
+        const float denom = STAB * pmax(r4, vrow[roles.det[d]]);
         const float slope_day = c4[d][1] / 365.25f;
         const bool ok = (fabsf(slope_day * span) <= denom) &&
                         (fabsf(r_first) <= denom) && (fabsf(r_last) <= denom);

@@ -1,6 +1,7 @@
-// The MONITOR round's per-pixel event chain, shared by the monitor_chain,
-// monitor_chain_scored, fused_round and detect_mega kernels (one copy of
-// the code, so every route takes the same decisions from the same scores).
+// The MONITOR round's per-pixel event chain, one thread a pixel, shared by
+// the monitor_chain and detect_mega kernels; the tile kernels
+// (monitor_chain_scored, fused_round) run the same passes on bit words
+// (word_monitor.cuh) from the same scores (score_obs).
 //
 // Per pixel: the score of every alive observation (a Score functor: the
 // chi-square score against the current model, Scorer, or a precomputed
@@ -13,8 +14,8 @@
 // contract of pallas_ops._monitor_logic.
 //
 // The score is recomputed in each of three scans rather than staged: T
-// floats a thread would not fit in registers.  (The fused_round kernel
-// scores each observation once and keeps two bits of it: fused_round.cu.)
+// floats a thread would not fit in registers.  (The tile kernels score each
+// observation once and keep two bits of it: word_monitor.cuh.)
 #pragma once
 
 #include "ccd_common.cuh"
@@ -44,14 +45,16 @@ __device__ __forceinline__ float score_obs(const float x[K],
   return s;
 }
 
-// The chi-square score of time step t of one pixel: Y is the chip's first
-// detection band [NB, T, P] (band stride T*P), X the chip's design [T, K].
+// The chi-square score of time step t of one pixel: Y is the chip's
+// spectra [B, T, P] (band stride T*P), band[b] the spectra index of scored
+// band b, X the chip's design [T, K].
 template <int NB>
 struct Scorer {
   const int16_t* Y;
   const float* X;
   float coef[NB][K];
   float dden[NB];
+  int band[NB];
   int T, P, p;
 
   __device__ float operator()(int t) const {
@@ -61,7 +64,7 @@ struct Scorer {
     const int16_t* Yt = Y + (size_t)t * P + p;
     const size_t TP = (size_t)T * P;
     return score_obs<NB>(x, coef, dden,
-                         [&](int b) { return Yt[(size_t)b * TP]; });
+                         [&](int b) { return Yt[(size_t)band[b] * TP]; });
   }
 };
 

@@ -15,7 +15,8 @@ import torch
 
 from firebird_tpu_torch.ccd import cuda_ops, harmonic, kernel, params
 from firebird_tpu_torch.ccd.primitives import coefmask_for
-from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD_TINY
+from firebird_tpu_torch.ccd.sensor import (LANDSAT_ARD, LANDSAT_ARD_TINY,
+                                           SENTINEL2)
 from firebird_tpu_torch.ingest import SyntheticSource, pack
 
 pytestmark = pytest.mark.cuda
@@ -79,10 +80,95 @@ def test_monitor_chain_scored_matches_plain(dev, trial):
             _t(rng.random((C, P)) < 0.7, dev))
     kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR)
     got = cuda_ops.monitor_chain_scored(*args, **kw)
-    want = cuda_ops.monitor_chain_scored_plain(*args, **kw)
+    # A pixel that does not monitor gets the zero outputs (kernel._mon_zeros)
+    # from the kernel; the plain version's value there is read by no one.
+    want = cuda_ops.monitoring_only(
+        cuda_ops.monitor_chain_scored_plain(*args, **kw), args[-1])
     assert set(got) == set(want)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def _monitor_case(rng, dev, sensor, T, P, p_mon):
+    """monitor_chain_scored's inputs from a model of ``sensor``'s bands:
+    the detection bands gathered from [C,B,T,P] spectra with a step of 800
+    half way through every fifth pixel, as kernel._mon_block gathers them."""
+    a = _round_args(rng, dev, B=sensor.n_bands, T=T, P=P)
+    C = a["Yt"].shape[0]
+    det = list(sensor.detection_bands)
+    nlast = np.where(rng.random((C, P)) < 0.4,
+                     a["included"].sum(1).cpu().numpy(), 1000)
+    dden = _t(rng.uniform(15, 25, (C, P, 5)).astype(np.float32), dev)
+    return (a["Yt"][:, det].contiguous(), a["coefs"][:, :, det].contiguous(),
+            dden, a["X"], a["alive"], a["included"], a["cur_k"],
+            _t(nlast.astype(np.int32), dev), _t(rng.random((C, P)) < p_mon,
+                                                 dev))
+
+
+@pytest.mark.parametrize("sensor,T,P,p_mon", [
+    (LANDSAT_ARD, 96, 141, 0.7), (SENTINEL2, 96, 141, 0.7),
+    (LANDSAT_ARD, 77, 50, 0.7), (SENTINEL2, 96, 141, 0.0),
+    (LANDSAT_ARD, 96, 141, 1.0)])
+def test_monitor_chain_scored_cases_match_plain(dev, sensor, T, P, p_mon):
+    """The detection bands of both layouts; T off a multiple of 32 and P
+    off a multiple of the 32-pixel tile; a launch with no monitoring pixel
+    (every output zero) and one where all monitor."""
+    args = _monitor_case(np.random.default_rng(31), dev, sensor, T, P, p_mon)
+    kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR)
+    before = cuda_ops.LAUNCHES["monitor_chain_scored"]
+    got = cuda_ops.monitor_chain_scored(*args, **kw)
+    assert cuda_ops.LAUNCHES["monitor_chain_scored"] == before + 1
+    want = cuda_ops.monitoring_only(
+        cuda_ops.monitor_chain_scored_plain(*args, **kw), args[-1])
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    if p_mon == 0.0:
+        assert not any(v.any() for v in got.values())
+    elif p_mon == 1.0:
+        assert all(want[k].any() for k in ("is_tail", "is_brk", "is_refit"))
+
+
+@pytest.mark.parametrize("B,P", [(7, 141), (12, 141), (12, 50)])
+def test_lasso_fit_bands_and_empty_windows(dev, B, P):
+    """Both band-count instances, P off a multiple of the tile, and pixels
+    with no weight (their fit is exactly zero, as the plain version's)."""
+    rng = np.random.default_rng(40 + B)
+    C, T = 2, 77
+    _, X, _ = _designs(rng, C, T, dev)
+    Yt = _t(rng.integers(0, 8000, (C, B, T, P)).astype(np.int16), dev)
+    w = rng.random((C, T, P)) < 0.6
+    w[:, :, ::7] = False
+    w = _t(w.astype(np.float32), dev)
+    mask = _t(np.arange(8) < rng.choice([4, 6, 8], (C, P))[..., None], dev)
+    got = cuda_ops.lasso_fit(Yt, w, X, mask)
+    want = cuda_ops.lasso_fit_plain(Yt, w, X, mask)
+    for g, v in zip(got, want):
+        torch.testing.assert_close(g, v, rtol=1e-2, atol=1e-2)
+    assert not got[0][:, ::7].any() and not got[1][:, ::7].any()
+    b0, r0 = cuda_ops.lasso_fit(Yt, w, X, mask, with_rmse=False)
+    assert torch.equal(b0, got[0]) and not r0.any()
+
+
+@pytest.mark.parametrize("B", [7, 12])
+def test_lasso_fit_equals_fit_window(dev, B):
+    """lasso_fit's dense fit over eight lanes gives fb::fit_window's
+    coefficients and RMSE bit for bit (fused_fit_close refits with
+    fit_window, one thread a pixel, on the same windows and masks)."""
+    rng = np.random.default_rng(50 + B)
+    a = _round_args(rng, dev, B=B, T=77)
+    C, _, T, P = a["Yt"].shape
+    w = _t((rng.random((C, T, P)) < 0.6).astype(np.float32), dev)
+    n_full = _t(rng.integers(10, 40, (C, P)).astype(np.int32), dev)
+    no = torch.zeros(C, P, dtype=torch.bool, device=dev)
+    zi = torch.zeros(C, P, dtype=torch.int32, device=dev)
+    rmse = torch.ones(C, P, B, device=dev)
+    _, _, coefs, rmse_o = cuda_ops.fused_fit_close(
+        a["Yt"], a["X"], a["t"], w, ~no, n_full, a["included"], a["coefs"],
+        rmse, rmse, no, no, zi, zi, a["first_seg"], a["nseg"],
+        _clone(a["bufs"]))
+    want = cuda_ops.lasso_fit(a["Yt"], w, a["X"], coefmask_for(n_full))
+    assert torch.equal(want[0], coefs)
+    assert torch.equal(want[1], rmse_o)
 
 
 def _init_args(rng, dev, C=2, B=7, T=96, P=137, outliers=0.0):
@@ -111,6 +197,19 @@ def test_init_window_matches_plain(dev, outliers, W):
         assert got["init_tm"].any()
     assert got["init_ok"].any()
     # The stability verdict rests on a Gram summed in another order.
+    for k in ("init_ok", "init_bad"):
+        assert (got[k] != want[k]).float().mean().item() <= 0.02, k
+
+
+def test_init_window_sentinel2_matches_plain(dev):
+    """The 12-band instance with Sentinel-2's roles (detection bands 2, 3,
+    7, 10, 11; Tmask bands 2, 10)."""
+    args = _init_args(np.random.default_rng(18), dev, B=12, outliers=0.03)
+    got = cuda_ops.init_window(*args, W=24, sensor=SENTINEL2)
+    want = cuda_ops.init_window_plain(*args, W=24, sensor=SENTINEL2)
+    for k in INIT_EXACT:
+        assert torch.equal(got[k], want[k]), k
+    assert got["init_tm"].any() and got["init_ok"].any()
     for k in ("init_ok", "init_bad"):
         assert (got[k] != want[k]).float().mean().item() <= 0.02, k
 
@@ -313,6 +412,121 @@ def test_fused_round_fit_equals_lasso_fit(dev):
     assert torch.equal(coefs[fit], want[0][fit])
     assert torch.equal(rmse[fit], want[1][fit])
     assert torch.equal(coefs[~fit], args[8][~fit])
+
+
+def _s2_round_case(rng, dev, T=96, P=141):
+    """fused_round's inputs on the 12-band layout ("mixed" mode)."""
+    a = _round_args(rng, dev, B=12, T=T, P=P)
+    C = a["Yt"].shape[0]
+    in_mon = rng.random((C, P)) < 0.7
+    init_ok = ~in_mon & (rng.random((C, P)) < 0.5)
+    nlast = np.where(rng.random((C, P)) < 0.4,
+                     a["included"].sum(1).cpu().numpy(), 1000)
+    w_stab = (a["alive"].cpu().numpy() & (rng.random((C, T, P)) < 0.7)
+              & init_ok[:, None, :])
+    args = (a["Yt"], a["X"], a["t"], a["alive"], a["included"], a["cur_k"],
+            _t(nlast.astype(np.int32), dev), _t(in_mon, dev), a["coefs"],
+            torch.full((C, P, 12), 20.0, device=dev),
+            _t(rng.uniform(15, 25, (C, P, 12)).astype(np.float32), dev),
+            _t(init_ok, dev), _t(w_stab, dev),
+            _t(w_stab.sum(1).astype(np.int32), dev), a["first_seg"],
+            a["nseg"])
+    return args, a["bufs"]
+
+
+def test_fused_round_sentinel2_matches_plain(dev):
+    args, bufs = _s2_round_case(np.random.default_rng(25), dev)
+    kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR,
+              sensor=SENTINEL2)
+    got = cuda_ops.fused_round(*args, _clone(bufs), **kw)
+    want = cuda_ops.fused_round_plain(*args, _clone(bufs), **kw)
+    assert all(want[4][k].any() for k in ("is_tail", "is_brk", "is_refit"))
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        if i == 2:
+            torch.testing.assert_close(g, w, rtol=5e-3, atol=1e-2)
+        else:
+            assert torch.equal(g, w), i
+    assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2:4], want[2:4]):
+        torch.testing.assert_close(g, w, rtol=1e-2, atol=1e-2)
+    for k in want[4]:
+        assert torch.equal(got[4][k], want[4][k]), k
+
+
+def test_fused_round_fit_equals_lasso_fit_sentinel2(dev):
+    """The 12-band refit is lasso_fit's 12-band instance bit for bit (lanes
+    0-3 own two bands each)."""
+    args, bufs = _s2_round_case(np.random.default_rng(26), dev)
+    kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR,
+              sensor=SENTINEL2)
+    _, _, coefs, rmse, ev = cuda_ops.fused_round(*args, _clone(bufs), **kw)
+    init_ok, w_stab = args[11], args[12]
+    w = torch.where(init_ok[:, None, :], w_stab,
+                    ev["included_mon"] & ev["is_refit"][:, None, :])
+    fit = ev["do_fit"]
+    assert fit.any()
+    want = cuda_ops.lasso_fit(args[0], w.float().contiguous(), args[1],
+                              coefmask_for(ev["n_full"]))
+    assert torch.equal(coefs[fit], want[0][fit])
+    assert torch.equal(rmse[fit], want[1][fit])
+
+
+def test_fused_fit_close_and_lasso_cd_12_bands(dev):
+    """The 12-band instances of fused_fit_close and lasso_cd against their
+    plain versions."""
+    rng = np.random.default_rng(27)
+    a = _round_args(rng, dev, B=12)
+    C, B, T, P = a["Yt"].shape
+    kind = rng.integers(0, 3, (C, P))
+    w = _t((rng.random((C, T, P)) < 0.7).astype(np.float32), dev)
+    args = (a["Yt"], a["X"], a["t"], w, _t(rng.random((C, P)) < 0.5, dev),
+            _t(rng.integers(12, 30, (C, P)).astype(np.int32), dev),
+            a["included"], a["coefs"],
+            _t(rng.uniform(10, 40, (C, P, B)).astype(np.float32), dev),
+            _t(rng.normal(0, 300, (C, P, B)).astype(np.float32), dev),
+            _t(kind == 1, dev), _t(kind == 2, dev),
+            _t(rng.integers(0, T, (C, P)).astype(np.int32), dev),
+            _t(rng.integers(0, 7, (C, P)).astype(np.int32), dev),
+            a["first_seg"], a["nseg"])
+    got = cuda_ops.fused_fit_close(*args, _clone(a["bufs"]))
+    want = cuda_ops.fused_fit_close_plain(*args, _clone(a["bufs"]))
+    for g, v in zip(got[0], want[0]):
+        assert torch.equal(g, v)
+    assert torch.equal(got[1], want[1])
+    for g, v in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, v, rtol=1e-2, atol=1e-2)
+    mask = coefmask_for(args[5])
+    G, c, _ = cuda_ops.gram_plain(a["Yt"], w, a["X"])
+    diag = torch.diagonal(G, dim1=-2, dim2=-1).clamp_min(1e-12).contiguous()
+    torch.testing.assert_close(cuda_ops.lasso_cd(G, c, diag, mask),
+                               cuda_ops.lasso_cd_plain(G, c, diag, mask),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_sentinel2_routes_on_card(dev):
+    """A 64-pixel Sentinel-2 cut through routes 0, 1, "mon" and mega on
+    the card: route 1 equals route 0, "mon" equals it but seg_mag, mega
+    decides as "mon", and route 0 decides as the plain route on the CPU."""
+    src = SyntheticSource(88, start="2019-01-01", end="2023-01-01",
+                          cloud_frac=0.15, sensor=SENTINEL2)
+    p = pack([src.chip(100, 200)], bucket=32)
+    sel = np.arange(64) * (p.spectra.shape[2] // 64)
+    packed = dataclasses.replace(
+        p, spectra=np.ascontiguousarray(p.spectra[:, :, sel]),
+        qas=np.ascontiguousarray(p.qas[:, sel]))
+    base = kernel.detect_packed(packed, fused=0, compact=False)
+    assert int(base.n_segments.max()) >= 2
+    one = kernel.detect_packed(packed, fused=1, compact=False)
+    mon = kernel.detect_packed(packed, fused="mon", compact=False)
+    mega = kernel.detect_packed(packed, pallas="mega")
+    for f in ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
+              "mask", "procedure", "rounds", "vario", "round_counts"):
+        assert torch.equal(getattr(one, f), getattr(base, f)), f
+        if f != "seg_mag":
+            assert torch.equal(getattr(mon, f), getattr(base, f)), f
+    _decisions_equal(mega, mon)
+    cpu = kernel.detect_packed(packed, device="cpu", compact=False)
+    _decisions_equal(base, cpu)
 
 
 def test_fused_round_geometry_on_card(dev):

@@ -3,7 +3,8 @@
 - The plain versions of ``fused_fit_close`` and ``fused_round`` against
   the Pallas kernels in interpret mode, on inputs made from a seed with
   numpy at the shapes of tests/test_fuse.py (B=7, T=24, S=3, P=16), the
-  JAX side in pixel blocks of 8 so its per-block gates are exercised.
+  JAX side in pixel blocks of 8 so its per-block gates are exercised; and
+  the same on the 12-band Sentinel-2 layout.
 - ``detect_packed(fused=1)`` byte-identical to ``fused=0``.
 - ``detect_packed(fused="mon")`` against the JAX package's
   ``fused="mon"`` route.
@@ -22,9 +23,10 @@ import torch
 
 from firebird_tpu.ccd import harmonic, pallas_ops
 from firebird_tpu.ccd import kernel as jk
-from firebird_tpu.ccd.sensor import LANDSAT_ARD
+from firebird_tpu.ccd.sensor import LANDSAT_ARD, SENTINEL2
 from firebird_tpu_torch.ccd import convert, cuda_ops
 from firebird_tpu_torch.ccd import kernel as tk
+from firebird_tpu_torch.ccd.sensor import SENTINEL2 as T_S2
 from firebird_tpu_torch.ccd.sensor import chi2_thresholds
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -47,24 +49,24 @@ def _t(a, dtype=None):
     return a if dtype is None else a.to(dtype)
 
 
-def _series(rng):
-    """Days, the harmonic design and int16 spectra [B,T,P] made from a
+def _series(rng, nb=B):
+    """Days, the harmonic design and int16 spectra [nb,T,P] made from a
     per-pixel model (returned) plus noise; pixels 1, 4 and 9 step up by
     800 from the middle of the series (a break)."""
     t = np.sort(rng.choice(np.arange(729000, 729800), T, replace=False))
     X = harmonic.design_matrix(t.astype(np.float64), float(t[0]),
                                K).astype(np.float32)
-    beta = np.zeros((P, B, K), np.float32)
-    beta[..., 0] = rng.uniform(500, 3000, (P, B))
-    beta[..., 2:6] = rng.normal(0, 150, (P, B, 4))
-    Y = np.einsum("pbk,tk->btp", beta, X) + rng.normal(0, 20, (B, T, P))
+    beta = np.zeros((P, nb, K), np.float32)
+    beta[..., 0] = rng.uniform(500, 3000, (P, nb))
+    beta[..., 2:6] = rng.normal(0, 150, (P, nb, 4))
+    Y = np.einsum("pbk,tk->btp", beta, X) + rng.normal(0, 20, (nb, T, P))
     Y[:, T // 2:, [1, 4, 9]] += 800
     return t.astype(np.float32), X, Y.astype(np.int16), beta
 
 
-def _bufs(rng):
+def _bufs(rng, nb=B):
     return tuple(rng.standard_normal((P, S * k)).astype(np.float32)
-                 for k in (6, B, B, B * K))
+                 for k in (6, nb, nb, nb * K))
 
 
 def _compare_bufs(got, want, mag_tol=None):
@@ -77,16 +79,25 @@ def _compare_bufs(got, want, mag_tol=None):
 
 
 def test_fused_fit_close_plain_matches_pallas():
-    rng = np.random.default_rng(3)
-    t, X, Yt, beta = _series(rng)
+    _check_fused_fit_close(np.random.default_rng(3), B)
+
+
+def test_fused_fit_close_plain_matches_pallas_sentinel2():
+    """The 12-band layout (fused_fit_close takes no band roles: every band
+    is fitted and closed)."""
+    _check_fused_fit_close(np.random.default_rng(13), T_S2.n_bands)
+
+
+def _check_fused_fit_close(rng, nb):
+    t, X, Yt, beta = _series(rng, nb)
     w_fit = (rng.random((P, T)) < 0.7).astype(np.float32)
     do_fit = rng.random(P) < 0.5
     n_full = rng.integers(12, 30, P).astype(np.int32)
     incm = rng.random((P, T)) < 0.5
     incm[5] = False                                 # no included obs
     coefs = (beta + rng.normal(0, 5, beta.shape)).astype(np.float32)
-    rmse = rng.uniform(10, 40, (P, B)).astype(np.float32)
-    mags = rng.normal(0, 300, (P, B)).astype(np.float32)
+    rmse = rng.uniform(10, 40, (P, nb)).astype(np.float32)
+    mags = rng.normal(0, 300, (P, nb)).astype(np.float32)
     kind = rng.integers(0, 3, P)                    # 0 none, 1 tail, 2 brk
     kind[[2, 5]] = 1
     kind[[1, 4]] = 2
@@ -96,7 +107,7 @@ def test_fused_fit_close_plain_matches_pallas():
     first_seg = rng.random(P) < 0.5
     nseg = rng.integers(0, S + 1, P).astype(np.int32)   # S: past capacity
     nseg[[1, 2]] = [0, S]
-    bufs = _bufs(rng)
+    bufs = _bufs(rng, nb)
 
     want = pallas_ops.fused_fit_close(
         jnp.asarray(Yt), jnp.asarray(X), jnp.asarray(t), jnp.asarray(w_fit),
@@ -110,7 +121,7 @@ def test_fused_fit_close_plain_matches_pallas():
         _t(do_fit), _t(n_full), convert.plane_from_numpy(incm), _t(coefs),
         _t(rmse), _t(mags), _t(is_tail), _t(is_brk), _t(pos_ev),
         _t(n_exceed), _t(first_seg), _t(nseg),
-        convert.bufs_from_flat(bufs, B))
+        convert.bufs_from_flat(bufs, nb))
     _compare_bufs(got[0], want[0])
     np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(want[1]))
     # The Gram sums run in another order than the Pallas dot; 50 CD sweeps
@@ -121,8 +132,8 @@ def test_fused_fit_close_plain_matches_pallas():
     assert int(got[1].sum()) == int(nseg.sum() + (is_tail | is_brk).sum())
 
 
-def _round_inputs(rng):
-    t, X, Yt, beta = _series(rng)
+def _round_inputs(rng, nb=B):
+    t, X, Yt, beta = _series(rng, nb)
     alive = rng.random((P, T)) < 0.9
     cur_k = rng.integers(4, 10, P).astype(np.int32)
     included = alive & (np.arange(T)[None, :] < cur_k[:, None])
@@ -137,37 +148,52 @@ def _round_inputs(rng):
     init_ok = np.zeros(P, bool)
     init_ok[[6, 14]] = True
     w_stab = alive & (rng.random((P, T)) < 0.7) & init_ok[:, None]
-    rmse = np.full((P, B), 20.0, np.float32)
-    vario = rng.uniform(15, 25, (P, B)).astype(np.float32)
+    rmse = np.full((P, nb), 20.0, np.float32)
+    vario = rng.uniform(15, 25, (P, nb)).astype(np.float32)
     return dict(
         Yt=Yt, X=X, t=t, alive=alive, included=included, cur_k=cur_k,
         n_last_fit=n_last_fit, in_mon=in_mon, coefs=beta, rmse=rmse,
         vario=vario, init_ok=init_ok, w_stab=w_stab,
         n_ok=w_stab.sum(1).astype(np.int32),
         first_seg=rng.random(P) < 0.5,
-        nseg=rng.integers(0, S + 1, P).astype(np.int32), bufs=_bufs(rng))
+        nseg=rng.integers(0, S + 1, P).astype(np.int32),
+        bufs=_bufs(rng, nb))
 
 
 _PLANES = ("alive", "included", "w_stab")
 
 
 def test_fused_round_plain_matches_pallas():
-    a = _round_inputs(np.random.default_rng(9))
+    _check_fused_round(np.random.default_rng(9), LANDSAT_ARD, None)
+
+
+def test_fused_round_plain_matches_pallas_sentinel2():
+    """The 12-band layout: scored on detection bands 2, 3, 7, 10, 11."""
+    _check_fused_round(np.random.default_rng(9), SENTINEL2, T_S2)
+
+
+def _check_fused_round(rng, j_sensor, t_sensor):
+    """fused_round_plain against the Pallas kernel on ``j_sensor``'s
+    layout (``t_sensor`` the port's copy; None: the wrapper's default)."""
+    a = _round_inputs(rng, j_sensor.n_bands)
     want = pallas_ops.fused_round(
         *(jnp.asarray(a[k]) for k in (
             "Yt", "X", "t", "alive", "included", "cur_k", "n_last_fit",
             "in_mon", "coefs", "rmse", "vario", "init_ok", "w_stab", "n_ok",
             "first_seg", "nseg")),
-        tuple(jnp.asarray(b) for b in a["bufs"]), S=S, sensor=LANDSAT_ARD,
+        tuple(jnp.asarray(b) for b in a["bufs"]), S=S, sensor=j_sensor,
         change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR, block_p=BP,
         interpret=True)
     args = [convert.plane_from_numpy(a[k]) if k in _PLANES else _t(a[k])
             for k in ("Yt", "X", "t", "alive", "included", "cur_k",
                       "n_last_fit", "in_mon", "coefs", "rmse", "vario",
                       "init_ok", "w_stab", "n_ok", "first_seg", "nseg")]
-    got = cuda_ops.fused_round(*args, convert.bufs_from_flat(a["bufs"], B),
+    kw = {} if t_sensor is None else dict(sensor=t_sensor)
+    got = cuda_ops.fused_round(*args,
+                               convert.bufs_from_flat(a["bufs"],
+                                                      j_sensor.n_bands),
                                change_thr=CHANGE_THR,
-                               outlier_thr=OUTLIER_THR)
+                               outlier_thr=OUTLIER_THR, **kw)
     ev_w, ev_g = want[4], got[4]
     # The inputs reach every event and both gates of each pixel block.
     kinds = [np.asarray(ev_w[k]) for k in ("is_tail", "is_brk", "is_refit")]

@@ -1,13 +1,17 @@
-"""The fused_round kernel's bit-mask monitor, rehearsed on the CPU.
+"""The tile kernels' bit-mask monitor and dense fit, rehearsed on the CPU.
 
-``csrc/fused_round.cu`` keeps two bits of each score (s > outlier, s >
+``csrc/word_monitor.cuh`` (run by ``fused_round`` and
+``monitor_chain_scored``) keeps two bits of each score (s > outlier, s >
 change) beside the alive and included columns as 32-bit words and runs the
 monitor's passes 1-4 on the words with popcounts.  :func:`word_events`
 below is a numpy model of that word logic, line for line; it is held equal
 to the plain event chain (``cuda_ops.monitor_chain_plain`` /
 ``monitor_chain_scored_plain``) on random states through a hypothesis
-property and on named edge cases.  The launch-geometry helper is checked
-here too.  Nothing here needs a card.
+property and on named edge cases, and :func:`scored_launch` models a whole
+``monitor_chain_scored`` launch (zeros for a pixel that does not monitor).
+:func:`dense_fit_sums` models ``csrc/dense_fit.cuh``'s split of the fit
+over eight lanes (12 bands: two a lane on lanes 0-3).  The launch-geometry
+helpers are checked here too.  Nothing here needs a card.
 """
 
 import numpy as np
@@ -295,6 +299,200 @@ def test_word_events_refit_at_first_absorbed():
 
 
 # ---------------------------------------------------------------------------
+# monitor_chain_scored: the word model over a whole launch
+# ---------------------------------------------------------------------------
+
+def scored_launch(Yd, coefs_d, dden, X, alive, included, cur_k, nlast,
+                  in_mon):
+    """monitor_chain_scored's outputs as csrc/monitor_chain_scored.cu
+    computes them for one chip: the score of every eligible alive step of
+    a monitoring pixel (the plain scorer's floats; only their two bits are
+    kept), the word events and partition of :func:`word_events`, and the
+    zero outputs of a pixel that does not monitor.  Inputs are numpy
+    ([5,T,P] spectra, [P,5,8] / [P,5] model, [T,8] design, [T,P] planes,
+    [P] vectors); returns the eight fields [P] and both planes [T,P]."""
+    T, P = alive.shape
+    s = cuda_ops.score_plain(
+        torch.from_numpy(Yd)[None], torch.from_numpy(coefs_d)[None],
+        torch.from_numpy(dden)[None], torch.from_numpy(X)[None])[0].numpy()
+    out = {k: np.zeros(P, np.int64) for k in KEYS}
+    out.update(inc_q=np.zeros((T, P), bool), rem_q=np.zeros((T, P), bool))
+    for p in range(P):
+        if not in_mon[p]:
+            continue
+        got = word_events(alive[:, p], included[:, p], s[:, p], int(cur_k[p]),
+                          int(nlast[p]), CHANGE_THR, OUTLIER_THR)
+        for k, v in got.items():
+            if k in ("inc_q", "rem_q"):
+                out[k][:, p] = v
+            else:
+                out[k][p] = v
+    return out
+
+
+KEYS = ("m", "is_tail", "is_brk", "is_refit", "ev_rank", "pos_ev",
+        "n_exceed", "n_rf")
+
+
+def _spectra_states(seed, T, P, p_mon=0.7):
+    """Monitor inputs made from a per-pixel model with a step of 300 half
+    way through some pixels, random cursors, included sets, last fit
+    counts and monitoring flags."""
+    rng = np.random.default_rng(seed)
+    t = np.sort(rng.choice(np.arange(729000, 729000 + 20 * T), T,
+                           replace=False)).astype(np.float64)
+    X = harmonic.design_matrix(t, t[0], 8).astype(np.float32)
+    beta = np.zeros((P, 5, 8), np.float32)
+    beta[..., 0] = rng.uniform(500, 3000, (P, 5))
+    beta[..., 2:6] = rng.normal(0, 150, (P, 5, 4))
+    Y = np.einsum("pbk,tk->btp", beta, X) + rng.normal(0, 20, (5, T, P))
+    Y[:, T // 2:, rng.random(P) < 0.4] += 300
+    alive = rng.random((T, P)) < 0.85
+    cur_k = rng.integers(-2, T + 3, P)
+    included = alive & (np.arange(T)[:, None] < cur_k[None, :]) \
+        & (rng.random((T, P)) < 0.9)
+    nlast = np.where(rng.random(P) < 0.5, included.sum(0),
+                     rng.integers(0, 3 * T, P))
+    return dict(Yd=Y.astype(np.int16), coefs_d=beta,
+                dden=rng.uniform(15, 40, (P, 5)).astype(np.float32), X=X,
+                alive=alive, included=included, cur_k=cur_k.astype(np.int32),
+                nlast=nlast.astype(np.int32), in_mon=rng.random(P) < p_mon)
+
+
+def _check_scored(a):
+    """The launch model against monitor_chain_scored_plain with the
+    non-monitoring pixels' outputs zeroed (cuda_ops.monitoring_only)."""
+    tt = lambda v: torch.from_numpy(np.ascontiguousarray(v))[None]
+    want = cuda_ops.monitoring_only(cuda_ops.monitor_chain_scored_plain(
+        tt(a["Yd"]), tt(a["coefs_d"]), tt(a["dden"]), tt(a["X"]),
+        tt(a["alive"]), tt(a["included"]), tt(a["cur_k"]), tt(a["nlast"]),
+        tt(a["in_mon"]), change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR),
+        tt(a["in_mon"]))
+    got = scored_launch(**a)
+    assert set(got) == set(want)
+    for k, v in got.items():
+        assert np.array_equal(v, want[k][0].numpy()), k
+    return got
+
+
+@pytest.mark.parametrize("seed,T", [(1, 64), (2, 96), (3, 33), (4, 70),
+                                    (5, 95)])
+def test_scored_launch_matches_plain(seed, T):
+    """Seeded states, T a multiple of 32 and not."""
+    got = _check_scored(_spectra_states(seed, T, 24))
+    assert got["is_tail"].any() or got["is_brk"].any() or \
+        got["is_refit"].any()
+
+
+def test_scored_launch_edge_cases():
+    """No alive step, a cursor past the last alive step, no monitoring
+    pixel in the launch, and a PEEK run of exceedances across a word
+    boundary (a step of 5000 from t = 29 on pixel 3)."""
+    a = _spectra_states(11, 70, 8, p_mon=1.0)
+    a["alive"][:, 0] = False
+    a["alive"][50:, 1] = False
+    a["cur_k"][1] = 55
+    a["Yd"][:, 29:, 3] += 5000
+    a["alive"][:, 3] = True
+    a["cur_k"][3] = 5
+    a["nlast"][3] = 1000
+    got = _check_scored(a)
+    assert got["m"][0] == 0 and got["is_tail"][0]
+    assert got["is_brk"][3] and got["pos_ev"][3] == 29
+    a["in_mon"][:] = False
+    got = _check_scored(a)
+    assert not any(v.any() for v in got.values())
+
+
+# ---------------------------------------------------------------------------
+# The dense fit's lane split (csrc/dense_fit.cuh)
+# ---------------------------------------------------------------------------
+
+LANES = 8
+FIT_BATCH = 4
+
+
+def lane_bands(l, nb):
+    """The bands lane l of a group owns: l, l + 8, ... below nb."""
+    return list(range(l, nb, LANES))
+
+
+def dense_fit_sums(win, Y, X):
+    """The Gram rows and correlations as dense_fit's lanes sum them: lane l
+    walks the window's set bits FIT_BATCH at a time, in time order, adding
+    x_l * x_j to its Gram row (j >= l) and y_b * x_k to each of its bands'
+    correlations (the weight-1 products of Gram::add left out), every
+    operation rounded to float32.  Returns (G [8,8] upper rows, c [nb,8],
+    the order in which each band's terms were added)."""
+    f = np.float32
+    steps = [t for t in range(len(win)) if win[t]]
+    nb = Y.shape[0]
+    G = np.zeros((8, 8), f)
+    c = np.zeros((nb, 8), f)
+    order = {b: [] for b in range(nb)}
+    for l in range(LANES):
+        for k0 in range(0, len(steps), FIT_BATCH):
+            for t in steps[k0:k0 + FIT_BATCH]:
+                x = X[t]
+                for j in range(l, 8):
+                    G[l, j] = f(G[l, j] + f(x[l] * x[j]))
+                for b in lane_bands(l, nb):
+                    order[b].append(t)
+                    for k in range(8):
+                        c[b, k] = f(c[b, k] + f(f(Y[b, t]) * x[k]))
+    return G, c, order
+
+
+def fit_window_sums(win, Y, X):
+    """fb::Gram::add over the window in time order, one observation at a
+    time (fb::fit_window's accumulation), in float32."""
+    f = np.float32
+    nb = Y.shape[0]
+    G = np.zeros((8, 8), f)
+    c = np.zeros((nb, 8), f)
+    for t in range(len(win)):
+        if not win[t]:
+            continue
+        x = X[t]
+        for i in range(8):
+            for j in range(i, 8):
+                G[i, j] = f(G[i, j] + f(f(1) * f(x[i] * x[j])))
+        for b in range(nb):
+            yw = f(f(Y[b, t]) * f(1))
+            for k in range(8):
+                c[b, k] = f(c[b, k] + f(yw * x[k]))
+    return G, c
+
+
+@pytest.mark.parametrize("nb", [7, 12])
+def test_dense_fit_lane_split_keeps_time_order(nb):
+    """Every band is owned by one lane (12 bands: lanes 0-3 two each,
+    lanes 4-7 one), each band's correlation terms are added in time order,
+    and the lanes' sums equal fit_window's bit for bit (the weight-1
+    products it keeps are exact)."""
+    owners = [l for b in range(nb) for l in range(LANES)
+              if b in lane_bands(l, nb)]
+    assert sorted(set(owners)) == list(range(min(nb, LANES)))
+    assert len(owners) == nb
+    if nb == 12:
+        assert [len(lane_bands(l, nb)) for l in range(LANES)] == \
+            [2, 2, 2, 2, 1, 1, 1, 1]
+    rng = np.random.default_rng(nb)
+    T = 77
+    t = np.sort(rng.choice(np.arange(729000, 731000), T, replace=False))
+    X = harmonic.design_matrix(t.astype(np.float64), float(t[0]),
+                               8).astype(np.float32)
+    Y = rng.integers(-2000, 9000, (nb, T)).astype(np.int16)
+    win = rng.random(T) < 0.6
+    G, c, order = dense_fit_sums(win, Y, X)
+    G_ref, c_ref = fit_window_sums(win, Y, X)
+    steps = [t for t in range(T) if win[t]]
+    assert all(order[b] == steps for b in range(nb))
+    assert np.array_equal(np.triu(G), np.triu(G_ref))
+    assert np.array_equal(c, c_ref)
+
+
+# ---------------------------------------------------------------------------
 # Launch geometry
 # ---------------------------------------------------------------------------
 
@@ -312,6 +510,21 @@ def test_fused_round_geometry_refuses_large_t():
     assert ok["smem_bytes"] <= 227 * 1024
     with pytest.raises(ValueError, match="shared memory"):
         cuda_ops.fused_round_geometry(4096)
+
+
+def test_tile_kernels_smem_bytes():
+    # lasso_fit: X (8T floats), 32 Grams of 65 floats, one weight mask of
+    # ceil(T/32) words for 32 pixels, two ints a pixel and four more;
+    # monitor_chain_scored: X and four masks, two ints a pixel.
+    assert cuda_ops.lasso_fit_smem_bytes(768) == 4 * (
+        8 * 768 + 32 * 65 + 24 * 32 + 2 * 32 + 4)
+    assert cuda_ops.monitor_chain_scored_smem_bytes(768) == 4 * (
+        8 * 768 + 4 * 24 * 32 + 2 * 32)
+    for fn in (cuda_ops.lasso_fit_smem_bytes,
+               cuda_ops.monitor_chain_scored_smem_bytes):
+        assert fn(64) < fn(65) < fn(768)
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_ops._check_smem("tile", fn(8192))
 
 
 @pytest.mark.parametrize("T,blocks", [(64, 3), (768, 3), (1536, 2),

@@ -16,9 +16,10 @@ import pytest
 import torch
 
 from firebird_tpu.ccd import harmonic, kernel, pallas_ops, params
-from firebird_tpu.ccd.sensor import LANDSAT_ARD
+from firebird_tpu.ccd.sensor import LANDSAT_ARD, SENTINEL2
 from firebird_tpu_torch.ccd import cuda_ops
 from firebird_tpu_torch.ccd import primitives as tprim
+from firebird_tpu_torch.ccd.sensor import SENTINEL2 as T_S2
 
 CHANGE_THR, OUTLIER_THR = 11.07, 15.09
 
@@ -224,6 +225,24 @@ def test_init_window_plain_matches_xla_init_block():
     want = _jax_init(*inputs, W=24)
     got = cuda_ops.init_window(*_port_init_args(*inputs), W=24)
     _init_compare(got, want, 0.02)
+
+
+def test_init_window_plain_matches_pallas_init_window_sentinel2():
+    """The 12-band layout at P=16 (detection bands 2, 3, 7, 10, 11, Tmask
+    bands 2 and 10), W=16 to keep the W-unrolled Pallas kernel's interpret
+    run short; the stability verdicts must agree on every pixel."""
+    inputs = _init_inputs(seed=23, P=16, B=12, T=64)
+    t, X, Xt, Yi, vario, alive, cur_i, phase = inputs
+    want = pallas_ops.init_window(
+        jnp.asarray(alive), jnp.asarray(cur_i),
+        jnp.asarray(phase == kernel.PHASE_INIT), jnp.asarray(t, jnp.float32),
+        jnp.asarray(X), jnp.asarray(Xt), jnp.asarray(Yi.transpose(0, 2, 1)),
+        jnp.asarray(vario), W=16, sensor=SENTINEL2, interpret=True)
+    got = cuda_ops.init_window(*_port_init_args(*inputs), W=16,
+                               sensor=T_S2)
+    assert np.asarray(want["init_tm"] | want["init_ok"]
+                      | want["init_bad"]).any()
+    _init_compare(got, want, 0.0)
 
 
 @pytest.mark.slow  # the W-unrolled Pallas kernel takes ~60 s in interpret mode

@@ -13,8 +13,9 @@ card in one call.  A worker uses only its checkout's own code: its
 ``firebird_tpu_torch`` runs:
 
 - ``fused_round`` on chip_smoke.py's full-width round (its events and INIT
-  handoff from the plain monitor and ``init_window``): the median of
-  ``--reps`` CUDA-event-timed launches;
+  handoff from the plain monitor and ``init_window``), and ``lasso_fit``
+  and ``monitor_chain_scored`` on the kernel phase's inputs: the median of
+  ``--reps`` CUDA-event-timed launches each;
 - ``ring_remote_copy`` on chip_smoke.py's ring hop (two shards of four
   chips at the 2048-lane bucket), and one ``torch._foreach_copy_`` over
   the same tensors;
@@ -71,7 +72,13 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
     bufs = tuple(b.clone() for b in inp["bufs"])
     out = dict(fused_round_ms=cs.cuda_ms(
         lambda: cuda_ops.fused_round(*args, bufs, **kw), reps))
-    del inp, init, args, bufs
+    fit = (inp["Yt"], inp["w"], inp["X"], inp["coefmask"])
+    out["lasso_fit_ms"] = cs.cuda_ms(lambda: cuda_ops.lasso_fit(*fit), reps)
+    mon = (inp["Yd"], inp["coefs_d"], inp["dden"], inp["X"], inp["alive"],
+           inp["included"], inp["cur_k"], inp["n_last_fit"], inp["in_mon"])
+    out["monitor_chain_scored_ms"] = cs.cuda_ms(
+        lambda: cuda_ops.monitor_chain_scored(*mon, **kw), reps)
+    del inp, init, args, bufs, fit, mon
     _, ring_args, *_, timing = cs.ring_row(seed, packed.spectra.shape[-1],
                                            dev, {})
     out["ring_remote_copy_ms"] = cs.cuda_ms(
