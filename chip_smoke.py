@@ -25,7 +25,8 @@ From the root of a checkout, on a machine with a CUDA card:
    ``pack`` -> ``detect_packed`` on the card for the same full-size
    Landsat chips, with the launch counters set to 0 just before and read
    just after, and held to the route's set of kernels (the mega route to
-   one ``detect_mega`` launch per dispatch); the same batch through the
+   one ``detect_mega`` launch per dispatch, its shape accepted by
+   ``cuda_ops.mega_fits`` and no refusal counted); the same batch through the
    route's plain versions on the card, and the fraction of pixels whose
    decision fields agree.  Route 1 must equal route 0 byte for byte, route
    "mon" in every field but seg_mag (held to rtol 5e-3, atol 1e-2), the
@@ -44,9 +45,11 @@ From the root of a checkout, on a machine with a CUDA card:
    versions on the CPU, decision fields compared;
 7. what the redesigned kernels are judged by: registers, stack and spills
    (the build's ``-Xptxas -v``), shared memory and resident blocks an SM
-   (the CUDA runtime) of ``fused_round``, ``lasso_fit`` and
+   (the CUDA runtime) of ``fused_round``, ``fused_fit_close`` and each
+   window instance of ``detect_mega``, those of ``lasso_fit`` and
    ``monitor_chain_scored``, the ring's achieved TB/s beside
-   ``torch._foreach_copy_``'s, and route "mon"'s wall beside route 0's;
+   ``torch._foreach_copy_``'s, and the walls of routes "mon", 1 and mega
+   beside route 0's;
 8. the Sentinel-2 path (bench.py's rung: one 300x300-pixel chip of 12
    bands, 2019-2020, T=64): every kernel's 12-band instance on that chip's
    round states against its plain version (the pixels that disagree
@@ -596,6 +599,7 @@ def mega_row(staged, W, kw_mon, report, sensor):
                                S=S, variogram_mode=params.VARIOGRAM_DEFAULT,
                                ops=cuda_ops.KERNELS)
     C, B, T, P = Yt.shape
+    check(cuda_ops.mega_fits(T, W), f"detect_mega refuses T={T}, W={W}")
     clone = lambda: tuple(b.clone() for b in st["bufs"])
     a = (Yt, st["phase"], st["cur_i"], st["alive"], st["nseg"])
     tail = (t, X, Xt, res["vario"])
@@ -775,8 +779,15 @@ def route_path(packed, staged, smi, name, label=""):
     check(launched == expect,
           f"route {name!r} launched {sorted(launched)}, expected "
           f"{sorted(expect)}")
+    refused = dict(cuda_ops.REFUSED)
     if name == "mega":
-        # One prologue lasso_fit and one detect_mega a dispatch.
+        # The shape is the card's (cuda_ops.mega_fits): no dispatch fell
+        # back to the round loop; one prologue lasso_fit and one
+        # detect_mega a dispatch.
+        check(cuda_ops.mega_fits(T, kernel.window_cap(packed))
+              and refused["detect_mega"] == 0,
+              f"mega route: T={T}, W={kernel.window_cap(packed)} refused "
+              f"({refused})")
         check(launches["detect_mega"] == launches["lasso_fit"],
               f"mega route: {launches['detect_mega']} detect_mega launches "
               f"for {launches['lasso_fit']} dispatches")
@@ -805,9 +816,9 @@ def route_path(packed, staged, smi, name, label=""):
                      rounds=seg.rounds.tolist(),
                      round_counts=seg.round_counts.tolist(),
                      segments=int(seg.n_segments.sum()), launches=launches,
-                     peak_bytes=peak, plain_seconds=plain_secs,
-                     decision_agreement=agree, pixels_disagreeing=n_dis,
-                     occupancy=occ)
+                     refused=refused, peak_bytes=peak,
+                     plain_seconds=plain_secs, decision_agreement=agree,
+                     pixels_disagreeing=n_dis, occupancy=occ)
 
 
 def occupancy_summary(seg, P):
@@ -1018,7 +1029,9 @@ def ptxas_summary(name):
 # The tile kernels' dynamic shared memory a block at T (csrc/tile.cuh).
 TILE_SMEM = {"lasso_fit": cuda_ops.lasso_fit_smem_bytes,
              "monitor_chain_scored": cuda_ops.monitor_chain_scored_smem_bytes,
-             "fused_round": cuda_ops.fused_round_smem_bytes}
+             "fused_round": cuda_ops.fused_round_smem_bytes,
+             "fused_fit_close": cuda_ops.fused_fit_close_smem_bytes,
+             "detect_mega": cuda_ops.detect_mega_smem_bytes}
 
 
 def ptxas_report(T, smi):
@@ -1035,36 +1048,44 @@ def ptxas_report(T, smi):
     return out
 
 
-def redesign_report(kernels, paths, T, smi):
-    """What the redesigned fused_round and ring_remote_copy are judged by:
-    registers, shared memory, spills and resident blocks an SM; the ring's
-    achieved rate; route "mon"'s wall beside route 0's."""
-    geo = cuda_ops.kernel_geometry(T)
+def redesign_report(kernels, paths, T, smi, nb=7):
+    """What the redesigned kernels are judged by: registers, shared memory,
+    spills and resident blocks an SM of fused_round, fused_fit_close and
+    each window instance of detect_mega (``nb`` bands, at ``T``), those of
+    lasso_fit and monitor_chain_scored; each kernel's time beside its
+    bound; the ring's achieved rate; the walls of routes "mon", 1 and mega
+    beside route 0's."""
+    geo = cuda_ops.kernel_geometry(T, nb)
     out = {}
-    for name in ("fused_round", "ring_remote_copy"):
-        out[name] = dict(instances=ptxas_summary(name), **geo[name])
-        print(f"{name} on {smi}: {out[name]}", flush=True)
+    for name in ("fused_round", "fused_fit_close", "detect_mega",
+                 "ring_remote_copy"):
+        out[name] = dict(instances=ptxas_summary(name), geometry=geo[name])
+        if name in kernels:
+            out[name].update(ms=kernels[name]["ms"],
+                             bound_ms=kernels[name]["bound_ms"])
+        print(f"{name} ({nb} bands) on {smi}: {out[name]}", flush=True)
     for name in ("lasso_fit", "monitor_chain_scored"):
         row = kernels[name]
         out[name] = dict(instances=ptxas_summary(name),
                          smem_bytes=TILE_SMEM[name](T), ms=row["ms"],
                          bound_ms=row["bound_ms"])
         print(f"{name} (redesigned) on {smi}: {out[name]}", flush=True)
-    ring = kernels["ring_remote_copy"]
-    out["ring_remote_copy"]["tb_per_s"] = ring["bytes"] / ring["ms"] / 1e9
-    out["ring_remote_copy"]["library_tb_per_s"] = (ring["bytes"]
-                                                   / ring["library_ms"] / 1e9)
-    print(f"ring_remote_copy: {out['ring_remote_copy']['tb_per_s']:.3f} TB/s "
-          f"({ring['ms']:.3f} ms), torch._foreach_copy_ "
-          f"{out['ring_remote_copy']['library_tb_per_s']:.3f} TB/s "
-          f"({ring['library_ms']:.3f} ms), peak {HBM_BYTES_S / 1e12} TB/s",
-          flush=True)
+    ring = kernels.get("ring_remote_copy")
+    if ring is not None:
+        rate = out["ring_remote_copy"]
+        rate["tb_per_s"] = ring["bytes"] / ring["ms"] / 1e9
+        rate["library_tb_per_s"] = ring["bytes"] / ring["library_ms"] / 1e9
+        print(f"ring_remote_copy: {rate['tb_per_s']:.3f} TB/s "
+              f"({ring['ms']:.3f} ms), torch._foreach_copy_ "
+              f"{rate['library_tb_per_s']:.3f} TB/s "
+              f"({ring['library_ms']:.3f} ms), peak {HBM_BYTES_S / 1e12} "
+              f"TB/s", flush=True)
     walls = {r: (paths[r]["seconds"], paths[r]["seconds_again"])
-             for r in ("0", "mon")}
+             for r in ("0", "1", "mon", "mega")}
     out["walls"] = walls
-    print(f"route 'mon' wall {walls['mon'][0]:.3f} s (again "
-          f"{walls['mon'][1]:.3f} s) beside route '0' {walls['0'][0]:.3f} s "
-          f"(again {walls['0'][1]:.3f} s) on {smi}", flush=True)
+    print(f"walls (first run, again) on {smi}: " + ", ".join(
+        f"route {r!r} {a:.3f} / {b:.3f} s" for r, (a, b) in walls.items()),
+        flush=True)
     return out
 
 
@@ -1122,14 +1143,12 @@ def sentinel2_phase(smi, reps, dev):
                                           pixels_disagreeing=n_dis)
     for name, row in kernels.items():
         row["launches"] = {r: paths[r]["launches"][name] for r in paths}
-    geo = cuda_ops.kernel_geometry(packed.spectra.shape[-1], nb=12)
-    print(f"sentinel2 fused_round geometry on {smi}: {geo['fused_round']}",
-          flush=True)
+    redesign = redesign_report(kernels, paths, packed.spectra.shape[-1], smi,
+                               nb=SENTINEL2.n_bands)
     return dict(chips=packed.n_chips, pixels=int(packed.spectra.shape[2]),
                 T=int(packed.spectra.shape[-1]), bands=SENTINEL2.n_bands,
                 generation_seconds=gen_s, kernels=kernels,
-                kernel_report=kreport, main_paths=paths,
-                fused_round_geometry=geo["fused_round"])
+                kernel_report=kreport, main_paths=paths, redesign=redesign)
 
 
 def main(argv=None):

@@ -43,9 +43,9 @@ result buffers ``[C,P,S,k]``.  The fused kernels (and their plain versions)
 update the result buffers in place.  The kernels over a pixel's whole
 spectra are built for B in NB_CHOICES (Landsat ARD's 7 bands, Sentinel-2's
 12); those that take a sensor read its detection and Tmask bands from
-:func:`band_roles`.  ``lasso_fit``, ``monitor_chain_scored`` and
-``fused_round`` run TILE pixels a block (csrc/tile.cuh), the others one
-thread a pixel.
+:func:`band_roles`.  ``lasso_fit``, ``monitor_chain_scored``,
+``fused_fit_close``, ``fused_round`` and ``detect_mega`` run TILE pixels a
+block (csrc/tile.cuh), the others one thread a pixel.
 """
 
 from __future__ import annotations
@@ -93,6 +93,10 @@ W_MAX_CHOICES = (32, 64, 128)
 NB_CHOICES = (7, 12)
 
 LAUNCHES = {name: 0 for name in SOURCES}
+# Requests for a kernel refused from their shape before any launch, by
+# kernel: ``detect_mega``'s route falls back to the round loop where
+# :func:`mega_fits` refuses (kernel.BatchLoop).
+REFUSED = {"detect_mega": 0}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
@@ -107,14 +111,16 @@ _ARGTYPES = {
     "fb_lasso_cd": [_P] * 5 + [_I] * 2 + [_P],
     "fb_monitor_chain": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
     "fb_tmask_bad": [_P] * 5 + [_I] * 3 + [_P],
-    "fb_detect_mega": [_P] * 21 + [_I] * 8 + [_F, _F, _P],
+    "fb_detect_mega": [_P] * 19 + [_I] * 8 + [_F, _F, _P],
     "fb_ring_remote_copy": [_P, _I, _P, _I, _P, _P],
 }
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Sets every launch count, and every refusal count, to 0."""
+    for counts in (LAUNCHES, REFUSED):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -234,8 +240,8 @@ def _w_instance(W: int, name: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# The tile kernels' launch (csrc/tile.cuh): fused_round, lasso_fit and
-# monitor_chain_scored
+# The tile kernels' launch (csrc/tile.cuh): fused_round, lasso_fit,
+# monitor_chain_scored, fused_fit_close and detect_mega
 # ---------------------------------------------------------------------------
 
 # TILE pixels a block of FUSED_ROUND_THREADS threads; each kernel's dynamic
@@ -269,6 +275,40 @@ def monitor_chain_scored_smem_bytes(T: int) -> int:
     pixel."""
     W = -(-T // 32)
     return 4 * (8 * T + 4 * W * TILE + 2 * TILE)
+
+
+def fused_fit_close_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of one fused_fit_close block at ``T``: X
+    and t, a Gram a pixel, the weight and included masks of ceil(T/32)
+    words a pixel, three ints a pixel and four more."""
+    W = -(-T // 32)
+    return 4 * (9 * T + TILE * (K * K + 1) + 2 * W * TILE + 3 * TILE + 4)
+
+
+def detect_mega_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of one detect_mega block at ``T``: X, t
+    and Xt, then fused_round's tile round (a Gram a pixel, five bit masks
+    of ceil(T/32) words a pixel, five ints a pixel and four more) and three
+    ints a pixel of round state."""
+    W = -(-T // 32)
+    return 4 * ((K + 1 + NT) * T + TILE * (K * K + 1) + 5 * W * TILE
+                + 5 * TILE + 4 + 3 * TILE)
+
+
+# The longest series the kernels index (time steps are int16 in the INIT
+# window's member positions).
+T_MAX = 32767
+
+
+def mega_fits(T: int, W: int) -> bool:
+    """Whether ``detect_mega`` takes a batch of ``T`` time steps and window
+    cap ``W`` on the card — the port's counterpart of pallas_ops.mega_fits:
+    a window instance holds W (W_MAX_CHOICES), a block's shared memory at T
+    fits the card's 227 KB (:func:`detect_mega_smem_bytes`), and T is at
+    most T_MAX.  Decided from the shape alone, before any launch;
+    kernel.BatchLoop sends a refused mega request down the round loop."""
+    return (W <= W_MAX_CHOICES[-1] and T <= T_MAX
+            and detect_mega_smem_bytes(T) <= SMEM_BLOCK_MAX)
 
 
 def _check_smem(name: str, smem: int) -> None:
@@ -985,6 +1025,7 @@ def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
                                      is_brk, pos_ev, n_exceed, first_seg,
                                      nseg, bufs)
     _nb_instance(B, "fused_fit_close")
+    _check_smem("fused_fit_close", fused_fit_close_smem_bytes(T))
     nseg_o = torch.empty_like(nseg)
     coefs_o = torch.empty_like(coefs)
     rmse_o = torch.empty_like(rmse)
@@ -1021,26 +1062,39 @@ def fused_round_geometry(T: int) -> dict:
                 warps_per_sm=blocks * thr // 32)
 
 
+def _geometry(name: str, *args) -> dict:
+    """A built tile kernel's launch geometry (its ``fb_<name>_geometry``):
+    dynamic shared memory, resident blocks an SM, registers and local
+    bytes a thread."""
+    out = (ctypes.c_int * 4)()
+    fn = getattr(_LIBS[name], f"fb_{name}_geometry")
+    fn.argtypes, fn.restype = [_I] * len(args) + [_P], ctypes.c_int
+    rc = fn(*args, ctypes.cast(out, _P))
+    if rc != 0:
+        raise RuntimeError(f"{name} geometry: CUDA error {rc}")
+    return dict(smem_bytes=out[0], blocks_per_sm=out[1], registers=out[2],
+                local_bytes=out[3])
+
+
 def kernel_geometry(T: int, nb: int = 7) -> dict:
     """The built kernels' launch geometry on the current card, as the CUDA
-    runtime reports it: fused_round's shared memory, resident blocks an SM,
-    registers and local bytes a thread at ``T`` (its ``nb``-band
-    instance); ring_remote_copy's resident blocks an SM."""
-    build(("fused_round", "ring_remote_copy"))
-    out = (ctypes.c_int * 4)()
-    fn = _LIBS["fused_round"].fb_fused_round_geometry
-    fn.argtypes, fn.restype = [_I, _I, _P], ctypes.c_int
-    rc = fn(nb, T, ctypes.cast(out, _P))
-    if rc != 0:
-        raise RuntimeError(f"fused_round geometry: CUDA error {rc}")
+    runtime reports it: the shared memory, resident blocks an SM,
+    registers and local bytes a thread at ``T`` of fused_round's,
+    fused_fit_close's and each window instance of detect_mega's
+    ``nb``-band instance (detect_mega by its window instance);
+    ring_remote_copy's resident blocks an SM."""
+    build(("fused_round", "fused_fit_close", "detect_mega",
+           "ring_remote_copy"))
     blocks = ctypes.c_int()
     fn = _LIBS["ring_remote_copy"].fb_ring_remote_copy_blocks_per_sm
     fn.argtypes, fn.restype = [_P], ctypes.c_int
     rc = fn(ctypes.cast(ctypes.byref(blocks), _P))
     if rc != 0:
         raise RuntimeError(f"ring_remote_copy geometry: CUDA error {rc}")
-    return dict(fused_round=dict(smem_bytes=out[0], blocks_per_sm=out[1],
-                                 registers=out[2], local_bytes=out[3]),
+    return dict(fused_round=_geometry("fused_round", nb, T),
+                fused_fit_close=_geometry("fused_fit_close", nb, T),
+                detect_mega={w: _geometry("detect_mega", nb, w, T)
+                             for w in W_MAX_CHOICES},
                 ring_remote_copy=dict(blocks_per_sm=blocks.value))
 
 
@@ -1226,7 +1280,8 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
             rows; updated in place.
         t: [C,T] float32; X: [C,T,8], Xt: [C,T,5] designs; vario: [C,P,B].
         W: bound on the init window's member count (kernel.window_cap);
-            past the largest W_MAX_CHOICES instance this raises.
+            past the largest W_MAX_CHOICES instance this raises, as it
+            does for a T that :func:`mega_fits` refuses.
     Returns:
         pallas_ops.detect_mega's dict in this package's layouts: meta,
         rmse, mag, coef (the buffers), nseg [C,P] int32, alive [C,T,P]
@@ -1251,20 +1306,23 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
                                  outlier_thr=outlier_thr, sensor=sensor)
     roles, _keep = band_roles(sensor, B, "detect_mega")
     w_max = _w_instance(W, "detect_mega")
+    if not mega_fits(T, W):
+        raise ValueError(f"detect_mega does not take T={T} (a block needs "
+                         f"{detect_mega_smem_bytes(T)} bytes of shared "
+                         f"memory, the card {SMEM_BLOCK_MAX}; at most "
+                         f"T={T_MAX})")
     max_rounds = 2 * T + 8
     i32, f32 = torch.int32, torch.float32
     alive = alive0.clone()
-    included = torch.zeros(C, T, P, dtype=torch.bool, device=dev)
-    w_stab = torch.zeros(C, T, P, dtype=torch.bool, device=dev)
     coefs = torch.zeros(C, P, B, K, dtype=f32, device=dev)
     rmse = torch.ones(C, P, B, dtype=f32, device=dev)
     nseg = torch.empty_like(nseg0)
     rounds = torch.zeros(C, dtype=i32, device=dev)
     flags = torch.zeros(C, 3, max_rounds, dtype=i32, device=dev)
     _launch("detect_mega", *map(_ptr, (
-        Yt, t, X, Xt, vario, phase0, cur_i0, nseg0, *bufs, alive, included,
-        w_stab, coefs, rmse, nseg, rounds, flags)), roles, C, B, T, P, S, W,
-        w_max, max_rounds, float(change_thr), float(outlier_thr))
+        Yt, t, X, Xt, vario, phase0, cur_i0, nseg0, *bufs, alive, coefs,
+        rmse, nseg, rounds, flags)), roles, C, B, T, P, S, W, w_max,
+        max_rounds, float(change_thr), float(outlier_thr))
     meta, rmse_b, mag, coef = bufs
     return dict(meta=meta, rmse=rmse_b, mag=mag, coef=coef, nseg=nseg,
                 alive=alive, rounds=rounds, counts=flags.sum(-1, dtype=i32))

@@ -28,8 +28,9 @@ above (``fit,score,init``, the default), the component route
 (``lasso,monitor,tmask``: a PyTorch Gram around the ``lasso_cd`` kernel, a
 PyTorch score plane before the ``monitor_chain`` kernel, a PyTorch INIT
 block around the ``tmask_bad`` kernel) or any mix of the two, or the
-whole loop as one ``cuda_ops.detect_mega`` launch (``mega``).  After INIT
-a round runs one of three routes, as FIREBIRD_FUSED_FIT selects them
+whole loop as one ``cuda_ops.detect_mega`` launch (``mega``, where
+``cuda_ops.mega_fits`` takes the batch's shape; else the round loop runs).
+After INIT a round runs one of three routes, as FIREBIRD_FUSED_FIT selects them
 (:func:`fused_mode`): the separate monitor / close / refit steps (0, the
 default), the close and refit as one ``cuda_ops.fused_fit_close`` launch
 (1), or the whole post-INIT round as one ``cuda_ops.fused_round`` launch
@@ -122,7 +123,13 @@ def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
     component kernel where only that is named (``lasso``, ``monitor``,
     ``tmask``).  ``mega`` supersedes every other component and the fused
     round routes: the whole loop is one ``detect_mega`` launch after the
-    prologue, whose one-shot fit stays on ``lasso_fit``.  A value that
+    prologue, whose one-shot fit stays on ``lasso_fit``.  The mega route
+    carries ``fallback``, the round-loop route that a batch takes where
+    ``cuda_ops.mega_fits`` refuses its shape (:class:`BatchLoop`; JAX's
+    refused mega takes its loop with the components the list names
+    beside ``mega``): the list's other components, and for the fit, the
+    monitor or the INIT block that it leaves without one, the kernel of
+    route "1" (this package has no XLA loop).  A value that
     leaves the fit, the monitor or the INIT block with no kernel ("0", "",
     or a list without either name) raises ValueError: this package has no
     XLA route, and runs plain versions only where the caller passes
@@ -153,15 +160,28 @@ def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
                              f"{sorted(unknown)}; known: {', '.join(COMPONENTS)}")
     base = cuda_ops.KERNELS if ops is None else ops
     if "mega" in names:
+        fallback = _loop_route(names - {"mega"}, base, v, default=True)
         return types.SimpleNamespace(components=("mega",), mega=True,
                                      lasso_fit=base.lasso_fit,
                                      detect_mega=base.detect_mega,
-                                     ring_remote_copy=base.ring_remote_copy)
+                                     ring_remote_copy=base.ring_remote_copy,
+                                     fallback=fallback)
+    return _loop_route(names, base, v)
+
+
+def _loop_route(names, base, v, default=False) -> types.SimpleNamespace:
+    """The round loop's route from the component ``names`` (FIREBIRD_PALLAS
+    value ``v``) over the functions of ``base``: each of the fit, the
+    monitor and the INIT block takes its fused kernel where named, else its
+    component kernel where named, else (with ``default``) its fused
+    kernel, else raises."""
 
     def pick(fused, component, what):
         for c in (fused, component):
             if c in names:
                 return c
+        if default:
+            return fused
         raise ValueError(
             f"{PALLAS_ENV}={v!r} leaves the {what} without a kernel: name "
             f"{fused!r} or {component!r} (this package has no XLA route; "
@@ -615,11 +635,23 @@ class BatchLoop:
 
     The loop tensors' pixel axes are :func:`pixel_axis`'s.  On
     the mega route :meth:`stage1` makes the one ``detect_mega`` call and
-    nothing compacts."""
+    nothing compacts.  A mega route whose shape ``cuda_ops.mega_fits``
+    refuses takes its ``fallback`` route instead, decided here before any
+    launch (kernel._detect_batch_impl's mega decision): the loop then runs
+    with ``fused`` and ``compact`` as given, and the refusal is counted in
+    ``cuda_ops.REFUSED`` and logged."""
 
     def __init__(self, X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
                  variogram_mode, ops, fused=0, compact=False):
         C, B, T, P = Yt.shape
+        if ops.mega and not cuda_ops.mega_fits(T, W):
+            cuda_ops.REFUSED["detect_mega"] += 1
+            log.warning("detect_mega refuses T=%d, W=%d (%d bytes of shared "
+                        "memory a block): the batch runs the round loop "
+                        "(components %s)", T, W,
+                        cuda_ops.detect_mega_smem_bytes(T),
+                        ",".join(ops.fallback.components))
+            ops = ops.fallback
         self.C, self.P, self.W, self.sensor = C, P, W, sensor
         self.ops, self.fused = ops, fused
         self.thr = chi2_thresholds(len(sensor.detection_bands))

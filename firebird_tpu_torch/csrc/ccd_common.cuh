@@ -103,13 +103,6 @@ __device__ __forceinline__ void coef_mask(int n, bool mask[K]) {
   for (int k = 0; k < K; ++k) mask[k] = k < nc;
 }
 
-// A [T, P] float weight plane read at pixel p (chip base pointer).
-struct PlaneWeight {
-  const float* w;
-  int P, p;
-  __device__ float operator()(int t) const { return w[(size_t)t * P + p]; }
-};
-
 // Weighted Gram X^T diag(w) X and correlations X^T diag(w) y_b of one
 // pixel, accumulated one observation at a time — the accumulation half of
 // pallas_ops._gram_cd_core (the same per-term products: w * (x_i x_j) and
@@ -211,66 +204,6 @@ __device__ void lasso_cd(const Gram<NB>& g, const bool mask[K],
 #pragma unroll
   for (int j = 0; j < K; ++j) diag[j] = pmax(g.G[j][j], 1e-12f);
   cd_loop<NB>(g.G, g.c, diag, mask, beta);
-}
-
-// One pixel's weighted Lasso fit of every band and its windowed RMSE —
-// the body of lasso_fit, shared with the fused round kernels so that a
-// fit runs the same instructions in all three (the fused routes' results
-// equal the per-component route's only because of this).  wt(t) is the
-// window weight of time step t, zero outside the window; zero steps are
-// skipped in both passes.  Yc is the chip's [NB, T, P] spectra, Xc its
-// [T, K] design.  Writes coef_out [NB*K] and rmse_out [NB] (zeros when
-// !with_rmse).
-template <int NB, class Weight>
-__device__ void fit_window(const int16_t* Yc, const float* Xc,
-                           const Weight& wt, int T, int P, int p,
-                           const bool mask[K], float* coef_out,
-                           float* rmse_out, bool with_rmse) {
-  Gram<NB> g;
-  g.zero();
-  for (int t = 0; t < T; ++t) {
-    const float w = wt(t);
-    if (w == 0.f) continue;
-    float x[K], y[NB];
-#pragma unroll
-    for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + t * K + k);
-#pragma unroll
-    for (int b = 0; b < NB; ++b) y[b] = (float)Yc[((size_t)b * T + t) * P + p];
-    g.add(x, y, w);
-  }
-  g.finish();
-  float beta[NB][K];
-  lasso_cd<NB>(g, mask, beta);
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int k = 0; k < K; ++k) coef_out[b * K + k] = beta[b][k];
-
-  if (!with_rmse) {
-#pragma unroll
-    for (int b = 0; b < NB; ++b) rmse_out[b] = 0.f;
-    return;
-  }
-  float acc[NB];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) acc[b] = 0.f;
-  for (int t = 0; t < T; ++t) {
-    const float w = wt(t);
-    if (w == 0.f) continue;
-    float x[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + t * K + k);
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      float pred = beta[b][0] * x[0];
-#pragma unroll
-      for (int k = 1; k < K; ++k) pred = pred + beta[b][k] * x[k];
-      const float r = (float)Yc[((size_t)b * T + t) * P + p] - pred;
-      acc[b] = acc[b] + r * r * w;
-    }
-  }
-#pragma unroll
-  for (int b = 0; b < NB; ++b) rmse_out[b] = sqrtf(pmax(acc[b] / g.n, 0.f));
 }
 
 }  // namespace fb

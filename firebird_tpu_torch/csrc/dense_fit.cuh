@@ -1,17 +1,19 @@
-// The dense fit of a tile's listed pixels, shared by the lasso_fit and
-// fused_round kernels (tile.cuh's block layout).
+// The dense fit of a tile's listed pixels, shared by the lasso_fit,
+// fused_fit_close, fused_round and detect_mega kernels (tile.cuh's block
+// layout).
 //
 // Group g (TILE_Q lanes) fits listed pixel g: the weighted Gram and the
-// correlations of fb::fit_window, split over the lanes by sum and never by
-// time.  Lane l owns Gram row l and the correlations of bands l, l + TILE_Q,
+// correlations of a one-thread fit (fb::Gram, one observation at a time in
+// time order), split over the lanes by sum and never by time.  Lane l owns Gram row l and the correlations of bands l, l + TILE_Q,
 // ... below NB (7 bands: lane l < 7 band l; 12 bands: lanes 0-3 bands l and
 // l + 8, lanes 4-7 band l), each sum taken over the window's set bits in
 // time order with Gram::add's operations at weight 1 (a product with the
 // weight 1 is exact, so it is left out).  Then each lane runs
 // its bands' coordinate descent (fb::cd_loop on the Gram in shared memory)
-// and their RMSE pass.  The coefficients and RMSE are those of
-// fb::fit_window over a 0/1 window, bit for bit: a pixel's result is the
-// same on every route that fits it.
+// and their RMSE pass.  The coefficients and RMSE are those of the
+// one-thread fit over a 0/1 window, bit for bit, and every kernel that fits
+// runs this code: a pixel's result is the same on every route that fits
+// it.
 //
 // Each lane reads its bands' int16 values at its pixel's window steps
 // straight from device memory, FIT_BATCH steps in flight at once.  (A
@@ -138,8 +140,7 @@ __device__ void dense_fit(bool fits, int l, const uint32_t* win, int W,
   __syncthreads();
   if (!fits || l >= NB) return;
 
-  // fb::lasso_cd for each of the lane's bands, then their RMSE pass
-  // (fb::fit_window's).  The Gram's 36 distinct values are held in
+  // fb::lasso_cd for each of the lane's bands, then their RMSE pass.  The Gram's 36 distinct values are held in
   // registers for the CD loop (its 400 coordinate updates a band would
   // otherwise read 8 of them from shared memory each).
   float Gr[K][K], diag[K], beta[NBL][K];

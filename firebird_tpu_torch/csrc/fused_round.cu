@@ -4,52 +4,40 @@
 //
 // Replaces the Pallas kernel firebird_tpu/ccd/pallas_ops.py::fused_round
 // (_fused_round_block, with _mon_scored_logic, _close_logic and
-// _gram_cd_core).  It computes what fb::round_pixel (fused_round.cuh, the
-// body detect_mega runs per thread) computes, with the same float
-// operations in the same order per pixel, scheduled for this card:
+// _gram_cd_core), scheduled for this card:
 //
 //   0. The block stages its chip's design X [T,8] and days t [T] in shared
 //      memory (dynamic, sized from T; fused_round_smem_bytes).
-//   1-3. The monitor on bit words (word_monitor.cuh): every eligible
-//      observation of a monitoring pixel scored once into two bits, Q
-//      threads a pixel; passes 1-3 by one thread a pixel with popcounts;
-//      the include / remove partition a word at a time, every thread
-//      writing its words' rows of included_mon and alive_mon (a
-//      non-monitoring pixel's columns are copied the same way).  The
-//      w_stab column of an init-ok pixel becomes words beside them.
-//   4. Close: the event thread appends a closing pixel's segment
-//      (fb::close_write, from the included_mon words; a break's magnitudes
-//      from the PEEK run's residuals, fb::peek_mags_at), and the block's
-//      fitting pixels (init-ok or refit) are listed with a warp ballot.
-//   5. Fit: the listed pixels are fitted densely, Q lanes a pixel, over
-//      their w_stab (init-ok) or included_mon (refit) words
-//      (fb::dense_fit, the code of lasso_fit): the coefficients and RMSE
-//      are those of fb::fit_window, bit for bit.
+//   1-5. The tile round (fb::tile_round, tile_round.cuh, which detect_mega
+//      runs too): the alive, included and w_stab byte columns become 32-step
+//      words as every eligible monitoring observation is scored once into
+//      two bits (word_monitor.cuh, TILE_Q threads a pixel); passes 1-3 by one
+//      thread a pixel with popcounts; the include / remove partition a word
+//      at a time, every thread writing its words' rows of included_mon and
+//      alive_mon; the close of a tail or a break by the event thread; the
+//      fitting pixels (init-ok or refit) listed with a warp ballot and
+//      fitted densely, TILE_Q lanes a pixel (fb::dense_fit, the code of
+//      lasso_fit): the coefficients and RMSE are lasso_fit's, bit for
+//      bit.
 //
 // The detection bands are the sensor's (fb::Roles); NB bands a pixel.
 // Bound: bytes (the monitoring pixels' detection bands at the observations
 // scored, the fitting pixels' windows, the planes in and out); the CD loop's
 // serial chain (50 sweeps x 8 coordinates a band) bounds a block's latency.
-#include "dense_fit.cuh"
-#include "segment_close.cuh"
-#include "word_monitor.cuh"
+#include "tile_round.cuh"
 
 namespace {
 
 using fb::TILE;
 constexpr int THREADS = fb::TILE_THREADS;
-constexpr int Q = fb::TILE_Q;         // threads a pixel (scoring, fitting)
 constexpr int MIN_BLOCKS = 3;         // 24 warps an SM (80 registers)
-constexpr int NMASK = 5;              // alive, outlier, change, incl., w_stab
-constexpr int NINFO = 5;              // per-pixel ints in shared memory
 
 // Dynamic shared memory of a block for T time steps, in 4-byte words:
-// X and t, the Grams, the masks, the per-pixel ints and the fit count.
-// cuda_ops.fused_round_smem_bytes computes the same.
+// X and t, then the tile round's (the Grams, the five masks, the per-pixel
+// ints and the fit count).  cuda_ops.fused_round_smem_bytes computes the
+// same.
 size_t smem_words(int T) {
-  const int W = (T + 31) / 32;
-  return (size_t)9 * T + TILE * fb::GSTRIDE + (size_t)NMASK * W * TILE +
-         NINFO * TILE + 4;
+  return (size_t)9 * T + fb::tile_round_words((T + 31) / 32);
 }
 
 template <int B>
@@ -74,18 +62,7 @@ fused_round_kernel(
   const int W = (T + 31) / 32;
   float* Xs = smem;
   float* ts = Xs + T * K;
-  float* Gs = ts + T;
-  uint32_t* mA = reinterpret_cast<uint32_t*>(Gs + TILE * GSTRIDE);
-  uint32_t* mO = mA + W * TILE;
-  uint32_t* mE = mO + W * TILE;
-  uint32_t* mI = mE + W * TILE;
-  uint32_t* mS = mI + W * TILE;
-  int* npos = reinterpret_cast<int*>(mS + W * TILE);
-  int* tpos = npos + TILE;
-  int* flist = tpos + TILE;
-  int* fnfull = flist + TILE;
-  int* finit = fnfull + TILE;
-  int* nfit = finit + TILE;
+  const TileMem m = carve_tile(Xs, ts, ts + T, W);
 
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
@@ -97,128 +74,57 @@ fused_round_kernel(
   stage(ts, tt + (size_t)c * T, T);
   __syncthreads();
 
-  // 1. Score once, keep bits.  Thread (q, i): pixel i, words q, q+Q, ...
-  const int i = tid % TILE;
-  const int q = tid / TILE;
-  const int p = blockIdx.x * TILE + i;
-  const bool valid = p < P;
-  const size_t cp = (size_t)c * P + (valid ? p : 0);
-  const bool mon = valid && in_mon[cp] != 0;
-  const bool iok = valid && init_ok[cp] != 0;
-  const int ck = valid ? cur_k[cp] : 0;
-  {
-    float coef[ND][K], dden[ND];
-    if (mon) {
-#pragma unroll
-      for (int d = 0; d < ND; ++d) {
-        const int b = roles.det[d];
-        dden[d] = pmax(rmse[cp * B + b], vario[cp * B + b]);
-#pragma unroll
-        for (int k = 0; k < K; ++k) coef[d][k] = coefs[(cp * B + b) * K + k];
-      }
-    }
-    // w_stab's words only where the pixel's INIT block fitted (else 0).
-    score_words<ND>(q, valid, mon, ck, alive + c * TP + p,
-                    included + c * TP + p,
-                    iok ? w_stab + c * TP + p : nullptr, Yc + p, roles.det,
-                    TP, T, P, Xs, coef, dden, change_thr, outlier_thr,
-                    mA + i, mO + i, mE + i, mI + i, mS + i);
-  }
-  __syncthreads();
+  // Thread (q, i): pixel i, words q, q + TILE_Q, ...
+  TilePixel px;
+  px.i = tid % TILE;
+  px.q = tid / TILE;
+  px.p = blockIdx.x * TILE + px.i;
+  px.valid = px.p < P;
+  px.cp = (size_t)c * P + (px.valid ? px.p : 0);
+  px.cp0 = (size_t)c * P + blockIdx.x * TILE;
+  px.mon = px.valid && in_mon[px.cp] != 0;
+  px.ck = px.valid ? cur_k[px.cp] : 0;
+  const size_t cp = px.cp;
+  const int p = px.p;
+  const bool iok = px.valid && init_ok[cp] != 0;
 
-  // 2. Events: thread i of warp 0 for pixel i (passes 1-3 on words).
-  const uint32_t* A = mA + i;
-  MonitorEvent e{};
-  if (tid < TILE) {
-    int n_pos = 0, t_pos = T;
-    if (mon)
-      e = word_event(A, mO + i, mE + i, mI + i, W, T, ck, nlast[cp], n_pos,
-                     t_pos);
-    npos[i] = n_pos;
-    tpos[i] = t_pos;
-  }
-  __syncthreads();
-
-  // 3. Partition: included_mon = included | in_q, alive_mon = alive & !rm_q.
-  {
-    const int n_pos = npos[i], t_pos = tpos[i];
-    for (int w = q; w < W; w += Q) {
-      const uint32_t a = mA[w * TILE + i];
-      const WordPartition pq = partition_word(
-          a, mO[w * TILE + i], mE[w * TILE + i], w, ck, n_pos, t_pos);
-      const uint32_t incm = mI[w * TILE + i] | pq.in_q;
-      mI[w * TILE + i] = incm;
-      if (valid) {
-        write_word(incm_out + c * TP + p, P, w, T, incm);
-        write_word(alm_out + c * TP + p, P, w, T, a & ~pq.rm_q);
-      }
-    }
-  }
-  __syncthreads();
-
-  // 4. Close, events out, the fit list.
-  if (tid < TILE) {
-    const bool close = e.is_tail || e.is_brk;
-    const bool do_fit = valid && (iok || e.is_refit);
-    const int n_full = iok ? n_ok[cp] : e.n_rf;
-    if (valid) {
-      const float* coef_row = coefs + cp * B * K;
-      const float* rmse_row = rmse + cp * B;
-      if (close) {
-        int first = -1, last = T - 1, n_obs = 0;
-        for (int w = 0; w < W; ++w) {
-          const uint32_t v = mI[w * TILE + i];
-          if (!v) continue;
-          if (first < 0) first = 32 * w + __ffs(v) - 1;
-          last = 32 * w + 31 - __clz(v);
-          n_obs += __popc(v);
+  tile_round<B>(
+      m, px, Yc, T, P, coefs, rmse, vario, coefs_out, rmse_out, roles, bufs,
+      change_thr, outlier_thr,
+      [&] {
+        return TileState{nlast[cp], iok, iok ? n_ok[cp] : 0,
+                         first_seg[cp] != 0, nseg[cp]};
+      },
+      // w_stab's words only where the pixel's INIT block fitted (else 0).
+      [&](const float (&coef)[ND][K], const float (&dden)[ND]) {
+        score_words<ND>(px.q, px.valid, px.mon, px.ck, alive + c * TP + p,
+                        included + c * TP + p,
+                        iok ? w_stab + c * TP + p : nullptr, Yc + p,
+                        roles.det, TP, T, P, Xs, coef, dden, change_thr,
+                        outlier_thr, m.mA + px.i, m.mO + px.i, m.mE + px.i,
+                        m.mI + px.i, m.mS + px.i);
+      },
+      [&](int w, uint32_t incm, uint32_t alm) {
+        if (px.valid) {
+          write_word(incm_out + c * TP + p, P, w, T, incm);
+          write_word(alm_out + c * TP + p, P, w, T, alm);
         }
-        if (first < 0) first = 0;
-        float mags[B];
-        if (e.is_brk) {
-          int run[PEEK];
-          const int n = min(e.ev_rank + PEEK, e.m) - e.ev_rank;
-          for (int k = 0; k < n; ++k)
-            run[k] = step_of_rank(A, W, T, e.ev_rank + k);
-          peek_mags_at<B>(Yc, Xs, coef_row, run, n, T, P, p, mags);
+      },
+      [&](const MonitorEvent& e, bool close, bool do_fit, int n_full) {
+        nseg_out[cp] = nseg[cp] + close;
+        const size_t CP = (size_t)C * P;
+        ev[0 * CP + cp] = e.is_tail;
+        ev[1 * CP + cp] = e.is_brk;
+        ev[2 * CP + cp] = e.is_refit;
+        ev[3 * CP + cp] = e.pos_ev;
+        ev[4 * CP + cp] = do_fit;
+        ev[5 * CP + cp] = n_full;
+        if (!do_fit) {
+          for (int k = 0; k < B * K; ++k)
+            coefs_out[cp * B * K + k] = coefs[cp * B * K + k];
+          for (int b = 0; b < B; ++b) rmse_out[cp * B + b] = rmse[cp * B + b];
         }
-        close_write<B>(ts, first, last, n_obs, cp, e.is_brk, e.pos_ev,
-                       e.n_exceed, first_seg[cp] != 0, nseg[cp], rmse_row,
-                       e.is_brk ? mags : nullptr, coef_row, bufs);
-      }
-      nseg_out[cp] = nseg[cp] + close;
-      const size_t CP = (size_t)C * P;
-      ev[0 * CP + cp] = e.is_tail;
-      ev[1 * CP + cp] = e.is_brk;
-      ev[2 * CP + cp] = e.is_refit;
-      ev[3 * CP + cp] = e.pos_ev;
-      ev[4 * CP + cp] = do_fit;
-      ev[5 * CP + cp] = n_full;
-      if (!do_fit) {
-        for (int k = 0; k < B * K; ++k) coefs_out[cp * B * K + k] = coef_row[k];
-        for (int b = 0; b < B; ++b) rmse_out[cp * B + b] = rmse_row[b];
-      }
-    }
-    const int slot = list_pixels(do_fit, i, nfit);
-    if (do_fit) {
-      flist[slot] = i;
-      fnfull[slot] = n_full;
-      finit[slot] = iok;
-    }
-  }
-  __syncthreads();
-
-  // 5. Fit: group g fits listed pixel g over its w_stab (init-ok) or
-  // included_mon (refit) words.
-  const int g = tid / Q, l = tid % Q;
-  const bool fits = g < *nfit;
-  const int fi = fits ? flist[g] : 0;
-  const size_t fcp = (size_t)c * P + blockIdx.x * TILE + fi;
-  bool mask[K];
-  coef_mask(fits ? fnfull[g] : 0, mask);
-  dense_fit<B>(fits, l, (fits && finit[g] ? mS : mI) + fi, W,
-               Yc + (fcp - (size_t)c * P), TP, P, Xs, Gs + g * GSTRIDE, mask,
-               true, coefs_out + fcp * B * K, rmse_out + fcp * B);
+      });
 }
 
 template <int B>

@@ -34,11 +34,12 @@ init_kernel(const uint8_t* __restrict__ alive, const int* __restrict__ cur_i,
   if (p >= P) return;
   const size_t cp = (size_t)c * P + p;
   const size_t TP = (size_t)T * P;
+  ByteColumns col{alive + c * TP + p, w_stab + c * TP + p,
+                  alive_out + c * TP + p, P};
   const InitOut o = init_pixel<WMAX>(
-      alive + c * TP + p, cur_i[cp], in_init[cp] != 0, tt + (size_t)c * T,
+      col, cur_i[cp], in_init[cp] != 0, tt + (size_t)c * T,
       X + (size_t)c * T * K, Xt + (size_t)c * T * NT,
-      Yt + c * nb * TP + p, vario + cp * nb, roles, T, P, W,
-      w_stab + c * TP + p, alive_out + c * TP + p);
+      Yt + c * nb * TP + p, vario + cp * nb, roles, T, P, W);
 
   const size_t CP = (size_t)C * P;
   out[0 * CP + cp] = o.nowin;                 // init_nowin

@@ -166,15 +166,34 @@ __device__ bool tmask_screen(const Win& win, int n, const float thr[2],
 // gathered detection-band values (tm: their positions among the detection
 // bands), the design rows at the members' positions, weight 1 for every
 // member.
-template <int WMAX>
+template <int WMAX, class Col>
 struct InitWindow {
   const float (*Y)[WMAX];       // [NDET][WMAX] detection-band values
   const short* pos;             // member positions
   const float* Xtc;             // the chip's no-trend design [T, NT]
   int tm[NTM];
-  __device__ float x(int s, int k) const { return __ldg(Xtc + pos[s] * NT + k); }
+  __device__ float x(int s, int k) const { return Col::ld(Xtc + pos[s] * NT + k); }
   __device__ float y(int q, int s) const { return Y[tm[q]][s]; }
   __device__ float w(int) const { return 1.f; }
+};
+
+// A pixel's alive column and the INIT body's w_stab and alive_init
+// columns as bytes in device memory (stride P; ao may be al itself), the
+// designs read through the read-only cache.  init_pixel reads and writes
+// its columns through such a type (detect_mega's keeps them as words in
+// shared memory).
+struct ByteColumns {
+  const uint8_t* al;
+  uint8_t* ws;
+  uint8_t* ao;
+  int P;
+  __device__ bool alive(int t) const { return al[(size_t)t * P] != 0; }
+  // Step t's alive_init and w_stab flags (after its alive flag is read).
+  __device__ void put(int t, bool a_out, bool w) {
+    ao[(size_t)t * P] = a_out;
+    ws[(size_t)t * P] = w;
+  }
+  __device__ static float ld(const float* p) { return __ldg(p); }
 };
 
 // kernel._init_block's per-pixel outputs.
@@ -182,25 +201,24 @@ struct InitOut {
   int nowin, tm, ok, bad, has_adv, i_next_tm, i_adv, j, n_ok;
 };
 
-// One pixel's INIT round.  al (the alive column), Yc (the spectra
-// [NB, T, P]), ws and ao (the w_stab and alive_init columns out) are
-// offset to the pixel, strided by P; tc [T], Xc [T, K] and Xtc [T, NT] are
-// the chip's days and designs, vrow [NB] the pixel's variogram, roles the
-// sensor's detection and Tmask bands.  ci is
-// the cursor, init whether the pixel initializes (a pixel that does not
-// gets an empty window's outputs).  ao may be al itself: each step's alive
-// flag is read before its alive_init flag is written.
-template <int WMAX>
-__device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
-                              const float* tc, const float* Xc,
-                              const float* Xtc, const int16_t* Yc,
-                              const float* vrow, const Roles& roles, int T,
-                              int P, int W, uint8_t* ws, uint8_t* ao) {
+// One pixel's INIT round.  col holds its alive column in and its w_stab
+// and alive_init columns out (ByteColumns' contract; each step's alive
+// flag is read before its outputs are written); Yc (the spectra
+// [NB, T, P]) is offset to the pixel, strided by P; tc [T], Xc [T, K] and
+// Xtc [T, NT] are the chip's days and designs (read through Col::ld),
+// vrow [NB] the pixel's variogram, roles the sensor's detection and Tmask
+// bands.  ci is the cursor, init whether the pixel initializes (a pixel
+// that does not gets an empty window's outputs).
+template <int WMAX, class Col>
+__device__ InitOut init_pixel(Col& col, int ci, bool init, const float* tc,
+                              const float* Xc, const float* Xtc,
+                              const int16_t* Yc, const float* vrow,
+                              const Roles& roles, int T, int P, int W) {
   // 1. i: first alive at or after the cursor (0 when none).
   int i = 0;
   bool has_i = false;
   for (int t = 0; t < T; ++t) {
-    if (al[(size_t)t * P] != 0 && t >= ci) {
+    if (col.alive(t) && t >= ci) {
       i = t;
       has_i = true;
       break;
@@ -213,7 +231,7 @@ __device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
   bool has_w_raw = false;
   short pos[WMAX];
   for (int t = i; t < T; ++t) {
-    if (al[(size_t)t * P] == 0) continue;
+    if (!col.alive(t)) continue;
     if (cnt < WMAX) pos[cnt] = (short)t;
     ++cnt;
     if (cnt >= MEOW && tc[t] - t_i >= INIT_DAYS) {
@@ -242,7 +260,7 @@ __device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
     const float thr[2] = {TMASK_CONST * vrow[roles.det[roles.tm[0]]],
                           TMASK_CONST * vrow[roles.det[roles.tm[1]]]};
     tm_removed = tmask_screen<WMAX>(
-        InitWindow<WMAX>{Y, pos, Xtc, {roles.tm[0], roles.tm[1]}}, n, thr,
+        InitWindow<WMAX, Col>{Y, pos, Xtc, {roles.tm[0], roles.tm[1]}}, n, thr,
         bad);
 
     // 4. Stability: 4-coefficient fit of the detection bands over the
@@ -253,10 +271,10 @@ __device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
       Gram<NDET> g;
       g.zero();
       for (int t = i; t <= j; ++t) {
-        if (al[(size_t)t * P] == 0) continue;
+        if (!col.alive(t)) continue;
         float x[K], y[NDET];
 #pragma unroll
-        for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + t * K + k);
+        for (int k = 0; k < K; ++k) x[k] = Col::ld(Xc + t * K + k);
 #pragma unroll
         for (int d = 0; d < NDET; ++d)
           y[d] = (float)Yc[((size_t)roles.det[d] * T + t) * P];
@@ -277,7 +295,7 @@ __device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
         for (int s = 0; s < n; ++s) {
           float x[K];
 #pragma unroll
-          for (int k = 0; k < K; ++k) x[k] = __ldg(Xc + pos[s] * K + k);
+          for (int k = 0; k < K; ++k) x[k] = Col::ld(Xc + pos[s] * K + k);
           float pred = c4[d][0] * x[0];
 #pragma unroll
           for (int k = 1; k < K; ++k) pred = pred + c4[d][k] * x[k];
@@ -301,15 +319,14 @@ __device__ InitOut init_pixel(const uint8_t* al, int ci, bool init,
   int i_next = T, i_adv = 0, q = 0;
   bool has_adv = false, found_next = false;
   for (int t = 0; t < T; ++t) {
-    const bool a = al[(size_t)t * P] != 0;
+    const bool a = col.alive(t);
     bool b = false;
     if (work && q < n_win && pos[q] == t) {
       b = bad[q];
       ++q;
     }
     const bool a_out = a && !b;
-    ao[(size_t)t * P] = a_out;
-    ws[(size_t)t * P] = keep && a && t >= i && t <= j;
+    col.put(t, a_out, keep && a && t >= i && t <= j);
     if (!found_next && a_out && t >= i) {
       found_next = true;
       i_next = t;

@@ -18,7 +18,7 @@
 //   2. The listed pixels are fitted densely, TILE_Q lanes a pixel
 //      (fb::dense_fit, the code of fused_round's refit): the Gram and
 //      correlation sums split over the lanes by sum, never by time, so the
-//      coefficients and RMSE are fb::fit_window's bit for bit.
+//      coefficients and RMSE are the one-thread fit's bit for bit.
 #include "dense_fit.cuh"
 
 namespace {

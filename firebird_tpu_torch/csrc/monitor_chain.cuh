@@ -1,11 +1,11 @@
-// The MONITOR round's per-pixel event chain, one thread a pixel, shared by
-// the monitor_chain and detect_mega kernels; the tile kernels
-// (monitor_chain_scored, fused_round) run the same passes on bit words
-// (word_monitor.cuh) from the same scores (score_obs).
+// The MONITOR round's per-pixel event chain, one thread a pixel, as the
+// monitor_chain kernel runs it on a precomputed score plane; the tile
+// kernels (monitor_chain_scored, fused_round, detect_mega) run the same
+// passes on bit words (word_monitor.cuh) from the same scores
+// (score_obs).
 //
-// Per pixel: the score of every alive observation (a Score functor: the
-// chi-square score against the current model, Scorer, or a precomputed
-// plane, PlaneScore); the break search (a run of >= PEEK exceedances in the
+// Per pixel: the score of every alive observation (a Score functor, here
+// a precomputed plane, PlaneScore); the break search (a run of >= PEEK exceedances in the
 // alive sequence, found by a backward scan that carries the next
 // non-exceeding rank, as the reverse cummin does); the refit search
 // (absorbed count crossing REFIT_FACTOR x the last fit's count, by a running
@@ -44,29 +44,6 @@ __device__ __forceinline__ float score_obs(const float x[K],
   }
   return s;
 }
-
-// The chi-square score of time step t of one pixel: Y is the chip's
-// spectra [B, T, P] (band stride T*P), band[b] the spectra index of scored
-// band b, X the chip's design [T, K].
-template <int NB>
-struct Scorer {
-  const int16_t* Y;
-  const float* X;
-  float coef[NB][K];
-  float dden[NB];
-  int band[NB];
-  int T, P, p;
-
-  __device__ float operator()(int t) const {
-    float x[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) x[k] = X[t * K + k];
-    const int16_t* Yt = Y + (size_t)t * P + p;
-    const size_t TP = (size_t)T * P;
-    return score_obs<NB>(x, coef, dden,
-                         [&](int b) { return Yt[(size_t)band[b] * TP]; });
-  }
-};
 
 // A precomputed [T, P] score plane read at pixel p (chip base pointer).
 struct PlaneScore {

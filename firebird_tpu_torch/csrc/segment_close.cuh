@@ -1,6 +1,6 @@
-// The segment close, shared by the fused_fit_close and fused_round kernels:
-// the closing segment's meta row and its one-slot append into the
-// [C, P, S, k] result buffers (cuda_ops.write_slot, the
+// The segment close, shared by the fused_fit_close, fused_round and
+// detect_mega kernels: the closing segment's meta row and its one-slot
+// append into the [C, P, S, k] result buffers (cuda_ops.write_slot, the
 // contract of pallas_ops._close_logic), and the break magnitudes over the
 // PEEK run (kernel._close_mags).
 #pragma once
@@ -23,8 +23,13 @@ struct SegBufs {
   int S;
 };
 
-// close_segment's append, given the segment's first / last included
-// observation and their count (the included column already scanned).
+// Append one pixel's closing segment at slot nseg (cp = c*P + p), given
+// the segment's first / last included observation (0 / T-1 when none:
+// argmax semantics) and their count; tc is the chip's days [T], rmse_row
+// [NB] and coef_row [NB*K] the closing model, mag_row [NB] its break
+// magnitudes (null: zeros, as for a tail).  A slot past capacity S is not
+// written; the caller still counts the close (capacity_retry relies on
+// it).
 template <int NB>
 __device__ void close_write(const float* tc, int first, int last, int n_obs,
                             size_t cp, bool is_brk, int pos_ev, int n_exceed,
@@ -54,33 +59,6 @@ __device__ void close_write(const float* tc, int first, int last, int n_obs,
   }
 }
 
-// Append one pixel's closing segment at slot nseg (cp = c*P + p).  incm is
-// the chip's included_mon plane [T, P], tc its days [T]; rmse_row [NB],
-// coef_row [NB*K] are the closing model and mag_row [NB] its break
-// magnitudes (null: zeros, as for a tail).  A slot past capacity S is not
-// written; the caller still counts the close (capacity_retry relies on it).
-template <int NB>
-__device__ void close_segment(const uint8_t* incm, const float* tc, int T,
-                              int P, int p, size_t cp, bool is_brk,
-                              int pos_ev, int n_exceed, bool first_seg,
-                              int nseg, const float* rmse_row,
-                              const float* mag_row, const float* coef_row,
-                              const SegBufs& bufs) {
-  if (nseg >= bufs.S) return;
-  // First / last included observation (0 / T-1 when none: argmax
-  // semantics) and their count.
-  int first = -1, last = T - 1, n_obs = 0;
-  for (int t = 0; t < T; ++t) {
-    if (incm[(size_t)t * P + p] == 0) continue;
-    if (first < 0) first = t;
-    last = t;
-    ++n_obs;
-  }
-  if (first < 0) first = 0;
-  close_write<NB>(tc, first, last, n_obs, cp, is_brk, pos_ev, n_exceed,
-                  first_seg, nseg, rmse_row, mag_row, coef_row, bufs);
-}
-
 // The break magnitudes from the PEEK run's time steps ts[0..n) (n <= PEEK,
 // in order): per band, the median residual of the model coef_row.  Xc may
 // lie in global or shared memory.
@@ -104,28 +82,6 @@ __device__ void peek_mags_at(const int16_t* Yc, const float* Xc,
   }
 #pragma unroll
   for (int b = 0; b < NB; ++b) mags[b] = median<PEEK>(r[b], n);
-}
-
-// Break magnitudes: per band, the median residual of the closing model
-// over the PEEK run, the alive observations of ranks ev_rank ..
-// ev_rank+PEEK-1 that exist (rank < m) — found by one scan over T.  al is
-// the chip's alive plane [T, P], Yc its spectra [NB, T, P], Xc its design
-// [T, K], coef_row [NB*K] the model.  The prediction sums the design
-// columns left to right, as primitives.dot_cols and _close_logic do.
-template <int NB>
-__device__ void peek_run_mags(const int16_t* Yc, const float* Xc,
-                              const uint8_t* al, const float* coef_row, int T,
-                              int P, int p, int ev_rank, int m,
-                              float mags[NB]) {
-  int ts[PEEK];
-  const int hi = min(ev_rank + PEEK, m);
-  int n = 0, rank = -1;
-  for (int t = 0; t < T && ev_rank + n < hi; ++t) {
-    if (al[(size_t)t * P + p] == 0) continue;
-    if (++rank < ev_rank) continue;
-    ts[n++] = t;
-  }
-  peek_mags_at<NB>(Yc, Xc, coef_row, ts, n, T, P, p, mags);
 }
 
 }  // namespace fb

@@ -3,7 +3,8 @@
 // fb::monitor_event / fb::monitor_partition (monitor_chain.cuh) from the
 // same scores, scheduled for a block:
 //
-//   1. score_words: TILE_Q threads a pixel, each a set of 32-step words.
+//   1. score_words: TILE_Q threads a pixel, each a set of 32-step words
+//      (score_alive_words where the alive column is already words).
 //      Every alive observation a monitoring pixel can use (t >= cur_k) is
 //      scored once (fb::score_obs) and only two bits of the score are kept:
 //      s > outlier and s > change.  The alive and included columns (and an
@@ -27,6 +28,48 @@
 #include "tile.cuh"
 
 namespace fb {
+
+// Scores the steps of word w whose bits r holds (fb::score_obs, two at a
+// time: ten loads in flight) and sets their bits in o (score > outlier)
+// and e (score > change).  Detection band d is read at Yp + band[d] * TP
+// (Yp the chip's spectra at the pixel); Xs is the design [T, K].
+template <int ND>
+__device__ __forceinline__ void score_bits(uint32_t r, int w,
+                                           const int16_t* Yp,
+                                           const int band[ND], size_t TP,
+                                           int P, const float* Xs,
+                                           const float coef[ND][K],
+                                           const float dden[ND],
+                                           float change_thr,
+                                           float outlier_thr, uint32_t& o,
+                                           uint32_t& e) {
+  while (r) {
+    int js[2];
+    int16_t ys[2][ND];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      js[u] = r ? __ffs(r) - 1 : -1;
+      r &= r - 1u;
+      if (js[u] >= 0) {
+        const int16_t* y = Yp + (size_t)(32 * w + js[u]) * P;
+#pragma unroll
+        for (int b = 0; b < ND; ++b) ys[u][b] = y[(size_t)band[b] * TP];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (js[u] < 0) break;
+      const int t = 32 * w + js[u];
+      float x[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) x[k] = Xs[t * K + k];
+      const float sc =
+          score_obs<ND>(x, coef, dden, [&](int b) { return ys[u][b]; });
+      o |= (uint32_t)(sc > outlier_thr) << js[u];
+      e |= (uint32_t)(sc > change_thr) << js[u];
+    }
+  }
+}
 
 // The words of pixel i (this thread's part q: words q, q + TILE_Q, ...)
 // into shared memory, each mask's word w at [w * TILE] from the pointer
@@ -62,38 +105,35 @@ __device__ void score_words(int q, bool read, bool mon, int ck,
           if (ws) s |= (uint32_t)(ws[at] != 0) << j;
         }
       }
-      for (uint32_t r = mon ? a & ~below(w, ck) : 0u; r;) {
-        int js[2];
-        int16_t ys[2][ND];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          js[u] = r ? __ffs(r) - 1 : -1;
-          r &= r - 1u;
-          if (js[u] >= 0) {
-            const int16_t* y = Yp + (size_t)(32 * w + js[u]) * P;
-#pragma unroll
-            for (int b = 0; b < ND; ++b) ys[u][b] = y[(size_t)band[b] * TP];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (js[u] < 0) break;
-          const int t = 32 * w + js[u];
-          float x[K];
-#pragma unroll
-          for (int k = 0; k < K; ++k) x[k] = Xs[t * K + k];
-          const float sc =
-              score_obs<ND>(x, coef, dden, [&](int b) { return ys[u][b]; });
-          o |= (uint32_t)(sc > outlier_thr) << js[u];
-          e |= (uint32_t)(sc > change_thr) << js[u];
-        }
-      }
+      score_bits<ND>(mon ? a & ~below(w, ck) : 0u, w, Yp, band, TP, P, Xs,
+                     coef, dden, change_thr, outlier_thr, o, e);
     }
     A[w * TILE] = a;
     O[w * TILE] = o;
     E[w * TILE] = e;
     I[w * TILE] = in;
     if (S) S[w * TILE] = s;
+  }
+}
+
+// score_words for a pixel whose alive column is already words (A, stride
+// TILE, this thread's words q, q + TILE_Q, ...): only the outlier and
+// change words O and E are written (0 where the pixel does not monitor).
+template <int ND>
+__device__ void score_alive_words(int q, bool mon, int ck, const uint32_t* A,
+                                  const int16_t* Yp, const int band[ND],
+                                  size_t TP, int T, int P, const float* Xs,
+                                  const float coef[ND][K],
+                                  const float dden[ND], float change_thr,
+                                  float outlier_thr, uint32_t* O,
+                                  uint32_t* E) {
+  const int W = (T + 31) / 32;
+  for (int w = q; w < W; w += TILE_Q) {
+    uint32_t o = 0, e = 0;
+    score_bits<ND>(mon ? A[w * TILE] & ~below(w, ck) : 0u, w, Yp, band, TP,
+                   P, Xs, coef, dden, change_thr, outlier_thr, o, e);
+    O[w * TILE] = o;
+    E[w * TILE] = e;
   }
 }
 

@@ -151,9 +151,9 @@ def test_lasso_fit_bands_and_empty_windows(dev, B, P):
 
 @pytest.mark.parametrize("B", [7, 12])
 def test_lasso_fit_equals_fit_window(dev, B):
-    """lasso_fit's dense fit over eight lanes gives fb::fit_window's
-    coefficients and RMSE bit for bit (fused_fit_close refits with
-    fit_window, one thread a pixel, on the same windows and masks)."""
+    """fused_fit_close's refit gives lasso_fit's coefficients and RMSE bit
+    for bit on the same windows and masks (both run fb::dense_fit; route 1
+    equals route 0 because of it)."""
     rng = np.random.default_rng(50 + B)
     a = _round_args(rng, dev, B=B, T=77)
     C, _, T, P = a["Yt"].shape
@@ -619,6 +619,188 @@ def test_mega_route_on_card(dev):
     assert torch.equal(seg.rounds, ref.rounds)
     assert torch.equal(seg.round_counts, ref.round_counts)
     torch.testing.assert_close(seg.seg_mag, ref.seg_mag, rtol=5e-3, atol=1e-2)
+
+
+def _mega_state(rng, dev, B, T=64, P=97, long_pixel=None, done_tile=None):
+    """A detect_mega start state: ~16-day revisits over ~2.8 years, a
+    harmonic model per pixel plus noise, a step of 800 on every third pixel
+    from step 35 on, 3 % spikes; every pixel with an alive step starts in
+    INIT.  ``long_pixel``: a pixel on a steep trend (3 a day), whose
+    stability test fails at every cursor, so that it walks its series one
+    INIT a round, the other pixels of its tile DONE from the start;
+    ``done_tile``: a tile whose pixels are all DONE from the start."""
+    TILE = cuda_ops.TILE
+    t = (729000 + np.cumsum(rng.integers(10, 22, T))).astype(np.float64)
+    X = harmonic.design_matrix(t, t[0], 8).astype(np.float32)
+    X6 = harmonic.design_matrix(t, t[0], 6)
+    Xt = np.concatenate([X6[:, :1], X6[:, 2:]], 1).astype(np.float32)
+    beta = np.zeros((P, B, 8))
+    beta[..., 0] = rng.uniform(500, 3000, (P, B))
+    beta[..., 2:6] = rng.normal(0, 150, (P, B, 4))
+    Y = np.einsum("pbk,tk->btp", beta, X) + rng.normal(0, 20, (B, T, P))
+    Y[:, 35:, ::3] += 800
+    Y[:, rng.random((T, P)) < 0.03] += 2500
+    alive = rng.random((P, T)) < 0.92
+    phase = np.where(alive.any(1), cuda_ops.PHASE_INIT, cuda_ops.PHASE_DONE)
+    if done_tile is not None:
+        phase[done_tile * TILE:(done_tile + 1) * TILE] = cuda_ops.PHASE_DONE
+    if long_pixel is not None:
+        g = long_pixel // TILE
+        phase[g * TILE:(g + 1) * TILE] = cuda_ops.PHASE_DONE
+        phase[long_pixel] = cuda_ops.PHASE_INIT
+        alive[long_pixel] = True
+        Y[:, :, long_pixel] = (1000 + 3 * (t - t[0]))[None] + rng.normal(
+            0, 20, (B, T))
+    S = 4
+    vario = np.abs(rng.normal(40, 10, (P, B))) + 1
+    return (_t(Y.astype(np.int16)[None], dev),
+            _t(phase.astype(np.int32)[None], dev),
+            _t(alive.argmax(1).astype(np.int32)[None], dev),
+            _t(alive.T[None].copy(), dev),
+            _t(rng.integers(0, 2, (1, P)).astype(np.int32), dev),
+            tuple(_t(rng.standard_normal((1, P, S) + k).astype(np.float32),
+                     dev) for k in ((6,), (B,), (B,), (B, 8))),
+            _t(t.astype(np.float32)[None], dev), _t(X[None], dev),
+            _t(Xt[None], dev), _t(vario.astype(np.float32)[None], dev))
+
+
+def _mega_vs_plain(args, W, sensor):
+    kw = dict(W=W, change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR,
+              sensor=sensor)
+    a, bufs, tail = args[:5], args[5], args[6:]
+    before = cuda_ops.LAUNCHES["detect_mega"]
+    got = cuda_ops.detect_mega(*a, _clone(bufs), *tail, **kw)
+    assert cuda_ops.LAUNCHES["detect_mega"] == before + 1
+    want = cuda_ops.detect_mega_plain(*a, _clone(bufs), *tail, **kw)
+    for k in ("nseg", "alive", "meta", "rounds", "counts"):
+        assert torch.equal(got[k], want[k]), k
+    # The fits sum their Grams in another order than the plain einsum.
+    for k in ("rmse", "coef"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got["mag"], want["mag"], rtol=5e-3,
+                               atol=1e-2)
+    return got, want
+
+
+@pytest.mark.parametrize("W", [24, 40, 100])
+@pytest.mark.parametrize("sensor", [LANDSAT_ARD, SENTINEL2])
+def test_detect_mega_matches_plain(dev, sensor, W):
+    """Both band layouts at each window instance (W 24, 40 and 100 take
+    the 32, 64 and 128 instances), on a ragged last tile."""
+    args = _mega_state(np.random.default_rng(60 + W), dev, sensor.n_bands)
+    got, _ = _mega_vs_plain(args, W, sensor)
+    assert int(got["nseg"].max()) >= 2 and (got["counts"] > 0).all()
+
+
+@pytest.mark.parametrize("P", [33, 31])
+def test_detect_mega_edge_tiles(dev, P):
+    """P one past and one short of the 32-pixel tile."""
+    args = _mega_state(np.random.default_rng(70 + P), dev, 7, P=P)
+    _mega_vs_plain(args, 24, LANDSAT_ARD)
+
+
+def test_detect_mega_idle_tiles(dev):
+    """A tile whose pixels are all DONE from the start, and a tile whose one
+    working pixel runs far more rounds than any other (its INIT fails the
+    stability test at every cursor) while its other pixels sit DONE: the
+    chip's rounds are that pixel's."""
+    args = _mega_state(np.random.default_rng(80), dev, 7, P=97,
+                       long_pixel=40, done_tile=0)
+    got, _ = _mega_vs_plain(args, 24, LANDSAT_ARD)
+    alone = [a[..., 40:41].contiguous() if a.dim() >= 2 and a.shape[-1] == 97
+             else a for a in args[:5]]
+    bufs = tuple(b[:, 40:41].contiguous() for b in args[5])
+    tail = args[6:9] + (args[9][:, 40:41].contiguous(),)
+    one = cuda_ops.detect_mega(*alone, bufs, *tail, W=24,
+                               change_thr=CHANGE_THR,
+                               outlier_thr=OUTLIER_THR)
+    assert int(one["rounds"][0]) == int(got["rounds"][0]) > 20
+    assert int(got["nseg"][0, :32].sum()) == int(args[4][0, :32].sum())
+
+
+@pytest.mark.parametrize("W", [24, 64, 128])
+@pytest.mark.parametrize("sensor", ["landsat", "sentinel2"])
+def test_mega_equals_mon_at_each_instance(dev, sensor, W):
+    """The mega route equals route "mon" in every field but the per-chip
+    rounds and round_counts, at each window instance, on the tiny Landsat
+    chips and a 64-pixel Sentinel-2 cut."""
+    if sensor == "landsat":
+        packed = _tiny_packed()
+    else:
+        src = SyntheticSource(88, start="2019-01-01", end="2023-01-01",
+                              cloud_frac=0.15, sensor=SENTINEL2)
+        p = pack([src.chip(100, 200)], bucket=32)
+        sel = np.arange(64) * (p.spectra.shape[2] // 64)
+        packed = dataclasses.replace(
+            p, spectra=np.ascontiguousarray(p.spectra[:, :, sel]),
+            qas=np.ascontiguousarray(p.qas[:, sel]))
+    staged = kernel.stage_packed(packed, dev)
+    run = lambda **kw: kernel.detect_staged(
+        *staged, W=W, sensor=packed.sensor, compact=False, **kw)
+    cuda_ops.reset_launches()
+    mega = run(pallas="mega")
+    assert cuda_ops.LAUNCHES["detect_mega"] == 1
+    assert cuda_ops.REFUSED["detect_mega"] == 0
+    mon = run(pallas="1", fused="mon")
+    for f in ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
+              "mask", "procedure", "vario"):
+        assert torch.equal(getattr(mega, f), getattr(mon, f)), f
+    assert int(mega.rounds.max()) == int(mon.rounds[0])
+
+
+@pytest.mark.parametrize("P", [33, 31])
+@pytest.mark.parametrize("B", [7, 12])
+def test_fused_fit_close_edge_tiles(dev, B, P):
+    """P one past and one short of the tile, both band counts, and a tile
+    with no closing and no fitting pixel (it copies its model and counts
+    its segments only)."""
+    rng = np.random.default_rng(90 + P + B)
+    a = _round_args(rng, dev, B=B, P=P)
+    C, _, T, _ = a["Yt"].shape
+    kind = rng.integers(0, 3, (C, P))
+    do_fit = rng.random((C, P)) < 0.5
+    kind[1, :32] = 0
+    do_fit[1, :32] = False                  # chip 1's first tile: idle
+    args = (a["Yt"], a["X"], a["t"],
+            _t((rng.random((C, T, P)) < 0.7).astype(np.float32), dev),
+            _t(do_fit, dev),
+            _t(rng.integers(12, 30, (C, P)).astype(np.int32), dev),
+            a["included"], a["coefs"],
+            _t(rng.uniform(10, 40, (C, P, B)).astype(np.float32), dev),
+            _t(rng.normal(0, 300, (C, P, B)).astype(np.float32), dev),
+            _t(kind == 1, dev), _t(kind == 2, dev),
+            _t(rng.integers(0, T, (C, P)).astype(np.int32), dev),
+            _t(rng.integers(0, 7, (C, P)).astype(np.int32), dev),
+            a["first_seg"], a["nseg"])
+    bufs = _clone(a["bufs"])
+    got = cuda_ops.fused_fit_close(*args, bufs)
+    want = cuda_ops.fused_fit_close_plain(*args, _clone(a["bufs"]))
+    for g, v in zip(got[0], want[0]):
+        assert torch.equal(g, v)
+    assert torch.equal(got[1], want[1])
+    for g, v in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, v, rtol=1e-2, atol=1e-2)
+    # The idle tile: the model as it was, the buffers untouched.
+    assert torch.equal(got[2][1, :32], a["coefs"][1, :32])
+    assert torch.equal(got[1][1, :32], a["nseg"][1, :32])
+    for g, v in zip(bufs, a["bufs"]):
+        assert torch.equal(g[1, :32], v[1, :32])
+
+
+def test_tile_kernels_geometry_on_card(dev):
+    """fused_fit_close's and every detect_mega instance's shared memory as
+    the host-side helpers compute it, and at least one block an SM at
+    T=768; mega_fits's limit is the card's."""
+    geo = cuda_ops.kernel_geometry(768)
+    assert geo["fused_fit_close"]["smem_bytes"] == \
+        cuda_ops.fused_fit_close_smem_bytes(768)
+    for w, g in geo["detect_mega"].items():
+        assert g["smem_bytes"] == cuda_ops.detect_mega_smem_bytes(768), w
+        assert g["blocks_per_sm"] >= 1, w
+    with pytest.raises(ValueError, match="detect_mega"):
+        args = _mega_state(np.random.default_rng(1), dev, 7, P=8)
+        cuda_ops.detect_mega(*args[:5], args[5], *args[6:], W=129,
+                             change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR)
 
 
 def test_component_route_on_card(dev):

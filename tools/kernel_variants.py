@@ -1,19 +1,23 @@
-"""What holds lasso_fit and monitor_chain_scored: variants timed on one card.
+"""What holds the tile kernels: variants timed on one card.
 
     python tools/kernel_variants.py [--chips 8] [--seed 0] [--reps 20]
-        [--out chiprun_out/kernel_variants.json]
+        [--only lasso_fit,...] [--out chiprun_out/kernel_variants.json]
 
-Builds variants of ``csrc/lasso_fit.cu`` and ``csrc/monitor_chain_scored.cu``
-by text substitution into copies of ``firebird_tpu_torch/csrc`` under
-``build/kernel_variants/`` (the blocks an SM the launch bounds ask for,
-which set the register cap; lasso_fit without its coordinate-descent loop),
-and times each with CUDA events on chip_smoke.py's kernel-phase inputs
+Builds variants of ``csrc/lasso_fit.cu``, ``csrc/monitor_chain_scored.cu``,
+``csrc/fused_fit_close.cu`` and ``csrc/detect_mega.cu`` (``--only``: of
+those sources alone) by text substitution into copies of
+``firebird_tpu_torch/csrc`` under ``build/kernel_variants/`` (the blocks an
+SM the launch bounds ask for, which set the register cap; lasso_fit without
+its coordinate-descent loop; detect_mega with its INIT body out of line), and
+times each with CUDA events on chip_smoke.py's kernel-phase inputs
 (``--chips`` full-size Landsat chips, 1985-2017, T=768): lasso_fit with and
-without its RMSE pass, the monitor as it is called.  Each variant but the
-one without the CD loop must give the shipped kernel's outputs bit for bit.
-Prints and writes each variant's median milliseconds, its registers and
-spills (``-Xptxas -v``) and the card's name and power limit.  Needs a CUDA
-device.
+without its RMSE pass, the monitor as it is called, fused_fit_close on the
+kernel phase's round (``fused_rows``), detect_mega on the batch's prologue
+state (``mega_row``; the median of 5).  Each variant but the one without the
+CD loop must give the shipped kernel's outputs bit for bit.  Prints and
+writes each variant's median milliseconds, its registers and spills
+(``-Xptxas -v``, the Landsat instances) and the card's name and power
+limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +44,8 @@ OUT_DIR = REPO / "build" / "kernel_variants"
 MIN_BLOCKS = re.compile(r"constexpr int MIN_BLOCKS = \d+;")
 CD = "    cd_loop<1>(Gr, &cb[s], diag, mask, &beta[s]);"
 NO_CD = "    for (int k = 0; k < K; ++k) beta[s][k] = cb[s][k];"
+MEGA_INIT = "__device__ __forceinline__ fb::InitOut mega_init("
+MEGA_INIT_OUT_OF_LINE = "__device__ __noinline__ fb::InitOut mega_init("
 
 
 def variants():
@@ -54,6 +60,19 @@ def variants():
     out["lf_blocks4_no_cd"] = ("lasso_fit", [
         ("lasso_fit.cu", MIN_BLOCKS, "constexpr int MIN_BLOCKS = 4;"),
         ("dense_fit.cuh", re.compile(re.escape(CD)), NO_CD)], False)
+    for blocks in (3, 4, 5):
+        out[f"ffc_blocks{blocks}"] = ("fused_fit_close", [(
+            "fused_fit_close.cu", MIN_BLOCKS,
+            f"constexpr int MIN_BLOCKS = {blocks};")], True)
+    for blocks in (2, 3):
+        out[f"dm_blocks{blocks}"] = ("detect_mega", [(
+            "detect_mega.cu", MIN_BLOCKS,
+            f"constexpr int MIN_BLOCKS = {blocks};")], True)
+        out[f"dm_blocks{blocks}_noinline_init"] = ("detect_mega", [
+            ("detect_mega.cu", MIN_BLOCKS,
+             f"constexpr int MIN_BLOCKS = {blocks};"),
+            ("detect_mega.cu", re.compile(re.escape(MEGA_INIT)),
+             MEGA_INIT_OUT_OF_LINE)], True)
     return out
 
 
@@ -77,12 +96,14 @@ def build(name, spec):
         raise RuntimeError(f"nvcc failed on {name}:\n{r.stderr}")
     ptxas = {}
     for chunk in (r.stdout + r.stderr).split("Compiling entry function '")[1:]:
-        if "ILi12E" in chunk.split("'", 1)[0]:
-            continue                        # the Landsat instance only
+        fn = chunk.split("'", 1)[0]
+        if "ILi12E" in fn or "_kernel" not in fn:
+            continue                        # the Landsat instances only
         grab = lambda pat: int((re.search(pat, chunk) or [0, 0])[1])
-        ptxas = dict(registers=grab(r"Used (\d+) registers"),
-                     stack_bytes=grab(r"(\d+) bytes stack frame"),
-                     spill_stores=grab(r"(\d+) bytes spill stores"))
+        ptxas[",".join(re.findall(r"Li(\d+)E", fn)) or "-"] = dict(
+            registers=grab(r"Used (\d+) registers"),
+            stack_bytes=grab(r"(\d+) bytes stack frame"),
+            spill_stores=grab(r"(\d+) bytes spill stores"))
     lib = ctypes.CDLL(str(so))
     fn = getattr(lib, f"fb_{src}")
     fn.argtypes = cuda_ops._ARGTYPES[f"fb_{src}"]
@@ -95,6 +116,8 @@ def main(argv=None):
     ap.add_argument("--chips", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="",
+                    help="comma list of the sources whose variants to run")
     ap.add_argument("--out", type=Path,
                     default=REPO / "chiprun_out" / "kernel_variants.json")
     args = ap.parse_args(argv)
@@ -105,8 +128,11 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
-    cuda_ops.build(("lasso_fit", "monitor_chain_scored"))
     specs = variants()
+    if args.only:
+        keep = set(args.only.split(","))
+        specs = {n: v for n, v in specs.items() if v[0] in keep}
+    cuda_ops.build(tuple({v[0] for v in specs.values()}))
     with ThreadPoolExecutor(len(specs)) as ex:
         built = dict(zip(specs, ex.map(build, specs, specs.values())))
     packed, staged, _ = cs.make_batch(args.seed, args.chips, dev)
@@ -115,12 +141,31 @@ def main(argv=None):
     fit = (inp["Yt"], inp["w"], inp["X"], inp["coefmask"])
     mon = (inp["Yd"], inp["coefs_d"], inp["dden"], inp["X"], inp["alive"],
            inp["included"], inp["cur_k"], inp["n_last_fit"], inp["in_mon"])
+    init = cuda_ops.init_window_plain(
+        inp["alive"], inp["cur_i"], inp["in_init"], inp["t"], inp["X"],
+        inp["Xt"], inp["Yt"], inp["vario"], W=inp["W"], sensor=cs.LANDSAT_ARD)
+    rows = {r[0]: r for r in cs.fused_rows(
+        inp, cuda_ops.monitor_chain_scored_plain(*mon, **kw), init, kw,
+        {"disagreeing_pixels": {}})}
+    ffc = rows["fused_fit_close"][1]
+    mega = cs.mega_row(staged, inp["W"], kw, {"disagreeing_pixels": {}},
+                       cs.LANDSAT_ARD)
     calls = {"lasso_fit": (lambda: cuda_ops.lasso_fit(*fit),
                            lambda: cuda_ops.lasso_fit(*fit, with_rmse=False)),
              "monitor_chain_scored": (
-                 lambda: cuda_ops.monitor_chain_scored(*mon, **kw), None)}
-    flat = lambda out: list(out.values()) if isinstance(out, dict) else out
-    shipped = {src: flat(c[0]()) for src, c in calls.items()}
+                 lambda: cuda_ops.monitor_chain_scored(*mon, **kw), None),
+             "fused_fit_close": (lambda: cuda_ops.fused_fit_close(*ffc),
+                                 None),
+             "detect_mega": (
+                 lambda: cuda_ops.detect_mega(*mega[1], **mega[2]), None)}
+    reps = {"detect_mega": 5}
+    flat = lambda out: (list(out.values()) if isinstance(out, dict)
+                        else [x for v in out for x in
+                              (v if isinstance(v, tuple) else (v,))])
+    # The fused kernels write their result buffers in place (the same rows
+    # at every call): the shipped outputs are copied.
+    shipped = {src: [x.clone() for x in flat(calls[src][0]())]
+               for src in {v[0] for v in specs.values()}}
     res = {}
     for name, (lib, ptxas) in built.items():
         src, _, must_equal = specs[name]
@@ -133,8 +178,8 @@ def main(argv=None):
             if must_equal and not same:
                 raise AssertionError(f"{name} differs from the shipped "
                                      f"{src}")
-            res[name] = dict(ptxas, ms=cs.cuda_ms(full, args.reps),
-                             equal_to_shipped=same)
+            res[name] = dict(ptxas=ptxas, equal_to_shipped=same,
+                             ms=cs.cuda_ms(full, reps.get(src, args.reps)))
             if no_rmse is not None:
                 res[name]["ms_without_rmse"] = cs.cuda_ms(no_rmse, args.reps)
         finally:

@@ -13,9 +13,15 @@ card in one call.  A worker uses only its checkout's own code: its
 ``firebird_tpu_torch`` runs:
 
 - ``fused_round`` on chip_smoke.py's full-width round (its events and INIT
-  handoff from the plain monitor and ``init_window``), and ``lasso_fit``
+  handoff from the plain monitor and ``init_window``), ``fused_fit_close``
+  on the same round (chip_smoke.py's ``fused_rows``), and ``lasso_fit``
   and ``monitor_chain_scored`` on the kernel phase's inputs: the median of
-  ``--reps`` CUDA-event-timed launches each;
+  ``--reps`` CUDA-event-timed launches each; ``detect_mega`` on the
+  batch's prologue state (chip_smoke.py's ``mega_row``), the median of 5;
+- the registers, stack and spills (``-Xptxas -v``) of ``fused_round``,
+  ``fused_fit_close`` and ``detect_mega``, and the shared memory and
+  blocks an SM that the CUDA runtime reports where the checkout's
+  ``kernel_geometry`` gives them;
 - ``ring_remote_copy`` on chip_smoke.py's ring hop (two shards of four
   chips at the 2048-lane bucket), and one ``torch._foreach_copy_`` over
   the same tensors;
@@ -78,7 +84,25 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
            inp["included"], inp["cur_k"], inp["n_last_fit"], inp["in_mon"])
     out["monitor_chain_scored_ms"] = cs.cuda_ms(
         lambda: cuda_ops.monitor_chain_scored(*mon, **kw), reps)
-    del inp, init, args, bufs, fit, mon
+    plain_mon = cuda_ops.monitor_chain_scored_plain(*mon, **kw)
+    rows = {r[0]: r for r in cs.fused_rows(
+        inp, plain_mon, init, kw, {"disagreeing_pixels": {}})}
+    ffc = rows["fused_fit_close"][1]
+    out["fused_fit_close_ms"] = cs.cuda_ms(
+        lambda: cuda_ops.fused_fit_close(*ffc), reps)
+    W = inp["W"]
+    del inp, init, args, bufs, fit, mon, plain_mon, rows, ffc
+    torch.cuda.empty_cache()
+    mega = cs.mega_row(staged, W, kw, {"disagreeing_pixels": {}},
+                       cs.LANDSAT_ARD)
+    out["detect_mega_ms"] = cs.cuda_ms(
+        lambda: cuda_ops.detect_mega(*mega[1], **mega[2]), 5)
+    del mega
+    out["ptxas"] = {n: cs.ptxas_summary(n)
+                    for n in ("fused_round", "fused_fit_close", "detect_mega")}
+    geo = cuda_ops.kernel_geometry(packed.spectra.shape[-1])
+    out["geometry"] = {n: geo[n] for n in ("fused_round", "fused_fit_close",
+                                           "detect_mega") if n in geo}
     _, ring_args, *_, timing = cs.ring_row(seed, packed.spectra.shape[-1],
                                            dev, {})
     out["ring_remote_copy_ms"] = cs.cuda_ms(
