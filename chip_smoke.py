@@ -17,7 +17,9 @@ From the root of a checkout, on a machine with a CUDA card:
    stage-2 carries of four chips at the 2048-lane bucket), holds the
    result against the kernel's plain PyTorch version on the same inputs,
    and times both with CUDA events (``ring_remote_copy`` also against one
-   ``torch._foreach_copy_``);
+   ``torch._foreach_copy_``); ``init_window`` also on a late-round state
+   (the same inputs with ``in_init`` thinned by the seed to about 2 % of
+   the pixels), held to its plain version and timed beside its bound;
 4. main paths, one for each route: the round routes ``fused`` 0, 1 and
    "mon", the whole-loop route ``pallas="mega"`` and the component route
    ``pallas="lasso,monitor,tmask"``, all with compaction off, and route 0
@@ -46,8 +48,9 @@ From the root of a checkout, on a machine with a CUDA card:
 7. what the redesigned kernels are judged by: registers, stack and spills
    (the build's ``-Xptxas -v``), shared memory and resident blocks an SM
    (the CUDA runtime) of ``fused_round``, ``fused_fit_close`` and each
-   window instance of ``detect_mega``, those of ``lasso_fit`` and
-   ``monitor_chain_scored``, the ring's achieved TB/s beside
+   window instance of ``detect_mega``, ``init_window`` and ``tmask_bad``,
+   those of ``lasso_fit`` and ``monitor_chain_scored``, each with its time
+   beside its bound, the ring's achieved TB/s beside
    ``torch._foreach_copy_``'s, and the walls of routes "mon", 1 and mega
    beside route 0's;
 8. the Sentinel-2 path (bench.py's rung: one 300x300-pixel chip of 12
@@ -298,8 +301,7 @@ def kernel_phase(inp, staged, reps, seed, ring=True):
     want = init = cuda_ops.init_window_plain(*a, **kw_init)
     torch.cuda.synchronize()
     dis["init_window"] = n_pixels_differing(got, want)
-    for k in ("init_nowin", "init_tm", "has_adv", "i_next_tm", "i_adv", "j",
-              "n_ok", "w_stab", "alive_init"):
+    for k in INIT_EXACT:
         n_diff = int((got[k] != want[k]).sum())
         check(n_diff == 0, f"init_window {k}: {n_diff} differ")
     verdict = {k: float((got[k] != want[k]).float().mean())
@@ -308,12 +310,10 @@ def kernel_phase(inp, staged, reps, seed, ring=True):
           f"init_window stability verdicts: {verdict}")
     report["init_window_verdict_disagreement"] = verdict
     err = max(float((got[k].int() - want[k].int()).abs().max()) for k in want)
-    n = window_sizes(inp).double()
-    nz = n[n > 0]
-    fl = init_flops(nz)
-    by = float(nz.sum()) * 5 * 2 + nbytes(*a[:6], inp["vario"],
-                                          *got.values())
+    fl, by = init_work(inp, a, got)
     rows.append(("init_window", a, kw_init, err, 0.0, fl, by))
+    report["init_window_late_round"] = init_late_round(inp, a, kw_init, seed,
+                                                       reps)
     rows += fused_rows(inp, mon, init, kw_mon, report)
     rows += component_rows(inp, kw_mon, report)
     rows.append(mega_row(staged, inp["W"], kw_mon, report, sensor))
@@ -342,6 +342,53 @@ def kernel_phase(inp, staged, reps, seed, ring=True):
               f"{library_ms} ms), max abs err {err}, max rel err {rel}, "
               f"pixels disagreeing {dis.get(name)}", flush=True)
     return out, report
+
+
+INIT_EXACT = ("init_nowin", "init_tm", "has_adv", "i_next_tm", "i_adv", "j",
+              "n_ok", "w_stab", "alive_init")
+
+
+def init_work(inp, a, got):
+    """init_window's float operations and bytes on ``inp``'s state: the
+    INIT body over the initializing pixels' windows; their members'
+    detection-band values, the alive plane, the designs and per-pixel
+    inputs once, the outputs once."""
+    n = window_sizes(inp).double()
+    nz = n[n > 0]
+    return init_flops(nz), float(nz.sum()) * 5 * 2 + nbytes(
+        *a[:6], inp["vario"], *got.values())
+
+
+def thin_init(inp, seed, share=0.02):
+    """``inp``'s ``in_init`` (about 0.6 of the pixels) thinned by the seed
+    to about ``share`` of them: a later round's INIT, where few pixels
+    initialize."""
+    rng = np.random.default_rng(seed + 3)
+    keep = torch.from_numpy(rng.random(tuple(inp["in_init"].shape))
+                            < share / 0.6)
+    return inp["in_init"] & keep.to(inp["in_init"].device)
+
+
+def init_late_round(inp, a, kw_init, seed, reps):
+    """``init_window`` on a late round's state (:func:`thin_init`, 2 %),
+    held to its plain version on the exact fields and timed beside its
+    bound."""
+    late = (a[0], a[1], thin_init(inp, seed)) + a[3:]
+    got = cuda_ops.init_window(*late, **kw_init)
+    want = cuda_ops.init_window_plain(*late, **kw_init)
+    torch.cuda.synchronize()
+    for k in INIT_EXACT:
+        n_diff = int((got[k] != want[k]).sum())
+        check(n_diff == 0, f"init_window late round {k}: {n_diff} differ")
+    fl, by = init_work(dict(inp, in_init=late[2]), late, got)
+    b_ms, b_by = bound(by, fl)
+    ms = cuda_ms(lambda: cuda_ops.init_window(*late, **kw_init), reps)
+    share = float(late[2].float().mean())
+    print(f"kernel init_window late round ({inp['sensor'].name}, "
+          f"{100 * share:.2f} % initializing): {ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}", flush=True)
+    return dict(initializing_share=share, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=by, flops=fl)
 
 
 # The fits' envelope against the plain versions (a Gram summed in another
@@ -1051,14 +1098,14 @@ def ptxas_report(T, smi):
 def redesign_report(kernels, paths, T, smi, nb=7):
     """What the redesigned kernels are judged by: registers, shared memory,
     spills and resident blocks an SM of fused_round, fused_fit_close and
-    each window instance of detect_mega (``nb`` bands, at ``T``), those of
-    lasso_fit and monitor_chain_scored; each kernel's time beside its
-    bound; the ring's achieved rate; the walls of routes "mon", 1 and mega
-    beside route 0's."""
+    each window instance of detect_mega (``nb`` bands, at ``T``), of
+    init_window (at ``T``) and of tmask_bad, those of lasso_fit and
+    monitor_chain_scored; each kernel's time beside its bound; the ring's
+    achieved rate; the walls of routes "mon", 1 and mega beside route 0's."""
     geo = cuda_ops.kernel_geometry(T, nb)
     out = {}
     for name in ("fused_round", "fused_fit_close", "detect_mega",
-                 "ring_remote_copy"):
+                 "init_window", "tmask_bad", "ring_remote_copy"):
         out[name] = dict(instances=ptxas_summary(name), geometry=geo[name])
         if name in kernels:
             out[name].update(ms=kernels[name]["ms"],

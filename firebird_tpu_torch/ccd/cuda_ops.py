@@ -15,9 +15,11 @@ package runs (the JAX package's ``FIREBIRD_PALLAS`` routes
 - :func:`monitor_chain` — the event chain alone on a precomputed score
   plane (``csrc/monitor_chain.cu``; Pallas ``monitor_chain``).
 - :func:`init_window` — the INIT round: window search, Tmask IRLS screen
-  and stability fit (``csrc/init_window.cu``; Pallas ``init_window``).
+  and stability fit (``csrc/init_window.cu``, its screen
+  ``csrc/tmask_warp.cuh``; Pallas ``init_window``).
 - :func:`tmask_bad` — the Tmask IRLS screen alone on gathered windows
-  (``csrc/tmask_bad.cu``; Pallas ``tmask_bad``).
+  (``csrc/tmask_bad.cu``, the same ``tmask_warp.cuh``; Pallas
+  ``tmask_bad``).
 - :func:`fused_fit_close` — a round's segment close and shared refit in
   one launch (``csrc/fused_fit_close.cu``; Pallas ``fused_fit_close``).
 - :func:`fused_round` — the whole post-INIT round, monitor + close +
@@ -44,8 +46,9 @@ update the result buffers in place.  The kernels over a pixel's whole
 spectra are built for B in NB_CHOICES (Landsat ARD's 7 bands, Sentinel-2's
 12); those that take a sensor read its detection and Tmask bands from
 :func:`band_roles`.  ``lasso_fit``, ``monitor_chain_scored``,
-``fused_fit_close``, ``fused_round`` and ``detect_mega`` run TILE pixels a
-block (csrc/tile.cuh), the others one thread a pixel.
+``init_window``, ``tmask_bad``, ``fused_fit_close``, ``fused_round`` and
+``detect_mega`` run TILE pixels a block (csrc/tile.cuh), the others one
+thread a pixel.
 """
 
 from __future__ import annotations
@@ -85,7 +88,8 @@ SOURCES = ("lasso_fit", "monitor_chain_scored", "init_window",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The window sizes the init_window, tmask_bad and detect_mega kernels are
-# instantiated for (their register/local arrays are sized by it);
+# instantiated for (their shared-memory window rows, lanes' slots and
+# detect_mega's local arrays are sized by it);
 # window_cap of a 1985-2017 Landsat archive is 24, inside the 32 instance.
 W_MAX_CHOICES = (32, 64, 128)
 # The band counts the kernels over a pixel's whole spectra are instantiated
@@ -105,7 +109,7 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "fb_lasso_fit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "fb_monitor_chain_scored": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],
-    "fb_init_window": [_P] * 12 + [_I] * 6 + [_P],
+    "fb_init_window": [_P] * 13 + [_I] * 6 + [_P],
     "fb_fused_fit_close": [_P] * 23 + [_I] * 5 + [_P],
     "fb_fused_round": [_P] * 27 + [_I] * 5 + [_F, _F, _P],
     "fb_lasso_cd": [_P] * 5 + [_I] * 2 + [_P],
@@ -298,6 +302,36 @@ def detect_mega_smem_bytes(T: int) -> int:
 # The longest series the kernels index (time steps are int16 in the INIT
 # window's member positions).
 T_MAX = 32767
+# init_window's and tmask_bad's warps a block (one listed pixel each), and
+# a warp's window area (csrc/tmask_warp.cuh's TmaskArea): the design's NT
+# rows, two weights, two weighted values, ones and two ranked, then 16
+# floats.
+INIT_WARPS = FUSED_ROUND_THREADS // 32
+TM_ROWS = NT + 7
+TM_SCRATCH = 16
+
+
+def init_window_smem_bytes(T: int, w_max: int) -> int:
+    """The dynamic shared memory of one init_window block of the ``w_max``
+    instance at ``T``: the alive words (ceil(T/32) a pixel), eight ints a
+    pixel and four more, the fits' 4-coefficient rows and rmse (5 x 9 floats
+    a pixel), then each warp's window area (TM_ROWS rows of w_max + 1
+    floats, TM_SCRATCH more, w_max member steps), which the fit's Grams (65
+    floats a pixel) alias.  It fits the card's 227 KB up to T_MAX at the
+    largest instance (the kernel refuses no shape the one-thread kernel
+    took)."""
+    W = -(-T // 32)
+    areas = INIT_WARPS * (TM_ROWS * (w_max + 1) + TM_SCRATCH + w_max)
+    return 4 * (W * TILE + 8 * TILE + 4 + TILE * 5 * (K + 1)
+                + max(areas, TILE * (K * K + 1)))
+
+
+def tmask_bad_smem_bytes(w_max: int) -> int:
+    """The dynamic shared memory of one tmask_bad block of the ``w_max``
+    instance: each warp's window area (TM_ROWS rows of w_max + 1 floats and
+    TM_SCRATCH more).  A warp reads its pixel's window straight from the
+    gathered planes."""
+    return 4 * INIT_WARPS * (TM_ROWS * (w_max + 1) + TM_SCRATCH)
 
 
 def mega_fits(T: int, W: int) -> bool:
@@ -823,14 +857,15 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
                                  W=W, sensor=sensor)
     roles, _keep = band_roles(sensor, B, "init_window")
     w_max = _w_instance(W, "init_window")
-    out = torch.empty(len(_INIT_KEYS), C, P, dtype=torch.int32, device=dev)
+    flags = torch.empty(len(_INIT_BOOL), C, P, dtype=torch.bool, device=dev)
+    out = torch.empty(len(_INIT_KEYS) - len(_INIT_BOOL), C, P,
+                      dtype=torch.int32, device=dev)
     w_stab = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     alive_init = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     _launch("init_window", _ptr(alive), _ptr(cur_i), _ptr(in_init), _ptr(t),
-            _ptr(X), _ptr(Xt), _ptr(Yt), _ptr(vario), _ptr(out),
+            _ptr(X), _ptr(Xt), _ptr(Yt), _ptr(vario), _ptr(flags), _ptr(out),
             _ptr(w_stab), _ptr(alive_init), roles, C, B, T, P, W, w_max)
-    d = {k: (out[i] != 0 if k in _INIT_BOOL else out[i])
-         for i, k in enumerate(_INIT_KEYS)}
+    d = dict(zip(_INIT_KEYS, (*flags, *out)))
     return dict(d, w_stab=w_stab, alive_init=alive_init)
 
 
@@ -861,14 +896,10 @@ def tmask_bad(Xtw, Y2, w, vario2):
     if dev.type == "cpu":
         return tmask_bad_plain(Xtw, Y2, w, vario2)
     w_max = _w_instance(W, "tmask_bad")
-    # The kernel reads the window planes with the pixel axis fastest.
-    xt = Xtw.permute(3, 2, 0, 1).contiguous()                   # [5,W,C,P]
-    y2 = Y2.permute(2, 3, 0, 1).contiguous()                    # [2,W,C,P]
-    wp = w.permute(2, 0, 1).contiguous()                        # [W,C,P]
-    bad = torch.empty(W, C, P, dtype=torch.bool, device=dev)
-    _launch("tmask_bad", _ptr(xt), _ptr(y2), _ptr(wp), _ptr(vario2),
+    bad = torch.empty(C, P, W, dtype=torch.bool, device=dev)
+    _launch("tmask_bad", _ptr(Xtw), _ptr(Y2), _ptr(w), _ptr(vario2),
             _ptr(bad), C * P, W, w_max)
-    return bad.permute(1, 2, 0).contiguous()
+    return bad
 
 
 # ---------------------------------------------------------------------------
@@ -1076,15 +1107,24 @@ def _geometry(name: str, *args) -> dict:
                 local_bytes=out[3])
 
 
+def init_window_geometry(T: int) -> dict:
+    """Each window instance of init_window at ``T``, as the CUDA runtime
+    reports it (shared memory, resident blocks an SM, registers and local
+    bytes a thread), by instance."""
+    build(("init_window",))
+    return {w: _geometry("init_window", w, T) for w in W_MAX_CHOICES}
+
+
 def kernel_geometry(T: int, nb: int = 7) -> dict:
     """The built kernels' launch geometry on the current card, as the CUDA
     runtime reports it: the shared memory, resident blocks an SM,
     registers and local bytes a thread at ``T`` of fused_round's,
     fused_fit_close's and each window instance of detect_mega's
-    ``nb``-band instance (detect_mega by its window instance);
+    ``nb``-band instance (detect_mega by its window instance), of each
+    window instance of init_window at ``T`` and of tmask_bad;
     ring_remote_copy's resident blocks an SM."""
     build(("fused_round", "fused_fit_close", "detect_mega",
-           "ring_remote_copy"))
+           "ring_remote_copy", "init_window", "tmask_bad"))
     blocks = ctypes.c_int()
     fn = _LIBS["ring_remote_copy"].fb_ring_remote_copy_blocks_per_sm
     fn.argtypes, fn.restype = [_P], ctypes.c_int
@@ -1095,6 +1135,9 @@ def kernel_geometry(T: int, nb: int = 7) -> dict:
                 fused_fit_close=_geometry("fused_fit_close", nb, T),
                 detect_mega={w: _geometry("detect_mega", nb, w, T)
                              for w in W_MAX_CHOICES},
+                init_window=init_window_geometry(T),
+                tmask_bad={w: _geometry("tmask_bad", w)
+                           for w in W_MAX_CHOICES},
                 ring_remote_copy=dict(blocks_per_sm=blocks.value))
 
 

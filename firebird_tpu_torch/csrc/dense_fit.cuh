@@ -16,7 +16,9 @@
 // it.
 //
 // Each lane reads its bands' int16 values at its pixel's window steps
-// straight from device memory, FIT_BATCH steps in flight at once.  (A
+// straight from device memory, FIT_BATCH steps in flight at once.  The
+// fitted bands are the spectra's first NB (AllBands) unless the caller maps
+// them (init_window fits a sensor's detection bands: InitBands).  (A
 // version staging each 32-step word of the whole tile in shared memory,
 // loads coalesced, ran slower on an H100: its barriers serialise load and
 // compute, and at 80 registers its staging spills.)
@@ -57,20 +59,27 @@ struct BitWalk {
   }
 };
 
+// The spectra band of fit band b: b itself.
+struct AllBands {
+  __device__ int operator()(int b) const { return b; }
+};
+
 // The values of lane l's bands (l + TILE_Q * s below NB) at a batch of
 // time steps tq (0 past the last step or the last band); Yp is the chip's
-// spectra at the pixel, band stride TP.
-template <int NB, int NBL>
+// spectra at the pixel, band stride TP, fit band b its spectra band
+// bands(b).
+template <int NB, int NBL, class Bands>
 __device__ __forceinline__ void load_batch(const int* tq, int l,
                                            const int16_t* Yp, size_t TP,
-                                           int P, float yq[][NBL]) {
+                                           int P, const Bands& bands,
+                                           float yq[][NBL]) {
 #pragma unroll
   for (int u = 0; u < FIT_BATCH; ++u)
 #pragma unroll
     for (int s = 0; s < NBL; ++s) {
       const int b = l + TILE_Q * s;
       yq[u][s] = (b < NB && tq[u] >= 0)
-                     ? (float)Yp[(size_t)b * TP + (size_t)tq[u] * P]
+                     ? (float)Yp[(size_t)bands(b) * TP + (size_t)tq[u] * P]
                      : 0.f;
     }
 }
@@ -81,12 +90,13 @@ __device__ __forceinline__ void load_batch(const int* tq, int l,
 // TP), Xs the chip's design [T, K] in shared memory, G the group's Gram
 // (GSTRIDE floats of shared memory), mask the allowed coefficients (read
 // by lanes with a band), coef [NB*K] and rmse [NB] the pixel's output rows
-// (rmse zeros when !with_rmse).
-template <int NB>
+// (rmse zeros when !with_rmse), bands the spectra band of each fit band.
+template <int NB, class Bands = AllBands>
 __device__ void dense_fit(bool fits, int l, const uint32_t* win, int W,
                           const int16_t* Yp, size_t TP, int P,
                           const float* Xs, float* G, const bool mask[K],
-                          bool with_rmse, float* coef, float* rmse) {
+                          bool with_rmse, float* coef, float* rmse,
+                          const Bands& bands = Bands()) {
   constexpr int NBL = (NB + TILE_Q - 1) / TILE_Q;   // band slots a lane
   float nw = 0.f;
   float cb[NBL][K];
@@ -102,7 +112,7 @@ __device__ void dense_fit(bool fits, int l, const uint32_t* win, int W,
       int tq[FIT_BATCH];
       it.take(tq);
       float yq[FIT_BATCH][NBL];
-      load_batch<NB, NBL>(tq, l, Yp, TP, P, yq);
+      load_batch<NB, NBL>(tq, l, Yp, TP, P, bands, yq);
 #pragma unroll
       for (int u = 0; u < FIT_BATCH; ++u) {
         if (tq[u] < 0) break;
@@ -166,7 +176,7 @@ __device__ void dense_fit(bool fits, int l, const uint32_t* win, int W,
       int tq[FIT_BATCH];
       it.take(tq);
       float yq[FIT_BATCH][NBL];
-      load_batch<NB, NBL>(tq, l, Yp, TP, P, yq);
+      load_batch<NB, NBL>(tq, l, Yp, TP, P, bands, yq);
 #pragma unroll
       for (int u = 0; u < FIT_BATCH; ++u) {
         if (tq[u] < 0) break;

@@ -1,5 +1,8 @@
-// The INIT round's per-pixel body and its Tmask screen, shared by the
-// init_window, tmask_bad and detect_mega kernels.
+// The INIT round's one-thread per-pixel body and its Tmask screen, run by
+// detect_mega's INIT (warp 0 of its tile).  The init_window and tmask_bad
+// kernels run the warp-cooperative screen of tmask_warp.cuh on the same
+// constants and Cholesky (chol_solve5), and give init_pixel's results bit
+// for bit.
 //
 // init_pixel, per pixel (pallas_ops._init_logic, with _tmask_core and
 // _gram_cd_core inlined):
@@ -177,33 +180,15 @@ struct InitWindow {
   __device__ float w(int) const { return 1.f; }
 };
 
-// A pixel's alive column and the INIT body's w_stab and alive_init
-// columns as bytes in device memory (stride P; ao may be al itself), the
-// designs read through the read-only cache.  init_pixel reads and writes
-// its columns through such a type (detect_mega's keeps them as words in
-// shared memory).
-struct ByteColumns {
-  const uint8_t* al;
-  uint8_t* ws;
-  uint8_t* ao;
-  int P;
-  __device__ bool alive(int t) const { return al[(size_t)t * P] != 0; }
-  // Step t's alive_init and w_stab flags (after its alive flag is read).
-  __device__ void put(int t, bool a_out, bool w) {
-    ao[(size_t)t * P] = a_out;
-    ws[(size_t)t * P] = w;
-  }
-  __device__ static float ld(const float* p) { return __ldg(p); }
-};
-
 // kernel._init_block's per-pixel outputs.
 struct InitOut {
   int nowin, tm, ok, bad, has_adv, i_next_tm, i_adv, j, n_ok;
 };
 
 // One pixel's INIT round.  col holds its alive column in and its w_stab
-// and alive_init columns out (ByteColumns' contract; each step's alive
-// flag is read before its outputs are written); Yc (the spectra
+// and alive_init columns out (col.alive(t), col.put(t, alive_init, w_stab):
+// each step's alive flag is read before its outputs are written, as
+// detect_mega's WordColumns does); Yc (the spectra
 // [NB, T, P]) is offset to the pixel, strided by P; tc [T], Xc [T, K] and
 // Xtc [T, NT] are the chip's days and designs (read through Col::ld),
 // vrow [NB] the pixel's variogram, roles the sensor's detection and Tmask

@@ -214,6 +214,76 @@ def test_init_window_sentinel2_matches_plain(dev):
         assert (got[k] != want[k]).float().mean().item() <= 0.02, k
 
 
+def _dense_init_args(rng, dev, B, T, P, span, W):
+    """_init_args on ``span`` days of dates (a year holds more members the
+    shorter the span) with about one outlier in two windows of ``W``, every
+    pixel of chip 0's first tile not initializing and every pixel of its
+    second tile initializing."""
+    args = list(_init_args(rng, dev, B=B, T=T, P=P))
+    t = np.sort(rng.uniform(0, span, (2, T)), 1) + 729000.0
+    X = np.stack([harmonic.design_matrix(tc, tc[0], params.MAX_COEFS)
+                  for tc in t]).astype(np.float32)
+    Xt6 = np.stack([harmonic.design_matrix(tc, tc[0], params.TMASK_COEFS + 1)
+                    for tc in t])
+    Xt = np.concatenate([Xt6[..., :1], Xt6[..., 2:]], -1).astype(np.float32)
+    Y = 1000 + 300 * np.cos(2 * np.pi * t / 365.25)
+    Y = Y[:, None, :, None] + rng.normal(0, 30, (2, B, T, P))
+    Y[rng.random(Y.shape) < 0.5 / W] += 2000
+    args[3:7] = (_t(t.astype(np.float32), dev), _t(X, dev), _t(Xt, dev),
+                 _t(Y.astype(np.int16), dev))
+    args[2][0, :32] = False
+    args[2][0, 32:64] = True
+    return tuple(args)
+
+
+@pytest.mark.parametrize("W,T,span", [(24, 96, 2500), (40, 160, 900),
+                                      (100, 320, 900), (24, 64, 1100)])
+@pytest.mark.parametrize("sensor", [LANDSAT_ARD, SENTINEL2])
+def test_init_window_instances_and_tiles(dev, sensor, W, T, span):
+    """The 32, 64 and 128 window instances (W = 24, 40, 100, windows longer
+    than 32 members at the two wider ones), T = 64, both band layouts, P
+    not a multiple of 32, a tile with no initializing pixel beside one
+    where every pixel initializes."""
+    rng = np.random.default_rng(W + T)
+    args = _dense_init_args(rng, dev, sensor.n_bands, T, 77, span, W)
+    got = cuda_ops.init_window(*args, W=W, sensor=sensor)
+    want = cuda_ops.init_window_plain(*args, W=W, sensor=sensor)
+    for k in INIT_EXACT:
+        assert torch.equal(got[k], want[k]), k
+    for k in ("init_ok", "init_bad"):
+        assert (got[k] != want[k]).float().mean().item() <= 0.02, k
+    for k in ("init_nowin", "init_tm", "init_ok", "init_bad"):
+        assert not got[k][0, :32].any(), k
+    assert got["init_ok"][0, 32:64].any() and got["init_tm"].any()
+    if W > 32:
+        assert int(got["n_ok"].max()) > 32
+
+
+@pytest.mark.parametrize("W", [24, 40, 100])
+def test_tmask_bad_empty_and_singular_windows(dev, W):
+    """Each window instance with P not a multiple of 32: a pixel whose
+    weights are all zero next to a singular window (identical design
+    columns: the Cholesky's NaN flags nothing), windows with holes."""
+    rng = np.random.default_rng(W)
+    C, P = 2, 45
+    Xtw = rng.normal(0, 1, (C, P, W, 5)).astype(np.float32)
+    Xtw[..., 0] = 1.0
+    Y2 = (400 + 80 * rng.normal(0, 1, (C, P, 2, W))).astype(np.float32)
+    Y2[rng.random(Y2.shape) < 0.05] += 900
+    w = (rng.random((C, P, W)) < 0.85).astype(np.float32)
+    w[0, 5] = 0.0                      # no member
+    Xtw[0, 6] = 1.0                    # singular
+    w[1, 32:] = 0.0                    # chip 1's second tile: no member
+    args = (_t(Xtw, dev), _t(Y2, dev), _t(w, dev),
+            _t(np.abs(rng.normal(40, 10, (C, P, 2))).astype(np.float32), dev))
+    got = cuda_ops.tmask_bad(*args)
+    want = cuda_ops.tmask_bad_plain(*args)
+    assert torch.equal(got, want)
+    assert want.any() and not want[0, 5:7].any() and not want[1, 32:].any()
+    if W > 32:
+        assert want[..., 32:].any()
+
+
 def test_wrappers_refuse_bad_tensors(dev):
     rng = np.random.default_rng(0)
     _, X, _ = _designs(rng, 1, 16, dev)
@@ -788,14 +858,23 @@ def test_fused_fit_close_edge_tiles(dev, B, P):
 
 
 def test_tile_kernels_geometry_on_card(dev):
-    """fused_fit_close's and every detect_mega instance's shared memory as
-    the host-side helpers compute it, and at least one block an SM at
-    T=768; mega_fits's limit is the card's."""
+    """fused_fit_close's, every detect_mega, init_window and tmask_bad
+    instance's shared memory as the host-side helpers compute it, and at
+    least one block an SM at T=768 (init_window also at T_MAX); mega_fits's
+    limit is the card's."""
     geo = cuda_ops.kernel_geometry(768)
     assert geo["fused_fit_close"]["smem_bytes"] == \
         cuda_ops.fused_fit_close_smem_bytes(768)
     for w, g in geo["detect_mega"].items():
         assert g["smem_bytes"] == cuda_ops.detect_mega_smem_bytes(768), w
+        assert g["blocks_per_sm"] >= 1, w
+    for w, g in geo["init_window"].items():
+        assert g["smem_bytes"] == cuda_ops.init_window_smem_bytes(768, w), w
+        assert g["blocks_per_sm"] >= 1, w
+    for w, g in cuda_ops.init_window_geometry(cuda_ops.T_MAX).items():
+        assert g["blocks_per_sm"] >= 1, w
+    for w, g in geo["tmask_bad"].items():
+        assert g["smem_bytes"] == cuda_ops.tmask_bad_smem_bytes(w)
         assert g["blocks_per_sm"] >= 1, w
     with pytest.raises(ValueError, match="detect_mega"):
         args = _mega_state(np.random.default_rng(1), dev, 7, P=8)

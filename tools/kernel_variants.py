@@ -4,16 +4,21 @@
         [--only lasso_fit,...] [--out chiprun_out/kernel_variants.json]
 
 Builds variants of ``csrc/lasso_fit.cu``, ``csrc/monitor_chain_scored.cu``,
-``csrc/fused_fit_close.cu`` and ``csrc/detect_mega.cu`` (``--only``: of
-those sources alone) by text substitution into copies of
-``firebird_tpu_torch/csrc`` under ``build/kernel_variants/`` (the blocks an
-SM the launch bounds ask for, which set the register cap; lasso_fit without
-its coordinate-descent loop; detect_mega with its INIT body out of line), and
-times each with CUDA events on chip_smoke.py's kernel-phase inputs
-(``--chips`` full-size Landsat chips, 1985-2017, T=768): lasso_fit with and
-without its RMSE pass, the monitor as it is called, fused_fit_close on the
-kernel phase's round (``fused_rows``), detect_mega on the batch's prologue
-state (``mega_row``; the median of 5).  Each variant but the one without the
+``csrc/fused_fit_close.cu``, ``csrc/detect_mega.cu``, ``csrc/init_window.cu``
+and ``csrc/tmask_bad.cu`` (``--only``: of those sources alone) by text
+substitution into copies of ``firebird_tpu_torch/csrc`` under
+``build/kernel_variants/`` (the blocks an SM the launch bounds ask for,
+which set the register cap; lasso_fit without its coordinate-descent loop;
+detect_mega with its INIT body out of line), and times each with CUDA events
+on chip_smoke.py's kernel-phase inputs (``--chips`` full-size Landsat chips,
+1985-2017, T=768): lasso_fit with and without its RMSE pass, the monitor and
+init_window as they are called, tmask_bad on the kernel phase's gathered
+windows, fused_fit_close on the kernel phase's round (``fused_rows``),
+detect_mega on the batch's prologue state (``mega_row``; the median of 5).
+``--init-shares 0.6,0.02,0`` also times the shipped init_window and each of
+its variants by the profiler's device time on the kernel phase's state with
+``in_init`` thinned by the seed to each share of the pixels (a late round's
+INIT).  Each variant but the one without the
 CD loop must give the shipped kernel's outputs bit for bit.  Prints and
 writes each variant's median milliseconds, its registers and spills
 (``-Xptxas -v``, the Landsat instances) and the card's name and power
@@ -46,6 +51,26 @@ CD = "    cd_loop<1>(Gr, &cb[s], diag, mask, &beta[s]);"
 NO_CD = "    for (int k = 0; k < K; ++k) beta[s][k] = cb[s][k];"
 MEGA_INIT = "__device__ __forceinline__ fb::InitOut mega_init("
 MEGA_INIT_OUT_OF_LINE = "__device__ __noinline__ fb::InitOut mega_init("
+# Ablations of the warp Tmask screen (csrc/tmask_warp.cuh) and of
+# init_window's phases, for the time each part takes (their outputs differ).
+TM_ABLATIONS = {
+    "no_median": [(r"warp_median2<WMAX>\(r0, r1, memb, n, A, lane, "
+                   r"med0, med1\);", "med0 = med1 = 0.f;"),
+                  (r"warp_mad2<WMAX>\(A, m, med0, med1, ",
+                   "mad0 = mad1 = 1.f; "
+                   "if (0) warp_mad2<WMAX>(A, m, med0, med1, ")],
+    "no_chol": [(r"chol_solve5\(G, cc, beta\);",
+                 "for (int i = 0; i < NT; ++i) beta[i] = cc[i] * 1e-3f;")],
+    "no_sums": [(r"for \(uint32_t m = memb\[k\]; m; m &= m - 1u\) \{",
+                 "for (uint32_t m = 0; m; m &= m - 1u) {")],
+    "one_solve": [(r"for \(int it = 0; it <= TM_ITERS; \+\+it\) \{",
+                   "for (int it = 0; it <= 0; ++it) {")],
+}
+INIT_ABLATIONS = {
+    "no_screen": [(r"for \(int g = warp; g < n_tm; g \+= NWARP\) \{",
+                   "for (int g = warp; g < 0; g += NWARP) {")],
+    "no_fit": [(r"if \(n_fit > 0\) \{", "if (n_fit > TILE) {")],
+}
 
 
 def variants():
@@ -64,6 +89,20 @@ def variants():
         out[f"ffc_blocks{blocks}"] = ("fused_fit_close", [(
             "fused_fit_close.cu", MIN_BLOCKS,
             f"constexpr int MIN_BLOCKS = {blocks};")], True)
+    for src, key, choices in (("init_window", "iw", (3, 4, 5)),
+                              ("tmask_bad", "tb", (4, 5, 6))):
+        for blocks in choices:
+            out[f"{key}_blocks{blocks}"] = (src, [(
+                f"{src}.cu", MIN_BLOCKS,
+                f"constexpr int MIN_BLOCKS = {blocks};")], True)
+    for name, subs in TM_ABLATIONS.items():
+        out[f"tb_{name}"] = ("tmask_bad", [
+            ("tmask_warp.cuh", re.compile(pat), rep) for pat, rep in subs],
+            False)
+    for name, subs in INIT_ABLATIONS.items():
+        out[f"iw_{name}"] = ("init_window", [
+            ("init_window.cu", re.compile(pat), rep) for pat, rep in subs],
+            False)
     for blocks in (2, 3):
         out[f"dm_blocks{blocks}"] = ("detect_mega", [(
             "detect_mega.cu", MIN_BLOCKS,
@@ -111,6 +150,20 @@ def build(name, spec):
     return lib, ptxas
 
 
+def device_ms(fn, kernel_name, reps):
+    """The mean device milliseconds a call of ``fn`` spends in kernels
+    whose name holds ``kernel_name`` (torch.profiler), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if kernel_name in e.key) / 1e3 / reps
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chips", type=int, default=8)
@@ -118,6 +171,8 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", default="",
                     help="comma list of the sources whose variants to run")
+    ap.add_argument("--init-shares", default="",
+                    help="comma list of initializing shares for init_window")
     ap.add_argument("--out", type=Path,
                     default=REPO / "chiprun_out" / "kernel_variants.json")
     args = ap.parse_args(argv)
@@ -150,6 +205,11 @@ def main(argv=None):
     ffc = rows["fused_fit_close"][1]
     mega = cs.mega_row(staged, inp["W"], kw, {"disagreeing_pixels": {}},
                        cs.LANDSAT_ARD)
+    ia = (inp["alive"], inp["cur_i"], inp["in_init"], inp["t"], inp["X"],
+          inp["Xt"], inp["Yt"], inp["vario"])
+    kw_init = dict(W=inp["W"], sensor=cs.LANDSAT_ARD)
+    tm = cuda_ops.tmask_args(cuda_ops.init_window_gather(*ia[:7], W=inp["W"]),
+                             inp["vario"], cs.LANDSAT_ARD)
     calls = {"lasso_fit": (lambda: cuda_ops.lasso_fit(*fit),
                            lambda: cuda_ops.lasso_fit(*fit, with_rmse=False)),
              "monitor_chain_scored": (
@@ -157,8 +217,23 @@ def main(argv=None):
              "fused_fit_close": (lambda: cuda_ops.fused_fit_close(*ffc),
                                  None),
              "detect_mega": (
-                 lambda: cuda_ops.detect_mega(*mega[1], **mega[2]), None)}
+                 lambda: cuda_ops.detect_mega(*mega[1], **mega[2]), None),
+             "init_window": (lambda: cuda_ops.init_window(*ia, **kw_init),
+                             None),
+             "tmask_bad": (lambda: (cuda_ops.tmask_bad(*tm),), None)}
     reps = {"detect_mega": 5}
+    shares = [float(x) for x in args.init_shares.split(",") if x]
+
+    def init_at(share):
+        """init_window on the state with ``in_init`` thinned to ``share``."""
+        st = ia[:2] + (cs.thin_init(inp, args.seed, share),) + ia[3:]
+        return lambda: cuda_ops.init_window(*st, **kw_init)
+
+    res = {"shipped_init_window_by_share": {
+        sh: device_ms(init_at(sh), "init_kernel", args.reps) for sh in shares}}
+    if shares:
+        print(f"shipped init_window device ms by share on {smi}: "
+              f"{res['shipped_init_window_by_share']}", flush=True)
     flat = lambda out: (list(out.values()) if isinstance(out, dict)
                         else [x for v in out for x in
                               (v if isinstance(v, tuple) else (v,))])
@@ -166,7 +241,6 @@ def main(argv=None):
     # at every call): the shipped outputs are copied.
     shipped = {src: [x.clone() for x in flat(calls[src][0]())]
                for src in {v[0] for v in specs.values()}}
-    res = {}
     for name, (lib, ptxas) in built.items():
         src, _, must_equal = specs[name]
         saved = cuda_ops._LIBS[src]
@@ -182,6 +256,10 @@ def main(argv=None):
                              ms=cs.cuda_ms(full, reps.get(src, args.reps)))
             if no_rmse is not None:
                 res[name]["ms_without_rmse"] = cs.cuda_ms(no_rmse, args.reps)
+            if src == "init_window" and shares:
+                res[name]["device_ms_by_share"] = {
+                    sh: device_ms(init_at(sh), "init_kernel", args.reps)
+                    for sh in shares}
         finally:
             cuda_ops._LIBS[src] = saved
         print(f"{name} on {smi}: {res[name]}", flush=True)

@@ -18,10 +18,13 @@ card in one call.  A worker uses only its checkout's own code: its
   and ``monitor_chain_scored`` on the kernel phase's inputs: the median of
   ``--reps`` CUDA-event-timed launches each; ``detect_mega`` on the
   batch's prologue state (chip_smoke.py's ``mega_row``), the median of 5;
+- ``init_window`` on the kernel phase's inputs and on a late round's (the
+  same inputs with ``in_init`` thinned by the seed to about 2 % of the
+  pixels), ``tmask_bad`` on the kernel phase's gathered windows;
 - the registers, stack and spills (``-Xptxas -v``) of ``fused_round``,
-  ``fused_fit_close`` and ``detect_mega``, and the shared memory and
-  blocks an SM that the CUDA runtime reports where the checkout's
-  ``kernel_geometry`` gives them;
+  ``fused_fit_close``, ``detect_mega``, ``init_window`` and ``tmask_bad``,
+  and the shared memory and blocks an SM that the CUDA runtime reports
+  where the checkout's ``kernel_geometry`` gives them;
 - ``ring_remote_copy`` on chip_smoke.py's ring hop (two shards of four
   chips at the 2048-lane bucket), and one ``torch._foreach_copy_`` over
   the same tensors;
@@ -29,7 +32,11 @@ card in one call.  A worker uses only its checkout's own code: its
   component route, "0+compact": ``detect_packed`` ``--runs`` times, every
   run's wall kept), and of the sharded path
   (``detect_sharded``, two shards on the card, the ring on) with its peak
-  device memory.
+  device memory;
+- on chip_smoke.py's Sentinel-2 chip (one 300x300 chip of 12 bands,
+  2019-2020, T=64): ``init_window`` and ``tmask_bad`` on its kernel
+  phase's states as above, and the walls of routes 0, 1, "mon", mega and
+  the component route.
 
 Writes every worker's numbers, with the card's name and power limit, to
 ``--out`` and prints one line a worker.  Needs a CUDA device.
@@ -46,6 +53,60 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
+
+
+def init_times(cs, cuda_ops, inp, sensor, seed, reps):
+    """``init_window`` on the kernel phase's state ``inp`` and on a late
+    round's (``in_init`` thinned by the seed to about 2 %), ``tmask_bad``
+    on the state's gathered windows: median milliseconds."""
+    import numpy as np
+    import torch
+
+    a = (inp["alive"], inp["cur_i"], inp["in_init"], inp["t"], inp["X"],
+         inp["Xt"], inp["Yt"], inp["vario"])
+    kw = dict(W=inp["W"], sensor=sensor)
+    # chip_smoke.thin_init's rule, kept here: a base checkout's chip_smoke
+    # may predate it.
+    rng = np.random.default_rng(seed + 3)
+    keep = torch.from_numpy(rng.random(tuple(inp["in_init"].shape))
+                            < 0.02 / 0.6).to(inp["in_init"].device)
+    late = a[:2] + (inp["in_init"] & keep,) + a[3:]
+    win = cuda_ops.init_window_gather(*a[:7], W=inp["W"])
+    tm = cuda_ops.tmask_args(win, inp["vario"], sensor)
+    return dict(
+        init_window_ms=cs.cuda_ms(lambda: cuda_ops.init_window(*a, **kw),
+                                  reps),
+        init_window_late_ms=cs.cuda_ms(
+            lambda: cuda_ops.init_window(*late, **kw), reps),
+        tmask_bad_ms=cs.cuda_ms(lambda: cuda_ops.tmask_bad(*tm), reps))
+
+
+def sentinel2(cs, cuda_ops, kernel, reps, runs):
+    """The Sentinel-2 chip's ``init_window`` and ``tmask_bad`` times and
+    the walls of its routes (chip_smoke.py's S2_SOURCE and S2_ROUTES)."""
+    import torch
+
+    from firebird_tpu_torch.ingest import SyntheticSource, pack
+
+    src = SyntheticSource(**cs.S2_SOURCE)
+    packed = pack([src.chip(100, 200)], bucket=64)
+    staged = kernel.stage_packed(packed, torch.device("cuda"))
+    inp = cs.kernel_inputs(cs.S2_SOURCE["seed"], staged,
+                           kernel.window_cap(packed), cs.SENTINEL2)
+    out = init_times(cs, cuda_ops, inp, cs.SENTINEL2, cs.S2_SOURCE["seed"],
+                     reps)
+    del inp
+    torch.cuda.empty_cache()
+    walls = {}
+    for name in cs.S2_ROUTES:
+        walls[name] = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            kernel.detect_packed(packed, staged=staged, **cs.ROUTES[name][0])
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    out["walls_s"] = walls
+    return out
 
 
 def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
@@ -90,6 +151,7 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
     ffc = rows["fused_fit_close"][1]
     out["fused_fit_close_ms"] = cs.cuda_ms(
         lambda: cuda_ops.fused_fit_close(*ffc), reps)
+    out.update(init_times(cs, cuda_ops, inp, cs.LANDSAT_ARD, seed, reps))
     W = inp["W"]
     del inp, init, args, bufs, fit, mon, plain_mon, rows, ffc
     torch.cuda.empty_cache()
@@ -99,10 +161,12 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
         lambda: cuda_ops.detect_mega(*mega[1], **mega[2]), 5)
     del mega
     out["ptxas"] = {n: cs.ptxas_summary(n)
-                    for n in ("fused_round", "fused_fit_close", "detect_mega")}
+                    for n in ("fused_round", "fused_fit_close", "detect_mega",
+                              "init_window", "tmask_bad")}
     geo = cuda_ops.kernel_geometry(packed.spectra.shape[-1])
     out["geometry"] = {n: geo[n] for n in ("fused_round", "fused_fit_close",
-                                           "detect_mega") if n in geo}
+                                           "detect_mega", "init_window",
+                                           "tmask_bad") if n in geo}
     _, ring_args, *_, timing = cs.ring_row(seed, packed.spectra.shape[-1],
                                            dev, {})
     out["ring_remote_copy_ms"] = cs.cuda_ms(
@@ -130,6 +194,9 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
         walls["sharded"].append(time.perf_counter() - t0)
     out["sharded_peak_bytes"] = torch.cuda.max_memory_allocated()
     out["walls_s"] = walls
+    del packed, staged, ragged
+    torch.cuda.empty_cache()
+    out["sentinel2"] = sentinel2(cs, cuda_ops, kernel, reps, runs)
     return out
 
 

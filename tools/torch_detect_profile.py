@@ -2,6 +2,7 @@
 
     python tools/torch_detect_profile.py [--chips 8] [--seed 0] [--out DIR]
         [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--shards N]
+        [--sensor {landsat-ard,sentinel2}]
 
 Runs SyntheticSource -> pack -> detect_packed (round route ``--fused``,
 default 0; kernels ``--pallas``, default "1": the ``fit,score,init``
@@ -13,11 +14,13 @@ once to warm up, once timed by the host clock, then once under
 parallel.detect_sharded instead, over N shards on cuda:0 with the
 rebalancing ring on, on chip_smoke.py's sharded batch (the last 1/N of
 the chips a tenth land); its time includes the host-to-device staging.
-Prints and writes the wall times of the plain and the profiled run, the
-summed device time of every kernel by name (the hand-written kernels and
-PyTorch's own), and the device's busy share of the profiled wall time,
-to ``DIR/torch_detect_profile[_ROUTE].json`` (suffixed for routes other
-than the default).  Needs a CUDA device.
+``--sensor sentinel2`` runs chip_smoke.py's Sentinel-2 chip instead (one
+300x300 chip of 12 bands, 2019-2020, T=64; ``--chips`` and ``--seed`` are
+its own).  Prints and writes the wall times of the plain and the profiled
+run, the summed device time of every kernel by name (the hand-written
+kernels and PyTorch's own), and the device's busy share of the profiled
+wall time, to ``DIR/torch_detect_profile[_ROUTE].json`` (suffixed for
+routes and sensors other than the default).  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -78,6 +81,8 @@ def main(argv=None):
     ap.add_argument("--pallas", default="1")
     ap.add_argument("--compact", default="0", choices=("0", "1"))
     ap.add_argument("--shards", type=int, default=0)
+    ap.add_argument("--sensor", default="landsat-ard",
+                    choices=("landsat-ard", "sentinel2"))
     args = ap.parse_args(argv)
     fused = {"0": 0, "1": 1, "mon": "mon"}[args.fused]
     ops = kernel.pallas_components(args.pallas)
@@ -91,9 +96,17 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    src = SyntheticSource(args.seed, start="1985-01-01", end="2017-12-31")
-    packed = pack([src.chip(1000 * c, 2000) for c in range(args.chips)],
-                  bucket=64)
+    if args.sensor == "sentinel2":
+        from chip_smoke import S2_SOURCE
+
+        packed = pack([SyntheticSource(**S2_SOURCE).chip(100, 200)],
+                      bucket=64)
+        route += "/sentinel2"
+    else:
+        src = SyntheticSource(args.seed, start="1985-01-01",
+                              end="2017-12-31")
+        packed = pack([src.chip(1000 * c, 2000) for c in range(args.chips)],
+                      bucket=64)
     staged = kernel.stage_packed(packed)
     if args.shards:
         from chip_smoke import SHARDS, ragged_batch
@@ -129,7 +142,7 @@ def main(argv=None):
             and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows) / 1e3
-    out = dict(device=smi, route=route, chips=args.chips,
+    out = dict(device=smi, route=route, chips=packed.n_chips,
                pixels=int(seg.n_segments.numel()),
                T=int(packed.spectra.shape[-1]), rounds=seg.rounds.tolist(),
                round_counts=seg.round_counts.tolist(),
@@ -142,7 +155,7 @@ def main(argv=None):
                pixels_per_s=seg.n_segments.numel() / wall_plain,
                device_busy_s=busy, device_busy_share=busy / wall,
                groups=group(rows), kernels=rows)
-    print(f"{smi}: route {route}, {args.chips} chips, wall {wall:.3f} s "
+    print(f"{smi}: route {route}, {packed.n_chips} chips, wall {wall:.3f} s "
           f"profiled "
           f"({wall_plain:.3f} s not: {out['pixels_per_s']:.0f} px/s), "
           f"device busy {busy:.3f} s "
@@ -154,7 +167,8 @@ def main(argv=None):
                                                   (args.pallas, "1"))
                      if v != default).replace(",", "-")
     suffix += ("_compact" if args.compact == "1" else "") + (
-        f"_shards{args.shards}" if args.shards else "")
+        f"_shards{args.shards}" if args.shards else "") + (
+        "_sentinel2" if args.sensor == "sentinel2" else "")
     (Path(args.out) / f"torch_detect_profile{suffix}.json").write_text(
         json.dumps(out, indent=1))
 
