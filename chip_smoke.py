@@ -6,8 +6,11 @@ From the root of a checkout, on a machine with a CUDA card:
 
 1. prints the card (nvidia-smi name and power limit) and the torch / CUDA
    versions;
-2. builds the ten CUDA kernels from ``firebird_tpu_torch/csrc`` (one nvcc
-   per source, in parallel) and times the build;
+2. builds the ten CUDA kernels from ``firebird_tpu_torch/csrc`` and the
+   mixed-precision instances of the five that fit (one nvcc per build
+   unit, in parallel), times the build, and counts the tensor-core HMMA
+   instructions in each fitting unit's SASS (``cuobjdump -sass``: at least
+   one in every ``*_mixed`` unit, none in the f32 ones);
 3. kernel phase: runs each kernel's wrapper at the main path's full width
    (``--chips`` chips of 100x100 pixels from ``SyntheticSource(--seed)``,
    1985-2017, T=768, the archive's window cap) on round states drawn from
@@ -19,11 +22,20 @@ From the root of a checkout, on a machine with a CUDA card:
    and times both with CUDA events (``ring_remote_copy`` also against one
    ``torch._foreach_copy_``); ``init_window`` also on a late-round state
    (the same inputs with ``in_init`` thinned by the seed to about 2 % of
-   the pixels), held to its plain version and timed beside its bound;
+   the pixels), held to its plain version and timed beside its bound; the
+   mixed instances of ``lasso_fit``, ``init_window``, ``fused_fit_close``,
+   ``fused_round`` and ``detect_mega`` on the same inputs against their
+   plain mixed versions (exact fields equal, coefficients and RMSE within
+   ``params.MIXED_ULP_BUDGET`` scaled ulps on at least 0.999 of the
+   pixels, the count outside printed), timed beside their f32 instances,
+   their bound the split dots at the bf16 tensor rate and the rest at the
+   float32 rate;
 4. main paths, one for each route: the round routes ``fused`` 0, 1 and
    "mon", the whole-loop route ``pallas="mega"`` and the component route
-   ``pallas="lasso,monitor,tmask"``, all with compaction off, and route 0
-   with compaction on ("0+compact").  Each is ``SyntheticSource`` ->
+   ``pallas="lasso,monitor,tmask"``, all with compaction off, route 0
+   with compaction on ("0+compact"), and routes 0, 1, "mon" and mega with
+   ``mixed=True`` ("0+mixed", ...: their fitting kernels' mixed instances
+   launch, no f32 one).  Each is ``SyntheticSource`` ->
    ``pack`` -> ``detect_packed`` on the card for the same full-size
    Landsat chips, with the launch counters set to 0 just before and read
    just after, and held to the route's set of kernels (the mega route to
@@ -35,8 +47,11 @@ From the root of a checkout, on a machine with a CUDA card:
    mega route route "mon" in every field but the per-chip rounds and
    round_counts (their maximum over chips is route 0's rounds), the
    component route route 0 in the decisions of at least 0.999 of the
-   pixels, "0+compact" route 0 in every field.  On route 0, egress packing
-   and decoding and the store's table frames for one chip;
+   pixels, "0+compact" route 0 in every field; the mixed routes the same
+   identities among themselves, and "0+mixed" route 0 in the decisions of
+   at least 0.999 of the pixels (the count that differ and the largest
+   scaled-ulp drift printed).  On route 0, egress packing and decoding and
+   the store's table frames for one chip;
 5. the sharded main path: ``detect_sharded`` over two shards on the card
    (route 0, compaction and the rebalancing ring on) for the same chips,
    the second shard's four keeping a 10-row strip of land; it must migrate
@@ -44,7 +59,10 @@ From the root of a checkout, on a machine with a CUDA card:
    ring-off dispatch and the unsharded "0+compact" route in the store
    fields;
 6. a small input (two 10x10 chips) through the card and through the plain
-   versions on the CPU, decision fields compared;
+   versions on the CPU, decision fields compared; the threshold-fuzz chip
+   of tests/test_precision.py (seed 11) on routes 0, 1, "mon" and mega,
+   mixed against f32: decisions identical, drift within
+   ``params.MIXED_ULP_BUDGET``;
 7. what the redesigned kernels are judged by: registers, stack and spills
    (the build's ``-Xptxas -v``), shared memory and resident blocks an SM
    (the CUDA runtime) of ``fused_round``, ``fused_fit_close`` and each
@@ -56,9 +74,10 @@ From the root of a checkout, on a machine with a CUDA card:
 8. the Sentinel-2 path (bench.py's rung: one 300x300-pixel chip of 12
    bands, 2019-2020, T=64): every kernel's 12-band instance on that chip's
    round states against its plain version (the pixels that disagree
-   counted) and timed, then routes 0, 1, "mon", mega and the component
-   route, each with its launches read around it and against its plain
-   route, held to the Landsat paths' rules;
+   counted) and timed, the mixed instances too, then routes 0, 1, "mon",
+   mega, the component route, "0+mixed" and "mon+mixed", each with its
+   launches read around it and against its plain route, held to the
+   Landsat paths' rules;
 9. every kernel instance's registers, stack and spills, and the total
    seconds.
 
@@ -74,6 +93,7 @@ import argparse
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -83,16 +103,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from firebird_tpu_torch.ccd import cuda_ops, format as fmt, kernel, params
+from firebird_tpu_torch.ccd import (cuda_ops, format as fmt, kernel, params,
+                                    synthetic)
 from firebird_tpu_torch.ccd.primitives import (coefmask_for,
                                                first_at_or_after, variogram)
 from firebird_tpu_torch.ccd.sensor import (LANDSAT_ARD, LANDSAT_ARD_TINY,
                                            SENTINEL2, chi2_thresholds)
 from firebird_tpu_torch.ingest import SyntheticSource, pack
+from firebird_tpu_torch.ingest.packer import PackedChips
 from firebird_tpu_torch.parallel import detect_sharded
 
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 F32_FLOPS_S = 67e12            # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_S = 989e12          # H100 SXM dense bf16 on the tensor cores
 START, END = "1985-01-01", "2017-12-31"
 PALLAS = "firebird_tpu/ccd/pallas_ops.py"
 KERNEL_INFO = {
@@ -112,7 +135,10 @@ ROUTE_0 = {"lasso_fit", "monitor_chain_scored", "init_window"}
 # Each main path: its detect_packed arguments and the kernels it launches
 # (the routes after "0" fit the prologue's snow / insufficient-clear
 # pixels with lasso_fit; the component route with lasso_cd).  The five
-# routes run with compaction off, "0+compact" is route 0 with it on.
+# routes run with compaction off, "0+compact" is route 0 with it on; the
+# "+mixed" routes are routes 0, 1, "mon" and mega with the mixed-precision
+# Gram, which launch the mixed instances of their fitting kernels and no
+# f32 instance of one.
 ROUTES = {
     "0": (dict(pallas="1", fused=0, compact=False), ROUTE_0),
     "1": (dict(pallas="1", fused=1, compact=False),
@@ -124,6 +150,15 @@ ROUTES = {
                  {"lasso_cd", "monitor_chain", "tmask_bad"}),
     "0+compact": (dict(pallas="1", fused=0, compact=True), ROUTE_0),
 }
+# Every route names its precision: FIREBIRD_MIXED_PRECISION decides none.
+for _r in ROUTES.values():
+    _r[0]["mixed"] = False
+MIXED = "+mixed"
+ROUTES.update({
+    r + MIXED: (dict(ROUTES[r][0], mixed=True),
+                {cuda_ops.unit_of(k, k in cuda_ops.MIXED_SOURCES)
+                 for k in ROUTES[r][1]})
+    for r in ("0", "1", "mon", "mega")})
 # The sharded main path: two shards on the one card, route 0, compaction
 # and the rebalancing ring on (its default threshold).
 SHARDS = 2
@@ -136,6 +171,8 @@ HOME_ROUTE = {"lasso_fit": "0", "monitor_chain_scored": "0",
               "fused_round": "mon", "lasso_cd": COMPONENTS,
               "monitor_chain": COMPONENTS, "tmask_bad": COMPONENTS,
               "detect_mega": "mega", "ring_remote_copy": "sharded"}
+HOME_ROUTE.update({cuda_ops.unit_of(k, True): HOME_ROUTE[k] + MIXED
+                   for k in cuda_ops.MIXED_SOURCES})
 SEGMENT_FIELDS = ("n_segments", "seg_meta", "seg_rmse", "seg_mag",
                   "seg_coef", "mask", "procedure", "rounds", "vario",
                   "round_counts")
@@ -161,9 +198,28 @@ def cuda_ms(fn, reps, warm=1):
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
-def bound(nbytes, flops):
-    b_ms, f_ms = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOPS_S * 1e3
+def bound(nbytes, flops, tensor_flops=0.0):
+    """The least time for ``nbytes`` moved and ``flops`` float32 operations
+    outside the tensor cores plus ``tensor_flops`` bf16 tensor-core
+    operations, and which of the two bounds it."""
+    b_ms = nbytes / HBM_BYTES_S * 1e3
+    f_ms = (flops / F32_FLOPS_S + tensor_flops / BF16_FLOPS_S) * 1e3
     return (b_ms, "bytes") if b_ms >= f_ms else (f_ms, "operations")
+
+
+def gram_ops(n_obs, B):
+    """Float operations of the f32 Gram and correlations over ``n_obs``
+    weighted observations of B bands (the upper Gram, B x 8 products and
+    sums, the count)."""
+    return n_obs * (36 * 2 + B * 17 + 1)
+
+
+def mixed_dot_ops(n_obs, B):
+    """Tensor-core operations of the mixed Gram and correlations over
+    ``n_obs`` weighted observations: the Gram's two split terms (its 36
+    distinct entries) and the B bands' three split terms (8 each), a
+    product and a sum each."""
+    return n_obs * (2 * 36 * 2 + 3 * B * 8 * 2)
 
 
 def nbytes(*ts):
@@ -239,12 +295,13 @@ def window_sizes(inp):
     return torch.where(has_i & has_w & inp["in_init"], n, torch.zeros_like(n))
 
 
-def kernel_phase(inp, staged, reps, seed, ring=True):
+def kernel_phase(inp, staged, reps, seed, ring=True, mixed=False):
     """Every kernel at full width on ``inp``'s round states (its sensor's
     band layout), held to its plain version, then timed beside it; the
-    ring's row only where ``ring``.  Returns the rows by kernel and the
-    phase's report (each kernel's count of pixels whose decisions differ
-    from the plain version's under ``disagreeing_pixels``)."""
+    ring's row only where ``ring``; where ``mixed``, the fitting kernels'
+    mixed instances too (:func:`mixed_rows`).  Returns the rows by kernel
+    and the phase's report (each kernel's count of pixels whose decisions
+    differ from the plain version's under ``disagreeing_pixels``)."""
     C, B, T, P = inp["Yt"].shape
     sensor = inp["sensor"]
     rows, report = [], {}
@@ -269,7 +326,7 @@ def kernel_phase(inp, staged, reps, seed, ring=True):
     fl = nnz * (36 * 2 + B * 17 + 1) + n_fit * B * 50 * 8 * 20 \
         + nnz * B * 19
     by = nnz * B * 2 + nbytes(inp["w"], inp["X"], inp["coefmask"], *got)
-    rows.append(("lasso_fit", a, {}, err, rel, fl, by))
+    rows.append(("lasso_fit", a, {}, err, rel, fl, by, dict(fit_obs=nnz)))
 
     # ---- monitor_chain_scored ----
     a = (inp["Yd"], inp["coefs_d"], inp["dden"], inp["X"], inp["alive"],
@@ -311,36 +368,50 @@ def kernel_phase(inp, staged, reps, seed, ring=True):
     report["init_window_verdict_disagreement"] = verdict
     err = max(float((got[k].int() - want[k].int()).abs().max()) for k in want)
     fl, by = init_work(inp, a, got)
-    rows.append(("init_window", a, kw_init, err, 0.0, fl, by))
+    rows.append(("init_window", a, kw_init, err, 0.0, fl, by,
+                 dict(fit_obs=float(window_sizes(inp).sum()))))
     report["init_window_late_round"] = init_late_round(inp, a, kw_init, seed,
                                                        reps)
     rows += fused_rows(inp, mon, init, kw_mon, report)
     rows += component_rows(inp, kw_mon, report)
     rows.append(mega_row(staged, inp["W"], kw_mon, report, sensor))
+    if mixed:
+        rows += mixed_rows(inp, mon, init, kw_mon, report, rows)
+        rows.append(mega_row(staged, inp["W"], kw_mon, report, sensor,
+                             mixed=True))
     if ring:
         rows.append(ring_row(seed, T, inp["Yt"].device, report))
 
     out = {}
     for name, args, kw, err, rel, fl, by, *timing in rows:
-        tm = dict(reps=reps, plain_reps=max(reps // 4, 3), plain_warm=1)
+        tm = dict(reps=reps, plain_reps=max(reps // 4, 3), plain_warm=1,
+                  tensor_flops=0.0)
         tm.update(*timing)
-        ms = cuda_ms(lambda: getattr(cuda_ops.KERNELS, name)(*args, **kw),
+        src = cuda_ops.source_of(name)
+        ms = cuda_ms(lambda: getattr(cuda_ops.KERNELS, src)(*args, **kw),
                      tm["reps"])
-        plain_ms = cuda_ms(lambda: getattr(cuda_ops.PLAIN, name)(*args, **kw),
+        plain_ms = cuda_ms(lambda: getattr(cuda_ops.PLAIN, src)(*args, **kw),
                            tm["plain_reps"], tm["plain_warm"])
         lib = tm.get("library")
         library_ms = None if lib is None else cuda_ms(lib, tm["reps"])
-        b_ms, b_by = bound(by, fl)
+        b_ms, b_by = bound(by, fl, tm["tensor_flops"])
         out[name] = dict(name=name, route="cuda",
-                         source=f"firebird_tpu_torch/csrc/{name}.cu",
-                         replaces=KERNEL_INFO[name], max_abs_err=err,
+                         source=f"firebird_tpu_torch/csrc/{src}.cu",
+                         replaces=KERNEL_INFO[src], max_abs_err=err,
                          max_rel_err=rel, ms=ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=library_ms, bytes=by, flops=fl)
+                         library_ms=library_ms, bytes=by, flops=fl,
+                         tensor_flops=tm["tensor_flops"])
+        f32 = ""
+        if name != src:
+            out[name]["f32_ms"] = out[src]["ms"]
+            out[name].update(report["mixed"][name])
+            f32 = (f"; f32 instance {out[src]['ms']:.3f} ms; pixels outside "
+                   f"the ulp budget {report['mixed'][name]['pixels_outside']}")
         print(f"kernel {name} ({sensor.name}, {B} bands): {ms:.3f} ms (plain "
               f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}, library "
               f"{library_ms} ms), max abs err {err}, max rel err {rel}, "
-              f"pixels disagreeing {dis.get(name)}", flush=True)
+              f"pixels disagreeing {dis.get(name)}{f32}", flush=True)
     return out, report
 
 
@@ -508,7 +579,8 @@ def fused_rows(inp, mon, init, kw_mon, report):
           + float(do_fit.sum()) * T * 4 + float(close.sum()) * T
           + n_rows * row_bytes + vec_bytes + C * P * (B * 4 + 4 * 7)
           + nbytes(inp["X"], inp["t"]))
-    rows.append(("fused_fit_close", a + (clone(),), {}, err, rel, fl, by))
+    rows.append(("fused_fit_close", a + (clone(),), {}, err, rel, fl, by,
+                 dict(fit_obs=float((w_fit * do_fit[:, None, :]).sum()))))
 
     # ---- fused_round ----
     a = (inp["Yt"], inp["X"], inp["t"], inp["alive"], inp["included"],
@@ -562,7 +634,134 @@ def fused_rows(inp, mon, init, kw_mon, report):
                + (B - 5) * float(fit_obs.sum()))
           + float(init_ok.sum()) * T + 4 * C * T * P + n_rows * row_bytes
           + vec_bytes + C * P * (B * 4 + 4 * 12) + nbytes(inp["X"], inp["t"]))
-    rows.append(("fused_round", a + (clone(),), kw_round, err, rel, fl, by))
+    rows.append(("fused_round", a + (clone(),), kw_round, err, rel, fl, by,
+                 dict(fit_obs=float(fit_obs.sum()))))
+    return rows
+
+
+EPS32 = 2.0 ** -23
+# The decision columns of a segment's meta row: sday, eday, bday, curqa,
+# nobs (chprob is a ratio of counts the budget does not cover).
+DECISION_META_COLS = (0, 1, 2, 4, 5)
+
+
+def scaled_ulps(got, want, vector=False):
+    """params.MIXED_ULP_BUDGET's metric: |got - want| / (eps32 * scale),
+    scale max(|want|, 1), or with ``vector`` max(|coefficient vector|, 1)
+    (the last axis)."""
+    want = want.double()
+    scale = (want.abs().amax(-1, keepdim=True) if vector
+             else want.abs()).clamp_min(1.0)
+    return (got.double() - want).abs() / (EPS32 * scale)
+
+
+def budget_report(name, coefs, rmses, report, where=None):
+    """Holds a mixed kernel's (coefficients [C,P,...,B,8], RMSE [C,P,...])
+    to its plain mixed version's (each a (kernel, plain) pair) within
+    MIXED_ULP_BUDGET scaled ulps on at least 0.999 of the pixels [C,P]
+    (``where``: those pixels only); records and prints the count outside
+    and the largest drifts."""
+    cu = scaled_ulps(*coefs, vector=True)
+    ru = scaled_ulps(*rmses)
+    C, P = cu.shape[:2]
+    sel = (torch.ones(C, P, dtype=torch.bool, device=cu.device)
+           if where is None else where)
+    bad = ((cu.reshape(C, P, -1) > params.MIXED_ULP_BUDGET).any(-1)
+           | (ru.reshape(C, P, -1) > params.MIXED_ULP_BUDGET).any(-1)) & sel
+    within = 1.0 - float(bad.sum()) / max(float(sel.sum()), 1.0)
+    r = report["mixed"][name] = dict(
+        pixels_outside=int(bad.sum()), within_budget=within,
+        max_coef_ulps=float(cu.reshape(C, P, -1)[sel].max()),
+        max_rmse_ulps=float(ru.reshape(C, P, -1)[sel].max()))
+    print(f"{name} vs its plain mixed version: {r}", flush=True)
+    check(within >= 0.999, f"{name}: {int(bad.sum())} pixels outside "
+          f"{params.MIXED_ULP_BUDGET} scaled ulps, {within} < 0.999")
+    return bad
+
+
+def mixed_rows(inp, mon, init, kw_mon, report, f32_rows):
+    """The mixed-precision instances of lasso_fit, init_window,
+    fused_fit_close and fused_round on the kernel phase's inputs (those of
+    their f32 rows), each against its plain mixed version: the exact fields
+    equal, the coefficients and RMSE within MIXED_ULP_BUDGET scaled ulps
+    on at least 0.999 of the pixels (:func:`budget_report`).  Their bounds
+    count the split dots at the bf16 tensor rate, the rest at the float32
+    rate."""
+    B = inp["Yt"].shape[1]
+    report["mixed"] = {}
+    dis = report["disagreeing_pixels"]
+    f32 = {r[0]: r for r in f32_rows}
+    rows = []
+
+    def row(name, pairs, bad, n_obs, nb=B):
+        src = cuda_ops.source_of(name)
+        _, args, kw, _, _, fl, by, tm = f32[src]
+        dis[name] = int(bad.sum())
+        err = max((float((g - w).abs().max()) for g, w in pairs), default=0.0)
+        rel = max((float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                   for g, w in pairs), default=0.0)
+        return (name, args, dict(kw, mixed=True), err, rel,
+                fl - gram_ops(n_obs, nb), by,
+                dict(tensor_flops=mixed_dot_ops(n_obs, nb)))
+
+    mx = dict(mixed=True)
+    a = f32["lasso_fit"][1]
+    got = cuda_ops.lasso_fit(*a, **mx)
+    want = cuda_ops.lasso_fit_plain(*a, **mx)
+    torch.cuda.synchronize()
+    bad = budget_report("lasso_fit_mixed", (got[0], want[0]),
+                        (got[1], want[1]), report)
+    rows.append(row("lasso_fit_mixed", list(zip(got, want)), bad,
+                    f32["lasso_fit"][7]["fit_obs"]))
+
+    a, kw = f32["init_window"][1:3]
+    got = cuda_ops.init_window(*a, **kw, **mx)
+    want = cuda_ops.init_window_plain(*a, **kw, **mx)
+    torch.cuda.synchronize()
+    for k in INIT_EXACT:
+        n_diff = int((got[k] != want[k]).sum())
+        check(n_diff == 0, f"init_window_mixed {k}: {n_diff} differ")
+    bad = (got["init_ok"] != want["init_ok"]) | (
+        got["init_bad"] != want["init_bad"])
+    report["mixed"]["init_window_mixed"] = dict(
+        pixels_outside=int(bad.sum()),
+        verdict_disagreement=float(bad.float().mean()))
+    check(float(bad.float().mean()) <= 1e-3,
+          f"init_window_mixed stability verdicts: {int(bad.sum())} differ")
+    rows.append(row("init_window_mixed", [], bad,
+                    f32["init_window"][7]["fit_obs"], nb=5))
+
+    clone = lambda: tuple(b.clone() for b in inp["bufs"])
+    a = f32["fused_fit_close"][1][:-1]
+    got = cuda_ops.fused_fit_close(*a, clone(), **mx)
+    want = cuda_ops.fused_fit_close_plain(*a, clone(), **mx)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        check(torch.equal(g, w), f"fused_fit_close_mixed buffer {i} differs")
+    check(torch.equal(got[1], want[1]), "fused_fit_close_mixed nseg differs")
+    bad = budget_report("fused_fit_close_mixed", (got[2], want[2]),
+                        (got[3], want[3]), report)
+    rows.append(row("fused_fit_close_mixed", list(zip(got[2:], want[2:])),
+                    bad, f32["fused_fit_close"][7]["fit_obs"]))
+
+    a, kw = f32["fused_round"][1][:-1], f32["fused_round"][2]
+    got = cuda_ops.fused_round(*a, clone(), **kw, **mx)
+    want = cuda_ops.fused_round_plain(*a, clone(), **kw, **mx)
+    torch.cuda.synchronize()
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        if i == 2:
+            torch.testing.assert_close(
+                g, w, **MAG_TOL, msg=lambda m: f"fused_round_mixed seg_mag: {m}")
+        else:
+            check(torch.equal(g, w), f"fused_round_mixed buffer {i} differs")
+    check(torch.equal(got[1], want[1]), "fused_round_mixed nseg differs")
+    for k in want[4]:
+        n_diff = int((got[4][k] != want[4][k]).sum())
+        check(n_diff == 0, f"fused_round_mixed {k}: {n_diff} differ")
+    bad = budget_report("fused_round_mixed", (got[2], want[2]),
+                        (got[3], want[3]), report)
+    rows.append(row("fused_round_mixed", list(zip(got[2:4], want[2:4])),
+                    bad, f32["fused_round"][7]["fit_obs"]))
     return rows
 
 
@@ -628,15 +827,19 @@ def component_rows(inp, kw_mon, report):
     return rows
 
 
-def mega_row(staged, W, kw_mon, report, sensor):
+def mega_row(staged, W, kw_mon, report, sensor, mixed=False):
     """``detect_mega`` at full width: one launch on the prologue state of
     the main path's batch, against its plain lockstep loop (one run: it
     takes seconds).  The kernel sums its fits' Grams in another order than
     the plain einsum, so the two are held to decision agreement >= 0.999
     (printed) and, on the pixels that agree, the float fields to the fit
-    envelope.  The operations bound sums the INIT, monitor and fit work of
-    the plain run's rounds; the bytes bound counts the spectra and state
-    once and the result buffers at the slots written."""
+    envelope (``mixed``: its mixed instance against the plain mixed loop,
+    the coefficients and RMSE within MIXED_ULP_BUDGET scaled ulps).  The
+    operations bound sums the INIT, monitor and fit work of the plain
+    run's rounds (mixed: the split dots at the bf16 tensor rate); the bytes
+    bound counts the spectra and state once and the result buffers at the
+    slots written."""
+    name = cuda_ops.unit_of("detect_mega", mixed)
     days, n_obs, spectra, qa = staged
     X, Xt, t, valid = kernel.device_designs(days, n_obs)
     Yt = spectra.transpose(2, 3).contiguous()
@@ -650,20 +853,23 @@ def mega_row(staged, W, kw_mon, report, sensor):
     clone = lambda: tuple(b.clone() for b in st["bufs"])
     a = (Yt, st["phase"], st["cur_i"], st["alive"], st["nseg"])
     tail = (t, X, Xt, res["vario"])
-    kw = dict(W=W, sensor=sensor, **kw_mon)
+    kw = dict(W=W, sensor=sensor, mixed=mixed, **kw_mon)
     got = cuda_ops.detect_mega(*a, clone(), *tail, **kw)
     work = dict(init=0.0, monitor=0.0, fit=0.0)
+    obs = dict(init=0.0, fit=0.0)
 
     def count(s, init, ev):
         in_init = s["phase"] == kernel.PHASE_INIT
         n = window_sizes(dict(alive=s["alive"], t=t, cur_i=s["cur_i"],
                               in_init=in_init)).double()
         work["init"] += init_flops(n[n > 0])
+        obs["init"] += float(n.sum())
         in_mon = s["phase"] == kernel.PHASE_MONITOR
         work["monitor"] += float((s["alive"] & in_mon[:, None, :]).sum()) * 5 * 19
         w = torch.where(init["init_ok"][:, None, :], init["w_stab"],
                         ev["included_mon"] & ev["is_refit"][:, None, :])
         work["fit"] += fit_flops(w.float(), ev["do_fit"], B)
+        obs["fit"] += float((w & ev["do_fit"][:, None, :]).sum())
 
     want = cuda_ops.detect_mega_plain(*a, clone(), *tail, **kw,
                                       on_round=count)
@@ -673,32 +879,41 @@ def mega_row(staged, W, kw_mon, report, sensor):
         mask=o["alive"].transpose(1, 2))
     same = agreeing(view(got), view(want))
     agree, n_dis = float(same.float().mean()), int((~same).sum())
-    print(f"detect_mega vs its plain loop: decision agreement {agree} "
+    print(f"{name} vs its plain loop: decision agreement {agree} "
           f"({n_dis} pixels differ), rounds {got['rounds'].tolist()} / "
           f"{want['rounds'].tolist()}", flush=True)
-    check(agree >= 0.999, f"detect_mega decision agreement {agree} < 0.999")
+    check(agree >= 0.999, f"{name} decision agreement {agree} < 0.999")
     err = rel = 0.0
     bad = ~same
     for k in ("rmse", "mag", "coef"):
         tol = MAG_TOL if k == "mag" else FIT_TOL
-        bad |= check_floats(f"detect_mega {k}", [(got[k], want[k])], tol,
-                            sensor, where=same)
+        if k == "mag" or not mixed:
+            bad |= check_floats(f"{name} {k}", [(got[k], want[k])], tol,
+                                sensor, where=same)
         g, w = got[k][same], want[k][same]
         e = float((g - w).abs().max())
         err, rel = max(err, e), max(rel, e / max(float(w.abs().max()), 1e-30))
-    report["disagreeing_pixels"]["detect_mega"] = int(bad.sum())
-    report["detect_mega"] = dict(
+    if mixed:
+        bad |= budget_report(name, (got["coef"], want["coef"]),
+                             (got["rmse"], want["rmse"]), report, where=same)
+        report["mixed"][name].update(decision_agreement=agree,
+                                     pixels_outside=int(bad.sum()))
+    report["disagreeing_pixels"][name] = int(bad.sum())
+    report[name] = dict(
         decision_agreement=agree, pixels_disagreeing=n_dis,
         rounds=got["rounds"].tolist(), rounds_plain=want["rounds"].tolist(),
         counts=got["counts"].tolist(), counts_plain=want["counts"].tolist(),
-        flops=work)
+        flops=work, fit_obs=obs)
     row_bytes = (6 + 2 * B + B * 8) * 4
     n_rows = float((got["nseg"].clamp_max(S) - st["nseg"].clamp_max(S)).sum())
     by = (nbytes(*a, *tail, got["nseg"], got["rounds"]) + C * T * P
           + n_rows * row_bytes + C * 3 * (2 * T + 8) * 4)
-    return ("detect_mega", a + (clone(),) + tail, kw, err, rel,
-            sum(work.values()), by,
-            dict(reps=3, plain_reps=1, plain_warm=0))
+    fl, tensor = sum(work.values()), 0.0
+    if mixed:
+        fl -= gram_ops(obs["fit"], B) + gram_ops(obs["init"], 5)
+        tensor = mixed_dot_ops(obs["fit"], B) + mixed_dot_ops(obs["init"], 5)
+    return (name, a + (clone(),) + tail, kw, err, rel, fl, by,
+            dict(reps=3, plain_reps=1, plain_warm=0, tensor_flops=tensor))
 
 
 def ring_row(seed, T, dev, report, chips=4, bucket=2048):
@@ -827,7 +1042,7 @@ def route_path(packed, staged, smi, name, label=""):
           f"route {name!r} launched {sorted(launched)}, expected "
           f"{sorted(expect)}")
     refused = dict(cuda_ops.REFUSED)
-    if name == "mega":
+    if kw["pallas"] == "mega":
         # The shape is the card's (cuda_ops.mega_fits): no dispatch fell
         # back to the round loop; one prologue lasso_fit and one
         # detect_mega a dispatch.
@@ -835,9 +1050,11 @@ def route_path(packed, staged, smi, name, label=""):
               and refused["detect_mega"] == 0,
               f"mega route: T={T}, W={kernel.window_cap(packed)} refused "
               f"({refused})")
-        check(launches["detect_mega"] == launches["lasso_fit"],
-              f"mega route: {launches['detect_mega']} detect_mega launches "
-              f"for {launches['lasso_fit']} dispatches")
+        mega, fit = (cuda_ops.unit_of(k, kw["mixed"])
+                     for k in ("detect_mega", "lasso_fit"))
+        check(launches[mega] == launches[fit],
+              f"route {name!r}: {launches[mega]} {mega} launches for "
+              f"{launches[fit]} dispatches")
     check_result(seg, C, P, T)
     occ = occupancy_summary(seg, P) if kw.get("compact") else None
     if occ is not None:
@@ -1085,9 +1302,9 @@ def ptxas_report(T, smi):
     """Every kernel instance's registers, stack and spills, and the tile
     kernels' shared memory at ``T`` (printed; returned by source)."""
     out = {}
-    for name in cuda_ops.SOURCES:
+    for name in cuda_ops.UNITS:
         out[name] = ptxas_summary(name)
-        smem = TILE_SMEM.get(name)
+        smem = TILE_SMEM.get(cuda_ops.source_of(name))
         for key, v in out[name].items():
             if smem is not None:
                 v["dynamic_smem_bytes_at_T"] = smem(T)
@@ -1117,6 +1334,17 @@ def redesign_report(kernels, paths, T, smi, nb=7):
                          smem_bytes=TILE_SMEM[name](T), ms=row["ms"],
                          bound_ms=row["bound_ms"])
         print(f"{name} (redesigned) on {smi}: {out[name]}", flush=True)
+    # The mixed instances (their shared memory is the f32 instances').
+    geo = cuda_ops.kernel_geometry(T, nb, mixed=True)
+    geo["lasso_fit"] = dict(smem_bytes=TILE_SMEM["lasso_fit"](T))
+    for name in cuda_ops.MIXED_SOURCES:
+        unit = cuda_ops.unit_of(name, True)
+        out[unit] = dict(instances=ptxas_summary(unit), geometry=geo[name])
+        if unit in kernels:
+            out[unit].update(ms=kernels[unit]["ms"],
+                             bound_ms=kernels[unit]["bound_ms"],
+                             f32_ms=kernels[name]["ms"])
+        print(f"{unit} ({nb} bands) on {smi}: {out[unit]}", flush=True)
     ring = kernels.get("ring_remote_copy")
     if ring is not None:
         rate = out["ring_remote_copy"]
@@ -1128,7 +1356,9 @@ def redesign_report(kernels, paths, T, smi, nb=7):
               f"({ring['library_ms']:.3f} ms), peak {HBM_BYTES_S / 1e12} "
               f"TB/s", flush=True)
     walls = {r: (paths[r]["seconds"], paths[r]["seconds_again"])
-             for r in ("0", "1", "mon", "mega")}
+             for r in ("0", "1", "mon", "mega") + tuple(
+                 r + MIXED for r in ("0", "1", "mon", "mega"))
+             if r in paths}
     out["walls"] = walls
     print(f"walls (first run, again) on {smi}: " + ", ".join(
         f"route {r!r} {a:.3f} / {b:.3f} s" for r, (a, b) in walls.items()),
@@ -1136,24 +1366,143 @@ def redesign_report(kernels, paths, T, smi, nb=7):
     return out
 
 
+def mixed_vs_f32(mx, f32, label=""):
+    """A mixed route's result against the same route's f32 result: the
+    fraction of pixels whose decisions agree (at least 0.999), the count
+    that do not, and the largest scaled-ulp drift of the agreeing pixels'
+    segment coefficients and RMSE (printed)."""
+    same = agreeing(mx, f32)
+    agree, n_dis = float(same.float().mean()), int((~same).sum())
+    coef = float(scaled_ulps(mx.seg_coef, f32.seg_coef, vector=True)[same]
+                 .max())
+    rmse = float(scaled_ulps(mx.seg_rmse, f32.seg_rmse)[same].max())
+    print(f"{label}mixed route '0' vs f32 route '0': decision agreement "
+          f"{agree} ({n_dis} pixels differ), largest drift {coef} coef / "
+          f"{rmse} rmse scaled ulps (budget {params.MIXED_ULP_BUDGET})",
+          flush=True)
+    check(agree >= 0.999, f"{label}mixed vs f32: decision agreement {agree}")
+    return dict(decision_agreement=agree, pixels_disagreeing=n_dis,
+                max_coef_ulps=coef, max_rmse_ulps=rmse)
+
+
+# The threshold-fuzz chip of tests/test_precision.py: 32 pixels of a
+# 1995-1997 archive whose change scores sit at the detection threshold.
+FUZZ_SEED = 11
+FUZZ_P = 32
+
+
+def fuzz_packed(seed=FUZZ_SEED):
+    """tests/test_precision.py's threshold-fuzz chip, from the port's copy
+    of the synthetic series: breaks, spikes, a ladder of marginal steps
+    bracketing the detection threshold, an init-starved pixel and fill
+    (tests/test_torch_mixed_routes.py holds it to the JAX package's)."""
+    rng = np.random.default_rng(seed)
+    t = synthetic.acquisition_dates("1995-01-01", "1997-06-01", 16)
+    T = t.shape[0]
+    px = []
+    for i in range(8):
+        Y = synthetic.harmonic_series(t, rng)
+        if i % 2 == 0:
+            Y[:, T // 2:] += 800.0
+        if i % 3 == 0:
+            Y[:, rng.integers(0, T)] += 2500
+        px.append((Y, np.full(T, synthetic.QA_CLEAR, np.uint16)))
+    for i in range(8):
+        Y = synthetic.harmonic_series(t, rng)
+        Y[:, T // 2:] += 85.0 + 6.0 * i
+        px.append((Y, np.full(T, synthetic.QA_CLEAR, np.uint16)))
+    qs = np.full(T, synthetic.QA_CLOUD, np.uint16)
+    qs[:: max(T // 5, 1)] = synthetic.QA_CLEAR
+    px.append((synthetic.harmonic_series(t, rng), qs))
+    while len(px) < FUZZ_P:
+        px.append((np.full((7, T), params.FILL_VALUE, np.float64),
+                   np.full(T, synthetic.QA_FILL, np.uint16)))
+    px = [px[i] for i in rng.permutation(FUZZ_P)]
+    Ys, qas = zip(*px)
+    spectra = np.stack([np.asarray(Y, np.int16) for Y in Ys])
+    return PackedChips(cids=np.zeros((1, 2), np.int64),
+                       dates=t[None].astype(np.int32),
+                       spectra=spectra.transpose(1, 0, 2)[None],
+                       qas=np.stack(qas)[None],
+                       n_obs=np.array([T], np.int32))
+
+
+def fuzz_phase(dev):
+    """The threshold-fuzz chip on the card (tools/precision_smoke.py's
+    contract): on routes 0, 1, "mon" and mega, mixed against f32 with
+    identical decisions (segment counts, masks, procedures, rounds, meta
+    columns 0, 1, 2, 4, 5) and the coefficients and RMSE within
+    MIXED_ULP_BUDGET scaled ulps."""
+    packed = fuzz_packed()
+    out = {}
+    for name in ("0", "1", "mon", "mega"):
+        kw = {k: v for k, v in ROUTES[name][0].items() if k != "mixed"}
+        f32 = kernel.detect_packed(packed, device=dev, mixed=False, **kw)
+        mx = kernel.detect_packed(packed, device=dev, mixed=True, **kw)
+        for f in ("n_segments", "mask", "procedure", "rounds"):
+            check(torch.equal(getattr(mx, f), getattr(f32, f)),
+                  f"fuzz chip route {name!r}: mixed {f} differs from f32")
+        cols = list(DECISION_META_COLS)
+        check(torch.equal(mx.seg_meta[..., cols], f32.seg_meta[..., cols]),
+              f"fuzz chip route {name!r}: mixed meta differs from f32")
+        coef = float(scaled_ulps(mx.seg_coef, f32.seg_coef, True).max())
+        rmse = float(scaled_ulps(mx.seg_rmse, f32.seg_rmse).max())
+        out[name] = dict(max_coef_ulps=coef, max_rmse_ulps=rmse,
+                         segments=int(mx.n_segments.sum()))
+        print(f"fuzz chip route {name!r}: mixed decisions identical to f32, "
+              f"drift {coef} coef / {rmse} rmse scaled ulps (budget "
+              f"{params.MIXED_ULP_BUDGET})", flush=True)
+        check(max(coef, rmse) <= params.MIXED_ULP_BUDGET,
+              f"fuzz chip route {name!r}: drift over the budget")
+    return out
+
+
+# The tensor-core instruction the mixed instances' split dots compile to.
+HMMA = "HMMA"
+
+
+def sass_report(libs):
+    """The count of HMMA (tensor-core mma) instructions in each fitting
+    kernel's built library (``cuobjdump -sass``): at least one in every
+    mixed instance, none in the f32 instances."""
+    exe = next((p for p in (shutil.which("cuobjdump"),
+                            "/usr/local/cuda/bin/cuobjdump") if p
+                and Path(p).exists()), None)
+    check(exe is not None, "cuobjdump not found: the SASS check needs it")
+    out = {}
+    for unit, path in libs.items():
+        if cuda_ops.source_of(unit) not in cuda_ops.MIXED_SOURCES:
+            continue
+        sass = subprocess.run([exe, "-sass", str(path)], capture_output=True,
+                              text=True, check=True).stdout
+        out[unit] = sass.count(HMMA)
+        mixed = unit != cuda_ops.source_of(unit)
+        check((out[unit] > 0) == mixed,
+              f"{unit}: {out[unit]} {HMMA} instructions in its SASS")
+    print(f"SASS {HMMA} counts: {out}", flush=True)
+    return out
+
+
 # The Sentinel-2 path: bench.py's Sentinel-2 rung (BASELINE.json config
 # #5), one 300 x 300-pixel chip of 12 bands at full width, T = 64.
 S2_SOURCE = dict(seed=11, start="2019-01-01", end="2021-01-01",
                  cloud_frac=0.15, sensor=SENTINEL2)
-S2_ROUTES = ("0", "1", "mon", "mega", COMPONENTS)
+S2_ROUTES = ("0", "1", "mon", "mega", COMPONENTS, "0" + MIXED, "mon" + MIXED)
 # The kernels whose band layout is the sensor's (their 12-band instances).
 S2_KERNELS = ("lasso_fit", "init_window", "fused_fit_close", "fused_round",
               "lasso_cd", "detect_mega")
 
 
 def sentinel2_phase(smi, reps, dev):
-    """The Sentinel-2 path: every kernel on the chip's round states at 12
-    bands, held to its plain version (the count of disagreeing pixels
-    printed) and timed; then routes 0, 1, "mon", mega and the component
-    route through the card, each with its launches read around it and
-    against its plain route, held to the Landsat paths' rules (route 1 =
-    route 0, "mon" = route 0 but seg_mag, mega = "mon" but the per-chip
-    rounds, the component route >= 0.999 of route 0's decisions)."""
+    """The Sentinel-2 path: every kernel (and the fitting kernels' mixed
+    instances) on the chip's round states at 12 bands, held to its plain
+    version (the count of disagreeing pixels printed) and timed; then
+    routes 0, 1, "mon", mega, the component route, "0+mixed" and
+    "mon+mixed" through the card, each with its launches read around it
+    and against its plain route, held to the Landsat paths' rules (route 1
+    = route 0, "mon" = route 0 but seg_mag, mega = "mon" but the per-chip
+    rounds, the component route >= 0.999 of route 0's decisions, "mon+mixed"
+    = "0+mixed" but seg_mag, "0+mixed" >= 0.999 of route 0's)."""
     t0 = time.perf_counter()
     src = SyntheticSource(**S2_SOURCE)
     packed = pack([src.chip(100, 200)], bucket=64)
@@ -1165,7 +1514,7 @@ def sentinel2_phase(smi, reps, dev):
     inp = kernel_inputs(S2_SOURCE["seed"], staged, kernel.window_cap(packed),
                         SENTINEL2)
     kernels, kreport = kernel_phase(inp, staged, reps, S2_SOURCE["seed"],
-                                    ring=False)
+                                    ring=False, mixed=True)
     del inp
     torch.cuda.empty_cache()
     paths, segs = {}, {}
@@ -1174,10 +1523,13 @@ def sentinel2_phase(smi, reps, dev):
                                              "sentinel2 ")
     for name, base, allowed in (
             ("1", "0", ()), ("mon", "0", ("seg_mag",)),
-            ("mega", "mon", ("rounds", "round_counts", "seg_mag"))):
+            ("mega", "mon", ("rounds", "round_counts", "seg_mag")),
+            ("mon" + MIXED, "0" + MIXED, ("seg_mag",))):
         paths[name][f"vs_route_{base}"] = compare_routes(
             segs[name], segs[base],
             f"sentinel2 route {name!r} vs route {base!r}", allowed)
+    paths["0" + MIXED]["vs_route_0"] = mixed_vs_f32(
+        segs["0" + MIXED], segs["0"], "sentinel2 ")
     check(int(segs["mega"].rounds.max()) == int(segs["0"].rounds[0]),
           f"sentinel2 mega rounds {segs['mega'].rounds.tolist()} against "
           f"route 0's {int(segs['0'].rounds[0])}")
@@ -1219,6 +1571,7 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s ({', '.join(p.name for p in libs.values())})",
           flush=True)
+    sass = sass_report(libs)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1226,7 +1579,8 @@ def main(argv=None):
     print(f"batch: {packed.spectra.shape} int16 made in {gen_s:.1f} s",
           flush=True)
     inp = kernel_inputs(args.seed, staged, kernel.window_cap(packed))
-    kernels, kreport = kernel_phase(inp, staged, args.reps, args.seed)
+    kernels, kreport = kernel_phase(inp, staged, args.reps, args.seed,
+                                    mixed=True)
     del inp
     torch.cuda.empty_cache()
     paths, segs = {}, {}
@@ -1255,10 +1609,24 @@ def main(argv=None):
     # Compaction leaves every result field as it was.
     paths["0+compact"]["vs_route_0"] = compare_routes(
         segs["0+compact"], segs["0"], "route '0+compact' vs route '0'", ())
+    # The mixed routes: the same identities, and route 0's decisions.
+    for name, base, allowed in (
+            ("1", "0", ()), ("mon", "0", ("seg_mag",)),
+            ("mega", "mon", ("rounds", "round_counts", "seg_mag"))):
+        paths[name + MIXED][f"vs_route_{base}{MIXED}"] = compare_routes(
+            segs[name + MIXED], segs[base + MIXED],
+            f"route {name + MIXED!r} vs route {base + MIXED!r}", allowed)
+    check(int(segs["mega" + MIXED].rounds.max())
+          == int(segs["0" + MIXED].rounds[0]),
+          f"mixed mega rounds {segs['mega' + MIXED].rounds.tolist()} against "
+          f"mixed route 0's {int(segs['0' + MIXED].rounds[0])}")
+    paths["0" + MIXED]["vs_route_0"] = mixed_vs_f32(segs["0" + MIXED],
+                                                    segs["0"])
     del segs
     torch.cuda.empty_cache()
     paths["sharded"] = sharded_path(ragged_batch(packed), smi)
     small = small_input(args.seed, dev)
+    fuzz = fuzz_phase(dev)
     for name, row in kernels.items():
         row["launches"] = paths[HOME_ROUTE[name]]["launches"][name]
     redesign = redesign_report(kernels, paths, packed.spectra.shape[-1], smi)
@@ -1268,14 +1636,15 @@ def main(argv=None):
     instances = ptxas_report(paths["0"]["T"], smi)
 
     ptxas = {n: (cuda_ops.BUILD_DIR / f"{n}.ptxas.txt").read_text()
-             for n in cuda_ops.SOURCES
+             for n in cuda_ops.UNITS
              if (cuda_ops.BUILD_DIR / f"{n}.ptxas.txt").exists()}
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
         device=smi, torch=torch.__version__, cuda=torch.version.cuda,
-        build_seconds=build_s, kernels=kernels, kernel_report=kreport,
-        main_paths=paths, small_input=small, redesign=redesign,
+        build_seconds=build_s, sass_hmma=sass, kernels=kernels,
+        kernel_report=kreport, main_paths=paths, small_input=small,
+        fuzz_chip=fuzz, redesign=redesign,
         sentinel2=s2, ptxas_instances=instances, ptxas=ptxas,
         seconds=time.perf_counter() - t_start), indent=1))
 

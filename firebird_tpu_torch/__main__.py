@@ -2,7 +2,8 @@
 
     python -m firebird_tpu_torch detect --chips N --start 1985-01-01 \\
         --end 2017-12-31 [--seed S] [--sensor landsat-ard] [--device cuda] \\
-        [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--shards N]
+        [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--mixed {0,1}] \\
+        [--shards N]
 
 ``detect`` runs SyntheticSource -> pack -> detect_packed -> batch_frames
 on the device (CUDA unless ``--device cpu``) and prints one JSON summary:
@@ -14,7 +15,9 @@ list such as ``lasso,monitor,tmask``, or ``mega``); without it
 FIREBIRD_PALLAS decides.  ``--fused`` picks the round route
 (kernel.fused_mode); without it FIREBIRD_FUSED_FIT decides.  ``--compact``
 turns active-lane compaction on or off (kernel.compact_mode); without it
-FIREBIRD_COMPACT decides (unset: on).  ``--shards N`` runs
+FIREBIRD_COMPACT decides (unset: on).  ``--mixed 1`` runs the fitting
+kernels' mixed-precision Gram (kernel.pallas_components); without it
+FIREBIRD_MIXED_PRECISION decides (unset: off).  ``--shards N`` runs
 parallel.detect_sharded over N shards laid round-robin over the visible
 cards (N shards on the CPU with ``--device cpu``); FIREBIRD_REBALANCE
 turns its rebalancing ring on.
@@ -44,7 +47,8 @@ def detect(args) -> dict:
     t_pack = time.perf_counter()
     fused = None if args.fused is None else {"0": 0, "1": 1,
                                              "mon": "mon"}[args.fused]
-    route = kernel.pallas_components(args.pallas)
+    route = kernel.pallas_components(
+        args.pallas, mixed=None if args.mixed is None else args.mixed == "1")
     compact = None if args.compact is None else args.compact == "1"
     if args.shards:
         devices = ([dev] * args.shards if dev.type == "cpu" else
@@ -68,7 +72,7 @@ def detect(args) -> dict:
         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu"),
         route=kernel.fused_mode(fused),
-        pallas=list(route.components),
+        pallas=list(route.components), mixed=route.mixed,
         compact=kernel.compact_mode(compact), shards=args.shards or 1,
         lanes_migrated=(None if seg.lanes_migrated is None
                         else int(seg.lanes_migrated.sum())),
@@ -105,6 +109,9 @@ def main(argv=None) -> None:
     d.add_argument("--compact", default=None, choices=("0", "1"),
                    help="active-lane compaction (default: FIREBIRD_COMPACT, "
                         "unset = 1)")
+    d.add_argument("--mixed", default=None, choices=("0", "1"),
+                   help="the fitting kernels' mixed-precision Gram (default: "
+                        "FIREBIRD_MIXED_PRECISION, unset = 0)")
     d.add_argument("--shards", type=int, default=0,
                    help="shard the chips over N shards, round-robin over the "
                         "visible cards (FIREBIRD_REBALANCE=1 turns on the "

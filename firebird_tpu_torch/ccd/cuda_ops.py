@@ -49,12 +49,23 @@ spectra are built for B in NB_CHOICES (Landsat ARD's 7 bands, Sentinel-2's
 ``init_window``, ``tmask_bad``, ``fused_fit_close``, ``fused_round`` and
 ``detect_mega`` run TILE pixels a block (csrc/tile.cuh), the others one
 thread a pixel.
+
+The five kernels that fit (``lasso_fit``, ``init_window``,
+``fused_fit_close``, ``fused_round``, ``detect_mega``) take ``mixed``: the
+JAX package's FIREBIRD_MIXED_PRECISION, pallas_ops._gram_cd_core's mixed
+branch.  Their Gram and correlations are then split bf16 dots with f32
+accumulation (:func:`gram_plain` with ``mixed=True``; on the card the
+tensor cores, ``csrc/mixed_gram.cuh``), their window count an integer;
+everything after the dots stays float32.  Each is built a second time
+with ``-DFB_MIXED=1`` into its mixed instance ``<name>_mixed``
+(MIXED_SOURCES), launched and counted under that name.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import shutil
 import subprocess
@@ -87,6 +98,13 @@ SOURCES = ("lasso_fit", "monitor_chain_scored", "init_window",
            "tmask_bad", "detect_mega", "ring_remote_copy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The sources built a second time as mixed-precision instances (FB_MIXED:
+# the tensor-core Gram of csrc/mixed_gram.cuh), each a unit "<name>_mixed";
+# UNITS are every library the kernels build into.
+MIXED_SOURCES = ("lasso_fit", "init_window", "fused_fit_close",
+                 "fused_round", "detect_mega")
+MIXED_SUFFIX = "_mixed"
+UNITS = SOURCES + tuple(n + MIXED_SUFFIX for n in MIXED_SOURCES)
 # The window sizes the init_window, tmask_bad and detect_mega kernels are
 # instantiated for (their shared-memory window rows, lanes' slots and
 # detect_mega's local arrays are sized by it);
@@ -96,7 +114,7 @@ W_MAX_CHOICES = (32, 64, 128)
 # for (fb::with_nb): Landsat ARD's 7 and Sentinel-2's 12.
 NB_CHOICES = (7, 12)
 
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in UNITS}
 # Requests for a kernel refused from their shape before any launch, by
 # kernel: ``detect_mega``'s route falls back to the round loop where
 # :func:`mega_fits` refuses (kernel.BatchLoop).
@@ -139,52 +157,71 @@ def _nvcc() -> str:
     return exe
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+def source_of(unit: str) -> str:
+    """The kernel source of a build unit: ``name`` for ``name`` and for its
+    mixed instance ``name_mixed``."""
+    return unit.removesuffix(MIXED_SUFFIX)
+
+
+def unit_of(name: str, mixed: bool) -> str:
+    """The build unit that runs kernel ``name`` (its mixed instance where
+    ``mixed``)."""
+    return name + MIXED_SUFFIX if mixed else name
+
+
+def _flags(unit: str) -> tuple:
+    return NVCC_FLAGS + (("-DFB_MIXED=1",) if unit != source_of(unit)
+                         else ())
+
+
+def _lib_path(unit: str) -> Path:
+    h = hashlib.sha1(" ".join(_flags(unit)).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{source_of(unit)}.cu"]:
         h.update(f.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"{unit}-{h.hexdigest()[:12]}.so"
 
 
-def _compile(name: str) -> Path:
-    out = _lib_path(name)
+def _compile(unit: str) -> Path:
+    out = _lib_path(unit)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(".tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src = CSRC / f"{source_of(unit)}.cu"
+    cmd = [_nvcc(), *_flags(unit), "-o", str(tmp), str(src)]
     r = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"{name}.ptxas.txt").write_text(r.stdout + r.stderr)
+    (BUILD_DIR / f"{unit}.ptxas.txt").write_text(r.stdout + r.stderr)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}.cu:\n{r.stderr}")
+        raise RuntimeError(f"nvcc failed on {unit} ({src.name}):\n{r.stderr}")
     tmp.replace(out)
     return out
 
 
-def build(names=SOURCES) -> dict[str, Path]:
-    """Compile the kernels' sources (one nvcc per source, all at once) and
-    load them; returns the library paths.  Built libraries are reused
+def build(names=UNITS) -> dict[str, Path]:
+    """Compile the kernels' build units (one nvcc per unit, all at once)
+    and load them; returns the library paths.  Built libraries are reused
     while their sources and flags are unchanged."""
     todo = [n for n in names if n not in _LIBS]
     with ThreadPoolExecutor(max(len(todo), 1)) as ex:
         paths = dict(zip(todo, ex.map(_compile, todo)))
     for n, p in paths.items():
         lib = ctypes.CDLL(str(p))
-        fn = getattr(lib, f"fb_{n}")
-        fn.argtypes = _ARGTYPES[f"fb_{n}"]
+        sym = f"fb_{source_of(n)}"
+        fn = getattr(lib, sym)
+        fn.argtypes = _ARGTYPES[sym]
         fn.restype = ctypes.c_int
         _LIBS[n] = lib
     return {n: _lib_path(n) for n in names}
 
 
-def _launch(name: str, *args) -> None:
-    if name not in _LIBS:
-        build((name,))
-    rc = getattr(_LIBS[name], f"fb_{name}")(
+def _launch(unit: str, *args) -> None:
+    if unit not in _LIBS:
+        build((unit,))
+    rc = getattr(_LIBS[unit], f"fb_{source_of(unit)}")(
         *args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{unit} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[unit] += 1
 
 
 def _check(t, name, dtype, shape, device):
@@ -357,18 +394,49 @@ def _check_smem(name: str, smem: int) -> None:
 # lasso_fit
 # ---------------------------------------------------------------------------
 
-def gram_plain(Yt, w, X):
+def split_bf16(x):
+    """The hi/lo bf16 split of a float32 tensor, each half rounded to
+    nearest even and returned as float32: ``hi`` is x in bf16, ``lo`` the
+    bf16 of the residual x - hi — pallas_ops._split_bf16.  An int16 value
+    splits exactly (hi + lo == x)."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return hi.float(), lo.float()
+
+
+def gram_plain(Yt, w, X, mixed=False):
     """The weighted Gram ``sum_t w X X^T`` [C,P,8,8] and correlations
     ``sum_t w y X`` [C,P,B,8] over the time axis, both divided by the
     window count n = max(sum_t w, 1) [C,P] — kernel._fit_lasso_coefs'
-    Gram.  Returns (G, c, n)."""
+    Gram.  Returns (G, c, n).
+
+    ``mixed`` is pallas_ops._gram_cd_core's mixed branch: n the integer
+    count of the 0/1 weights; G = (XXh.w + XXl.w) / n and c_b = ((th.yh +
+    th.yl) + tl.yh) / n, with (XXh, XXl), (th, tl) and (yh, yl) the
+    :func:`split_bf16` of XX = X_i X_j, of X and of y w.  Each split
+    product is exact in float32, so every dot is a float32 sum over time
+    (each its own einsum, as the f32 Gram), the terms added afterwards in
+    that order."""
     C, B, T, P = Yt.shape
-    n = w.sum(1).clamp_min(1.0)                                 # [C,P]
     XX = (X[:, :, :, None] * X[:, :, None, :]).reshape(C, T, K * K)
-    G = torch.einsum("ctp,ctk->cpk", w, XX) / n[..., None]      # [C,P,64]
-    c = torch.stack([torch.einsum("ctp,ctk->cpk", Yt[:, b].float() * w, X)
-                     for b in range(B)], 2) / n[:, :, None, None]  # [C,P,B,K]
-    return G.reshape(C, P, K, K).contiguous(), c.contiguous(), n
+    dot = lambda a, b: torch.einsum("ctp,ctk->cpk", a, b)
+    if not mixed:
+        n = w.sum(1).clamp_min(1.0)                             # [C,P]
+        G = dot(w, XX) / n[..., None]                           # [C,P,64]
+        c = torch.stack([dot(Yt[:, b].float() * w, X) for b in range(B)],
+                        2) / n[:, :, None, None]                # [C,P,B,K]
+        return G.reshape(C, P, K, K).contiguous(), c.contiguous(), n
+    n = w.to(torch.int32).sum(1, dtype=torch.int32).clamp_min(1).to(w.dtype)
+    xxh, xxl = split_bf16(XX)
+    G = (dot(w, xxh) + dot(w, xxl)) / n[..., None]
+    th, tl = split_bf16(X)
+    cs = []
+    for b in range(B):
+        yh, yl = split_bf16(Yt[:, b].float() * w)
+        cs.append(((dot(yh, th) + dot(yl, th)) + dot(yh, tl))
+                  / n[..., None])
+    return (G.reshape(C, P, K, K).contiguous(),
+            torch.stack(cs, 2).contiguous(), n)
 
 
 def lasso_cd_plain(G, c, diag, coefmask):
@@ -410,11 +478,12 @@ def rmse_plain(Yt, w, X, beta, n):
     return torch.stack(rmse, -1)
 
 
-def lasso_fit_plain(Yt, w, X, coefmask, with_rmse=True, *, cd=None):
+def lasso_fit_plain(Yt, w, X, coefmask, with_rmse=True, *, mixed=False,
+                    cd=None):
     """Plain version of :func:`lasso_fit` — kernel._fit_lasso's math:
-    :func:`gram_plain`, the CD loop ``cd`` on the Gram with its diagonal
-    floored at 1e-12 (:func:`lasso_cd_plain` unless given), then
-    :func:`rmse_plain`.
+    :func:`gram_plain` (its mixed branch where ``mixed``), the CD loop
+    ``cd`` on the Gram with its diagonal floored at 1e-12
+    (:func:`lasso_cd_plain` unless given), then :func:`rmse_plain`.
 
     ``cd`` is how the ``lasso`` component route fits: kernel.pallas_components
     passes the :func:`lasso_cd` kernel, and the Gram and the RMSE around
@@ -422,7 +491,7 @@ def lasso_fit_plain(Yt, w, X, coefmask, with_rmse=True, *, cd=None):
     CD kernel in the JAX package (kernel._fit_lasso_coefs)."""
     cd = lasso_cd_plain if cd is None else cd
     C, B, T, P = Yt.shape
-    G, c, n = gram_plain(Yt, w, X)
+    G, c, n = gram_plain(Yt, w, X, mixed)
     tiny = torch.tensor(1e-12, dtype=G.dtype, device=G.device)
     diag = torch.maximum(torch.diagonal(G, dim1=-2, dim2=-1), tiny)
     beta = cd(G, c, diag.contiguous(), coefmask)
@@ -431,7 +500,7 @@ def lasso_fit_plain(Yt, w, X, coefmask, with_rmse=True, *, cd=None):
     return beta, rmse_plain(Yt, w, X, beta, n)
 
 
-def lasso_fit(Yt, w, X, coefmask, with_rmse=True):
+def lasso_fit(Yt, w, X, coefmask, with_rmse=True, mixed=False):
     """Per-pixel weighted Lasso fit of every band, and its RMSE.
 
     Args:
@@ -439,6 +508,7 @@ def lasso_fit(Yt, w, X, coefmask, with_rmse=True):
         w: [C,T,P] float32 0/1 fit-window weights.
         X: [C,T,8] float32 designs.
         coefmask: [C,P,8] bool allowed coefficients.
+        mixed: the mixed-precision Gram (the ``lasso_fit_mixed`` instance).
     Returns:
         (coefs [C,P,B,8], rmse [C,P,B]) float32; rmse is zero when
         ``with_rmse`` is False.
@@ -450,13 +520,14 @@ def lasso_fit(Yt, w, X, coefmask, with_rmse=True):
     _check(X, "X", torch.float32, (C, T, K), dev)
     _check(coefmask, "coefmask", torch.bool, (C, P, K), dev)
     if dev.type == "cpu":
-        return lasso_fit_plain(Yt, w, X, coefmask, with_rmse)
+        return lasso_fit_plain(Yt, w, X, coefmask, with_rmse, mixed=mixed)
     _nb_instance(B, "lasso_fit")
     _check_smem("lasso_fit", lasso_fit_smem_bytes(T))
     coefs = torch.empty(C, P, B, K, dtype=torch.float32, device=dev)
     rmse = torch.empty(C, P, B, dtype=torch.float32, device=dev)
-    _launch("lasso_fit", _ptr(Yt), _ptr(w), _ptr(X), _ptr(coefmask),
-            _ptr(coefs), _ptr(rmse), C, B, T, P, int(bool(with_rmse)))
+    _launch(unit_of("lasso_fit", mixed), _ptr(Yt), _ptr(w), _ptr(X),
+            _ptr(coefmask), _ptr(coefs), _ptr(rmse), C, B, T, P,
+            int(bool(with_rmse)))
     return coefs, rmse
 
 
@@ -752,17 +823,25 @@ def tmask_args(win, vario, sensor=LANDSAT_ARD):
 
 
 def init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
-                      sensor=LANDSAT_ARD, fit=lasso_fit_plain, tmask=None):
+                      sensor=LANDSAT_ARD, mixed=False, fit=None, tmask=None):
     """Plain version of :func:`init_window` — the XLA body of
     kernel._init_block: :func:`init_window_gather`, the Tmask screen
     ``tmask`` (:func:`tmask_bad_plain` unless given), the 4-coefficient
-    stability fit ``fit``, the stability test and the cursor advances.
+    stability fit ``fit`` (:func:`lasso_fit_plain`, with the mixed Gram
+    where ``mixed``, unless given), the stability test and the cursor
+    advances.
 
     ``fit`` and ``tmask`` are how the ``tmask`` component route
     initializes: kernel.pallas_components passes the :func:`tmask_bad`
-    kernel and the route's fit, and the rest of the block is PyTorch ops on
-    the card, as it is XLA around the Pallas Tmask kernel in the JAX
-    package (kernel._init_block)."""
+    kernel and the route's fit (which carries the route's precision, so
+    ``mixed`` must then stay False), and the rest of the block is PyTorch
+    ops on the card, as it is XLA around the Pallas Tmask kernel in the
+    JAX package (kernel._init_block)."""
+    if fit is None:
+        fit = functools.partial(lasso_fit_plain, mixed=mixed)
+    elif mixed:
+        raise ValueError("init_window_plain: a given fit carries its own "
+                         "precision; pass mixed=False")
     tmask = tmask_bad_plain if tmask is None else tmask
     det = list(sensor.detection_bands)
     C, T, P = alive.shape
@@ -825,7 +904,7 @@ _INIT_BOOL = ("init_nowin", "init_tm", "init_ok", "init_bad", "has_adv")
 
 
 def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
-                sensor=LANDSAT_ARD):
+                sensor=LANDSAT_ARD, mixed=False):
     """The INIT round per pixel: find the initialization window (MEOW_SIZE
     alive observations spanning INIT_DAYS from the cursor), screen it with
     the Tmask IRLS, test the 4-coefficient fit's stability, and advance the
@@ -836,6 +915,8 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
         t: [C,T] float32 ordinal days; X: [C,T,8], Xt: [C,T,5] designs.
         Yt: [C,B,T,P] int16 spectra; vario: [C,P,B] float32.
         W: bound on the window's member count (kernel.window_cap).
+        mixed: the stability fit's mixed-precision Gram (the
+            ``init_window_mixed`` instance).
     Returns:
         kernel._init_block's dict: init_nowin, init_tm, init_ok, init_bad,
         has_adv [C,P] bool; i_next_tm, i_adv, j, n_ok [C,P] int32;
@@ -854,7 +935,7 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
     _check(vario, "vario", torch.float32, (C, P, B), dev)
     if dev.type == "cpu":
         return init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario,
-                                 W=W, sensor=sensor)
+                                 W=W, sensor=sensor, mixed=mixed)
     roles, _keep = band_roles(sensor, B, "init_window")
     w_max = _w_instance(W, "init_window")
     flags = torch.empty(len(_INIT_BOOL), C, P, dtype=torch.bool, device=dev)
@@ -862,9 +943,10 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
                       dtype=torch.int32, device=dev)
     w_stab = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     alive_init = torch.empty(C, T, P, dtype=torch.bool, device=dev)
-    _launch("init_window", _ptr(alive), _ptr(cur_i), _ptr(in_init), _ptr(t),
-            _ptr(X), _ptr(Xt), _ptr(Yt), _ptr(vario), _ptr(flags), _ptr(out),
-            _ptr(w_stab), _ptr(alive_init), roles, C, B, T, P, W, w_max)
+    _launch(unit_of("init_window", mixed), _ptr(alive), _ptr(cur_i),
+            _ptr(in_init), _ptr(t), _ptr(X), _ptr(Xt), _ptr(Yt), _ptr(vario),
+            _ptr(flags), _ptr(out), _ptr(w_stab), _ptr(alive_init), roles, C,
+            B, T, P, W, w_max)
     d = dict(zip(_INIT_KEYS, (*flags, *out)))
     return dict(d, w_stab=w_stab, alive_init=alive_init)
 
@@ -986,31 +1068,34 @@ def _check_bufs(bufs, C, P, B, dev):
 
 def fused_fit_close_plain(Yt, X, t, w_fit, do_fit, n_full, included_mon,
                           coefs, rmse, mags, is_tail, is_brk, pos_ev,
-                          n_exceed, first_seg, nseg, bufs):
+                          n_exceed, first_seg, nseg, bufs, mixed=False):
     """Plain version of :func:`fused_fit_close`: the close row write
     (kernel._close_block with the given magnitudes), the Lasso fit of
-    :func:`lasso_fit_plain` over ``w_fit``, and the ``do_fit`` merge."""
+    :func:`lasso_fit_plain` over ``w_fit`` (the mixed Gram where
+    ``mixed``), and the ``do_fit`` merge."""
     meta = close_meta(t, included_mon, is_brk, pos_ev, n_exceed, first_seg)
     mag_new = torch.where(is_brk[..., None], mags, torch.zeros_like(mags))
     bufs, nseg_n = write_slot(bufs, nseg, is_tail | is_brk,
                               (meta, rmse, mag_new, coefs))
-    return (bufs, nseg_n) + _refit(Yt, w_fit, X, n_full, do_fit, coefs, rmse)
+    return (bufs, nseg_n) + _refit(Yt, w_fit, X, n_full, do_fit, coefs, rmse,
+                                   mixed)
 
 
-def _refit(Yt, w, X, n_full, do_fit, coefs, rmse):
+def _refit(Yt, w, X, n_full, do_fit, coefs, rmse, mixed):
     """The shared fit's do_fit merge: a new :func:`lasso_fit_plain` model
     where ``do_fit``, the current one elsewhere (no fit at all when no
     pixel fits)."""
     if not bool(do_fit.any()):
         return coefs, rmse
-    cfull, rfull = lasso_fit_plain(Yt, w, X, coefmask_for(n_full))
+    cfull, rfull = lasso_fit_plain(Yt, w, X, coefmask_for(n_full),
+                                   mixed=mixed)
     return (torch.where(do_fit[..., None, None], cfull, coefs),
             torch.where(do_fit[..., None], rfull, rmse))
 
 
 def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
                     rmse, mags, is_tail, is_brk, pos_ev, n_exceed, first_seg,
-                    nseg, bufs):
+                    nseg, bufs, mixed=False):
     """One round's segment close and shared Lasso refit in one launch.
 
     The closing pixels (``is_tail | is_brk``) append their segment — the
@@ -1030,6 +1115,8 @@ def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
             [C,P] int32.
         bufs: (meta [C,P,S,6], rmse [C,P,S,B], mag [C,P,S,B],
             coef [C,P,S,B,8]) float32, updated in place.
+        mixed: the refit's mixed-precision Gram (the
+            ``fused_fit_close_mixed`` instance).
     Returns:
         (bufs, nseg' [C,P] int32, coefs' [C,P,B,8], rmse' [C,P,B]).
     """
@@ -1054,13 +1141,13 @@ def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
         return fused_fit_close_plain(Yt, X, t, w_fit, do_fit, n_full,
                                      included_mon, coefs, rmse, mags, is_tail,
                                      is_brk, pos_ev, n_exceed, first_seg,
-                                     nseg, bufs)
+                                     nseg, bufs, mixed)
     _nb_instance(B, "fused_fit_close")
     _check_smem("fused_fit_close", fused_fit_close_smem_bytes(T))
     nseg_o = torch.empty_like(nseg)
     coefs_o = torch.empty_like(coefs)
     rmse_o = torch.empty_like(rmse)
-    _launch("fused_fit_close", *map(_ptr, (
+    _launch(unit_of("fused_fit_close", mixed), *map(_ptr, (
         Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs, rmse, mags,
         is_tail, is_brk, pos_ev, n_exceed, first_seg, nseg, *bufs, nseg_o,
         coefs_o, rmse_o)), C, B, T, P, S)
@@ -1093,49 +1180,53 @@ def fused_round_geometry(T: int) -> dict:
                 warps_per_sm=blocks * thr // 32)
 
 
-def _geometry(name: str, *args) -> dict:
-    """A built tile kernel's launch geometry (its ``fb_<name>_geometry``):
-    dynamic shared memory, resident blocks an SM, registers and local
-    bytes a thread."""
+def _geometry(unit: str, *args) -> dict:
+    """A built tile kernel's launch geometry (its source's
+    ``fb_<name>_geometry``): dynamic shared memory, resident blocks an SM,
+    registers and local bytes a thread."""
     out = (ctypes.c_int * 4)()
-    fn = getattr(_LIBS[name], f"fb_{name}_geometry")
+    fn = getattr(_LIBS[unit], f"fb_{source_of(unit)}_geometry")
     fn.argtypes, fn.restype = [_I] * len(args) + [_P], ctypes.c_int
     rc = fn(*args, ctypes.cast(out, _P))
     if rc != 0:
-        raise RuntimeError(f"{name} geometry: CUDA error {rc}")
+        raise RuntimeError(f"{unit} geometry: CUDA error {rc}")
     return dict(smem_bytes=out[0], blocks_per_sm=out[1], registers=out[2],
                 local_bytes=out[3])
 
 
-def init_window_geometry(T: int) -> dict:
-    """Each window instance of init_window at ``T``, as the CUDA runtime
-    reports it (shared memory, resident blocks an SM, registers and local
-    bytes a thread), by instance."""
-    build(("init_window",))
-    return {w: _geometry("init_window", w, T) for w in W_MAX_CHOICES}
+def init_window_geometry(T: int, mixed: bool = False) -> dict:
+    """Each window instance of init_window (its mixed instance where
+    ``mixed``) at ``T``, as the CUDA runtime reports it (shared memory,
+    resident blocks an SM, registers and local bytes a thread), by
+    instance."""
+    unit = unit_of("init_window", mixed)
+    build((unit,))
+    return {w: _geometry(unit, w, T) for w in W_MAX_CHOICES}
 
 
-def kernel_geometry(T: int, nb: int = 7) -> dict:
+def kernel_geometry(T: int, nb: int = 7, mixed: bool = False) -> dict:
     """The built kernels' launch geometry on the current card, as the CUDA
     runtime reports it: the shared memory, resident blocks an SM,
     registers and local bytes a thread at ``T`` of fused_round's,
     fused_fit_close's and each window instance of detect_mega's
     ``nb``-band instance (detect_mega by its window instance), of each
     window instance of init_window at ``T`` and of tmask_bad;
-    ring_remote_copy's resident blocks an SM."""
-    build(("fused_round", "fused_fit_close", "detect_mega",
-           "ring_remote_copy", "init_window", "tmask_bad"))
+    ring_remote_copy's resident blocks an SM.  ``mixed``: the fitting
+    kernels' mixed instances."""
+    u = functools.partial(unit_of, mixed=mixed)
+    build((u("fused_round"), u("fused_fit_close"), u("detect_mega"),
+           "ring_remote_copy", u("init_window"), "tmask_bad"))
     blocks = ctypes.c_int()
     fn = _LIBS["ring_remote_copy"].fb_ring_remote_copy_blocks_per_sm
     fn.argtypes, fn.restype = [_P], ctypes.c_int
     rc = fn(ctypes.cast(ctypes.byref(blocks), _P))
     if rc != 0:
         raise RuntimeError(f"ring_remote_copy geometry: CUDA error {rc}")
-    return dict(fused_round=_geometry("fused_round", nb, T),
-                fused_fit_close=_geometry("fused_fit_close", nb, T),
-                detect_mega={w: _geometry("detect_mega", nb, w, T)
+    return dict(fused_round=_geometry(u("fused_round"), nb, T),
+                fused_fit_close=_geometry(u("fused_fit_close"), nb, T),
+                detect_mega={w: _geometry(u("detect_mega"), nb, w, T)
                              for w in W_MAX_CHOICES},
-                init_window=init_window_geometry(T),
+                init_window=init_window_geometry(T, mixed),
                 tmask_bad={w: _geometry("tmask_bad", w)
                            for w in W_MAX_CHOICES},
                 ring_remote_copy=dict(blocks_per_sm=blocks.value))
@@ -1148,12 +1239,13 @@ _EV_BOOL = ("is_tail", "is_brk", "is_refit", "do_fit")
 def fused_round_plain(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon,
                       coefs, rmse, vario, init_ok, w_stab, n_ok, first_seg,
                       nseg, bufs, *, change_thr, outlier_thr,
-                      sensor=LANDSAT_ARD):
+                      sensor=LANDSAT_ARD, mixed=False):
     """Plain version of :func:`fused_round`: :func:`monitor_chain_scored_plain`
     with the event outputs zeroed where a pixel does not monitor
     (kernel._mon_zeros), the include/remove update, the PEEK-run close
     (:func:`peek_run_mags`, :func:`close_meta`, :func:`write_slot`), then
-    :func:`lasso_fit_plain` on the init-ok / refit windows."""
+    :func:`lasso_fit_plain` on the init-ok / refit windows (the mixed
+    Gram where ``mixed``)."""
     det = list(sensor.detection_bands)
     dden = torch.maximum(rmse, vario)[:, :, det].contiguous()
     mon = monitor_chain_scored_plain(
@@ -1179,7 +1271,8 @@ def fused_round_plain(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon,
     n_full = torch.where(init_ok, n_ok, n_rf)
     w = torch.where(init_ok[:, None, :], w_stab,
                     included_mon & is_refit[:, None, :])
-    coefs_n, rmse_n = _refit(Yt, w.float(), X, n_full, do_fit, coefs, rmse)
+    coefs_n, rmse_n = _refit(Yt, w.float(), X, n_full, do_fit, coefs, rmse,
+                             mixed)
     ev = dict(is_tail=is_tail, is_brk=is_brk, is_refit=is_refit,
               pos_ev=pos_ev, do_fit=do_fit, n_full=n_full,
               included_mon=included_mon, alive_mon=alive_mon)
@@ -1188,7 +1281,7 @@ def fused_round_plain(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon,
 
 def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
                 rmse, vario, init_ok, w_stab, n_ok, first_seg, nseg, bufs, *,
-                change_thr, outlier_thr, sensor=LANDSAT_ARD):
+                change_thr, outlier_thr, sensor=LANDSAT_ARD, mixed=False):
     """The whole post-INIT round in one launch: the monitoring pixels'
     score and event chain, the segment close of the pixels that end in a
     tail or a break (magnitudes from the PEEK run), and the shared Lasso
@@ -1204,6 +1297,8 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
             the INIT block's fit handoff.
         first_seg: [C,P] bool; nseg: [C,P] int32.
         bufs: the four [C,P,S,k] result buffers, updated in place.
+        mixed: the refit's mixed-precision Gram (the ``fused_round_mixed``
+            instance).
     Returns:
         (bufs, nseg', coefs', rmse', ev): ``ev`` holds is_tail, is_brk,
         is_refit, do_fit [C,P] bool, pos_ev, n_full [C,P] int32 (0 for a
@@ -1232,7 +1327,8 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
         return fused_round_plain(
             Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
             rmse, vario, init_ok, w_stab, n_ok, first_seg, nseg, bufs,
-            change_thr=change_thr, outlier_thr=outlier_thr, sensor=sensor)
+            change_thr=change_thr, outlier_thr=outlier_thr, sensor=sensor,
+            mixed=mixed)
     roles, _keep = band_roles(sensor, B, "fused_round")
     fused_round_geometry(T)             # refuses a T whose block won't fit
     nseg_o = torch.empty_like(nseg)
@@ -1241,7 +1337,7 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
     ev = torch.empty(len(_EV_KEYS), C, P, dtype=torch.int32, device=dev)
     incm = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     alm = torch.empty(C, T, P, dtype=torch.bool, device=dev)
-    _launch("fused_round", *map(_ptr, (
+    _launch(unit_of("fused_round", mixed), *map(_ptr, (
         Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs, rmse,
         vario, init_ok, w_stab, n_ok, first_seg, nseg, *bufs, nseg_o,
         coefs_o, rmse_o, ev, incm, alm)), roles, C, B, T, P, S,
@@ -1258,13 +1354,14 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
 
 def detect_mega_plain(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt,
                       vario, *, W, change_thr, outlier_thr,
-                      sensor=LANDSAT_ARD, on_round=None):
+                      sensor=LANDSAT_ARD, mixed=False, on_round=None):
     """Plain version of :func:`detect_mega`: the lockstep round loop over
     :func:`init_window_plain` and :func:`fused_round_plain` (with
     round_state.next_state), all pixels of the batch at once, until every
     pixel is DONE or the loop reaches 2T+8 rounds.  A chip's ``rounds``
     counts the rounds in which any of its pixels was not DONE, its
     ``counts`` the rounds in which any of them ran INIT, a fit or a close.
+    ``mixed`` runs both with the mixed-precision Gram.
     ``on_round(st, init, ev)``, when given, sees each round's start state,
     INIT outputs and events (``chip_smoke.py`` counts the work with it).
     The buffers are updated in place."""
@@ -1288,14 +1385,15 @@ def detect_mega_plain(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt,
         in_init = st["phase"] == PHASE_INIT
         in_mon = st["phase"] == PHASE_MONITOR
         init = (init_window_plain(st["alive"], st["cur_i"], in_init, t, X,
-                                  Xt, Yt, vario, W=W, sensor=sensor)
+                                  Xt, Yt, vario, W=W, sensor=sensor,
+                                  mixed=mixed)
                 if bool(in_init.any()) else init_zeros(st))
         bufs, nseg, coefs_n, rmse_n, ev = fused_round_plain(
             Yt, X, t, st["alive"], st["included"], st["cur_k"],
             st["n_last_fit"], in_mon, st["coefs"], st["rmse"], vario,
             init["init_ok"], init["w_stab"], init["n_ok"], st["first_seg"],
             st["nseg"], st["bufs"], change_thr=change_thr,
-            outlier_thr=outlier_thr, sensor=sensor)
+            outlier_thr=outlier_thr, sensor=sensor, mixed=mixed)
         rounds += active.any(1).to(i32)
         counts += torch.stack([in_init.any(1), ev["do_fit"].any(1),
                                (ev["is_tail"] | ev["is_brk"]).any(1)],
@@ -1309,7 +1407,7 @@ def detect_mega_plain(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt,
 
 
 def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
-                W, change_thr, outlier_thr, sensor=LANDSAT_ARD):
+                W, change_thr, outlier_thr, sensor=LANDSAT_ARD, mixed=False):
     """The whole event loop of every pixel in one launch: from the
     prologue's start state, each pixel runs its rounds (INIT, monitor,
     close, refit) until it is DONE or the loop reaches 2T+8 rounds.
@@ -1325,6 +1423,8 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
         W: bound on the init window's member count (kernel.window_cap);
             past the largest W_MAX_CHOICES instance this raises, as it
             does for a T that :func:`mega_fits` refuses.
+        mixed: every fit's mixed-precision Gram (the ``detect_mega_mixed``
+            instance).
     Returns:
         pallas_ops.detect_mega's dict in this package's layouts: meta,
         rmse, mag, coef (the buffers), nseg [C,P] int32, alive [C,T,P]
@@ -1346,7 +1446,8 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
     if dev.type == "cpu":
         return detect_mega_plain(Yt, phase0, cur_i0, alive0, nseg0, bufs, t,
                                  X, Xt, vario, W=W, change_thr=change_thr,
-                                 outlier_thr=outlier_thr, sensor=sensor)
+                                 outlier_thr=outlier_thr, sensor=sensor,
+                                 mixed=mixed)
     roles, _keep = band_roles(sensor, B, "detect_mega")
     w_max = _w_instance(W, "detect_mega")
     if not mega_fits(T, W):
@@ -1362,7 +1463,7 @@ def detect_mega(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt, vario, *,
     nseg = torch.empty_like(nseg0)
     rounds = torch.zeros(C, dtype=i32, device=dev)
     flags = torch.zeros(C, 3, max_rounds, dtype=i32, device=dev)
-    _launch("detect_mega", *map(_ptr, (
+    _launch(unit_of("detect_mega", mixed), *map(_ptr, (
         Yt, t, X, Xt, vario, phase0, cur_i0, nseg0, *bufs, alive, coefs,
         rmse, nseg, rounds, flags)), roles, C, B, T, P, S, W, w_max,
         max_rounds, float(change_thr), float(outlier_thr))

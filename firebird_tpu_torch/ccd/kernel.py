@@ -38,7 +38,13 @@ default), the close and refit as one ``cuda_ops.fused_fit_close`` launch
 the JAX package; :func:`compact_mode`) permutes the per-pixel state so the
 working pixels form a dense prefix and finishes the long tail in a narrower
 bucketed loop (:class:`BatchLoop`); it applies to every route but mega and
-leaves the results unchanged.  Mixed precision is not part of this package.
+leaves the results unchanged.  Mixed precision (FIREBIRD_MIXED_PRECISION,
+off by default; :func:`use_mixed_precision`) runs the Gram and
+correlations of every fit made by a fitting kernel (``lasso_fit``,
+``init_window``, ``fused_fit_close``, ``fused_round``, ``detect_mega``) as
+split bf16 dots with f32 accumulation, as the JAX package's Pallas fit
+routes do; the component route's PyTorch Gram stays f32, as JAX's XLA
+Gram does (:func:`pallas_components`).
 """
 
 from __future__ import annotations
@@ -105,13 +111,25 @@ def fused_mode(fused=None):
     return 1 if fused else 0
 
 
+# The JAX package's knob for the mixed-precision Gram.
+MIXED_ENV = "FIREBIRD_MIXED_PRECISION"
+
+
+def use_mixed_precision() -> bool:
+    """Whether the fitting kernels take the mixed-precision Gram:
+    FIREBIRD_MIXED_PRECISION, "" or "0" (the default) off, any other value
+    on — kernel.use_mixed_precision."""
+    return os.environ.get(MIXED_ENV, "") not in ("", "0")
+
+
 # The JAX package's knob for the Pallas component routes, and the
 # components it names.
 PALLAS_ENV = "FIREBIRD_PALLAS"
 COMPONENTS = ("fit", "score", "init", "lasso", "monitor", "tmask", "mega")
 
 
-def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
+def pallas_components(pallas=None, ops=None,
+                      mixed=None) -> types.SimpleNamespace:
     """The route's functions, as FIREBIRD_PALLAS names them —
     kernel.use_pallas and its supersession rules.
 
@@ -135,19 +153,34 @@ def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
     XLA route, and runs plain versions only where the caller passes
     ``ops=cuda_ops.PLAIN``.
 
+    ``mixed`` (None reads FIREBIRD_MIXED_PRECISION,
+    :func:`use_mixed_precision`) binds ``mixed=True`` to the route's
+    fitting kernels — kernel._detect_batch_impl's ``mixed_on``: the
+    ``fit`` kernel (``lasso_fit``, which also fits the ``tmask`` route's
+    INIT block and the mega route's prologue), ``init_window``,
+    ``fused_fit_close``, ``fused_round`` and ``detect_mega``, and the
+    refused mega route's fallback loop.  It leaves the ``lasso`` route's
+    fit f32: its PyTorch Gram around ``lasso_cd`` is XLA's f32 Gram in the
+    JAX package.
+
     ``ops`` (default :data:`cuda_ops.KERNELS`) supplies the functions; a
     route this function returned comes back as it is (``pallas`` must then
-    be None), so an entry point resolves the route once and hands it down.
-    Returns a namespace with the round functions :class:`BatchLoop` calls
-    (``lasso_fit``, ``monitor_chain_scored``, ``init_window``,
-    ``fused_fit_close``, ``fused_round``; ``detect_mega`` on the mega
-    route), the rebalancing ring's hop ``ring_remote_copy``, ``mega`` and
-    ``components``, the resolved names."""
+    be None, and ``mixed`` None or the route's), so an entry point
+    resolves the route once and hands it down.  Returns a namespace with
+    the round functions :class:`BatchLoop` calls (``lasso_fit``,
+    ``monitor_chain_scored``, ``init_window``, ``fused_fit_close``,
+    ``fused_round``; ``detect_mega`` on the mega route), the rebalancing
+    ring's hop ``ring_remote_copy``, ``mega``, ``components`` (the
+    resolved names) and ``mixed``."""
     if hasattr(ops, "components"):
         if pallas is not None:
             raise ValueError(f"pallas={pallas!r} with a resolved route: "
                              f"pass one of the two")
+        if mixed is not None and bool(mixed) != ops.mixed:
+            raise ValueError(f"mixed={mixed!r} with a route resolved with "
+                             f"mixed={ops.mixed}: pass one of the two")
         return ops
+    mixed = use_mixed_precision() if mixed is None else bool(mixed)
     v = os.environ.get(PALLAS_ENV) if pallas is None else str(pallas)
     v = "1" if v is None else v.strip()
     if v == "1":
@@ -159,22 +192,33 @@ def pallas_components(pallas=None, ops=None) -> types.SimpleNamespace:
             raise ValueError(f"{PALLAS_ENV}={v!r}: unknown component(s) "
                              f"{sorted(unknown)}; known: {', '.join(COMPONENTS)}")
     base = cuda_ops.KERNELS if ops is None else ops
+    fits = functools.partial(_with_precision, mixed=mixed)
     if "mega" in names:
-        fallback = _loop_route(names - {"mega"}, base, v, default=True)
+        fallback = _loop_route(names - {"mega"}, base, v, mixed,
+                               default=True)
         return types.SimpleNamespace(components=("mega",), mega=True,
-                                     lasso_fit=base.lasso_fit,
-                                     detect_mega=base.detect_mega,
+                                     mixed=mixed,
+                                     lasso_fit=fits(base.lasso_fit),
+                                     detect_mega=fits(base.detect_mega),
                                      ring_remote_copy=base.ring_remote_copy,
                                      fallback=fallback)
-    return _loop_route(names, base, v)
+    return _loop_route(names, base, v, mixed)
 
 
-def _loop_route(names, base, v, default=False) -> types.SimpleNamespace:
+def _with_precision(fn, mixed):
+    """A fitting kernel ``fn`` with ``mixed=True`` bound where ``mixed``
+    (else ``fn`` itself: the f32 route calls what it always called)."""
+    return functools.partial(fn, mixed=True) if mixed else fn
+
+
+def _loop_route(names, base, v, mixed,
+                default=False) -> types.SimpleNamespace:
     """The round loop's route from the component ``names`` (FIREBIRD_PALLAS
     value ``v``) over the functions of ``base``: each of the fit, the
     monitor and the INIT block takes its fused kernel where named, else its
     component kernel where named, else (with ``default``) its fused
-    kernel, else raises."""
+    kernel, else raises.  ``mixed`` binds to the fitting kernels
+    (:func:`pallas_components`)."""
 
     def pick(fused, component, what):
         for c in (fused, component):
@@ -194,18 +238,20 @@ def _loop_route(names, base, v, default=False) -> types.SimpleNamespace:
     # PyTorch ops on the card: the JAX package computes them in XLA,
     # outside any Pallas kernel, on those routes.  They are that route's
     # program, not plain versions standing in for a kernel.
-    fit = (base.lasso_fit if comps[0] == "fit"
+    fits = functools.partial(_with_precision, mixed=mixed)
+    fit = (fits(base.lasso_fit) if comps[0] == "fit"
            else functools.partial(cuda_ops.lasso_fit_plain, cd=base.lasso_cd))
     mon = (base.monitor_chain_scored if comps[1] == "score"
            else functools.partial(cuda_ops.monitor_chain_scored_plain,
                                   chain=base.monitor_chain))
-    init = (base.init_window if comps[2] == "init"
+    init = (fits(base.init_window) if comps[2] == "init"
             else functools.partial(cuda_ops.init_window_plain, fit=fit,
                                    tmask=base.tmask_bad))
     return types.SimpleNamespace(
-        components=comps, mega=False, lasso_fit=fit,
+        components=comps, mega=False, mixed=mixed, lasso_fit=fit,
         monitor_chain_scored=mon, init_window=init,
-        fused_fit_close=base.fused_fit_close, fused_round=base.fused_round,
+        fused_fit_close=fits(base.fused_fit_close),
+        fused_round=fits(base.fused_round),
         ring_remote_copy=base.ring_remote_copy)
 
 
@@ -638,12 +684,17 @@ class BatchLoop:
     nothing compacts.  A mega route whose shape ``cuda_ops.mega_fits``
     refuses takes its ``fallback`` route instead, decided here before any
     launch (kernel._detect_batch_impl's mega decision): the loop then runs
-    with ``fused`` and ``compact`` as given, and the refusal is counted in
-    ``cuda_ops.REFUSED`` and logged."""
+    with ``fused`` and ``compact`` as given (and the route's precision),
+    and the refusal is counted in ``cuda_ops.REFUSED`` and logged.
+
+    ``ops`` is a route (:func:`pallas_components`, which resolves it here
+    where given the functions themselves); ``mixed`` None keeps the
+    route's precision, and a value other than the route's raises."""
 
     def __init__(self, X, Xt, t, valid, Yt, qa, *, W, sensor, max_segments,
-                 variogram_mode, ops, fused=0, compact=False):
+                 variogram_mode, ops, fused=0, compact=False, mixed=None):
         C, B, T, P = Yt.shape
+        ops = pallas_components(ops=ops, mixed=mixed)
         if ops.mega and not cuda_ops.mega_fits(T, W):
             cuda_ops.REFUSED["detect_mega"] += 1
             log.warning("detect_mega refuses T=%d, W=%d (%d bytes of shared "
@@ -898,17 +949,19 @@ class BatchLoop:
 def staged_loop(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
                 max_segments=MAX_SEGMENTS,
                 variogram_mode=params.VARIOGRAM_DEFAULT, ops=None,
-                fused=None, pallas=None, compact=None) -> BatchLoop:
+                fused=None, pallas=None, compact=None,
+                mixed=None) -> BatchLoop:
     """The :class:`BatchLoop` of a staged integer wire on its device:
     ``days`` [C,T] int32, ``n_obs`` [C] int32, ``spectra`` [C,B,P,T] int16,
     ``qa`` [C,P,T] uint8.  The designs are built on the device, the
     spectra are made resident as [C,B,T,P] and the prologue runs.
     ``pallas`` picks the kernels (:func:`pallas_components`, from ``ops``,
     or ``ops`` is a route it already resolved), ``fused`` the round route
-    (:func:`fused_mode`), ``compact`` the compaction (:func:`compact_mode`).
+    (:func:`fused_mode`), ``compact`` the compaction (:func:`compact_mode`),
+    ``mixed`` the precision of the fitting kernels (:func:`pallas_components`).
     Run it under ``torch.no_grad()``."""
     _exact_f32()
-    ops = pallas_components(pallas, ops)
+    ops = pallas_components(pallas, ops, mixed)
     if variogram_mode not in ("adjusted", "plain"):
         raise ValueError(f"variogram_mode {variogram_mode!r}: 'adjusted' or "
                          f"'plain'")
@@ -924,22 +977,22 @@ def staged_loop(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
 def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
                   max_segments=MAX_SEGMENTS,
                   variogram_mode=params.VARIOGRAM_DEFAULT, ops=None,
-                  fused=None, pallas=None, compact=None):
+                  fused=None, pallas=None, compact=None, mixed=None):
     """Detect from the staged integer wire on its device (the arguments
     of :func:`staged_loop`) -> ChipSegments."""
     with torch.no_grad():
         return staged_loop(days, n_obs, spectra, qa, W=W, sensor=sensor,
                            max_segments=max_segments,
                            variogram_mode=variogram_mode, ops=ops,
-                           fused=fused, pallas=pallas,
-                           compact=compact).run()
+                           fused=fused, pallas=pallas, compact=compact,
+                           mixed=mixed).run()
 
 
 def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
                   check_capacity: bool = True, staged: tuple | None = None,
                   variogram_mode: str = params.VARIOGRAM_DEFAULT,
-                  ops=None, fused=None, pallas=None,
-                  compact=None) -> ChipSegments:
+                  ops=None, fused=None, pallas=None, compact=None,
+                  mixed=None) -> ChipSegments:
     """Run the detector over a PackedChips batch -> ChipSegments with
     leading chip axis [C, P, ...], on ``device`` (default CUDA).
 
@@ -958,9 +1011,12 @@ def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
     (unset: route 0), else 0, 1 or "mon" (:func:`fused_mode`); the mega
     route has none.  ``compact`` turns active-lane compaction on or off:
     None defers to FIREBIRD_COMPACT (unset: on; :func:`compact_mode`);
-    the mega route never compacts."""
+    the mega route never compacts.  ``mixed`` turns the fitting kernels'
+    mixed-precision Gram on or off: None defers to
+    FIREBIRD_MIXED_PRECISION (unset: off; :func:`use_mixed_precision`), or
+    to the route's where ``ops`` is a resolved route."""
     dev = resolve_device(device)
-    route = pallas_components(pallas, ops)  # refuses a bad route up front
+    route = pallas_components(pallas, ops, mixed)  # refuses a bad route
     args = staged if staged is not None else stage_packed(packed, dev)
     sensor = getattr(packed, "sensor", LANDSAT_ARD)
     W = window_cap(packed)

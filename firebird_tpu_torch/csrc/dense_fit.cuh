@@ -22,9 +22,18 @@
 // version staging each 32-step word of the whole tile in shared memory,
 // loads coalesced, ran slower on an H100: its barriers serialise load and
 // compute, and at 80 registers its staging spills.)
+//
+// A kernel's mixed-precision instance (FB_MIXED, cuda_ops.MIXED_SOURCES)
+// takes the Gram and correlations from the tensor cores instead
+// (mixed_gram.cuh): each warp sums its four groups' pixels at once, then
+// hands every lane its bands' correlations and writes each Gram to its
+// group's G.  The coordinate descent and the RMSE pass are the same code.
 #pragma once
 
 #include "tile.cuh"
+#if FB_MIXED
+#include "mixed_gram.cuh"
+#endif
 
 namespace fb {
 
@@ -91,15 +100,86 @@ __device__ __forceinline__ void load_batch(const int* tq, int l,
 // (GSTRIDE floats of shared memory), mask the allowed coefficients (read
 // by lanes with a band), coef [NB*K] and rmse [NB] the pixel's output rows
 // (rmse zeros when !with_rmse), bands the spectra band of each fit band.
+// win, Yp and Xs start at step 32 w0 (the mixed instance's chunks of 16
+// steps count from step 0).  Each group's G lies GSTRIDE floats after the
+// previous group's.
 template <int NB, class Bands = AllBands>
 __device__ void dense_fit(bool fits, int l, const uint32_t* win, int W,
                           const int16_t* Yp, size_t TP, int P,
                           const float* Xs, float* G, const bool mask[K],
                           bool with_rmse, float* coef, float* rmse,
-                          const Bands& bands = Bands()) {
+                          const Bands& bands = Bands(), int w0 = 0) {
   constexpr int NBL = (NB + TILE_Q - 1) / TILE_Q;   // band slots a lane
   float nw = 0.f;
   float cb[NBL][K];
+#if FB_MIXED
+  {
+    // The warp's four groups: correlation rows (pixel r % 4, band r / 4),
+    // 16 a pass, staged in the warp's Grams and read by the lanes of their
+    // bands; then the Gram rows (pixels 0-3 of 16), two n-tiles a pass,
+    // written to each group's G.
+    static_assert(32 / TILE_Q == 4, "a warp holds four groups");
+    const int lane = threadIdx.x & 31, gr = lane >> 2, tc = lane & 3;
+    const int gw = lane / TILE_Q;
+    float* Gw = G - gw * GSTRIDE;
+    MixedRow mine;
+    if (fits) {
+      int cnt = 0;
+      for (int w = 0; w < W; ++w) cnt += __popc(win[w * TILE]);
+      nw = fmaxf((float)cnt, 1.f);
+      mine.win = win - w0 * TILE;
+      mine.y = Yp - (size_t)32 * w0 * P;
+      mine.lo = 32 * w0;
+      mine.hi = 32 * (w0 + W) - 1;
+      mine.n = nw;
+    }
+    const float* Xa = Xs - (size_t)32 * w0 * K;
+    if (__any_sync(MMA_WARP, fits)) {
+      const MixedRow px = shfl_row(mine, TILE_Q * (gr & 3));
+#pragma unroll 1
+      for (int mt = 0; mt < (4 * NB + 15) / 16; ++mt) {
+        MixedRow r[2] = {px, px};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int b = 4 * mt + 2 * h + (gr >> 2);
+          if (b < NB && px.on())
+            r[h].y = px.y + (size_t)bands(b) * TP;
+          else
+            r[h] = MixedRow{};
+        }
+        float acc[3][1][4] = {};
+        mixed_pass<true, 1>(r[0], r[1], Xa, 0, P, acc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          Gw[(gr + 8 * (e >> 1)) * K + 2 * tc + (e & 1)] =
+              corr_value(acc, e, r[e >> 1].n);
+        __syncwarp();
+#pragma unroll
+        for (int s = 0; s < NBL; ++s) {
+          const int b = l + TILE_Q * s;
+          if (fits && b < NB && b / 4 == mt)
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              cb[s][k] = Gw[(4 * (b % 4) + gw) * K + k];
+        }
+        __syncwarp();
+      }
+      const MixedRow g0 = gr < 4 ? px : MixedRow{};
+#pragma unroll 1
+      for (int i0 = 0; i0 < K; i0 += 2) {
+        float acc[2][2][4] = {};
+        mixed_pass<false, 2>(g0, MixedRow{}, Xa, i0, P, acc);
+        if (g0.on())
+#pragma unroll
+          for (int u = 0; u < 2; ++u)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              Gw[gr * GSTRIDE + (i0 + u) * K + 2 * tc + e] =
+                  gram_value(acc, u, e, g0.n);
+      }
+    }
+  }
+#else
   if (fits) {
     float grow[K];
 #pragma unroll
@@ -147,6 +227,7 @@ __device__ void dense_fit(bool fits, int l, const uint32_t* win, int W,
 #pragma unroll
       for (int k = 0; k < K; ++k) cb[s][k] = cb[s][k] / nw;
   }
+#endif
   __syncthreads();
   if (!fits || l >= NB) return;
 

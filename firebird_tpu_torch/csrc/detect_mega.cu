@@ -81,14 +81,18 @@ struct WordColumns {
 // The INIT body of one pixel over its words.  Inlined: out of line (its
 // window arrays in a frame of their own) it ran 1.4 % slower at 2 blocks
 // an SM, 16 % faster at 3 (tools/kernel_variants.py).
+// The mixed instance (FB_MIXED) runs it on every lane of warp 0 once any
+// of them initializes (init: this pixel does; the stability fit's Gram is
+// the warp's, staged in the tile's Grams), the f32 instance on the
+// initializing lanes only.
 template <int WMAX>
 __device__ __forceinline__ fb::InitOut mega_init(
-    uint32_t* A, uint32_t* S, int cur_i, const float* ts, const float* Xs,
-    const float* Xts, const int16_t* Yp, const float* vrow,
-    const fb::Roles& roles, int T, int P, int W) {
+    uint32_t* A, uint32_t* S, int cur_i, bool init, const float* ts,
+    const float* Xs, const float* Xts, const int16_t* Yp, const float* vrow,
+    const fb::Roles& roles, int T, int P, int W, float* stage) {
   WordColumns col{A, S};
-  return fb::init_pixel<WMAX>(col, cur_i, true, ts, Xs, Xts, Yp, vrow, roles,
-                              T, P, W);
+  return fb::init_pixel<WMAX>(col, cur_i, init, ts, Xs, Xts, Yp, vrow, roles,
+                              T, P, W, stage);
 }
 
 template <int B, int WMAX>
@@ -161,9 +165,13 @@ mega_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ tt,
     InitOut io{};
     if (tid < TILE) {
       const bool in_init = phase == PHASE_INIT;
+#if FB_MIXED
+      if (__any_sync(~0u, in_init))
+#else
       if (in_init)
-        io = mega_init<WMAX>(m.mA + i, m.mS + i, cur_i, ts, Xs, Xts, Yc + p,
-                             vario + cp * B, roles, T, P, W);
+#endif
+        io = mega_init<WMAX>(m.mA + i, m.mS + i, cur_i, in_init, ts, Xs, Xts,
+                             Yc + p, vario + cp * B, roles, T, P, W, m.Gs);
       if (__ballot_sync(~0u, in_init) && i == 0) fl[r] = 1;
     }
     __syncthreads();

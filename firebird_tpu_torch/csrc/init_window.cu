@@ -277,7 +277,7 @@ init_kernel(const uint8_t* __restrict__ alive, const int* __restrict__ cur_i,
                       Yc + p0 + fi + (size_t)32 * w0 * P, TP, P,
                       Xc + (size_t)32 * w0 * K, areas + g * GSTRIDE, m4,
                       false, c4s + g * NDET * K, r4s + g * NDET,
-                      InitBands{roles});
+                      InitBands{roles}, w0);
       // dense_fit's barrier is behind every read of the words.
       if (warp == 0 && s_keep[lane]) {
         uint32_t* col = mA + lane;

@@ -20,9 +20,16 @@
 //   5. the cursor advances and the w_stab / alive_init columns.
 // The window arrays are sized by the template's WMAX and live in local
 // memory (-Xptxas -v reports the stack frame).
+// A mixed-precision instance (FB_MIXED) sums the stability fit's Gram and
+// correlations on the tensor cores, the warp's 32 pixels at once
+// (mixed_gram.cuh's mixed_init_gram): every lane of the warp calls
+// init_pixel, and the pixels' sums are dense_fit's, bit for bit.
 #pragma once
 
 #include "ccd_common.cuh"
+#if FB_MIXED
+#include "mixed_gram.cuh"
+#endif
 
 namespace fb {
 
@@ -193,12 +200,14 @@ struct InitOut {
 // Xtc [T, NT] are the chip's days and designs (read through Col::ld),
 // vrow [NB] the pixel's variogram, roles the sensor's detection and Tmask
 // bands.  ci is the cursor, init whether the pixel initializes (a pixel
-// that does not gets an empty window's outputs).
+// that does not gets an empty window's outputs).  The mixed instance's
+// stage is 2048 floats of shared memory for the warp (mixed_init_gram).
 template <int WMAX, class Col>
 __device__ InitOut init_pixel(Col& col, int ci, bool init, const float* tc,
                               const float* Xc, const float* Xtc,
                               const int16_t* Yc, const float* vrow,
-                              const Roles& roles, int T, int P, int W) {
+                              const Roles& roles, int T, int P, int W,
+                              float* stage = nullptr) {
   // 1. i: first alive at or after the cursor (0 when none).
   int i = 0;
   bool has_i = false;
@@ -232,6 +241,36 @@ __device__ InitOut init_pixel(Col& col, int ci, bool init, const float* tc,
   // 2-4. Window members, Tmask screen, stability.
   bool bad[WMAX];
   bool tm_removed = false, stable = false;
+#if FB_MIXED
+  float Y[NDET][WMAX];
+  if (work) {
+    for (int s = 0; s < n_win; ++s) {
+#pragma unroll
+      for (int d = 0; d < NDET; ++d)
+        Y[d][s] = (float)Yc[((size_t)roles.det[d] * T + pos[s]) * P];
+    }
+    const float thr[2] = {TMASK_CONST * vrow[roles.det[roles.tm[0]]],
+                          TMASK_CONST * vrow[roles.det[roles.tm[1]]]};
+    tm_removed = tmask_screen<WMAX>(
+        InitWindow<WMAX, Col>{Y, pos, Xtc, {roles.tm[0], roles.tm[1]}},
+        n_win, thr, bad);
+  }
+  // The Gram of every alive observation of [i, j], the warp's lanes
+  // together.  (Each branch opens the two blocks that the stability test
+  // after it closes.)
+  Gram<NDET> g;
+  mixed_init_gram(work && !tm_removed, col.A, i, j, Yc, Xc, roles,
+                  (size_t)T * P, P, stage, g);
+  if (work && !tm_removed) {
+    const int n = n_win;
+    {
+      bool m4[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) m4[k] = k < 4;
+      float c4[NDET][K];
+      lasso_cd<NDET>(g, m4, c4);
+      const float span = tc[j] - t_i;
+#else
   if (work) {
     const int n = n_win;
     float Y[NDET][WMAX];
@@ -272,6 +311,7 @@ __device__ InitOut init_pixel(Col& col, int ci, bool init, const float* tc,
       float c4[NDET][K];
       lasso_cd<NDET>(g, m4, c4);
       const float span = tc[j] - t_i;
+#endif
       const float n4 = fmaxf((float)n, 1.f);
       stable = true;
 #pragma unroll

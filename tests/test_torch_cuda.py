@@ -1051,3 +1051,220 @@ def test_sharded_ring_on_card(dev, monkeypatch):
               "mask", "procedure"):
         assert torch.equal(getattr(on, f), getattr(off, f)), f
         assert torch.equal(getattr(on, f), getattr(whole, f)), f
+
+
+# ---------------------------------------------------------------------------
+# The mixed-precision instances (FIREBIRD_MIXED_PRECISION)
+# ---------------------------------------------------------------------------
+
+EPS32 = 2.0 ** -23
+
+
+def _scaled_ulps(got, want, vector=False):
+    """params.MIXED_ULP_BUDGET's metric |got - want| / (eps32 * scale):
+    scale max(|coefficient vector|, 1) (``vector``) or max(|value|, 1)."""
+    want = want.double()
+    scale = (want.abs().amax(-1, keepdim=True) if vector
+             else want.abs()).clamp_min(1.0)
+    return (got.double() - want).abs() / (EPS32 * scale)
+
+
+def _within_budget(got, want):
+    """(coefs, rmse) pairs of a mixed kernel and its plain mixed version:
+    every value within the scaled-ulp budget."""
+    assert float(_scaled_ulps(got[0], want[0], True).max()) <= \
+        params.MIXED_ULP_BUDGET
+    assert float(_scaled_ulps(got[1], want[1]).max()) <= \
+        params.MIXED_ULP_BUDGET
+
+
+@pytest.mark.parametrize("B,P", [(7, 141), (12, 50)])
+def test_lasso_fit_mixed_matches_plain(dev, B, P):
+    """The mixed instance launches under its own count, lands within the
+    scaled-ulp budget of the plain mixed version (the tensor cores add a
+    chunk's products in their own way), differs from the f32 fit, and
+    gives a pixel with no weight an exactly zero fit."""
+    rng = np.random.default_rng(140 + B)
+    C, T = 2, 77
+    a = _round_args(rng, dev, C=C, B=B, T=T, P=P)
+    w = rng.random((C, T, P)) < 0.6
+    w[:, :, ::7] = False
+    w = _t(w.astype(np.float32), dev)
+    mask = _t(np.arange(8) < rng.choice([4, 6, 8], (C, P))[..., None], dev)
+    before = dict(cuda_ops.LAUNCHES)
+    got = cuda_ops.lasso_fit(a["Yt"], w, a["X"], mask, mixed=True)
+    assert cuda_ops.LAUNCHES["lasso_fit_mixed"] == \
+        before["lasso_fit_mixed"] + 1
+    assert cuda_ops.LAUNCHES["lasso_fit"] == before["lasso_fit"]
+    want = cuda_ops.lasso_fit_plain(a["Yt"], w, a["X"], mask, mixed=True)
+    _within_budget(got, want)
+    f32 = cuda_ops.lasso_fit(a["Yt"], w, a["X"], mask)
+    assert not torch.equal(got[0], f32[0])
+    assert not got[0][:, ::7].any() and not got[1][:, ::7].any()
+    b0, r0 = cuda_ops.lasso_fit(a["Yt"], w, a["X"], mask, with_rmse=False,
+                                mixed=True)
+    assert torch.equal(b0, got[0]) and not r0.any()
+
+
+@pytest.mark.parametrize("B", [7, 12])
+def test_mixed_fits_equal_lasso_fit_mixed(dev, B):
+    """fused_fit_close's and fused_round's mixed refits give lasso_fit's
+    mixed coefficients and RMSE bit for bit on the same windows (each
+    pixel's tensor-core sums are its own, whichever pixels share its
+    warp): route 1 and route "mon" equal route 0 in mixed too."""
+    rng = np.random.default_rng(150 + B)
+    a = _round_args(rng, dev, B=B, T=77)
+    C, _, T, P = a["Yt"].shape
+    w = _t((rng.random((C, T, P)) < 0.6).astype(np.float32), dev)
+    n_full = _t(rng.integers(10, 40, (C, P)).astype(np.int32), dev)
+    fit = _t(rng.random((C, P)) < 0.7, dev)
+    no = torch.zeros(C, P, dtype=torch.bool, device=dev)
+    zi = torch.zeros(C, P, dtype=torch.int32, device=dev)
+    rmse = torch.ones(C, P, B, device=dev)
+    _, _, coefs, rmse_o = cuda_ops.fused_fit_close(
+        a["Yt"], a["X"], a["t"], w, fit, n_full, a["included"], a["coefs"],
+        rmse, rmse, no, no, zi, zi, a["first_seg"], a["nseg"],
+        _clone(a["bufs"]), mixed=True)
+    want = cuda_ops.lasso_fit(a["Yt"], w * fit[:, None, :], a["X"],
+                              coefmask_for(n_full), mixed=True)
+    assert torch.equal(want[0][fit], coefs[fit])
+    assert torch.equal(want[1][fit], rmse_o[fit])
+
+    args, bufs = (_fused_round_case(np.random.default_rng(160), dev, 96, 141,
+                                    "mixed") if B == 7 else
+                  _s2_round_case(np.random.default_rng(161), dev))
+    kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR,
+              sensor=LANDSAT_ARD if B == 7 else SENTINEL2)
+    _, _, coefs, rmse, ev = cuda_ops.fused_round(*args, _clone(bufs),
+                                                 mixed=True, **kw)
+    w = torch.where(args[11][:, None, :], args[12],
+                    ev["included_mon"] & ev["is_refit"][:, None, :])
+    fit = ev["do_fit"]
+    assert fit.any()
+    want = cuda_ops.lasso_fit(args[0], w.float().contiguous(), args[1],
+                              coefmask_for(ev["n_full"]), mixed=True)
+    assert torch.equal(coefs[fit], want[0][fit])
+    assert torch.equal(rmse[fit], want[1][fit])
+    got = cuda_ops.fused_round(*args, _clone(bufs), mixed=True, **kw)
+    plain = cuda_ops.fused_round_plain(*args, _clone(bufs), mixed=True, **kw)
+    for k in ("is_tail", "is_brk", "is_refit", "do_fit"):
+        assert torch.equal(got[4][k], plain[4][k]), k
+    _within_budget((got[2][fit], got[3][fit]),
+                   (plain[2][fit], plain[3][fit]))
+
+
+@pytest.mark.parametrize("sensor", [LANDSAT_ARD, SENTINEL2])
+def test_init_window_mixed_matches_plain(dev, sensor):
+    args = _init_args(np.random.default_rng(170), dev, B=sensor.n_bands,
+                      outliers=0.03)
+    before = cuda_ops.LAUNCHES["init_window_mixed"]
+    got = cuda_ops.init_window(*args, W=24, sensor=sensor, mixed=True)
+    assert cuda_ops.LAUNCHES["init_window_mixed"] == before + 1
+    want = cuda_ops.init_window_plain(*args, W=24, sensor=sensor, mixed=True)
+    for k in INIT_EXACT:
+        assert torch.equal(got[k], want[k]), k
+    assert got["init_tm"].any() and got["init_ok"].any()
+    for k in ("init_ok", "init_bad"):
+        assert (got[k] != want[k]).float().mean().item() <= 0.02, k
+
+
+@pytest.mark.parametrize("W", [24, 40])
+@pytest.mark.parametrize("sensor", [LANDSAT_ARD, SENTINEL2])
+def test_detect_mega_mixed_matches_plain(dev, sensor, W):
+    args = _mega_state(np.random.default_rng(180 + W), dev, sensor.n_bands)
+    kw = dict(W=W, change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR,
+              sensor=sensor, mixed=True)
+    a, bufs, tail = args[:5], args[5], args[6:]
+    before = cuda_ops.LAUNCHES["detect_mega_mixed"]
+    got = cuda_ops.detect_mega(*a, _clone(bufs), *tail, **kw)
+    assert cuda_ops.LAUNCHES["detect_mega_mixed"] == before + 1
+    want = cuda_ops.detect_mega_plain(*a, _clone(bufs), *tail, **kw)
+    for k in ("nseg", "alive", "meta", "rounds", "counts"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("rmse", "coef"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("W", [24, 64, 128])
+@pytest.mark.parametrize("sensor", ["landsat", "sentinel2"])
+def test_mixed_mega_equals_mon_at_each_instance(dev, sensor, W):
+    """In mixed, the mega route (its INIT's stability Gram summed by warp
+    0's 32 pixels at once) equals route "mon" (init_window's, four pixels a
+    warp) in every field but the per-chip rounds, at each window
+    instance."""
+    if sensor == "landsat":
+        packed = _tiny_packed()
+    else:
+        src = SyntheticSource(88, start="2019-01-01", end="2023-01-01",
+                              cloud_frac=0.15, sensor=SENTINEL2)
+        p = pack([src.chip(100, 200)], bucket=32)
+        sel = np.arange(64) * (p.spectra.shape[2] // 64)
+        packed = dataclasses.replace(
+            p, spectra=np.ascontiguousarray(p.spectra[:, :, sel]),
+            qas=np.ascontiguousarray(p.qas[:, sel]))
+    staged = kernel.stage_packed(packed, dev)
+    run = lambda **kw: kernel.detect_staged(
+        *staged, W=W, sensor=packed.sensor, compact=False, mixed=True, **kw)
+    cuda_ops.reset_launches()
+    mega = run(pallas="mega")
+    assert {k for k, n in cuda_ops.LAUNCHES.items() if n} == {
+        "lasso_fit_mixed", "detect_mega_mixed"}
+    mon = run(pallas="1", fused="mon")
+    for f in ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
+              "mask", "procedure", "vario"):
+        assert torch.equal(getattr(mega, f), getattr(mon, f)), f
+    assert int(mega.rounds.max()) == int(mon.rounds[0])
+
+
+def test_mixed_routes_on_card(dev):
+    """Mixed: each route launches the mixed instances of its fitting
+    kernels and no f32 one; route 1 = route 0 byte for byte, "mon" = route
+    0 but seg_mag; the component route is inert (its f32 result); the
+    decisions equal the f32 route's and the plain mixed route's."""
+    packed = _tiny_packed()
+    f32 = kernel.detect_packed(packed, fused=0)
+    segs = {}
+    for fused, want in ((0, {"lasso_fit_mixed", "monitor_chain_scored",
+                             "init_window_mixed"}),
+                        (1, {"lasso_fit_mixed", "monitor_chain_scored",
+                             "init_window_mixed", "fused_fit_close_mixed"}),
+                        ("mon", {"lasso_fit_mixed", "init_window_mixed",
+                                 "fused_round_mixed"})):
+        cuda_ops.reset_launches()
+        segs[fused] = kernel.detect_packed(packed, fused=fused, mixed=True)
+        assert {k for k, n in cuda_ops.LAUNCHES.items() if n} == want
+    for f in ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
+              "mask", "procedure", "rounds", "vario", "round_counts"):
+        assert torch.equal(getattr(segs[1], f), getattr(segs[0], f)), f
+        a, b = getattr(segs["mon"], f), getattr(segs[0], f)
+        if f == "seg_mag":
+            torch.testing.assert_close(a, b, rtol=5e-3, atol=1e-2)
+        else:
+            assert torch.equal(a, b), f
+    assert not torch.equal(segs[0].seg_coef, f32.seg_coef)
+    _decisions_equal(segs[0], f32)
+    ref = kernel.detect_packed(packed, fused=0, mixed=True,
+                               ops=cuda_ops.PLAIN)
+    _decisions_equal(segs[0], ref)
+    comp = dict(pallas="lasso,monitor,tmask", fused=0)
+    a = kernel.detect_packed(packed, mixed=True, **comp)
+    b = kernel.detect_packed(packed, mixed=False, **comp)
+    for f in ("n_segments", "seg_meta", "seg_rmse", "seg_coef", "mask"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_mixed_instances_run_on_tensor_cores(dev):
+    """The five mixed instances' SASS holds HMMA (bf16 mma.sync) and the f32
+    instances' holds none."""
+    import shutil
+    import subprocess
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = cuda_ops.build()
+    for unit, path in libs.items():
+        if cuda_ops.source_of(unit) not in cuda_ops.MIXED_SOURCES:
+            continue
+        sass = subprocess.run([exe, "-sass", str(path)], capture_output=True,
+                              text=True, check=True).stdout
+        n = sass.count("HMMA")
+        assert (n > 0) == (unit != cuda_ops.source_of(unit)), (unit, n)

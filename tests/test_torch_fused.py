@@ -88,7 +88,9 @@ def test_fused_fit_close_plain_matches_pallas_sentinel2():
     _check_fused_fit_close(np.random.default_rng(13), T_S2.n_bands)
 
 
-def _check_fused_fit_close(rng, nb):
+def _check_fused_fit_close(rng, nb, mixed=False):
+    """fused_fit_close_plain against the Pallas kernel at ``nb`` bands, both
+    with the mixed-precision Gram where ``mixed``."""
     t, X, Yt, beta = _series(rng, nb)
     w_fit = (rng.random((P, T)) < 0.7).astype(np.float32)
     do_fit = rng.random(P) < 0.5
@@ -115,13 +117,14 @@ def _check_fused_fit_close(rng, nb):
         jnp.asarray(coefs), jnp.asarray(rmse), jnp.asarray(mags),
         jnp.asarray(is_tail), jnp.asarray(is_brk), jnp.asarray(pos_ev),
         jnp.asarray(n_exceed), jnp.asarray(first_seg), jnp.asarray(nseg),
-        tuple(jnp.asarray(b) for b in bufs), S=S, block_p=BP, interpret=True)
+        tuple(jnp.asarray(b) for b in bufs), S=S, block_p=BP, mixed=mixed,
+        interpret=True)
     got = cuda_ops.fused_fit_close(
         _t(Yt), _t(X), _t(t), convert.plane_from_numpy(w_fit, torch.float32),
         _t(do_fit), _t(n_full), convert.plane_from_numpy(incm), _t(coefs),
         _t(rmse), _t(mags), _t(is_tail), _t(is_brk), _t(pos_ev),
         _t(n_exceed), _t(first_seg), _t(nseg),
-        convert.bufs_from_flat(bufs, nb))
+        convert.bufs_from_flat(bufs, nb), mixed=mixed)
     _compare_bufs(got[0], want[0])
     np.testing.assert_array_equal(got[1][0].numpy(), np.asarray(want[1]))
     # The Gram sums run in another order than the Pallas dot; 50 CD sweeps
@@ -172,9 +175,10 @@ def test_fused_round_plain_matches_pallas_sentinel2():
     _check_fused_round(np.random.default_rng(9), SENTINEL2, T_S2)
 
 
-def _check_fused_round(rng, j_sensor, t_sensor):
+def _check_fused_round(rng, j_sensor, t_sensor, mixed=False):
     """fused_round_plain against the Pallas kernel on ``j_sensor``'s
-    layout (``t_sensor`` the port's copy; None: the wrapper's default)."""
+    layout (``t_sensor`` the port's copy; None: the wrapper's default),
+    both with the mixed-precision Gram where ``mixed``."""
     a = _round_inputs(rng, j_sensor.n_bands)
     want = pallas_ops.fused_round(
         *(jnp.asarray(a[k]) for k in (
@@ -183,7 +187,7 @@ def _check_fused_round(rng, j_sensor, t_sensor):
             "first_seg", "nseg")),
         tuple(jnp.asarray(b) for b in a["bufs"]), S=S, sensor=j_sensor,
         change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR, block_p=BP,
-        interpret=True)
+        mixed=mixed, interpret=True)
     args = [convert.plane_from_numpy(a[k]) if k in _PLANES else _t(a[k])
             for k in ("Yt", "X", "t", "alive", "included", "cur_k",
                       "n_last_fit", "in_mon", "coefs", "rmse", "vario",
@@ -193,7 +197,7 @@ def _check_fused_round(rng, j_sensor, t_sensor):
                                convert.bufs_from_flat(a["bufs"],
                                                       j_sensor.n_bands),
                                change_thr=CHANGE_THR,
-                               outlier_thr=OUTLIER_THR, **kw)
+                               outlier_thr=OUTLIER_THR, mixed=mixed, **kw)
     ev_w, ev_g = want[4], got[4]
     # The inputs reach every event and both gates of each pixel block.
     kinds = [np.asarray(ev_w[k]) for k in ("is_tail", "is_brk", "is_refit")]

@@ -52,7 +52,15 @@ def test_every_kernel_has_a_wrapper_a_plain_version_and_a_counter():
     assert set(cuda_ops.SOURCES) == kernels
     assert set(vars(cuda_ops.KERNELS)) == kernels
     assert set(vars(cuda_ops.PLAIN)) == kernels
-    assert set(cuda_ops.LAUNCHES) == kernels
+    # A launch count for every build unit: each kernel and the mixed-
+    # precision instance of each fitting kernel.
+    fitting = {"lasso_fit", "init_window", "fused_fit_close", "fused_round",
+               "detect_mega"}
+    assert set(cuda_ops.MIXED_SOURCES) == fitting
+    units = kernels | {f"{n}_mixed" for n in fitting}
+    assert set(cuda_ops.UNITS) == units
+    assert set(cuda_ops.LAUNCHES) == units
+    assert {cuda_ops.source_of(u) for u in units} == kernels
     assert {f"fb_{n}" for n in kernels} == set(cuda_ops._ARGTYPES)
     for n in kernels:
         src = (ROOT / "firebird_tpu_torch" / "csrc" / f"{n}.cu").read_text()

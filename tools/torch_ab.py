@@ -1,7 +1,7 @@
 """Two checkouts of the PyTorch port on one card, in turns.
 
     python tools/torch_ab.py --base DIR [--change DIR] [--order abba]
-        [--chips 8] [--seed 0] [--reps 20] [--runs 2]
+        [--chips 8] [--seed 0] [--reps 20] [--runs 2] [--mixed]
         [--out chiprun_out/torch_ab.json]
 
 Runs each checkout (``--base``, and ``--change``, default this tree) in a
@@ -29,14 +29,21 @@ card in one call.  A worker uses only its checkout's own code: its
   chips at the 2048-lane bucket), and one ``torch._foreach_copy_`` over
   the same tensors;
 - the wall of every route's main path (routes 0, 1, "mon", mega, the
-  component route, "0+compact": ``detect_packed`` ``--runs`` times, every
-  run's wall kept), and of the sharded path
+  component route, "0+compact" and, where the checkout has them, the
+  "+mixed" routes: ``detect_packed`` ``--runs`` times, every run's wall
+  kept, and a SHA-1 digest of the result fields, compared across the
+  workers at the end for the routes they share), and of the sharded path
   (``detect_sharded``, two shards on the card, the ring on) with its peak
   device memory;
 - on chip_smoke.py's Sentinel-2 chip (one 300x300 chip of 12 bands,
   2019-2020, T=64): ``init_window`` and ``tmask_bad`` on its kernel
   phase's states as above, and the walls of routes 0, 1, "mon", mega and
   the component route.
+
+``--mixed`` times the fitting kernels' mixed-precision instances
+(``lasso_fit``, ``init_window``, ``fused_fit_close``, ``fused_round``,
+``detect_mega``) and every route with ``mixed=True`` instead (both
+checkouts must have them).
 
 Writes every worker's numbers, with the card's name and power limit, to
 ``--out`` and prints one line a worker.  Needs a CUDA device.
@@ -45,6 +52,7 @@ Writes every worker's numbers, with the card's name and power limit, to
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -53,18 +61,29 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
+RESULT_FIELDS = ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
+                 "mask", "procedure", "rounds", "round_counts", "vario")
 
 
-def init_times(cs, cuda_ops, inp, sensor, seed, reps):
+def digest(seg) -> str:
+    """SHA-1 of a ChipSegments' result fields, their bytes in order."""
+    h = hashlib.sha1()
+    for f in RESULT_FIELDS:
+        h.update(getattr(seg, f).contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def init_times(cs, cuda_ops, inp, sensor, seed, reps, mx):
     """``init_window`` on the kernel phase's state ``inp`` and on a late
     round's (``in_init`` thinned by the seed to about 2 %), ``tmask_bad``
-    on the state's gathered windows: median milliseconds."""
+    on the state's gathered windows: median milliseconds (``mx`` the
+    fitting kernels' precision keyword)."""
     import numpy as np
     import torch
 
     a = (inp["alive"], inp["cur_i"], inp["in_init"], inp["t"], inp["X"],
          inp["Xt"], inp["Yt"], inp["vario"])
-    kw = dict(W=inp["W"], sensor=sensor)
+    kw = dict(W=inp["W"], sensor=sensor, **mx)
     # chip_smoke.thin_init's rule, kept here: a base checkout's chip_smoke
     # may predate it.
     rng = np.random.default_rng(seed + 3)
@@ -81,7 +100,16 @@ def init_times(cs, cuda_ops, inp, sensor, seed, reps):
         tmask_bad_ms=cs.cuda_ms(lambda: cuda_ops.tmask_bad(*tm), reps))
 
 
-def sentinel2(cs, cuda_ops, kernel, reps, runs):
+def routes(cs, mx):
+    """The routes a worker times: chip_smoke.py's ROUTES, or with the
+    precision keyword ``mx`` each route but the "+mixed" ones with it."""
+    if not mx:
+        return {name: kw for name, (kw, _) in cs.ROUTES.items()}
+    return {name: dict(kw, **mx) for name, (kw, _) in cs.ROUTES.items()
+            if not name.endswith("+mixed")}
+
+
+def sentinel2(cs, cuda_ops, kernel, reps, runs, mx):
     """The Sentinel-2 chip's ``init_window`` and ``tmask_bad`` times and
     the walls of its routes (chip_smoke.py's S2_SOURCE and S2_ROUTES)."""
     import torch
@@ -94,23 +122,28 @@ def sentinel2(cs, cuda_ops, kernel, reps, runs):
     inp = cs.kernel_inputs(cs.S2_SOURCE["seed"], staged,
                            kernel.window_cap(packed), cs.SENTINEL2)
     out = init_times(cs, cuda_ops, inp, cs.SENTINEL2, cs.S2_SOURCE["seed"],
-                     reps)
+                     reps, mx)
     del inp
     torch.cuda.empty_cache()
     walls = {}
+    kws = routes(cs, mx)
     for name in cs.S2_ROUTES:
+        if name not in kws:
+            continue
         walls[name] = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            kernel.detect_packed(packed, staged=staged, **cs.ROUTES[name][0])
+            kernel.detect_packed(packed, staged=staged, **kws[name])
             torch.cuda.synchronize()
             walls[name].append(time.perf_counter() - t0)
     out["walls_s"] = walls
     return out
 
 
-def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
-    """The measurements of the checkout on ``sys.path[0]``."""
+def worker(seed: int, chips: int, reps: int, runs: int,
+           mixed: bool = False) -> dict:
+    """The measurements of the checkout on ``sys.path[0]`` (``mixed``: of
+    the fitting kernels' mixed instances and the routes in mixed)."""
     import torch
 
     import chip_smoke as cs
@@ -123,6 +156,7 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
             raise RuntimeError(f"{mod.__name__} from {mod.__file__}, not "
                                f"from the checkout {here}")
     dev = torch.device("cuda")
+    mx = dict(mixed=True) if mixed else {}
     cuda_ops.build()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -138,9 +172,10 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
             init["n_ok"], inp["first_seg"], inp["nseg"])
     bufs = tuple(b.clone() for b in inp["bufs"])
     out = dict(fused_round_ms=cs.cuda_ms(
-        lambda: cuda_ops.fused_round(*args, bufs, **kw), reps))
+        lambda: cuda_ops.fused_round(*args, bufs, **kw, **mx), reps))
     fit = (inp["Yt"], inp["w"], inp["X"], inp["coefmask"])
-    out["lasso_fit_ms"] = cs.cuda_ms(lambda: cuda_ops.lasso_fit(*fit), reps)
+    out["lasso_fit_ms"] = cs.cuda_ms(lambda: cuda_ops.lasso_fit(*fit, **mx),
+                                     reps)
     mon = (inp["Yd"], inp["coefs_d"], inp["dden"], inp["X"], inp["alive"],
            inp["included"], inp["cur_k"], inp["n_last_fit"], inp["in_mon"])
     out["monitor_chain_scored_ms"] = cs.cuda_ms(
@@ -150,13 +185,13 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
         inp, plain_mon, init, kw, {"disagreeing_pixels": {}})}
     ffc = rows["fused_fit_close"][1]
     out["fused_fit_close_ms"] = cs.cuda_ms(
-        lambda: cuda_ops.fused_fit_close(*ffc), reps)
-    out.update(init_times(cs, cuda_ops, inp, cs.LANDSAT_ARD, seed, reps))
+        lambda: cuda_ops.fused_fit_close(*ffc, **mx), reps)
+    out.update(init_times(cs, cuda_ops, inp, cs.LANDSAT_ARD, seed, reps, mx))
     W = inp["W"]
     del inp, init, args, bufs, fit, mon, plain_mon, rows, ffc
     torch.cuda.empty_cache()
-    mega = cs.mega_row(staged, W, kw, {"disagreeing_pixels": {}},
-                       cs.LANDSAT_ARD)
+    mega = cs.mega_row(staged, W, kw, {"disagreeing_pixels": {}, "mixed": {}},
+                       cs.LANDSAT_ARD, **mx)
     out["detect_mega_ms"] = cs.cuda_ms(
         lambda: cuda_ops.detect_mega(*mega[1], **mega[2]), 5)
     del mega
@@ -174,14 +209,17 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
     out["foreach_copy_ms"] = cs.cuda_ms(timing["library"], reps)
     del ring_args, timing
     torch.cuda.empty_cache()
-    walls = {}
-    for name, (kw_route, _) in cs.ROUTES.items():
+    walls, digests = {}, {}
+    for name, kw_route in routes(cs, mx).items():
         walls[name] = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            kernel.detect_packed(packed, staged=staged, **kw_route)
+            seg = kernel.detect_packed(packed, staged=staged, **kw_route)
             torch.cuda.synchronize()
             walls[name].append(time.perf_counter() - t0)
+        digests[name] = digest(seg)
+        del seg
+    out["digests"] = digests
     torch.cuda.empty_cache()
     ragged = cs.ragged_batch(packed)
     devices = ["cuda:0"] * cs.SHARDS
@@ -189,14 +227,14 @@ def worker(seed: int, chips: int, reps: int, runs: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for _ in range(runs):
         t0 = time.perf_counter()
-        detect_sharded(ragged, devices, rebalance=True, **cs.SHARDED)
+        detect_sharded(ragged, devices, rebalance=True, **cs.SHARDED, **mx)
         torch.cuda.synchronize()
         walls["sharded"].append(time.perf_counter() - t0)
     out["sharded_peak_bytes"] = torch.cuda.max_memory_allocated()
     out["walls_s"] = walls
     del packed, staged, ragged
     torch.cuda.empty_cache()
-    out["sentinel2"] = sentinel2(cs, cuda_ops, kernel, reps, runs)
+    out["sentinel2"] = sentinel2(cs, cuda_ops, kernel, reps, runs, mx)
     return out
 
 
@@ -211,10 +249,11 @@ def main(argv=None):
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--out", type=Path,
                     default=REPO / "chiprun_out" / "torch_ab.json")
+    ap.add_argument("--mixed", action="store_true")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker is not None:
-        res = worker(args.seed, args.chips, args.reps, args.runs)
+        res = worker(args.seed, args.chips, args.reps, args.runs, args.mixed)
         args.worker.write_text(json.dumps(res))
         return
     if args.base is None:
@@ -234,7 +273,8 @@ def main(argv=None):
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
                         "--worker", str(tmp.resolve()), "--seed",
                         str(args.seed), "--chips", str(args.chips), "--reps",
-                        str(args.reps), "--runs", str(args.runs)], cwd=d,
+                        str(args.reps), "--runs", str(args.runs)]
+                       + (["--mixed"] if args.mixed else []), cwd=d,
                        env=env, check=True)
         res = json.loads(tmp.read_text())
         tmp.unlink()
@@ -242,8 +282,13 @@ def main(argv=None):
                    worker_seconds=time.perf_counter() - t0)
         runs.append(res)
         print(json.dumps(res), flush=True)
+    shared = set.intersection(*(set(r["digests"]) for r in runs))
+    same = {n: len({r["digests"][n] for r in runs}) == 1
+            for n in sorted(shared)}
+    print(f"result digests equal across the workers: {same}", flush=True)
     args.out.write_text(json.dumps(dict(device=smi, order=args.order,
-                                        runs=runs), indent=1))
+                                        mixed=args.mixed, runs=runs,
+                                        digests_equal=same), indent=1))
     print(smi)
 
 

@@ -1,14 +1,15 @@
 """Where the PyTorch port's detector spends its time on the card.
 
     python tools/torch_detect_profile.py [--chips 8] [--seed 0] [--out DIR]
-        [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--shards N]
-        [--sensor {landsat-ard,sentinel2}]
+        [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--mixed {0,1}]
+        [--shards N] [--sensor {landsat-ard,sentinel2}]
 
 Runs SyntheticSource -> pack -> detect_packed (round route ``--fused``,
 default 0; kernels ``--pallas``, default "1": the ``fit,score,init``
 route; ``mega`` or a component list such as ``lasso,monitor,tmask``
 picks another, kernel.pallas_components; compaction ``--compact``,
-default 0) on ``--chips`` full-size Landsat chips (1985-2017, T=768)
+default 0; the fitting kernels' mixed-precision instances with ``--mixed
+1``, default 0) on ``--chips`` full-size Landsat chips (1985-2017, T=768)
 once to warm up, once timed by the host clock, then once under
 ``torch.profiler`` (CPU and CUDA activities).  ``--shards N`` runs
 parallel.detect_sharded instead, over N shards on cuda:0 with the
@@ -80,16 +81,18 @@ def main(argv=None):
     ap.add_argument("--fused", default="0", choices=("0", "1", "mon"))
     ap.add_argument("--pallas", default="1")
     ap.add_argument("--compact", default="0", choices=("0", "1"))
+    ap.add_argument("--mixed", default="0", choices=("0", "1"))
     ap.add_argument("--shards", type=int, default=0)
     ap.add_argument("--sensor", default="landsat-ard",
                     choices=("landsat-ard", "sentinel2"))
     args = ap.parse_args(argv)
     fused = {"0": 0, "1": 1, "mon": "mon"}[args.fused]
-    ops = kernel.pallas_components(args.pallas)
+    ops = kernel.pallas_components(args.pallas, mixed=args.mixed == "1")
     route = ("mega" if ops.mega
              else "+".join(ops.components) + f"/fused={args.fused}")
     route += f"/compact={args.compact}" + (f"/shards={args.shards}"
                                            if args.shards else "")
+    route += "/mixed" if ops.mixed else ""
     kw = dict(fused=fused, ops=ops, compact=args.compact == "1")
     if not torch.cuda.is_available():
         sys.exit("torch_detect_profile: no CUDA device")
@@ -167,6 +170,7 @@ def main(argv=None):
                                                   (args.pallas, "1"))
                      if v != default).replace(",", "-")
     suffix += ("_compact" if args.compact == "1" else "") + (
+        "_mixed" if args.mixed == "1" else "") + (
         f"_shards{args.shards}" if args.shards else "") + (
         "_sentinel2" if args.sensor == "sentinel2" else "")
     (Path(args.out) / f"torch_detect_profile{suffix}.json").write_text(
