@@ -22,7 +22,12 @@ From the root of a checkout, on a machine with a CUDA card:
    and times both with CUDA events (``ring_remote_copy`` also against one
    ``torch._foreach_copy_``); ``init_window`` also on a late-round state
    (the same inputs with ``in_init`` thinned by the seed to about 2 % of
-   the pixels), held to its plain version and timed beside its bound; the
+   the pixels), held to its plain version and timed beside its bound;
+   ``lasso_cd`` also on a late round's systems (the fit windows of a tenth
+   of the pixels kept, the others empty), its bound counting the systems
+   it must fit (a band with a nonzero correlation), the pixels not
+   bit-equal to the plain version printed; ``monitor_chain`` held to its
+   plain version through ``cuda_ops.monitoring_only``; the
    mixed instances of ``lasso_fit``, ``init_window``, ``fused_fit_close``,
    ``fused_round`` and ``detect_mega`` on the same inputs against their
    plain mixed versions (exact fields equal, coefficients and RMSE within
@@ -66,8 +71,9 @@ From the root of a checkout, on a machine with a CUDA card:
 7. what the redesigned kernels are judged by: registers, stack and spills
    (the build's ``-Xptxas -v``), shared memory and resident blocks an SM
    (the CUDA runtime) of ``fused_round``, ``fused_fit_close`` and each
-   window instance of ``detect_mega``, ``init_window`` and ``tmask_bad``,
-   those of ``lasso_fit`` and ``monitor_chain_scored``, each with its time
+   window instance of ``detect_mega``, ``init_window``, ``tmask_bad``,
+   ``lasso_cd`` and ``monitor_chain``, those of ``lasso_fit`` and
+   ``monitor_chain_scored``, each with its time
    beside its bound, the ring's achieved TB/s beside
    ``torch._foreach_copy_``'s, and the walls of routes "mon", 1 and mega
    beside route 0's;
@@ -373,7 +379,7 @@ def kernel_phase(inp, staged, reps, seed, ring=True, mixed=False):
     report["init_window_late_round"] = init_late_round(inp, a, kw_init, seed,
                                                        reps)
     rows += fused_rows(inp, mon, init, kw_mon, report)
-    rows += component_rows(inp, kw_mon, report)
+    rows += component_rows(inp, kw_mon, report, seed, reps)
     rows.append(mega_row(staged, inp["W"], kw_mon, report, sensor))
     if mixed:
         rows += mixed_rows(inp, mon, init, kw_mon, report, rows)
@@ -765,18 +771,75 @@ def mixed_rows(inp, mon, init, kw_mon, report, f32_rows):
     return rows
 
 
-def component_rows(inp, kw_mon, report):
+def cd_args(inp, seed, share=1.0):
+    """``lasso_cd``'s inputs on the kernel phase's fit windows: the Gram,
+    correlations, floored diagonal and coefficient mask.  ``share`` < 1
+    keeps the windows of about that share of the pixels (drawn from the
+    seed) and empties the others': a late round, where the component route
+    hands the kernel every pixel and most have no weight."""
+    w = inp["w"]
+    if share < 1.0:
+        rng = np.random.default_rng(seed + 5)
+        keep = torch.from_numpy(rng.random((w.shape[0], w.shape[2]))
+                                < share).to(w.device)
+        w = w * keep[:, None, :]
+    G, c, _ = cuda_ops.gram_plain(inp["Yt"], w, inp["X"])
+    diag = torch.diagonal(G, dim1=-2, dim2=-1).clamp_min(1e-12).contiguous()
+    return G, c, diag, inp["coefmask"]
+
+
+def cd_work(a, beta):
+    """``lasso_cd``'s bytes and float operations on inputs ``a``: every
+    input and the output once, 50 sweeps of 8 updates (~20 operations) for
+    each system it must fit (a band with a nonzero correlation); and the
+    operations over every system, fitted or not."""
+    c = a[1]
+    per = 50 * 8 * 20
+    n_fit = float((c != 0).any(-1).sum())
+    return nbytes(*a, beta), n_fit * per, c[..., 0].numel() * per
+
+
+def cd_late_round(inp, seed, reps):
+    """``lasso_cd`` on a late round's systems (:func:`cd_args` at a tenth
+    of the pixels), held to its plain version (the pixels not bit-equal
+    counted) and timed beside its bound."""
+    a = cd_args(inp, seed, share=0.1)
+    got = cuda_ops.lasso_cd(*a)
+    want = cuda_ops.lasso_cd_plain(*a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                               msg=lambda m: f"lasso_cd late round: {m}")
+    by, fl, fl_all = cd_work(a, got)
+    b_ms, b_by = bound(by, fl)
+    ms = cuda_ms(lambda: cuda_ops.lasso_cd(*a), reps)
+    share = float((a[1] != 0).any(-1).any(-1).float().mean())
+    print(f"kernel lasso_cd late round ({inp['sensor'].name}, "
+          f"{100 * share:.2f} % fitting): {ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by} (over every system {bound(by, fl_all)[0]:.4f} ms)",
+          flush=True)
+    return dict(fitting_share=share, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=by, flops=fl, flops_every_system=fl_all,
+                pixels_not_bit_equal=n_not_bit_equal(got, want))
+
+
+def n_not_bit_equal(got, want):
+    """The count of pixels [C,P] of two [C,P,B,8] float tensors whose bits
+    differ anywhere."""
+    return int((got.view(torch.int32) != want.view(torch.int32))
+               .flatten(2).any(-1).sum())
+
+
+def component_rows(inp, kw_mon, report, seed, reps):
     """The component route's kernels at full width: ``lasso_cd`` on the
-    Gram of the kernel phase's fit windows, ``monitor_chain`` on the score
-    plane of its monitor states, ``tmask_bad`` on the windows of its
-    initializing pixels."""
+    Gram of the kernel phase's fit windows (and of a late round's,
+    :func:`cd_late_round`), ``monitor_chain`` on the score plane of its
+    monitor states, ``tmask_bad`` on the windows of its initializing
+    pixels."""
     C, B, T, P = inp["Yt"].shape
     rows = []
 
     # ---- lasso_cd ----
-    G, c, _ = cuda_ops.gram_plain(inp["Yt"], inp["w"], inp["X"])
-    diag = torch.diagonal(G, dim1=-2, dim2=-1).clamp_min(1e-12).contiguous()
-    a = (G, c, diag, inp["coefmask"])
+    a = cd_args(inp, seed)
     got = cuda_ops.lasso_cd(*a)
     want = cuda_ops.lasso_cd_plain(*a)
     torch.cuda.synchronize()
@@ -785,9 +848,18 @@ def component_rows(inp, kw_mon, report):
     dis = report["disagreeing_pixels"]
     dis["lasso_cd"] = int((~torch.isclose(got, want, rtol=1e-5, atol=1e-5))
                           .flatten(2).any(-1).sum())
+    n_bits = n_not_bit_equal(got, want)
     err = float((got - want).abs().max())
+    by, fl, fl_all = cd_work(a, got)
+    report["lasso_cd"] = dict(pixels_not_bit_equal=n_bits, flops=fl,
+                              flops_every_system=fl_all,
+                              bound_every_system_ms=bound(by, fl_all)[0])
+    print(f"lasso_cd ({inp['sensor'].name}): {n_bits} pixels not bit-equal "
+          f"to the plain version; operations {fl:.6g} over the systems it "
+          f"fits, {fl_all:.6g} over every system", flush=True)
     rows.append(("lasso_cd", a, {}, err, err / float(want.abs().max()),
-                 C * P * B * 50 * 8 * 20, nbytes(*a, got)))
+                 fl, by))
+    report["lasso_cd_late_round"] = cd_late_round(inp, seed, reps)
 
     # ---- monitor_chain ----
     s = cuda_ops.score_plain(inp["Yd"], inp["coefs_d"], inp["dden"],
@@ -795,7 +867,9 @@ def component_rows(inp, kw_mon, report):
     a = (s, inp["alive"], inp["included"], inp["cur_k"], inp["n_last_fit"],
          inp["in_mon"])
     got = cuda_ops.monitor_chain(*a, **kw_mon)
-    want = cuda_ops.monitor_chain_plain(*a, **kw_mon)
+    # The kernel gives a pixel that does not monitor the zero outputs.
+    want = cuda_ops.monitoring_only(cuda_ops.monitor_chain_plain(*a, **kw_mon),
+                                    inp["in_mon"])
     torch.cuda.synchronize()
     dis["monitor_chain"] = n_pixels_differing(got, want)
     for k in want:
@@ -1295,7 +1369,8 @@ TILE_SMEM = {"lasso_fit": cuda_ops.lasso_fit_smem_bytes,
              "monitor_chain_scored": cuda_ops.monitor_chain_scored_smem_bytes,
              "fused_round": cuda_ops.fused_round_smem_bytes,
              "fused_fit_close": cuda_ops.fused_fit_close_smem_bytes,
-             "detect_mega": cuda_ops.detect_mega_smem_bytes}
+             "detect_mega": cuda_ops.detect_mega_smem_bytes,
+             "monitor_chain": cuda_ops.monitor_chain_smem_bytes}
 
 
 def ptxas_report(T, smi):
@@ -1316,9 +1391,10 @@ def redesign_report(kernels, paths, T, smi, nb=7):
     """What the redesigned kernels are judged by: registers, shared memory,
     spills and resident blocks an SM of fused_round, fused_fit_close and
     each window instance of detect_mega (``nb`` bands, at ``T``), of
-    init_window (at ``T``) and of tmask_bad, those of lasso_fit and
-    monitor_chain_scored; each kernel's time beside its bound; the ring's
-    achieved rate; the walls of routes "mon", 1 and mega beside route 0's."""
+    init_window (at ``T``), of tmask_bad, of lasso_cd (``nb`` bands) and of
+    monitor_chain (at ``T``), those of lasso_fit and monitor_chain_scored;
+    each kernel's time beside its bound; the ring's achieved rate; the
+    walls of routes "mon", 1 and mega beside route 0's."""
     geo = cuda_ops.kernel_geometry(T, nb)
     out = {}
     for name in ("fused_round", "fused_fit_close", "detect_mega",
@@ -1334,6 +1410,13 @@ def redesign_report(kernels, paths, T, smi, nb=7):
                          smem_bytes=TILE_SMEM[name](T), ms=row["ms"],
                          bound_ms=row["bound_ms"])
         print(f"{name} (redesigned) on {smi}: {out[name]}", flush=True)
+    for name in ("lasso_cd", "monitor_chain"):
+        row = kernels[name]
+        out[name] = dict(instances=ptxas_summary(name), geometry=geo[name],
+                         ms=row["ms"], bound_ms=row["bound_ms"],
+                         bound_by=row["bound_by"])
+        print(f"{name} ({nb} bands, redesigned) on {smi}: {out[name]}",
+              flush=True)
     # The mixed instances (their shared memory is the f32 instances').
     geo = cuda_ops.kernel_geometry(T, nb, mixed=True)
     geo["lasso_fit"] = dict(smem_bytes=TILE_SMEM["lasso_fit"](T))

@@ -282,7 +282,8 @@ def _w_instance(W: int, name: str) -> int:
 
 # ---------------------------------------------------------------------------
 # The tile kernels' launch (csrc/tile.cuh): fused_round, lasso_fit,
-# monitor_chain_scored, fused_fit_close and detect_mega
+# monitor_chain_scored, fused_fit_close, detect_mega, lasso_cd and
+# monitor_chain
 # ---------------------------------------------------------------------------
 
 # TILE pixels a block of FUSED_ROUND_THREADS threads; each kernel's dynamic
@@ -316,6 +317,21 @@ def monitor_chain_scored_smem_bytes(T: int) -> int:
     pixel."""
     W = -(-T // 32)
     return 4 * (8 * T + 4 * W * TILE + 2 * TILE)
+
+
+def monitor_chain_smem_bytes(T: int) -> int:
+    """The dynamic shared memory of one monitor_chain block at ``T``: four
+    bit masks of ceil(T/32) words a pixel and two ints a pixel."""
+    W = -(-T // 32)
+    return 4 * (4 * W * TILE + 2 * TILE)
+
+
+def lasso_cd_smem_bytes() -> int:
+    """The dynamic shared memory of one lasso_cd block (any band count): a
+    Gram a pixel of the tile (64 floats and 4 of padding), the queue of
+    pixels with a chain to run (two tiles of ints) and its length, and a
+    flag a pixel of the tile (bytes)."""
+    return 4 * (TILE * (K * K + 4) + 2 * TILE + 1) + TILE
 
 
 def fused_fit_close_smem_bytes(T: int) -> int:
@@ -533,8 +549,11 @@ def lasso_fit(Yt, w, X, coefmask, with_rmse=True, mixed=False):
 
 def lasso_cd(G, c, diag, coefmask):
     """The Lasso coordinate-descent loop on precomputed Gram systems, per
-    pixel: LASSO_ITERS cyclic sweeps, soft threshold LASSO_ALPHA, intercept
-    unpenalized, coordinates outside ``coefmask`` held at zero.
+    pixel and band: LASSO_ITERS cyclic sweeps, soft threshold LASSO_ALPHA,
+    intercept unpenalized, coordinates outside ``coefmask`` held at zero.
+    The kernel runs a band a lane and gives a band whose correlations are
+    all zero, on a finite Gram with a positive finite diagonal, +0 without
+    its sweeps: the sweeps give exactly that.
 
     Args:
         G: [C,P,8,8] float32 normalised Grams.
@@ -553,6 +572,10 @@ def lasso_cd(G, c, diag, coefmask):
     if dev.type == "cpu":
         return lasso_cd_plain(G, c, diag, coefmask)
     _nb_instance(B, "lasso_cd")
+    for nm, v in (("G", G), ("c", c), ("diag", diag)):
+        if v.data_ptr() % 16:
+            raise ValueError(f"lasso_cd reads {nm} in 16-byte loads: it must "
+                             f"start on a 16-byte boundary")
     beta = torch.empty(C, P, B, K, dtype=torch.float32, device=dev)
     _launch("lasso_cd", _ptr(G), _ptr(c), _ptr(diag), _ptr(coefmask),
             _ptr(beta), C * P, B)
@@ -684,7 +707,10 @@ def monitor_chain(s, alive, included, cur_k, n_last_fit, in_mon, *,
         cur_k, n_last_fit: [C,P] int32; in_mon: [C,P] bool.
     Returns:
         :func:`monitor_chain_scored`'s dict.  The alive ranks are counted
-        inside (the Pallas kernel takes them as an input plane).
+        inside (the Pallas kernel takes them as an input plane).  As
+        :func:`monitor_chain_scored`, a pixel that does not monitor gets
+        zeros from the kernel and, from the plain version, what the Pallas
+        kernel gives it (:func:`monitoring_only`).
     """
     C, T, P = s.shape
     dev = s.device
@@ -698,6 +724,7 @@ def monitor_chain(s, alive, included, cur_k, n_last_fit, in_mon, *,
         return monitor_chain_plain(s, alive, included, cur_k, n_last_fit,
                                    in_mon, change_thr=change_thr,
                                    outlier_thr=outlier_thr)
+    _check_smem("monitor_chain", monitor_chain_smem_bytes(T))
     out = torch.empty(len(_MON_KEYS), C, P, dtype=torch.int32, device=dev)
     inc_q = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     rem_q = torch.empty(C, T, P, dtype=torch.bool, device=dev)
@@ -1210,12 +1237,14 @@ def kernel_geometry(T: int, nb: int = 7, mixed: bool = False) -> dict:
     registers and local bytes a thread at ``T`` of fused_round's,
     fused_fit_close's and each window instance of detect_mega's
     ``nb``-band instance (detect_mega by its window instance), of each
-    window instance of init_window at ``T`` and of tmask_bad;
-    ring_remote_copy's resident blocks an SM.  ``mixed``: the fitting
-    kernels' mixed instances."""
+    window instance of init_window at ``T``, of tmask_bad, of lasso_cd's
+    ``nb``-band instance and of monitor_chain at ``T``; ring_remote_copy's
+    resident blocks an SM.  ``mixed``: the fitting kernels' mixed
+    instances."""
     u = functools.partial(unit_of, mixed=mixed)
     build((u("fused_round"), u("fused_fit_close"), u("detect_mega"),
-           "ring_remote_copy", u("init_window"), "tmask_bad"))
+           "ring_remote_copy", u("init_window"), "tmask_bad", "lasso_cd",
+           "monitor_chain"))
     blocks = ctypes.c_int()
     fn = _LIBS["ring_remote_copy"].fb_ring_remote_copy_blocks_per_sm
     fn.argtypes, fn.restype = [_P], ctypes.c_int
@@ -1229,6 +1258,8 @@ def kernel_geometry(T: int, nb: int = 7, mixed: bool = False) -> dict:
                 init_window=init_window_geometry(T, mixed),
                 tmask_bad={w: _geometry("tmask_bad", w)
                            for w in W_MAX_CHOICES},
+                lasso_cd=_geometry("lasso_cd", nb),
+                monitor_chain=_geometry("monitor_chain", T),
                 ring_remote_copy=dict(blocks_per_sm=blocks.value))
 
 

@@ -1,8 +1,8 @@
 // Shared device routines of the CCD kernels (firebird_tpu_torch/csrc).
 //
-// One thread owns one pixel of one chip.  Planes are laid out with the
-// pixel axis fastest ([C, T, P], spectra [C, B, T, P]) so the 32 threads of
-// a warp read 32 neighbouring addresses at every time step.
+// Planes are laid out with the pixel axis fastest ([C, T, P], spectra
+// [C, B, T, P]) so the 32 threads of a warp read 32 neighbouring addresses
+// at every time step.
 //
 // Every kernel here is compiled with -fmad=false: each product and sum is
 // rounded on its own, in the order the plain PyTorch versions in
@@ -21,7 +21,6 @@ namespace fb {
 
 constexpr int K = 8;            // harmonic design columns (params.MAX_COEFS)
 constexpr int NT = 5;           // Tmask design columns (params.TMASK_COEFS)
-constexpr int BLOCK = 128;      // threads (pixels) per block
 constexpr int LASSO_ITERS = 50;
 constexpr float LASSO_ALPHA = 1.0f;
 constexpr int PEEK = 6;         // params.PEEK_SIZE

@@ -1,6 +1,6 @@
 // The block layout of the tile kernels (fused_round, lasso_fit,
-// monitor_chain_scored, fused_fit_close, detect_mega) and the word helpers
-// they share.
+// monitor_chain_scored, fused_fit_close, detect_mega, monitor_chain; and
+// lasso_cd's tiles, a band a lane) and the word helpers they share.
 //
 // A block owns TILE neighbouring pixels of one chip with TILE_THREADS
 // threads: thread tid works for pixel i = tid % TILE as part q = tid / TILE

@@ -1,7 +1,7 @@
 // The MONITOR round on bit words, shared by the monitor_chain_scored and
-// fused_round kernels (tile.cuh's block layout).  It takes the decisions of
-// fb::monitor_event / fb::monitor_partition (monitor_chain.cuh) from the
-// same scores, scheduled for a block:
+// fused_round kernels (tile.cuh's block layout), and by monitor_chain on a
+// score plane: the decisions of pallas_ops._monitor_logic, scheduled for a
+// block:
 //
 //   1. score_words: TILE_Q threads a pixel, each a set of 32-step words
 //      (score_alive_words where the alive column is already words).
@@ -232,7 +232,7 @@ __device__ inline MonitorEvent word_event(const uint32_t* A,
       ninc_b += __popc(A[w * TILE] & ~below(w, ck) & ~O[w * TILE] &
                        below(w, b_abs + 1));
   }
-  // The event choice (fb::monitor_event).
+  // The event choice (kernel._monitor_chain).
   const int q_tail = max(m - (PEEK - 1), kq);
   const int b_ev = has_brk ? b_rank : INF;
   const int f_ev = has_refit ? f_rank : INF;

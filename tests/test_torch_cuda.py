@@ -637,11 +637,89 @@ def test_monitor_chain_matches_plain(dev):
             _t(rng.random((C, P)) < 0.7, dev))
     kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR)
     got = cuda_ops.monitor_chain(*args, **kw)
-    want = cuda_ops.monitor_chain_plain(*args, **kw)
+    # The kernel gives a pixel that does not monitor the zero outputs.
+    want = cuda_ops.monitoring_only(cuda_ops.monitor_chain_plain(*args, **kw),
+                                    args[5])
     assert set(got) == set(want)
     assert all(want[k].any() for k in ("is_tail", "is_brk", "is_refit"))
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("T", [64, 768, 100])
+def test_monitor_chain_tiles(dev, T):
+    """The tile kernel through monitoring_only at T a multiple of 32 and
+    not, a tile with no monitoring pixel, scores that are NaN, +-inf or
+    exactly at a threshold; one launch a call."""
+    rng = np.random.default_rng(30 + T)
+    C, P = 2, 137
+    s = rng.gamma(2.0, 6.0, (C, T, P)).astype(np.float32)
+    special = np.float32([np.nan, np.inf, -np.inf, CHANGE_THR, OUTLIER_THR])
+    pick = rng.random(s.shape) < 0.05
+    s[pick] = rng.choice(special, int(pick.sum()))
+    alive = rng.random((C, T, P)) < 0.8
+    in_mon = rng.random((C, P)) < 0.7
+    in_mon[0, 32:64] = False
+    args = (_t(s, dev), _t(alive, dev),
+            _t((rng.random((C, T, P)) < 0.4) & alive, dev),
+            _t(rng.integers(0, T, (C, P)).astype(np.int32), dev),
+            _t(rng.integers(1, 40, (C, P)).astype(np.int32), dev),
+            _t(in_mon, dev))
+    kw = dict(change_thr=CHANGE_THR, outlier_thr=OUTLIER_THR)
+    before = cuda_ops.LAUNCHES["monitor_chain"]
+    got = cuda_ops.monitor_chain(*args, **kw)
+    assert cuda_ops.LAUNCHES["monitor_chain"] == before + 1
+    want = cuda_ops.monitoring_only(cuda_ops.monitor_chain_plain(*args, **kw),
+                                    args[5])
+    assert want["is_brk"].any()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert not got["m"][0, 32:64].any() and not got["inc_q"][0, :, 32:64].any()
+
+
+@pytest.mark.parametrize("B", [7, 12])
+def test_lasso_cd_tiles(dev, B):
+    """The tile kernel equals the plain version at P not a multiple of 32,
+    with a tile whose systems are all zero (no weight), a full tile and a
+    pixel with only some bands zero; one launch a call; a misaligned Gram
+    is refused."""
+    rng = np.random.default_rng(40 + B)
+    C, T, P = 2, 60, 141
+    _, X, _ = _designs(rng, C, T, dev)
+    Y = rng.integers(0, 8000, (C, B, T, P)).astype(np.int16)
+    Y[0, : B // 2, :, 5] = 0
+    w = (rng.random((C, T, P)) < 0.8).astype(np.float32)
+    w[0, :, 32:64] = 0.0
+    mask = _t(np.arange(8) < rng.choice([4, 6, 8], (C, P))[..., None], dev)
+    G, c, _ = cuda_ops.gram_plain(_t(Y, dev), _t(w, dev), X)
+    diag = torch.diagonal(G, dim1=-2, dim2=-1).clamp_min(1e-12).contiguous()
+    assert not c[0, 32:64].any() and not c[0, 5, : B // 2].any()
+    before = cuda_ops.LAUNCHES["lasso_cd"]
+    got = cuda_ops.lasso_cd(G, c, diag, mask)
+    assert cuda_ops.LAUNCHES["lasso_cd"] == before + 1
+    want = cuda_ops.lasso_cd_plain(G, c, diag, mask)
+    assert torch.equal(got, want)
+    assert torch.equal(got[0, 32:64].view(torch.int32),
+                       torch.zeros_like(got[0, 32:64]).view(torch.int32))
+    # The kernel reads G, c and diag in 16-byte loads.
+    shifted = torch.empty(G.numel() + 1, device=dev)[1:].view(G.shape)
+    shifted.copy_(G)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_ops.lasso_cd(shifted, c, diag, mask)
+
+
+def test_component_kernels_geometry_on_card(dev):
+    """lasso_cd's and monitor_chain's shared memory as the runtime reports
+    it equals the host-side formulas; lasso_cd keeps its chains in
+    registers (no local memory)."""
+    geo = cuda_ops.kernel_geometry(768, 7)
+    assert geo["monitor_chain"]["smem_bytes"] == \
+        cuda_ops.monitor_chain_smem_bytes(768)
+    assert geo["monitor_chain"]["blocks_per_sm"] >= 1
+    for B in (7, 12):
+        g = cuda_ops.kernel_geometry(768, B)["lasso_cd"]
+        assert g["smem_bytes"] == cuda_ops.lasso_cd_smem_bytes()
+        assert g["blocks_per_sm"] >= 1 and g["local_bytes"] == 0, g
 
 
 @pytest.mark.parametrize("W", [24, 40])

@@ -1,10 +1,11 @@
 """Compare the SASS of the kernels' build units between two checkouts.
 
-    python tools/sass_diff.py --base .ab_base [--units lasso_fit,init_window]
+    python tools/sass_diff.py --base .ab_base [--units lasso_fit,init_window|all]
 
 Builds each unit (default: the f32 instances of the fitting kernels,
-``cuda_ops.MIXED_SOURCES``) from this checkout's ``firebird_tpu_torch/csrc``
-and from the base checkout's, with this checkout's nvcc flags for the unit,
+``cuda_ops.MIXED_SOURCES``; ``all``: every unit of ``cuda_ops.UNITS``)
+from this checkout's ``firebird_tpu_torch/csrc`` and from the base
+checkout's, with this checkout's nvcc flags for the unit,
 into ``build/sass_diff/``; disassembles both with ``cuobjdump -sass``,
 drops the lines that name the source file and strips the hashes of the
 anonymous-namespace names; prints for each unit whether the two are
@@ -64,13 +65,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", required=True,
                     help="the base checkout (git archive of the parent)")
-    ap.add_argument("--units", default=",".join(cuda_ops.MIXED_SOURCES))
+    ap.add_argument("--units", default=",".join(cuda_ops.MIXED_SOURCES),
+                    help="comma list of build units, or 'all'")
     args = ap.parse_args(argv)
-    units = args.units.split(",")
+    units = (list(cuda_ops.UNITS) if args.units == "all"
+             else args.units.split(","))
     mixed = [cuda_ops.unit_of(u, True) for u in cuda_ops.MIXED_SOURCES]
     base_csrc = Path(args.base).resolve() / "firebird_tpu_torch" / "csrc"
     jobs = ([(u, base_csrc, "base") for u in units]
-            + [(u, cuda_ops.CSRC, "head") for u in units + mixed])
+            + [(u, cuda_ops.CSRC, "head")
+               for u in dict.fromkeys(units + mixed)])
     with ThreadPoolExecutor(len(jobs)) as ex:
         libs = dict(zip(((u, t) for u, _, t in jobs),
                         ex.map(lambda j: build(*j), jobs)))
@@ -88,9 +92,14 @@ def main(argv=None):
         for i, x, y in diff[:5]:
             print(f"  line {i}: base {x.strip()!r}\n          head {y.strip()!r}")
     for u in mixed:
+        if u in out:
+            continue
         n = sum("HMMA" in x for x in sass(libs[u, "head"]))
         out[u] = dict(hmma=n)
         print(f"{u}: HMMA {n}", flush=True)
+    same = [u for u in units if out[u]["identical"]]
+    print(f"SASS identical to the base: {len(same)} of {len(units)} units; "
+          f"differ: {[u for u in units if u not in same]}", flush=True)
     Path("chiprun_out").mkdir(exist_ok=True)
     Path("chiprun_out/sass_diff.json").write_text(json.dumps(out, indent=1))
 

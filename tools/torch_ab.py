@@ -21,8 +21,14 @@ card in one call.  A worker uses only its checkout's own code: its
 - ``init_window`` on the kernel phase's inputs and on a late round's (the
   same inputs with ``in_init`` thinned by the seed to about 2 % of the
   pixels), ``tmask_bad`` on the kernel phase's gathered windows;
+- ``lasso_cd`` on the Gram systems of the kernel phase's fit windows and
+  of a late round's (the windows of a tenth of the pixels kept, drawn from
+  the seed), ``monitor_chain`` on the kernel phase's score plane, each with
+  a SHA-1 digest of its output (``monitor_chain``'s through
+  ``cuda_ops.monitoring_only``), compared across the workers;
 - the registers, stack and spills (``-Xptxas -v``) of ``fused_round``,
-  ``fused_fit_close``, ``detect_mega``, ``init_window`` and ``tmask_bad``,
+  ``fused_fit_close``, ``detect_mega``, ``init_window``, ``tmask_bad``,
+  ``lasso_cd`` and ``monitor_chain``,
   and the shared memory and blocks an SM that the CUDA runtime reports
   where the checkout's ``kernel_geometry`` gives them;
 - ``ring_remote_copy`` on chip_smoke.py's ring hop (two shards of four
@@ -36,9 +42,10 @@ card in one call.  A worker uses only its checkout's own code: its
   (``detect_sharded``, two shards on the card, the ring on) with its peak
   device memory;
 - on chip_smoke.py's Sentinel-2 chip (one 300x300 chip of 12 bands,
-  2019-2020, T=64): ``init_window`` and ``tmask_bad`` on its kernel
-  phase's states as above, and the walls of routes 0, 1, "mon", mega and
-  the component route.
+  2019-2020, T=64): ``init_window``, ``tmask_bad``, ``lasso_cd`` and
+  ``monitor_chain`` on its kernel phase's states as above (with their
+  digests), and the walls of routes 0, 1, "mon", mega and the component
+  route, each with its result digest.
 
 ``--mixed`` times the fitting kernels' mixed-precision instances
 (``lasso_fit``, ``init_window``, ``fused_fit_close``, ``fused_round``,
@@ -67,10 +74,7 @@ RESULT_FIELDS = ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
 
 def digest(seg) -> str:
     """SHA-1 of a ChipSegments' result fields, their bytes in order."""
-    h = hashlib.sha1()
-    for f in RESULT_FIELDS:
-        h.update(getattr(seg, f).contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()
+    return tensor_digest([getattr(seg, f) for f in RESULT_FIELDS])
 
 
 def init_times(cs, cuda_ops, inp, sensor, seed, reps, mx):
@@ -100,6 +104,57 @@ def init_times(cs, cuda_ops, inp, sensor, seed, reps, mx):
         tmask_bad_ms=cs.cuda_ms(lambda: cuda_ops.tmask_bad(*tm), reps))
 
 
+def component_times(cs, cuda_ops, inp, seed, reps):
+    """``lasso_cd`` on the Gram systems of the kernel phase's fit windows
+    and of a late round's (the windows of a tenth of the pixels kept),
+    ``monitor_chain`` on the state's score plane: median milliseconds, and
+    the digests of their outputs (``monitor_chain``'s through
+    ``monitoring_only``, the zeros its kernel gives a pixel that does not
+    monitor)."""
+    import numpy as np
+    import torch
+
+    def systems(share):
+        # chip_smoke.cd_args's rule, kept here: a base checkout's
+        # chip_smoke may predate it.
+        w = inp["w"]
+        if share < 1.0:
+            rng = np.random.default_rng(seed + 5)
+            keep = torch.from_numpy(rng.random((w.shape[0], w.shape[2]))
+                                    < share).to(w.device)
+            w = w * keep[:, None, :]
+        G, c, _ = cuda_ops.gram_plain(inp["Yt"], w, inp["X"])
+        diag = torch.diagonal(G, dim1=-2, dim2=-1).clamp_min(1e-12)
+        return G, c, diag.contiguous(), inp["coefmask"]
+
+    kw = dict(zip(("change_thr", "outlier_thr"), cs.chi2_thresholds(5)))
+    cd, late = systems(1.0), systems(0.1)
+    plane = (cuda_ops.score_plain(inp["Yd"], inp["coefs_d"], inp["dden"],
+                                  inp["X"]), inp["alive"], inp["included"],
+             inp["cur_k"], inp["n_last_fit"], inp["in_mon"])
+    mon = cuda_ops.monitoring_only(cuda_ops.monitor_chain(*plane, **kw),
+                                   inp["in_mon"])
+    out = dict(
+        lasso_cd_ms=cs.cuda_ms(lambda: cuda_ops.lasso_cd(*cd), reps),
+        lasso_cd_late_ms=cs.cuda_ms(lambda: cuda_ops.lasso_cd(*late), reps),
+        monitor_chain_ms=cs.cuda_ms(
+            lambda: cuda_ops.monitor_chain(*plane, **kw), reps))
+    digests = {"kernel lasso_cd": tensor_digest([cuda_ops.lasso_cd(*cd)]),
+               "kernel lasso_cd late": tensor_digest(
+                   [cuda_ops.lasso_cd(*late)]),
+               "kernel monitor_chain": tensor_digest(
+                   [mon[k] for k in sorted(mon)])}
+    return out, digests
+
+
+def tensor_digest(ts) -> str:
+    """SHA-1 of tensors' bytes, in order."""
+    h = hashlib.sha1()
+    for t in ts:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def routes(cs, mx):
     """The routes a worker times: chip_smoke.py's ROUTES, or with the
     precision keyword ``mx`` each route but the "+mixed" ones with it."""
@@ -123,6 +178,9 @@ def sentinel2(cs, cuda_ops, kernel, reps, runs, mx):
                            kernel.window_cap(packed), cs.SENTINEL2)
     out = init_times(cs, cuda_ops, inp, cs.SENTINEL2, cs.S2_SOURCE["seed"],
                      reps, mx)
+    comp, digests = component_times(cs, cuda_ops, inp, cs.S2_SOURCE["seed"],
+                                    reps)
+    out.update(comp)
     del inp
     torch.cuda.empty_cache()
     walls = {}
@@ -133,11 +191,13 @@ def sentinel2(cs, cuda_ops, kernel, reps, runs, mx):
         walls[name] = []
         for _ in range(runs):
             t0 = time.perf_counter()
-            kernel.detect_packed(packed, staged=staged, **kws[name])
+            seg = kernel.detect_packed(packed, staged=staged, **kws[name])
             torch.cuda.synchronize()
             walls[name].append(time.perf_counter() - t0)
+        digests[name] = digest(seg)
+        del seg
     out["walls_s"] = walls
-    return out
+    return out, digests
 
 
 def worker(seed: int, chips: int, reps: int, runs: int,
@@ -187,6 +247,8 @@ def worker(seed: int, chips: int, reps: int, runs: int,
     out["fused_fit_close_ms"] = cs.cuda_ms(
         lambda: cuda_ops.fused_fit_close(*ffc, **mx), reps)
     out.update(init_times(cs, cuda_ops, inp, cs.LANDSAT_ARD, seed, reps, mx))
+    comp, kernel_digests = component_times(cs, cuda_ops, inp, seed, reps)
+    out.update(comp)
     W = inp["W"]
     del inp, init, args, bufs, fit, mon, plain_mon, rows, ffc
     torch.cuda.empty_cache()
@@ -195,13 +257,11 @@ def worker(seed: int, chips: int, reps: int, runs: int,
     out["detect_mega_ms"] = cs.cuda_ms(
         lambda: cuda_ops.detect_mega(*mega[1], **mega[2]), 5)
     del mega
-    out["ptxas"] = {n: cs.ptxas_summary(n)
-                    for n in ("fused_round", "fused_fit_close", "detect_mega",
-                              "init_window", "tmask_bad")}
+    names = ("fused_round", "fused_fit_close", "detect_mega", "init_window",
+             "tmask_bad", "lasso_cd", "monitor_chain")
+    out["ptxas"] = {n: cs.ptxas_summary(n) for n in names}
     geo = cuda_ops.kernel_geometry(packed.spectra.shape[-1])
-    out["geometry"] = {n: geo[n] for n in ("fused_round", "fused_fit_close",
-                                           "detect_mega", "init_window",
-                                           "tmask_bad") if n in geo}
+    out["geometry"] = {n: geo[n] for n in names if n in geo}
     _, ring_args, *_, timing = cs.ring_row(seed, packed.spectra.shape[-1],
                                            dev, {})
     out["ring_remote_copy_ms"] = cs.cuda_ms(
@@ -209,7 +269,7 @@ def worker(seed: int, chips: int, reps: int, runs: int,
     out["foreach_copy_ms"] = cs.cuda_ms(timing["library"], reps)
     del ring_args, timing
     torch.cuda.empty_cache()
-    walls, digests = {}, {}
+    walls, digests = {}, dict(kernel_digests)
     for name, kw_route in routes(cs, mx).items():
         walls[name] = []
         for _ in range(runs):
@@ -234,7 +294,9 @@ def worker(seed: int, chips: int, reps: int, runs: int,
     out["walls_s"] = walls
     del packed, staged, ragged
     torch.cuda.empty_cache()
-    out["sentinel2"] = sentinel2(cs, cuda_ops, kernel, reps, runs, mx)
+    out["sentinel2"], s2_digests = sentinel2(cs, cuda_ops, kernel, reps,
+                                             runs, mx)
+    out["digests"].update({f"sentinel2 {k}": v for k, v in s2_digests.items()})
     return out
 
 
