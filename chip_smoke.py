@@ -84,7 +84,30 @@ From the root of a checkout, on a machine with a CUDA card:
    mega, the component route, "0+mixed" and "mon+mixed", each with its
    launches read around it and against its plain route, held to the
    Landsat paths' rules;
-9. every kernel instance's registers, stack and spills, and the total
+9. the batch driver (``driver_phase``): ``driver.core.changedetection``
+   on the card over the first 24 full Landsat chips of one tile
+   (``SyntheticSource(--seed)``, acquired 1985-01-01/2017-12-31, T=768),
+   in batches of 8 with 3 in flight, into a sqlite store in a temporary
+   directory, on the default route.  The chips are made first and served
+   to the driver from memory (their making is timed apart), so the wall
+   is the pipeline's: fetch, pack, stage, dispatch, drain and write.  One
+   chip's fetch fails and is quarantined, and the run goes on; a resumed
+   run drains it first; a second resume with a source that raises on any
+   fetch returns all 24 chips, writes nothing and launches nothing.
+   Every stored row must equal ``detect_packed`` plus
+   ``format.batch_frames`` on the same batches on the card, and the run
+   must have launched route 0's kernels and no other.  Printed: px/s
+   (pixels over the wall from the first fetch to the writer's close),
+   each stage's seconds, the peak device memory a batch beside
+   ``kernel.working_set_bytes``, and the batch that
+   ``auto_chips_per_batch`` picks on this card;
+10. the float64 route (``f64_phase``): one full chip through
+   ``detect_packed(dtype=torch.float64)`` on the card, which must launch
+   no kernel; on 256 of its pixels drawn from the seed every decision must
+   equal the port's ``reference.detect`` (run in 8 processes) and the
+   floats be within tests/test_ccd_kernel.py's tolerances.  Printed: its
+   wall and its decision agreement with f32 route 0 on the whole chip;
+11. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -102,6 +125,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -109,14 +133,21 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from firebird_tpu_torch import grid
 from firebird_tpu_torch.ccd import (cuda_ops, format as fmt, kernel, params,
                                     synthetic)
+from firebird_tpu_torch.ccd.reference import detect as reference_detect
 from firebird_tpu_torch.ccd.primitives import (coefmask_for,
                                                first_at_or_after, variogram)
 from firebird_tpu_torch.ccd.sensor import (LANDSAT_ARD, LANDSAT_ARD_TINY,
                                            SENTINEL2, chi2_thresholds)
-from firebird_tpu_torch.ingest import SyntheticSource, pack
+from firebird_tpu_torch.config import Config
+from firebird_tpu_torch.driver import core as driver
+from firebird_tpu_torch.driver import quarantine as qlib
+from firebird_tpu_torch.ingest import SyntheticSource, pack, pixel_timeseries
 from firebird_tpu_torch.ingest.packer import PackedChips
+from firebird_tpu_torch.obs import Counters
+from firebird_tpu_torch.store import MemoryStore, SqliteStore
 from firebird_tpu_torch.parallel import detect_sharded
 
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
@@ -1633,6 +1664,208 @@ def sentinel2_phase(smi, reps, dev):
                 kernel_report=kreport, main_paths=paths, redesign=redesign)
 
 
+# ---------------------------------------------------------------------------
+# The batch driver and the float64 route
+# ---------------------------------------------------------------------------
+
+DRIVER_CHIPS, DRIVER_BATCH, DRIVER_DEPTH = 24, 8, 3
+DRIVER_POINT = (542000, 1650000)            # CONUS Albers, tile h=20 v=11
+ACQUIRED = f"{START}/{END}"
+
+
+class MemorySource:
+    """Chips made beforehand, served by id; ``fail`` names chips whose
+    fetch raises (``None``: every fetch raises)."""
+
+    def __init__(self, chips, fail=()):
+        self.chips, self.fail = chips, fail
+        self.fetched = []
+
+    def chip(self, cx, cy, acquired=None):
+        self.fetched.append((cx, cy))
+        if self.fail is None or (cx, cy) in self.fail:
+            raise IOError(f"chip ({cx},{cy}) unavailable")
+        return self.chips[(cx, cy)]
+
+
+def _rows(store, table):
+    from firebird_tpu_torch.store.schema import primary_key
+
+    d = store.read(table)
+    key = primary_key(table)
+    return {tuple(d[k][i] for k in key): {c: d[c][i] for c in d}
+            for i in range(len(d[key[0]]))}
+
+
+def driver_phase(smi, seed, dev):
+    """The batch driver on the card (the module docstring's item 9)."""
+    src = SyntheticSource(seed, start=START, end=END)
+    cids = [tuple(int(v) for v in c) for c in
+            grid.chips(grid.tile(*DRIVER_POINT))[:DRIVER_CHIPS]]
+    t0 = time.perf_counter()
+    chips = {c: src.chip(c[0], c[1], ACQUIRED) for c in cids}
+    gen_s = time.perf_counter() - t0
+    lost = cids[DRIVER_CHIPS // 2]
+    cfg = Config(chips_per_batch=DRIVER_BATCH, pipeline_depth=DRIVER_DEPTH,
+                 store_backend="sqlite", max_obs=0, fetch_retries=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dataclasses.replace(cfg, store_path=str(Path(tmp) / "fb.db"))
+        run = lambda source, resume, counters: driver.changedetection(
+            *DRIVER_POINT, acquired=ACQUIRED, number=DRIVER_CHIPS,
+            chunk_size=DRIVER_CHIPS, cfg=cfg, source=source, resume=resume,
+            device=dev, counters=counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counters = Counters()
+        cuda_ops.reset_launches()
+        done = run(MemorySource(chips, fail={lost}), False, counters)
+        launches = dict(cuda_ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        snap = counters.snapshot()
+        stages = driver.stage_seconds()
+        launched = {k for k, n in launches.items() if n > 0}
+        check(launched == ROUTE_0, f"driver launched {sorted(launched)}, "
+              f"expected {sorted(ROUTE_0)}")
+        check(set(done) == set(cids) - {lost},
+              f"driver: {len(done)} chips done")
+        q = qlib.Quarantine.load(qlib.quarantine_path(cfg))
+        check(q.chip_ids() == {lost}, f"quarantine {q.chip_ids()}")
+        # The resumed run drains the dead letter first.
+        redo = MemorySource(chips)
+        done = run(redo, True, Counters())
+        check(redo.fetched == [lost] and set(done) == set(cids),
+              f"resume fetched {redo.fetched}")
+        check(len(qlib.Quarantine.load(qlib.quarantine_path(cfg))) == 0,
+              "quarantine not drained")
+        store = SqliteStore(cfg.store_path, cfg.keyspace())
+        counts = {t: store.count(t) for t in ("chip", "pixel", "segment")}
+        # A resume with every chip stored fetches, writes and launches
+        # nothing.
+        cuda_ops.reset_launches()
+        idle = Counters()
+        done = run(MemorySource(chips, fail=None), True, idle)
+        check(set(done) == set(cids) and idle.get("chips") == 0
+              and not any(cuda_ops.LAUNCHES.values())
+              and {t: store.count(t) for t in counts} == counts,
+              "the second resume fetched, wrote or launched")
+        # Every stored row against detect_packed + batch_frames on the
+        # same batches.
+        want = MemoryStore("want")
+        for i in range(0, DRIVER_CHIPS, DRIVER_BATCH):
+            packed = pack([chips[c] for c in cids[i:i + DRIVER_BATCH]],
+                          bucket=cfg.obs_bucket, max_obs=cfg.max_obs)
+            seg = kernel.segments_to_numpy(kernel.detect_packed(
+                packed, device=dev))
+            for _, frames in fmt.batch_frames(packed, seg):
+                for table in ("chip", "pixel", "segment"):
+                    want.write(table, frames[table])
+        for table in ("chip", "pixel", "segment"):
+            check(_rows(store, table) == _rows(want, table),
+                  f"driver's {table} rows differ from detect_packed's")
+        store.close()
+    T = int(max(c.dates.shape[0] for c in chips.values()))
+    T = -64 * (-T // 64)
+    per_batch = peak / DRIVER_DEPTH
+    ws = kernel.working_set_bytes(T) * DRIVER_BATCH
+    res = kernel.result_bytes(T) * DRIVER_BATCH
+    auto = driver.auto_chips_per_batch(
+        dataclasses.replace(cfg, chips_per_batch=0), ACQUIRED, dev)
+    out = dict(chips=DRIVER_CHIPS, batch=DRIVER_BATCH, depth=DRIVER_DEPTH,
+               T=T, chip_generation_seconds=gen_s,
+               pixels=snap.get("pixels", 0), wall=snap["elapsed_sec"],
+               pixels_per_s=snap.get("pixels_per_sec", 0.0),
+               stage_seconds=stages, launches=launches, peak_bytes=peak,
+               working_set_bytes_batch=ws, result_bytes_batch=res,
+               auto_chips_per_batch=auto, store_rows=counts)
+    print(f"driver: {snap.get('chips', 0)} of {DRIVER_CHIPS} chips (one "
+          f"quarantined, drained on resume), {snap.get('pixels', 0)} px in "
+          f"{snap['elapsed_sec']:.3f} s: {out['pixels_per_s']:.1f} px/s on "
+          f"{smi}; stages (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; launches {launches}; peak {peak / 2**30:.2f} GiB "
+          f"({per_batch / 2**30:.2f} GiB a batch of {DRIVER_BATCH} at depth "
+          f"{DRIVER_DEPTH}) beside working_set_bytes {ws / 2**30:.2f} GiB "
+          f"and result_bytes {res / 2**30:.2f} GiB a batch; "
+          f"auto_chips_per_batch {auto}; chips made in {gen_s:.1f} s; "
+          f"rows {counts}", flush=True)
+    return out
+
+
+F64_SAMPLE = 256
+
+
+def _reference(kw):
+    return reference_detect(**kw)
+
+
+def f64_phase(smi, seed, dev):
+    """One full chip on the float64 route (the module docstring's item
+    10)."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    src = SyntheticSource(seed, start=START, end=END)
+    packed = pack([src.chip(1000, 2000)], bucket=64)
+    cuda_ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg = kernel.detect_packed(packed, device=dev, dtype=torch.float64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not any(cuda_ops.LAUNCHES.values()),
+          f"the f64 route launched {cuda_ops.LAUNCHES}")
+    check(seg.seg_coef.dtype == torch.float64, "f64 route's dtype")
+    C, B, P, T = packed.spectra.shape
+    check_result(seg, C, P, T)
+    f32 = kernel.detect_packed(packed, device=dev, pallas="1", fused=0,
+                               mixed=False)
+    seg32 = kernel.ChipSegments(*[
+        None if v is None else (v.double() if v.is_floating_point() else v)
+        for v in vars(f32).values()])
+    agree, n_dis = decision_agreement(seg, seg32)
+    host = kernel.chip_slice(seg, 0, to_host=True)
+    pix = np.sort(np.random.default_rng(seed).choice(P, F64_SAMPLE,
+                                                     replace=False))
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(8, mp_context=mp.get_context("spawn")) as ex:
+        refs = list(ex.map(_reference, [pixel_timeseries(packed, 0, int(i))
+                                        for i in pix]))
+    ref_s = time.perf_counter() - t0
+    dates = packed.dates[0][: int(packed.n_obs[0])]
+    close = lambda a, b, rel, abs_: abs(a - b) <= max(rel * abs(b), abs_)
+    n_models = 0
+    for i, o in zip(pix, refs):
+        k = kernel.segments_to_records(host, dates, int(i))
+        check(len(o["change_models"]) == len(k["change_models"])
+              and o["processing_mask"] == k["processing_mask"]
+              and o["procedure"] == k["procedure"],
+              f"f64 pixel {i}: segments or mask differ from the reference")
+        for om, km in zip(o["change_models"], k["change_models"]):
+            n_models += 1
+            for f in ("start_day", "end_day", "break_day", "curve_qa",
+                      "observation_count"):
+                check(om[f] == km[f], f"f64 pixel {i}: {f}")
+            check(close(km["change_probability"], om["change_probability"],
+                        0, 1e-6), f"f64 pixel {i}: change_probability")
+            for band in params.BAND_NAMES:
+                kb, ob = km[band], om[band]
+                check(close(kb["rmse"], ob["rmse"], 1e-6, 1e-6)
+                      and close(kb["magnitude"], ob["magnitude"], 1e-6, 1e-6)
+                      and close(kb["intercept"], ob["intercept"], 1e-5, 1e-3)
+                      and all(close(b, a, 1e-5, 1e-6) for a, b in zip(
+                          ob["coefficients"], kb["coefficients"])),
+                      f"f64 pixel {i} band {band}: floats off the reference")
+    print(f"f64 route: 1 chip x {P} px, T={T} on {smi}: {wall:.3f} s, "
+          f"{P / wall:.1f} px/s, no kernel launched; {F64_SAMPLE} pixels "
+          f"({n_models} segments) equal reference.detect (reference "
+          f"{ref_s:.1f} s in 8 processes); decision agreement with f32 route "
+          f"0 {agree} ({n_dis} pixels differ)", flush=True)
+    return dict(seconds=wall, pixels=P, T=T, sample=F64_SAMPLE,
+                sample_segments=n_models, reference_seconds=ref_s,
+                agreement_with_f32_route_0=agree,
+                pixels_differing_from_f32=n_dis)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1716,6 +1949,10 @@ def main(argv=None):
     del packed, staged
     torch.cuda.empty_cache()
     s2 = sentinel2_phase(smi, args.reps, dev)
+    torch.cuda.empty_cache()
+    drv = driver_phase(smi, args.seed, dev)
+    torch.cuda.empty_cache()
+    f64 = f64_phase(smi, args.seed, dev)
     instances = ptxas_report(paths["0"]["T"], smi)
 
     ptxas = {n: (cuda_ops.BUILD_DIR / f"{n}.ptxas.txt").read_text()
@@ -1728,7 +1965,8 @@ def main(argv=None):
         build_seconds=build_s, sass_hmma=sass, kernels=kernels,
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
-        sentinel2=s2, ptxas_instances=instances, ptxas=ptxas,
+        sentinel2=s2, driver=drv, f64=f64, ptxas_instances=instances,
+        ptxas=ptxas,
         seconds=time.perf_counter() - t_start), indent=1))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

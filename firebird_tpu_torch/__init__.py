@@ -7,4 +7,6 @@ JAX.  Entry points take ``device=None``, which means CUDA; they raise when
 no CUDA device is present unless the caller passes ``device="cpu"``.
 """
 
-__version__ = "0.1.0"
+from firebird_tpu_torch.__about__ import __version__
+
+__all__ = ["__version__"]

@@ -1,9 +1,19 @@
 """Command line of the PyTorch port.
 
+    python -m firebird_tpu_torch changedetection -x X -y Y [-a ACQUIRED] \\
+        [-n NUMBER] [-c CHUNK_SIZE] [--resume] [--device cuda]
     python -m firebird_tpu_torch detect --chips N --start 1985-01-01 \\
         --end 2017-12-31 [--seed S] [--sensor landsat-ard] [--device cuda] \\
         [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--mixed {0,1}] \\
         [--shards N]
+
+``changedetection`` is the JAX package's command of that name: the tile
+at the point (x, y), its first ``NUMBER`` chips in chunks of
+``CHUNK_SIZE``, through driver.core.changedetection into the store that
+FIREBIRD_STORE_BACKEND / FIREBIRD_STORE_PATH name (sqlite rows land in
+``<dir of the path>/<stem>.<keyspace>.db``), with the config of
+``Config.from_env``.  It prints one JSON summary: chips done, pixels,
+segments, pixels a second and the stage seconds.
 
 ``detect`` runs SyntheticSource -> pack -> detect_packed -> batch_frames
 on the device (CUDA unless ``--device cpu``) and prints one JSON summary:
@@ -35,7 +45,26 @@ from firebird_tpu_torch.ccd import format as fmt
 from firebird_tpu_torch.ccd import kernel, params
 from firebird_tpu_torch.ccd.sensor import SENSORS
 from firebird_tpu_torch.ingest import SyntheticSource, pack
+from firebird_tpu_torch.obs import Counters
 from firebird_tpu_torch.parallel import detect_sharded
+
+
+def changedetection(args) -> dict:
+    from firebird_tpu_torch.driver import core
+
+    counters = Counters()
+    t0 = time.perf_counter()
+    done = core.changedetection(
+        x=args.x, y=args.y, acquired=args.acquired, number=args.number,
+        chunk_size=args.chunk_size, resume=args.resume, device=args.device,
+        counters=counters)
+    wall = time.perf_counter() - t0
+    snap = counters.snapshot()
+    return dict(chips_done=len(done), chips_detected=snap.get("chips", 0),
+                pixels=snap.get("pixels", 0),
+                segments=snap.get("segments", 0),
+                pixels_per_sec=snap.get("pixels_per_sec", 0.0),
+                seconds=dict(core.stage_seconds(), total=wall))
 
 
 def detect(args) -> dict:
@@ -89,6 +118,20 @@ def detect(args) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="python -m firebird_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    c = sub.add_parser("changedetection",
+                       help="change detection for a tile into the store")
+    c.add_argument("-x", "--x", type=float, required=True)
+    c.add_argument("-y", "--y", type=float, required=True)
+    c.add_argument("-a", "--acquired", default=None,
+                   help="ISO8601 range start/end (default: the JAX "
+                        "package's default acquired range)")
+    c.add_argument("-n", "--number", type=int, default=2500)
+    c.add_argument("-c", "--chunk_size", type=int, default=2500)
+    c.add_argument("-r", "--resume", action="store_true",
+                   help="skip chips whose segments are already stored")
+    c.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch versions)")
     d = sub.add_parser("detect", help="change detection on synthetic chips")
     d.add_argument("--chips", type=int, default=1)
     d.add_argument("--start", default="1985-01-01")
@@ -117,7 +160,8 @@ def main(argv=None) -> None:
                         "visible cards (FIREBIRD_REBALANCE=1 turns on the "
                         "rebalancing ring)")
     args = ap.parse_args(argv)
-    print(json.dumps(detect(args)))
+    run = changedetection if args.cmd == "changedetection" else detect
+    print(json.dumps(run(args)))
 
 
 if __name__ == "__main__":

@@ -6,4 +6,11 @@
   detector's hot path and their plain PyTorch versions.
 - :mod:`firebird_tpu_torch.ccd.format` — egress decode and the store's
   table frames.
+- :mod:`firebird_tpu_torch.ccd.reference` — the per-pixel numpy float64
+  reference detector (``detect``), which the float64 route is held to.
 """
+
+from firebird_tpu_torch.ccd import params
+from firebird_tpu_torch.ccd.reference import detect
+
+__all__ = ["params", "detect"]

@@ -439,7 +439,8 @@ def gram_plain(Yt, w, X, mixed=False):
     if not mixed:
         n = w.sum(1).clamp_min(1.0)                             # [C,P]
         G = dot(w, XX) / n[..., None]                           # [C,P,64]
-        c = torch.stack([dot(Yt[:, b].float() * w, X) for b in range(B)],
+        c = torch.stack([dot(Yt[:, b].to(w.dtype) * w, X)
+                         for b in range(B)],
                         2) / n[:, :, None, None]                # [C,P,B,K]
         return G.reshape(C, P, K, K).contiguous(), c.contiguous(), n
     n = w.to(torch.int32).sum(1, dtype=torch.int32).clamp_min(1).to(w.dtype)
@@ -489,7 +490,7 @@ def rmse_plain(Yt, w, X, beta, n):
     rmse = []
     for bb in range(Yt.shape[1]):
         pred = dot_cols(beta[:, None, :, bb, :], X[:, :, None, :])  # [C,T,P]
-        r = Yt[:, bb].float() - pred
+        r = Yt[:, bb].to(pred.dtype) - pred
         rmse.append(torch.sqrt((tree_sum(r * r * w) / n).clamp_min(0.0)))
     return torch.stack(rmse, -1)
 
@@ -592,7 +593,7 @@ def score_plain(Yd, coefs_d, dden, X):
     s = None
     for b in range(Yd.shape[1]):
         pred = dot_cols(coefs_d[:, None, :, b, :], X[:, :, None, :])
-        r = (Yd[:, b].float() - pred) / dden[:, None, :, b]
+        r = (Yd[:, b].to(pred.dtype) - pred) / dden[:, None, :, b]
         s = r * r if s is None else s + r * r
     return s
 
@@ -627,8 +628,8 @@ def monitor_chain_plain(s, alive, included, cur_k, n_last_fit, in_mon, *,
     absq = elig & ~o
     n0 = included.sum(1, dtype=i32)
     n_inc = n0[:, None, :] + torch.cumsum(absq, 1, dtype=i32)
-    refit_hit = absq & (n_inc.float() >= params.REFIT_FACTOR
-                        * n_last_fit.float()[:, None, :])
+    refit_hit = absq & (n_inc.to(s.dtype) >= params.REFIT_FACTOR
+                        * n_last_fit.to(s.dtype)[:, None, :])
     has_refit, f_abs = first_at_or_after(refit_hit, torch.zeros_like(cur_k))
 
     q_tail = torch.maximum(m - (params.PEEK_SIZE - 1), kq)
@@ -830,7 +831,7 @@ def init_window_gather(alive, cur_i, in_init, t, X, Xt, Yt, *, W):
 
     ci = torch.arange(C, device=dev)[:, None, None]
     pi = torch.arange(P, device=dev)[None, :, None]
-    Yw = torch.stack([Yt[:, b][ci, pos, pi].float()
+    Yw = torch.stack([Yt[:, b][ci, pos, pi].to(X.dtype)
                       for b in range(Yt.shape[1])], 2)          # [C,P,B,W]
     Yw = torch.where(exists[:, :, None, :], Yw, torch.zeros_like(Yw))
     Xw = torch.cat([X, Xt], -1)[ci, pos]                        # [C,P,W,13]
@@ -846,7 +847,7 @@ def tmask_args(win, vario, sensor=LANDSAT_ARD):
     vario2 [C,P,2]) — kernel._init_block's call of _tmask_bad."""
     tmb = list(sensor.tmask_bands)
     return (win["Xt_w"].contiguous(), win["Yw"][:, :, tmb],
-            win["valid_w"].float(), vario[:, :, tmb])
+            win["valid_w"].to(vario.dtype), vario[:, :, tmb])
 
 
 def init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
@@ -889,11 +890,12 @@ def init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
 
     w_stab = w_init & ~tm_removed[:, None, :]
     cm4 = (torch.arange(K, device=dev) < 4).expand(C, P, K)
-    c4, _ = fit(Yt, w_stab.float(), X, cm4.contiguous(), with_rmse=False)
+    c4, _ = fit(Yt, w_stab.to(X.dtype), X, cm4.contiguous(),
+                with_rmse=False)
     r_w = Yw - dot_cols(c4[:, :, :, None, :], Xw8[:, :, None, :, :])  # [C,P,B,W]
     stab_w = valid_w & ~bad_w
-    stab_f = stab_w.float()[:, :, None, :]
-    n4 = stab_w.sum(-1).float().clamp_min(1.0)[..., None]
+    stab_f = stab_w.to(X.dtype)[:, :, None, :]
+    n4 = stab_w.sum(-1).to(X.dtype).clamp_min(1.0)[..., None]
     r2 = r_w * r_w * stab_f
     acc = r2[..., 0]
     for s in range(1, W):
@@ -1036,7 +1038,7 @@ def peek_run_mags(Yt, X, alive, coefs, ev_rank, m):
     pi = torch.arange(P, device=dev)[None, :, None]
     X_run = X[ci, pos]                                          # [C,P,K,8]
     X_run = torch.where(exists[..., None], X_run, torch.zeros_like(X_run))
-    Y_run = torch.stack([Yt[:, b][ci, pos, pi].float()
+    Y_run = torch.stack([Yt[:, b][ci, pos, pi].to(X.dtype)
                          for b in range(Yt.shape[1])], 2)       # [C,P,B,K]
     Y_run = torch.where(exists[:, :, None, :], Y_run, torch.zeros_like(Y_run))
     pred_run = dot_cols(coefs[:, :, :, None, :], X_run[:, :, None])
@@ -1054,14 +1056,16 @@ def close_meta(t, included_mon, is_brk, pos_ev, n_exceed, first_seg):
         first_seg, params.CURVE_QA_START, 0)
     qa_brk = torch.where(first_seg, params.CURVE_QA_START,
                          params.CURVE_QA_INSIDE)
-    f32 = torch.float32
+    # The tail's change probability is an int32 count over PEEK_SIZE, a
+    # float32 division in the JAX package whatever the run's dtype (its
+    # int32 true division), widened after.
+    chprob = fdiv(n_exceed.to(torch.float32), params.PEEK_SIZE).to(t.dtype)
     return torch.stack([
         take_t(t, first_inc), end_day,
         torch.where(is_brk, take_t(t, pos_ev), end_day),
-        torch.where(is_brk, torch.ones_like(end_day),
-                    fdiv(n_exceed.to(f32), params.PEEK_SIZE)),
-        torch.where(is_brk, qa_brk, qa_tail).to(f32),
-        included_mon.sum(1).to(f32)], -1)
+        torch.where(is_brk, torch.ones_like(end_day), chprob),
+        torch.where(is_brk, qa_brk, qa_tail).to(t.dtype),
+        included_mon.sum(1).to(t.dtype)], -1)
 
 
 def write_slot(bufs, nseg, close, rows):
@@ -1302,8 +1306,8 @@ def fused_round_plain(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon,
     n_full = torch.where(init_ok, n_ok, n_rf)
     w = torch.where(init_ok[:, None, :], w_stab,
                     included_mon & is_refit[:, None, :])
-    coefs_n, rmse_n = _refit(Yt, w.float(), X, n_full, do_fit, coefs, rmse,
-                             mixed)
+    coefs_n, rmse_n = _refit(Yt, w.to(X.dtype), X, n_full, do_fit, coefs,
+                             rmse, mixed)
     ev = dict(is_tail=is_tail, is_brk=is_brk, is_refit=is_refit,
               pos_ev=pos_ev, do_fit=do_fit, n_full=n_full,
               included_mon=included_mon, alive_mon=alive_mon)
@@ -1398,12 +1402,12 @@ def detect_mega_plain(Yt, phase0, cur_i0, alive0, nseg0, bufs, t, X, Xt,
     The buffers are updated in place."""
     C, B, T, P = Yt.shape
     dev = Yt.device
-    i32, f32 = torch.int32, torch.float32
+    i32 = torch.int32
     st = dict(phase=phase0, cur_i=cur_i0,
               cur_k=torch.zeros(C, P, dtype=i32, device=dev), alive=alive0,
               included=torch.zeros(C, T, P, dtype=torch.bool, device=dev),
-              coefs=torch.zeros(C, P, B, K, dtype=f32, device=dev),
-              rmse=torch.ones(C, P, B, dtype=f32, device=dev),
+              coefs=torch.zeros(C, P, B, K, dtype=X.dtype, device=dev),
+              rmse=torch.ones(C, P, B, dtype=X.dtype, device=dev),
               n_last_fit=torch.ones(C, P, dtype=i32, device=dev),
               first_seg=torch.ones(C, P, dtype=torch.bool, device=dev),
               nseg=nseg0, bufs=bufs)

@@ -128,8 +128,26 @@ PALLAS_ENV = "FIREBIRD_PALLAS"
 COMPONENTS = ("fit", "score", "init", "lasso", "monitor", "tmask", "mega")
 
 
-def pallas_components(pallas=None, ops=None,
-                      mixed=None) -> types.SimpleNamespace:
+# The compute dtypes of the detector: float32 (the kernels' and the JAX
+# package's production dtype) and float64 (the reference's, run on the plain
+# versions).
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def float_dtype(dtype=None) -> torch.dtype:
+    """The detector's compute dtype from ``dtype``: None means float32; a
+    torch dtype or its name ("float32", "float64"); anything else raises."""
+    if dtype is None:
+        return torch.float32
+    d = DTYPES.get(dtype, dtype) if isinstance(dtype, str) else dtype
+    if d not in DTYPES.values():
+        raise ValueError(f"dtype {dtype!r}: the detector computes in "
+                         f"{', '.join(DTYPES)}")
+    return d
+
+
+def pallas_components(pallas=None, ops=None, mixed=None,
+                      dtype=None) -> types.SimpleNamespace:
     """The route's functions, as FIREBIRD_PALLAS names them —
     kernel.use_pallas and its supersession rules.
 
@@ -163,15 +181,24 @@ def pallas_components(pallas=None, ops=None,
     fit f32: its PyTorch Gram around ``lasso_cd`` is XLA's f32 Gram in the
     JAX package.
 
+    ``dtype`` (:func:`float_dtype`; None means float32) is the route's
+    compute dtype.  A float64 route runs the plain versions
+    (:data:`cuda_ops.PLAIN`) on any device and no kernel, whatever ``ops``
+    names: the JAX package's Pallas kernels are float32 only (its
+    ``f32_ok`` gate, "Mosaic cannot lower float64"), so its float64 route
+    is the XLA program these versions follow.  ``mixed`` is inert there,
+    as JAX's ``mixed_on`` is off the float32 dtype: the route records
+    ``mixed=False``.
+
     ``ops`` (default :data:`cuda_ops.KERNELS`) supplies the functions; a
     route this function returned comes back as it is (``pallas`` must then
-    be None, and ``mixed`` None or the route's), so an entry point
-    resolves the route once and hands it down.  Returns a namespace with
-    the round functions :class:`BatchLoop` calls (``lasso_fit``,
-    ``monitor_chain_scored``, ``init_window``, ``fused_fit_close``,
-    ``fused_round``; ``detect_mega`` on the mega route), the rebalancing
-    ring's hop ``ring_remote_copy``, ``mega``, ``components`` (the
-    resolved names) and ``mixed``."""
+    be None, ``mixed`` None or the route's, ``dtype`` None or the
+    route's), so an entry point resolves the route once and hands it down.
+    Returns a namespace with the round functions :class:`BatchLoop` calls
+    (``lasso_fit``, ``monitor_chain_scored``, ``init_window``,
+    ``fused_fit_close``, ``fused_round``; ``detect_mega`` on the mega
+    route), the rebalancing ring's hop ``ring_remote_copy``, ``mega``,
+    ``components`` (the resolved names), ``mixed`` and ``dtype``."""
     if hasattr(ops, "components"):
         if pallas is not None:
             raise ValueError(f"pallas={pallas!r} with a resolved route: "
@@ -179,8 +206,13 @@ def pallas_components(pallas=None, ops=None,
         if mixed is not None and bool(mixed) != ops.mixed:
             raise ValueError(f"mixed={mixed!r} with a route resolved with "
                              f"mixed={ops.mixed}: pass one of the two")
+        if dtype is not None and float_dtype(dtype) != ops.dtype:
+            raise ValueError(f"dtype={dtype!r} with a route resolved with "
+                             f"dtype={ops.dtype}: pass one of the two")
         return ops
-    mixed = use_mixed_precision() if mixed is None else bool(mixed)
+    dtype = float_dtype(dtype)
+    mixed = ((use_mixed_precision() if mixed is None else bool(mixed))
+             and dtype == torch.float32)
     v = os.environ.get(PALLAS_ENV) if pallas is None else str(pallas)
     v = "1" if v is None else v.strip()
     if v == "1":
@@ -192,17 +224,19 @@ def pallas_components(pallas=None, ops=None,
             raise ValueError(f"{PALLAS_ENV}={v!r}: unknown component(s) "
                              f"{sorted(unknown)}; known: {', '.join(COMPONENTS)}")
     base = cuda_ops.KERNELS if ops is None else ops
+    if dtype == torch.float64:
+        base = cuda_ops.PLAIN
     fits = functools.partial(_with_precision, mixed=mixed)
     if "mega" in names:
-        fallback = _loop_route(names - {"mega"}, base, v, mixed,
+        fallback = _loop_route(names - {"mega"}, base, v, mixed, dtype,
                                default=True)
         return types.SimpleNamespace(components=("mega",), mega=True,
-                                     mixed=mixed,
+                                     mixed=mixed, dtype=dtype,
                                      lasso_fit=fits(base.lasso_fit),
                                      detect_mega=fits(base.detect_mega),
                                      ring_remote_copy=base.ring_remote_copy,
                                      fallback=fallback)
-    return _loop_route(names, base, v, mixed)
+    return _loop_route(names, base, v, mixed, dtype)
 
 
 def _with_precision(fn, mixed):
@@ -211,14 +245,14 @@ def _with_precision(fn, mixed):
     return functools.partial(fn, mixed=True) if mixed else fn
 
 
-def _loop_route(names, base, v, mixed,
+def _loop_route(names, base, v, mixed, dtype,
                 default=False) -> types.SimpleNamespace:
     """The round loop's route from the component ``names`` (FIREBIRD_PALLAS
     value ``v``) over the functions of ``base``: each of the fit, the
     monitor and the INIT block takes its fused kernel where named, else its
     component kernel where named, else (with ``default``) its fused
     kernel, else raises.  ``mixed`` binds to the fitting kernels
-    (:func:`pallas_components`)."""
+    (:func:`pallas_components`); ``dtype`` is recorded."""
 
     def pick(fused, component, what):
         for c in (fused, component):
@@ -248,7 +282,8 @@ def _loop_route(names, base, v, mixed,
             else functools.partial(cuda_ops.init_window_plain, fit=fit,
                                    tmask=base.tmask_bad))
     return types.SimpleNamespace(
-        components=comps, mega=False, mixed=mixed, lasso_fit=fit,
+        components=comps, mega=False, mixed=mixed, dtype=dtype,
+        lasso_fit=fit,
         monitor_chain_scored=mon, init_window=init,
         fused_fit_close=fits(base.fused_fit_close),
         fused_round=fits(base.fused_round),
@@ -337,7 +372,7 @@ class ChipSegments:
     """
 
     n_segments: torch.Tensor     # [.., P] int32
-    seg_meta: torch.Tensor       # [.., P, S, 6] float32
+    seg_meta: torch.Tensor       # [.., P, S, 6] the run's float dtype
     seg_rmse: torch.Tensor       # [.., P, S, B]
     seg_mag: torch.Tensor        # [.., P, S, B]
     seg_coef: torch.Tensor       # [.., P, S, B, 8]
@@ -422,6 +457,49 @@ def capacity_retry(dispatch, read_worst, S: int, bound: int):
         S = min(2 * S, bound)
 
 
+def working_set_bytes(T: int, S: int = MAX_SEGMENTS, sensor=LANDSAT_ARD,
+                      dtype_bytes: int = 4) -> int:
+    """Estimated peak device bytes of one chip in a :func:`detect_packed`
+    dispatch, counted from the tensors this package's round loop holds:
+
+    - the staged wire (int16 spectra, uint8 QA, int32 days);
+    - the residents: the [B,T,P] int16 spectra, their detection bands and
+      the int32 QA plane;
+    - the result buffers (meta, rmse, mag, coef) at ``S`` slots, twice (a
+      compaction gathers a copy);
+    - the larger of the prologue's temporaries (the spectra widened to
+      the run's dtype for the variogram, a band's differences and sort
+      with its int64 indices, some twenty bool and byte planes) and a
+      round's (the alive / included / window / include / remove planes,
+      the fit weights, and a compaction's copy of the residents).
+
+    At T=768 this counts 1.0 GB a Landsat chip in float32.  chip_smoke.py's
+    driver phase prints the card's peak beside it: with batches in flight,
+    the peak is a batch's count plus the next batch's staged wire and the
+    results awaiting their drain (:func:`result_bytes`).
+    """
+    P, B, K = sensor.pixels, sensor.n_bands, params.MAX_COEFS
+    nb = len(sensor.detection_bands)
+    f = dtype_bytes
+    wire = P * T * (2 * B + 1) + 4 * T
+    resident = P * T * (2 * B + 2 * nb + 4)
+    bufs = 2 * P * S * (6 + 2 * B + B * K) * f
+    prologue = P * T * (f * (B + 6) + 8 + 20)
+    rounds = P * T * (8 + f + 2 * B + 2 * nb)
+    return int(wire + resident + bufs + max(prologue, rounds))
+
+
+def result_bytes(T: int, S: int = MAX_SEGMENTS, sensor=LANDSAT_ARD,
+                 dtype_bytes: int = 4) -> int:
+    """Device bytes one chip's ChipSegments pins until its drain: the
+    result buffers at ``S`` slots, the [P,T] mask, the variogram and the
+    per-pixel ints."""
+    P, B, K = sensor.pixels, sensor.n_bands, params.MAX_COEFS
+    per_px = S * (6 + 2 * B + B * K) * dtype_bytes
+    per_px += T + B * dtype_bytes + 2 * 4
+    return int(P * per_px)
+
+
 def wire_args(packed) -> tuple:
     """The all-integer wire of a PackedChips batch (numpy): day ordinals
     int32 [C,T], n_obs int32 [C], spectra int16 [C,B,P,T], QA uint8
@@ -432,30 +510,32 @@ def wire_args(packed) -> tuple:
             np.asarray(packed.qas).astype(np.uint8))
 
 
-def stage_packed(packed, device=None) -> tuple:
-    """Host -> device copy of the wire tuple."""
+def stage_packed(packed, device=None, dtype=None) -> tuple:
+    """Host -> device copy of the wire tuple.  The wire is integer in every
+    compute dtype: ``dtype`` (:func:`float_dtype`) is only checked."""
+    float_dtype(dtype)
     dev = resolve_device(device)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                  for a in wire_args(packed))
 
 
-def device_designs(days, n_obs):
+def device_designs(days, n_obs, dtype=torch.float32):
     """The harmonic design matrices, built on the device from the int32
     wire — kernel.device_designs.
 
     ``days`` [C,T] int32 (0 past ``n_obs``) -> (X [C,T,8], Xt [C,T,5],
-    t [C,T] float32, valid [C,T] bool).  The phase uses the exact integer
-    reduction ``t mod 365.25 == ((4t) mod 1461) / 4``; only the trig runs
-    in float32."""
+    t [C,T] ``dtype``, valid [C,T] bool).  The phase uses the exact integer
+    reduction ``t mod 365.25 == ((4t) mod 1461) / 4``, so its argument is
+    exact in either dtype; only the trig runs in ``dtype``."""
     C, T = days.shape
     dev = days.device
     days = days.to(torch.int32)
     valid = torch.arange(T, device=dev)[None, :] < n_obs[:, None]
     quarter = torch.remainder(4 * days, 1461)
-    omega = torch.tensor(params.OMEGA, dtype=torch.float32, device=dev)
-    ph = omega * (quarter.float() * 0.25)
+    omega = torch.tensor(params.OMEGA, dtype=dtype, device=dev)
+    ph = omega * (quarter.to(dtype) * 0.25)
     anchor = torch.where(n_obs > 0, days[:, 0], torch.zeros_like(n_obs))
-    yr = fdiv((days - anchor[:, None]).float(), 365.25)
+    yr = fdiv((days - anchor[:, None]).to(dtype), 365.25)
     one = torch.ones_like(yr)
     c1, s1 = torch.cos(ph), torch.sin(ph)
     c2, s2 = torch.cos(2 * ph), torch.sin(2 * ph)
@@ -464,7 +544,7 @@ def device_designs(days, n_obs):
     Xt = torch.stack([one, c1, s1, c2, s2], -1)
     X = torch.where(valid[..., None], X, torch.zeros_like(X))
     Xt = torch.where(valid[..., None], Xt, torch.zeros_like(Xt))
-    return X.contiguous(), Xt.contiguous(), days.float(), valid
+    return X.contiguous(), Xt.contiguous(), days.to(dtype), valid
 
 
 # ---------------------------------------------------------------------------
@@ -480,9 +560,11 @@ def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
     snow / insufficient-clear fit, variogram and the standard procedure's
     start state — kernel._prologue in its wire-resident form.
 
-    ``Yt`` [C,B,T,P] int16, ``qa`` [C,T,P].  Returns (res, state)."""
+    ``Yt`` [C,B,T,P] int16, ``qa`` [C,T,P]; the designs' dtype is the
+    run's.  Returns (res, state)."""
     C, B, T, P = Yt.shape
     dev = Yt.device
+    fdt = X.dtype
     det = list(sensor.detection_bands)
     Yd = Yt[:, det].contiguous()                                # [C,nb,T,P]
     res = dict(X=X, Xt=Xt, t=t, Yt=Yt, Yd=Yd)
@@ -495,8 +577,8 @@ def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
     n_nonfill = (~fill).sum(1)
     n_clear = clear.sum(1)
     n_snow = snow.sum(1)
-    clear_pct = n_clear / n_nonfill.clamp_min(1)
-    snow_pct = n_snow / (n_clear + n_snow).clamp_min(1)
+    clear_pct = n_clear.to(fdt) / n_nonfill.clamp_min(1).to(fdt)
+    snow_pct = n_snow.to(fdt) / (n_clear + n_snow).clamp_min(1).to(fdt)
 
     rng_ok = torch.ones(C, T, P, dtype=torch.bool, device=dev)
     for b in sensor.optical_bands:
@@ -515,19 +597,18 @@ def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
     usable_std = dedup_first(clear & rng_ok, same_prev)
     usable_snow = dedup_first((clear | snow) & rng_ok, same_prev)
     cand_ins = ~fill & rng_ok
-    yblue = Yt[:, sensor.blue_band].float()
+    yblue = Yt[:, sensor.blue_band].to(fdt)
     blue_med = masked_median(yblue, cand_ins, dim=1)
     cand_ins = cand_ins & (yblue < blue_med[:, None, :]
                            + params.INSUF_CLEAR_BLUE_DELTA)
     usable_ins = dedup_first(cand_ins, same_prev)
 
     # ---------------- result buffers ----------------
-    f32 = torch.float32
     nseg0 = torch.zeros(C, P, dtype=torch.int32, device=dev)
-    bufs = (torch.zeros(C, P, S, 6, dtype=f32, device=dev),
-            torch.zeros(C, P, S, B, dtype=f32, device=dev),
-            torch.zeros(C, P, S, B, dtype=f32, device=dev),
-            torch.zeros(C, P, S, B, params.MAX_COEFS, dtype=f32, device=dev))
+    bufs = (torch.zeros(C, P, S, 6, dtype=fdt, device=dev),
+            torch.zeros(C, P, S, B, dtype=fdt, device=dev),
+            torch.zeros(C, P, S, B, dtype=fdt, device=dev),
+            torch.zeros(C, P, S, B, params.MAX_COEFS, dtype=fdt, device=dev))
 
     # ---------------- snow / insufficient-clear: one fit ----------------
     is_snow = procedure == PROC_SNOW
@@ -536,25 +617,25 @@ def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
     alt_n = alt_usable.sum(1)
     alt_fit = is_alt & (alt_n >= params.MEOW_SIZE)
     alt_mask = alt_usable & alt_fit[:, None, :]
-    alt_coefs, alt_rmse = ops.lasso_fit(Yt, alt_mask.float(), X,
+    alt_coefs, alt_rmse = ops.lasso_fit(Yt, alt_mask.to(fdt), X,
                                         coefmask_for(alt_n), with_rmse=True)
     _, first_i = first_at_or_after(alt_usable, torch.zeros_like(alt_n))
     last_i = last_true(alt_usable)
     alt_meta = torch.stack([
         take_t(t, first_i), take_t(t, last_i), take_t(t, last_i),
-        torch.zeros(C, P, dtype=f32, device=dev),
+        torch.zeros(C, P, dtype=fdt, device=dev),
         torch.where(is_snow, float(params.CURVE_QA_PERSIST_SNOW),
-                    float(params.CURVE_QA_INSUF_CLEAR)).to(f32),
-        alt_n.to(f32)], -1)
+                    float(params.CURVE_QA_INSUF_CLEAR)).to(fdt),
+        alt_n.to(fdt)], -1)
     bufs, nseg = cuda_ops.write_slot(
         bufs, nseg0, alt_fit,
-        (alt_meta, alt_rmse, torch.zeros(C, P, B, dtype=f32, device=dev),
+        (alt_meta, alt_rmse, torch.zeros(C, P, B, dtype=fdt, device=dev),
          alt_coefs))
 
     # ---------------- standard procedure state ----------------
     is_std = procedure == PROC_STANDARD
     alive0 = usable_std & is_std[:, None, :]
-    vario = variogram(Yt.float(), alive0, t,
+    vario = variogram(Yt.to(fdt), alive0, t,
                       adjusted=(variogram_mode == "adjusted")).contiguous()
     ex0, i0 = first_at_or_after(alive0, torch.zeros_like(alt_n))
     phase0 = torch.where(is_std & ex0, PHASE_INIT, PHASE_DONE).to(torch.int32)
@@ -566,8 +647,8 @@ def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
         cur_k=torch.zeros(C, P, dtype=torch.int32, device=dev),
         alive=alive0,
         included=torch.zeros(C, T, P, dtype=torch.bool, device=dev),
-        coefs=torch.zeros(C, P, B, params.MAX_COEFS, dtype=f32, device=dev),
-        rmse=torch.ones(C, P, B, dtype=f32, device=dev),
+        coefs=torch.zeros(C, P, B, params.MAX_COEFS, dtype=fdt, device=dev),
+        rmse=torch.ones(C, P, B, dtype=fdt, device=dev),
         n_last_fit=torch.ones(C, P, dtype=torch.int32, device=dev),
         first_seg=torch.ones(C, P, dtype=torch.bool, device=dev),
         nseg=nseg, bufs=bufs)
@@ -907,7 +988,8 @@ class BatchLoop:
             n_full = torch.where(init_ok, init["n_ok"], mon["n_rf"])
             w_fit = lambda: torch.where(
                 init_ok[:, None, :], init["w_stab"],
-                mon["included_mon"] & mon["is_refit"][:, None, :]).float()
+                mon["included_mon"] & mon["is_refit"][:, None, :]).to(
+                    r["X"].dtype)
 
         if fused == "mon":
             pass                      # merged in ops.fused_round above
@@ -950,7 +1032,7 @@ def staged_loop(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
                 max_segments=MAX_SEGMENTS,
                 variogram_mode=params.VARIOGRAM_DEFAULT, ops=None,
                 fused=None, pallas=None, compact=None,
-                mixed=None) -> BatchLoop:
+                mixed=None, dtype=None) -> BatchLoop:
     """The :class:`BatchLoop` of a staged integer wire on its device:
     ``days`` [C,T] int32, ``n_obs`` [C] int32, ``spectra`` [C,B,P,T] int16,
     ``qa`` [C,P,T] uint8.  The designs are built on the device, the
@@ -958,14 +1040,14 @@ def staged_loop(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
     ``pallas`` picks the kernels (:func:`pallas_components`, from ``ops``,
     or ``ops`` is a route it already resolved), ``fused`` the round route
     (:func:`fused_mode`), ``compact`` the compaction (:func:`compact_mode`),
-    ``mixed`` the precision of the fitting kernels (:func:`pallas_components`).
-    Run it under ``torch.no_grad()``."""
+    ``mixed`` the precision of the fitting kernels and ``dtype`` the compute
+    dtype (:func:`pallas_components`).  Run it under ``torch.no_grad()``."""
     _exact_f32()
-    ops = pallas_components(pallas, ops, mixed)
+    ops = pallas_components(pallas, ops, mixed, dtype)
     if variogram_mode not in ("adjusted", "plain"):
         raise ValueError(f"variogram_mode {variogram_mode!r}: 'adjusted' or "
                          f"'plain'")
-    X, Xt, t, valid = device_designs(days, n_obs)
+    X, Xt, t, valid = device_designs(days, n_obs, ops.dtype)
     Yt = spectra.transpose(2, 3).contiguous()                   # [C,B,T,P]
     qa_t = qa.transpose(1, 2).contiguous().to(torch.int32)      # [C,T,P]
     return BatchLoop(X, Xt, t, valid, Yt, qa_t, W=W, sensor=sensor,
@@ -977,7 +1059,8 @@ def staged_loop(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
 def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
                   max_segments=MAX_SEGMENTS,
                   variogram_mode=params.VARIOGRAM_DEFAULT, ops=None,
-                  fused=None, pallas=None, compact=None, mixed=None):
+                  fused=None, pallas=None, compact=None, mixed=None,
+                  dtype=None):
     """Detect from the staged integer wire on its device (the arguments
     of :func:`staged_loop`) -> ChipSegments."""
     with torch.no_grad():
@@ -985,14 +1068,14 @@ def detect_staged(days, n_obs, spectra, qa, *, W, sensor=LANDSAT_ARD,
                            max_segments=max_segments,
                            variogram_mode=variogram_mode, ops=ops,
                            fused=fused, pallas=pallas, compact=compact,
-                           mixed=mixed).run()
+                           mixed=mixed, dtype=dtype).run()
 
 
 def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
                   check_capacity: bool = True, staged: tuple | None = None,
                   variogram_mode: str = params.VARIOGRAM_DEFAULT,
                   ops=None, fused=None, pallas=None, compact=None,
-                  mixed=None) -> ChipSegments:
+                  mixed=None, dtype=None) -> ChipSegments:
     """Run the detector over a PackedChips batch -> ChipSegments with
     leading chip axis [C, P, ...], on ``device`` (default CUDA).
 
@@ -1014,9 +1097,13 @@ def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
     the mega route never compacts.  ``mixed`` turns the fitting kernels'
     mixed-precision Gram on or off: None defers to
     FIREBIRD_MIXED_PRECISION (unset: off; :func:`use_mixed_precision`), or
-    to the route's where ``ops`` is a resolved route."""
+    to the route's where ``ops`` is a resolved route.  ``dtype`` is the
+    compute dtype: float32 (None, the default, or the resolved route's) or
+    float64, which runs the plain versions and no kernel, and takes no
+    mixed precision (:func:`pallas_components`).  The result's floats are
+    in that dtype."""
     dev = resolve_device(device)
-    route = pallas_components(pallas, ops, mixed)  # refuses a bad route
+    route = pallas_components(pallas, ops, mixed, dtype)  # refuses a bad route
     args = staged if staged is not None else stage_packed(packed, dev)
     sensor = getattr(packed, "sensor", LANDSAT_ARD)
     W = window_cap(packed)
@@ -1059,7 +1146,11 @@ def pack_egress(seg: ChipSegments, s_eff: int) -> dict:
     """Device-side egress packing of a batched float32 ChipSegments —
     kernel.pack_egress: integer meta columns rint-coded (chprob coded as
     ``rint(chprob * PEEK_SIZE)``), float planes bitcast to int32, the mask
-    bitpacked along T, segment planes cut to ``s_eff`` slots."""
+    bitpacked along T, segment planes cut to ``s_eff`` slots.  A float64
+    result has no int coding (JAX's egress is float32 only): it raises."""
+    if seg.seg_meta.dtype != torch.float32:
+        raise TypeError(f"pack_egress codes float32 results; this one is "
+                        f"{seg.seg_meta.dtype} (fetch it raw)")
     sl = lambda a: a[:, :, :s_eff].contiguous()
     bc = lambda a: a.contiguous().view(torch.int32)
     meta = sl(seg.seg_meta)

@@ -6,7 +6,8 @@ pixel axis fastest, as the CUDA kernels read them; per-pixel vectors are
 argument where a caller needs another.
 
 Each function states the JAX function of ``firebird_tpu/ccd/kernel.py`` it
-reproduces.  Arithmetic is float32 throughout, in the order the JAX code
+reproduces.  Arithmetic runs in the dtype of its inputs (float32, or float64
+on the float64 route), in the order the JAX code
 and the CUDA kernels use wherever the order is cheap to fix (sums over the
 8 design columns, the 5 Tmask columns and the window slots run left to
 right); long sums over time are left to ``torch``.

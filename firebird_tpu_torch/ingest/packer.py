@@ -149,3 +149,14 @@ def pack(chips: list[ChipData], *, bucket: int = 64,
         n_obs[i] = T
     return PackedChips(cids=cids, dates=dates, spectra=spectra, qas=qas,
                        n_obs=n_obs, sensor=sensor)
+
+
+def pixel_timeseries(p: PackedChips, c: int, pix: int) -> dict:
+    """One pixel of a packed batch as :func:`ccd.reference.detect`'s
+    keyword arguments (dates, one array per band, qas)."""
+    T = int(p.n_obs[c])
+    d = {n: p.spectra[c, b, pix, :T].copy()
+         for b, n in enumerate(p.sensor.band_names_plural)}
+    d["dates"] = p.dates[c, :T].astype(np.int64)
+    d["qas"] = p.qas[c, pix, :T].copy()
+    return d

@@ -233,13 +233,13 @@ def detect_sharded(packed, devices=None, *, compact=None, fused=None,
                    pallas=None, rebalance=None, check_capacity: bool = True,
                    max_segments: int = kernel.MAX_SEGMENTS,
                    variogram_mode: str = params.VARIOGRAM_DEFAULT,
-                   ops=None, mixed=None) -> kernel.ChipSegments:
+                   ops=None, mixed=None, dtype=None) -> kernel.ChipSegments:
     """Run the detector over a PackedChips batch with its chip axis
     sharded over ``devices`` (default: every visible CUDA device once) ->
     ChipSegments [C, P, ...] on the first shard's device.
 
     The chip count must divide evenly over the shards.  ``compact``,
-    ``fused``, ``pallas``, ``ops``, ``mixed``, ``max_segments``,
+    ``fused``, ``pallas``, ``ops``, ``mixed``, ``dtype``, ``max_segments``,
     ``check_capacity`` and ``variogram_mode`` are
     :func:`kernel.detect_packed`'s; the
     capacity retry re-runs every shard.  ``rebalance`` turns the ring on
@@ -253,7 +253,7 @@ def detect_sharded(packed, devices=None, *, compact=None, fused=None,
     if C % n:
         raise ValueError(f"chip batch ({C}) must divide evenly over {n} "
                          f"shards — pad the batch")
-    route = kernel.pallas_components(pallas, ops, mixed)
+    route = kernel.pallas_components(pallas, ops, mixed, dtype)
     spec = rebalance_spec(devs, rebalance)
     if spec is not None:
         spec = dataclasses.replace(spec, hop=route.ring_remote_copy)

@@ -1346,3 +1346,85 @@ def test_mixed_instances_run_on_tensor_cores(dev):
                               text=True, check=True).stdout
         n = sass.count("HMMA")
         assert (n > 0) == (unit != cuda_ops.source_of(unit)), (unit, n)
+
+
+# ---------------------------------------------------------------------------
+# The float64 route and the batch driver on the card
+# ---------------------------------------------------------------------------
+
+def _two_tiny_chips(seed, n_changes=1):
+    src = SyntheticSource(seed, start="1995-01-01", end="1999-06-01",
+                          sensor=LANDSAT_ARD_TINY, cloud_frac=0.15,
+                          n_changes=n_changes)
+    return pack([src.chip(100, 200), src.chip(3100, 200)], bucket=32)
+
+
+@pytest.mark.parametrize("seed,n_changes", [(3, 1), (5, 2)])
+def test_f64_on_card_launches_nothing_and_decides_as_cpu(dev, seed,
+                                                         n_changes):
+    p = _two_tiny_chips(seed, n_changes)
+    cuda_ops.reset_launches()
+    got = kernel.detect_packed(p, device=dev, dtype=torch.float64)
+    assert not any(cuda_ops.LAUNCHES.values())
+    want = kernel.detect_packed(p, device="cpu", dtype=torch.float64)
+    g, w = kernel.segments_to_numpy(got), kernel.segments_to_numpy(want)
+    for f in ("n_segments", "procedure", "mask", "seg_meta"):
+        np.testing.assert_array_equal(getattr(g, f), getattr(w, f), f)
+    for f in ("seg_rmse", "seg_mag", "seg_coef", "vario"):
+        np.testing.assert_allclose(getattr(g, f), getattr(w, f), rtol=1e-9,
+                                   atol=1e-9, err_msg=f)
+
+
+def test_stage_batch_pinned_copy_equals_stage_packed(dev):
+    from firebird_tpu_torch.driver import core
+
+    p = _two_tiny_chips(3)
+    staged = core.stage_batch(p, "float32", "off", device=dev)
+    assert staged.ready is not None and all(h.is_pinned()
+                                            for h in staged.pinned)
+    staged.ready.synchronize()
+    for a, b in zip(staged.args, kernel.stage_packed(p, dev)):
+        assert a.dtype == b.dtype and a.device == b.device
+        assert torch.equal(a, b)
+    seg, n = core.detect_batch(staged.packed, "float32", "off",
+                               staged=staged, device=dev)
+    ref = kernel.detect_packed(p, device=dev, check_capacity=False)
+    assert n == 2
+    for f in ("n_segments", "seg_meta", "seg_rmse", "seg_coef", "mask"):
+        assert torch.equal(getattr(seg, f), getattr(ref, f)), f
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_driver_on_card_equals_cpu_decisions(dev, dtype):
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.driver import core
+    from firebird_tpu_torch.store import MemoryStore
+
+    cfg = Config(store_backend="memory", chips_per_batch=2, dtype=dtype,
+                 device_sharding="off", fetch_retries=0, pipeline_depth=2)
+    src = SyntheticSource(9, start="1995-01-01", end="1999-06-01",
+                          sensor=LANDSAT_ARD_TINY, cloud_frac=0.1)
+    stores = {}
+    for where in (dev, "cpu"):
+        stores[str(where)] = MemoryStore(str(where))
+        cuda_ops.reset_launches()
+        done = core.changedetection(x=100, y=200,
+                                    acquired="1995-01-01/1999-06-01",
+                                    number=5, chunk_size=5, cfg=cfg,
+                                    source=src, store=stores[str(where)],
+                                    device=where)
+        assert len(done) == 5
+        launched = {k for k, v in cuda_ops.LAUNCHES.items() if v}
+        if str(where) != "cpu" and dtype == "float32":
+            assert launched == {"lasso_fit", "monitor_chain_scored",
+                                "init_window"}
+        else:
+            assert not launched
+    card, cpu = stores[str(dev)], stores["cpu"]
+    for table in ("chip", "pixel"):
+        assert sorted(map(str, zip(*card.read(table).values()))) == \
+            sorted(map(str, zip(*cpu.read(table).values())))
+    keys = ("cx", "cy", "px", "py", "sday", "eday", "bday", "chprob",
+            "curqa")
+    rows = lambda s: sorted(zip(*(s.read("segment")[k] for k in keys)))
+    assert rows(card) == rows(cpu)

@@ -103,6 +103,52 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
     assert tk.resolve_device("cpu").type == "cpu"
 
 
+# The modules the port keeps as its own copies of the JAX package's, under
+# the same relative paths.
+PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
+                  "utils/fn.py", "utils/dates.py", "obs/__init__.py",
+                  "obs/metrics.py", "store/__init__.py", "store/schema.py",
+                  "store/backends.py", "store/writer.py",
+                  "driver/__init__.py", "driver/core.py",
+                  "driver/quarantine.py", "ingest/sources.py",
+                  "ingest/registry.py", "ingest/packer.py",
+                  "ccd/reference.py", "ccd/params.py", "ccd/harmonic.py",
+                  "ccd/sensor.py", "ccd/synthetic.py", "ccd/format.py")
+
+
+@pytest.mark.parametrize("rel", PORTED_MODULES)
+def test_ported_module_is_present_and_scanned(rel):
+    path = ROOT / "firebird_tpu_torch" / rel
+    assert path.exists(), rel
+    assert (ROOT / "firebird_tpu" / rel).exists(), rel
+    assert path in PORT_FILES
+
+
+def test_port_version_names_the_jax_packages_tables():
+    import firebird_tpu.__about__ as jabout
+
+    import firebird_tpu_torch
+    from firebird_tpu_torch.config import Config
+
+    assert firebird_tpu_torch.__version__ == jabout.__version__
+    assert Config().keyspace() == "ccdc_0_2_0"
+
+
+def test_changedetection_needs_cuda_unless_told(monkeypatch):
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.driver import core
+    from firebird_tpu_torch.store import MemoryStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(store_backend="memory", source_backend="synthetic",
+                 chips_per_batch=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        core.changedetection(x=100, y=200, number=1, chunk_size=1, cfg=cfg,
+                             store=MemoryStore("x"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        core.stage_batch(None, "float32")
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         cuda_ops._check(torch.zeros(2, 3), "x", torch.float32, (3, 2),
