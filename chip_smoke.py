@@ -101,13 +101,39 @@ From the root of a checkout, on a machine with a CUDA card:
    each stage's seconds, the peak device memory a batch beside
    ``kernel.working_set_bytes``, and the batch that
    ``auto_chips_per_batch`` picks on this card;
-10. the float64 route (``f64_phase``): one full chip through
+10. the stream path (``stream_phase``): ``driver.stream.stream`` on the
+   card over the tile's first 8 chips (the same archive; the eighth
+   stepped +800 on every band from 2016-06-01), served from memory cut to
+   each asked range, batches of 8 into sqlite in a temporary directory.
+   Pass 1 bootstraps 1985-2015: it must launch route 0's kernels and no
+   other, store exactly ``detect_packed`` + ``format.batch_frames``'s rows
+   and save 8 checkpoints, with no alert.  Pass 2 updates over 2016-2017
+   (only the delta past each horizon fetched, no kernel launched): every
+   field of the card's final state must equal, bit for bit, the port's
+   ``step`` replayed on the CPU from a copy of the pass-1 checkpoints; on
+   the 7 synthetic chips, the pixels comparable with a batch rerun over
+   1985-2017 (test_incremental.py's rule: the same last-segment model and
+   no exceedance in the window, an exceed run live at the seed included;
+   and the window replayed with the rerun's variogram decides alike)
+   must be at least a third and all equal it in end_day, nobs and
+   n_exceed; one alert per newly broken pixel (the step chip's dated
+   2016) and one open repair job per flagged chip.  Pass 3 (the same
+   range) fetches no acquisition, launches nothing, writes no row and
+   alerts and enqueues nothing.  ``alerts.repair_chip`` on the step chip
+   must store ``detect_packed`` + ``batch_frames``'s rows and leave no
+   pixel flagged.  Printed: bootstrap px/s; the update's wall,
+   chip-steps and pixel-observations and their rates, the step loops'
+   span on the card (CUDA events) and its share of the wall, one chip's
+   step loop replayed under ``torch.profiler`` (its kernels' own time,
+   and so their busy share of the wall), statestore load and save ms a
+   chip, publish and alert seconds; the peak memory;
+11. the float64 route (``f64_phase``): one full chip through
    ``detect_packed(dtype=torch.float64)`` on the card, which must launch
    no kernel; on 256 of its pixels drawn from the seed every decision must
    equal the port's ``reference.detect`` (run in 8 processes) and the
    floats be within tests/test_ccd_kernel.py's tolerances.  Printed: its
    wall and its decision agreement with f32 route 0 on the whole chip;
-11. every kernel instance's registers, stack and spills, and the total
+12. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -134,8 +160,8 @@ import numpy as np
 import torch
 
 from firebird_tpu_torch import grid
-from firebird_tpu_torch.ccd import (cuda_ops, format as fmt, kernel, params,
-                                    synthetic)
+from firebird_tpu_torch.ccd import (cuda_ops, format as fmt, incremental,
+                                    kernel, params, synthetic)
 from firebird_tpu_torch.ccd.reference import detect as reference_detect
 from firebird_tpu_torch.ccd.primitives import (coefmask_for,
                                                first_at_or_after, variogram)
@@ -149,6 +175,7 @@ from firebird_tpu_torch.ingest.packer import PackedChips
 from firebird_tpu_torch.obs import Counters
 from firebird_tpu_torch.store import MemoryStore, SqliteStore
 from firebird_tpu_torch.parallel import detect_sharded
+from firebird_tpu_torch.utils import dates as dt
 
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
 F32_FLOPS_S = 67e12            # H100 SXM float32 outside the tensor cores
@@ -1490,13 +1517,16 @@ def mixed_vs_f32(mx, f32, label=""):
     coef = float(scaled_ulps(mx.seg_coef, f32.seg_coef, vector=True)[same]
                  .max())
     rmse = float(scaled_ulps(mx.seg_rmse, f32.seg_rmse)[same].max())
+    # The pixels that decide differently, as [chip, pixel] (at most 64).
+    named = (~same).nonzero().tolist()[:64]
     print(f"{label}mixed route '0' vs f32 route '0': decision agreement "
-          f"{agree} ({n_dis} pixels differ), largest drift {coef} coef / "
-          f"{rmse} rmse scaled ulps (budget {params.MIXED_ULP_BUDGET})",
-          flush=True)
+          f"{agree} ({n_dis} pixels differ: [chip, pixel] {named}), largest "
+          f"drift {coef} coef / {rmse} rmse scaled ulps (budget "
+          f"{params.MIXED_ULP_BUDGET})", flush=True)
     check(agree >= 0.999, f"{label}mixed vs f32: decision agreement {agree}")
     return dict(decision_agreement=agree, pixels_disagreeing=n_dis,
-                max_coef_ulps=coef, max_rmse_ulps=rmse)
+                disagreeing_pixels=named, max_coef_ulps=coef,
+                max_rmse_ulps=rmse)
 
 
 # The threshold-fuzz chip of tests/test_precision.py: 32 pixels of a
@@ -1697,14 +1727,21 @@ def _rows(store, table):
             for i in range(len(d[key[0]]))}
 
 
-def driver_phase(smi, seed, dev):
-    """The batch driver on the card (the module docstring's item 9)."""
+def tile_chips(seed, n):
+    """The first ``n`` chips of the driver's tile, 1985-2017, made from the
+    seed (keyed by chip id, in the tile's order), and the seconds taken."""
     src = SyntheticSource(seed, start=START, end=END)
     cids = [tuple(int(v) for v in c) for c in
-            grid.chips(grid.tile(*DRIVER_POINT))[:DRIVER_CHIPS]]
+            grid.chips(grid.tile(*DRIVER_POINT))[:n]]
     t0 = time.perf_counter()
     chips = {c: src.chip(c[0], c[1], ACQUIRED) for c in cids}
-    gen_s = time.perf_counter() - t0
+    return chips, time.perf_counter() - t0
+
+
+def driver_phase(smi, chips, gen_s, dev):
+    """The batch driver on the card (the module docstring's item 9), on
+    the tile's first DRIVER_CHIPS ``chips``."""
+    cids = list(chips)[:DRIVER_CHIPS]
     lost = cids[DRIVER_CHIPS // 2]
     cfg = Config(chips_per_batch=DRIVER_BATCH, pipeline_depth=DRIVER_DEPTH,
                  store_backend="sqlite", max_obs=0, fetch_retries=0)
@@ -1791,6 +1828,376 @@ def driver_phase(smi, seed, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The stream path
+# ---------------------------------------------------------------------------
+
+STREAM_CHIPS = 8
+STREAM_BOOT = f"{START}/2015-12-31"
+STEP_DAY = "2016-06-01"
+STEP_SIZE = 800
+
+
+class RangeSource:
+    """Chips made beforehand, each cut to the asked range on every fetch
+    (as tests/test_stream_driver.py's StepSource does), so a chip is the
+    same whatever range is asked; ``fetched`` logs (chip, acquisitions
+    served)."""
+
+    def __init__(self, chips):
+        self.chips = chips
+        self.fetched = []
+
+    def chip(self, cx, cy, acquired):
+        c = self.chips[(cx, cy)]
+        lo, hi = dt.acquired_range(acquired)
+        m = (c.dates >= lo) & (c.dates <= hi)
+        self.fetched.append(((cx, cy), int(m.sum())))
+        return dataclasses.replace(c, dates=c.dates[m], spectra=c.spectra[:, m],
+                                   qas=c.qas[m])
+
+
+def stepped(chip):
+    """``chip`` with every pixel stepped +STEP_SIZE on every band from
+    STEP_DAY."""
+    sp = chip.spectra.astype(np.int32)
+    sp[:, chip.dates >= dt.to_ordinal(STEP_DAY)] += STEP_SIZE
+    return dataclasses.replace(
+        chip, spectra=np.clip(sp, -32768, 32767).astype(np.int16))
+
+
+def replay_on_cpu(state1, cid, source, any_exceed, vario=None):
+    """One chip's update on the CPU: its pass-1 checkpoint (``state1``, a
+    statestore of the copy) through the port's ``step`` over the delta
+    past its horizon, as the stream driver feeds the card, with the
+    checkpoint's variogram replaced by ``vario`` [P, B] where given.  ORs
+    into ``any_exceed`` [P] the pixels that exceeded during the window;
+    returns the final state as numpy arrays."""
+    st, side = state1.load(cid)
+    if vario is not None:
+        st = dataclasses.replace(st, vario=torch.from_numpy(vario))
+    horizon, anchor = float(side["horizon"]), float(side["anchor"])
+    chip = source.chip(*cid, f"{dt.to_iso(int(horizon) + 1)}/{END}")
+    p = pack([chip], bucket=Config.obs_bucket, max_obs=0)
+    T = int(p.n_obs[0])
+    t = p.dates[0][:T].astype(np.float64)
+    for k in np.nonzero(t > horizon)[0]:
+        st = incremental.step(
+            st, torch.from_numpy(incremental.design_row(float(t[k]), anchor)),
+            torch.from_numpy(np.ascontiguousarray(p.spectra[0][:, :, k].T)),
+            torch.from_numpy(p.qas[0][:, k].astype(np.int32)), float(t[k]),
+            sensor=p.sensor)
+        any_exceed |= st.n_exceed.numpy() > 0
+    return {f: getattr(st, f).numpy() for f in incremental.STATE_FIELDS}
+
+
+def step_profile(state1, cid, source, dev):
+    """One chip's update step loop replayed on the card from its pass-1
+    checkpoint, under ``torch.profiler``: the kernels' device ms (their own
+    time, memcpy and memset included), the kernels launched, and the
+    loop's span on the card's timeline (CUDA events), with the steps."""
+    from firebird_tpu_torch.driver import stream as sdrv
+
+    st, side = state1.load(cid)
+    horizon, anchor = float(side["horizon"]), float(side["anchor"])
+    p = pack([source.chip(*cid, f"{dt.to_iso(int(horizon) + 1)}/{END}")],
+             bucket=Config.obs_bucket, max_obs=0)
+    T = int(p.n_obs[0])
+    idx = np.nonzero(p.dates[0][:T] > horizon)[0]
+    y, qa, rows, days = sdrv._delta_on_device(p, idx, anchor, st.rmse.dtype,
+                                              dev)
+    st = st.to(dev)
+
+    def loop():
+        s = st
+        for j in range(idx.size):
+            s = incremental.step(s, rows[j], y[j], qa[j], days[j],
+                                 sensor=p.sensor)
+        return s
+
+    loop()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    with torch.profiler.profile(activities=acts) as prof:
+        ev[0].record()
+        loop()
+        ev[1].record()
+        torch.cuda.synchronize()
+    rows_ = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0]
+    return dict(steps=int(idx.size),
+                kernel_ms=sum(e.self_device_time_total for e in rows_) / 1e3,
+                kernels=sum(e.count for e in rows_),
+                span_ms=ev[0].elapsed_time(ev[1]))
+
+
+def expected_rows(chips, acquired, dev, rows=True):
+    """``detect_packed`` + ``format.batch_frames`` on the card for
+    ``chips`` (one batch) cut to ``acquired``: a MemoryStore of the rows
+    (None without ``rows``) and the host result."""
+    src = RangeSource(chips)
+    packed = pack([src.chip(*c, acquired) for c in chips],
+                  bucket=Config.obs_bucket, max_obs=0)
+    seg = kernel.segments_to_numpy(kernel.detect_packed(packed, device=dev))
+    if not rows:
+        return None, seg
+    want = MemoryStore("want")
+    for _, frames in fmt.batch_frames(packed, seg):
+        for table in ("chip", "pixel", "segment"):
+            want.write(table, frames[table])
+    return want, seg
+
+
+def stream_phase(smi, chips, dev):
+    """The stream path on the card (the module docstring's item 10)."""
+    from firebird_tpu_torch.alerts import AlertLog, alert_db_path, repair_chip
+    from firebird_tpu_torch.driver import stream as sdrv
+    from firebird_tpu_torch.fleet import FleetQueue, queue_path
+    from firebird_tpu_torch.streamops import TileStateStore
+
+    t_phase = time.perf_counter()
+    cids = list(chips)[:STREAM_CHIPS]
+    chips = {c: chips[c] for c in cids}
+    step_cid = cids[-1]
+    chips[step_cid] = stepped(chips[step_cid])
+    synth = cids[:-1]
+    P = chips[step_cid].qas.shape[1] * chips[step_cid].qas.shape[2]
+    cfg = Config(chips_per_batch=STREAM_CHIPS, store_backend="sqlite",
+                 max_obs=0, fetch_retries=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = dataclasses.replace(cfg, store_path=str(Path(tmp) / "fb.db"))
+        source = RangeSource(chips)
+        store = SqliteStore(cfg.store_path, cfg.keyspace())
+        counts = lambda: {t: store.count(t)
+                          for t in ("chip", "pixel", "segment")}
+
+        def run(acquired):
+            cuda_ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = sdrv.stream(*DRIVER_POINT, acquired=acquired,
+                                  number=STREAM_CHIPS, cfg=cfg,
+                                  source=source, device=dev)
+            torch.cuda.synchronize()
+            return (summary, time.perf_counter() - t0,
+                    dict(cuda_ops.LAUNCHES), sdrv.stream_stage_seconds())
+
+        # Pass 1: the bootstrap.
+        torch.cuda.reset_peak_memory_stats()
+        s1, wall1, l1, st1 = run(STREAM_BOOT)
+        launched = {k for k, n in l1.items() if n > 0}
+        check(launched == ROUTE_0, f"stream bootstrap launched "
+              f"{sorted(launched)}, expected {sorted(ROUTE_0)}")
+        check(s1["bootstrapped"] == STREAM_CHIPS and s1["updated"] == 0
+              and s1["alerts_emitted"] == 0, f"stream pass 1: {s1}")
+        sdir = sdrv.sstore_mod.state_dir(cfg)
+        live = TileStateStore(sdir)
+        check(live.chips() == sorted(cids), "stream pass 1: checkpoints "
+              f"{live.chips()}")
+        want, boot_seg = expected_rows(chips, STREAM_BOOT, dev)
+        for table in ("chip", "pixel", "segment"):
+            check(_rows(store, table) == _rows(want, table),
+                  f"stream bootstrap's {table} rows differ from "
+                  "detect_packed's")
+        rows1 = counts()
+        # A copy of the pass-1 checkpoints, slot by slot (the tile file is
+        # sparse: a plain copy would write out its 2 500 slots' holes).
+        state1 = TileStateStore(str(Path(tmp) / "state1"))
+        for c in cids:
+            state1.save_arrays(c, live.peek_arrays(c))
+
+        # Pass 2: the update over the delta past each horizon.
+        s2, wall2, l2, st2 = run(ACQUIRED)
+        check(not any(l2.values()), f"the update launched {l2}")
+        check(s2["bootstrapped"] == 0 and s2["updated"] == STREAM_CHIPS,
+              f"stream pass 2: {s2}")
+        # (a) the card's state against the CPU replay of the same delta.
+        # An exceed run live at the seed counts as an exceedance in the
+        # window: the batch rerun, seeing the later clean data, absorbs
+        # that run's observations, the stream does not.
+        exceeded = {c: state1.peek_arrays(c)["n_exceed"] > 0 for c in cids}
+        n_diff = 0
+        for c in cids:
+            cpu = replay_on_cpu(state1, c, source, exceeded[c])
+            card = live.peek_arrays(c)
+            diff = np.zeros(P, bool)
+            for f in incremental.STATE_FIELDS:
+                a, b = card[f], cpu[f]
+                check(a.dtype == b.dtype, f"{f} dtype")
+                a = a.reshape(P, -1).view(np.uint8)
+                b = b.reshape(P, -1).view(np.uint8)
+                diff |= (a != b).any(1)
+            n_diff += int(diff.sum())
+        state1.close()
+        print(f"stream update: card state vs the CPU replay: {n_diff} of "
+              f"{len(cids) * P} pixels differ in some field", flush=True)
+        check(n_diff == 0, f"stream update: {n_diff} pixels off the CPU "
+              "replay")
+        # (b) the stream against a batch rerun over the full range, on the
+        # synthetic chips: test_incremental.py's comparable pixels (the
+        # same last-segment model, no exceedance in the window).  The
+        # stream keeps the seed's variogram, the rerun takes it over the
+        # longer archive, and a score near the threshold can cross it by
+        # that alone: so a comparable pixel's window must also decide
+        # alike when replayed with the rerun's variogram.
+        _, full_seg = expected_rows({c: chips[c] for c in synth}, ACQUIRED,
+                                    dev, rows=False)
+        n_comp, n_den, off = 0, 0, {}
+        ar = np.arange(P)
+        for i, c in enumerate(synth):
+            ns_cut, ns_full = boot_seg.n_segments[i], full_seg.n_segments[i]
+            last_cut = np.maximum(ns_cut.astype(np.int64) - 1, 0)
+            last_full = np.maximum(ns_full.astype(np.int64) - 1, 0)
+            cc = boot_seg.seg_coef[i][ar, last_cut]
+            cf = full_seg.seg_coef[i][ar, last_full]
+            same = ((cc == cf).all(axis=(1, 2)) & (ns_cut == ns_full)
+                    & ~exceeded[c])
+            state1 = TileStateStore(str(Path(tmp) / "state1"))
+            alt_ex = np.zeros(P, bool)
+            alt = replay_on_cpu(state1, c, source, alt_ex,
+                                vario=full_seg.vario[i])
+            state1.close()
+            card = live.peek_arrays(c)
+            ok = same & ~alt_ex
+            for f in ("end_day", "nobs", "n_exceed"):
+                ok &= alt[f] == card[f]
+            meta = full_seg.seg_meta[i][ar, last_full]
+            want = dict(end_day=meta[:, 1], nobs=meta[:, 5].astype(np.int32),
+                        n_exceed=np.round(meta[:, 3] * params.PEEK_SIZE)
+                        .astype(np.int32))
+            for f, w in want.items():
+                bad = np.nonzero(ok & (card[f] != w))[0]
+                off.update({f"{f} {list(c)} {int(p)}":
+                            (float(card[f][p]), float(w[p])) for p in bad[:8]})
+            n_comp += int(ok.sum())
+            n_den += int((same & ~ok).sum())
+        print(f"stream vs batch rerun: {n_comp} of {len(synth) * P} "
+              f"synthetic pixels comparable ({n_den} more with the same "
+              f"model whose window decides otherwise with the rerun's "
+              f"variogram); off the rerun (stream, batch): {off}",
+              flush=True)
+        check(not off, "stream vs batch rerun: comparable pixels differ")
+        check(n_comp >= len(synth) * P // 3,
+              f"stream vs batch rerun: only {n_comp} comparable pixels")
+        # The step loop's kernels: one synthetic chip's update replayed on
+        # the card under the profiler.
+        state1 = TileStateStore(str(Path(tmp) / "state1"))
+        prof = step_profile(state1, synth[0], source, dev)
+        state1.close()
+        # (c) one alert per newly broken pixel; one repair job per flagged
+        # chip.
+        broken = {c: live.peek_arrays(c)["break_day"] > 0 for c in cids}
+        n_broken = sum(int(b.sum()) for b in broken.values())
+        alog = AlertLog(alert_db_path(cfg))
+        recs = []
+        while True:
+            page = alog.since(recs[-1]["id"] if recs else 0, limit=10_000)
+            if not page:
+                break
+            recs += page
+        alog.close()
+        keys = {(r["px"], r["py"]) for r in recs}
+        check(len(recs) == len(keys) == n_broken == s2["alerts_emitted"],
+              f"alerts: {len(recs)} records, {len(keys)} pixels, "
+              f"{n_broken} newly broken, {s2['alerts_emitted']} emitted")
+        step_recs = [r for r in recs if (r["cx"], r["cy"]) == step_cid]
+        check(all(r["break_date"].startswith("2016") for r in step_recs),
+              "the step chip's alerts are not all dated 2016")
+        years = {}
+        for r in recs:
+            years[r["break_date"][:4]] = years.get(r["break_date"][:4], 0) + 1
+        q = FleetQueue(queue_path(cfg))
+        jobs = q.open_jobs("repair")
+        flagged = {c for c, b in broken.items() if b.any()}
+        check(set(jobs) == flagged
+              and len(jobs) == s2["repair_jobs_enqueued"]
+              and all(q.job(j)["payload"]["pixels"] == int(broken[c].sum())
+                      for c, j in jobs.items()),
+              f"repair jobs {sorted(jobs)} for flagged chips "
+              f"{sorted(flagged)}")
+        # Pass 3: the same range again.
+        rows2 = counts()
+        source.fetched = []
+        s3, wall3, l3, _ = run(ACQUIRED)
+        check(not any(n for _, n in source.fetched) and not any(l3.values())
+              and counts() == rows2 and s3["updated"] == 0 and s3["alerts_emitted"] == 0
+              and s3["alerts_deduped"] == 0
+              and s3["repair_jobs_enqueued"] == 0
+              and q.open_jobs("repair") == jobs,
+              f"stream pass 3 was not a no-op: {s3}, fetched "
+              f"{source.fetched}, launches {l3}")
+        # repair_chip on the step chip over the full range.
+        cuda_ops.reset_launches()
+        caught = MemoryStore("repair")
+        t0 = time.perf_counter()
+        rep = repair_chip(cfg, step_cid, ACQUIRED, source=source,
+                          store=caught, device=dev)
+        torch.cuda.synchronize()
+        repair_s = time.perf_counter() - t0
+        lr = {k for k, n in cuda_ops.LAUNCHES.items() if n > 0}
+        check(lr == ROUTE_0, f"repair_chip launched {sorted(lr)}")
+        want_rep, _ = expected_rows({step_cid: chips[step_cid]}, ACQUIRED,
+                                    dev)
+        for table in ("chip", "pixel", "segment"):
+            check(_rows(caught, table) == _rows(want_rep, table),
+                  f"repair_chip's {table} rows differ from detect_packed's")
+        check(rep["still_flagged"] == 0
+              and not (live.peek_arrays(step_cid)["break_day"] > 0).any(),
+              f"repair_chip left flagged pixels: {rep}")
+        q.close()
+        live.close()
+        store.close()
+    peak = torch.cuda.max_memory_allocated()
+    steps = s2["obs_applied"]
+    n = len(cids)
+    out = dict(
+        chips=n, pixels=n * P, bootstrap_seconds=wall1,
+        bootstrap_pixels_per_s=n * P / wall1, bootstrap_stages=st1,
+        bootstrap_launches=l1, update_seconds=wall2, chip_steps=steps,
+        chip_steps_per_s=steps / wall2, pixel_observations=steps * P,
+        pixel_observations_per_s=steps * P / wall2,
+        step_device_ms=st2["step_device"] * 1e3,
+        step_span_share=st2["step_device"] / wall2,
+        step_profile=prof,
+        kernel_busy_share=prof["kernel_ms"] / prof["steps"] * steps / 1e3
+        / wall2, update_stages=st2,
+        statestore_load_ms_per_chip=st2["load"] * 1e3 / n,
+        statestore_save_ms_per_chip=st2["save"] * 1e3 / n,
+        publish_seconds=st2["publish"], alert_seconds=st2["alert"],
+        noop_seconds=wall3, repair_seconds=repair_s, repair=rep,
+        summaries=[s1, s2, s3], cpu_replay_pixels_differing=n_diff,
+        comparable_pixels=n_comp, other_denominators=n_den,
+        alerts=len(recs), alert_years=years,
+        repair_jobs=len(jobs), rows_pass1=rows1, rows_after_update=rows2,
+        peak_bytes=peak,
+        phase_seconds=time.perf_counter() - t_phase)
+    print(f"stream on {smi}: bootstrap {n} chips x {P} px in {wall1:.3f} s, "
+          f"{out['bootstrap_pixels_per_s']:.1f} px/s (stages "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st1.items() if v)
+          + f"); update {wall2:.3f} s: {steps} chip-steps "
+          f"({out['chip_steps_per_s']:.1f}/s), {steps * P} pixel-observations "
+          f"({out['pixel_observations_per_s']:.1f}/s), step loops "
+          f"{out['step_device_ms']:.3f} device ms (CUDA events; "
+          f"{100 * out['step_span_share']:.2f} % of the update wall; "
+          f"profiled on one chip: {prof['kernels']} kernels, "
+          f"{prof['kernel_ms']:.3f} kernel ms in a {prof['span_ms']:.3f} ms "
+          f"span over {prof['steps']} steps, so the kernels busy "
+          f"{100 * out['kernel_busy_share']:.2f} % of the update wall), "
+          f"statestore load {out['statestore_load_ms_per_chip']:.3f} / save "
+          f"{out['statestore_save_ms_per_chip']:.3f} ms a chip, publish "
+          f"{st2['publish']:.3f} s, alerts {st2['alert']:.3f} s (stages "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st2.items() if v)
+          + f"); {len(recs)} alerts {years}, {len(jobs)} repair jobs; no-op "
+          f"pass {wall3:.3f} s; repair_chip {repair_s:.3f} s; peak "
+          f"{peak / 2**30:.2f} GiB; phase {out['phase_seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 F64_SAMPLE = 256
 
 
@@ -1800,7 +2207,7 @@ def _reference(kw):
 
 def f64_phase(smi, seed, dev):
     """One full chip on the float64 route (the module docstring's item
-    10)."""
+    11)."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -1950,7 +2357,11 @@ def main(argv=None):
     torch.cuda.empty_cache()
     s2 = sentinel2_phase(smi, args.reps, dev)
     torch.cuda.empty_cache()
-    drv = driver_phase(smi, args.seed, dev)
+    chips, gen_s = tile_chips(args.seed, max(DRIVER_CHIPS, STREAM_CHIPS))
+    drv = driver_phase(smi, chips, gen_s, dev)
+    torch.cuda.empty_cache()
+    strm = stream_phase(smi, chips, dev)
+    del chips
     torch.cuda.empty_cache()
     f64 = f64_phase(smi, args.seed, dev)
     instances = ptxas_report(paths["0"]["T"], smi)
@@ -1965,7 +2376,8 @@ def main(argv=None):
         build_seconds=build_s, sass_hmma=sass, kernels=kernels,
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
-        sentinel2=s2, driver=drv, f64=f64, ptxas_instances=instances,
+        sentinel2=s2, driver=drv, stream=strm, f64=f64,
+        ptxas_instances=instances,
         ptxas=ptxas,
         seconds=time.perf_counter() - t_start), indent=1))
 

@@ -2,6 +2,8 @@
 
     python -m firebird_tpu_torch changedetection -x X -y Y [-a ACQUIRED] \\
         [-n NUMBER] [-c CHUNK_SIZE] [--resume] [--device cuda]
+    python -m firebird_tpu_torch stream -x X -y Y [-a ACQUIRED] [-n NUMBER] \\
+        [--device cuda]
     python -m firebird_tpu_torch detect --chips N --start 1985-01-01 \\
         --end 2017-12-31 [--seed S] [--sensor landsat-ard] [--device cuda] \\
         [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--mixed {0,1}] \\
@@ -14,6 +16,14 @@ FIREBIRD_STORE_BACKEND / FIREBIRD_STORE_PATH name (sqlite rows land in
 ``<dir of the path>/<stem>.<keyspace>.db``), with the config of
 ``Config.from_env``.  It prints one JSON summary: chips done, pixels,
 segments, pixels a second and the stage seconds.
+
+``stream`` is the JAX package's command of that name: the tile's first
+``NUMBER`` chips through driver.stream.stream (a chip without a checkpoint
+bootstraps, one with a checkpoint applies the acquisitions past its
+horizon, publishes its tail rows, appends its confirmed breaks to the
+alert log and schedules repair jobs), with the config of
+``Config.from_env``.  It prints one JSON line: the stream summary and the
+stage seconds.
 
 ``detect`` runs SyntheticSource -> pack -> detect_packed -> batch_frames
 on the device (CUDA unless ``--device cpu``) and prints one JSON summary:
@@ -65,6 +75,16 @@ def changedetection(args) -> dict:
                 segments=snap.get("segments", 0),
                 pixels_per_sec=snap.get("pixels_per_sec", 0.0),
                 seconds=dict(core.stage_seconds(), total=wall))
+
+
+def stream(args) -> dict:
+    from firebird_tpu_torch.driver import stream as sdrv
+
+    t0 = time.perf_counter()
+    summary = sdrv.stream(x=args.x, y=args.y, acquired=args.acquired,
+                          number=args.number, device=args.device)
+    return dict(summary, seconds=dict(sdrv.stream_stage_seconds(),
+                                      total=time.perf_counter() - t0))
 
 
 def detect(args) -> dict:
@@ -132,6 +152,17 @@ def main(argv=None) -> None:
     c.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions)")
+    s = sub.add_parser("stream", help="streaming change detection for a "
+                       "tile: bootstrap, then new acquisitions only")
+    s.add_argument("-x", "--x", type=float, required=True)
+    s.add_argument("-y", "--y", type=float, required=True)
+    s.add_argument("-a", "--acquired", default=None,
+                   help="ISO8601 range start/end (default: the JAX "
+                        "package's default acquired range)")
+    s.add_argument("-n", "--number", type=int, default=2500)
+    s.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch versions)")
     d = sub.add_parser("detect", help="change detection on synthetic chips")
     d.add_argument("--chips", type=int, default=1)
     d.add_argument("--start", default="1985-01-01")
@@ -160,7 +191,8 @@ def main(argv=None) -> None:
                         "visible cards (FIREBIRD_REBALANCE=1 turns on the "
                         "rebalancing ring)")
     args = ap.parse_args(argv)
-    run = changedetection if args.cmd == "changedetection" else detect
+    run = dict(changedetection=changedetection, stream=stream,
+               detect=detect)[args.cmd]
     print(json.dumps(run(args)))
 
 

@@ -8,6 +8,8 @@
   table frames.
 - :mod:`firebird_tpu_torch.ccd.reference` — the per-pixel numpy float64
   reference detector (``detect``), which the float64 route is held to.
+- :mod:`firebird_tpu_torch.ccd.incremental` — the stream path's per-pixel
+  tail state (``StreamState``) and its one-acquisition ``step``.
 """
 
 from firebird_tpu_torch.ccd import params

@@ -129,3 +129,23 @@ def segments_from_numpy(seg, device="cpu") -> kernel.ChipSegments:
 
 
 segments_to_numpy = kernel.segments_to_numpy
+
+
+def stream_state_from_numpy(arrays, device="cpu"):
+    """A stream state as numpy arrays (a dict, or an object with the
+    fields as attributes: either package's StreamState) -> this package's
+    ``incremental.StreamState`` of tensors on ``device``, dtypes kept."""
+    from firebird_tpu_torch.ccd import incremental
+
+    get = (arrays.__getitem__ if isinstance(arrays, dict)
+           else lambda f: getattr(arrays, f))
+    return incremental.StreamState(*(
+        torch.tensor(np.array(get(f)), device=device)
+        for f in incremental.STATE_FIELDS))
+
+
+def stream_state_to_numpy(st) -> dict:
+    """The inverse of :func:`stream_state_from_numpy`: {field: array}."""
+    from firebird_tpu_torch.ccd import incremental
+
+    return {f: getattr(st, f).cpu().numpy() for f in incremental.STATE_FIELDS}

@@ -89,15 +89,14 @@ def decode_egress(tables: dict, T: int):
     mask = np.unpackbits(np.asarray(tables["mask"], np.uint8),
                          axis=-1, count=T).astype(bool)
     opt = {f: (np.asarray(tables[f]) if f in tables else None)
-           for f in ("rounds", "round_counts")}
+           for f in kernel.EGRESS_INTS}
     vario = f32(tables["vario"]) if "vario" in tables else None
     return kernel.ChipSegments(
         n_segments=np.asarray(tables["n_segments"]),
         seg_meta=meta, seg_rmse=f32(tables["rmse"]),
         seg_mag=f32(tables["mag"]), seg_coef=f32(tables["coef"]),
         mask=mask, procedure=np.asarray(tables["procedure"]),
-        rounds=opt["rounds"], vario=vario,
-        round_counts=opt["round_counts"])
+        vario=vario, **opt)
 
 
 def _host(a):

@@ -415,6 +415,70 @@ def segments_to_numpy(seg: ChipSegments) -> ChipSegments:
         for v in (getattr(seg, f.name) for f in dataclasses.fields(seg))])
 
 
+# Histogram buckets for kernel_round_active_fraction (a 0..1 fraction,
+# not a latency; sixteenths resolve the tail the compaction targets).
+FRACTION_BUCKETS = tuple(i / 16 for i in range(1, 17))
+
+
+def record_occupancy(seg) -> dict | None:
+    """Feed a host-fetched result's occupancy capture into the metrics
+    registry (the stream bootstrap calls this after its bulk fetch).  Per
+    executed round and chip, ``kernel_round_active_fraction`` observes
+    the working lanes over the chip's lanes; the counters add the active
+    and the wasted (paid - active) lane-rounds, the compactions and the
+    lanes the ring migrated.  Returns the totals, or None when the result
+    carries no capture (the mega route)."""
+    from firebird_tpu_torch.obs import metrics as obs_metrics
+
+    occ = getattr(seg, "occupancy", None)
+    if occ is None:
+        return None
+    occ = np.asarray(occ)
+    rds = np.asarray(seg.rounds).reshape(-1)
+    C, R_max = occ.shape[0], occ.shape[1]
+    lanes = int(seg.mask.shape[-2])
+    r_c = rds[np.minimum(np.arange(C), rds.size - 1)].astype(np.int64)
+    ran = np.arange(R_max)[None, :] < np.minimum(r_c, R_max)[:, None]
+    active = int(np.where(ran, occ[..., 0], 0).sum())
+    paid = int(np.where(ran, occ[..., 1], 0).sum())
+    fractions = occ[..., 0][ran] / max(lanes, 1)
+    obs_metrics.histogram(
+        "kernel_round_active_fraction", buckets=FRACTION_BUCKETS,
+        help="active-lane fraction per event-loop round per chip"
+    ).observe_many(fractions)
+    obs_metrics.counter(
+        "kernel_active_lane_rounds",
+        help="lane-rounds with a working pixel").inc(active)
+    obs_metrics.counter(
+        "kernel_wasted_lane_rounds",
+        help="paid lane-rounds with no working pixel "
+             "(effective - active)").inc(paid - active)
+    out = dict(padded_lane_rounds=lanes * int(ran.sum()),
+               effective_lane_rounds=paid, active_lane_rounds=active,
+               wasted_lane_rounds=paid - active,
+               mean_active_fraction=float(fractions.mean())
+               if fractions.size else 0.0)
+    comp = getattr(seg, "compactions", None)
+    if comp is not None:
+        out["compactions"] = int(np.asarray(comp).sum())
+        obs_metrics.counter(
+            "kernel_compactions",
+            help="dense-prefix lane compactions").inc(out["compactions"])
+    lm = getattr(seg, "lanes_migrated", None)
+    if lm is not None:
+        out["lanes_migrated"] = moved = int(np.asarray(lm).sum())
+        obs_metrics.counter(
+            "kernel_lanes_migrated",
+            help="straggler lanes migrated to a neighbor device by the "
+                 "rebalancing ring").inc(moved)
+        if moved:
+            obs_metrics.counter(
+                "rebalance_migrations",
+                help="dispatches in which the rebalancing ring moved "
+                     "lanes").inc()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Host-side batch preparation
 # ---------------------------------------------------------------------------
@@ -1142,6 +1206,11 @@ def packbits(mask):
     return (m * weights).sum(-1, dtype=torch.uint8)
 
 
+# The integer result fields that pass through the egress as they are.
+EGRESS_INTS = ("rounds", "round_counts", "occupancy", "compactions",
+               "lanes_migrated")
+
+
 def pack_egress(seg: ChipSegments, s_eff: int) -> dict:
     """Device-side egress packing of a batched float32 ChipSegments —
     kernel.pack_egress: integer meta columns rint-coded (chprob coded as
@@ -1159,7 +1228,7 @@ def pack_egress(seg: ChipSegments, s_eff: int) -> dict:
     out = dict(n_segments=seg.n_segments, procedure=seg.procedure,
                meta=meta_i, rmse=bc(sl(seg.seg_rmse)), mag=bc(sl(seg.seg_mag)),
                coef=bc(sl(seg.seg_coef)), mask=packbits(seg.mask))
-    for f in ("rounds", "round_counts"):
+    for f in EGRESS_INTS:
         v = getattr(seg, f)
         if v is not None:
             out[f] = v

@@ -150,6 +150,48 @@ def dot_cols(coefs, Xc):
     return acc
 
 
+def _two_sum(a, b):
+    """(s, e) with s = fl(a + b) and s + e = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _add_round_odd(a, b):
+    """a + b rounded to odd: where fl(a + b) is inexact and its last
+    mantissa bit even, the neighbour on the exact sum's side."""
+    s, e = _two_sum(a, b)
+    bits = s.view(torch.int64 if s.dtype == torch.float64 else torch.int32)
+    fix = (e != 0) & ((bits & 1) == 0) & torch.isfinite(s)
+    away = torch.where(e > 0, torch.full_like(s, float("inf")),
+                       torch.full_like(s, float("-inf")))
+    return torch.where(fix, torch.nextafter(s, away), s)
+
+
+def _split(a):
+    """Veltkamp's split of a float64 into two 26-bit halves."""
+    c = a * torch.tensor(134217729.0, dtype=a.dtype, device=a.device)
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def fma(a, b, c):
+    """a * b + c rounded once, as a fused multiply-add does, from plain
+    IEEE operations, so the CPU and the card give the same bits.  float32:
+    the exact product in float64, the sum rounded to odd, then to float32.
+    float64: Dekker's exact product and the emulated FMA of Boldo and
+    Melquiond (the error terms summed with rounding to odd)."""
+    if a.dtype == torch.float32:
+        return _add_round_odd(a.double() * b.double(), c.double()).float()
+    uh = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    ul = ((ah * bh - uh) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, ul)
+    vh, vl = _two_sum(uh, th)
+    return vh + _add_round_odd(tl, vl)
+
+
 def tree_sum(x, dim=1):
     """Sum over ``dim`` in a fixed pairwise order (halves added
     elementwise, an odd last slice carried over), so that each lane's sum

@@ -1,2 +1,3 @@
 """The batch driver (``core``) and its dead-letter quarantine and run
-manifest (``quarantine``)."""
+manifest (``quarantine``); the stream driver (``stream``): bootstrap,
+checkpoints and monthly updates."""

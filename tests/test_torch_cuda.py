@@ -1428,3 +1428,87 @@ def test_driver_on_card_equals_cpu_decisions(dev, dtype):
             "curqa")
     rows = lambda s: sorted(zip(*(s.read("segment")[k] for k in keys)))
     assert rows(card) == rows(cpu)
+
+
+# ---------------------------------------------------------------------------
+# The stream path
+# ---------------------------------------------------------------------------
+
+def _stream_state(rng, P, dtype):
+    """A stream state of P pixels made from ``rng``, with scores near the
+    change threshold for some pixels."""
+    from firebird_tpu_torch.ccd import incremental
+
+    B = params.NUM_BANDS
+    coefs = rng.normal(size=(P, B, 8)) * np.array([50, 0.005, 20, 20, 10, 10,
+                                                  5, 5])
+    coefs[..., 0] += 1000
+    f = lambda a: torch.tensor(np.asarray(a), dtype=dtype)
+    n_ex = rng.integers(0, params.PEEK_SIZE, P)
+    return incremental.StreamState(
+        coefs=f(coefs), rmse=f(rng.uniform(150, 300, (P, B))),
+        vario=f(rng.uniform(150, 300, (P, B))),
+        nobs=torch.tensor(rng.integers(12, 80, P), dtype=torch.int32),
+        n_exceed=torch.tensor(n_ex, dtype=torch.int32),
+        end_day=f(np.full(P, 729000.0)),
+        exceed_day0=f(np.where(n_ex > 0, 728990.0, 0.0)),
+        break_day=f(np.where(rng.random(P) < 0.05, 728900.0, 0.0)),
+        active=torch.tensor(rng.random(P) < 0.95))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stream_step_on_card_equals_cpu(dev, dtype):
+    """The step at P=10 000 on the card equals the CPU bit for bit over 40
+    acquisitions (absorbs, exceed runs, breaks, cloudy and fill rows)."""
+    from firebird_tpu_torch.ccd import incremental
+
+    rng = np.random.default_rng(17)
+    P = 10_000
+    cpu = _stream_state(rng, P, dtype)
+    card = cpu.to(dev)
+    for k in range(40):
+        t = 729016.0 + 16 * k
+        x = incremental.design_row(t, 727000.0)
+        base = cpu.coefs.double().numpy() @ x.astype(np.float64)
+        scale = rng.uniform(0.0, 2.0 if k % 7 else 6.0, (P, 1))
+        y = (base + rng.normal(size=base.shape) * 150 * scale).astype(
+            np.float32)
+        qa = np.where(rng.random(P) < 0.1, 1 << params.QA_FILL_BIT,
+                      1 << params.QA_CLEAR_BIT).astype(np.int32)
+        cpu = incremental.step(cpu, torch.tensor(x), torch.tensor(y),
+                               torch.tensor(qa), t)
+        card = incremental.step(card, _t(x, dev), _t(y, dev), _t(qa, dev),
+                                torch.tensor(t, device=dev))
+    for f in incremental.STATE_FIELDS:
+        a, b = getattr(card, f).cpu(), getattr(cpu, f)
+        assert a.dtype == b.dtype, f
+        assert torch.equal(a.view(torch.uint8) if a.dtype == torch.bool
+                           else a, b.view(torch.uint8) if b.dtype == torch.bool
+                           else b), f
+    assert int(cpu.needs_batch.sum()) > 0 and int(cpu.n_exceed.sum()) > 0
+
+
+def test_statestore_roundtrip_from_card_tensors(dev, tmp_path):
+    """A checkpoint saved from tensors on the card loads back bit for bit,
+    on the card and on the CPU, and serializes as from host tensors."""
+    from firebird_tpu_torch import grid
+    from firebird_tpu_torch.ccd import incremental
+    from firebird_tpu_torch.streamops import statestore as ss
+
+    rng = np.random.default_rng(4)
+    host = _stream_state(rng, 10_000, torch.float32)
+    side = dict(sday=rng.random(10_000) * 1000,
+                curqa=rng.integers(0, 64, 10_000), anchor=np.float64(723000),
+                horizon=np.float64(736000))
+    cid = tuple(int(v) for v in grid.chips(grid.tile(x=542000,
+                                                     y=1650000))[5])
+    assert (ss.serialize_state(host.to(dev), side)
+            == ss.serialize_state(host, side))
+    store = ss.TileStateStore(str(tmp_path), device=dev)
+    store.save(cid, host.to(dev), side)
+    for st, _ in (store.load(cid),
+                  ss.TileStateStore(str(tmp_path)).load(cid)):
+        for f in incremental.STATE_FIELDS:
+            assert torch.equal(getattr(st, f).cpu(), getattr(host, f)), f
+    assert store.load(cid)[0].coefs.device.type == dev.type
+    store.close()

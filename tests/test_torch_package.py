@@ -2,6 +2,7 @@
 devices, state conversion."""
 
 import ast
+import dataclasses
 import functools
 from pathlib import Path
 
@@ -113,7 +114,13 @@ PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
                   "driver/quarantine.py", "ingest/sources.py",
                   "ingest/registry.py", "ingest/packer.py",
                   "ccd/reference.py", "ccd/params.py", "ccd/harmonic.py",
-                  "ccd/sensor.py", "ccd/synthetic.py", "ccd/format.py")
+                  "ccd/sensor.py", "ccd/synthetic.py", "ccd/format.py",
+                  "ccd/incremental.py", "streamops/__init__.py",
+                  "streamops/statestore.py", "alerts/__init__.py",
+                  "alerts/log.py", "alerts/subindex.py", "alerts/repair.py",
+                  "fleet/__init__.py", "fleet/queue.py", "fleet/plan.py",
+                  "serve/__init__.py", "serve/changefeed.py",
+                  "driver/stream.py")
 
 
 @pytest.mark.parametrize("rel", PORTED_MODULES)
@@ -281,3 +288,53 @@ def test_phase_codes_equal_the_kernels():
         k: getattr(round_state, k)
         for k in ("PHASE_INIT", "PHASE_MONITOR", "PHASE_DONE")}
     assert tk.PHASE_DONE == cuda_ops.PHASE_DONE == round_state.PHASE_DONE
+
+
+def test_stream_needs_cuda_unless_told(monkeypatch):
+    from firebird_tpu_torch.ccd import incremental
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.driver import stream
+    from firebird_tpu_torch.store import MemoryStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(store_backend="memory", source_backend="synthetic",
+                 chips_per_batch=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stream.stream(x=100, y=200, number=1, cfg=cfg, store=MemoryStore("x"))
+    seg = tk.ChipSegments(
+        n_segments=np.ones(2, np.int32), seg_meta=np.zeros((2, 1, 6)),
+        seg_rmse=np.zeros((2, 1, 7)), seg_mag=np.zeros((2, 1, 7)),
+        seg_coef=np.zeros((2, 1, 7, 8)), mask=np.zeros((2, 3), bool),
+        procedure=np.zeros(2, np.int32), vario=np.zeros((2, 7)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        incremental.StreamState.from_chip(seg)
+    assert incremental.StreamState.from_chip(seg, device="cpu").nobs.shape == (2,)
+
+
+def test_cli_stream_raises_without_a_card(monkeypatch):
+    from firebird_tpu_torch import __main__ as tmain
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("FIREBIRD_STORE_BACKEND", "memory")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmain.main(["stream", "-x", "100", "-y", "200", "-n", "1"])
+
+
+@pytest.mark.parametrize("field, value", [
+    ("trace", "1"), ("ops_port", 8080), ("stall_sec", 5.0),
+    ("obs_report", "/x/report.json"), ("compile_cache", "/x"),
+    ("object_root", "/x"), ("faults", "ingest:chip=1:2"),
+    ("profile", 1.0), ("profile_dir", "/x"), ("flightrec", 0),
+    ("slo", "x<1@99/5m"), ("slo_budget", "x")])
+def test_stream_refuses_each_not_ported_knob(field, value):
+    from firebird_tpu_torch.config import NOT_PORTED, Config
+    from firebird_tpu_torch.driver import stream
+    from firebird_tpu_torch.store import MemoryStore
+
+    assert field in NOT_PORTED
+    cfg = dataclasses.replace(Config(store_backend="memory"),
+                              **{field: value})
+    with pytest.raises(ValueError, match=f"not ported.*{field}"):
+        stream.stream(x=100, y=200, number=1, cfg=cfg, store=MemoryStore("x"),
+                      device="cpu")
+
