@@ -133,7 +133,30 @@ From the root of a checkout, on a machine with a CUDA card:
    equal the port's ``reference.detect`` (run in 8 processes) and the
    floats be within tests/test_ccd_kernel.py's tolerances.  Printed: its
    wall and its decision agreement with f32 route 0 on the whole chip;
-12. every kernel instance's registers, stack and spills, and the total
+12. classification and the product rasters (``classify_phase``, run
+   right after ``driver_phase`` on its sqlite store of 24 detected chips):
+   ``driver.core.classification`` at the driver's point over 1985-2017 on
+   the card, at the JAX package's width (500 trees, depth 8, 64 bins), the
+   AUX layers from ``SyntheticSource(--seed)``; it must launch none of the
+   ten kernels.  (a) The stored model loads back, equals the model
+   returned and has classes of the synthetic trends alphabet (1-8).  (b)
+   Every real segment row of the 24 chips holds C votes, equal to
+   ``raw_predict`` on the card for its features and summing to 500 (rtol
+   1e-4).  (c) The dense form against the walk on the card over those
+   rows: within 1e-4, and the same argmax wherever the top two votes are
+   more than 1e-3 apart.  (d) On a sample of 20 000 training rows drawn
+   from the seed, a 32-tree forest trained on the card against the one
+   trained on the CPU: the bootstrap lanes, trees and nodes that differ are
+   printed; the predictions agree on every decided row and at most 1 % of
+   the trees differ.  (e) ``products.save`` of seglength, ccd, curveqa and
+   cover at 2010-06-01 over the 24 chips: each raster equals
+   ``chip_product`` recomputed from the stored rows, and cover the vote
+   argmax mapped through the stored classes.  Printed: the training rows,
+   the classes and their counts, the stage seconds (store read, assemble,
+   bin, draw and grow (CUDA events), train, model save, predict, write),
+   rows/s trained and classified, the card's spans' share of the wall,
+   the peak device memory, each check's seconds and the wall;
+13. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -1738,68 +1761,68 @@ def tile_chips(seed, n):
     return chips, time.perf_counter() - t0
 
 
-def driver_phase(smi, chips, gen_s, dev):
+def driver_phase(smi, chips, gen_s, dev, tmp):
     """The batch driver on the card (the module docstring's item 9), on
-    the tile's first DRIVER_CHIPS ``chips``."""
+    the tile's first DRIVER_CHIPS ``chips``, into a sqlite store in the
+    directory ``tmp``.  Returns the report and the run's config."""
     cids = list(chips)[:DRIVER_CHIPS]
     lost = cids[DRIVER_CHIPS // 2]
     cfg = Config(chips_per_batch=DRIVER_BATCH, pipeline_depth=DRIVER_DEPTH,
-                 store_backend="sqlite", max_obs=0, fetch_retries=0)
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = dataclasses.replace(cfg, store_path=str(Path(tmp) / "fb.db"))
-        run = lambda source, resume, counters: driver.changedetection(
-            *DRIVER_POINT, acquired=ACQUIRED, number=DRIVER_CHIPS,
-            chunk_size=DRIVER_CHIPS, cfg=cfg, source=source, resume=resume,
-            device=dev, counters=counters)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        counters = Counters()
-        cuda_ops.reset_launches()
-        done = run(MemorySource(chips, fail={lost}), False, counters)
-        launches = dict(cuda_ops.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        snap = counters.snapshot()
-        stages = driver.stage_seconds()
-        launched = {k for k, n in launches.items() if n > 0}
-        check(launched == ROUTE_0, f"driver launched {sorted(launched)}, "
-              f"expected {sorted(ROUTE_0)}")
-        check(set(done) == set(cids) - {lost},
-              f"driver: {len(done)} chips done")
-        q = qlib.Quarantine.load(qlib.quarantine_path(cfg))
-        check(q.chip_ids() == {lost}, f"quarantine {q.chip_ids()}")
-        # The resumed run drains the dead letter first.
-        redo = MemorySource(chips)
-        done = run(redo, True, Counters())
-        check(redo.fetched == [lost] and set(done) == set(cids),
-              f"resume fetched {redo.fetched}")
-        check(len(qlib.Quarantine.load(qlib.quarantine_path(cfg))) == 0,
-              "quarantine not drained")
-        store = SqliteStore(cfg.store_path, cfg.keyspace())
-        counts = {t: store.count(t) for t in ("chip", "pixel", "segment")}
-        # A resume with every chip stored fetches, writes and launches
-        # nothing.
-        cuda_ops.reset_launches()
-        idle = Counters()
-        done = run(MemorySource(chips, fail=None), True, idle)
-        check(set(done) == set(cids) and idle.get("chips") == 0
-              and not any(cuda_ops.LAUNCHES.values())
-              and {t: store.count(t) for t in counts} == counts,
-              "the second resume fetched, wrote or launched")
-        # Every stored row against detect_packed + batch_frames on the
-        # same batches.
-        want = MemoryStore("want")
-        for i in range(0, DRIVER_CHIPS, DRIVER_BATCH):
-            packed = pack([chips[c] for c in cids[i:i + DRIVER_BATCH]],
-                          bucket=cfg.obs_bucket, max_obs=cfg.max_obs)
-            seg = kernel.segments_to_numpy(kernel.detect_packed(
-                packed, device=dev))
-            for _, frames in fmt.batch_frames(packed, seg):
-                for table in ("chip", "pixel", "segment"):
-                    want.write(table, frames[table])
-        for table in ("chip", "pixel", "segment"):
-            check(_rows(store, table) == _rows(want, table),
-                  f"driver's {table} rows differ from detect_packed's")
-        store.close()
+                 store_backend="sqlite", max_obs=0, fetch_retries=0,
+                 store_path=str(Path(tmp) / "fb.db"))
+    run = lambda source, resume, counters: driver.changedetection(
+        *DRIVER_POINT, acquired=ACQUIRED, number=DRIVER_CHIPS,
+        chunk_size=DRIVER_CHIPS, cfg=cfg, source=source, resume=resume,
+        device=dev, counters=counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = Counters()
+    cuda_ops.reset_launches()
+    done = run(MemorySource(chips, fail={lost}), False, counters)
+    launches = dict(cuda_ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    snap = counters.snapshot()
+    stages = driver.stage_seconds()
+    launched = {k for k, n in launches.items() if n > 0}
+    check(launched == ROUTE_0, f"driver launched {sorted(launched)}, "
+          f"expected {sorted(ROUTE_0)}")
+    check(set(done) == set(cids) - {lost},
+          f"driver: {len(done)} chips done")
+    q = qlib.Quarantine.load(qlib.quarantine_path(cfg))
+    check(q.chip_ids() == {lost}, f"quarantine {q.chip_ids()}")
+    # The resumed run drains the dead letter first.
+    redo = MemorySource(chips)
+    done = run(redo, True, Counters())
+    check(redo.fetched == [lost] and set(done) == set(cids),
+          f"resume fetched {redo.fetched}")
+    check(len(qlib.Quarantine.load(qlib.quarantine_path(cfg))) == 0,
+          "quarantine not drained")
+    store = SqliteStore(cfg.store_path, cfg.keyspace())
+    counts = {t: store.count(t) for t in ("chip", "pixel", "segment")}
+    # A resume with every chip stored fetches, writes and launches
+    # nothing.
+    cuda_ops.reset_launches()
+    idle = Counters()
+    done = run(MemorySource(chips, fail=None), True, idle)
+    check(set(done) == set(cids) and idle.get("chips") == 0
+          and not any(cuda_ops.LAUNCHES.values())
+          and {t: store.count(t) for t in counts} == counts,
+          "the second resume fetched, wrote or launched")
+    # Every stored row against detect_packed + batch_frames on the
+    # same batches.
+    want = MemoryStore("want")
+    for i in range(0, DRIVER_CHIPS, DRIVER_BATCH):
+        packed = pack([chips[c] for c in cids[i:i + DRIVER_BATCH]],
+                      bucket=cfg.obs_bucket, max_obs=cfg.max_obs)
+        seg = kernel.segments_to_numpy(kernel.detect_packed(
+            packed, device=dev))
+        for _, frames in fmt.batch_frames(packed, seg):
+            for table in ("chip", "pixel", "segment"):
+                want.write(table, frames[table])
+    for table in ("chip", "pixel", "segment"):
+        check(_rows(store, table) == _rows(want, table),
+              f"driver's {table} rows differ from detect_packed's")
+    store.close()
     T = int(max(c.dates.shape[0] for c in chips.values()))
     T = -64 * (-T // 64)
     per_batch = peak / DRIVER_DEPTH
@@ -1825,6 +1848,248 @@ def driver_phase(smi, chips, gen_s, dev):
           f"and result_bytes {res / 2**30:.2f} GiB a batch; "
           f"auto_chips_per_batch {auto}; chips made in {gen_s:.1f} s; "
           f"rows {counts}", flush=True)
+    return out, cfg
+
+
+# ---------------------------------------------------------------------------
+# Classification and the product rasters
+# ---------------------------------------------------------------------------
+
+RF_SAMPLE_ROWS, RF_SAMPLE_TREES = 20000, 32
+PRODUCT_DATE = "2010-06-01"
+
+
+def _decided(raw, gap=1e-3):
+    """Rows whose top two votes are more than ``gap`` apart (every row
+    when there is one class)."""
+    if raw.shape[1] < 2:
+        return np.ones(raw.shape[0], bool)
+    top2 = np.sort(raw, axis=1)[:, -2:]
+    return (top2[:, 1] - top2[:, 0]) > gap
+
+
+def forest_diff(a, b):
+    """(trees, nodes) of forest ``a`` whose split or leaf differs from
+    ``b``'s."""
+    node = (a.feature != b.feature) | ~(
+        (a.threshold == b.threshold)
+        | (np.isinf(a.threshold) & np.isinf(b.threshold)))
+    leaf = (a.leaf_proba != b.leaf_proba).any(axis=2)
+    trees = node.any(axis=1) | leaf.any(axis=1)
+    return int(trees.sum()), int(node.sum() + leaf.sum())
+
+
+def classify_phase(smi, cfg, seed, dev):
+    """Classification on the card over the driver phase's store (the module
+    docstring's item 12)."""
+    from firebird_tpu_torch import products
+    from firebird_tpu_torch.rf import features, forest, pipeline
+
+    t_phase = time.perf_counter()
+    src = SyntheticSource(seed, start=START, end=END)
+    store = SqliteStore(cfg.store_path, cfg.keyspace())
+    msday, meday = dt.to_ordinal(START), dt.to_ordinal(END)
+    counters = Counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    model = driver.classification(
+        *DRIVER_POINT, msday=msday, meday=meday, acquired=ACQUIRED, cfg=cfg,
+        aux_source=src, store=store, device=dev, counters=counters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    stages = pipeline.classification_stage_seconds()
+    snap = counters.snapshot()
+    check(not any(cuda_ops.LAUNCHES.values()),
+          f"classification launched {dict(cuda_ops.LAUNCHES)}")
+    # The forest's width is the JAX package's: 500 trees, depth 8, 64 bins.
+    width = {"n_trees": forest.NUM_TREES, "max_depth": forest.DEFAULT_DEPTH,
+             "n_bins": forest.DEFAULT_BINS}
+    check(model is not None and (model.n_trees, model.depth, width["n_bins"])
+          == (500, 8, 64), "the forest's width")
+    # Seconds of each check, beside the call's: what the phase spends on
+    # checking rather than classifying.
+    check_s = {}
+
+    # (a) The stored model.
+    t1 = time.perf_counter()
+    t = grid.tile(*DRIVER_POINT)
+    stored = pipeline.load_model(store, t["x"], t["y"])
+    check(stored is not None and stored.dumps() == model.dumps(),
+          "the stored model differs from the model returned")
+    check(set(model.classes.tolist()) <= set(range(1, 9)),
+          f"classes {model.classes.tolist()} outside the trends alphabet")
+    check_s["a"] = time.perf_counter() - t1
+
+    # (b) Every real segment row's votes against raw_predict on the card.
+    t1 = time.perf_counter()
+    cids = sorted(store.chip_ids("segment"))
+    check(len(cids) == DRIVER_CHIPS, f"{len(cids)} chips in the store")
+    xs, labels, votes, segs = [], [], [], {}
+    for cx, cy in cids:
+        seg = store.read("segment", {"cx": cx, "cy": cy})
+        segs[(cx, cy)] = seg
+        real = features.real_rows(seg)
+        X, meta = features.assemble(seg, src.aux(cx, cy), cx, cy,
+                                    row_mask=real)
+        got = [seg["rfrawp"][i] for i in np.flatnonzero(real)]
+        check(all(v is not None and len(v) == model.n_classes for v in got),
+              f"chip ({cx},{cy}): a real segment without {model.n_classes} "
+              f"votes")
+        got = np.asarray(got, np.float64)
+        want = model.raw_predict(X, device=dev)
+        check(np.array_equal(got, want.astype(np.float64)),
+              f"chip ({cx},{cy}): rfrawp differs from raw_predict by "
+              f"{np.abs(got - want).max()}")
+        xs.append(X)
+        labels.append(np.asarray(meta["label"]))
+        votes.append(want)
+    X_all, y_all, raw = (np.concatenate(xs), np.concatenate(labels),
+                         np.concatenate(votes))
+    n_rows = X_all.shape[0]
+    check(n_rows == snap["segments_scored"],
+          f"{n_rows} real rows, {snap['segments_scored']} scored")
+    check(np.allclose(raw.sum(axis=1), model.n_trees, rtol=1e-4, atol=0),
+          "a row's votes do not sum to the trees")
+    check_s["b"] = time.perf_counter() - t1
+
+    # (c) The dense form against the walk on the card, each over all the
+    # rows at once (host clock, ending in the copy to the host).
+    t_c = t1 = time.perf_counter()
+    dense = model.raw_predict(X_all, dense=True, device=dev)
+    dense_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    walk = model.raw_predict(X_all, dense=False, device=dev)
+    walk_s = time.perf_counter() - t1
+    check(np.array_equal(dense, raw), "dense votes depend on the batch")
+    decided = _decided(walk)
+    walk_err = float(np.abs(walk - dense).max())
+    check(walk_err <= 1e-4, f"dense vs walk: {walk_err}")
+    check((walk.argmax(1) == dense.argmax(1))[decided].all(),
+          "dense and walk disagree on a decided row")
+    check_s["c"] = time.perf_counter() - t_c
+
+    # (d) A sample of the training rows: the card's forest against the
+    # port's forest trained on the CPU, from the same seed.
+    t_d = time.perf_counter()
+    keep = ~np.isin(y_all, features.TRENDS_EXCLUDE) \
+        & np.isfinite(X_all).all(axis=1)
+    check(int(keep.sum()) == snap["training_rows"],
+          f"{int(keep.sum())} training rows, {snap['training_rows']} trained")
+    X_tr, y_tr = X_all[keep], y_all[keep]
+    pick = np.sort(np.random.default_rng(seed).choice(
+        X_tr.shape[0], min(RF_SAMPLE_ROWS, X_tr.shape[0]), replace=False))
+    Xs, ys = X_tr[pick], y_tr[pick]
+    sample_kw = dict(width, n_trees=RF_SAMPLE_TREES, seed=seed)
+    card = forest.train(Xs, ys, device=dev, **sample_kw)
+    t1 = time.perf_counter()
+    host = forest.train(Xs, ys, device="cpu", **sample_kw)
+    host_s = time.perf_counter() - t1
+    keys = range(RF_SAMPLE_TREES)
+    w_card = forest.bootstrap_weights(forest.tree_keys(seed, keys, dev),
+                                      Xs.shape[0]).cpu()
+    w_host = forest.bootstrap_weights(forest.tree_keys(seed, keys, "cpu"),
+                                      Xs.shape[0])
+    lanes = int((w_card != w_host).sum())
+    trees_differ, nodes_differ = forest_diff(card, host)
+    raw_card = card.raw_predict(X_all, device=dev)
+    raw_host = host.raw_predict(X_all, device=dev)
+    sample_decided = _decided(raw_host)
+    flips = int((raw_card.argmax(1) != raw_host.argmax(1))[
+        sample_decided].sum())
+    print(f"classify sample: {Xs.shape[0]} rows x {RF_SAMPLE_TREES} trees, "
+          f"card vs CPU: {lanes} of {w_card.numel()} bootstrap lanes differ, "
+          f"{trees_differ} trees ({nodes_differ} nodes and leaves) differ, "
+          f"{flips} decided rows of {int(sample_decided.sum())} predict "
+          f"otherwise (CPU training {host_s:.1f} s)", flush=True)
+    check(flips == 0, f"the sample forests disagree on {flips} decided rows")
+    check(trees_differ <= 0.01 * RF_SAMPLE_TREES,
+          f"{trees_differ} of {RF_SAMPLE_TREES} sample trees differ")
+    check_s["d"] = time.perf_counter() - t_d
+
+    # (e) The product rasters at one date over the chips (``save`` itself
+    # is the product path; its seconds are kept apart from the check's).
+    t_e = time.perf_counter()
+    (x0, y0), (x1, y1) = cids[0], cids[-1]
+    bounds = [(min(x0, x1) + 1.0, max(y0, y1) - 1.0),
+              (max(x0, x1) + 2999.0, min(y0, y1) - 2999.0)]
+    check(set(products.covering_chips(bounds)) == set(cids),
+          "the bounds cover other chips than the store's")
+    t1 = time.perf_counter()
+    written = products.save(bounds, list(products.PRODUCTS), [PRODUCT_DATE],
+                            cfg=cfg, store=store, device=dev)
+    save_s = time.perf_counter() - t1
+    check(len(written) == len(products.PRODUCTS) * len(cids),
+          f"save wrote {len(written)} rasters")
+    d = dt.to_ordinal(PRODUCT_DATE)
+    rasters = store.read("product", {"date": PRODUCT_DATE})
+    cells = {(n, cx, cy): np.asarray(v) for n, cx, cy, v in zip(
+        rasters["name"], rasters["cx"], rasters["cy"], rasters["cells"])}
+    n_cover = 0
+    for (cx, cy), seg in segs.items():
+        for name in products.PRODUCTS:
+            want = products.chip_product(name, d, cx, cy, seg,
+                                         classes=model.classes)
+            check(np.array_equal(cells[(name, cx, cy)], want),
+                  f"{name} raster of chip ({cx},{cy}) differs")
+        # cover: the vote argmax of the segment holding the date, mapped
+        # through the stored classes.
+        cover = np.zeros(products.PIXELS, np.int32)
+        for i, (s, e) in enumerate(zip(seg["sday"], seg["eday"])):
+            if s != "0001-01-01" and s <= PRODUCT_DATE <= e:
+                r, c = features.pixel_index(cx, cy, [seg["px"][i]],
+                                            [seg["py"][i]])
+                cover[r[0] * products.CHIP_SIDE + c[0]] = stored.classes[
+                    int(np.argmax(seg["rfrawp"][i]))]
+        check(np.array_equal(cells[("cover", cx, cy)], cover),
+              f"cover raster of chip ({cx},{cy}) differs")
+        n_cover += int((cover > 0).sum())
+    store.close()
+    check(n_cover > 0, f"no pixel has a cover label at {PRODUCT_DATE}")
+    check_s["e"] = time.perf_counter() - t_e - save_s
+
+    classes, counts = np.unique(y_tr, return_counts=True)
+    device_s = stages["draw"] + stages["grow"] + stages["predict_device"]
+    out = dict(chips=len(cids), training_rows=snap["training_rows"],
+               classes=dict(zip(map(int, classes), map(int, counts))),
+               segments=snap["segments"],
+               segments_scored=snap["segments_scored"],
+               width=width, wall=wall, stage_seconds=stages,
+               rows_per_s_trained=snap["training_rows"] / stages["train"],
+               rows_per_s_classified=snap["segments_scored"]
+               / stages["predict"],
+               card_span_share=device_s / wall, peak_bytes=peak,
+               dense_seconds=dense_s, walk_seconds=walk_s,
+               walk_max_abs_err=walk_err,
+               sample=dict(rows=int(Xs.shape[0]), trees=RF_SAMPLE_TREES,
+                           bootstrap_lanes_differing=lanes,
+                           lanes=int(w_card.numel()),
+                           trees_differing=trees_differ,
+                           nodes_differing=nodes_differ,
+                           decided_rows=int(sample_decided.sum()),
+                           decided_rows_flipped=flips,
+                           cpu_train_seconds=host_s),
+               products=dict(rasters=len(written), date=PRODUCT_DATE,
+                             seconds=save_s, cover_pixels=n_cover),
+               check_seconds=check_s,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(f"classify: {len(cids)} chips, {snap['training_rows']} training "
+          f"rows, classes {out['classes']}, {snap['segments_scored']} "
+          f"segments scored ({snap['segments']} rows written) by "
+          f"{model.n_trees} trees of depth {model.depth} in {wall:.3f} s on "
+          f"{smi}; stages (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; {out['rows_per_s_trained']:.1f} rows/s trained, "
+          f"{out['rows_per_s_classified']:.1f} rows/s classified; the card's "
+          f"spans (draw, grow, predict) {device_s:.3f} s, "
+          f"{out['card_span_share']:.3f} of the wall; peak "
+          f"{peak / 2**30:.2f} GiB; all rows: dense {dense_s:.3f} s, walk "
+          f"{walk_s:.3f} s, max |dense - walk| {walk_err:.2e}; products: {len(written)} rasters at "
+          f"{PRODUCT_DATE} in {save_s:.3f} s; checks (s) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in check_s.items())
+          + f"; phase {out['phase_seconds']:.1f} s", flush=True)
     return out
 
 
@@ -2358,7 +2623,10 @@ def main(argv=None):
     s2 = sentinel2_phase(smi, args.reps, dev)
     torch.cuda.empty_cache()
     chips, gen_s = tile_chips(args.seed, max(DRIVER_CHIPS, STREAM_CHIPS))
-    drv = driver_phase(smi, chips, gen_s, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        drv, drv_cfg = driver_phase(smi, chips, gen_s, dev, tmp)
+        torch.cuda.empty_cache()
+        rf = classify_phase(smi, drv_cfg, args.seed, dev)
     torch.cuda.empty_cache()
     strm = stream_phase(smi, chips, dev)
     del chips
@@ -2376,7 +2644,7 @@ def main(argv=None):
         build_seconds=build_s, sass_hmma=sass, kernels=kernels,
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
-        sentinel2=s2, driver=drv, stream=strm, f64=f64,
+        sentinel2=s2, driver=drv, classify=rf, stream=strm, f64=f64,
         ptxas_instances=instances,
         ptxas=ptxas,
         seconds=time.perf_counter() - t_start), indent=1))

@@ -4,6 +4,10 @@
         [-n NUMBER] [-c CHUNK_SIZE] [--resume] [--device cuda]
     python -m firebird_tpu_torch stream -x X -y Y [-a ACQUIRED] [-n NUMBER] \\
         [--device cuda]
+    python -m firebird_tpu_torch classification -x X -y Y -s MSDAY -e MEDAY \\
+        [-a ACQUIRED] [--device cuda]
+    python -m firebird_tpu_torch save -b X,Y [-b X,Y ...] -p NAME [-p ...] \\
+        -d DATE [-d ...] [-a ACQUIRED] [--clip] [--device cuda]
     python -m firebird_tpu_torch detect --chips N --start 1985-01-01 \\
         --end 2017-12-31 [--seed S] [--sensor landsat-ard] [--device cuda] \\
         [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--mixed {0,1}] \\
@@ -24,6 +28,24 @@ horizon, publishes its tail rows, appends its confirmed breaks to the
 alert log and schedules repair jobs), with the config of
 ``Config.from_env``.  It prints one JSON line: the stream summary and the
 stage seconds.
+
+``classification`` is the JAX package's command of that name: a random
+forest trained on the stored segments of the 3x3 tile neighbourhood of
+(x, y) whose segments lie inside [MSDAY, MEDAY] (proleptic ordinals), the
+model stored in the tile table, and every real segment of the tile scored
+into its ``rfrawp``, through driver.core.classification with the config
+of ``Config.from_env``.  The forest is the JAX package's (500 trees, depth
+8, 64 bins, seed 0).  It prints one JSON summary: the training
+rows, the classes, the chips classified, the segment rows written and
+the real ones scored, and the stage seconds
+(rf.pipeline.classification_stage_seconds).
+
+``save`` is the JAX package's command of that name: product rasters
+(products.available(): seglength, ccd, curveqa, cover) at each DATE for
+every chip the bounds points cover, into the store's product table
+(``--clip`` masks pixels outside the points' polygon).  With ``-a``,
+chips with no stored segments are detected over ACQUIRED first.  It
+prints one JSON summary: the rasters written, as [name, date, cx, cy].
 
 ``detect`` runs SyntheticSource -> pack -> detect_packed -> batch_frames
 on the device (CUDA unless ``--device cpu``) and prints one JSON summary:
@@ -85,6 +107,40 @@ def stream(args) -> dict:
                           number=args.number, device=args.device)
     return dict(summary, seconds=dict(sdrv.stream_stage_seconds(),
                                       total=time.perf_counter() - t0))
+
+
+def classification(args) -> dict:
+    from firebird_tpu_torch.driver import core
+    from firebird_tpu_torch.rf import pipeline
+
+    counters = Counters()
+    t0 = time.perf_counter()
+    model = core.classification(
+        x=args.x, y=args.y, msday=args.msday, meday=args.meday,
+        acquired=args.acquired, device=args.device, counters=counters)
+    wall = time.perf_counter() - t0
+    snap = counters.snapshot()
+    return dict(trained=model is not None,
+                training_rows=snap.get("training_rows", 0),
+                classes=None if model is None else model.classes.tolist(),
+                chips_classified=snap.get("chips", 0),
+                segments=snap.get("segments", 0),
+                segments_scored=snap.get("segments_scored", 0),
+                seconds=dict(pipeline.classification_stage_seconds(),
+                             total=wall))
+
+
+def save(args) -> dict:
+    from firebird_tpu_torch import products
+
+    bounds = [tuple(float(v) for v in b.split(",")) for b in args.bounds]
+    t0 = time.perf_counter()
+    written = products.save(bounds=bounds, products=args.products,
+                            product_dates=args.product_dates,
+                            acquired=args.acquired, clip=args.clip,
+                            device=args.device)
+    return dict(rasters=len(written), written=[list(w) for w in written],
+                seconds=time.perf_counter() - t0)
 
 
 def detect(args) -> dict:
@@ -163,6 +219,35 @@ def main(argv=None) -> None:
     s.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions)")
+    k = sub.add_parser("classification", help="train the tile's random "
+                       "forest and classify its stored segments")
+    k.add_argument("-x", "--x", type=float, required=True)
+    k.add_argument("-y", "--y", type=float, required=True)
+    k.add_argument("-s", "--msday", type=int, required=True,
+                   help="training window start (proleptic ordinal)")
+    k.add_argument("-e", "--meday", type=int, required=True,
+                   help="training window end (proleptic ordinal)")
+    k.add_argument("-a", "--acquired", default=None,
+                   help="ISO8601 range start/end (default: the JAX "
+                        "package's default acquired range)")
+    k.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the forest "
+                        "on the CPU)")
+    v = sub.add_parser("save", help="compute and save product rasters")
+    v.add_argument("-b", "--bounds", action="append", required=True,
+                   help="x,y projection point; repeat to extend the area")
+    v.add_argument("-p", "--products", action="append", required=True,
+                   help="product name; repeat for several")
+    v.add_argument("-d", "--product_dates", action="append", required=True,
+                   help="ISO query date; repeat for several")
+    v.add_argument("-a", "--acquired", default=None,
+                   help="ISO8601 range; chips lacking stored segments are "
+                        "detected over it first")
+    v.add_argument("--clip", action="store_true",
+                   help="mask pixels outside the bounds polygon")
+    v.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs detection "
+                        "on the CPU)")
     d = sub.add_parser("detect", help="change detection on synthetic chips")
     d.add_argument("--chips", type=int, default=1)
     d.add_argument("--start", default="1985-01-01")
@@ -192,6 +277,7 @@ def main(argv=None) -> None:
                         "rebalancing ring)")
     args = ap.parse_args(argv)
     run = dict(changedetection=changedetection, stream=stream,
+               classification=classification, save=save,
                detect=detect)[args.cmd]
     print(json.dumps(run(args)))
 

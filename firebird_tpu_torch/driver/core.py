@@ -33,10 +33,13 @@ backstop and dead-letter its chips too.  Store writes are keyed upserts,
 so ``resume=True`` (gated by ``run_manifest.json``, draining the
 quarantine first) repairs any gap.
 
+:func:`classification` trains the tile's random forest on the stored
+segments and scores them (``rf.pipeline.classify_tile``).
+
 The entry points run on CUDA unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise.  Knobs whose
 subsystems are not ported (``config.NOT_PORTED``) make
-:func:`changedetection` refuse the run.
+:func:`changedetection` and :func:`classification` refuse the run.
 """
 
 from __future__ import annotations
@@ -101,6 +104,17 @@ def make_source(cfg: Config, kind: str | None = None):
     if kind == "file":
         return FileSource(cfg.source_path)
     raise ValueError(f"unknown source backend: {kind!r}")
+
+
+def make_aux_source(cfg: Config, kind: str | None = None):
+    """AUX source factory: the Chipmunk service at ``cfg.aux_url``, or the
+    ARD source of the same kind (synthetic and file sources serve both)."""
+    kind = kind or cfg.source_backend
+    if kind == "chipmunk":
+        return ChipmunkSource(cfg.aux_url,
+                              band_parallelism=cfg.band_parallelism,
+                              timeout=cfg.http_timeout)
+    return make_source(cfg, kind)
 
 
 def robustness_setup(cfg: Config, run_id: str, *, source=None, store=None):
@@ -664,6 +678,31 @@ def changedetection(x, y, acquired: str | None = None, number: int = 2500,
     return tuple(skipped) + tuple(done)
 
 
+def classification(x, y, msday: int, meday: int, acquired: str | None = None,
+                   cfg: Config | None = None, aux_source=None, store=None,
+                   device=None, counters: Counters | None = None):
+    """Train on the 3x3 tile neighborhood, classify the tile, persist
+    predictions + the trained model (ref core.classification,
+    core.py:156-251, including the predict/save path the reference left
+    commented out), with the forest on ``device`` (default CUDA; "cpu"
+    runs it on the CPU).  The metrics registry starts afresh, so
+    ``rf.pipeline.classification_stage_seconds`` reads this run's stages.
+    Returns the trained model, or None when no training features exist."""
+    from firebird_tpu_torch.rf import pipeline as rf_pipeline
+
+    cfg = cfg or Config.from_env()
+    refuse_not_ported(cfg)
+    dev = kernel.resolve_device(device)
+    obs_metrics.reset_registry()
+    acquired = acquired or dt.default_acquired()
+    store = store or open_store(cfg.store_backend, cfg.store_path,
+                                cfg.keyspace())
+    return rf_pipeline.classify_tile(
+        x=x, y=y, msday=msday, meday=meday, acquired=acquired,
+        aux_source=aux_source or make_aux_source(cfg),
+        store=store, device=dev, counters=counters)
+
+
 def stage_seconds() -> dict:
     """The current run's per-stage seconds from the metrics registry:
     fetch, pack, stage, dispatch, drain (each the sum over its batches),
@@ -677,8 +716,9 @@ def stage_seconds() -> dict:
     return {k: snap.get(v, {}).get("sum", 0.0) for k, v in names.items()}
 
 
-__all__ = ["make_source", "robustness_setup", "estimate_obs",
+__all__ = ["make_source", "make_aux_source", "robustness_setup", "estimate_obs",
            "auto_chips_per_batch", "resolve_batching", "StagedBatch",
            "stage_batch", "detect_batch", "fetch_results",
            "write_batch_frames", "drain_batch", "detect_chunk", "run_chunk",
-           "changedetection", "refuse_not_ported", "stage_seconds"]
+           "changedetection", "classification", "refuse_not_ported",
+           "stage_seconds"]

@@ -42,7 +42,7 @@ def _slice_acquired(t, spectra, qas, acquired):
 
 
 class SyntheticSource:
-    """Deterministic synthetic ARD per chip id.
+    """Deterministic synthetic ARD and AUX per chip id.
 
     Each chip gets a harmonic landscape with per-pixel level offsets; a
     rectangular patch of ``change_frac`` of the area undergoes a step change
@@ -135,6 +135,24 @@ class SyntheticSource:
         t, spectra, qas = _slice_acquired(t, spectra, qas, acquired)
         return ChipData(cx=int(cx), cy=int(cy), dates=t, spectra=spectra,
                         qas=qas, sensor=sn)
+
+    def aux(self, cx: int, cy: int, acquired: str | None = None) -> dict:
+        """AUX layers: one [100,100] array per AUX_NAMES entry, drawn from
+        the chip's own generator (salt 1) in the JAX package's order."""
+        rng = self._rng(cx, cy, salt=1)
+        row = np.arange(CHIP_SIDE, dtype=np.float32)
+        grad = row[None, :] + row[:, None]
+        side = (CHIP_SIDE, CHIP_SIDE)
+        return {
+            "dem": (300 + 5 * grad + rng.normal(0, 20, side)).astype(np.float32),
+            "aspect": rng.integers(0, 360, side).astype(np.int16),
+            "posidex": rng.random(side).astype(np.float32),
+            "slope": np.abs(rng.normal(5, 3, side)).astype(np.float32),
+            "mpw": (rng.random(side) < 0.1).astype(np.uint8),
+            # Land-cover training labels in blobs; 0 and 9 are the values
+            # the reference filters out of training (randomforest.py:63).
+            "trends": (1 + (grad // 50) % 8).astype(np.uint8),
+        }
 
 
 # ---------------------------------------------------------------------------

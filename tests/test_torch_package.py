@@ -120,7 +120,8 @@ PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
                   "alerts/log.py", "alerts/subindex.py", "alerts/repair.py",
                   "fleet/__init__.py", "fleet/queue.py", "fleet/plan.py",
                   "serve/__init__.py", "serve/changefeed.py",
-                  "driver/stream.py")
+                  "driver/stream.py", "rf/__init__.py", "rf/features.py",
+                  "rf/forest.py", "rf/pipeline.py", "products.py")
 
 
 @pytest.mark.parametrize("rel", PORTED_MODULES)
