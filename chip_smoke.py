@@ -101,7 +101,26 @@ From the root of a checkout, on a machine with a CUDA card:
    each stage's seconds, the peak device memory a batch beside
    ``kernel.working_set_bytes``, and the batch that
    ``auto_chips_per_batch`` picks on this card;
-10. the stream path (``stream_phase``): ``driver.stream.stream`` on the
+10. one process per card and the ops surface (``ops_phase``, right after
+   ``driver_phase``): ``python -m torch.distributed.run --nproc-per-node 2
+   -m firebird_tpu_torch changedetection`` on the one card (both processes
+   on cuda:0) over the tile's first 8 chips (the driver phase's chips,
+   served from ``.npz`` files through FIREBIRD_SOURCE=file), batches of 8
+   with 3 in flight, into a fresh sqlite store, each process with its own
+   FIREBIRD_OPS_PORT, ``--trace 1``, ``--profile 2`` and
+   FIREBIRD_STALL_SEC=600.  While they run, every process's ``/healthz``,
+   ``/readyz``, ``/metrics`` and ``/progress`` are polled until each has
+   answered 200 (the codes seen printed).  Each process must take 4 of the
+   8 chips; every stored row must equal the driver phase's row for the
+   chip; the two report shards carry one run id and process 0's fleet
+   report merges both, its counters the shards' sums (8 chips, 80 000
+   pixels); each shard's one profile window must hold device events
+   (``source`` "trace", ``total_ms`` > 0) among them ``lasso_fit_kernel``,
+   ``monitor_kernel`` and ``init_kernel`` by name (its device busy share
+   printed); each process's trace passes ``validate_driver_artifacts``
+   with its shard; no postmortem bundle.  Printed: the launch-to-exit wall
+   and px/s, the pipelines' wall and px/s, and the phase's seconds;
+11. the stream path (``stream_phase``): ``driver.stream.stream`` on the
    card over the tile's first 8 chips (the same archive; the eighth
    stepped +800 on every band from 2016-06-01), served from memory cut to
    each asked range, batches of 8 into sqlite in a temporary directory.
@@ -127,13 +146,13 @@ From the root of a checkout, on a machine with a CUDA card:
    step loop replayed under ``torch.profiler`` (its kernels' own time,
    and so their busy share of the wall), statestore load and save ms a
    chip, publish and alert seconds; the peak memory;
-11. the float64 route (``f64_phase``): one full chip through
+12. the float64 route (``f64_phase``): one full chip through
    ``detect_packed(dtype=torch.float64)`` on the card, which must launch
    no kernel; on 256 of its pixels drawn from the seed every decision must
    equal the port's ``reference.detect`` (run in 8 processes) and the
    floats be within tests/test_ccd_kernel.py's tolerances.  Printed: its
    wall and its decision agreement with f32 route 0 on the whole chip;
-12. classification and the product rasters (``classify_phase``, run
+13. classification and the product rasters (``classify_phase``, run
    right after ``driver_phase`` on its sqlite store of 24 detected chips):
    ``driver.core.classification`` at the driver's point over 1985-2017 on
    the card, at the JAX package's width (500 trees, depth 8, 64 bins), the
@@ -156,7 +175,7 @@ From the root of a checkout, on a machine with a CUDA card:
    bin, draw and grow (CUDA events), train, model save, predict, write),
    rows/s trained and classified, the card's spans' share of the wall,
    the peak device memory, each check's seconds and the wall;
-13. every kernel instance's registers, stack and spills, and the total
+14. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -170,6 +189,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -1852,6 +1872,252 @@ def driver_phase(smi, chips, gen_s, dev, tmp):
 
 
 # ---------------------------------------------------------------------------
+# One process per card and the ops surface
+# ---------------------------------------------------------------------------
+
+OPS_CHIPS, OPS_PROCS, OPS_PROFILE_S, OPS_STALL_S = 8, 2, 2, 600
+OPS_PATHS = ("/healthz", "/readyz", "/metrics", "/progress")
+# The kernels of the default run that a profile window must see by name.
+OPS_KERNEL_SYMBOLS = ("lasso_fit_kernel", "monitor_kernel", "init_kernel")
+# torchrun starts each process through sh so that each gets its own ops
+# port: FB_OPS_BASE + LOCAL_RANK.
+OPS_WRAPPER = ('FIREBIRD_OPS_PORT=$((FB_OPS_BASE + LOCAL_RANK)) exec "$0" '
+               '-m firebird_tpu_torch changedetection "$@" '
+               '> "$FB_OPS_LOGS/rank$LOCAL_RANK.out" '
+               '2> "$FB_OPS_LOGS/rank$LOCAL_RANK.err"')
+
+
+def _free_ports(n):
+    """A base port whose next ``n`` ports are free on localhost, below the
+    ephemeral range: a client polling a port that nobody listens on yet
+    can be handed that very port as its own source port (a TCP
+    self-connect) and so keep the server from binding it."""
+    import random
+    import socket
+
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(20000, 30000)
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError("no free ports")
+
+
+def _get(url):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=2) as r:
+            r.read()
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+    except OSError:
+        return None
+
+
+def ops_phase(smi, chips, ref_cfg, tmp):
+    """One process per card and the run's ops surface (the module
+    docstring's item 10): the first OPS_CHIPS chips of the driver's tile
+    through ``torchrun --nproc-per-node 2 -m firebird_tpu_torch
+    changedetection`` on the one card, both processes on cuda:0, with the
+    trace, a profile window, the watchdog and an ops port each; held to
+    ``driver_phase``'s store (``ref_cfg``).  Returns the report."""
+    import sqlite3
+
+    from firebird_tpu_torch.obs import report as obs_report
+    from firebird_tpu_torch.store.schema import columns, primary_key
+
+    t_phase = time.perf_counter()
+    cids = list(chips)[:OPS_CHIPS]
+    P = int(np.prod(chips[cids[0]].spectra.shape[-2:]))
+    root = Path(tmp) / "ops"
+    src_dir, logs = root / "chips", root / "logs"
+    for d in (src_dir, logs):
+        d.mkdir(parents=True)
+    t0 = time.perf_counter()
+    for c in cids:
+        ch = chips[c]
+        np.savez(src_dir / f"chip_{c[0]}_{c[1]}.npz", dates=ch.dates,
+                 spectra=ch.spectra, qas=ch.qas)
+    write_s = time.perf_counter() - t0
+    store_path = root / "fb.db"
+    base = _free_ports(OPS_PROCS)
+    env = dict(os.environ, FIREBIRD_SOURCE="file",
+               FIREBIRD_SOURCE_PATH=str(src_dir),
+               FIREBIRD_STORE_BACKEND="sqlite",
+               FIREBIRD_STORE_PATH=str(store_path),
+               FIREBIRD_CHIPS_PER_BATCH=str(DRIVER_BATCH),
+               FIREBIRD_PIPELINE_DEPTH=str(DRIVER_DEPTH),
+               FIREBIRD_MAX_OBS="0", FIREBIRD_FETCH_RETRIES="0",
+               FIREBIRD_STALL_SEC=str(OPS_STALL_S),
+               FB_OPS_BASE=str(base), FB_OPS_LOGS=str(logs))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(OPS_PROCS), "--no-python", "sh", "-c",
+           OPS_WRAPPER, sys.executable, "-x", str(DRIVER_POINT[0]), "-y",
+           str(DRIVER_POINT[1]), "-a", ACQUIRED, "-n", str(OPS_CHIPS),
+           "-c", str(OPS_CHIPS), "--trace", "1", "--profile",
+           str(OPS_PROFILE_S)]
+    ports = [base + i for i in range(OPS_PROCS)]
+    answers = {p: {path: [] for path in OPS_PATHS} for p in ports}
+    import threading
+
+    def poll(p, path):
+        """(b) one endpoint polled while the run lasts: each change of
+        its answer recorded."""
+        seen = answers[p][path]
+        while proc.poll() is None:
+            code = _get(f"http://127.0.0.1:{p}{path}")
+            if code is not None and (not seen or seen[-1] != code):
+                seen.append(code)
+            time.sleep(0.01)
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    pollers = [threading.Thread(target=poll, args=(p, path), daemon=True)
+               for p in ports for path in OPS_PATHS]
+    for t in pollers:
+        t.start()
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    wall = time.perf_counter() - t0
+    for t in pollers:
+        t.join(timeout=5)
+    rank_out = [(logs / f"rank{i}.out").read_text() for i in range(OPS_PROCS)]
+    rank_err = [(logs / f"rank{i}.err").read_text() for i in range(OPS_PROCS)]
+    check(proc.returncode == 0,
+          f"ops: torchrun exited {proc.returncode}: {out[-3000:]}\n"
+          + "\n".join(e[-3000:] for e in rank_err))
+    print(f"ops: endpoint answers (codes in the order seen) "
+          f"{json.dumps(answers)}", flush=True)
+    for p in ports:
+        for path in OPS_PATHS:
+            check(200 in answers[p][path],
+                  f"ops: {path} on port {p} never answered 200: "
+                  f"{answers[p][path]}")
+    # (c) the two processes share the chips, half each
+    lines = [json.loads(o.strip().splitlines()[-1]) for o in rank_out]
+    per = OPS_CHIPS // OPS_PROCS
+    for i, (line, err) in enumerate(zip(lines, rank_err)):
+        check(f"process {i}/{OPS_PROCS} takes {per} of {OPS_CHIPS} chips"
+              in err, f"ops: process {i} did not log its share")
+        check(line["process_index"] == i
+              and line["process_count"] == OPS_PROCS
+              and line["chips_done"] == per,
+              f"ops: process {i}'s line {line}")
+    # (d) every stored row equals driver_phase's row for the same chip,
+    # in every column (the stored values, blobs byte for byte), both
+    # stores read in primary-key order
+    t_d = time.perf_counter()
+    dbs = [SqliteStore(p, ref_cfg.keyspace())
+           for p in (str(store_path), ref_cfg.store_path)]
+    got_db, ref_db = (db.path for db in dbs)
+    for db in dbs:
+        db.close()
+    con = sqlite3.connect(got_db)
+    con.execute("ATTACH DATABASE ? AS ref", (ref_db,))
+    mine = " OR ".join(f"(cx = {c[0]} AND cy = {c[1]})" for c in cids)
+    rows = {}
+    for table in ("chip", "pixel", "segment"):
+        cols = ", ".join(f'"{c}"' for c in columns(table))
+        order = ", ".join(f'"{c}"' for c in primary_key(table))
+        have = con.execute(f'SELECT {cols} FROM main."{table}" '
+                           f"ORDER BY {order}").fetchall()
+        want = con.execute(f'SELECT {cols} FROM ref."{table}" WHERE {mine} '
+                           f"ORDER BY {order}").fetchall()
+        rows[table] = len(have)
+        check(have == want and len(have) > 0,
+              f"ops: {table} rows differ from driver_phase's ({len(have)} "
+              f"against {len(want)}; "
+              f"{sum(a != b for a, b in zip(have, want))} differ)")
+    con.close()
+    check_s = dict(rows=time.perf_counter() - t_d)
+    # (e) one run id; the fleet report merges both shards, counters summed
+    shards = [json.loads((root / f"obs_report.host{i}.json").read_text())
+              for i in range(OPS_PROCS)]
+    fleet = json.loads((root / "obs_report.json").read_text())
+    run_ids = {sh["run"]["run_id"] for sh in shards} | {
+        line["run_id"] for line in lines}
+    check(len(run_ids) == 1, f"ops: run ids {run_ids}")
+    check(fleet["fleet"]["hosts"] == OPS_PROCS
+          and "missing" not in fleet["fleet"]
+          and fleet["run_counters"]["chips"] == OPS_CHIPS
+          and fleet["run_counters"]["pixels"] == OPS_CHIPS * P,
+          f"ops: fleet report {fleet['fleet']} {fleet['run_counters']}")
+    for name, v in fleet["metrics"]["counters"].items():
+        check(v == sum(sh["metrics"]["counters"].get(name, 0)
+                       for sh in shards), f"ops: fleet counter {name}")
+    # (f) one profile window a process, the default run's kernels in it
+    busy = []
+    for i, sh in enumerate(shards):
+        wins = sh["profile"]["windows"]
+        check(len(wins) == 1, f"ops: process {i} has {len(wins)} windows")
+        w = wins[0]
+        a = w.get("attribution", {})
+        names = " ".join(w.get("device_kernels", {}))
+        check(a.get("source") == "trace" and a.get("total_ms", 0) > 0,
+              f"ops: process {i}'s window recorded no device time: {a} "
+              f"{w.get('error')}")
+        missing = [k for k in OPS_KERNEL_SYMBOLS if k not in names]
+        check(not missing, f"ops: process {i}'s window lacks {missing}: "
+              f"{sorted(w.get('device_kernels', {}))[:20]}")
+        busy.append(a["device_busy_ms"] / a["window_ms"])
+        print(f"ops: process {i} profile window {a['window_ms']:.1f} ms: "
+              f"device busy {a['device_busy_ms']:.3f} ms "
+              f"({busy[-1]:.4f} of the window), kernels+copies "
+              f"{a['total_ms']:.3f} ms over {a['events']} events (fit "
+              f"{a['fit_ms']:.3f}, monitor {a['monitor_ms']:.3f}, "
+              f"compaction {a['compaction_ms']:.3f}, other "
+              f"{a['other_ms']:.3f}) on {smi}", flush=True)
+    # (g) each process's trace against its own shard
+    for i, sh in enumerate(shards):
+        trace = json.loads((root / f"trace.host{i}.json").read_text())
+        obs_report.validate_driver_artifacts(trace, sh)
+    # (h) no postmortem
+    check(not (root / "postmortem.json").exists(),
+          "ops: a postmortem bundle was written")
+    rc = fleet["run_counters"]
+    out_rep = dict(
+        processes=OPS_PROCS, chips=OPS_CHIPS, run_id=run_ids.pop(),
+        endpoint_answers={str(p): a for p, a in answers.items()},
+        wall_s=wall, launch_px_per_s=OPS_CHIPS * P / wall,
+        pipeline_elapsed_s=rc["elapsed_sec"],
+        pipeline_px_per_s=rc["pixels_per_sec"], rows=rows,
+        device_busy_share=busy, chip_files_s=write_s,
+        check_seconds=check_s,
+        shards=[dict(run=sh["run"], profile=sh["profile"],
+                     spans=sh["spans"], device=sh.get("device"))
+                for sh in shards],
+        fleet=dict(fleet=fleet["fleet"], run_counters=rc,
+                   spans=fleet["spans"]),
+        seconds=time.perf_counter() - t_phase)
+    print(f"ops: {OPS_PROCS} processes on one card, {OPS_CHIPS} chips "
+          f"({OPS_CHIPS * P} px): launch to exit {wall:.3f} s, "
+          f"{out_rep['launch_px_per_s']:.1f} px/s; the pipelines' wall "
+          f"{rc['elapsed_sec']:.3f} s, {rc['pixels_per_sec']:.1f} px/s; "
+          f"rows {rows}; chip files {write_s:.1f} s, row check "
+          f"{check_s['rows']:.1f} s, phase {out_rep['seconds']:.1f} s on "
+          f"{smi}",
+          flush=True)
+    return out_rep
+
+
+# ---------------------------------------------------------------------------
 # Classification and the product rasters
 # ---------------------------------------------------------------------------
 
@@ -1881,7 +2147,7 @@ def forest_diff(a, b):
 
 def classify_phase(smi, cfg, seed, dev):
     """Classification on the card over the driver phase's store (the module
-    docstring's item 12)."""
+    docstring's item 13)."""
     from firebird_tpu_torch import products
     from firebird_tpu_torch.rf import features, forest, pipeline
 
@@ -2218,7 +2484,7 @@ def expected_rows(chips, acquired, dev, rows=True):
 
 
 def stream_phase(smi, chips, dev):
-    """The stream path on the card (the module docstring's item 10)."""
+    """The stream path on the card (the module docstring's item 11)."""
     from firebird_tpu_torch.alerts import AlertLog, alert_db_path, repair_chip
     from firebird_tpu_torch.driver import stream as sdrv
     from firebird_tpu_torch.fleet import FleetQueue, queue_path
@@ -2472,7 +2738,7 @@ def _reference(kw):
 
 def f64_phase(smi, seed, dev):
     """One full chip on the float64 route (the module docstring's item
-    11)."""
+    12)."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2626,6 +2892,7 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as tmp:
         drv, drv_cfg = driver_phase(smi, chips, gen_s, dev, tmp)
         torch.cuda.empty_cache()
+        ops = ops_phase(smi, chips, drv_cfg, tmp)
         rf = classify_phase(smi, drv_cfg, args.seed, dev)
     torch.cuda.empty_cache()
     strm = stream_phase(smi, chips, dev)
@@ -2644,7 +2911,8 @@ def main(argv=None):
         build_seconds=build_s, sass_hmma=sass, kernels=kernels,
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
-        sentinel2=s2, driver=drv, classify=rf, stream=strm, f64=f64,
+        sentinel2=s2, driver=drv, ops=ops, classify=rf, stream=strm,
+        f64=f64,
         ptxas_instances=instances,
         ptxas=ptxas,
         seconds=time.perf_counter() - t_start), indent=1))

@@ -1,9 +1,11 @@
 """Command line of the PyTorch port.
 
     python -m firebird_tpu_torch changedetection -x X -y Y [-a ACQUIRED] \\
-        [-n NUMBER] [-c CHUNK_SIZE] [--resume] [--device cuda]
+        [-n NUMBER] [-c CHUNK_SIZE] [--resume] [--device cuda] \\
+        [--trace T] [--ops-port P] [--profile S] [--slo SPEC]
     python -m firebird_tpu_torch stream -x X -y Y [-a ACQUIRED] [-n NUMBER] \\
-        [--device cuda]
+        [--device cuda] [--trace T] [--ops-port P] [--profile S] [--slo SPEC]
+    torchrun --nproc-per-node N -m firebird_tpu_torch changedetection ...
     python -m firebird_tpu_torch classification -x X -y Y -s MSDAY -e MEDAY \\
         [-a ACQUIRED] [--device cuda]
     python -m firebird_tpu_torch save -b X,Y [-b X,Y ...] -p NAME [-p ...] \\
@@ -19,7 +21,19 @@ at the point (x, y), its first ``NUMBER`` chips in chunks of
 FIREBIRD_STORE_BACKEND / FIREBIRD_STORE_PATH name (sqlite rows land in
 ``<dir of the path>/<stem>.<keyspace>.db``), with the config of
 ``Config.from_env``.  It prints one JSON summary: chips done, pixels,
-segments, pixels a second and the stage seconds.
+segments, pixels a second, the stage seconds, the run id, this process's
+index and the process count, and the artifacts the run wrote (``trace``,
+``report`` or ``report_shard``).
+
+``--trace``, ``--ops-port``, ``--profile`` and ``--slo`` override
+FIREBIRD_TRACE, FIREBIRD_OPS_PORT, FIREBIRD_PROFILE and FIREBIRD_SLO for
+``changedetection`` and ``stream``, with the JAX command line's meaning.
+Both commands bring up one process per card first
+(``parallel.init_distributed``): launched by torchrun, each process takes
+its strided share of the tile's chips on its own card
+(``cuda:{LOCAL_RANK % device_count}``), writes its report shard
+(``obs_report.host<i>.json``) and trace (``trace.host<i>.json``), and
+process 0 merges the shards into ``obs_report.json``.
 
 ``stream`` is the JAX package's command of that name: the tile's first
 ``NUMBER`` chips through driver.stream.stream (a chip without a checkpoint
@@ -81,32 +95,88 @@ from firebird_tpu_torch.obs import Counters
 from firebird_tpu_torch.parallel import detect_sharded
 
 
+def _run_config(args):
+    """``Config.from_env`` with the command line's ops overrides (None:
+    no override), after bringing up one process per card."""
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.parallel import init_distributed
+
+    init_distributed()
+    overrides = {k: v for k, v in
+                 (("trace", args.trace), ("ops_port", args.ops_port),
+                  ("profile", args.profile), ("slo", args.slo))
+                 if v is not None}
+    return Config.from_env(**overrides)
+
+
+def _run_identity() -> dict:
+    """The run id, the process's index and count, and the artifacts the
+    run wrote (driver.core.last_run_artifacts)."""
+    from firebird_tpu_torch.driver import core
+    from firebird_tpu_torch.parallel import dist
+
+    art = dict(core.last_run_artifacts)
+    return dict(run_id=art.pop("run_id", None),
+                process_index=dist.process_index(),
+                process_count=dist.process_count(), artifacts=art)
+
+
 def changedetection(args) -> dict:
     from firebird_tpu_torch.driver import core
 
+    cfg = _run_config(args)
     counters = Counters()
     t0 = time.perf_counter()
     done = core.changedetection(
         x=args.x, y=args.y, acquired=args.acquired, number=args.number,
-        chunk_size=args.chunk_size, resume=args.resume, device=args.device,
-        counters=counters)
+        chunk_size=args.chunk_size, cfg=cfg, resume=args.resume,
+        device=args.device, counters=counters)
     wall = time.perf_counter() - t0
     snap = counters.snapshot()
     return dict(chips_done=len(done), chips_detected=snap.get("chips", 0),
                 pixels=snap.get("pixels", 0),
                 segments=snap.get("segments", 0),
                 pixels_per_sec=snap.get("pixels_per_sec", 0.0),
-                seconds=dict(core.stage_seconds(), total=wall))
+                seconds=dict(core.stage_seconds(), total=wall),
+                **_run_identity())
 
 
 def stream(args) -> dict:
     from firebird_tpu_torch.driver import stream as sdrv
 
+    cfg = _run_config(args)
     t0 = time.perf_counter()
     summary = sdrv.stream(x=args.x, y=args.y, acquired=args.acquired,
-                          number=args.number, device=args.device)
+                          number=args.number, cfg=cfg, device=args.device)
     return dict(summary, seconds=dict(sdrv.stream_stage_seconds(),
-                                      total=time.perf_counter() - t0))
+                                      total=time.perf_counter() - t0),
+                **_run_identity())
+
+
+def _ops_options(p) -> None:
+    """The ops flags of ``changedetection`` and ``stream`` (the JAX
+    command line's)."""
+    p.add_argument("-t", "--trace", default=None,
+                   help="host span tracer output (Chrome-trace JSON, opens "
+                        "in Perfetto): '1' writes trace.json next to the "
+                        "store, a path writes there; overrides "
+                        "FIREBIRD_TRACE")
+    p.add_argument("--ops-port", default=None, type=int,
+                   help="serve the live ops endpoints (/healthz /readyz "
+                        "/metrics /progress /report) on this port for the "
+                        "duration of the run; overrides FIREBIRD_OPS_PORT "
+                        "— off (no port bound) when neither is set")
+    p.add_argument("--profile", default=None, type=float,
+                   help="capture ONE automatic device-profile window of "
+                        "this many seconds starting at the first dispatch "
+                        "(artifact under <store dir>/device_profile/; "
+                        "further windows via POST /profile on the ops "
+                        "endpoint); overrides FIREBIRD_PROFILE")
+    p.add_argument("--slo", default=None,
+                   help="SLO spec 'name=target;...' evaluated at /slo and "
+                        "in the obs report (objectives: batch_p95, "
+                        "serve_p99, freshness; '0' disables); overrides "
+                        "FIREBIRD_SLO")
 
 
 def classification(args) -> dict:
@@ -206,8 +276,10 @@ def main(argv=None) -> None:
     c.add_argument("-r", "--resume", action="store_true",
                    help="skip chips whose segments are already stored")
     c.add_argument("--device", default=None,
-                   help="torch device (default cuda; 'cpu' runs the plain "
-                        "PyTorch versions)")
+                   help="torch device (default cuda, this process's card "
+                        "under torchrun; 'cpu' runs the plain PyTorch "
+                        "versions)")
+    _ops_options(c)
     s = sub.add_parser("stream", help="streaming change detection for a "
                        "tile: bootstrap, then new acquisitions only")
     s.add_argument("-x", "--x", type=float, required=True)
@@ -217,8 +289,10 @@ def main(argv=None) -> None:
                         "package's default acquired range)")
     s.add_argument("-n", "--number", type=int, default=2500)
     s.add_argument("--device", default=None,
-                   help="torch device (default cuda; 'cpu' runs the plain "
-                        "PyTorch versions)")
+                   help="torch device (default cuda, this process's card "
+                        "under torchrun; 'cpu' runs the plain PyTorch "
+                        "versions)")
+    _ops_options(s)
     k = sub.add_parser("classification", help="train the tile's random "
                        "forest and classify its stored segments")
     k.add_argument("-x", "--x", type=float, required=True)

@@ -65,8 +65,10 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fcntl
 import functools
 import hashlib
+import os
 import shutil
 import subprocess
 import types
@@ -182,18 +184,34 @@ def _lib_path(unit: str) -> Path:
 
 
 def _compile(unit: str) -> Path:
+    """Build one unit's library unless it exists.  Safe under several
+    processes on one ``build/`` (one process per card): the build holds an
+    exclusive lock on ``<unit>.lock`` and looks for the library again once
+    it has the lock, so one process builds and the others load its file;
+    ``nvcc`` writes to a name of this process's own, and the library and
+    its ``.ptxas.txt`` land by an atomic rename."""
     out = _lib_path(unit)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(".tmp.so")
-    src = CSRC / f"{source_of(unit)}.cu"
-    cmd = [_nvcc(), *_flags(unit), "-o", str(tmp), str(src)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / f"{unit}.ptxas.txt").write_text(r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {unit} ({src.name}):\n{r.stderr}")
-    tmp.replace(out)
+    with open(BUILD_DIR / f"{unit}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        pid = os.getpid()
+        tmp = out.with_suffix(f".{pid}.tmp.so")
+        src = CSRC / f"{source_of(unit)}.cu"
+        cmd = [_nvcc(), *_flags(unit), "-o", str(tmp), str(src)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log = BUILD_DIR / f"{unit}.ptxas.txt"
+        log_tmp = log.with_suffix(f".{pid}.tmp")
+        log_tmp.write_text(r.stdout + r.stderr)
+        log_tmp.replace(log)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed on {unit} ({src.name}):\n{r.stderr}")
+        tmp.replace(out)
     return out
 
 

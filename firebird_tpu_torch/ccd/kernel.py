@@ -415,6 +415,29 @@ def segments_to_numpy(seg: ChipSegments) -> ChipSegments:
         for v in (getattr(seg, f.name) for f in dataclasses.fields(seg))])
 
 
+def record_first_call(key: tuple, fn):
+    """The first call of each dispatch shape of a run, timed: the JAX
+    package's per-shape first-call capture (its wall is the XLA compile
+    there; here the kernels are built before the run, so it is the first
+    batch's host wall).  Seen keys live on the metrics registry, so every
+    run's report records a ``kernel_first_call_seconds`` entry per shape
+    it dispatched.  Adds no synchronisation with the card."""
+    import time
+
+    from firebird_tpu_torch.obs import metrics, tracing
+
+    reg = metrics.get_registry()
+    if not reg.once(("kernel_dispatch",) + tuple(key)):
+        return fn()
+    t0 = time.perf_counter()
+    with tracing.span("first_dispatch", key=str(key)):
+        out = fn()
+    reg.histogram("kernel_first_call_seconds").observe(
+        time.perf_counter() - t0)
+    reg.counter("kernel_dispatch_shapes").inc()
+    return out
+
+
 # Histogram buckets for kernel_round_active_fraction (a 0..1 fraction,
 # not a latency; sixteenths resolve the tail the compaction targets).
 FRACTION_BUCKETS = tuple(i / 16 for i in range(1, 17))
@@ -1172,11 +1195,12 @@ def detect_packed(packed, *, device=None, max_segments: int = MAX_SEGMENTS,
     sensor = getattr(packed, "sensor", LANDSAT_ARD)
     W = window_cap(packed)
     fused, compact = fused_mode(fused), compact_mode(compact)
-    dispatch = lambda S: detect_staged(*args, W=W, sensor=sensor,
-                                       max_segments=S,
-                                       variogram_mode=variogram_mode,
-                                       ops=route, fused=fused,
-                                       compact=compact)
+    dispatch = lambda S: record_first_call(
+        ("single", tuple(packed.spectra.shape), str(route.dtype), W,
+         sensor.name, S, compact, fused, route.mixed),
+        lambda: detect_staged(*args, W=W, sensor=sensor, max_segments=S,
+                              variogram_mode=variogram_mode, ops=route,
+                              fused=fused, compact=compact))
     if not check_capacity:
         return dispatch(max(max_segments, 1))
     return capacity_retry(dispatch, lambda seg: int(seg.n_segments.max()),

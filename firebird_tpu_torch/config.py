@@ -5,9 +5,20 @@ only): the same knob registry, the same :class:`Config` fields, defaults,
 ``from_env`` parsing and validation, and the same ``keyspace()``, so that a
 store one package writes names the tables the other reads.  Two
 validations differ, because their subsystems are not ported: the fault
-plan (FIREBIRD_FAULTS) and the SLO specs (FIREBIRD_SLO,
-FIREBIRD_SLO_BUDGET) are kept as strings here, not parsed; the driver
-refuses a run that sets them (:data:`NOT_PORTED`).
+plan (FIREBIRD_FAULTS) and the SLO budget spec (FIREBIRD_SLO_BUDGET) are
+kept as strings here, not parsed; the drivers refuse a run that sets them
+(:data:`NOT_PORTED`).  The knobs that stay refused, and why:
+
+- ``faults``: the fault-injection plan (``faults.py``) and its wrappers
+  are not ported;
+- ``object_root``: the object store (``store/objectstore.py``) is not
+  ported;
+- ``slo_budget``: the durable error budgets read the series store
+  (``obs/series.py``), which is not ported (the live SLO evaluation,
+  ``slo``, is);
+- ``compile_cache``: XLA's compilation cache has no counterpart; this
+  package builds its kernels with nvcc into ``build/``, keyed by a hash
+  of their sources.
 
 
 The reference reads env vars at import time into module constants
@@ -146,7 +157,7 @@ KNOBS = (
               "(default: watcher.db next to the store)"),
     # ---- observability (Config-backed) ----
     Knob(name="FIREBIRD_PROFILE_DIR", field="profile_dir",
-         help="jax.profiler trace output directory (device-side)"),
+         help="whole-run device profiler trace directory (device-side)"),
     Knob(name="FIREBIRD_TRACE", field="trace",
          help="host span tracer output (Chrome-trace JSON)"),
     Knob(name="FIREBIRD_OBS_REPORT", field="obs_report",
@@ -522,14 +533,14 @@ class Config:
     # (frames are keyed by chip id).
     writer_threads: int = 1
 
-    # When set, the run executes under jax.profiler.trace writing to this
-    # directory (the tracing subsystem the reference lacked, SURVEY.md §5).
+    # When set, the run executes under one torch.profiler capture whose
+    # Chrome trace is written into this directory (obs/profiling.py).
     profile_dir: str = ""
 
-    # Host-side span tracer (firebird_tpu.obs.tracing): ""/"0" off; "1"
-    # writes Chrome-trace JSON next to the store; a path writes there.  This is
-    # the HOST pipeline trace (fetch/pack/dispatch/drain overlap) —
-    # complementary to profile_dir's XLA/device trace.
+    # Host-side span tracer (firebird_tpu_torch.obs.tracing): ""/"0" off;
+    # "1" writes Chrome-trace JSON next to the store; a path writes there.
+    # This is the HOST pipeline trace (fetch/pack/dispatch/drain overlap) —
+    # complementary to profile_dir's device trace.
     trace: str = ""
 
     # Per-run obs_report.json (firebird_tpu.obs.report): "" auto (written
@@ -576,9 +587,9 @@ class Config:
     obs_merge_timeout: float = 30.0
 
     # On-demand device profiling (obs/profiling.py): > 0 arms ONE
-    # automatic jax.profiler capture window of this many seconds,
-    # starting at the run's first dispatched batch (steady-state
-    # kernels, not bring-up compile).  POST /profile?seconds=N on the
+    # automatic torch.profiler capture window of this many seconds,
+    # opening at the run's first dispatch (the kernels are built before
+    # it).  POST /profile?seconds=N on the
     # ops endpoint captures further windows on demand; artifacts land
     # under <store dir>/device_profile/.  0 (default) arms nothing.
     profile: float = 0.0
@@ -885,6 +896,14 @@ class Config:
             raise ValueError("FIREBIRD_TELEMETRY_SNAPSHOT_SEC must be "
                              "> 0 seconds, got "
                              f"{self.telemetry_snapshot_sec}")
+        # Parse the SLO spec now (the JAX package's fail-fast): a typo'd
+        # objective silently evaluating nothing is worse than a crash at
+        # bring-up.  "" and "0" are both valid.  (The budget grammar,
+        # FIREBIRD_SLO_BUDGET, belongs to the series store: NOT_PORTED.)
+        if self.slo and self.slo != "0":
+            from firebird_tpu_torch.obs import slo as _slo
+
+            _slo.parse_spec(self.slo)
         if self.slo_fast_sec <= 0 or self.slo_slow_sec <= 0:
             raise ValueError(
                 "FIREBIRD_SLO_FAST_SEC / FIREBIRD_SLO_SLOW_SEC must be "
@@ -1171,15 +1190,8 @@ class Config:
 NOT_PORTED = {
     "faults": "the fault-injection plan (faults.py)",
     "object_root": "the object store (store/objectstore.py)",
-    "ops_port": "the ops HTTP server (obs/server.py)",
-    "stall_sec": "the stall watchdog (obs/watchdog.py)",
-    "trace": "the span tracer's trace files (obs/tracing.py)",
-    "obs_report": "the run report (obs/report.py)",
-    "profile_dir": "the device profiler (obs/profiling.py)",
-    "profile": "the device profiler (obs/profiling.py)",
-    "flightrec": "the flight recorder (obs/flightrec.py)",
-    "slo": "the SLO plane (obs/slo.py)",
-    "slo_budget": "the SLO plane (obs/slo.py)",
+    "slo_budget": "the SLO error budgets (they read obs/series.py, the "
+                  "series store)",
     "compile_cache": "the compile cache (this package compiles its kernels "
                      "with nvcc and caches them under build/)",
 }

@@ -36,8 +36,27 @@ quarantine first) repairs any gap.
 :func:`classification` trains the tile's random forest on the stored
 segments and scores them (``rf.pipeline.classify_tile``).
 
+One process per card.  Launched by torchrun (``parallel.dist``), each
+process takes its strided share of the tile's chips (:func:`host_shard`)
+and runs this pipeline on its own card; the run has one id across the
+processes (:func:`fleet_run_id`), each process writes its own report
+shard and process 0 merges them (``obs.report.finish_run``).  Nothing
+else crosses processes: the keyed store upserts make the union of the
+processes' writes a one-process run's.
+
+The ops surface (:func:`start_ops` / :func:`stop_ops`): the run context
+of the JSON log lines, the crash flight recorder (FIREBIRD_FLIGHTREC,
+armed by default), the device profiler (FIREBIRD_PROFILE,
+``POST /profile``), the stall watchdog (FIREBIRD_STALL_SEC) and the ops
+endpoint (FIREBIRD_OPS_PORT), and at the run's end the span trace
+(FIREBIRD_TRACE) and ``obs_report.json`` (FIREBIRD_OBS_REPORT).  Spans
+(``stage``, ``transfer``, ``dispatch``, ``drain``, ``d2h``, ``fetch``,
+``pack``) are host time and add no synchronisation with the card; device
+time comes from the profiler.
+
 The entry points run on CUDA unless the caller passes ``device="cpu"``;
-without a card and without that argument they raise.  Knobs whose
+without a card and without that argument they raise (a multi-process run
+takes this process's card, ``parallel.dist.local_device``).  Knobs whose
 subsystems are not ported (``config.NOT_PORTED``) make
 :func:`changedetection` and :func:`classification` refuse the run.
 """
@@ -47,9 +66,11 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import dataclasses
+import itertools
+import os
+import sys
 import threading
 import traceback
-import uuid
 
 import numpy as np
 import torch
@@ -64,9 +85,15 @@ from firebird_tpu_torch.driver import quarantine as qlib
 from firebird_tpu_torch.ingest import (ChipmunkSource, FileSource,
                                        SyntheticSource, pack)
 from firebird_tpu_torch.ingest.packer import PackedChips, bucket_capacity
-from firebird_tpu_torch.obs import Counters, logger
+from firebird_tpu_torch.obs import Counters, flightrec, jsonlog, logger
 from firebird_tpu_torch.obs import metrics as obs_metrics
-from firebird_tpu_torch.parallel import detect_sharded
+from firebird_tpu_torch.obs import profiling as obs_profiling
+from firebird_tpu_torch.obs import report as obs_report
+from firebird_tpu_torch.obs import server as obs_server
+from firebird_tpu_torch.obs import tracing
+from firebird_tpu_torch.obs import watchdog as obs_watchdog
+from firebird_tpu_torch.parallel import detect_sharded, dist
+from firebird_tpu_torch.parallel.mesh import refuse_cross_process_ring
 from firebird_tpu_torch.store import AsyncWriter, open_store
 from firebird_tpu_torch.utils import dates as dt
 from firebird_tpu_torch.utils.fn import partition_all, take
@@ -88,6 +115,180 @@ def refuse_not_ported(cfg: Config) -> None:
     if bad:
         raise ValueError("not ported to firebird_tpu_torch yet: "
                          + "; ".join(bad))
+
+
+# ---------------------------------------------------------------------------
+# One process per card, and the run's ops surface
+# ---------------------------------------------------------------------------
+
+def _process_index() -> int:
+    """This process's index in the run (0 single-process)."""
+    return dist.process_index()
+
+
+# Lockstep sequence for run-id broadcast keys: every process of a launch
+# runs the same program, so the per-process counters agree.
+_run_id_seq = itertools.count()
+
+
+def fleet_run_id() -> str:
+    """One run id for the whole launch.
+
+    Single-process: a fresh id.  Multi-process: process 0 mints it and
+    sets it in the bring-up's store (``parallel.dist``); the others wait
+    for it (60 s), so every process's JSON log lines, report shard and
+    /progress payload carry the same id."""
+    rid = jsonlog.new_run_id()
+    if dist.process_count() <= 1:
+        return rid
+    try:
+        key = f"fb/run_id/{next(_run_id_seq)}"
+        if dist.process_index() == 0:
+            dist.kv_set(key, rid)
+            return rid
+        return dist.kv_get(key, 60_000)
+    except Exception:
+        return rid           # a broken broadcast degrades to per-process ids
+
+
+def _mesh_ready() -> bool:
+    """The /readyz mesh half: True when no process group is expected (no
+    torchrun coordinator in the environment), or when it is up."""
+    if int(os.environ.get("WORLD_SIZE") or 1) <= 1:
+        return True
+    return dist.is_initialized()
+
+
+def record_topology_metrics() -> None:
+    """(Re-)record the topology gauges on the CURRENT registry:
+    ``init_distributed`` sets them at bring-up, but the drivers reset the
+    registry per run."""
+    obs_metrics.gauge(
+        "mesh_processes",
+        help="torch.distributed process count").set(dist.process_count())
+    obs_metrics.gauge(
+        "mesh_global_devices",
+        help="cards the processes run on").set(
+            dist.global_device_count() if dist.process_count() > 1
+            else (torch.cuda.device_count() if torch.cuda.is_available()
+                  else 0))
+
+
+def start_ops(cfg: Config, run_id: str, kind: str, *, chips_total: int,
+              counters, run_block: dict, quarantine=None, breaker=None,
+              alerts=None, streamops=None):
+    """Bring up the run's live ops surface (shared by both drivers).
+
+    Registers the run context for JSON logs, clears stale report shards
+    from a previous run in a reused artifact directory, arms the flight
+    recorder (``cfg.flightrec``) and the device profiler, starts the stall
+    watchdog when ``cfg.stall_sec`` asks for one, publishes a
+    :class:`~firebird_tpu_torch.obs.server.RunStatus` for the module-level
+    progress hooks, and binds the HTTP endpoint ONLY when ``cfg.ops_port``
+    is set — the default run binds no port.  Returns (status, server,
+    watchdog); tear down with :func:`stop_ops`.  If the port bind fails,
+    everything already started is torn down before the error propagates.
+    The kernels are built before this (:func:`build_kernels`), so the
+    watchdog's clock starts after ``nvcc``.
+    """
+    jsonlog.set_run_context(run_id=run_id, process_index=_process_index())
+    obs_report.clear_stale_artifacts(cfg)
+    record_topology_metrics()
+    watchdog = None
+    server = None
+    try:
+        # Crash flight recorder (FIREBIRD_FLIGHTREC ring size; 0 off):
+        # armed for the run so an unhandled exception, watchdog stall,
+        # or SIGTERM leaves postmortem.json next to the store.
+        if cfg.flightrec > 0:
+            flightrec.arm(flightrec.postmortem_path(cfg),
+                          ring=cfg.flightrec, run_id=run_id,
+                          fingerprint=qlib.config_fingerprint(cfg))
+        # On-demand device profiler: POST /profile windows land next to
+        # the store; FIREBIRD_PROFILE=<seconds> arms an automatic window
+        # at the first dispatch.  Memory-backend runs have no artifact
+        # dir and get no profiler (the endpoint answers 503).
+        profiler = None
+        art_dir = qlib._artifact_dir(cfg)
+        if art_dir is not None:
+            profiler = obs_profiling.set_active(obs_profiling.DeviceProfiler(
+                os.path.join(art_dir, "device_profile")))
+            if cfg.profile > 0:
+                profiler.arm_auto(cfg.profile)
+        if cfg.stall_sec > 0:
+            watchdog = obs_watchdog.Watchdog(cfg.stall_sec).start()
+        status = obs_server.set_status(obs_server.RunStatus(
+            run_id, kind, chips_total=chips_total, counters=counters,
+            watchdog=watchdog, run=run_block, mesh_up=_mesh_ready(),
+            pipeline_depth=cfg.pipeline_depth, quarantine=quarantine,
+            breaker=breaker, profiler=profiler, slo_spec=cfg.slo,
+            alerts=alerts, streamops=streamops))
+        if cfg.ops_port > 0:
+            server = obs_server.start_ops_server(cfg.ops_port, status,
+                                                 host=cfg.ops_host)
+    except Exception:
+        stop_ops(server, watchdog)
+        raise
+    return status, server, watchdog
+
+
+def stop_ops(server, watchdog) -> None:
+    """Tear down :func:`start_ops` state; never raises — ops teardown
+    must not mask a run's real outcome.  Called from the drivers'
+    ``finally``: when the run is unwinding on an exception, the flight
+    recorder dumps its postmortem BEFORE disarming."""
+    if sys.exc_info()[0] is not None:
+        flightrec.dump_if_armed("unhandled_exception", sys.exc_info()[1])
+    try:
+        if server is not None:
+            server.close()
+        if watchdog is not None:
+            watchdog.stop()
+        obs_profiling.close_active()
+    except Exception as e:
+        logger("change-detection").error("ops teardown failed: %s", e)
+    finally:
+        obs_profiling.set_active(None)
+        flightrec.disarm()
+        obs_server.clear_status()
+        jsonlog.clear_run_context()
+
+
+def host_shard(cids: list) -> list:
+    """This process's share of a chip-id list in a multi-process run: the
+    strided slice ``cids[i::n]``.  Each process runs the normal pipeline
+    on its share on its own card; the keyed store upserts make the union
+    of the processes' writes a one-process run's.  Single-process runs
+    return the list unchanged."""
+    n = dist.process_count()
+    if n <= 1:
+        return cids
+    i = dist.process_index()
+    logger("change-detection").info(
+        "multi-host: process %d/%d takes %d of %d chips",
+        i, n, len(cids[i::n]), len(cids))
+    return cids[i::n]
+
+
+def run_device(device=None) -> torch.device:
+    """The run's device: ``device`` as given, else this process's card in
+    a multi-process run (``dist.local_device``), else CUDA; raises without
+    a card unless the caller names the CPU."""
+    if device is None and dist.process_count() > 1:
+        device = dist.local_device()
+    return kernel.resolve_device(device)
+
+
+def build_kernels(dev: torch.device, cfg: Config, log) -> None:
+    """Build the CUDA kernels a float32 run on a card launches (nothing for
+    the CPU or float64), before the ops surface comes up: a short
+    FIREBIRD_STALL_SEC must not be tripped by ``nvcc``."""
+    if dev.type != "cuda" or cfg.dtype != "float32":
+        return
+    with obs_metrics.timer() as tm:
+        cuda_ops.build()
+    log.info("CUDA kernels built in %.1f s", tm.elapsed)
+    obs_metrics.histogram("kernel_build_seconds").observe(tm.elapsed)
 
 
 def make_source(cfg: Config, kind: str | None = None):
@@ -161,9 +362,11 @@ def _pad_batch(packed, target: int):
 
 def _mesh_devices(sharding: str, device: torch.device) -> list | None:
     """The cards a batch shards over: every visible card when there are
-    more than one and ``sharding`` is 'auto' on CUDA, else None."""
+    more than one and ``sharding`` is 'auto' on CUDA, else None.  A
+    process of a multi-process run shards over its own card only, so
+    never (parallel/mesh.py)."""
     if (sharding == "off" or device.type != "cuda"
-            or torch.cuda.device_count() < 2):
+            or torch.cuda.device_count() < 2 or dist.process_count() > 1):
         return None
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
@@ -266,7 +469,8 @@ def stage_batch(packed, dtype, sharding: str = "auto",
     pinned host buffers and ``non_blocking`` copies on this thread's copy
     stream, and the returned batch carries the event recorded after them;
     the call does not wait for the copies.  Records
-    ``pipeline_stage_seconds`` and ``wire_h2d_bytes``."""
+    ``pipeline_stage_seconds``, ``wire_h2d_bytes`` and the ``stage`` span
+    with the h2d ``transfer`` leg."""
     dev = kernel.resolve_device(device)
     kernel.float_dtype(dtype)
     devices = _mesh_devices(sharding, dev)
@@ -274,7 +478,10 @@ def stage_batch(packed, dtype, sharding: str = "auto",
     padded, real = _pad_batch(
         packed, _pad_target(packed.n_chips, devices is not None, n_dev))
     wire = kernel.wire_args(padded)
-    with obs_metrics.timer() as tm:
+    # The `transfer` span's h2d leg (its d2h twin wraps the drain's bulk
+    # fetch): on CUDA it times the enqueue of the copies, not the copies.
+    with tracing.span("stage", chips=real), obs_metrics.timer() as tm, \
+            tracing.span("transfer", leg="h2d", chips=real):
         if devices is not None:
             staged = StagedBatch(padded, None, real, dev, devices)
         elif dev.type == "cuda":
@@ -363,8 +570,8 @@ def fetch_results(seg, worst: int | None = None, stream=None):
     give, in fewer bytes.  A float64 result has no int coding and drains
     raw.  ``worst`` is the caller's capacity probe (the most segments a
     pixel closed) where it already paid that sync.  Records
-    ``pipeline_d2h_seconds`` and ``wire_d2h_bytes``; returns a host
-    ChipSegments."""
+    ``pipeline_d2h_seconds``, ``wire_d2h_bytes`` and the ``d2h`` span
+    with the d2h ``transfer`` leg; returns a host ChipSegments."""
     with obs_metrics.timer() as tm:
         if seg.seg_meta.dtype == torch.float32:
             if worst is None:
@@ -376,13 +583,17 @@ def fetch_results(seg, worst: int | None = None, stream=None):
             else:
                 payload = kernel.pack_egress(seg, s_eff)
             nbytes = sum(v.nbytes for v in payload.values())
-            host = ccdformat.decode_egress(_to_host(payload, stream),
-                                           seg.mask.shape[-1])
+            with tracing.span("d2h", bytes=nbytes), \
+                    tracing.span("transfer", leg="d2h", bytes=nbytes):
+                got = _to_host(payload, stream)
+            host = ccdformat.decode_egress(got, seg.mask.shape[-1])
         else:
             fields = {f.name: getattr(seg, f.name)
                       for f in dataclasses.fields(seg)}
             nbytes = sum(v.nbytes for v in fields.values() if v is not None)
-            host = kernel.ChipSegments(**_to_host(fields, stream))
+            with tracing.span("d2h", bytes=nbytes), \
+                    tracing.span("transfer", leg="d2h", bytes=nbytes):
+                host = kernel.ChipSegments(**_to_host(fields, stream))
     obs_metrics.histogram("pipeline_d2h_seconds").observe(tm.elapsed)
     obs_metrics.counter(
         "wire_d2h_bytes",
@@ -409,18 +620,29 @@ def write_batch_frames(packed, host_seg, n_real, *, writer, counters=None):
 
 def drain_batch(seg, packed, n_real, *, writer, counters, dtype=None,
                 sharding: str = "auto", compact: bool | None = None,
-                done=None):
+                done=None, ctx=None):
     """Fetch one batch's result to the host, format it and queue its
     writes (:func:`fetch_results`, :func:`write_batch_frames`), on the
     drain thread.  ``done`` is the event recorded on the compute stream
     after the batch's dispatch: on CUDA the drain runs on a stream of its
-    own that waits on it.
+    own that waits on it.  ``ctx`` is the batch's TraceContext: this runs
+    on the drain executor, so the context crosses the thread hop
+    explicitly, and the drain's spans, queued writes and log lines parent
+    to it.  A drained batch beats the watchdog (``batch_done``).
 
     Also the capacity backstop of the driver's one-shot dispatch: the
     capacity probe (``n_segments`` alone) runs before the bulk fetch, and
     where a pixel closed more segments than the buffers hold, the batch is
     recomputed through :func:`detect_batch` with the capacity check on,
     starting at twice the capacity."""
+    with tracing.activate(ctx):
+        _drain(seg, packed, n_real, writer=writer, counters=counters,
+               dtype=dtype, sharding=sharding, compact=compact, done=done)
+    obs_server.batch_done(n_real)
+
+
+def _drain(seg, packed, n_real, *, writer, counters, dtype, sharding,
+           compact, done):
     cap = seg.seg_meta.shape[-2]
     dev = seg.n_segments.device
     stream = None
@@ -430,7 +652,7 @@ def drain_batch(seg, packed, n_real, *, writer, counters, dtype=None,
             stream.wait_event(done)
         else:
             stream.wait_stream(torch.cuda.current_stream(dev))
-    with obs_metrics.timer() as tm:
+    with tracing.span("drain", chips=n_real), obs_metrics.timer() as tm:
         if stream is not None:
             with torch.cuda.stream(stream):
                 worst = int(seg.n_segments.max())
@@ -452,6 +674,9 @@ def drain_batch(seg, packed, n_real, *, writer, counters, dtype=None,
                 stream.wait_stream(torch.cuda.current_stream(dev))
             worst = None
         host = fetch_results(seg, worst=worst, stream=stream)
+        # Occupancy telemetry: the event loop's per-round lane capture
+        # feeds kernel_round_active_fraction and the compaction counters.
+        kernel.record_occupancy(host)
         write_batch_frames(packed, host, n_real, writer=writer,
                            counters=counters)
     obs_metrics.histogram("pipeline_drain_seconds").observe(tm.elapsed)
@@ -470,58 +695,70 @@ def detect_chunk(cids, *, source, writer, acquired, cfg, counters, log,
     batch i-1's results.  At most ``cfg.pipeline_depth`` batches are in
     flight.  A chip that exhausts its fetch retries is dead-lettered to
     ``quarantine`` and dropped from its batch; the others go on.  A
-    ragged last batch runs at its own size.  Returns the chip ids
-    processed."""
+    ragged last batch runs at its own size.  One TraceContext a batch,
+    carried explicitly across the thread hops (prefetch, dispatch, drain,
+    writer), parents the batch's spans, log lines and exemplars.  Returns
+    the chip ids processed."""
     log.info("finding ccd segments for %d chips", len(cids))
     dev = kernel.resolve_device(device)
     dtype = _DTYPES[cfg.dtype]
     batches = list(partition_all(cfg.chips_per_batch, cids))
     depth = max(cfg.pipeline_depth, 1)
+    run_id = jsonlog.get_run_context().get("run_id")
+    ctxs = [tracing.TraceContext(tracing.new_batch_id(run_id),
+                                 run_id=run_id) for _ in batches]
 
     with cf.ThreadPoolExecutor(
             max_workers=max(cfg.input_parallelism, 1)) as chips_ex, \
             cf.ThreadPoolExecutor(max_workers=1) as prefetch_ex, \
             cf.ThreadPoolExecutor(max_workers=1) as drain_ex:
 
-        def fetch_one(xy):
-            try:
-                with obs_metrics.timer() as tm:
-                    chip = _with_retries(
-                        cfg, log, f"chip ({xy[0]},{xy[1]}) fetch",
-                        lambda: source.chip(xy[0], xy[1], acquired),
-                        policy=policy)
-            except Exception as e:
-                log.error(
-                    "chip (%s,%s) failed after retries (%s: %s); "
-                    "quarantined — its chunk continues without it",
-                    xy[0], xy[1], type(e).__name__, e)
-                if quarantine is not None:
-                    quarantine.record(xy, e, attempts=cfg.fetch_retries + 1)
-                return None
-            obs_metrics.histogram("ingest_chip_seconds").observe(tm.elapsed)
-            return chip
+        def fetch_one(xy, ctx):
+            with tracing.activate(ctx):
+                try:
+                    with obs_metrics.timer() as tm:
+                        chip = _with_retries(
+                            cfg, log, f"chip ({xy[0]},{xy[1]}) fetch",
+                            lambda: source.chip(xy[0], xy[1], acquired),
+                            policy=policy)
+                except Exception as e:
+                    log.error(
+                        "chip (%s,%s) failed after retries (%s: %s); "
+                        "quarantined — its chunk continues without it",
+                        xy[0], xy[1], type(e).__name__, e)
+                    if quarantine is not None:
+                        quarantine.record(xy, e,
+                                          attempts=cfg.fetch_retries + 1)
+                    return None
+                obs_metrics.histogram("ingest_chip_seconds").observe(
+                    tm.elapsed)
+                return chip
 
-        def prepare_batch(bids):
+        def prepare_batch(bids, ctx):
             """fetch -> pack -> stage on the prefetch thread.  Returns
             (surviving chip ids, StagedBatch), or None when every chip of
             the batch was quarantined."""
-            with obs_metrics.timer() as tm:
-                chips = list(chips_ex.map(fetch_one, bids))
-            obs_metrics.histogram("pipeline_fetch_seconds").observe(
-                tm.elapsed)
-            keep = [(cid, ch) for cid, ch in zip(bids, chips)
-                    if ch is not None]
-            if not keep:
-                return None
-            with obs_metrics.timer() as tm:
-                packed = pack([ch for _, ch in keep], bucket=cfg.obs_bucket,
-                              max_obs=cfg.max_obs)
-            obs_metrics.histogram("pipeline_pack_seconds").observe(
-                tm.elapsed)
-            return [cid for cid, _ in keep], stage_batch(
-                packed, dtype, cfg.device_sharding, device=dev)
+            with tracing.activate(ctx):
+                with tracing.span("fetch", chips=len(bids)), \
+                        obs_metrics.timer() as tm:
+                    chips = list(chips_ex.map(
+                        lambda xy: fetch_one(xy, ctx), bids))
+                obs_metrics.histogram("pipeline_fetch_seconds").observe(
+                    tm.elapsed)
+                keep = [(cid, ch) for cid, ch in zip(bids, chips)
+                        if ch is not None]
+                if not keep:
+                    return None
+                with tracing.span("pack", chips=len(keep)), \
+                        obs_metrics.timer() as tm:
+                    packed = pack([ch for _, ch in keep],
+                                  bucket=cfg.obs_bucket, max_obs=cfg.max_obs)
+                obs_metrics.histogram("pipeline_pack_seconds").observe(
+                    tm.elapsed)
+                return [cid for cid, _ in keep], stage_batch(
+                    packed, dtype, cfg.device_sharding, device=dev)
 
-        nxt = prefetch_ex.submit(prepare_batch, batches[0]) \
+        nxt = prefetch_ex.submit(prepare_batch, batches[0], ctxs[0]) \
             if batches else None
         drains: list[cf.Future] = []
         processed: list = []
@@ -532,29 +769,38 @@ def detect_chunk(cids, *, source, writer, acquired, cfg, counters, log,
             err = getattr(writer, "peek_error", lambda: None)()
             if isinstance(err, retrylib.NonRetryable):
                 raise err
+            obs_server.set_stage("fetch")
             prep = nxt.result()
-            nxt = (prefetch_ex.submit(prepare_batch, batches[i + 1])
+            nxt = (prefetch_ex.submit(prepare_batch, batches[i + 1],
+                                      ctxs[i + 1])
                    if i + 1 < len(batches) else None)
             if prep is None:
                 continue                 # whole batch quarantined
             kept, staged = prep
-            with obs_metrics.timer() as tm:
-                seg, n_real = detect_batch(staged.packed, dtype,
-                                           cfg.device_sharding,
-                                           staged=staged,
-                                           compact=cfg.compact, device=dev)
-                done = None
-                if seg.n_segments.device.type == "cuda":
-                    done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(
-                        seg.n_segments.device))
-            obs_metrics.histogram("pipeline_dispatch_seconds").observe(
-                tm.elapsed)
+            obs_server.set_stage("dispatch")
+            obs_server.dispatch_starting()
+            with tracing.activate(ctxs[i]):
+                with tracing.span("dispatch", chips=staged.n_real), \
+                        obs_metrics.timer() as tm:
+                    seg, n_real = detect_batch(staged.packed, dtype,
+                                               cfg.device_sharding,
+                                               staged=staged,
+                                               compact=cfg.compact,
+                                               device=dev)
+                    done = None
+                    if seg.n_segments.device.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(
+                            seg.n_segments.device))
+                obs_metrics.histogram("pipeline_dispatch_seconds").observe(
+                    tm.elapsed)
+            # /readyz flips here: the first batch is dispatched.
+            obs_server.batch_dispatched()
             drains.append(drain_ex.submit(
                 drain_batch, seg, staged.packed, n_real, writer=writer,
                 counters=counters, dtype=dtype,
                 sharding=cfg.device_sharding, compact=cfg.compact,
-                done=done))
+                done=done, ctx=ctxs[i]))
             del seg, staged
             processed.extend(kept)
             while len(drains) > depth - 1:
@@ -577,6 +823,7 @@ def run_chunk(chunk, *, source, writer, acquired, cfg, counters, log,
             chunk, source=source, writer=writer, acquired=acquired,
             cfg=cfg, counters=counters, log=log, policy=policy,
             quarantine=quarantine, device=device)
+        obs_server.set_stage("flush")
         writer.flush()  # a chunk counts once its rows landed
         if quarantine is not None:
             quarantine.discard_many(processed)  # redeemed letters
@@ -598,6 +845,12 @@ def run_chunk(chunk, *, source, writer, acquired, cfg, counters, log,
         return []
 
 
+# The last run's artifact paths in this process ({"trace", "report",
+# "report_shard", "run_id"}: what finish_run wrote), for the command line's
+# summary line.
+last_run_artifacts: dict = {}
+
+
 def changedetection(x, y, acquired: str | None = None, number: int = 2500,
                     chunk_size: int = 2500, cfg: Config | None = None,
                     source=None, store=None, resume: bool = False,
@@ -610,27 +863,29 @@ def changedetection(x, y, acquired: str | None = None, number: int = 2500,
     whose segments are already stored (the segment table is written last
     per chip) and drains the quarantine first; ``run_manifest.json``
     makes it refuse a different acquired range and warn on a changed
-    config fingerprint.  ``device`` is the card (default CUDA; "cpu" runs
-    the plain versions on the CPU).  The kernels are built before the
-    first batch, and their build seconds logged.  ``counters`` (a fresh
-    one unless given) counts the run's chips, pixels and segments.
+    config fingerprint.  ``device`` is the card (default CUDA, or this
+    process's card in a multi-process run; "cpu" runs the plain versions
+    on the CPU).  The kernels are built before the first batch and before
+    the ops surface comes up, and their build seconds logged.
+    ``counters`` (a fresh one unless given) counts the run's chips, pixels
+    and segments.  In a multi-process run (``parallel.dist``) this
+    process takes its share of the chips (:func:`host_shard`).
 
     Returns the tuple of chip ids processed successfully (the skipped ones
     first)."""
     cfg = cfg or Config.from_env()
     refuse_not_ported(cfg)
-    dev = kernel.resolve_device(device)
+    refuse_cross_process_ring()
+    dev = run_device(device)
     acquired = acquired or dt.default_acquired()
     cfg = resolve_batching(cfg, acquired, dev)
     log = logger("change-detection")
     counters = Counters() if counters is None else counters
-    run_id = uuid.uuid4().hex[:12]
+    # One id for the whole launch, in the log lines from here on.
+    run_id = fleet_run_id()
+    jsonlog.set_run_context(run_id=run_id)
     obs_metrics.reset_registry()
-    if dev.type == "cuda" and cfg.dtype == "float32":
-        with obs_metrics.timer() as tm:
-            cuda_ops.build()
-        log.info("CUDA kernels built in %.1f s", tm.elapsed)
-        obs_metrics.histogram("kernel_build_seconds").observe(tm.elapsed)
+    build_kernels(dev, cfg, log)
 
     if resume:
         qlib.check_resume(cfg, acquired=acquired, log=log)
@@ -639,7 +894,7 @@ def changedetection(x, y, acquired: str | None = None, number: int = 2500,
         cfg, run_id, source=source, store=store)
 
     tile = grid.tile(x=x, y=y)
-    cids = list(take(number, grid.chips(tile)))
+    cids = host_shard(list(take(number, grid.chips(tile))))
     skipped: tuple = ()
     if resume:
         have = store.chip_ids("segment")
@@ -659,6 +914,19 @@ def changedetection(x, y, acquired: str | None = None, number: int = 2500,
     log.info("tile h=%s v=%s: %d chips in %d chunks (acquired %s) on %s",
              tile["h"], tile["v"], len(cids), len(chunks), acquired, dev)
 
+    run_block = dict(kind="changedetection", run_id=run_id,
+                     host=jsonlog.HOST, process_id=_process_index(),
+                     tile_h=tile["h"], tile_v=tile["v"], acquired=acquired,
+                     chips=len(cids), chunks=len(chunks),
+                     resumed=len(skipped), device=str(dev))
+    _, ops_srv, watchdog = start_ops(
+        cfg, run_id, "changedetection", chips_total=len(cids),
+        counters=counters, run_block=run_block, quarantine=quarantine,
+        breaker=breaker)
+    tracer = tracing.start(run_id=run_id) \
+        if tracing.wants_trace(cfg.trace) else None
+    # The whole-run device capture (FIREBIRD_PROFILE_DIR).
+    capture = obs_profiling.RunCapture(cfg.profile_dir).start()
     done: list = []
     counters.start()
     try:
@@ -668,13 +936,29 @@ def changedetection(x, y, acquired: str | None = None, number: int = 2500,
                 cfg=cfg, counters=counters, log=log, policy=policy,
                 quarantine=quarantine, device=dev))
     finally:
+        capture.stop()
+        obs_server.set_stage("finalize")
         writer.close()
-        log.info("change-detection complete: %s", counters.snapshot())
+        snap = counters.snapshot()
+        log.info("change-detection complete: %s", snap)
         if len(quarantine):
+            run_block["chips_quarantined"] = len(quarantine)
             log.warning(
                 "%d chips in quarantine (%s) — rerun with resume to drain "
                 "them once the cause clears", len(quarantine),
                 quarantine.path or "in-memory: memory store backend")
+        if tracer is not None:
+            tracing.stop()
+        paths = obs_report.finish_run(
+            cfg, tracer=tracer, run_counters=snap, run=run_block)
+        if paths:
+            log.info("observability artifacts: %s", paths)
+        last_run_artifacts.clear()
+        last_run_artifacts.update(paths, run_id=run_id)
+        # The server goes down last, so /progress and /report serve the
+        # final state for as long as the process allows.
+        obs_server.set_stage("done")
+        stop_ops(ops_srv, watchdog)
     return tuple(skipped) + tuple(done)
 
 
@@ -721,4 +1005,6 @@ __all__ = ["make_source", "make_aux_source", "robustness_setup", "estimate_obs",
            "stage_batch", "detect_batch", "fetch_results",
            "write_batch_frames", "drain_batch", "detect_chunk", "run_chunk",
            "changedetection", "classification", "refuse_not_ported",
-           "stage_seconds"]
+           "stage_seconds", "fleet_run_id", "host_shard", "start_ops",
+           "stop_ops", "record_topology_metrics", "run_device",
+           "build_kernels", "last_run_artifacts"]

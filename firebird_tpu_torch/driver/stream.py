@@ -31,16 +31,21 @@ A checkpoint holds the StreamState arrays, the tail segments' identity
 (sday, curqa), the design anchor and the horizon (the last ingested
 ordinal day).  Entry points run on CUDA unless the caller passes
 ``device="cpu"``; knobs whose subsystems are not ported
-(``config.NOT_PORTED``: the tracer, the ops server and watchdog, the run
-report, the compile cache, ...) make :func:`stream` refuse the run.  One
-process takes every chip of the tile.
+(``config.NOT_PORTED``: the fault plan, the object store, the SLO
+budgets, the compile cache) make :func:`stream` refuse the run.  In a
+multi-process run each process takes its strided share of the tile's
+chips (``driver.core.host_shard``) on its own card, with one run id.  The
+run carries the batch driver's ops surface (``driver.core.start_ops``):
+spans (``fetch``, ``pack``, ``dispatch``, ``drain``, ``step``,
+``alert``, ``publish``), the progress hooks, the watchdog, the flight
+recorder, the profiler and the run report.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
 import time
-import uuid
 
 import numpy as np
 import torch
@@ -48,14 +53,18 @@ import torch
 from firebird_tpu_torch import grid
 from firebird_tpu_torch.alerts import log as alerts_log
 from firebird_tpu_torch.alerts import repair as alerts_repair
-from firebird_tpu_torch.ccd import cuda_ops, harmonic, incremental, kernel, params
+from firebird_tpu_torch.ccd import harmonic, incremental, kernel, params
 from firebird_tpu_torch.ccd import format as ccdformat
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD
 from firebird_tpu_torch.config import Config
 from firebird_tpu_torch.driver import core as dcore
 from firebird_tpu_torch.ingest import pack
-from firebird_tpu_torch.obs import Counters, logger
+from firebird_tpu_torch.obs import Counters, jsonlog, logger
 from firebird_tpu_torch.obs import metrics as obs_metrics
+from firebird_tpu_torch.obs import profiling as obs_profiling
+from firebird_tpu_torch.obs import report as obs_report
+from firebird_tpu_torch.obs import server as obs_server
+from firebird_tpu_torch.obs import tracing
 from firebird_tpu_torch.streamops import statestore as sstore_mod
 from firebird_tpu_torch.utils import dates as dt
 from firebird_tpu_torch.utils.fn import partition_all, take
@@ -269,18 +278,17 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
     quarantined."""
     cfg = cfg or Config.from_env()
     dcore.refuse_not_ported(cfg)
-    dev = kernel.resolve_device(device)
+    dcore.refuse_cross_process_ring()
+    dev = dcore.run_device(device)
     acquired = acquired or dt.default_acquired()
     cfg = dcore.resolve_batching(cfg, acquired, dev)
     log = logger("stream")
-    run_id = uuid.uuid4().hex[:12]
+    run_id = dcore.fleet_run_id()            # one id for the whole launch
+    jsonlog.set_run_context(run_id=run_id)   # setup log lines carry it too
     if reset_metrics:
         obs_metrics.reset_registry()
-    if dev.type == "cuda":
-        with obs_metrics.timer() as tm:
-            cuda_ops.build()
-        log.info("CUDA kernels built in %.1f s", tm.elapsed)
-        obs_metrics.histogram("kernel_build_seconds").observe(tm.elapsed)
+    # The bootstrap runs float32 whatever cfg.dtype says.
+    dcore.build_kernels(dev, dataclasses.replace(cfg, dtype="float32"), log)
     source, store, writer, policy, _breaker, quarantine = \
         dcore.robustness_setup(cfg, run_id, source=source, store=store)
     sstore = sstore_mod.open_statestore(cfg)
@@ -300,8 +308,9 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
 
     tile = grid.tile(x=x, y=y)
     if cids is None:
-        cids = list(take(number, grid.chips(tile)))
+        cids = dcore.host_shard(list(take(number, grid.chips(tile))))
     else:
+        # A pass scoped to given chips takes them all: no sharding.
         cids = [tuple(int(v) for v in c) for c in cids]
     log.info("streaming tile h=%s v=%s: %d chips (acquired %s, state "
              "%s:%s, alerts %s) on %s", tile["h"], tile["v"], len(cids),
@@ -353,50 +362,79 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
     hi_iso = acquired.split("/")[1]
     boot = [c for c in cids if not sstore.exists(c)]
     upd = [c for c in cids if sstore.exists(c)]
+    run_block = dict(kind="stream", run_id=run_id, host=jsonlog.HOST,
+                     process_id=dcore._process_index(), tile_h=tile["h"],
+                     tile_v=tile["v"], acquired=acquired, chips=len(cids),
+                     device=str(dev))
+    # The stream's progress unit is a chip (bootstrapped or updated):
+    # /progress tracks chips over the tile, and every bootstrap batch and
+    # updated chip beats the watchdog.
+    _, ops_srv, wd = dcore.start_ops(
+        cfg, run_id, "stream", chips_total=len(cids), counters=counters,
+        run_block=run_block, quarantine=quarantine, breaker=_breaker,
+        alerts=(None if alog is None else lambda: dict(
+            alog.status(),
+            run={k: summary[k] for k in ("alerts_emitted",
+                                         "alerts_deduped",
+                                         "pixels_need_batch",
+                                         "repair_jobs_enqueued")})),
+        streamops=sstore.status)
+    tracer = tracing.start(run_id=run_id) \
+        if tracing.wants_trace(cfg.trace) else None
+    # The whole-run device capture (FIREBIRD_PROFILE_DIR), closed in the
+    # finally before the report is written.
+    capture = obs_profiling.RunCapture(cfg.profile_dir).start()
     counters.start()
     try:
         # --- bootstrap: batched through the batch driver's stages ---
         batches = list(partition_all(max(cfg.chips_per_batch, 1), boot))
+        obs_server.set_stage("bootstrap")
+        # One TraceContext a bootstrap batch, carried across the prefetch
+        # hop (the batch driver's contract); a pass run under a caller's
+        # context inherits it instead of minting.
+        inherit = tracing.current_context()
+        ctxs = [inherit
+                or tracing.TraceContext(tracing.new_batch_id(run_id),
+                                        run_id=run_id) for _ in batches]
         with cf.ThreadPoolExecutor(
                 max_workers=max(cfg.input_parallelism, 1)) as ex, \
                 cf.ThreadPoolExecutor(max_workers=1) as prefetch_ex:
 
-            def prepare(bids):
+            def prepare(bids, ctx):
                 """fetch -> pack -> stage on the prefetch thread; None when
                 every chip of the batch was dropped."""
-                with obs_metrics.timer() as tm:
-                    fetched = list(ex.map(
-                        lambda c: fetch_chip(c, acquired), bids))
-                hist("pipeline_fetch_seconds").observe(tm.elapsed)
-                keep = [(cid, ch) for cid, ch in zip(bids, fetched)
-                        if ch is not None]
-                if not keep:
-                    return None
-                with obs_metrics.timer() as tm:
-                    p = pack([ch for _, ch in keep], bucket=cfg.obs_bucket,
-                             max_obs=cfg.max_obs)
-                hist("pipeline_pack_seconds").observe(tm.elapsed)
-                return keep, dcore.stage_batch(
-                    p, torch.float32, cfg.device_sharding, device=dev)
+                with tracing.activate(ctx):
+                    with tracing.span("fetch", chips=len(bids)), \
+                            obs_metrics.timer() as tm:
+                        fetched = list(ex.map(
+                            lambda c: fetch_chip(c, acquired), bids))
+                    hist("pipeline_fetch_seconds").observe(tm.elapsed)
+                    keep = [(cid, ch) for cid, ch in zip(bids, fetched)
+                            if ch is not None]
+                    if not keep:
+                        return None
+                    with tracing.span("pack", chips=len(keep)), \
+                            obs_metrics.timer() as tm:
+                        p = pack([ch for _, ch in keep],
+                                 bucket=cfg.obs_bucket, max_obs=cfg.max_obs)
+                    hist("pipeline_pack_seconds").observe(tm.elapsed)
+                    return keep, dcore.stage_batch(
+                        p, torch.float32, cfg.device_sharding, device=dev)
 
-            nxt = prefetch_ex.submit(prepare, batches[0]) \
-                if batches else None
-            for i in range(len(batches)):
-                prep = nxt.result()
-                nxt = (prefetch_ex.submit(prepare, batches[i + 1])
-                       if i + 1 < len(batches) else None)
-                if prep is None:
-                    continue
-                keep, staged = prep
-                with obs_metrics.timer() as tm:
-                    # the capacity check on (a synchronous retry), as the
-                    # JAX package's bootstrap
+            def bootstrap_batch(keep, staged):
+                """dispatch (the capacity check on: a synchronous retry, as
+                the JAX package's bootstrap) -> drain -> frames and
+                checkpoints, on this thread."""
+                with tracing.span("dispatch", chips=staged.n_real), \
+                        obs_metrics.timer() as tm:
                     seg, n_real = dcore.detect_batch(
                         staged.packed, torch.float32, cfg.device_sharding,
                         check_capacity=True, staged=staged,
                         compact=cfg.compact, device=dev)
                 hist("pipeline_dispatch_seconds").observe(tm.elapsed)
-                with obs_metrics.timer() as tm:
+                obs_server.batch_dispatched()
+                with tracing.span("drain", chips=n_real), \
+                        obs_metrics.timer() as tm:
                     host = drain_to_host(seg)
                     kernel.record_occupancy(host)
                     dcore.write_batch_frames(staged.packed, host, n_real,
@@ -413,7 +451,23 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                         summary["pixels_need_batch"] += int(
                             st.needs_batch.sum())
                 hist("pipeline_drain_seconds").observe(tm.elapsed)
-                del seg, staged
+                return n_real
+
+            nxt = prefetch_ex.submit(prepare, batches[0], ctxs[0]) \
+                if batches else None
+            for i in range(len(batches)):
+                prep = nxt.result()
+                nxt = (prefetch_ex.submit(prepare, batches[i + 1],
+                                          ctxs[i + 1])
+                       if i + 1 < len(batches) else None)
+                if prep is None:
+                    continue
+                keep, staged = prep
+                obs_server.dispatch_starting()
+                with tracing.activate(ctxs[i]):
+                    n_real = bootstrap_batch(keep, staged)
+                obs_server.batch_done(n_real)
+                del staged
 
         # --- update: apply only acquisitions past each chip's horizon ---
         def update_one(cid) -> None:
@@ -437,7 +491,8 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
             p = None
             # fetch only the delta past the horizon
             if horizon < dt.to_ordinal(hi_iso):
-                with obs_metrics.timer() as tm:
+                with tracing.span("fetch", chip=tuple(cid), delta=True), \
+                        obs_metrics.timer() as tm:
                     rng_iso = f"{dt.to_iso(int(horizon) + 1)}/{hi_iso}"
                     chip = fetch_chip(cid, rng_iso)
                     # pack() warns when the archive exceeds max_obs (the
@@ -457,7 +512,9 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                 # Pre-update break snapshot: the 0 -> > 0 transition
                 # against it is what emits alerts.
                 bday0 = st.break_day.numpy().astype(np.float64)
-                with obs_metrics.timer() as tm:
+                with tracing.span("step", chip=tuple(cid),
+                                  obs=int(new_idx.size)), \
+                        obs_metrics.timer() as tm:
                     y, qa, rows, days = _delta_on_device(
                         p, new_idx, anchor, st.rmse.dtype, dev)
                     st_dev = st.to(dev)
@@ -487,7 +544,12 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                         recs = _new_break_records(p, st, bday0, anchor)
                         ins = dup = 0
                         if recs:
-                            ins, dup = alog.append(recs, run_id=run_id)
+                            trace_id = tracing.to_wire(
+                                tracing.current_context())
+                            with tracing.span("alert", chip=tuple(cid),
+                                              alerts=len(recs)):
+                                ins, dup = alog.append(recs, run_id=run_id,
+                                                       trace=trace_id)
                     hist("stream_alert_seconds").observe(tm.elapsed)
                     if recs:
                         hist("alert_visible_seconds",
@@ -502,7 +564,8 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                                 max(time.time() - published, 0.0))
                         summary["alerts_emitted"] += ins
                         summary["alerts_deduped"] += dup
-                with obs_metrics.timer() as tm:
+                with tracing.span("publish", chip=tuple(cid)), \
+                        obs_metrics.timer() as tm:
                     writer.write("segment", publish_frame(p, st, side),
                                  key=tuple(cid))
                     save(cid, st, side)
@@ -517,8 +580,16 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
             if tuple(int(v) for v in cid) not in failed_cids:
                 quarantine.discard(cid)
 
+        obs_server.set_stage("update")
         for cid in upd:
-            update_one(cid)
+            # One TraceContext a chip (the batch driver's per-batch
+            # contract at chip granularity), unless the caller's wins.
+            with tracing.activate(inherit or tracing.TraceContext(
+                    tracing.new_batch_id(run_id), run_id=run_id)):
+                update_one(cid)
+            # Per-chip progress beat: the watchdog's liveness unit here is
+            # a processed chip.
+            obs_server.batch_done(1)
         # Cold-path repair scheduling: the flagged pixels become
         # idempotent fleet jobs, at most one open job a chip.  A
         # scheduling failure degrades to the count-only summary.
@@ -537,12 +608,15 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                 log.error("repair scheduling failed (%s: %s) — "
                           "needs_batch debt stays count-only",
                           type(e).__name__, e)
+        obs_server.set_stage("flush")
         writer.flush()
     finally:
+        obs_server.set_stage("finalize")
         writer.close()
         sstore.close()
         if alog is not None:
             alog.close()
+        capture.stop()
         summary["quarantined"] = len(quarantine)
         if summary["quarantined"]:
             log.warning("%d chips in quarantine (%s) — the next stream "
@@ -550,6 +624,17 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                         quarantine.path or "in-memory")
         for k, v in summary.items():
             obs_metrics.gauge(f"stream_{k}").set(v)
+        if tracer is not None:
+            tracing.stop()
+        paths = obs_report.finish_run(
+            cfg, tracer=tracer, run_counters=counters.snapshot(),
+            run=dict(run_block, **summary))
+        if paths:
+            log.info("observability artifacts: %s", paths)
+        dcore.last_run_artifacts.clear()
+        dcore.last_run_artifacts.update(paths, run_id=run_id)
+        obs_server.set_stage("done")
+        dcore.stop_ops(ops_srv, wd)
     log.info("stream complete: %s", summary)
     return summary
 

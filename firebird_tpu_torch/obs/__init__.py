@@ -1,11 +1,19 @@
-"""Observability: logging and run metrics.
+"""Observability: logging, span tracing, metrics, run reports and the ops
+surface.
 
-The port's own copy of what its batch driver calls from the JAX package's
-``obs`` package: :func:`logger` (plain Python logging under the
-``firebird.<category>`` names, an ISO8601 stderr line, FIREBIRD_LOG_LEVEL
-and FIREBIRD_LOG_LEVELS) and :mod:`firebird_tpu_torch.obs.metrics`.  The
-span tracer's trace files, JSON log lines, the run report, the ops server,
-the watchdog, the flight recorder and the profiler are not ported yet.
+The port's own copy of the JAX package's ``obs`` package: :func:`logger`
+(plain Python logging under the ``firebird.<category>`` names, an ISO8601
+stderr line or, with FIREBIRD_LOG_FORMAT=json, one JSON object a line
+carrying the run context — :mod:`.jsonlog`; FIREBIRD_LOG_LEVEL and
+FIREBIRD_LOG_LEVELS), :mod:`.metrics`, the span tracer (:mod:`.tracing`,
+FIREBIRD_TRACE), the per-run report (:mod:`.report`,
+FIREBIRD_OBS_REPORT), the device profiler (:mod:`.profiling`,
+FIREBIRD_PROFILE / FIREBIRD_PROFILE_DIR, on ``torch.profiler``), the ops
+endpoint (:mod:`.server`, FIREBIRD_OPS_PORT), the stall watchdog
+(:mod:`.watchdog`, FIREBIRD_STALL_SEC), the crash flight recorder
+(:mod:`.flightrec`, FIREBIRD_FLIGHTREC) and the live SLO evaluation
+(:mod:`.slo`, FIREBIRD_SLO).  The JAX package's telemetry spool, series
+store and collector are not ported.
 """
 
 from __future__ import annotations
@@ -15,11 +23,16 @@ import sys
 import threading
 
 from firebird_tpu_torch.config import env_knob
-
+from firebird_tpu_torch.obs import jsonlog
 from firebird_tpu_torch.obs.metrics import (Counters, Gauge, Histogram,
                                             MetricsRegistry, counter, gauge,
                                             get_registry, histogram,
                                             metrics_enabled, timer)
+from firebird_tpu_torch.obs.report import (build_report,
+                                           validate_driver_artifacts,
+                                           validate_report, validate_trace,
+                                           write_report)
+from firebird_tpu_torch.obs.tracing import Tracer, span
 
 # Per-subsystem categories (the JAX package's, after the reference's log4j
 # categories).
@@ -37,8 +50,9 @@ _lock = threading.Lock()
 
 
 def configure(level: int | None = None) -> None:
-    """Install the ISO8601 stderr handler once (idempotent):
-    FIREBIRD_LOG_LEVEL sets the level of the ``firebird`` logger, and
+    """Install the stderr handler once (idempotent): the ISO8601 line, or
+    JSON lines with FIREBIRD_LOG_FORMAT=json; FIREBIRD_LOG_LEVEL sets the
+    level of the ``firebird`` logger, and
     FIREBIRD_LOG_LEVELS="pyccd=DEBUG,timeseries=WARNING" overrides single
     categories."""
     global _configured
@@ -48,9 +62,15 @@ def configure(level: int | None = None) -> None:
         root = logging.getLogger("firebird")
         if not root.handlers:
             root.addHandler(logging.StreamHandler(sys.stderr))
-        fmt = logging.Formatter(
-            fmt="%(asctime)s %(levelname)s %(name)s: %(message)s",
-            datefmt="%Y-%m-%dT%H:%M:%S")
+        # The format choice is applied on every configure pass (tests
+        # reset _configured), so flipping FIREBIRD_LOG_FORMAT between runs
+        # takes effect on the existing handler.
+        if jsonlog.wants_json():
+            fmt: logging.Formatter = jsonlog.JsonFormatter()
+        else:
+            fmt = logging.Formatter(
+                fmt="%(asctime)s %(levelname)s %(name)s: %(message)s",
+                datefmt="%Y-%m-%dT%H:%M:%S")
         for handler in root.handlers:
             handler.setFormatter(fmt)
         if level is None:
@@ -86,7 +106,10 @@ def logger(name: str) -> logging.Logger:
 
 
 __all__ = [
-    "CATEGORIES", "configure", "logger",
+    "CATEGORIES", "configure", "logger", "jsonlog",
     "Counters", "Gauge", "Histogram", "MetricsRegistry", "timer",
     "counter", "gauge", "histogram", "get_registry", "metrics_enabled",
+    "Tracer", "span",
+    "build_report", "write_report", "validate_report", "validate_trace",
+    "validate_driver_artifacts",
 ]

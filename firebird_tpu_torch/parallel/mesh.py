@@ -10,6 +10,20 @@ shards' phases in turn: each shard's stage-1 loop, then (with the ring on)
 the exchange at the stage-2 boundary, each shard's tail, the exchange
 back, and each shard's result.
 
+Across processes (one process per card, ``parallel.dist``).  In the JAX
+package a mesh may span processes (``spans_processes``), and then two
+things need agreement across them: the window cap
+(``_wcap_global_max``) and the capacity retry (``read_worst``).  Both
+exist because every process must trace the same XLA program and build one
+global array.  This package compiles nothing per shape, and its results
+stay in the process that computed them, so its device lists are always
+process-local: a "global mesh" is each process's own local dispatch over
+its own chips (``driver.core.host_shard``) with no exchange — CCDC needs
+no collective.  The one cross-process step the JAX package has on this
+path, the ring's hop between processes, needs a tensor exchange between
+cards and is not ported: :func:`rebalance_spec` refuses the ring in a
+multi-process run.
+
 The ring (``mesh.py``'s block comment): compaction leaves each shard with
 its own residue of working lanes, so without migration every shard waits
 for the slowest one's tail.  At the bucketed-tail boundary the survivors
@@ -93,9 +107,24 @@ class RebalanceSpec:
         return self._move(trees, -1)
 
 
+def refuse_cross_process_ring(rebalance=None) -> None:
+    """Raise NotImplementedError when the ring is on (``rebalance``; None
+    reads FIREBIRD_REBALANCE) in a multi-process run: its hop between
+    processes is not ported."""
+    from firebird_tpu_torch.parallel import dist
+
+    if dist.process_count() > 1 and kernel.rebalance_mode(rebalance):
+        raise NotImplementedError(
+            "FIREBIRD_REBALANCE in a multi-process run: the rebalancing "
+            "ring's hop between processes (a tensor exchange between cards) "
+            "is not ported to firebird_tpu_torch")
+
+
 def rebalance_spec(devices, rebalance=None) -> RebalanceSpec | None:
     """The dispatch's ring, or None when it is off (``rebalance``; None
-    reads FIREBIRD_REBALANCE, default off) or there is one shard."""
+    reads FIREBIRD_REBALANCE, default off) or there is one shard.  Raises
+    NotImplementedError for the ring in a multi-process run."""
+    refuse_cross_process_ring(rebalance)
     if not kernel.rebalance_mode(rebalance) or len(devices) < 2:
         return None
     return RebalanceSpec(n=len(devices),
@@ -175,12 +204,17 @@ def rebalance_tail_back(stcats, donated, spec: RebalanceSpec, C: int):
 
 def shard_devices(devices=None) -> list:
     """The shards' devices: ``devices`` as given (repeats allowed), or
-    every visible CUDA device once.  Raises without a CUDA device unless
-    the caller names the CPU."""
+    every visible CUDA device once — in a multi-process run, this
+    process's own card only (``parallel.dist.local_device``).  Raises
+    without a CUDA device unless the caller names the CPU."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available; pass devices="
                                "['cpu', ...] to shard on the CPU")
+        from firebird_tpu_torch.parallel import dist
+
+        if dist.process_count() > 1:
+            return [dist.local_device()]
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     out = []
@@ -267,7 +301,11 @@ def detect_sharded(packed, devices=None, *, compact=None, fused=None,
               variogram_mode=variogram_mode, ops=route,
               fused=kernel.fused_mode(fused),
               compact=kernel.compact_mode(compact))
-    dispatch = lambda S: _dispatch(staged, devs, spec, max_segments=S, **kw)
+    dispatch = lambda S: kernel.record_first_call(
+        ("sharded", tuple(packed.spectra.shape), tuple(map(str, devs)),
+         str(route.dtype), kw["W"], kw["sensor"].name, S, kw["compact"],
+         kw["fused"], route.mixed, spec is not None),
+        lambda: _dispatch(staged, devs, spec, max_segments=S, **kw))
     if not check_capacity:
         return dispatch(max(max_segments, 1))
     return kernel.capacity_retry(dispatch,

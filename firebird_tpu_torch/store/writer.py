@@ -1,8 +1,10 @@
 """Async host-side writer: egress overlaps device compute.
 
-The port's own copy of the JAX package's ``store/writer.py`` (without its
-trace contexts: this package has no span tracer yet).  A bounded queue +
-worker pool drains table frames while the card computes the next batch.  ``flush()`` blocks until everything queued has landed and raises
+The port's own copy of the JAX package's ``store/writer.py``.  A bounded
+queue + worker pool drains table frames while the card computes the next
+batch; each frame carries the submitting thread's trace context
+(obs/tracing.py) into the worker that writes it.  ``flush()`` blocks until
+everything queued has landed and raises
 any pending write error (once — the error is cleared so the driver's
 per-chunk isolation can continue with later chunks, ccdc/core.py:115-124
 semantics).  ``close()`` never raises: a terminal error is logged and the
@@ -23,6 +25,7 @@ import threading
 
 from firebird_tpu_torch.obs import logger
 from firebird_tpu_torch.obs import metrics as obs_metrics
+from firebird_tpu_torch.obs import tracing
 
 log = logger("change-detection")
 
@@ -66,20 +69,27 @@ class AsyncWriter:
             if item is None:
                 q.task_done()
                 return
-            table, frame = item
+            table, frame, ctx = item
             try:
                 with self._lock:
                     poisoned = self._error is not None
                 if not poisoned:
-                    with obs_metrics.timer() as tm:
-                        if self.retry is not None:
-                            self.retry.run(
-                                log, f"store write to {table}",
-                                lambda: self.store.write(table, frame))
-                        else:
-                            self.store.write(table, frame)
-                    obs_metrics.histogram(
-                        "store_write_seconds").observe(tm.elapsed)
+                    # The enqueueing thread's TraceContext rides the
+                    # queue item: this write's span, exemplar and any log
+                    # line parent to the batch that produced the frame.
+                    # The observe stays inside the activation so the
+                    # histogram exemplar sees the batch id.
+                    with tracing.activate(ctx):
+                        with tracing.span("store_write", table=table), \
+                                obs_metrics.timer() as tm:
+                            if self.retry is not None:
+                                self.retry.run(
+                                    log, f"store write to {table}",
+                                    lambda: self.store.write(table, frame))
+                            else:
+                                self.store.write(table, frame)
+                        obs_metrics.histogram(
+                            "store_write_seconds").observe(tm.elapsed)
                     obs_metrics.counter(
                         "store_rows_written",
                         help="rows landed in the results store").inc(
@@ -127,18 +137,20 @@ class AsyncWriter:
                 sum(q.qsize() for q in self._qs))
 
     def write(self, table: str, frame: dict, key=None) -> None:
-        """Queue a frame.  Frames sharing ``key`` keep submission order."""
+        """Queue a frame.  Frames sharing ``key`` keep submission order.
+        The caller's TraceContext (if any) is captured with the frame and
+        re-activated around the backend write on the worker thread."""
         err = self._pop_error()
         if err is not None:
             raise err
         self._check_alive()
         i = (hash(key) if key is not None else next(self._rr)) % len(self._qs)
-        self._qs[i].put((table, frame))
+        self._qs[i].put((table, frame, tracing.current_context()))
         self._update_depth()
 
     def flush(self) -> None:
         self._check_alive()
-        with obs_metrics.timer() as tm:
+        with tracing.span("store_flush"), obs_metrics.timer() as tm:
             for q in self._qs:
                 q.join()
         obs_metrics.histogram("store_flush_seconds").observe(tm.elapsed)

@@ -96,14 +96,80 @@ def test_config_knob_registry_and_keyspace_equal_jax():
 
 @pytest.mark.parametrize("override", [
     dict(faults="ingest:p=0.1"), dict(object_root="/tmp/obj"),
-    dict(ops_port=9000), dict(compile_cache="/tmp/cc"), dict(profile=2.0),
-    dict(trace="1"), dict(store_backend="cassandra"), dict(slo="x=1")])
+    dict(compile_cache="/tmp/cc"), dict(store_backend="cassandra")])
 def test_driver_refuses_unported_knobs(override):
     cfg = tconfig.Config(**override)
     with pytest.raises(ValueError, match="not ported"):
         tcore.refuse_not_ported(cfg)
     with pytest.raises(ValueError, match="not ported"):
         tcore.changedetection(0, 0, cfg=cfg, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ops_knob_run(tmp_path_factory):
+    """One CPU changedetection run (two chips of the tiny sensor) with the
+    ops knobs that used to be refused set; what each knob does is read
+    back from the run's artifacts and from what the run bound."""
+    import torch
+    from conftest import free_port
+    from firebird_tpu_torch.obs import server as obs_server
+
+    tmp = tmp_path_factory.mktemp("ops_knobs")
+    port = free_port()
+    cfg = tconfig.Config(
+        store_backend="sqlite", store_path=str(tmp / "fb.db"),
+        source_backend="synthetic", synth_sensor="landsat-ard-tiny",
+        chips_per_batch=1, ops_port=port, ops_host="127.0.0.1",
+        profile=0.05, trace="1", slo="batch_p95=30")
+    served = []
+    start = obs_server.start_ops_server
+
+    def start_and_probe(p, status=None, host=None):
+        srv = start(p, status, host=host)
+        served.append((srv.port, _http_status(srv.port, "/healthz")))
+        return srv
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(obs_server, "start_ops_server", start_and_probe)
+        tcore.changedetection(100, 200, acquired="1995-01-01/1996-06-01",
+                              number=2, chunk_size=2, cfg=cfg, device="cpu")
+    torch.set_num_threads(n)
+    return tmp, port, served, json.load(open(tmp / "obs_report.json"))
+
+
+def _http_status(port, path):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=5) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+@pytest.mark.parametrize("knob", ["ops_port", "profile", "trace", "slo"])
+def test_driver_honours_ported_ops_knobs(ops_knob_run, knob):
+    tmp, port, served, rep = ops_knob_run
+    assert knob not in tconfig.NOT_PORTED
+    if knob == "ops_port":
+        assert served == [(port, 200)]
+    elif knob == "profile":
+        [w] = rep["profile"]["windows"]
+        assert w["seconds"] == 0.05 and "error" not in w
+        assert Path(w["trace_file"]).exists()
+        assert w["dir"] == str(tmp / "device_profile" / "window_00")
+    elif knob == "trace":
+        trace = json.load(open(tmp / "trace.json"))
+        assert trace["otherData"]["run_id"] == rep["run"]["run_id"]
+        assert {"fetch", "dispatch", "drain"} <= {
+            e["name"] for e in trace["traceEvents"]}
+    else:
+        assert rep["slo"]["spec"] == "batch_p95=30"
+        assert rep["slo"]["objectives"][0]["value_sec"] is not None
 
 
 def test_driver_takes_the_default_config():

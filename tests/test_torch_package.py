@@ -108,7 +108,11 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 # the same relative paths.
 PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
                   "utils/fn.py", "utils/dates.py", "obs/__init__.py",
-                  "obs/metrics.py", "store/__init__.py", "store/schema.py",
+                  "obs/metrics.py", "obs/tracing.py", "obs/jsonlog.py",
+                  "obs/profiling.py", "obs/report.py", "obs/watchdog.py",
+                  "obs/flightrec.py", "obs/httpd.py", "obs/server.py",
+                  "obs/slo.py", "parallel/__init__.py", "parallel/dist.py",
+                  "parallel/mesh.py", "store/__init__.py", "store/schema.py",
                   "store/backends.py", "store/writer.py",
                   "driver/__init__.py", "driver/core.py",
                   "driver/quarantine.py", "ingest/sources.py",
@@ -322,11 +326,8 @@ def test_cli_stream_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("trace", "1"), ("ops_port", 8080), ("stall_sec", 5.0),
-    ("obs_report", "/x/report.json"), ("compile_cache", "/x"),
-    ("object_root", "/x"), ("faults", "ingest:chip=1:2"),
-    ("profile", 1.0), ("profile_dir", "/x"), ("flightrec", 0),
-    ("slo", "x<1@99/5m"), ("slo_budget", "x")])
+    ("compile_cache", "/x"), ("object_root", "/x"),
+    ("faults", "ingest:chip=1:2"), ("slo_budget", "x")])
 def test_stream_refuses_each_not_ported_knob(field, value):
     from firebird_tpu_torch.config import NOT_PORTED, Config
     from firebird_tpu_torch.driver import stream
@@ -339,3 +340,101 @@ def test_stream_refuses_each_not_ported_knob(field, value):
         stream.stream(x=100, y=200, number=1, cfg=cfg, store=MemoryStore("x"),
                       device="cpu")
 
+
+
+@pytest.fixture(scope="module")
+def stream_ops_run(tmp_path_factory):
+    """A CPU stream run (one StepSource chip bootstrapped) with the ops
+    knobs that used to be refused set, then a second pass with nothing new
+    under FIREBIRD_PROFILE_DIR (its capture and a profile window cannot
+    run at once: one torch profiler a process).  Returns what each knob
+    left behind."""
+    import json
+
+    from conftest import free_port
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.driver import stream
+    from firebird_tpu_torch.obs import flightrec
+    from firebird_tpu_torch.obs import server as obs_server
+    from test_torch_stream import BOOT, StepSource
+
+    root = tmp_path_factory.mktemp("stream_ops")
+    base = dict(store_backend="sqlite", store_path=str(root / "s.db"),
+                stream_dir=str(root / "state"), alert_db=str(root / "a.db"),
+                fleet_db=str(root / "fleet.db"), source_backend="synthetic")
+    port = free_port()
+    cfg = Config(**base, trace="1", ops_port=port, ops_host="127.0.0.1",
+                 stall_sec=600.0, obs_report=str(root / "r" / "report.json"),
+                 profile=0.05, flightrec=0, slo="batch_p95=30;freshness=600")
+    seen = dict(served=[], armed=0)
+    start, arm = obs_server.start_ops_server, flightrec.arm
+
+    def start_and_probe(p, status=None, host=None):
+        import urllib.request
+
+        srv = start(p, status, host=host)
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/healthz", timeout=5) as r:
+            seen["served"].append((srv.port, r.status))
+        return srv
+
+    def counting_arm(*a, **kw):
+        seen["armed"] += 1
+        return arm(*a, **kw)
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(obs_server, "start_ops_server", start_and_probe)
+        mp.setattr(flightrec, "arm", counting_arm)
+        s1 = stream.stream(100, 200, acquired=BOOT, number=1, cfg=cfg,
+                           source=StepSource(), device="cpu")
+        s2 = stream.stream(100, 200, acquired=BOOT, number=1,
+                           cfg=Config(**base, profile_dir=str(root / "pd")),
+                           source=StepSource(), device="cpu")
+    torch.set_num_threads(n)
+    assert s1["bootstrapped"] == 1 and s2["bootstrapped"] == 0
+    # the second run's default config arms the recorder; the first did not
+    assert seen["armed"] == 1
+    return root, port, seen, json.load(open(root / "r" / "report.json"))
+
+
+@pytest.mark.parametrize("field", [
+    "trace", "ops_port", "stall_sec", "obs_report", "profile", "profile_dir",
+    "flightrec", "slo"])
+def test_stream_honours_each_ported_ops_knob(stream_ops_run, field):
+    import json
+
+    from firebird_tpu_torch.config import NOT_PORTED
+
+    root, port, seen, rep = stream_ops_run
+    assert field not in NOT_PORTED
+    if field == "trace":
+        trace = json.load(open(root / "trace.json"))
+        assert {"fetch", "pack", "dispatch", "drain"} <= {
+            e["name"] for e in trace["traceEvents"]}
+    elif field == "ops_port":
+        assert seen["served"] == [(port, 200)]
+    elif field == "stall_sec":
+        # the freshness objective reads the run's watchdog: no_data
+        # without one
+        by = {o["name"]: o for o in rep["slo"]["objectives"]}
+        assert by["freshness"]["value_sec"] is not None
+        assert rep["metrics"]["counters"].get("watchdog_stall_total", 0) == 0
+    elif field == "obs_report":
+        assert rep["run"]["bootstrapped"] == 1
+        assert not (root / "obs_report.json").exists() or \
+            json.load(open(root / "obs_report.json"))["run"][
+                "bootstrapped"] == 0
+    elif field == "profile":
+        [w] = rep["profile"]["windows"]
+        assert "error" not in w and w["seconds"] == 0.05
+        assert w["attribution"]["source"] == "no-device-events"
+    elif field == "profile_dir":
+        assert list((root / "pd").glob("*.trace.json.gz"))
+    elif field == "flightrec":
+        assert seen["armed"] == 1       # the second run's, not the first's
+    else:
+        assert rep["slo"]["spec"] == "batch_p95=30;freshness=600"
+        assert [o["name"] for o in rep["slo"]["objectives"]] == [
+            "batch_p95", "freshness"]

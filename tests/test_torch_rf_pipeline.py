@@ -281,5 +281,6 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 def test_classification_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="not ported"):
         core.classification(*POINT, msday=MSDAY, meday=MEDAY,
-                            cfg=Config(store_backend="memory", trace="x"),
+                            cfg=Config(store_backend="memory",
+                                       faults="ingest:p=0.1"),
                             device="cpu")

@@ -298,8 +298,8 @@ def test_void_on_unrecoverable_checkpoint(runs, tmp_path):
 
 
 def test_stream_refuses_what_is_not_ported(tmp_path):
-    for knob in (dict(trace="1"), dict(ops_port=8080),
-                 dict(compile_cache="/x"), dict(object_root="/x")):
+    for knob in (dict(compile_cache="/x"), dict(object_root="/x"),
+                 dict(faults="ingest:p=0.1")):
         with pytest.raises(ValueError, match="not ported"):
             port(tmp_path, BOOT, **knob)
 
