@@ -120,7 +120,41 @@ From the root of a checkout, on a machine with a CUDA card:
    printed); each process's trace passes ``validate_driver_artifacts``
    with its shard; no postmortem bundle.  Printed: the launch-to-exit wall
    and px/s, the pipelines' wall and px/s, and the phase's seconds;
-11. the stream path (``stream_phase``): ``driver.stream.stream`` on the
+11. the fleet (``fleet_phase``, right after ``ops_phase``): the tile's
+   first 8 chips (the driver phase's chips, with their AUX layers from
+   ``SyntheticSource(--seed)``, served from ``.npz`` files through
+   FIREBIRD_SOURCE=file) enqueued with ``python -m firebird_tpu_torch
+   fleet enqueue -n 8 -c 2`` as 4 detect jobs, then a classify job
+   (1985-2017) on them and a product job (seglength, ccd, curveqa and
+   cover at 2010-06-01) on it, through ``FleetQueue.enqueue``,
+   then drained by ``fleet supervise --until-drained`` with
+   FIREBIRD_FLEET_MIN_WORKERS = FIREBIRD_FLEET_MAX_WORKERS = 2 (two ``fleet
+   work`` processes on cuda:0), a 10 s lease, the telemetry spool on, a
+   15 s profile window a worker (FIREBIRD_PROFILE: the lease and 5 s, so
+   that a window the freeze lands in still runs after the hold),
+   FIREBIRD_STALL_SEC=600
+   and an ops port on the supervisor.  The zombie drill: the first worker
+   whose ``job_claimed`` mark for a detect job reaches the spool is
+   SIGSTOPped, held until that job's lease has lapsed (or was taken
+   over), then SIGCONTed.  (a) Every job done, none dead, the supervisor
+   exits 0.  (b) The frozen worker's job ran again (attempts >= 2) and the
+   queue recorded the lease's expiry or a fence rejection; the 8 chips'
+   chip, pixel and segment rows equal the driver phase's, key for key
+   (all columns but the classify job's rfrawp).  (c) The full-width model
+   is stored, every real segment row of the 8 chips holds its votes, and
+   each product raster equals ``chip_product`` of the stored rows.  (d)
+   ``trace collect`` over the spool: the supervisor and every worker (the
+   frozen one too) among the processes, each job's ack mark with a claim
+   mark under its trace id, ``dispatch`` and ``drain`` spans on worker
+   pids.  (e) nvidia-smi's compute apps, sampled during the drain, hold
+   every worker's pid and never the supervisor's (where the sandbox's pid
+   namespace shows every context as one pid: at most, and once, three
+   contexts, this process's and the two workers'), and each worker's
+   profile window holds route 0's kernels by name.  (f) No postmortem, no
+   watchdog stall in the spooled snapshots, and the supervisor's
+   ``/progress`` answered 200.  Printed: the drain's wall, the hold, the
+   first claim after launch, the collect and each check's seconds;
+12. the stream path (``stream_phase``): ``driver.stream.stream`` on the
    card over the tile's first 8 chips (the same archive; the eighth
    stepped +800 on every band from 2016-06-01), served from memory cut to
    each asked range, batches of 8 into sqlite in a temporary directory.
@@ -146,13 +180,13 @@ From the root of a checkout, on a machine with a CUDA card:
    step loop replayed under ``torch.profiler`` (its kernels' own time,
    and so their busy share of the wall), statestore load and save ms a
    chip, publish and alert seconds; the peak memory;
-12. the float64 route (``f64_phase``): one full chip through
+13. the float64 route (``f64_phase``): one full chip through
    ``detect_packed(dtype=torch.float64)`` on the card, which must launch
    no kernel; on 256 of its pixels drawn from the seed every decision must
    equal the port's ``reference.detect`` (run in 8 processes) and the
    floats be within tests/test_ccd_kernel.py's tolerances.  Printed: its
    wall and its decision agreement with f32 route 0 on the whole chip;
-13. classification and the product rasters (``classify_phase``, run
+14. classification and the product rasters (``classify_phase``, run
    right after ``driver_phase`` on its sqlite store of 24 detected chips):
    ``driver.core.classification`` at the driver's point over 1985-2017 on
    the card, at the JAX package's width (500 trees, depth 8, 64 bins), the
@@ -175,7 +209,7 @@ From the root of a checkout, on a machine with a CUDA card:
    bin, draw and grow (CUDA events), train, model save, predict, write),
    rows/s trained and classified, the card's spans' share of the wall,
    the peak device memory, each check's seconds and the wall;
-14. every kernel instance's registers, stack and spills, and the total
+15. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -1179,13 +1213,22 @@ def check_result(seg, C, P, T):
     check(int(seg.n_segments.min()) >= 0, "negative segment count")
 
 
+def make_chips(src, cids, acquired=None):
+    """``src.chip`` of each id, made by a thread a core (the synthetic
+    source's numpy releases the GIL; a chip depends on its id alone)."""
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        return list(ex.map(lambda c: src.chip(c[0], c[1], acquired), cids))
+
+
 def make_batch(seed, n_chips, dev):
     """``n_chips`` full-size Landsat ARD chips of a 1985-2017 archive,
     packed and staged on the card."""
     src = SyntheticSource(seed, start=START, end=END)
     t0 = time.perf_counter()
-    packed = pack([src.chip(1000 * c, 2000) for c in range(n_chips)],
-                  bucket=64)
+    packed = pack(make_chips(src, [(1000 * c, 2000)
+                                   for c in range(n_chips)]), bucket=64)
     gen_s = time.perf_counter() - t0
     staged = kernel.stage_packed(packed, dev)
     torch.cuda.synchronize()
@@ -1777,7 +1820,7 @@ def tile_chips(seed, n):
     cids = [tuple(int(v) for v in c) for c in
             grid.chips(grid.tile(*DRIVER_POINT))[:n]]
     t0 = time.perf_counter()
-    chips = {c: src.chip(c[0], c[1], ACQUIRED) for c in cids}
+    chips = dict(zip(cids, make_chips(src, cids, ACQUIRED)))
     return chips, time.perf_counter() - t0
 
 
@@ -2147,7 +2190,7 @@ def forest_diff(a, b):
 
 def classify_phase(smi, cfg, seed, dev):
     """Classification on the card over the driver phase's store (the module
-    docstring's item 13)."""
+    docstring's item 14)."""
     from firebird_tpu_torch import products
     from firebird_tpu_torch.rf import features, forest, pipeline
 
@@ -2360,6 +2403,408 @@ def classify_phase(smi, cfg, seed, dev):
 
 
 # ---------------------------------------------------------------------------
+# The fleet: lease queue, supervisor, workers, zombie drill, telemetry
+# ---------------------------------------------------------------------------
+
+FLEET_CHIPS, FLEET_CHUNK, FLEET_WORKERS, FLEET_LEASE_S = 8, 2, 2, 10
+# A worker's auto window opens at its first dispatch and closes on the wall
+# clock.  The freeze may land after the frozen worker's window opened (the
+# drill only sees the claim mark, and the claim is the dispatch's by well
+# under a second): the window then has to outlast the hold (at most the
+# lease) and still catch the rest of the first round's kernels.
+FLEET_PROFILE_S, FLEET_TICK_S = FLEET_LEASE_S + 5, 0.5
+
+
+def _spool_marks(directory):
+    """The marks under a spool directory, each with its process's role and
+    pid (read as ``trace collect`` reads them)."""
+    from firebird_tpu_torch.obs import collect as obs_collect
+
+    return [ev for ev in obs_collect.read_events(str(directory))
+            if ev.get("kind") == "mark"]
+
+
+def _gpu_apps():
+    """The pid of each compute app (CUDA context) nvidia-smi lists on the
+    card, one entry a context.  In a sandbox with its own pid namespace
+    every entry may read as one pid (1): then only their count tells
+    the contexts apart."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True)
+    return [int(t) for t in r.stdout.split() if t.strip().isdigit()]
+
+
+def fleet_phase(smi, chips, ref_cfg, tmp, seed):
+    """The fleet on the card (the module docstring's item 11): the tile's
+    first FLEET_CHIPS chips as a queue plan, drained by ``fleet
+    supervise`` with two ``fleet work`` processes on cuda:0 while one of
+    them is frozen past its lease; held to ``driver_phase``'s rows
+    (``ref_cfg``).  Returns the report."""
+    import gzip
+    import signal
+    import sqlite3
+    import threading
+
+    from firebird_tpu_torch import products
+    from firebird_tpu_torch.fleet import FleetQueue
+    from firebird_tpu_torch.obs import profiling as obs_profiling
+    from firebird_tpu_torch.rf import features, pipeline
+    from firebird_tpu_torch.store.schema import columns, primary_key
+
+    t_phase = time.perf_counter()
+    cids = list(chips)[:FLEET_CHIPS]
+    root = Path(tmp) / "fleet"
+    src_dir = root / "chips"
+    src_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    aux_src = SyntheticSource(seed, start=START, end=END)
+    for c in cids:
+        ch = chips[c]
+        # uncompressed, as ops_phase writes them (FileSource's own
+        # save_chip compresses: ~10 s a full chip)
+        np.savez(src_dir / f"chip_{c[0]}_{c[1]}.npz", dates=ch.dates,
+                 spectra=ch.spectra, qas=ch.qas)
+        np.savez(src_dir / f"aux_{c[0]}_{c[1]}.npz",
+                 **aux_src.aux(c[0], c[1]))
+    setup_s = time.perf_counter() - t0
+    store_path, spool = root / "fb.db", root / "telemetry"
+    port = _free_ports(1)
+    env = dict(os.environ, FIREBIRD_SOURCE="file",
+               FIREBIRD_SOURCE_PATH=str(src_dir),
+               FIREBIRD_STORE_BACKEND="sqlite",
+               FIREBIRD_STORE_PATH=str(store_path),
+               FIREBIRD_CHIPS_PER_BATCH=str(FLEET_CHUNK),
+               FIREBIRD_MAX_OBS="0", FIREBIRD_FETCH_RETRIES="0",
+               FIREBIRD_FLEET_MIN_WORKERS=str(FLEET_WORKERS),
+               FIREBIRD_FLEET_MAX_WORKERS=str(FLEET_WORKERS),
+               FIREBIRD_FLEET_LEASE_SEC=str(FLEET_LEASE_S),
+               FIREBIRD_PROFILE=str(FLEET_PROFILE_S),
+               FIREBIRD_STALL_SEC=str(OPS_STALL_S))
+    cli = [sys.executable, "-m", "firebird_tpu_torch"]
+    msday, meday = dt.to_ordinal(START), dt.to_ordinal(END)
+    t0 = time.perf_counter()
+    enq = subprocess.run(
+        cli + ["fleet", "enqueue", "-t",
+               f"{DRIVER_POINT[0]},{DRIVER_POINT[1]}", "-a", ACQUIRED,
+               "-n", str(FLEET_CHIPS), "-c", str(FLEET_CHUNK)],
+        env=env, capture_output=True, text=True)
+    check(enq.returncode == 0, f"fleet: enqueue exited {enq.returncode}: "
+          f"{enq.stderr[-3000:]}")
+    plan = json.loads(enq.stdout.strip().splitlines()[-1])
+    n_detect = FLEET_CHIPS // FLEET_CHUNK
+    check(len(plan["detect"]) == n_detect and plan["jobs"] == n_detect,
+          f"fleet: plan {plan}")
+    # The classify and product jobs, on the plan's edges.  Not through
+    # the plan's -s/-e: its classify payload carries -n, which limits the
+    # training neighbourhood to the first -n chips of the 3x3 tiles, none
+    # of them this tile's (the JAX package's plan does the same).
+    q = FleetQueue(plan["queue"])
+    plan["classify"] = [q.enqueue(
+        "classify", {"x": DRIVER_POINT[0], "y": DRIVER_POINT[1],
+                     "acquired": ACQUIRED, "msday": msday, "meday": meday},
+        depends_on=plan["detect"])]
+    xs, ys = [c[0] for c in cids], [c[1] for c in cids]
+    plan["product"] = [q.enqueue(
+        "product", {"bounds": [[min(xs), max(ys)], [max(xs), min(ys)]],
+                    "products": list(products.PRODUCTS),
+                    "product_dates": [PRODUCT_DATE], "acquired": ACQUIRED},
+        depends_on=plan["classify"])]
+    q.close()
+    enqueue_s = time.perf_counter() - t0
+
+    # The drill: freeze the first worker seen claiming a detect job, hold
+    # it until its lease has lapsed, then let it go on as a zombie.
+    drill = {}
+    gpu_seen, gpu_most, answers = set(), [0], []
+    done = threading.Event()
+
+    def freeze():
+        while not done.is_set():
+            marks = _spool_marks(spool) if spool.exists() else []
+            claim = next((m for m in marks if m["name"] == "job_claimed"
+                          and m.get("attrs", {}).get("type") == "detect"),
+                         None)
+            if claim is None:
+                time.sleep(0.02)
+                continue
+            pid, job = claim["pid"], claim["attrs"]["job"]
+            os.kill(pid, signal.SIGSTOP)
+            t_stop, stop_wall = time.perf_counter(), time.time()
+            drill.update(pid=pid, job=job, trace=claim["trace"],
+                         fence=claim["attrs"]["fence"],
+                         stop_wall=stop_wall,
+                         stop_after_claim_s=stop_wall - claim["t"])
+            q = FleetQueue(str(root / "fleet.db"))
+            while not done.is_set():
+                j = q.job(job)
+                if j["fence"] != drill["fence"] or \
+                        (j["lease_expires"] or 0) < time.time():
+                    break
+                time.sleep(0.05)
+            os.kill(pid, signal.SIGCONT)
+            drill["hold_s"] = time.perf_counter() - t_stop
+            drill["cont_wall"] = time.time()
+            q.close()
+            return
+
+    def sample():
+        """(e) the card's compute apps, and (the ops port) the
+        supervisor's /progress, while the drain lasts."""
+        while not done.is_set():
+            apps = _gpu_apps()
+            gpu_seen.update(apps)
+            gpu_most[0] = max(gpu_most[0], len(apps))
+            code = _get(f"http://127.0.0.1:{port}/progress")
+            if code is not None and (not answers or answers[-1] != code):
+                answers.append(code)
+            time.sleep(0.5)
+
+    threads = [threading.Thread(target=f, daemon=True)
+               for f in (freeze, sample)]
+    t0, t0_wall = time.perf_counter(), time.time()
+    sup = subprocess.Popen(
+        cli + ["fleet", "supervise", "--until-drained", "--tick",
+               str(FLEET_TICK_S), "--ops-port", str(port), "--log-dir",
+               str(root / "worker_logs")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for t in threads:
+        t.start()
+    try:
+        out, _ = sup.communicate(timeout=600)
+    finally:
+        done.set()
+        if sup.poll() is None:
+            sup.kill()
+        if drill.get("pid") and "hold_s" not in drill:
+            os.kill(drill["pid"], signal.SIGCONT)
+    drain_s = time.perf_counter() - t0
+    for t in threads:
+        t.join(timeout=10)
+    logs = "\n".join(p.read_text()[-2000:] for p in sorted(
+        (root / "worker_logs").glob("*.log")))
+    check(sup.returncode == 0, f"fleet: supervise exited {sup.returncode}: "
+          f"{out[-3000:]}\n{logs}")
+    summary, _ = json.JSONDecoder().raw_decode(
+        out[out.rindex('{\n "supervisor":'):])
+    check_s = {}
+
+    # (a) every job done, none dead
+    t1 = time.perf_counter()
+    q = FleetQueue(str(root / "fleet.db"))
+    counts = q.counts()
+    jobs = {j: q.job(j) for j in plan["detect"] + plan["classify"]
+            + plan["product"]}
+    check(counts == {"pending": 0, "leased": 0, "done": len(jobs),
+                     "dead": 0}, f"fleet: queue {counts}")
+    check_s["a"] = time.perf_counter() - t1
+
+    # (b) the frozen worker's job went round again, and no stale write
+    # landed: the 8 chips' rows are driver_phase's, key for key (rfrawp,
+    # which the classify job wrote, is (c)'s)
+    t1 = time.perf_counter()
+    check("pid" in drill, "fleet: no detect claim seen to freeze")
+    frozen_job = jobs[drill["job"]]
+    events = [h["event"] for h in frozen_job["history"]]
+    rejects = q.fence_rejects()
+    check(frozen_job["attempts"] >= 2 and
+          ("lease_expired" in events or rejects > 0),
+          f"fleet: frozen job {drill['job']} history {events}, fence "
+          f"rejects {rejects}")
+    q.close()
+    dbs = [SqliteStore(p, ref_cfg.keyspace())
+           for p in (str(store_path), ref_cfg.store_path)]
+    got_db, ref_db = (db.path for db in dbs)
+    for db in dbs:
+        db.close()
+    con = sqlite3.connect(got_db)
+    con.execute("ATTACH DATABASE ? AS ref", (ref_db,))
+    mine = " OR ".join(f"(cx = {c[0]} AND cy = {c[1]})" for c in cids)
+    rows = {}
+    for table in ("chip", "pixel", "segment"):
+        cols = ", ".join(f'"{c}"' for c in columns(table) if c != "rfrawp")
+        order = ", ".join(f'"{c}"' for c in primary_key(table))
+        have = con.execute(f'SELECT {cols} FROM main."{table}" '
+                           f"ORDER BY {order}").fetchall()
+        want = con.execute(f'SELECT {cols} FROM ref."{table}" WHERE {mine} '
+                           f"ORDER BY {order}").fetchall()
+        rows[table] = len(have)
+        check(have == want and len(have) > 0,
+              f"fleet: {table} rows differ from driver_phase's ({len(have)} "
+              f"against {len(want)}; "
+              f"{sum(a != b for a, b in zip(have, want))} differ)")
+    con.close()
+    check_s["b"] = time.perf_counter() - t1
+
+    # (c) the model, every real segment's votes, each product raster
+    t1 = time.perf_counter()
+    store = SqliteStore(str(store_path), ref_cfg.keyspace())
+    t = grid.tile(*DRIVER_POINT)
+    model = pipeline.load_model(store, t["x"], t["y"])
+    check(model is not None and model.n_trees == 500,
+          "fleet: no full-width model stored")
+    d = dt.to_ordinal(PRODUCT_DATE)
+    rasters = store.read("product", {"date": PRODUCT_DATE})
+    cells = {(n, cx, cy): np.asarray(v) for n, cx, cy, v in zip(
+        rasters["name"], rasters["cx"], rasters["cy"], rasters["cells"])}
+    check(len(cells) == len(products.PRODUCTS) * len(cids),
+          f"fleet: {len(cells)} product rasters")
+    n_scored = 0
+    for cx, cy in cids:
+        seg = store.read("segment", {"cx": cx, "cy": cy})
+        real = features.real_rows(seg)
+        votes = [seg["rfrawp"][i] for i in np.flatnonzero(real)]
+        check(all(v is not None and len(v) == model.n_classes
+                  for v in votes), f"fleet: chip ({cx},{cy}) lacks votes")
+        n_scored += len(votes)
+        for name in products.PRODUCTS:
+            want = products.chip_product(name, d, cx, cy, seg,
+                                         classes=model.classes)
+            check(np.array_equal(cells[(name, cx, cy)], want),
+                  f"fleet: {name} raster of chip ({cx},{cy}) differs")
+    store.close()
+    check_s["c"] = time.perf_counter() - t1
+
+    # (d) trace collect over the spool
+    t1 = time.perf_counter()
+    col = subprocess.run(cli + ["trace", "collect", "-d", str(spool)],
+                         env=env, capture_output=True, text=True)
+    collect_s = time.perf_counter() - t1
+    check(col.returncode == 0, f"fleet: trace collect exited "
+          f"{col.returncode}: {col.stderr[-3000:]}")
+    line = json.loads(col.stdout.strip().splitlines()[-1])
+    doc = json.loads(Path(line["out"]).read_text())
+    procs = {(p["role"], p["pid"]) for p in doc["processes"]}
+    workers = {pid for role, pid in procs if role == "worker"}
+    check(("supervisor", sup.pid) in procs,
+          f"fleet: the supervisor is not among {sorted(procs)}")
+    check(len(workers) >= FLEET_WORKERS and drill["pid"] in workers,
+          f"fleet: workers {sorted(workers)}, frozen {drill['pid']}")
+    evs = doc["trace"]["traceEvents"]
+    instants = {(e["name"], e["args"].get("trace"), e["args"].get("job"))
+                for e in evs if e.get("ph") == "i"}
+    for jid, job in jobs.items():
+        acks = [e for e in evs if e.get("ph") == "i"
+                and e["name"] == "job_acked" and e["args"].get("job") == jid]
+        check(len(acks) == 1, f"fleet: job {jid} has {len(acks)} ack marks")
+        tr = acks[0]["args"]["trace"]
+        check(("job_claimed", tr, jid) in instants,
+              f"fleet: job {jid}'s ack trace {tr} has no claim mark")
+    spans = {(e["name"], e["pid"]) for e in evs if e.get("ph") == "X"}
+    for name in ("dispatch", "drain"):
+        check(any((name, w) in spans for w in workers),
+              f"fleet: no {name} span on a worker pid")
+    # where the drain went: the jobs' seconds by type (the workers'
+    # merged fleet_job_seconds_<type>) and each window's capture, stop
+    # and export (its `profile` span)
+    job_s = {n[len("fleet_job_seconds_"):]: dict(count=h["count"],
+                                                 sum=h["sum"])
+             for n, h in doc["metrics"]["histograms"].items()
+             if n.startswith("fleet_job_seconds_")}
+    profile_s = {e["pid"]: e["dur"] / 1e6 for e in evs
+                 if e.get("ph") == "X" and e["name"] == "profile"}
+    # each window's span on the wall clock, against the drill's freeze
+    epoch = doc["trace"]["otherData"]["epoch_unix"]
+    profile_wall = {e["pid"]: (epoch + e["ts"] / 1e6,
+                               epoch + (e["ts"] + e["dur"]) / 1e6)
+                    for e in evs if e.get("ph") == "X"
+                    and e["name"] == "profile"}
+    check_s["d"] = time.perf_counter() - t1
+
+    # (e) the workers on the card, the supervisor not: by pid where
+    # nvidia-smi shows this namespace's pids, else by the count of
+    # contexts (this process's, the workers', and the supervisor's if it
+    # took one: at most 1 + FLEET_WORKERS, and that many once both
+    # workers ran); route 0's kernels in the workers' profile windows (the
+    # device trace file of each is named for its pid)
+    t1 = time.perf_counter()
+    by_pid = os.getpid() in gpu_seen
+    if by_pid:
+        check(sup.pid not in gpu_seen, f"fleet: the supervisor ({sup.pid})"
+              f" held the card: {sorted(gpu_seen)}")
+        check(workers <= gpu_seen, f"fleet: worker pids {sorted(workers)} "
+              f"not all among the card's compute apps {sorted(gpu_seen)}")
+    else:
+        check(gpu_most[0] == 1 + FLEET_WORKERS,
+              f"fleet: at most {gpu_most[0]} contexts on the card at once "
+              f"(this process, {FLEET_WORKERS} workers: "
+              f"{1 + FLEET_WORKERS}; the supervisor would add one)")
+    windows = {}
+    for path in (root / "device_profile").glob("**/*.trace.json.gz"):
+        pid = int(re.match(r".*\.(\d+)\.trace\.json\.gz$",
+                           path.name).group(1))
+        with gzip.open(path, "rt", errors="replace") as f:
+            names = {str(e.get("name", "")) for e in
+                     json.load(f).get("traceEvents", ())
+                     if isinstance(e, dict) and e.get("ph") == "X"
+                     and e.get("cat") in obs_profiling.DEVICE_CATEGORIES}
+        windows.setdefault(pid, set()).update(names)
+    window_kernels = {}
+    for pid in workers:
+        names = " ".join(windows.get(pid, ()))
+        window_kernels[pid] = [k for k in OPS_KERNEL_SYMBOLS if k in names]
+        missing = [k for k in OPS_KERNEL_SYMBOLS if k not in names]
+        span = profile_wall.get(pid)
+        check(pid in windows and not missing,
+              f"fleet: worker {pid}'s profile window lacks {missing} "
+              f"(frozen worker {drill['pid']}, stopped at "
+              f"{drill.get('stop_wall')}, continued at "
+              f"{drill.get('cont_wall')}; this window's profile span "
+              f"{span}; {len(windows.get(pid, ()))} device event names)")
+    check_s["e"] = time.perf_counter() - t1
+
+    # (f) no postmortem, no watchdog stall in any spooled snapshot
+    snaps = doc["snapshots"]
+    stalls = {k: s["metrics"].get("counters", {}).get("watchdog_stall_total",
+                                                      0)
+              for k, s in snaps.items()}
+    check(not (root / "postmortem.json").exists(),
+          "fleet: a postmortem bundle was written")
+    check(not any(stalls.values()), f"fleet: watchdog stalls {stalls}")
+    check(200 in answers, f"fleet: the supervisor's /progress answered "
+          f"{answers}")
+
+    marks = _spool_marks(spool)
+    first_claim = min(m["t"] for m in marks if m["name"] == "job_claimed")
+    lost = sum(s["metrics"].get("counters", {}).get("fleet_jobs_lost", 0)
+               for s in snaps.values())
+    out_rep = dict(
+        chips=FLEET_CHIPS, jobs=len(jobs), workers=sorted(workers),
+        supervisor=sup.pid, queue=counts, fence_rejects=rejects,
+        jobs_lost=lost, drill=drill, frozen_job_history=events,
+        supervisor_summary={k: v for k, v in summary.items()
+                            if k != "decisions"},
+        decisions=summary.get("decisions"), rows=rows,
+        gpu_pids=sorted(gpu_seen), gpu_contexts_most=gpu_most[0],
+        gpu_checked_by="pid" if by_pid else "context count",
+        progress_answers=answers,
+        processes=sorted(f"{r}:{p}" for r, p in procs),
+        trace_events=len(evs), job_seconds=job_s,
+        profile_span_seconds=profile_s,
+        profile_span_wall=profile_wall, window_kernels=window_kernels,
+        split=dict(setup_s=setup_s, enqueue_s=enqueue_s,
+                   startup_s=first_claim - t0_wall, drain_s=drain_s,
+                   hold_s=drill.get("hold_s"), collect_s=collect_s),
+        check_seconds=check_s, seconds=time.perf_counter() - t_phase)
+    print(f"fleet: {len(jobs)} jobs ({n_detect} detect of {FLEET_CHUNK} "
+          f"chips, classify, product) drained by {len(workers)} workers on "
+          f"one card under a supervisor in {drain_s:.1f} s; worker "
+          f"{drill['pid']} frozen {drill.get('hold_s', 0):.1f} s on job "
+          f"{drill['job']} (history {events}, {rejects} fence rejects, "
+          f"{lost} jobs lost); first claim {first_claim - t0_wall:.1f} s "
+          f"after launch; job seconds by type (count, sum) "
+          + ", ".join(f"{k} {v['count']} {v['sum']:.1f}"
+                      for k, v in sorted(job_s.items()))
+          + "; profile windows (s) "
+          + ", ".join(f"{v:.1f}" for v in profile_s.values())
+          + f"; rows {rows}; collect {collect_s:.1f} s; "
+          f"checks (s) " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     check_s.items())
+          + f"; phase {out_rep['seconds']:.1f} s on {smi}", flush=True)
+    return out_rep
+
+
+# ---------------------------------------------------------------------------
 # The stream path
 # ---------------------------------------------------------------------------
 
@@ -2484,7 +2929,7 @@ def expected_rows(chips, acquired, dev, rows=True):
 
 
 def stream_phase(smi, chips, dev):
-    """The stream path on the card (the module docstring's item 11)."""
+    """The stream path on the card (the module docstring's item 12)."""
     from firebird_tpu_torch.alerts import AlertLog, alert_db_path, repair_chip
     from firebird_tpu_torch.driver import stream as sdrv
     from firebird_tpu_torch.fleet import FleetQueue, queue_path
@@ -2738,7 +3183,7 @@ def _reference(kw):
 
 def f64_phase(smi, seed, dev):
     """One full chip on the float64 route (the module docstring's item
-    12)."""
+    13)."""
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
@@ -2893,6 +3338,7 @@ def main(argv=None):
         drv, drv_cfg = driver_phase(smi, chips, gen_s, dev, tmp)
         torch.cuda.empty_cache()
         ops = ops_phase(smi, chips, drv_cfg, tmp)
+        fleet = fleet_phase(smi, chips, drv_cfg, tmp, args.seed)
         rf = classify_phase(smi, drv_cfg, args.seed, dev)
     torch.cuda.empty_cache()
     strm = stream_phase(smi, chips, dev)
@@ -2911,7 +3357,8 @@ def main(argv=None):
         build_seconds=build_s, sass_hmma=sass, kernels=kernels,
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
-        sentinel2=s2, driver=drv, ops=ops, classify=rf, stream=strm,
+        sentinel2=s2, driver=drv, ops=ops, fleet=fleet, classify=rf,
+        stream=strm,
         f64=f64,
         ptxas_instances=instances,
         ptxas=ptxas,

@@ -14,6 +14,16 @@
         --end 2017-12-31 [--seed S] [--sensor landsat-ard] [--device cuda] \\
         [--fused {0,1,mon}] [--pallas ROUTE] [--compact {0,1}] [--mixed {0,1}] \\
         [--shards N]
+    python -m firebird_tpu_torch fleet enqueue -t X,Y [-t X,Y ...] \
+        [-a ACQUIRED] [-n NUMBER] [-c CHUNK_SIZE] [-s MSDAY -e MEDAY] \
+        [-p NAME ... -d DATE ...] [--max-attempts N]
+    python -m firebird_tpu_torch fleet work [--until-drained | --forever | \
+        --hold-idle] [--drain-on-term] [--max-jobs N] [--poll S] [--ops-port P]
+    python -m firebird_tpu_torch fleet supervise [--min N] [--max N] \
+        [--until-drained] [--tick S] [--grace S] [--log-dir D] [--ops-port P]
+    python -m firebird_tpu_torch fleet status
+    python -m firebird_tpu_torch fleet requeue [JOB_ID | --dead]
+    python -m firebird_tpu_torch trace collect [-d DIR] [-o OUT]
 
 ``changedetection`` is the JAX package's command of that name: the tile
 at the point (x, y), its first ``NUMBER`` chips in chunks of
@@ -25,9 +35,10 @@ segments, pixels a second, the stage seconds, the run id, this process's
 index and the process count, and the artifacts the run wrote (``trace``,
 ``report`` or ``report_shard``).
 
-``--trace``, ``--ops-port``, ``--profile`` and ``--slo`` override
-FIREBIRD_TRACE, FIREBIRD_OPS_PORT, FIREBIRD_PROFILE and FIREBIRD_SLO for
-``changedetection`` and ``stream``, with the JAX command line's meaning.
+``--trace``, ``--ops-port``, ``--profile``, ``--slo`` and ``--faults``
+override FIREBIRD_TRACE, FIREBIRD_OPS_PORT, FIREBIRD_PROFILE, FIREBIRD_SLO
+and FIREBIRD_FAULTS for ``changedetection`` and ``stream``, with the JAX
+command line's meaning.
 Both commands bring up one process per card first
 (``parallel.init_distributed``): launched by torchrun, each process takes
 its strided share of the tile's chips on its own card
@@ -77,6 +88,26 @@ FIREBIRD_MIXED_PRECISION decides (unset: off).  ``--shards N`` runs
 parallel.detect_sharded over N shards laid round-robin over the visible
 cards (N shards on the CPU with ``--device cpu``); FIREBIRD_REBALANCE
 turns its rebalancing ring on.
+
+``fleet`` is the JAX package's command group of that name, on the JAX
+package's queue schema (``fleet.db`` next to the store, or
+FIREBIRD_FLEET_DB): ``enqueue`` writes a dependency-ordered plan (detect
+chunk jobs, then a classify job and product jobs per tile) and prints
+the job ids; ``work`` drains the queue on this process's card (CUDA: a
+worker has no CPU mode on the command line; the tests run
+``fleet.FleetWorker(..., device="cpu")`` in-process) and prints its
+summary, exiting 4 when the queue is wedged behind dead jobs;
+``supervise`` spawns and retires ``fleet work`` children from the
+queue's pressure (FIREBIRD_FLEET_MIN_WORKERS / _MAX_WORKERS), runs on the
+host only and never initialises CUDA, exits 4 on a wedged queue and 3
+when another supervisor is live; ``status`` prints the queue's state
+(exit 3 on an unreadable queue) and ``requeue`` revives dead jobs.
+``fleet work`` and ``fleet supervise`` spool their spans, marks and
+metric snapshots to ``telemetry/`` next to the store
+(FIREBIRD_TELEMETRY*, obs/spool.py); ``trace collect`` merges a spool
+directory into one Chrome trace with critical paths and merged metrics
+(obs/collect.py), written to ``telemetry_collect.json`` there unless
+``-o`` names a path.
 """
 
 from __future__ import annotations
@@ -85,14 +116,8 @@ import argparse
 import json
 import time
 
-import torch
-
-from firebird_tpu_torch.ccd import format as fmt
-from firebird_tpu_torch.ccd import kernel, params
-from firebird_tpu_torch.ccd.sensor import SENSORS
-from firebird_tpu_torch.ingest import SyntheticSource, pack
-from firebird_tpu_torch.obs import Counters
-from firebird_tpu_torch.parallel import detect_sharded
+# Each command imports what it runs: the fleet's queue commands and
+# ``trace collect`` start without torch or the detector.
 
 
 def _run_config(args):
@@ -104,7 +129,8 @@ def _run_config(args):
     init_distributed()
     overrides = {k: v for k, v in
                  (("trace", args.trace), ("ops_port", args.ops_port),
-                  ("profile", args.profile), ("slo", args.slo))
+                  ("profile", args.profile), ("slo", args.slo),
+                  ("faults", args.faults))
                  if v is not None}
     return Config.from_env(**overrides)
 
@@ -123,6 +149,7 @@ def _run_identity() -> dict:
 
 def changedetection(args) -> dict:
     from firebird_tpu_torch.driver import core
+    from firebird_tpu_torch.obs import Counters
 
     cfg = _run_config(args)
     counters = Counters()
@@ -177,10 +204,17 @@ def _ops_options(p) -> None:
                         "in the obs report (objectives: batch_p95, "
                         "serve_p99, freshness; '0' disables); overrides "
                         "FIREBIRD_SLO")
+    p.add_argument("--faults", default=None,
+                   help="deterministic fault-injection plan for chaos "
+                        "drills, e.g. 'ingest:p=0.05,seed=7;store:after=40,"
+                        "brownout=3' (faults.py); overrides FIREBIRD_FAULTS "
+                        "— off (no injection, no proxies) when neither is "
+                        "set")
 
 
 def classification(args) -> dict:
     from firebird_tpu_torch.driver import core
+    from firebird_tpu_torch.obs import Counters
     from firebird_tpu_torch.rf import pipeline
 
     counters = Counters()
@@ -214,6 +248,14 @@ def save(args) -> dict:
 
 
 def detect(args) -> dict:
+    import torch
+
+    from firebird_tpu_torch.ccd import format as fmt
+    from firebird_tpu_torch.ccd import kernel, params
+    from firebird_tpu_torch.ccd.sensor import SENSORS
+    from firebird_tpu_torch.ingest import SyntheticSource, pack
+    from firebird_tpu_torch.parallel import detect_sharded
+
     dev = kernel.resolve_device(args.device)
     src = SyntheticSource(args.seed, start=args.start, end=args.end,
                           sensor=SENSORS[args.sensor])
@@ -259,6 +301,302 @@ def detect(args) -> dict:
                       if landsat else None),
         seconds=dict(source_pack=t_pack - t0, detect=t_det - t_pack,
                      frames=t_end - t_det, total=t_end - t0))
+
+
+def _sensor(name: str) -> str:
+    from firebird_tpu_torch.ccd.sensor import SENSORS
+
+    if name not in SENSORS:
+        raise argparse.ArgumentTypeError(
+            f"invalid choice: {name!r} (choose from {sorted(SENSORS)})")
+    return name
+
+
+def _parse_points(points) -> list[tuple[float, float]]:
+    out = []
+    for b in points:
+        x, y = b.split(",")
+        out.append((float(x), float(y)))
+    return out
+
+
+def fleet_enqueue(args) -> dict:
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.fleet import enqueue_tile_plan, make_queue
+    from firebird_tpu_torch.utils import dates
+
+    cfg = Config.from_env()
+    queue = make_queue(cfg)
+    try:
+        summary = enqueue_tile_plan(
+            queue, _parse_points(args.tiles),
+            acquired=args.acquired or dates.default_acquired(),
+            number=args.number, chunk_size=args.chunk_size,
+            msday=args.msday, meday=args.meday, products=args.products,
+            product_dates=args.product_dates,
+            max_attempts=args.max_attempts or cfg.fleet_max_attempts)
+        return {"queue": queue.path, **summary}
+    finally:
+        queue.close()
+
+
+def fleet_work(args) -> None:
+    """One fleet worker on this process's card, until the queue drains
+    (or as the flags say); prints its summary and exits 4 (WEDGED_EXIT)
+    on a wedged queue."""
+    import signal
+    import threading
+
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.driver import core
+    from firebird_tpu_torch.fleet import WEDGED_EXIT, FleetWorker, make_queue
+    from firebird_tpu_torch.obs import spool as obs_spool
+
+    if sum((args.forever, args.until_drained, args.hold_idle)) > 1:
+        raise SystemExit("--forever, --until-drained and --hold-idle are "
+                         "exclusive")
+    overrides = {"ops_port": args.ops_port} \
+        if args.ops_port is not None else {}
+    cfg = Config.from_env(**overrides)
+    queue = make_queue(cfg)
+    worker = FleetWorker(cfg, queue, poll_sec=args.poll,
+                         kind="stream" if args.forever else "batch")
+    obs_spool.arm(cfg, "worker", worker.run_id)
+    stop = threading.Event()
+    _, srv, wd = worker.start_ops()
+    # After the ops surface: a retiring supervisor's SIGTERM is this
+    # worker's graceful drain, not a crash, so the flight recorder's
+    # SIGTERM dump (armed by start_ops) does not take it.
+    if args.forever or args.hold_idle or args.drain_on_term:
+        signal.signal(signal.SIGINT, lambda *_: stop.set())
+        signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        summary = worker.run(max_jobs=args.max_jobs,
+                             until_drained=args.until_drained,
+                             forever=args.forever or args.hold_idle,
+                             stop=stop)
+    finally:
+        obs_spool.disarm()
+        core.stop_ops(srv, wd)
+        queue.close()
+    print(json.dumps(summary, indent=1))
+    if summary.get("wedged"):
+        raise SystemExit(WEDGED_EXIT)
+
+
+def fleet_supervise(args) -> None:
+    """The autoscaling supervisor over the config's queue; host only (its
+    ops surface asks nothing of CUDA, so the card stays the workers').
+    Prints its summary; exits 4 on a wedged queue, 3 when another
+    supervisor is live on the queue."""
+    import os
+    import signal
+    import sys
+    import threading
+
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.driver import core
+    from firebird_tpu_torch.fleet import WEDGED_EXIT, Supervisor, make_queue
+    from firebird_tpu_torch.obs import Counters, jsonlog
+    from firebird_tpu_torch.obs import spool as obs_spool
+
+    overrides = {k: v for k, v in
+                 (("fleet_min_workers", args.min_workers),
+                  ("fleet_max_workers", args.max_workers),
+                  ("fleet_grace_sec", args.grace),
+                  ("ops_port", args.ops_port)) if v is not None}
+    cfg = Config.from_env(**overrides)
+    queue = make_queue(cfg)
+    sup = Supervisor(
+        cfg, queue, tick_sec=args.tick, grace_sec=cfg.fleet_grace_sec,
+        log_dir=args.log_dir or os.path.join(
+            os.path.dirname(os.path.abspath(queue.path)), "worker_logs"))
+    run_block = {"kind": "fleet-supervisor", "run_id": sup.run_id,
+                 "host": jsonlog.HOST, "queue": queue.path}
+    _, srv, wd = core.start_ops(cfg, sup.run_id, "fleet-supervisor",
+                                chips_total=0, counters=Counters(),
+                                run_block=run_block, fleet=sup.fleet_block,
+                                host_only=True)
+    obs_spool.arm(cfg, "supervisor", sup.run_id)
+    # After the ops surface, as in fleet_work: SIGTERM is the operator's
+    # graceful stop (retire the workers, then exit), not a crash dump.
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        summary = sup.run(until_drained=args.until_drained, stop=stop)
+        if stop.is_set() and not sup.drain_out(
+                timeout=cfg.fleet_grace_sec + 10.0):
+            print("warning: workers still draining at supervisor exit "
+                  f"(pids {sorted(sup.workers)})", file=sys.stderr)
+    except RuntimeError as e:
+        # The succession guard: a LIVE supervisor already runs here.
+        print(f"error: {e}", file=sys.stderr)
+        raise SystemExit(3)
+    finally:
+        obs_spool.disarm()
+        core.stop_ops(srv, wd)
+        queue.close()
+    print(json.dumps(summary, indent=1))
+    if summary.get("wedged"):
+        raise SystemExit(WEDGED_EXIT)
+
+
+def fleet_status(args) -> None:
+    """The queue's state; an unreadable queue prints an error document
+    and exits 3."""
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.fleet import make_queue, queue_path
+
+    cfg = Config.from_env()
+    try:
+        queue = make_queue(cfg)
+        try:
+            print(json.dumps(queue.status(), indent=1))
+        finally:
+            queue.close()
+    except Exception as e:
+        try:
+            path = queue_path(cfg)
+        except ValueError:
+            path = None
+        print(json.dumps({"path": path, "error": f"{type(e).__name__}: {e}"},
+                         indent=1))
+        raise SystemExit(3)
+
+
+def fleet_requeue(args) -> None:
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.fleet import make_queue
+
+    if (args.job_id is None) == (not args.dead):
+        raise SystemExit("pass a JOB_ID or --dead (not both)")
+    queue = make_queue(Config.from_env())
+    try:
+        n = queue.requeue(args.job_id)
+    finally:
+        queue.close()
+    print(f"{n} job(s) requeued")
+
+
+def trace_collect(args) -> dict:
+    import os
+
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.obs import collect as obs_collect
+    from firebird_tpu_torch.obs import spool as obs_spool
+
+    cfg = Config.from_env()
+    directory = args.directory or obs_spool.spool_dir(cfg)
+    if directory is None:
+        raise SystemExit(
+            "no spool directory: pass --dir or set FIREBIRD_TELEMETRY_DIR "
+            "(the memory store backend has no 'next to the store' default)")
+    doc = obs_collect.collect(directory)
+    path = obs_collect.write(
+        doc, args.out or os.path.join(directory, "telemetry_collect.json"))
+    return {"spool_dir": directory, "out": path,
+            "processes": [f"{p['role']}:{p['pid']}"
+                          for p in doc["processes"]],
+            "trace_events": len(doc["trace"]["traceEvents"]),
+            "critical_paths": len(doc["critical_paths"])}
+
+
+def _fleet_parsers(sub) -> None:
+    """The ``fleet`` and ``trace`` command groups (the JAX command line's
+    options)."""
+    fl = sub.add_parser("fleet", help="crash-tolerant work queue: enqueue "
+                        "a plan, drain it with workers, supervise them")
+    fsub = fl.add_subparsers(dest="fleet_cmd", required=True)
+    e = fsub.add_parser("enqueue", help="enqueue a dependency-ordered "
+                        "multi-tile plan on the shared queue")
+    e.add_argument("-t", "--tile", dest="tiles", action="append",
+                   required=True,
+                   help="x,y projection point inside a tile; repeat for a "
+                        "multi-tile plan")
+    e.add_argument("-a", "--acquired", default=None)
+    e.add_argument("-n", "--number", type=int, default=2500,
+                   help="chips per tile")
+    e.add_argument("-c", "--chunk-size", type=int, default=500,
+                   help="chips per detect job — the re-delivery "
+                        "granularity: a dead worker forfeits at most one "
+                        "chunk")
+    e.add_argument("-s", "--msday", type=int, default=None,
+                   help="with --meday: also enqueue a classify job per "
+                        "tile, blocked on that tile's detection")
+    e.add_argument("-e", "--meday", type=int, default=None)
+    e.add_argument("-p", "--products", action="append", default=[],
+                   help="with --product-dates: enqueue product jobs per "
+                        "tile, blocked on the latest upstream stage")
+    e.add_argument("-d", "--product-dates", action="append", default=[])
+    e.add_argument("--max-attempts", type=int, default=None,
+                   help="per-job attempt budget before dead-lettering; "
+                        "overrides FIREBIRD_FLEET_MAX_ATTEMPTS")
+    w = fsub.add_parser("work", help="run one fleet worker on this "
+                        "process's card against the shared queue")
+    w.add_argument("--max-jobs", type=int, default=None,
+                   help="exit after this many executed jobs")
+    w.add_argument("--until-drained", action="store_true",
+                   help="poll until every job is done or dead (default: "
+                        "exit when nothing is claimable)")
+    w.add_argument("--forever", action="store_true",
+                   help="standing worker: keep polling through an empty "
+                        "queue until signalled")
+    w.add_argument("--hold-idle", action="store_true",
+                   help="batch worker that polls through an empty queue "
+                        "instead of exiting (how `fleet supervise` holds a "
+                        "min-workers floor; retired by SIGTERM)")
+    w.add_argument("--drain-on-term", action="store_true",
+                   help="graceful drain: SIGTERM finishes the current lease "
+                        "then exits cleanly")
+    w.add_argument("--poll", type=float, default=1.0,
+                   help="idle claim-poll interval, seconds")
+    w.add_argument("--ops-port", type=int, default=None,
+                   help="live ops endpoints for this worker; overrides "
+                        "FIREBIRD_OPS_PORT")
+    v = fsub.add_parser("supervise", help="autoscale a local worker fleet "
+                        "from queue pressure")
+    v.add_argument("--min", dest="min_workers", type=int, default=None,
+                   help="worker floor (0 = scale-to-zero); overrides "
+                        "FIREBIRD_FLEET_MIN_WORKERS")
+    v.add_argument("--max", dest="max_workers", type=int, default=None,
+                   help="worker ceiling; overrides FIREBIRD_FLEET_MAX_WORKERS")
+    v.add_argument("--until-drained", action="store_true",
+                   help="exit once every batch job is done or dead AND the "
+                        "fleet has scaled back to zero")
+    v.add_argument("--tick", type=float, default=1.0,
+                   help="control-loop interval, seconds")
+    v.add_argument("--grace", type=float, default=None,
+                   help="retiring worker SIGTERM->SIGKILL deadline, seconds; "
+                        "overrides FIREBIRD_FLEET_GRACE_SEC")
+    v.add_argument("--log-dir", default=None,
+                   help="directory for spawned workers' stdout logs "
+                        "(default: worker_logs/ next to the queue db)")
+    v.add_argument("--ops-port", type=int, default=None,
+                   help="live ops endpoints for the supervisor; overrides "
+                        "FIREBIRD_OPS_PORT")
+    fsub.add_parser("status", help="inspect the shared queue")
+    r = fsub.add_parser("requeue", help="return dead-lettered jobs to the "
+                        "queue with a fresh attempt budget")
+    r.add_argument("job_id", nargs="?", type=int, default=None)
+    r.add_argument("--dead", action="store_true",
+                   help="requeue every dead-lettered job")
+    tr = sub.add_parser("trace", help="the fleet telemetry plane's read "
+                        "side")
+    tsub = tr.add_subparsers(dest="trace_cmd", required=True)
+    c = tsub.add_parser("collect", help="merge every process's telemetry "
+                        "spool into one artifact")
+    c.add_argument("-d", "--dir", dest="directory", default=None,
+                   help="spool directory (default: FIREBIRD_TELEMETRY_DIR, "
+                        "else telemetry/ next to the store)")
+    c.add_argument("-o", "--out", default=None,
+                   help="artifact path (default: telemetry_collect.json in "
+                        "the spool directory)")
+
+
+FLEET = dict(enqueue=fleet_enqueue, work=fleet_work,
+             supervise=fleet_supervise, status=fleet_status,
+             requeue=fleet_requeue)
 
 
 def main(argv=None) -> None:
@@ -327,7 +665,9 @@ def main(argv=None) -> None:
     d.add_argument("--start", default="1985-01-01")
     d.add_argument("--end", default="2017-12-31")
     d.add_argument("--seed", type=int, default=0)
-    d.add_argument("--sensor", default="landsat-ard", choices=sorted(SENSORS))
+    d.add_argument("--sensor", default="landsat-ard", type=_sensor,
+                   help="sensor layout (ccd.sensor.SENSORS: landsat-ard, "
+                        "landsat-ard-tiny, sentinel2)")
     d.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch versions)")
@@ -349,11 +689,19 @@ def main(argv=None) -> None:
                    help="shard the chips over N shards, round-robin over the "
                         "visible cards (FIREBIRD_REBALANCE=1 turns on the "
                         "rebalancing ring)")
+    _fleet_parsers(sub)
     args = ap.parse_args(argv)
-    run = dict(changedetection=changedetection, stream=stream,
-               classification=classification, save=save,
-               detect=detect)[args.cmd]
-    print(json.dumps(run(args)))
+    if args.cmd == "fleet":
+        run = FLEET[args.fleet_cmd]
+    elif args.cmd == "trace":
+        run = trace_collect
+    else:
+        run = dict(changedetection=changedetection, stream=stream,
+                   classification=classification, save=save,
+                   detect=detect)[args.cmd]
+    out = run(args)
+    if out is not None:
+        print(json.dumps(out))
 
 
 if __name__ == "__main__":

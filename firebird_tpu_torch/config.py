@@ -3,14 +3,12 @@
 The port's own copy of the JAX package's ``config.py`` (standard library
 only): the same knob registry, the same :class:`Config` fields, defaults,
 ``from_env`` parsing and validation, and the same ``keyspace()``, so that a
-store one package writes names the tables the other reads.  Two
-validations differ, because their subsystems are not ported: the fault
-plan (FIREBIRD_FAULTS) and the SLO budget spec (FIREBIRD_SLO_BUDGET) are
-kept as strings here, not parsed; the drivers refuse a run that sets them
-(:data:`NOT_PORTED`).  The knobs that stay refused, and why:
+store one package writes names the tables the other reads.  One
+validation differs, because its subsystem is not ported: the SLO budget
+spec (FIREBIRD_SLO_BUDGET) is kept as a string here, not parsed; the
+drivers refuse a run that sets it (:data:`NOT_PORTED`).  The knobs that
+stay refused, and why:
 
-- ``faults``: the fault-injection plan (``faults.py``) and its wrappers
-  are not ported;
 - ``object_root``: the object store (``store/objectstore.py``) is not
   ported;
 - ``slo_budget``: the durable error budgets read the series store
@@ -522,7 +520,7 @@ class Config:
     breaker_threshold: int = 5
     breaker_cooldown_sec: float = 30.0
 
-    # Deterministic fault-injection plan (firebird_tpu.faults), e.g.
+    # Deterministic fault-injection plan (firebird_tpu_torch.faults), e.g.
     # "ingest:p=0.05,seed=7;store:after=40,brownout=3".  "" (default)
     # injects nothing and puts no proxy on the hot path.
     faults: str = ""
@@ -869,6 +867,13 @@ class Config:
             raise ValueError("FIREBIRD_BREAKER_COOLDOWN must be > 0 when "
                              "the breaker is enabled, got "
                              f"{self.breaker_cooldown_sec}")
+        # Parse the fault plan now: a typo'd FIREBIRD_FAULTS inside the
+        # driver's failure isolation would otherwise fail every chunk and
+        # exit "successfully" — same fail-fast rationale as dtype above.
+        if self.faults:
+            from firebird_tpu_torch import faults as _faults
+
+            _faults.FaultPlan.parse(self.faults)
         if not 0 <= self.ops_port <= 65535:
             raise ValueError("FIREBIRD_OPS_PORT must be 0 (off) or a valid "
                              f"TCP port, got {self.ops_port}")
@@ -1188,7 +1193,6 @@ class Config:
 # than the field's default) is refused by the driver
 # (driver.core.refuse_not_ported); none is ignored quietly.
 NOT_PORTED = {
-    "faults": "the fault-injection plan (faults.py)",
     "object_root": "the object store (store/objectstore.py)",
     "slo_budget": "the SLO error budgets (they read obs/series.py, the "
                   "series store)",

@@ -75,6 +75,7 @@ import traceback
 import numpy as np
 import torch
 
+from firebird_tpu_torch import faults as faultlib
 from firebird_tpu_torch import grid
 from firebird_tpu_torch import retry as retrylib
 from firebird_tpu_torch.ccd import cuda_ops, kernel
@@ -159,24 +160,28 @@ def _mesh_ready() -> bool:
     return dist.is_initialized()
 
 
-def record_topology_metrics() -> None:
+def record_topology_metrics(host_only: bool = False) -> None:
     """(Re-)record the topology gauges on the CURRENT registry:
     ``init_distributed`` sets them at bring-up, but the drivers reset the
-    registry per run."""
+    registry per run.  ``host_only``: a process that runs on no card (the
+    fleet supervisor) records 0 cards without asking CUDA."""
     obs_metrics.gauge(
         "mesh_processes",
         help="torch.distributed process count").set(dist.process_count())
-    obs_metrics.gauge(
-        "mesh_global_devices",
-        help="cards the processes run on").set(
-            dist.global_device_count() if dist.process_count() > 1
-            else (torch.cuda.device_count() if torch.cuda.is_available()
-                  else 0))
+    if host_only:
+        cards = 0
+    elif dist.process_count() > 1:
+        cards = dist.global_device_count()
+    else:
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    obs_metrics.gauge("mesh_global_devices",
+                      help="cards the processes run on").set(cards)
 
 
 def start_ops(cfg: Config, run_id: str, kind: str, *, chips_total: int,
               counters, run_block: dict, quarantine=None, breaker=None,
-              alerts=None, streamops=None):
+              fleet=None, alerts=None, streamops=None,
+              host_only: bool = False):
     """Bring up the run's live ops surface (shared by both drivers).
 
     Registers the run context for JSON logs, clears stale report shards
@@ -189,11 +194,14 @@ def start_ops(cfg: Config, run_id: str, kind: str, *, chips_total: int,
     watchdog); tear down with :func:`stop_ops`.  If the port bind fails,
     everything already started is torn down before the error propagates.
     The kernels are built before this (:func:`build_kernels`), so the
-    watchdog's clock starts after ``nvcc``.
+    watchdog's clock starts after ``nvcc``.  ``host_only``: a process that
+    runs no kernel (the fleet supervisor) asks CUDA nothing, so it never
+    holds a card: 0 cards recorded, no device profiler (``POST /profile``
+    answers 503).
     """
     jsonlog.set_run_context(run_id=run_id, process_index=_process_index())
     obs_report.clear_stale_artifacts(cfg)
-    record_topology_metrics()
+    record_topology_metrics(host_only)
     watchdog = None
     server = None
     try:
@@ -210,7 +218,7 @@ def start_ops(cfg: Config, run_id: str, kind: str, *, chips_total: int,
         # dir and get no profiler (the endpoint answers 503).
         profiler = None
         art_dir = qlib._artifact_dir(cfg)
-        if art_dir is not None:
+        if art_dir is not None and not host_only:
             profiler = obs_profiling.set_active(obs_profiling.DeviceProfiler(
                 os.path.join(art_dir, "device_profile")))
             if cfg.profile > 0:
@@ -222,7 +230,7 @@ def start_ops(cfg: Config, run_id: str, kind: str, *, chips_total: int,
             watchdog=watchdog, run=run_block, mesh_up=_mesh_ready(),
             pipeline_depth=cfg.pipeline_depth, quarantine=quarantine,
             breaker=breaker, profiler=profiler, slo_spec=cfg.slo,
-            alerts=alerts, streamops=streamops))
+            fleet=fleet, alerts=alerts, streamops=streamops))
         if cfg.ops_port > 0:
             server = obs_server.start_ops_server(cfg.ops_port, status,
                                                  host=cfg.ops_host)
@@ -319,23 +327,29 @@ def make_aux_source(cfg: Config, kind: str | None = None):
 
 
 def robustness_setup(cfg: Config, run_id: str, *, source=None, store=None):
-    """The driver's graceful-degradation bring-up: one retry budget and
-    ingest circuit breaker shared by every retry site, an async writer
-    that retries store writes, and the dead-letter quarantine that carries
-    poisoned chips across runs.  (The JAX package's fault-injection
-    wrappers are not ported: a run that sets FIREBIRD_FAULTS is refused.)
+    """The drivers' shared graceful-degradation bring-up (one code path
+    for batch, stream and the fleet's detect jobs): the (usually absent)
+    fault plan wraps the failure seams, one retry budget and ingest
+    circuit breaker are shared by every retry site, the async writer
+    retries store writes, and the dead-letter quarantine carries poisoned
+    chips across runs.  With FIREBIRD_FAULTS unset the wrap_* calls
+    return their argument unchanged — nothing on the hot path.
 
     Returns (source, store, writer, policy, breaker, quarantine)."""
-    source = source or make_source(cfg)
-    store = store or open_store(cfg.store_backend, cfg.store_path,
-                                cfg.keyspace())
+    plan = faultlib.FaultPlan.from_config(cfg)
+    source = faultlib.wrap_source(source or make_source(cfg), plan)
+    store = faultlib.wrap_store(
+        store or open_store(cfg.store_backend, cfg.store_path,
+                            cfg.keyspace()), plan)
     budget = retrylib.RetryBudget(cfg.retry_budget)
     breaker = retrylib.make_breaker(cfg)
     policy = retrylib.RetryPolicy.for_ingest(cfg, budget=budget,
                                              breaker=breaker)
-    writer = AsyncWriter(store, workers=cfg.writer_threads,
-                         retry=retrylib.RetryPolicy.for_store(cfg,
-                                                              budget=budget))
+    writer = faultlib.wrap_writer(
+        AsyncWriter(store, workers=cfg.writer_threads,
+                    retry=retrylib.RetryPolicy.for_store(cfg,
+                                                         budget=budget)),
+        plan)
     quarantine = qlib.Quarantine.load(qlib.quarantine_path(cfg),
                                       run_id=run_id)
     return source, store, writer, policy, breaker, quarantine
@@ -981,10 +995,13 @@ def classification(x, y, msday: int, meday: int, acquired: str | None = None,
     acquired = acquired or dt.default_acquired()
     store = store or open_store(cfg.store_backend, cfg.store_path,
                                 cfg.keyspace())
+    # The fault plan's ingest/aux scopes reach the AUX fetches (the
+    # stage's only source reads).
+    aux_source = faultlib.wrap_source(aux_source or make_aux_source(cfg),
+                                      faultlib.FaultPlan.from_config(cfg))
     return rf_pipeline.classify_tile(
         x=x, y=y, msday=msday, meday=meday, acquired=acquired,
-        aux_source=aux_source or make_aux_source(cfg),
-        store=store, device=dev, counters=counters)
+        aux_source=aux_source, store=store, device=dev, counters=counters)
 
 
 def stage_seconds() -> dict:

@@ -15,7 +15,9 @@ the other left:
   range, result-affecting config fingerprint and run_id in
   ``run_manifest.json``; a resume against a different acquired range
   **refuses** (the stored segments would silently mix date windows), and
-  a different config fingerprint warns.
+  a different config fingerprint warns.  :func:`stamp_manifest_fence`
+  records the highest fleet fencing token that owned the store's output
+  (a fleet detect job stamps its lease's).
 
 Both artifacts live next to the store for file-backed backends and stay
 in-memory for the 'memory' backend.
@@ -250,9 +252,12 @@ def config_fingerprint(cfg) -> str:
 
 
 def write_manifest(cfg, *, acquired: str, run_id: str,
-                   tile: dict | None = None) -> str | None:
+                   tile: dict | None = None,
+                   fence: int | None = None) -> str | None:
     """Pin this run's identity next to the store (atomic write).
-    Returns the path, or None for the memory backend."""
+    Returns the path, or None for the memory backend.  ``fence`` stamps
+    the fleet lease's fencing token (fleet/queue.py) so the manifest
+    records which lease last owned the store's output."""
     path = manifest_path(cfg)
     if path is None:
         return None
@@ -264,6 +269,8 @@ def write_manifest(cfg, *, acquired: str, run_id: str,
                       "keyspace": cfg.keyspace()}}
     if tile:
         doc["tile"] = {"h": tile.get("h"), "v": tile.get("v")}
+    if fence is not None:
+        doc["fence"] = int(fence)
     try:
         atomic_write_json(path, doc)
     except OSError as e:
@@ -271,6 +278,60 @@ def write_manifest(cfg, *, acquired: str, run_id: str,
         logger("change-detection").error("run manifest write failed: %s", e)
         return None
     return path
+
+
+def stamp_manifest_fence(cfg, fence: int, *, run_id: str,
+                         acquired: str | None = None) -> str | None:
+    """Record the highest fencing token seen into ``run_manifest.json``.
+
+    Monotonic: the read-compare-write runs under an exclusive ``flock`` on
+    a sidecar lock file, so concurrent fleet workers stamping the same
+    store serialize — a stamper holding a LOWER token cannot interleave
+    past the compare and roll a higher one back (the write itself stays
+    ``atomic_write_json``, so a crash mid-stamp still leaves a complete
+    document).  A stamp at or below the stored token is a no-op.  Creates
+    a fresh manifest when none exists and ``acquired`` is known; returns
+    the path, or None when nothing was written."""
+    path = manifest_path(cfg)
+    if path is None:
+        return None
+    import fcntl
+
+    from firebird_tpu_torch.obs import logger
+
+    try:
+        lock_fd = os.open(path + ".lock", os.O_CREAT | os.O_RDWR, 0o644)
+    except OSError as e:
+        logger("change-detection").error(
+            "manifest fence stamp failed (lock): %s", e)
+        return None
+    try:
+        fcntl.flock(lock_fd, fcntl.LOCK_EX)
+        doc = None
+        if os.path.exists(path):
+            try:
+                with open(path) as f:
+                    doc = json.load(f)
+            except (OSError, ValueError):
+                doc = None
+        if doc is None:
+            if acquired is None:
+                return None
+            return write_manifest(cfg, acquired=acquired, run_id=run_id,
+                                  fence=fence)
+        if int(doc.get("fence") or -1) >= int(fence):
+            return path
+        doc["fence"] = int(fence)
+        doc["written_at"] = _now_iso()
+        try:
+            atomic_write_json(path, doc)
+        except OSError as e:
+            logger("change-detection").error(
+                "manifest fence stamp failed: %s", e)
+            return None
+        return path
+    finally:
+        os.close(lock_fd)       # closing the fd releases the flock
 
 
 class ResumeMismatch(ValueError):

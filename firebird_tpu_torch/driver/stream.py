@@ -31,14 +31,16 @@ A checkpoint holds the StreamState arrays, the tail segments' identity
 (sday, curqa), the design anchor and the horizon (the last ingested
 ordinal day).  Entry points run on CUDA unless the caller passes
 ``device="cpu"``; knobs whose subsystems are not ported
-(``config.NOT_PORTED``: the fault plan, the object store, the SLO
-budgets, the compile cache) make :func:`stream` refuse the run.  In a
+(``config.NOT_PORTED``: the object store, the SLO budgets, the compile
+cache) make :func:`stream` refuse the run.  In a
 multi-process run each process takes its strided share of the tile's
 chips (``driver.core.host_shard``) on its own card, with one run id.  The
 run carries the batch driver's ops surface (``driver.core.start_ops``):
 spans (``fetch``, ``pack``, ``dispatch``, ``drain``, ``step``,
 ``alert``, ``publish``), the progress hooks, the watchdog, the flight
-recorder, the profiler and the run report.
+recorder, the profiler and the run report.  Under a fleet worker the
+alert append also marks ``alert_appended`` on the worker's telemetry
+spool (obs/spool.py).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from firebird_tpu_torch.obs import metrics as obs_metrics
 from firebird_tpu_torch.obs import profiling as obs_profiling
 from firebird_tpu_torch.obs import report as obs_report
 from firebird_tpu_torch.obs import server as obs_server
+from firebird_tpu_torch.obs import spool as obs_spool
 from firebird_tpu_torch.obs import tracing
 from firebird_tpu_torch.streamops import statestore as sstore_mod
 from firebird_tpu_torch.utils import dates as dt
@@ -556,12 +559,23 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                              help="stream-update ingest start to durable "
                                   "alert commit (the alert_freshness SLO "
                                   "feed)").observe(time.monotonic() - t_seen)
+                        acq_to_alert = None
                         if published is not None:
+                            acq_to_alert = max(time.time() - published, 0.0)
                             hist("acquisition_to_alert_seconds",
                                  help="scene publish time to durable "
                                       "alert-log append (the end-to-end "
                                       "alert_freshness SLO feed)").observe(
-                                max(time.time() - published, 0.0))
+                                acq_to_alert)
+                        # The causal chain's durable-append joint, with the
+                        # freshness value the histogram observed, so the
+                        # collector's critical-path breakdown decomposes
+                        # what was measured (obs/collect.py).
+                        obs_spool.mark(
+                            "alert_appended", trace=trace_id,
+                            chip=list(int(v) for v in cid), alerts=ins,
+                            deduped=dup, published=published,
+                            acq_to_alert=acq_to_alert)
                         summary["alerts_emitted"] += ins
                         summary["alerts_deduped"] += dup
                 with tracing.span("publish", chip=tuple(cid)), \

@@ -1,15 +1,88 @@
-"""Plan builder: the cold-path repair jobs.
+"""Plan builder: a multi-tile campaign as one dependency-ordered queue.
 
-The port's own copy of ``enqueue_repairs`` from the JAX package's
-``fleet/plan.py``: one ``repair`` job per chip with pixels flagged
-``needs_batch``, at most one open job a chip.  The tile-plan, classify,
-product and fanout plans wait for the port's fleet worker.
+The port's own copy of the JAX package's ``fleet/plan.py``: the same
+payloads and dependency edges, so either package's worker drains a plan
+the other enqueued.  Per tile, the chip enumeration splits into
+``detect`` chunk jobs, an optional ``classify`` job blocked on ALL of
+that tile's detection (it unblocks the moment the last chunk acks —
+cross-stage scheduling, not phase barriers across the fleet), and
+optional ``product`` jobs blocked on the classify (or directly on
+detection when no classification is requested); ``fleet enqueue`` is
+the command-line face.  :func:`enqueue_repairs` schedules the stream's
+cold-path repair jobs.  The alert fanout's plan (``enqueue_fanout``)
+waits for the alert fanout's port.
 """
 
 from __future__ import annotations
 
+from firebird_tpu_torch import grid
 from firebird_tpu_torch.fleet.queue import FleetQueue
 from firebird_tpu_torch.obs import metrics as obs_metrics
+from firebird_tpu_torch.utils.fn import partition_all, take
+
+
+def enqueue_tile_plan(queue: FleetQueue, tiles, *, acquired: str,
+                      number: int = 2500, chunk_size: int = 500,
+                      msday: int | None = None, meday: int | None = None,
+                      products=(), product_dates=(),
+                      max_attempts: int = 3) -> dict:
+    """Enqueue a campaign over ``tiles`` (an iterable of (x, y) points,
+    one per tile).  Returns a summary: job ids by stage and totals.
+
+    ``chunk_size`` is the detect-job granularity — smaller chunks mean
+    finer re-delivery (a dead worker forfeits less work) at the cost of
+    more queue traffic; it is the lease-time analog of the driver's
+    failure-isolation chunk."""
+    if (msday is None) != (meday is None):
+        raise ValueError("classification needs both msday and meday")
+    if bool(products) != bool(product_dates):
+        raise ValueError("product jobs need both products and "
+                         "product_dates")
+    summary: dict = {"tiles": 0, "detect": [], "classify": [],
+                     "product": []}
+    for x, y in tiles:
+        t = grid.tile(x=x, y=y)
+        cids = list(take(number, grid.chips(t)))
+        detect_ids = []
+        for chunk in partition_all(max(int(chunk_size), 1), cids):
+            jid = queue.enqueue(
+                "detect",
+                {"x": x, "y": y, "acquired": acquired,
+                 "tile": {"h": t["h"], "v": t["v"]},
+                 "cids": [[int(cx), int(cy)] for cx, cy in chunk]},
+                max_attempts=max_attempts)
+            detect_ids.append(jid)
+        summary["detect"].extend(detect_ids)
+        downstream = detect_ids
+        if msday is not None:
+            jid = queue.enqueue(
+                "classify",
+                {"x": x, "y": y, "acquired": acquired,
+                 "msday": int(msday), "meday": int(meday),
+                 "number": int(number)},
+                depends_on=detect_ids, max_attempts=max_attempts)
+            summary["classify"].append(jid)
+            downstream = [jid]
+        if products:
+            # Bounds = bbox of the chips this plan actually detects
+            # (chip ids ARE in-cell upper-left projection points), so
+            # products.save covers the same area as the upstream stages
+            # — a single [x, y] point would cover ONE chip of a
+            # 2500-chip tile.
+            xs = [float(c[0]) for c in cids]
+            ys = [float(c[1]) for c in cids]
+            jid = queue.enqueue(
+                "product",
+                {"bounds": [[min(xs), max(ys)], [max(xs), min(ys)]],
+                 "products": list(products),
+                 "product_dates": list(product_dates),
+                 "acquired": acquired},
+                depends_on=downstream, max_attempts=max_attempts)
+            summary["product"].append(jid)
+        summary["tiles"] += 1
+    summary["jobs"] = (len(summary["detect"]) + len(summary["classify"])
+                       + len(summary["product"]))
+    return summary
 
 
 def enqueue_repairs(queue: FleetQueue, chips: dict, *, acquired: str,
@@ -26,9 +99,10 @@ def enqueue_repairs(queue: FleetQueue, chips: dict, *, acquired: str,
     skipped = 0
     for cid in sorted(chips):
         key = (int(cid[0]), int(cid[1]))
-        # Check-and-insert in one queue transaction
+        # Check-and-insert in ONE queue transaction
         # (FleetQueue.enqueue_unique_chip): two schedulers racing on the
-        # same chip cannot both enqueue.
+        # same chip (a zombie stream worker and its successor — the
+        # overlap PR 9 designs for) cannot both enqueue.
         jid = queue.enqueue_unique_chip(
             "repair",
             {"cx": key[0], "cy": key[1], "acquired": acquired,
@@ -49,3 +123,4 @@ def enqueue_repairs(queue: FleetQueue, chips: dict, *, acquired: str,
             help="repair enqueues skipped because the chip already has "
                  "an open (pending/leased) repair job").inc(skipped)
     return ids
+

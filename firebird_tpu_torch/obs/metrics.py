@@ -430,6 +430,45 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n" if lines else ""
 
 
+def prometheus_from_snapshot(snap: dict) -> str:
+    """Rebuild the text exposition from a registry *snapshot* — a
+    telemetry-spool ``snap`` line (obs/spool.py) or a fleet view merged
+    from several (obs/collect.py): the scrape a SIGKILLed process can no
+    longer serve.  Naming and format rules are shared with
+    :meth:`MetricsRegistry.prometheus`; help text comes from the
+    METRIC_HELP catalog (snapshots carry values, not per-instrument
+    help declarations)."""
+
+    def _help(name: str, kind: str) -> str:
+        return _catalog_help(name) \
+            or f"firebird {kind} {name.replace('_', ' ')}"
+
+    lines: list[str] = []
+    for name, v in sorted((snap.get("counters") or {}).items()):
+        p = _prom_name(name, "counter")
+        lines += [f"# HELP {p} {_help(name, 'counter')}",
+                  f"# TYPE {p} counter", f"{p} {v}"]
+    for name, v in sorted((snap.get("gauges") or {}).items()):
+        p = _prom_name(name)
+        lines += [f"# HELP {p} {_help(name, 'gauge')}",
+                  f"# TYPE {p} gauge", f"{p} {format(v, 'g')}"]
+    for name, h in sorted((snap.get("histograms") or {}).items()):
+        p = _prom_name(name)
+        lines.append(f"# HELP {p} {_help(name, 'histogram')}")
+        lines.append(f"# TYPE {p} histogram")
+        bounds = h.get("bucket_bounds") or ()
+        counts = h.get("bucket_counts") or ()
+        cum = 0
+        for b, c in zip(bounds, counts):
+            cum += c
+            lines.append(f'{p}_bucket{{le="{format(b, "g")}"}} {cum}')
+        overflow = counts[len(bounds)] if len(counts) > len(bounds) else 0
+        lines.append(f'{p}_bucket{{le="+Inf"}} {cum + overflow}')
+        lines.append(f"{p}_sum {format(h.get('sum', 0.0), 'g')}")
+        lines.append(f"{p}_count {h.get('count', 0)}")
+    return "\n".join(lines) + "\n" if lines else ""
+
+
 _registry = MetricsRegistry()
 
 

@@ -293,11 +293,10 @@ def set_recorder(rec) -> None:
     _recorder = rec  # firebird-lint: disable=ownership-global-mutation
 
 
-# The durable telemetry spool's span feed (the JAX package's
-# obs/spool.py installs it while armed; this package has no spool yet, so
-# nothing sets it): a parallel sink to the flight recorder — the recorder
+# The durable telemetry spool's span feed (obs/spool.py installs it
+# while armed): a parallel sink to the flight recorder — the recorder
 # keeps a crash-dump ring in memory, the spool appends to disk so a
-# SIGKILLed process's spans survive for `firebird trace collect`.
+# SIGKILLed process's spans survive for `trace collect`.
 _spool = None
 
 

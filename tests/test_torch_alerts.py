@@ -11,6 +11,7 @@ the JAX package's ``ProductWrites``.
 
 import numpy as np
 import pytest
+import torch
 
 from firebird_tpu.alerts import log as jlog
 from firebird_tpu.alerts import subindex as jsub
@@ -26,6 +27,15 @@ from firebird_tpu_torch.config import Config
 from firebird_tpu_torch.fleet import plan as tplan
 from firebird_tpu_torch.fleet import queue as tqueue
 from firebird_tpu_torch.serve import changefeed as tfeed
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # Fields of a record that depend on the run (ids, clocks), not the alert.
 RUN_FIELDS = ("id", "detected_at", "run_id")

@@ -31,6 +31,15 @@ from firebird_tpu_torch.ingest.packer import PackedChips as TPackedChips
 from tests.test_compact import (P_TEST, _fill_pixel, _grid, _mixed_pixels,
                                 _std_pixel)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 IDENTICAL = ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef",
              "mask", "procedure", "rounds", "round_counts", "vario")
 

@@ -28,6 +28,15 @@ from hypothesis.extra import numpy as hnp
 
 from firebird_tpu_torch.ccd import cuda_ops, harmonic
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_fused_bits import (CHANGE_THR, KEYS, OUTLIER_THR,  # noqa: E402
                                    _scored_states, word_events)

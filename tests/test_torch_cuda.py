@@ -19,6 +19,15 @@ from firebird_tpu_torch.ccd.sensor import (LANDSAT_ARD, LANDSAT_ARD_TINY,
                                            SENTINEL2)
 from firebird_tpu_torch.ingest import SyntheticSource, pack
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.cuda
 
 CHANGE_THR, OUTLIER_THR = 11.07, 15.09

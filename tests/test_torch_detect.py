@@ -26,6 +26,15 @@ from firebird_tpu_torch.ingest import SyntheticSource as TSource
 from firebird_tpu_torch.ingest import pack as tpack
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD_TINY as T_TINY
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CONFIGS = {
     "default": dict(seed=3),
     "two_changes_gaps": dict(seed=5, n_changes=2, seasonal_gap_frac=0.5),

@@ -24,6 +24,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from firebird_tpu.ccd.sensor import LANDSAT_ARD_TINY as J_TINY
 from firebird_tpu.config import Config as JConfig
@@ -41,6 +42,15 @@ from firebird_tpu_torch.ingest.packer import PackedChips
 from firebird_tpu_torch.obs import Counters
 from firebird_tpu_torch.store import AsyncWriter, MemoryStore, SqliteStore
 from test_ccd_kernel import overflow_packed
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 ACQ = "1995-01-01/1999-06-01"
 SRC = dict(seed=9, start="1995-01-01", end="1999-06-01", cloud_frac=0.1)

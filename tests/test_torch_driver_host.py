@@ -95,14 +95,37 @@ def test_config_knob_registry_and_keyspace_equal_jax():
 
 
 @pytest.mark.parametrize("override", [
-    dict(faults="ingest:p=0.1"), dict(object_root="/tmp/obj"),
-    dict(compile_cache="/tmp/cc"), dict(store_backend="cassandra")])
+    dict(object_root="/tmp/obj"), dict(compile_cache="/tmp/cc"),
+    dict(store_backend="cassandra")])
 def test_driver_refuses_unported_knobs(override):
     cfg = tconfig.Config(**override)
     with pytest.raises(ValueError, match="not ported"):
         tcore.refuse_not_ported(cfg)
     with pytest.raises(ValueError, match="not ported"):
         tcore.changedetection(0, 0, cfg=cfg, device="cpu")
+
+
+def test_driver_honours_the_fault_plan():
+    """FIREBIRD_FAULTS is ported: one chip the plan poisons is
+    quarantined while the rest of its chunk lands (the JAX package's
+    per-chip isolation), and the injection is counted."""
+    from firebird_tpu_torch.obs import metrics as obs_metrics
+    from firebird_tpu_torch.store import MemoryStore
+
+    cids = [tuple(int(v) for v in c)
+            for c in tgrid.chips(tgrid.tile(x=100, y=200))[:2]]
+    cfg = tconfig.Config(store_backend="memory", source_backend="synthetic",
+                         synth_sensor="landsat-ard-tiny", dtype="float64",
+                         fetch_retries=0,
+                         faults=f"ingest:chip={cids[0][0]}:{cids[0][1]}")
+    tcore.refuse_not_ported(cfg)
+    store = MemoryStore("faults")
+    done = tcore.changedetection(100, 200, "1995-01-01/1997-01-01",
+                                 number=2, chunk_size=2, cfg=cfg,
+                                 store=store, device="cpu")
+    assert list(done) == [cids[1]]
+    assert store.chip_ids("chip") == {cids[1]}
+    assert obs_metrics.counter("faults_injected_ingest").value == 1
 
 
 @pytest.fixture(scope="module")

@@ -34,6 +34,15 @@ from firebird_tpu_torch.ingest.packer import PackedChips
 from test_ccd_kernel import overflow_packed
 from test_torch_detect import CONFIGS, _packed
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F64 = torch.float64
 DECISIONS = ("n_segments", "procedure", "mask", "seg_meta")
 FLOATS = ("seg_rmse", "seg_mag", "seg_coef", "vario")

@@ -22,6 +22,15 @@ from hypothesis import given, settings, strategies as st
 from firebird_tpu_torch.ccd import cuda_ops, harmonic, params
 from firebird_tpu_torch.ccd.sensor import chi2_thresholds
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CHANGE_THR, OUTLIER_THR = chi2_thresholds(5)
 PEEK = params.PEEK_SIZE
 FULL = 0xFFFFFFFF

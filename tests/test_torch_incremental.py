@@ -33,6 +33,15 @@ from firebird_tpu.ingest.packer import PackedChips as JPacked
 from firebird_tpu_torch.ccd import convert, incremental, kernel, params
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD, SENTINEL2, chi2_thresholds
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FIELDS = incremental.STATE_FIELDS
 DTYPES = {"float32": (np.float32, jnp.float32, torch.float32),
           "float64": (np.float64, jnp.float64, torch.float64)}

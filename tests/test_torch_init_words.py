@@ -30,6 +30,15 @@ from firebird_tpu_torch.ccd.primitives import (first_at_or_after,
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD_TINY, SENTINEL2
 from firebird_tpu_torch.ingest import SyntheticSource, pack
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FULL = 0xFFFFFFFF
 MEOW = params.MEOW_SIZE
 F32 = np.float32

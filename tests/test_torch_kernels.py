@@ -21,6 +21,15 @@ from firebird_tpu_torch.ccd import cuda_ops
 from firebird_tpu_torch.ccd import primitives as tprim
 from firebird_tpu_torch.ccd.sensor import SENTINEL2 as T_S2
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CHANGE_THR, OUTLIER_THR = 11.07, 15.09
 
 

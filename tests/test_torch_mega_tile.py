@@ -38,6 +38,15 @@ from firebird_tpu_torch.ccd import convert, cuda_ops
 from firebird_tpu_torch.ccd import kernel as tk
 from firebird_tpu_torch.ccd.sensor import chi2_thresholds
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_detect import _packed  # noqa: E402
 

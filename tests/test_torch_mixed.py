@@ -33,6 +33,15 @@ from firebird_tpu_torch.ccd import cuda_ops, params
 from firebird_tpu_torch.ccd import kernel as tk
 from firebird_tpu_torch.ccd.sensor import SENTINEL2 as T_S2
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_precision import _scaled_ulps  # noqa: E402
 from test_torch_detect import _packed  # noqa: E402

@@ -20,6 +20,7 @@ with ``mixed=True``, and through the port's plain route 0 on the CPU:
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -32,6 +33,15 @@ from firebird_tpu_torch.ccd import kernel as tk
 from firebird_tpu_torch.ccd.sensor import SENTINEL2
 from firebird_tpu_torch.ingest import SyntheticSource, pack
 from firebird_tpu_torch.ingest.packer import PackedChips
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 S2 = dict(seed=11, start="2019-01-01", end="2021-01-01", cloud_frac=0.15)
 PIXELS = (40245, 53864, 56775, 57975, 58374, 65196, 68860, 70850, 81064)

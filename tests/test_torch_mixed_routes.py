@@ -25,6 +25,15 @@ from firebird_tpu_torch.ccd import convert, params
 from firebird_tpu_torch.ccd import kernel as tk
 from firebird_tpu_torch.ingest.packer import PackedChips
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_precision import (DECISION_META_COLS, _scaled_ulps,  # noqa: E402
                             _threshold_fuzz_pixels)

@@ -125,7 +125,9 @@ PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
                   "fleet/__init__.py", "fleet/queue.py", "fleet/plan.py",
                   "serve/__init__.py", "serve/changefeed.py",
                   "driver/stream.py", "rf/__init__.py", "rf/features.py",
-                  "rf/forest.py", "rf/pipeline.py", "products.py")
+                  "rf/forest.py", "rf/pipeline.py", "products.py",
+                  "faults.py", "fleet/worker.py", "fleet/policy.py",
+                  "fleet/supervisor.py", "obs/spool.py", "obs/collect.py")
 
 
 @pytest.mark.parametrize("rel", PORTED_MODULES)
@@ -326,8 +328,7 @@ def test_cli_stream_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("compile_cache", "/x"), ("object_root", "/x"),
-    ("faults", "ingest:chip=1:2"), ("slo_budget", "x")])
+    ("compile_cache", "/x"), ("object_root", "/x"), ("slo_budget", "x")])
 def test_stream_refuses_each_not_ported_knob(field, value):
     from firebird_tpu_torch.config import NOT_PORTED, Config
     from firebird_tpu_torch.driver import stream
@@ -339,6 +340,26 @@ def test_stream_refuses_each_not_ported_knob(field, value):
     with pytest.raises(ValueError, match=f"not ported.*{field}"):
         stream.stream(x=100, y=200, number=1, cfg=cfg, store=MemoryStore("x"),
                       device="cpu")
+
+
+def test_stream_honours_the_fault_plan():
+    """FIREBIRD_FAULTS is ported: a chip the plan poisons is fetched
+    through the plan's proxy, fails, and is quarantined (no retries left),
+    and the injection is counted."""
+    from firebird_tpu_torch import grid
+    from firebird_tpu_torch.config import NOT_PORTED, Config
+    from firebird_tpu_torch.driver import stream
+    from firebird_tpu_torch.obs import metrics as obs_metrics
+    from firebird_tpu_torch.store import MemoryStore
+
+    assert "faults" not in NOT_PORTED
+    cx, cy = (int(v) for v in grid.chips(grid.tile(x=100, y=200))[0])
+    cfg = Config(store_backend="memory", fetch_retries=0,
+                 faults=f"ingest:chip={cx}:{cy}")
+    s = stream.stream(x=100, y=200, number=1, cfg=cfg,
+                      store=MemoryStore("x"), device="cpu")
+    assert s["quarantined"] == 1 and s["bootstrapped"] == 0
+    assert obs_metrics.counter("faults_injected_ingest").value == 1
 
 
 

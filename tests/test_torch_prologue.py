@@ -22,6 +22,14 @@ from firebird_tpu_torch.ccd import primitives as tprim
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD_TINY as T_TINY
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, order="C"))
 

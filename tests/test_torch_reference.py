@@ -10,6 +10,7 @@ pixels of ``test_ccd_kernel.py`` (the four procedures, a spike).
 
 import numpy as np
 import pytest
+import torch
 
 from firebird_tpu.ccd import params as jparams
 from firebird_tpu.ccd import reference as jref
@@ -19,6 +20,15 @@ from firebird_tpu_torch import ccd as tccd
 from firebird_tpu_torch.ccd import reference as tref
 from firebird_tpu_torch.ingest import pixel_timeseries as t_pixel
 from test_torch_detect import CONFIGS, _packed
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # Every third pixel of both chips: 68 pixels a configuration.
 PIXELS = range(0, 100, 3)

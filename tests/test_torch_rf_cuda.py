@@ -14,6 +14,15 @@ import torch
 from firebird_tpu_torch.ccd import cuda_ops
 from firebird_tpu_torch.rf import forest, prng
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 pytestmark = pytest.mark.cuda
 
 FIELDS = ("feature", "threshold", "leaf_proba", "classes")

@@ -282,5 +282,24 @@ def test_classification_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="not ported"):
         core.classification(*POINT, msday=MSDAY, meday=MEDAY,
                             cfg=Config(store_backend="memory",
-                                       faults="ingest:p=0.1"),
+                                       object_root="/x"),
                             device="cpu")
+
+
+def test_classification_honours_the_fault_plan(monkeypatch):
+    """FIREBIRD_FAULTS is honoured by classification: the plan's aux
+    scope wraps the AUX fetches, so an aux brownout fails the run at its
+    first fetch and is counted."""
+    from firebird_tpu_torch import faults as faultlib
+    from firebird_tpu_torch.obs import metrics as obs_metrics
+
+    narrow_forest(monkeypatch, **TRAIN_KW)
+    _, store = filled_stores(seed=5, n_chips=1)
+    with pytest.raises(faultlib.InjectedTimeout):
+        core.classification(*POINT, msday=MSDAY, meday=MEDAY, acquired=ACQ,
+                            cfg=Config(store_backend="memory",
+                                       faults="aux:p=1,timeout"),
+                            aux_source=SyntheticSource(seed=4), store=store,
+                            device="cpu")
+    assert obs_metrics.counter("faults_injected_aux").value == 1
+    assert store.count("tile") == 0

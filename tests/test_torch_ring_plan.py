@@ -10,6 +10,14 @@ import torch
 from firebird_tpu_torch.ccd import cuda_ops
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _payload(rng):
     """Mixed dtypes and shapes: odd byte counts, a 0-d tensor, empty
     tensors, and leaves larger than one span."""

@@ -20,6 +20,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from firebird_tpu.ccd import kernel as jk
 from firebird_tpu.ccd.sensor import SENTINEL2 as J_S2
@@ -29,6 +30,15 @@ from firebird_tpu_torch.ccd import kernel as tk
 from firebird_tpu_torch.ccd.sensor import SENTINEL2
 from firebird_tpu_torch.ingest import SyntheticSource as TSource
 from firebird_tpu_torch.ingest import pack as tpack
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PIXELS = 64
 ROUTES = {

@@ -30,6 +30,15 @@ from firebird_tpu_torch.ingest.packer import PackedChips as TPackedChips
 from firebird_tpu_torch.parallel import mesh as tmesh
 from tests.test_compact import _grid
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STORE = ("n_segments", "seg_meta", "seg_rmse", "seg_mag", "seg_coef", "mask",
          "procedure")
 CPU2 = ["cpu", "cpu"]

@@ -29,6 +29,14 @@ from firebird_tpu_torch.streamops import statestore as ss
 from firebird_tpu_torch.utils.fn import take
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _chips(n=3):
     return [tuple(int(v) for v in c)
             for c in take(n, grid.chips(grid.tile(x=100.0, y=200.0)))]

@@ -12,6 +12,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from firebird_tpu.store import SqliteStore as JSqliteStore
 from firebird_tpu.store import schema as jschema
@@ -19,6 +20,15 @@ from firebird_tpu_torch import retry as tretry
 from firebird_tpu_torch.store import (AsyncWriter, MemoryStore, ParquetStore,
                                       SqliteStore, open_store)
 from firebird_tpu_torch.store import schema as tschema
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 HAVE_PYARROW = importlib.util.find_spec("pyarrow") is not None
 

@@ -298,10 +298,26 @@ def test_void_on_unrecoverable_checkpoint(runs, tmp_path):
 
 
 def test_stream_refuses_what_is_not_ported(tmp_path):
-    for knob in (dict(compile_cache="/x"), dict(object_root="/x"),
-                 dict(faults="ingest:p=0.1")):
+    for knob in (dict(compile_cache="/x"), dict(object_root="/x")):
         with pytest.raises(ValueError, match="not ported"):
             port(tmp_path, BOOT, **knob)
+
+
+def test_stream_retries_an_injected_store_blip(runs, tmp_path, monkeypatch):
+    """FIREBIRD_FAULTS is honoured by the stream: a one-write store blip
+    is retried by the writer (counted, not slept through), and the
+    bootstrap's summary and rows are those of the run without the plan."""
+    from firebird_tpu_torch import retry as retrylib
+    from firebird_tpu_torch.obs import metrics as obs_metrics
+
+    monkeypatch.setattr(retrylib.time, "sleep", lambda s: None)
+    store = MemoryStore("blip")
+    got = port(tmp_path, BOOT, store=store, faults="store:after=1")
+    assert got == runs["port"]["s1"] and got["bootstrapped"] == 1
+    assert obs_metrics.counter("faults_injected_store").value == 1
+    assert obs_metrics.counter("store_write_retries").value == 1
+    for table in ("chip", "pixel", "segment"):
+        assert _table(store, table) == _table(runs["port"]["boot"], table)
 
 
 def test_stream_refuses_a_non_landsat_chip(tmp_path):
