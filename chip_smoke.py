@@ -154,7 +154,20 @@ From the root of a checkout, on a machine with a CUDA card:
    watchdog stall in the spooled snapshots, and the supervisor's
    ``/progress`` answered 200.  Printed: the drain's wall, the hold, the
    first claim after launch, the collect and each check's seconds;
-12. the stream path (``stream_phase``): ``driver.stream.stream`` on the
+12. the read side over the fleet's telemetry home (``history_phase``,
+   right after ``fleet_phase``): while the supervisor's ops port was up,
+   its ``/metrics/history?res=10`` answered 200 with points from the
+   workers' spools and its ``/slo`` carried a budgets block (not
+   disabled) with a verdict for every objective of the default budget
+   spec.  Then, as commands over that home: ``slo --no-record`` exits 0
+   or 1 with a verdict for every objective and records nothing; ``slo -b
+   'batch_p95<0.001@99/1h'`` (a budget every drained batch burns) exits
+   1 and records the exhaustion in ``slo_events.jsonl``; ``slo
+   --no-record -b 'batch_p95<30@99/1h'`` is ok over the drained batches;
+   ``status`` shows the queue drained and the budget view; ``top
+   --iterations 1`` renders one frame with the history block and the
+   workers' counters.  Printed: each command's seconds and the phase's;
+13. the stream path (``stream_phase``): ``driver.stream.stream`` on the
    card over the tile's first 8 chips (the same archive; the eighth
    stepped +800 on every band from 2016-06-01), served from memory cut to
    each asked range, batches of 8 into sqlite in a temporary directory.
@@ -180,13 +193,25 @@ From the root of a checkout, on a machine with a CUDA card:
    step loop replayed under ``torch.profiler`` (its kernels' own time,
    and so their busy share of the wall), statestore load and save ms a
    chip, publish and alert seconds; the peak memory;
-13. the float64 route (``f64_phase``): one full chip through
+14. the float64 route (``f64_phase``): one full chip through
    ``detect_packed(dtype=torch.float64)`` on the card, which must launch
    no kernel; on 256 of its pixels drawn from the seed every decision must
    equal the port's ``reference.detect`` (run in 8 processes) and the
    floats be within tests/test_ccd_kernel.py's tolerances.  Printed: its
    wall and its decision agreement with f32 route 0 on the whole chip;
-14. classification and the product rasters (``classify_phase``, run
+15. the parity audit (``validate_phase``, right after ``f64_phase``):
+   ``validate.validate`` on the default synthetic chip (100, 200), 10 000
+   pixels of 7 bands over 1985-2017, 100 pixels drawn from seed 0
+   replayed through ``ccd/reference.py`` in the f64 phase's pool of 8
+   spawned processes (once: the float32 audit takes the oracle's answers
+   for the same pixels from the float64 audit), in float64 (structural agreement must be 100 % and no kernel launch)
+   and in float32 (it must launch route 0's three kernels and no
+   other; its mismatches, break-day agreement and the exit code the
+   command would give are printed, not gated: the f32 route is not held
+   to the f64 oracle on a full chip).  Then ``flops.bench_detail`` for
+   route 0 on that chip (P, T, W and the measured round counts, the
+   H100's peaks) beside the kernel phase's bounds of the three kernels;
+16. classification and the product rasters (``classify_phase``, run
    right after ``driver_phase`` on its sqlite store of 24 detected chips):
    ``driver.core.classification`` at the driver's point over 1985-2017 on
    the card, at the JAX package's width (500 trees, depth 8, 64 bins), the
@@ -209,7 +234,7 @@ From the root of a checkout, on a machine with a CUDA card:
    bin, draw and grow (CUDA events), train, model save, predict, write),
    rows/s trained and classified, the card's spans' share of the wall,
    the peak device memory, each check's seconds and the wall;
-15. every kernel instance's registers, stack and spills, and the total
+17. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -223,6 +248,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -231,14 +257,16 @@ import sys
 import tempfile
 import time
 import types
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from firebird_tpu_torch import grid
-from firebird_tpu_torch.ccd import (cuda_ops, format as fmt, incremental,
-                                    kernel, params, synthetic)
+from firebird_tpu_torch.ccd import (cuda_ops, flops as flops_model,
+                                    format as fmt, incremental, kernel,
+                                    params, synthetic)
 from firebird_tpu_torch.ccd.reference import detect as reference_detect
 from firebird_tpu_torch.ccd.primitives import (coefmask_for,
                                                first_at_or_after, variogram)
@@ -254,9 +282,11 @@ from firebird_tpu_torch.store import MemoryStore, SqliteStore
 from firebird_tpu_torch.parallel import detect_sharded
 from firebird_tpu_torch.utils import dates as dt
 
-HBM_BYTES_S = 3.35e12          # H100 SXM device memory rate
-F32_FLOPS_S = 67e12            # H100 SXM float32 outside the tensor cores
-BF16_FLOPS_S = 989e12          # H100 SXM dense bf16 on the tensor cores
+# The H100's peaks, from the port's roofline model (ccd/flops.PEAKS): the
+# device memory rate, float32 outside the tensor cores, dense bf16 on them.
+H100 = flops_model.peak_for("NVIDIA H100")
+HBM_BYTES_S, F32_FLOPS_S, BF16_FLOPS_S = (H100.hbm_bytes, H100.f32_flops,
+                                          H100.bf16_flops)
 START, END = "1985-01-01", "2017-12-31"
 PALLAS = "firebird_tpu/ccd/pallas_ops.py"
 KERNEL_INFO = {
@@ -1970,6 +2000,20 @@ def _get(url):
         return None
 
 
+def _get_json(url):
+    """(status, parsed body) of a GET, (None, None) when nothing answers."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, None
+    except (OSError, ValueError):
+        return None, None
+
+
 def ops_phase(smi, chips, ref_cfg, tmp):
     """One process per card and the run's ops surface (the module
     docstring's item 10): the first OPS_CHIPS chips of the driver's tile
@@ -2190,7 +2234,7 @@ def forest_diff(a, b):
 
 def classify_phase(smi, cfg, seed, dev):
     """Classification on the card over the driver phase's store (the module
-    docstring's item 14)."""
+    docstring's item 16)."""
     from firebird_tpu_torch import products
     from firebird_tpu_torch.rf import features, forest, pipeline
 
@@ -2515,7 +2559,7 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
 
     # The drill: freeze the first worker seen claiming a detect job, hold
     # it until its lease has lapsed, then let it go on as a zombie.
-    drill = {}
+    drill, history = {}, {}
     gpu_seen, gpu_most, answers = set(), [0], []
     done = threading.Event()
 
@@ -2550,7 +2594,10 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
 
     def sample():
         """(e) the card's compute apps, and (the ops port) the
-        supervisor's /progress, while the drain lasts."""
+        supervisor's /progress while the drain lasts; its
+        /metrics/history and /slo until each has answered with the
+        workers' history (``history_phase`` holds what they said)."""
+        n = 0
         while not done.is_set():
             apps = _gpu_apps()
             gpu_seen.update(apps)
@@ -2558,7 +2605,33 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
             code = _get(f"http://127.0.0.1:{port}/progress")
             if code is not None and (not answers or answers[-1] != code):
                 answers.append(code)
+            if n % 4 == 3:
+                read_history()
+            n += 1
             time.sleep(0.5)
+
+    def read_history():
+        base = f"http://127.0.0.1:{port}"
+        if "metrics_history" not in history:
+            t1 = time.perf_counter()
+            code, doc = _get_json(f"{base}/metrics/history?res=10"
+                                  f"&window=3600")
+            if code == 200 and any(s.startswith("worker:")
+                                   for s in doc["sources"]):
+                history["metrics_history"] = dict(
+                    code=code, points=len(doc["points"]),
+                    sources=doc["sources"], res_sec=doc["res_sec"],
+                    seconds=time.perf_counter() - t1)
+        if "slo" not in history:
+            t1 = time.perf_counter()
+            code, doc = _get_json(f"{base}/slo")
+            b = (doc or {}).get("budgets") or {}
+            if code == 200 and b.get("budgets") and "error" not in b:
+                history["slo"] = dict(
+                    code=code, spec=b["spec"], ok=b["ok"],
+                    sources=b["sources"],
+                    verdicts={x["name"]: x["ok"] for x in b["budgets"]},
+                    seconds=time.perf_counter() - t1)
 
     threads = [threading.Thread(target=f, daemon=True)
                for f in (freeze, sample)]
@@ -2782,6 +2855,7 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
         trace_events=len(evs), job_seconds=job_s,
         profile_span_seconds=profile_s,
         profile_span_wall=profile_wall, window_kernels=window_kernels,
+        ops_history=history, home=str(root),
         split=dict(setup_s=setup_s, enqueue_s=enqueue_s,
                    startup_s=first_claim - t0_wall, drain_s=drain_s,
                    hold_s=drill.get("hold_s"), collect_s=collect_s),
@@ -2801,7 +2875,106 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
           f"checks (s) " + ", ".join(f"{k} {v:.2f}" for k, v in
                                      check_s.items())
           + f"; phase {out_rep['seconds']:.1f} s on {smi}", flush=True)
-    return out_rep
+    return out_rep, env
+
+
+HISTORY_BURN = "batch_p95<0.001@99/1h"   # every drained batch a bad one
+HISTORY_HOLD = "batch_p95<30@99/1h"      # the fleet's batches all good
+
+
+def history_phase(smi, fleet, env):
+    """The read side over the fleet's telemetry home (the module
+    docstring's item 12): the supervisor's /metrics/history and /slo as
+    ``fleet_phase`` read them while its ops port was up, then ``slo``,
+    ``status`` and ``top`` as commands.  Returns the report."""
+    from firebird_tpu_torch.obs import slo as obs_slo
+
+    t_phase = time.perf_counter()
+    cli = [sys.executable, "-m", "firebird_tpu_torch"]
+    seconds = {}
+
+    def run(*argv, codes=(0,)):
+        t1 = time.perf_counter()
+        r = subprocess.run(cli + list(argv), env=env, capture_output=True,
+                           text=True, timeout=120)
+        seconds[" ".join(argv)] = time.perf_counter() - t1
+        check(r.returncode in codes, f"history: {' '.join(argv)} exited "
+              f"{r.returncode}: {r.stderr[-3000:]}")
+        return r.returncode, r.stdout
+
+    hist, slo_doc = (fleet["ops_history"].get(k)
+                     for k in ("metrics_history", "slo"))
+    check(hist is not None and hist["points"] > 0,
+          f"history: /metrics/history never answered 200 with a worker's "
+          f"points during the drain ({fleet['ops_history']})")
+    check(slo_doc is not None, "history: /slo never carried a budgets block "
+          f"during the drain ({fleet['ops_history']})")
+    names = [b["name"] for b in obs_slo.parse_budget_spec(
+        obs_slo.DEFAULT_BUDGET_SPEC)]
+    check(sorted(slo_doc["verdicts"]) == sorted(names),
+          f"history: /slo's budgets {slo_doc['verdicts']}")
+    series = Path(fleet["home"]) / "telemetry" / "series"
+    events = series / obs_slo.BUDGET_EVENTS_FILE
+    before = events.read_bytes() if events.exists() else b""
+    # a pure read: a verdict for every objective of the default spec, and
+    # no event recorded
+    code, out = run("slo", "--no-record", codes=(0, 1))
+    read = json.loads(out)
+    check(sorted(b["name"] for b in read["budgets"]) == sorted(names)
+          and all("ok" in b for b in read["budgets"]),
+          f"history: slo --no-record budgets {read['budgets']}")
+    check((events.read_bytes() if events.exists() else b"") == before,
+          "history: slo --no-record wrote an event")
+    # recording: a budget every drained batch burns is exhausted, exits 1
+    # and lands in slo_events.jsonl; one they all keep is ok with data
+    code, out = run("slo", "-b", HISTORY_BURN, codes=(1,))
+    burnt = json.loads(out)
+    check(burnt["events_appended"] and events.exists()
+          and obs_slo.read_budget_events(str(series))[-1]["state"]
+          in ("exhausted", "burning"),
+          f"history: slo -b {HISTORY_BURN} recorded "
+          f"{burnt.get('events_appended')}")
+    code, out = run("slo", "--no-record", "-b", HISTORY_HOLD)
+    held = json.loads(out)
+    check(held["ok"] is True and held["budgets"][0]["ok"] is True
+          and held["budgets"][0]["total"] > 0,
+          f"history: slo -b {HISTORY_HOLD}: {held['budgets']}")
+    # status: the drained queue and the budget view
+    code, out = run("status")
+    st = json.loads(out)
+    jobs = st["fleet"]["jobs"]
+    check(jobs["pending"] == jobs["leased"] == jobs["dead"] == 0
+          and jobs["done"] == fleet["jobs"],
+          f"history: status fleet jobs {jobs}")
+    check(sorted(st["budgets"]["budgets"]) == sorted(names),
+          f"history: status budgets {st.get('budgets')}")
+    # top: one frame whose history block has a source
+    code, out = run("top", "--iterations", "1")
+    lines = out.splitlines()
+    check(lines[0].startswith("firebird top") and any(
+        ln.startswith("history (10s buckets") for ln in lines)
+        and any(ln.startswith("  fleet_") for ln in lines),
+        f"history: top rendered {lines}")
+    rep = dict(metrics_history=hist, slo_endpoint=slo_doc,
+               slo_read={b["name"]: b["ok"] for b in read["budgets"]},
+               slo_burn=dict(spec=HISTORY_BURN, ok=burnt["ok"],
+                             events=len(burnt["events_appended"])),
+               slo_hold=dict(spec=HISTORY_HOLD, total=held["budgets"][0][
+                   "total"], bad=held["budgets"][0]["bad"]),
+               status_jobs=jobs, status_sections=list(st),
+               top_lines=len(lines),
+               command_seconds=seconds,
+               seconds=time.perf_counter() - t_phase)
+    print(f"history: /metrics/history?res=10 {hist['code']} with "
+          f"{hist['points']} points from {hist['sources']}; /slo budgets "
+          f"{slo_doc['verdicts']}; slo --no-record {rep['slo_read']}; "
+          f"slo -b {HISTORY_BURN} exit 1, {rep['slo_burn']['events']} "
+          f"event(s) recorded; slo -b {HISTORY_HOLD} ok over "
+          f"{rep['slo_hold']['total']:g} batches; status jobs {jobs}; top "
+          f"{len(lines)} lines; commands (s) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; phase {rep['seconds']:.1f} s on {smi}", flush=True)
+    return rep
 
 
 # ---------------------------------------------------------------------------
@@ -2929,7 +3102,7 @@ def expected_rows(chips, acquired, dev, rows=True):
 
 
 def stream_phase(smi, chips, dev):
-    """The stream path on the card (the module docstring's item 12)."""
+    """The stream path on the card (the module docstring's item 13)."""
     from firebird_tpu_torch.alerts import AlertLog, alert_db_path, repair_chip
     from firebird_tpu_torch.driver import stream as sdrv
     from firebird_tpu_torch.fleet import FleetQueue, queue_path
@@ -3181,12 +3354,9 @@ def _reference(kw):
     return reference_detect(**kw)
 
 
-def f64_phase(smi, seed, dev):
+def f64_phase(smi, seed, dev, pool):
     """One full chip on the float64 route (the module docstring's item
-    13)."""
-    import multiprocessing as mp
-    from concurrent.futures import ProcessPoolExecutor
-
+    14); the reference runs in ``pool`` (spawned processes)."""
     src = SyntheticSource(seed, start=START, end=END)
     packed = pack([src.chip(1000, 2000)], bucket=64)
     cuda_ops.reset_launches()
@@ -3210,9 +3380,8 @@ def f64_phase(smi, seed, dev):
     pix = np.sort(np.random.default_rng(seed).choice(P, F64_SAMPLE,
                                                      replace=False))
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(8, mp_context=mp.get_context("spawn")) as ex:
-        refs = list(ex.map(_reference, [pixel_timeseries(packed, 0, int(i))
-                                        for i in pix]))
+    refs = list(pool.map(_reference, [pixel_timeseries(packed, 0, int(i))
+                                      for i in pix]))
     ref_s = time.perf_counter() - t0
     dates = packed.dates[0][: int(packed.n_obs[0])]
     close = lambda a, b, rel, abs_: abs(a - b) <= max(rel * abs(b), abs_)
@@ -3247,6 +3416,102 @@ def f64_phase(smi, seed, dev):
                 sample_segments=n_models, reference_seconds=ref_s,
                 agreement_with_f32_route_0=agree,
                 pixels_differing_from_f32=n_dis)
+
+
+VALIDATE_PIXELS = 100
+
+
+def validate_phase(smi, dev, kernels, pool):
+    """The parity audit on one full chip (the module docstring's item 15):
+    ``validate.validate`` on the default synthetic chip in float64, then
+    float32, each with the launch counters set to 0 just before and read
+    just after, the oracle replayed in ``pool``; then route 0's roofline
+    model (``flops.bench_detail``) at that chip's P, T, W and round counts
+    beside the kernel phase's bounds (``kernels``).  Returns the
+    report."""
+    from firebird_tpu_torch import validate
+
+    t_phase = time.perf_counter()
+    memo, replayed = {}, {}
+
+    def replay(tasks):
+        """The oracle over ``tasks`` in the pool, each distinct pixel
+        series once: the float32 audit's pixels are the float64 audit's,
+        and the oracle is the same float64 program on the same inputs."""
+        keys = [tuple(np.asarray(a).tobytes() for a in t[:3]) for t in tasks]
+        new = {k: t for k, t in zip(keys, tasks) if k not in memo}
+        memo.update(zip(new, pool.map(validate.oracle, new.values())))
+        replayed[dtype] = len(new)
+        return [memo[k] for k in keys]
+
+    reports, launches, walls = {}, {}, {}
+    for dtype in ("float64", "float32"):
+        cuda_ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = validate.validate(acquired=ACQUIRED, n_pixels=VALIDATE_PIXELS,
+                                dtype=dtype, device=dev, replay=replay)
+        walls[dtype] = time.perf_counter() - t0
+        launches[dtype] = {k: v for k, v in cuda_ops.LAUNCHES.items() if v}
+        check(rep["pixels_audited"] == VALIDATE_PIXELS
+              and rep["chip"] == [100, 200] and rep["dtype"] == dtype,
+              f"validate {dtype}: report {rep}")
+        reports[dtype] = dict(rep, exit_code=0 if rep["structural_agreement"]
+                              else 2)
+    check(reports["float64"]["structural_agreement"],
+          f"validate float64: structure disagrees with the reference: "
+          f"{reports['float64']['mismatches']}")
+    check(not launches["float64"],
+          f"validate float64 launched {launches['float64']}")
+    check(set(launches["float32"]) == ROUTE_0,
+          f"validate float32 launched {launches['float32']}, not route 0's "
+          f"{sorted(ROUTE_0)}")
+    # Route 0's roofline model over the same chip, timed warm.
+    cfg = Config.from_env()
+    packed = pack([SyntheticSource(seed=0).chip(100, 200, ACQUIRED)],
+                  bucket=cfg.obs_bucket, max_obs=cfg.max_obs)
+    route = kernel.pallas_components(None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg = kernel.detect_packed(packed, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    C, B, P, T = packed.spectra.shape
+    phases = tuple(float(v) for v in
+                   seg.round_counts.reshape(-1, 3).float().mean(0).tolist())
+    model = flops_model.bench_detail(
+        pixels_per_sec=P / wall, P=P, T=T, W=kernel.window_cap(packed),
+        S=int(seg.seg_meta.shape[-2]), rounds=float(seg.rounds.float().mean()),
+        device_kind=torch.cuda.get_device_name(0), sensor=packed.sensor,
+        phase_rounds=phases,
+        pallas=flops_model.modeled_components(route, kernel.fused_mode(None)),
+        wire_bytes=2, mixed=route.mixed)
+    bounds = {k: dict(bound_ms=kernels[k]["bound_ms"],
+                      bound_by=kernels[k]["bound_by"], ms=kernels[k]["ms"])
+              for k in sorted(ROUTE_0)}
+    out = dict(reports=reports, launches=launches, seconds_by_dtype=walls,
+               oracle_replayed=replayed,
+               roofline=dict(P=P, T=T, wall_s=wall, model=model,
+                             kernel_bounds=bounds),
+               seconds=time.perf_counter() - t_phase)
+    for dtype, rep in reports.items():
+        print(f"validate {dtype}: chip (100, 200), {rep['pixels_audited']} "
+              f"of {P} px, T={rep['obs_per_pixel']}: structural agreement "
+              f"{rep['structural_agreement']} (exit {rep['exit_code']}), "
+              f"break_day_agreement {rep['break_day_agreement']}, mismatches "
+              f"{rep['mismatches']}, change_probability max abs err "
+              f"{rep['change_probability_max_abs_err']:.3g}, numeric max rel "
+              f"err {rep['numeric_max_rel_err']}; launches "
+              f"{launches[dtype] or 'none'}; {replayed[dtype]} pixels "
+              f"replayed; {walls[dtype]:.1f} s on {smi}",
+              flush=True)
+    print(f"roofline, route 0 on that chip (P={P}, T={T}, "
+          f"{wall * 1e3:.1f} ms, {P / wall:.1f} px/s): "
+          + json.dumps(model) + "; the kernel phase's bounds a launch "
+          + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']}; "
+                      f"{v['ms']:.3f} ms)" for k, v in bounds.items())
+          + f"; phase {out['seconds']:.1f} s on {smi}", flush=True)
+    return out
 
 
 def main(argv=None):
@@ -3338,13 +3603,19 @@ def main(argv=None):
         drv, drv_cfg = driver_phase(smi, chips, gen_s, dev, tmp)
         torch.cuda.empty_cache()
         ops = ops_phase(smi, chips, drv_cfg, tmp)
-        fleet = fleet_phase(smi, chips, drv_cfg, tmp, args.seed)
+        fleet, fleet_env = fleet_phase(smi, chips, drv_cfg, tmp, args.seed)
+        history = history_phase(smi, fleet, fleet_env)
         rf = classify_phase(smi, drv_cfg, args.seed, dev)
     torch.cuda.empty_cache()
     strm = stream_phase(smi, chips, dev)
     del chips
     torch.cuda.empty_cache()
-    f64 = f64_phase(smi, args.seed, dev)
+    # One pool of spawned processes for the reference replays: each
+    # spawned process imports this script and the port once.
+    with ProcessPoolExecutor(8, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        f64 = f64_phase(smi, args.seed, dev, pool)
+        audit = validate_phase(smi, dev, kernels, pool)
     instances = ptxas_report(paths["0"]["T"], smi)
 
     ptxas = {n: (cuda_ops.BUILD_DIR / f"{n}.ptxas.txt").read_text()
@@ -3357,9 +3628,9 @@ def main(argv=None):
         build_seconds=build_s, sass_hmma=sass, kernels=kernels,
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
-        sentinel2=s2, driver=drv, ops=ops, fleet=fleet, classify=rf,
-        stream=strm,
-        f64=f64,
+        sentinel2=s2, driver=drv, ops=ops, fleet=fleet, history=history,
+        classify=rf, stream=strm,
+        f64=f64, validate=audit,
         ptxas_instances=instances,
         ptxas=ptxas,
         seconds=time.perf_counter() - t_start), indent=1))

@@ -24,6 +24,14 @@
     python -m firebird_tpu_torch fleet status
     python -m firebird_tpu_torch fleet requeue [JOB_ID | --dead]
     python -m firebird_tpu_torch trace collect [-d DIR] [-o OUT]
+    python -m firebird_tpu_torch products
+    python -m firebird_tpu_torch tiles -b X,Y [-b X,Y ...] [-s I/N]
+    python -m firebird_tpu_torch validate [-x X -y Y] [-a ACQUIRED] \
+        [-n N_PIXELS] [--dtype {float32,float64}] [--seed S] [--device cuda]
+    python -m firebird_tpu_torch status [-x X -y Y]
+    python -m firebird_tpu_torch top [-i INTERVAL] [-n ITERATIONS]
+    python -m firebird_tpu_torch slo [-b SPEC] [--fast S] [--slow S] \
+        [--burn R] [--record | --no-record]
 
 ``changedetection`` is the JAX package's command of that name: the tile
 at the point (x, y), its first ``NUMBER`` chips in chunks of
@@ -108,6 +116,26 @@ metric snapshots to ``telemetry/`` next to the store
 directory into one Chrome trace with critical paths and merged metrics
 (obs/collect.py), written to ``telemetry_collect.json`` there unless
 ``-o`` names a path.
+
+The read-side commands answer as the JAX package's commands of their
+names do (same output, same JSON keys, same exit codes), on the host only:
+none initialises CUDA.  ``products`` lists the product names; ``tiles``
+prints the tiles covering the bounds points as CSV (``-s i/n`` a strided
+shard; a bad shard exits 2); ``status`` prints the store's tables and
+chips, quarantine, the fleet queue, the alert log, the stream checkpoint
+store, the error budgets and, with ``-x/-y``, one tile's progress (the
+acquisition watcher, serving and object-tier views are not ported: absent
+where there is no such state, an error entry where there is); ``top``
+renders the queue, the alert log, the spools' merged metrics and the
+series store's sparklines; ``slo`` ingests the spools into the series
+store (``series/`` in the spool directory) and prints the error budgets'
+verdict, recording state changes in ``slo_events.jsonl`` unless
+``--no-record``, and exits 0 (every budget ok or without data), 1 (one
+burning or exhausted) or 2 (no series store).  ``validate`` runs the
+detector over one chip at ``--dtype`` (default float64) on the card
+(``--device cpu`` runs the plain versions; without a card it raises),
+replays ``-n`` sampled pixels through ``ccd/reference.py`` and prints the
+agreement report, exiting 2 when the structure does not agree 100 %.
 """
 
 from __future__ import annotations
@@ -502,6 +530,500 @@ def trace_collect(args) -> dict:
             "critical_paths": len(doc["critical_paths"])}
 
 
+class _UsageError(Exception):
+    """A command's refusal of its arguments: exit 2 with the usage line,
+    as the JAX command line's ``click.BadParameter``."""
+
+
+def products_cmd(args) -> None:
+    """The products that can be run, one name a line."""
+    from firebird_tpu_torch import products
+
+    for name in products.available():
+        print(name)
+
+
+def tiles(args) -> None:
+    """The tiles covering the bounds points as h,v,ulx,uly,lrx,lry CSV
+    rows, optionally the i-th of n strided shards."""
+    from firebird_tpu_torch import grid
+
+    recs = grid.tiles_for_bounds(_parse_points(args.bounds))
+    if args.shard is not None:
+        try:
+            i, n = (int(v) for v in args.shard.split("/"))
+        except ValueError as e:
+            raise _UsageError("shard must be i/n with 0 <= i < n") from e
+        if not 0 <= i < n:
+            raise _UsageError("shard must be i/n with 0 <= i < n")
+        recs = recs[i::n]
+    print("h,v,ulx,uly,lrx,lry")
+    for r in recs:
+        print(f"{r['h']},{r['v']},{r['ulx']:.0f},{r['uly']:.0f},"
+              f"{r['lrx']:.0f},{r['lry']:.0f}")
+
+
+def validate_cmd(args) -> None:
+    """The parity audit of one chip (validate.validate); exits 2 when the
+    structure does not agree 100 %."""
+    from firebird_tpu_torch import validate
+
+    report = validate.validate(x=args.x, y=args.y, acquired=args.acquired,
+                               n_pixels=args.n_pixels, dtype=args.dtype,
+                               seed=args.seed, device=args.device)
+    print(json.dumps(report, indent=1))
+    if not report["structural_agreement"]:
+        raise SystemExit(2)
+
+
+def _not_ported(what: str) -> str:
+    return f"NotImplementedError: {what} is not ported to firebird_tpu_torch"
+
+
+def _status_doc(cfg, x=None, y=None) -> dict:
+    """The ``status`` document: the store's tables and chips, quarantine,
+    the fleet queue, the alert log, the stream checkpoint store, the error
+    budgets and (with x, y) one tile's progress — the JAX command's
+    sections, each guarded so a broken one degrades alone.  A section
+    whose subsystem the port lacks (the acquisition watcher, the serving
+    fleet, the object tier) is absent where the JAX command finds no such
+    state, and an error entry naming what is not ported where it finds
+    some."""
+    import collections
+    import os
+
+    from firebird_tpu_torch import grid
+    from firebird_tpu_torch.driver import quarantine as _quarantine
+    from firebird_tpu_torch.store import TABLES, open_store
+
+    store = open_store(cfg.store_backend, cfg.store_path, cfg.keyspace())
+    done = store.chip_ids("segment")
+    out = {
+        "backend": cfg.store_backend,
+        "path": cfg.store_path,
+        "keyspace": cfg.keyspace(),
+        "tables": {t: store.count(t) for t in TABLES},
+        "chips_with_segments": len(done),
+    }
+    qpath = _quarantine.quarantine_path(cfg)
+    if qpath is not None and os.path.exists(qpath):
+        q = _quarantine.Quarantine.load(qpath)
+        errors = collections.Counter(
+            e.get("error", "unknown") for e in q.snapshot()["chips"].values())
+        out["quarantine"] = {"path": qpath, "chips": len(q),
+                             "errors": dict(sorted(errors.items()))}
+    else:
+        out["quarantine"] = {"path": qpath, "chips": 0, "errors": {}}
+    try:
+        from firebird_tpu_torch.fleet import FleetQueue, queue_path
+
+        fpath = queue_path(cfg)
+    except ValueError:
+        fpath = None            # memory backend without FIREBIRD_FLEET_DB
+    if fpath is not None and os.path.exists(fpath):
+        try:
+            fq = FleetQueue(fpath, lease_sec=cfg.fleet_lease_sec)
+            try:
+                s = fq.status()
+            finally:
+                fq.close()
+            sup = s.get("supervisor")
+            out["fleet"] = {
+                "path": fpath,
+                "jobs": s["jobs"],
+                "by_type": s["by_type"],
+                "blocked": s["blocked"],
+                "leases": s["leases"],
+                "workers": s.get("workers", []),
+                "supervisor": None if sup is None else {
+                    k: sup.get(k) for k in
+                    ("pid", "host", "target", "live", "retiring", "min",
+                     "max", "adopted_total", "parks", "drain_eta_sec",
+                     "last_decision", "beat_age_sec")},
+                "dead": len(s["dead"]),
+                "dead_errors": s["dead_errors"],
+                "fence_rejects": s["fence_rejects"],
+            }
+        except Exception as e:
+            out["fleet"] = {"path": fpath,
+                            "error": f"{type(e).__name__}: {e}"}
+    from firebird_tpu_torch.alerts import AlertLog, alert_db_path
+
+    apath = alert_db_path(cfg)
+    if apath is not None and os.path.exists(apath):
+        try:
+            al = AlertLog(apath)
+            try:
+                s = al.status()
+            finally:
+                al.close()
+            by_type = (out.get("fleet") or {}).get("by_type") or {}
+            rep = by_type.get("repair", {})
+            fan = by_type.get("fanout", {})
+            out["alerts"] = {
+                "path": apath,
+                "depth": s["depth"],
+                "latest_cursor": s["latest_cursor"],
+                "subscribers": s["subscribers"],
+                "open_repair_jobs": int(rep.get("pending", 0))
+                + int(rep.get("leased", 0)),
+                "fanout": dict(s.get("fanout") or {},
+                               open_jobs=int(fan.get("pending", 0))
+                               + int(fan.get("leased", 0))),
+            }
+        except Exception as e:
+            out["alerts"] = {"path": apath,
+                             "error": f"{type(e).__name__}: {e}"}
+    from firebird_tpu_torch.driver.quarantine import _artifact_dir
+
+    home = _artifact_dir(cfg)
+    try:
+        from firebird_tpu_torch.streamops import open_statestore
+
+        sstore = open_statestore(cfg)
+        try:
+            scan = sstore.scan() if hasattr(sstore, "scan") \
+                else sstore.status()
+        finally:
+            sstore.close()
+        out["streamops"] = {"statestore": scan}
+        wpath = cfg.watch_db or (home and os.path.join(home, "watcher.db"))
+        if wpath and os.path.exists(wpath):
+            out["streamops"]["watcher"] = {"path": wpath, "error": _not_ported(
+                "the acquisition watcher (streamops/watcher.py)")}
+    except Exception as e:
+        out["streamops"] = {"error": f"{type(e).__name__}: {e}"}
+    from firebird_tpu_torch.serve import changefeed as _cflib
+
+    proot = cfg.serve_pyramid_dir or (
+        os.path.join(cfg.serve_cache_dir, "pyramid") if cfg.serve_cache_dir
+        else home and os.path.join(home, "pyramid"))
+    found = [p for p in (_cflib.changefeed_db_path(cfg), proot)
+             if p and os.path.exists(p)]
+    if found:
+        out["serving"] = {"error": _not_ported(
+            "the serving view (serve/changefeed.py's replicas, "
+            "serve/pyramid.py)") + f"; found {', '.join(found)}"}
+    if cfg.object_root:
+        out["object"] = {"root": cfg.object_root, "error": _not_ported(
+            "the object tier (store/objectstore.py)")}
+    # Error-budget view: the multi-window burn verdict over the durable
+    # metric series next to the telemetry spools — read-only here (no
+    # event recording; that belongs to `slo` and the ops endpoint).
+    try:
+        from firebird_tpu_torch.obs import series as _series
+        from firebird_tpu_torch.obs import slo as _slo
+
+        sstore = _series.open_store(cfg)
+        if sstore is not None:
+            try:
+                sstore.ingest_spools()
+                v = _slo.evaluate_budgets(
+                    sstore.dir, cfg.slo_budget or None,
+                    fast_sec=cfg.slo_fast_sec, slow_sec=cfg.slo_slow_sec,
+                    burn_threshold=cfg.slo_burn)
+            finally:
+                sstore.close()
+            out["budgets"] = {
+                "ok": v["ok"], "violations": v["violations"],
+                "budgets": {b["name"]: {
+                    "ok": b["ok"], "budget_spent": b["budget_spent"],
+                    "exhausted": b["exhausted"], "burning": b["burning"],
+                    "fast_burn": b["fast_burn"],
+                    "slow_burn": b["slow_burn"],
+                    "empty_windows": b["empty_windows"],
+                } for b in v["budgets"]},
+            }
+    except Exception as e:
+        out["budgets"] = {"error": f"{type(e).__name__}: {e}"}
+    if x is not None:
+        tile = grid.tile(x, y)
+        cids = [tuple(int(v) for v in c) for c in grid.chips(tile)]
+        out["tile"] = {
+            "h": tile["h"], "v": tile["v"],
+            "chips_done": sum(1 for c in cids if c in done),
+            "chips_total": len(cids),
+        }
+    return out
+
+
+def status(args) -> None:
+    from firebird_tpu_torch.config import Config
+
+    if (args.x is None) != (args.y is None):
+        raise _UsageError("tile progress needs both -x and -y")
+    print(json.dumps(_status_doc(Config.from_env(), args.x, args.y),
+                     indent=1))
+
+
+def _top_frame(cfg) -> dict:
+    """One ``top`` sample: queue + alert + telemetry views, each guarded
+    (a locked db or empty spool degrades its section, never the frame)."""
+    import os
+
+    from firebird_tpu_torch.obs import collect as obs_collect
+    from firebird_tpu_torch.obs import spool as obs_spool
+
+    frame: dict = {}
+    try:
+        from firebird_tpu_torch.fleet import make_queue
+
+        queue = make_queue(cfg)
+        try:
+            frame["fleet"] = queue.status()
+        finally:
+            queue.close()
+    except Exception as e:
+        frame["fleet"] = {"error": f"{type(e).__name__}: {e}"}
+    try:
+        from firebird_tpu_torch.alerts import AlertLog, alert_db_path
+
+        apath = alert_db_path(cfg)
+        if apath is not None and os.path.exists(apath):
+            al = AlertLog(apath)
+            try:
+                frame["alerts"] = al.status()
+            finally:
+                al.close()
+    except Exception as e:
+        frame["alerts"] = {"error": f"{type(e).__name__}: {e}"}
+    d = obs_spool.spool_dir(cfg)
+    if d is not None and os.path.isdir(d):
+        try:
+            events = obs_collect.read_events(d)
+            snaps = obs_collect.latest_snapshots(events)
+            frame["telemetry"] = {
+                "spool_dir": d,
+                "snapshots": snaps,
+                "metrics": obs_collect.merge_snapshots(snaps),
+            }
+        except Exception as e:
+            frame["telemetry"] = {"error": f"{type(e).__name__}: {e}"}
+    # Durable history (obs/series.py): ingest the spools into the series
+    # store and pull the busiest metrics' last ~30 fine-resolution buckets
+    # for sparklines.  No section when telemetry or the store is off.
+    try:
+        from firebird_tpu_torch.obs import series as obs_series
+
+        sstore = obs_series.open_store(cfg)
+        if sstore is not None:
+            try:
+                sstore.ingest_spools()
+                res = sstore.resolutions[0]
+                now = time.time()
+                pts = sstore.points(res, now - 30 * res, now)
+            finally:
+                sstore.close()
+            names: dict = {}
+            for p in pts:
+                m = p.get("m") or {}
+                for n in (m.get("counters") or {}):
+                    names.setdefault(n, "counter")
+                for n in (m.get("histograms") or {}):
+                    names.setdefault(n, "histogram")
+            spark = {}
+            for n, kind in names.items():
+                vals = [v for _, v in
+                        obs_series.bucket_series(pts, n, kind, res)]
+                if any(v > 0 for v in vals):
+                    spark[n] = {"kind": kind, "values": vals}
+            frame["series"] = {
+                "res_sec": res,
+                "sparklines": dict(sorted(
+                    spark.items(),
+                    key=lambda kv: -sum(kv[1]["values"]))[:8]),
+            }
+    except Exception as e:
+        frame["series"] = {"error": f"{type(e).__name__}: {e}"}
+    return frame
+
+
+_SPARK_GLYPHS = "▁▂▃▄▅▆▇█"
+
+
+def _sparkline(values) -> str:
+    """Unicode block sparkline, scaled to the window's max (pure)."""
+    if not values:
+        return ""
+    hi = max(values)
+    if hi <= 0:
+        return _SPARK_GLYPHS[0] * len(values)
+    top = len(_SPARK_GLYPHS) - 1
+    return "".join(
+        _SPARK_GLYPHS[min(int(v / hi * top + 0.5), top)] for v in values)
+
+
+def _render_top(frame: dict) -> list[str]:
+    """One top frame as terminal lines (pure)."""
+    lines = [f"firebird top — {time.strftime('%H:%M:%S')}"]
+    fl = frame.get("fleet") or {}
+    if "error" in fl:
+        lines.append(f"fleet: unavailable ({fl['error']})")
+    elif fl:
+        jobs = fl.get("jobs") or {}
+        lines.append(
+            "fleet: " + " ".join(f"{k}={jobs.get(k, 0)}" for k in
+                                 ("pending", "leased", "done", "dead"))
+            + f" workers={len(fl.get('workers') or [])}"
+            + f" leases={len(fl.get('leases') or [])}")
+        sup = fl.get("supervisor")
+        if sup:
+            lines.append(
+                f"supervisor: target={sup.get('target')} "
+                f"live={sup.get('live')} "
+                f"last={sup.get('last_decision')}")
+    al = frame.get("alerts") or {}
+    if "error" in al:
+        lines.append(f"alerts: unavailable ({al['error']})")
+    elif al:
+        subs = al.get("subscribers") or []
+        lag = max((s["lag"] for s in subs), default=0)
+        lines.append(f"alerts: depth={al.get('depth')} "
+                     f"cursor={al.get('latest_cursor')} "
+                     f"subscribers={len(subs)} max_lag={lag}")
+    tel = frame.get("telemetry") or {}
+    if "error" in tel:
+        lines.append(f"telemetry: unavailable ({tel['error']})")
+    elif tel:
+        now = time.time()
+        for key in sorted(tel.get("snapshots") or {}):
+            s = tel["snapshots"][key]
+            lines.append(f"  {key:<24} snap {now - s['t']:5.1f}s ago")
+        m = tel.get("metrics") or {}
+        for n, v in sorted((m.get("counters") or {}).items()):
+            lines.append(f"  {n:<40} {v:g}")
+        for n, h in sorted((m.get("histograms") or {}).items()):
+            if h.get("count"):
+                lines.append(
+                    f"  {n:<40} n={h['count']} p50={h['p50']:.3g}s "
+                    f"p95={h['p95']:.3g}s max={h['max']:.3g}s")
+    sr = frame.get("series") or {}
+    if "error" in sr:
+        lines.append(f"history: unavailable ({sr['error']})")
+    elif sr.get("sparklines"):
+        lines.append(f"history ({sr['res_sec']:g}s buckets, "
+                     "rate per bucket):")
+        for n, s in sorted(sr["sparklines"].items()):
+            lines.append(f"  {n:<40} {_sparkline(s['values'])} "
+                         f"max={max(s['values']):g}")
+    if len(lines) == 1:
+        lines.append("(no fleet, alert, or telemetry state found)")
+    return lines
+
+
+def top(args) -> None:
+    """The live fleet console: ``--iterations`` frames (0: until ctrl-c)
+    of the queue, the alert log, the spools and the series store."""
+    from firebird_tpu_torch.config import Config
+
+    cfg = Config.from_env()
+    n = 0
+    while True:
+        print("\n".join(_render_top(_top_frame(cfg))), flush=True)
+        n += 1
+        if args.iterations and n >= args.iterations:
+            break
+        try:
+            time.sleep(args.interval)
+        except KeyboardInterrupt:
+            break
+        print("")
+
+
+def slo(args) -> None:
+    """The error budgets over the durable metric series: prints the
+    verdict; exits 0 when every budget is ok (or has no data), 1 when one
+    burns or is exhausted, 2 when the series store is disabled."""
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.obs import series as obs_series
+    from firebird_tpu_torch.obs import slo as obs_slo
+
+    cfg = Config.from_env()
+    store = obs_series.open_store(cfg)
+    if store is None:
+        print(json.dumps(
+            {"disabled": True,
+             "reason": "series store off (FIREBIRD_TELEMETRY / "
+                       "FIREBIRD_SERIES / no spool home)"}))
+        raise SystemExit(2)
+    try:
+        store.ingest_spools()
+        kw = dict(
+            fast_sec=args.fast if args.fast is not None else cfg.slo_fast_sec,
+            slow_sec=args.slow if args.slow is not None else cfg.slo_slow_sec,
+            burn_threshold=(args.burn if args.burn is not None
+                            else cfg.slo_burn))
+        spec = args.budget if args.budget is not None \
+            else (cfg.slo_budget or None)
+        verdict = obs_slo.evaluate_and_record(store.dir, spec, **kw) \
+            if args.record else obs_slo.evaluate_budgets(store.dir, spec, **kw)
+    finally:
+        store.close()
+    print(json.dumps(verdict, indent=1))
+    if not verdict.get("ok", True):
+        raise SystemExit(1)
+
+
+def _read_parsers(sub) -> None:
+    """The read-side commands (the JAX command line's options)."""
+    sub.add_parser("products", help="list the products that can be run")
+    t = sub.add_parser("tiles", help="enumerate the tiles covering an area "
+                       "as h,v,ulx,uly,lrx,lry CSV rows")
+    t.add_argument("-b", "--bounds", action="append", required=True,
+                   help="x,y projection point; repeat to extend the area")
+    t.add_argument("-s", "--shard", default=None,
+                   help="i/n: print only the i-th of n strided shards, for "
+                        "splitting a fleet launch across workers")
+    v = sub.add_parser("validate", help="audit kernel-vs-oracle parity on "
+                       "one chip's sampled pixels")
+    v.add_argument("-x", "--x", type=float, default=None)
+    v.add_argument("-y", "--y", type=float, default=None)
+    v.add_argument("-a", "--acquired", default=None)
+    v.add_argument("-n", "--n_pixels", type=int, default=100)
+    v.add_argument("--dtype", default="float64",
+                   choices=("float32", "float64"))
+    v.add_argument("--seed", type=int, default=0)
+    v.add_argument("--device", default=None,
+                   help="torch device (default cuda, this process's card; "
+                        "'cpu' runs the plain PyTorch versions)")
+    s = sub.add_parser("status", help="inspect the store, quarantine, the "
+                       "fleet queue, the alert log and the error budgets")
+    s.add_argument("-x", "--x", type=float, default=None,
+                   help="with -y: also report this tile's chip progress")
+    s.add_argument("-y", "--y", type=float, default=None)
+    p = sub.add_parser("top", help="live fleet console over the queue, the "
+                       "alert log, the spools and the series store")
+    p.add_argument("-i", "--interval", type=float, default=2.0,
+                   help="refresh interval, seconds")
+    p.add_argument("-n", "--iterations", type=int, default=0,
+                   help="frames to render before exiting (0 = until "
+                        "ctrl-c)")
+    o = sub.add_parser("slo", help="evaluate the error budgets over the "
+                       "durable metric series")
+    o.add_argument("-b", "--budget", default=None,
+                   help="objective spec override ('name[<thr]@target/"
+                        "window;...'); default FIREBIRD_SLO_BUDGET, else the "
+                        "built-in spec; '0' disables")
+    o.add_argument("--fast", type=float, default=None,
+                   help="fast burn window seconds (default "
+                        "FIREBIRD_SLO_FAST_SEC)")
+    o.add_argument("--slow", type=float, default=None,
+                   help="slow burn window seconds (default "
+                        "FIREBIRD_SLO_SLOW_SEC)")
+    o.add_argument("--burn", type=float, default=None,
+                   help="paging burn-rate threshold (default "
+                        "FIREBIRD_SLO_BURN)")
+    o.add_argument("--record", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="append budget state transitions to the durable "
+                        "event log (slo_events.jsonl); --no-record is a "
+                        "pure read")
+
+
+READ = dict(products=products_cmd, tiles=tiles, validate=validate_cmd,
+            status=status, top=top, slo=slo)
+
+
 def _fleet_parsers(sub) -> None:
     """The ``fleet`` and ``trace`` command groups (the JAX command line's
     options)."""
@@ -599,7 +1121,27 @@ FLEET = dict(enqueue=fleet_enqueue, work=fleet_work,
              requeue=fleet_requeue)
 
 
+# The options whose value is an x,y projection point: a point west of the
+# grid's origin starts with '-', which argparse would take for an option.
+_POINT_OPTIONS = ("-b", "--bounds", "-t", "--tile")
+
+
+def _attach_points(argv: list) -> list:
+    """``argv`` with each point option's value attached (``-b=-543585,...``)
+    so a negative x parses as the JAX command line's does."""
+    out = []
+    for tok in argv:
+        if out and out[-1] in _POINT_OPTIONS and tok.startswith("-") \
+                and "," in tok:
+            out[-1] = f"{out[-1]}={tok}"
+        else:
+            out.append(tok)
+    return out
+
+
 def main(argv=None) -> None:
+    import sys
+
     ap = argparse.ArgumentParser(prog="python -m firebird_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("changedetection",
@@ -690,16 +1232,23 @@ def main(argv=None) -> None:
                         "visible cards (FIREBIRD_REBALANCE=1 turns on the "
                         "rebalancing ring)")
     _fleet_parsers(sub)
-    args = ap.parse_args(argv)
+    _read_parsers(sub)
+    args = ap.parse_args(_attach_points(
+        list(sys.argv[1:] if argv is None else argv)))
     if args.cmd == "fleet":
         run = FLEET[args.fleet_cmd]
     elif args.cmd == "trace":
         run = trace_collect
+    elif args.cmd in READ:
+        run = READ[args.cmd]
     else:
         run = dict(changedetection=changedetection, stream=stream,
                    classification=classification, save=save,
                    detect=detect)[args.cmd]
-    out = run(args)
+    try:
+        out = run(args)
+    except _UsageError as e:
+        ap.error(f"{args.cmd}: {e}")
     if out is not None:
         print(json.dumps(out))
 

@@ -17,8 +17,6 @@ open job a chip), and :func:`repair_chip` runs one:
 
 from __future__ import annotations
 
-import torch
-
 from firebird_tpu_torch.obs import logger
 
 log = logger("alerts")
@@ -61,6 +59,8 @@ def repair_chip(cfg, cid, acquired: str, *, source=None, store=None,
     checkpoint save; a fleet worker passes one that raises when its lease
     lapsed, so a zombie cannot overwrite a live checkpoint with a stale
     seed."""
+    import torch
+
     from firebird_tpu_torch import retry as retrylib
     from firebird_tpu_torch.ccd import kernel
     from firebird_tpu_torch.ccd.incremental import StreamState

@@ -13,10 +13,8 @@ import numpy as np
 import torch
 
 from firebird_tpu_torch.ccd import harmonic, kernel, params
+from firebird_tpu_torch.store.schema import BAND_PREFIX
 from firebird_tpu_torch.utils import dates as dt
-
-# Column prefixes in band order (ccdc/pyccd.py:118-145).
-BAND_PREFIX = ("bl", "gr", "re", "ni", "s1", "s2", "th")
 
 
 def default(change_models: list) -> list:

@@ -445,51 +445,44 @@ FRACTION_BUCKETS = tuple(i / 16 for i in range(1, 17))
 
 def record_occupancy(seg) -> dict | None:
     """Feed a host-fetched result's occupancy capture into the metrics
-    registry (the stream bootstrap calls this after its bulk fetch).  Per
-    executed round and chip, ``kernel_round_active_fraction`` observes
-    the working lanes over the chip's lanes; the counters add the active
-    and the wasted (paid - active) lane-rounds, the compactions and the
-    lanes the ring migrated.  Returns the totals, or None when the result
-    carries no capture (the mega route)."""
-    from firebird_tpu_torch.obs import metrics as obs_metrics
-
+    registry (the driver's drain and the stream bootstrap call this after
+    their bulk fetch).  Per executed round and chip,
+    ``kernel_round_active_fraction`` observes the working lanes over the
+    chip's lanes; the counters add the active and the wasted (paid -
+    active) lane-rounds, the compactions and the lanes the ring migrated
+    — the padded-vs-effective accounting of flops.occupancy_detail.
+    Returns that summary, or None when the result carries no capture (the
+    mega route)."""
     occ = getattr(seg, "occupancy", None)
     if occ is None:
         return None
-    occ = np.asarray(occ)
-    rds = np.asarray(seg.rounds).reshape(-1)
-    C, R_max = occ.shape[0], occ.shape[1]
-    lanes = int(seg.mask.shape[-2])
-    r_c = rds[np.minimum(np.arange(C), rds.size - 1)].astype(np.int64)
-    ran = np.arange(R_max)[None, :] < np.minimum(r_c, R_max)[:, None]
-    active = int(np.where(ran, occ[..., 0], 0).sum())
-    paid = int(np.where(ran, occ[..., 1], 0).sum())
-    fractions = occ[..., 0][ran] / max(lanes, 1)
+    from firebird_tpu_torch.ccd import flops
+    from firebird_tpu_torch.obs import metrics as obs_metrics
+
+    det = flops.occupancy_detail(
+        np.asarray(occ), np.asarray(seg.rounds),
+        int(seg.mask.shape[-2]))
     obs_metrics.histogram(
         "kernel_round_active_fraction", buckets=FRACTION_BUCKETS,
         help="active-lane fraction per event-loop round per chip"
-    ).observe_many(fractions)
+    ).observe_many(det.pop("_fractions"))
     obs_metrics.counter(
         "kernel_active_lane_rounds",
-        help="lane-rounds with a working pixel").inc(active)
+        help="lane-rounds with a working pixel").inc(
+        det["active_lane_rounds"])
     obs_metrics.counter(
         "kernel_wasted_lane_rounds",
         help="paid lane-rounds with no working pixel "
-             "(effective - active)").inc(paid - active)
-    out = dict(padded_lane_rounds=lanes * int(ran.sum()),
-               effective_lane_rounds=paid, active_lane_rounds=active,
-               wasted_lane_rounds=paid - active,
-               mean_active_fraction=float(fractions.mean())
-               if fractions.size else 0.0)
+             "(effective - active)").inc(det["wasted_lane_rounds"])
     comp = getattr(seg, "compactions", None)
     if comp is not None:
-        out["compactions"] = int(np.asarray(comp).sum())
         obs_metrics.counter(
             "kernel_compactions",
-            help="dense-prefix lane compactions").inc(out["compactions"])
+            help="dense-prefix lane compactions").inc(
+            int(np.asarray(comp).sum()))
     lm = getattr(seg, "lanes_migrated", None)
     if lm is not None:
-        out["lanes_migrated"] = moved = int(np.asarray(lm).sum())
+        moved = int(np.asarray(lm).sum())
         obs_metrics.counter(
             "kernel_lanes_migrated",
             help="straggler lanes migrated to a neighbor device by the "
@@ -499,7 +492,8 @@ def record_occupancy(seg) -> dict | None:
                 "rebalance_migrations",
                 help="dispatches in which the rebalancing ring moved "
                      "lanes").inc()
-    return out
+        det["lanes_migrated"] = moved
+    return det
 
 
 # ---------------------------------------------------------------------------

@@ -3,17 +3,12 @@
 The port's own copy of the JAX package's ``config.py`` (standard library
 only): the same knob registry, the same :class:`Config` fields, defaults,
 ``from_env`` parsing and validation, and the same ``keyspace()``, so that a
-store one package writes names the tables the other reads.  One
-validation differs, because its subsystem is not ported: the SLO budget
-spec (FIREBIRD_SLO_BUDGET) is kept as a string here, not parsed; the
-drivers refuse a run that sets it (:data:`NOT_PORTED`).  The knobs that
-stay refused, and why:
+store one package writes names the tables the other reads.  The drivers
+refuse a run that sets a knob whose subsystem is not ported
+(:data:`NOT_PORTED`).  The knobs that stay refused, and why:
 
 - ``object_root``: the object store (``store/objectstore.py``) is not
   ported;
-- ``slo_budget``: the durable error budgets read the series store
-  (``obs/series.py``), which is not ported (the live SLO evaluation,
-  ``slo``, is);
 - ``compile_cache``: XLA's compilation cache has no counterpart; this
   package builds its kernels with nvcc into ``build/``, keyed by a hash
   of their sources.
@@ -903,12 +898,17 @@ class Config:
                              f"{self.telemetry_snapshot_sec}")
         # Parse the SLO spec now (the JAX package's fail-fast): a typo'd
         # objective silently evaluating nothing is worse than a crash at
-        # bring-up.  "" and "0" are both valid.  (The budget grammar,
-        # FIREBIRD_SLO_BUDGET, belongs to the series store: NOT_PORTED.)
+        # bring-up.  "" and "0" are both valid.
         if self.slo and self.slo != "0":
             from firebird_tpu_torch.obs import slo as _slo
 
             _slo.parse_spec(self.slo)
+        # Same fail-fast for the budget grammar: a typo'd budget
+        # objective silently evaluating as no-data forever is worse.
+        if self.slo_budget and self.slo_budget != "0":
+            from firebird_tpu_torch.obs import slo as _slo
+
+            _slo.parse_budget_spec(self.slo_budget)
         if self.slo_fast_sec <= 0 or self.slo_slow_sec <= 0:
             raise ValueError(
                 "FIREBIRD_SLO_FAST_SEC / FIREBIRD_SLO_SLOW_SEC must be "
@@ -1194,8 +1194,6 @@ class Config:
 # (driver.core.refuse_not_ported); none is ignored quietly.
 NOT_PORTED = {
     "object_root": "the object store (store/objectstore.py)",
-    "slo_budget": "the SLO error budgets (they read obs/series.py, the "
-                  "series store)",
     "compile_cache": "the compile cache (this package compiles its kernels "
                      "with nvcc and caches them under build/)",
 }

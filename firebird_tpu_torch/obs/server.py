@@ -27,11 +27,12 @@ processes on one host need two ports) — serving:
     The live ``build_report`` dict — the same document obs_report.json
     will contain, available at any moment mid-run.
 ``/slo``
-    The live SLO evaluation (obs/slo.py).  Its durable error-budget block
-    and ``/metrics/history`` read the series store (the JAX package's
-    ``obs/series.py``), which this package does not port: they answer as
-    the JAX server answers with that store off (a disabled budgets block,
-    a 503).
+    The live SLO evaluation (obs/slo.py), with the durable error-budget
+    block over the series store (obs/series.py) when one exists for the
+    ambient config (``?budgets=0`` leaves it out).
+``/metrics/history``
+    Windowed points from the series rings (``?res=&window=&metric=``),
+    the spools re-ingested first; 503 with no series store.
 ``POST /profile``
     A device-profile window (obs/profiling.py); 503 without a profiler.
 
@@ -343,11 +344,52 @@ def mark_mesh_up() -> None:
         st.mark_mesh_up()
 
 
-# The durable series store (the JAX package's obs/series.py) is not
-# ported: the /slo budgets block and /metrics/history answer as the JAX
-# server answers when that store is off.
-SERIES_NOT_PORTED = ("no series store: the durable series store "
-                     "(obs/series.py) is not ported to firebird_tpu_torch")
+# One process-wide SeriesStore for the threaded handlers: per-request
+# instances share this pid, so two concurrent /slo or /metrics/history
+# requests would append to (or resume over) the same segment files from
+# two uncoordinated writers — SeriesStore is thread-safe only within
+# one instance.  Re-keyed when the ambient config changes (knob flips,
+# tests); _budget_lock additionally serializes evaluate+record so two
+# requests cannot race the durable event log's read-then-append.
+_series_lock = threading.Lock()
+_series_cache: dict = {"key": None, "store": None}
+_budget_lock = threading.Lock()
+
+
+def _shared_store(cfg):
+    from firebird_tpu_torch.obs import series as series_mod
+
+    key = (series_mod.series_dir(cfg), getattr(cfg, "series", 0),
+           getattr(cfg, "series_segments", 0), cfg.telemetry)
+    with _series_lock:
+        if _series_cache["key"] != key:
+            if _series_cache["store"] is not None:
+                _series_cache["store"].close()
+            _series_cache["store"] = series_mod.open_store(cfg)
+            _series_cache["key"] = key
+        return _series_cache["store"]
+
+
+def _budget_block() -> dict:
+    """The /slo budgets block: ingest fresh spool snapshots into the
+    series rings, then evaluate + durably record the error budgets for
+    the ambient config.  Raises when the store cannot open — the /slo
+    route degrades that to an error string."""
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.obs import slo as slomod
+
+    cfg = Config.from_env()
+    store = _shared_store(cfg)
+    if store is None:
+        return {"disabled": True,
+                "reason": "no series store (FIREBIRD_SERIES=0 / "
+                          "FIREBIRD_TELEMETRY=0 / memory backend)"}
+    with _budget_lock:
+        store.ingest_spools()
+        return slomod.evaluate_and_record(
+            store.dir, cfg.slo_budget or None,
+            fast_sec=cfg.slo_fast_sec, slow_sec=cfg.slo_slow_sec,
+            burn_threshold=cfg.slo_burn)
 
 
 class _OpsHandler(httpd.JsonHandler):
@@ -398,11 +440,15 @@ class _OpsHandler(httpd.JsonHandler):
                           if st is not None and st.watchdog is not None
                           else None),
                 spec=st.slo_spec if st is not None else None)
-            # The durable error budgets' block (disabled: no series
-            # store); ?budgets=0 leaves it out, as in the JAX server.
+            # Durable error budgets ride along whenever a series store
+            # exists for this config; a broken store degrades to an
+            # error string, never a dead endpoint (the status-section
+            # rule).  ?budgets=0 skips the disk walk.
             if (query.get("budgets") or ["1"])[0] not in ("0", "false"):
-                doc["budgets"] = {"disabled": True,
-                                  "reason": SERIES_NOT_PORTED}
+                try:
+                    doc["budgets"] = _budget_block()
+                except Exception as e:
+                    doc["budgets"] = {"error": f"{type(e).__name__}: {e}"}
             self._send_json(200, doc)
         elif path == "/metrics/history":
             self._history(query)
@@ -425,18 +471,48 @@ class _OpsHandler(httpd.JsonHandler):
                                             "/report", "/slo", "/profile"]})
 
     def _history(self, query: dict) -> None:
-        """``/metrics/history``: the JAX server's answer with its series
-        store off (the store is not ported)."""
+        """``/metrics/history?res=&window=&metric=``: windowed points
+        from the durable series rings (obs/series.py) — spools are
+        re-ingested first, so the answer includes snapshots from
+        processes that died since the last read."""
+        import time as _time
+
+        from firebird_tpu_torch.config import Config
+        from firebird_tpu_torch.obs import series as series_mod
+
         try:
-            int((query.get("res") or ["10"])[0])
-            float((query.get("window") or ["600"])[0])
+            res = int((query.get("res") or ["10"])[0])
+            window = float((query.get("window") or ["600"])[0])
         except ValueError:
             self._send_json(400, {"error": "res/window must be numbers"})
             return
-        self._send_json(503, {
-            "error": "metric history disabled (FIREBIRD_SERIES=0 / "
-                     "FIREBIRD_TELEMETRY=0) or homeless (memory "
-                     "backend, no FIREBIRD_SERIES_DIR)"})
+        metric = (query.get("metric") or [None])[0]
+        store = _shared_store(Config.from_env())
+        if store is None:
+            self._send_json(503, {
+                "error": "metric history disabled (FIREBIRD_SERIES=0 / "
+                         "FIREBIRD_TELEMETRY=0) or homeless (memory "
+                         "backend, no FIREBIRD_SERIES_DIR)"})
+            return
+        if res not in store.resolutions:
+            self._send_json(400, {
+                "error": f"unknown resolution {res}s",
+                "resolutions": list(store.resolutions)})
+            return
+        store.ingest_spools()
+        now = _time.time()
+        pts = store.points(res, now - window, now)
+        if metric:
+            pts = [dict(p, m={k: {metric: (p.get("m") or {})[k][metric]}
+                              if metric in ((p.get("m") or {}).get(k) or {})
+                              else {}
+                              for k in ("counters", "gauges",
+                                        "histograms")})
+                   for p in pts]
+        self._send_json(200, {
+            "schema": "firebird-metric-history/1", "res_sec": res,
+            "window_sec": window, "t1": now, "metric": metric,
+            "sources": series_mod.sources(pts), "points": pts})
 
     def _route_post(self, path: str, query: dict) -> None:
         from firebird_tpu_torch.obs import profiling

@@ -2,7 +2,9 @@
 
 The port's own copy of the JAX package's ``store/schema.py``: the same
 tables, keys and column types, so a store either package writes reads
-the same in the other.
+the same in the other.  The band column prefixes are defined here
+(``ccd/format.py`` takes them from this module), so the store and the
+host-only commands that read it import neither the detector nor torch.
 
 Mirrors the reference's Cassandra schema (resources/schema.cql) and table
 modules:
@@ -27,7 +29,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from firebird_tpu_torch.ccd.format import BAND_PREFIX
+# Column prefixes in band order (ccdc/pyccd.py:118-145).
+BAND_PREFIX = ("bl", "gr", "re", "ni", "s1", "s2", "th")
 
 # numpy dtypes of the packed-array column types (little-endian on the wire)
 PACKED_DTYPES = {"BITS": np.uint8, "F64S": "<f8", "I32S": "<i4"}

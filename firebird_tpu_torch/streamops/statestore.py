@@ -53,7 +53,10 @@ The packed layout is canonical float32 state (the dtypes the stream
 driver's float32 bootstrap produces).  A float64 state (the
 ``FIREBIRD_DTYPE=float64`` compat path) does not fit losslessly and is
 rejected with a pointer at the ``FIREBIRD_STREAM_STATESTORE=npz``
-escape hatch.  ``peek_arrays`` gives the raw numpy arrays.
+escape hatch.  ``peek_arrays`` gives the raw numpy arrays.  The
+detector's state type (``ccd/incremental.py``) and torch are imported
+where a state is built or taken apart, so a reader of the store's census
+(``status``) loads neither.
 """
 
 from __future__ import annotations
@@ -65,10 +68,7 @@ import zlib
 
 import numpy as np
 
-import torch
-
 from firebird_tpu_torch import grid
-from firebird_tpu_torch.ccd.incremental import STATE_FIELDS, StreamState
 from firebird_tpu_torch.obs import logger
 from firebird_tpu_torch.obs import metrics as obs_metrics
 
@@ -76,6 +76,10 @@ log = logger("statestore")
 
 STATESTORE_SCHEMA = "firebird-statestore/1"
 
+# incremental.StreamState's fields, in its order (the JAX package's
+# module keeps the same literal; a test holds the two equal).
+STATE_FIELDS = ("coefs", "rmse", "vario", "nobs", "n_exceed", "end_day",
+                "exceed_day0", "break_day", "active")
 SIDE_FIELDS = ("sday", "curqa", "anchor", "horizon")
 
 FILE_MAGIC = b"FBSS"
@@ -120,6 +124,8 @@ def _payload_cap(P: int, B: int, K: int) -> int:
 
 def _host(a) -> np.ndarray:
     """A tensor on any device, or an array, as a host numpy array."""
+    import torch
+
     return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
@@ -183,6 +189,10 @@ def deserialize_state(buf: bytes, P: int, B: int, K: int) -> dict:
 def _wrap_state(arrays: dict, device="cpu"):
     """{field: np array} -> (StreamState of tensors on ``device``, side
     dict of numpy arrays), the load_state contract."""
+    import torch
+
+    from firebird_tpu_torch.ccd.incremental import StreamState
+
     st = StreamState(*(torch.from_numpy(np.ascontiguousarray(arrays[f]))
                        .to(device) for f in STATE_FIELDS))
     side = {k: arrays[k] for k in SIDE_FIELDS}
@@ -234,7 +244,7 @@ class LegacyNpzStore:
 
     def __init__(self, root: str, device="cpu"):
         self.root = root
-        self.device = torch.device(device)
+        self.device = device        # a torch device or its name
 
     def _path(self, cid) -> str:
         return legacy_state_path(self.root, cid)
@@ -307,7 +317,7 @@ class TileStateStore:
                  device="cpu"):
         self.root = root
         self.gridcfg = gridcfg
-        self.device = torch.device(device)
+        self.device = device        # a torch device or its name
         self.legacy = LegacyNpzStore(root, device)
         self._ncols = int(round(gridcfg.tile.sx / gridcfg.chip.sx))
         self._nrows = int(round(gridcfg.tile.sy / gridcfg.chip.sy))
@@ -577,6 +587,10 @@ class TileStateStore:
         whose every field is ``stack([chip0, chip1, ...])`` plus the
         side dicts, tensors on the store's device (StreamState's [C, P]
         contract)."""
+        import torch
+
+        from firebird_tpu_torch.ccd.incremental import StreamState
+
         all_arrays = [self._load_arrays(c) for c in cids]
         st = StreamState(*(torch.from_numpy(
             np.stack([a[f] for a in all_arrays])).to(self.device)

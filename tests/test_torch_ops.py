@@ -234,7 +234,11 @@ def test_default_config_binds_nothing(clean):
     assert flightrec.active() is None and obs_server.current() is None
 
 
-def test_ops_endpoints_roundtrip(clean):
+def test_ops_endpoints_roundtrip(clean, monkeypatch):
+    from firebird_tpu.obs import server as jserver
+
+    # the memory backend: no home for a series store
+    monkeypatch.setenv("FIREBIRD_STORE_BACKEND", "memory")
     counters = obs_metrics.Counters()
     counters.add("chips", 3)
     obs_metrics.histogram("pipeline_drain_seconds").observe(1.0)
@@ -269,10 +273,9 @@ def test_ops_endpoints_roundtrip(clean):
         doc = json.loads(body)
         assert code == 200 and doc["ok"] is True
         assert doc["objectives"][0]["value_sec"] == 1.0
-        # the series store is not ported: the JAX server's answers with
-        # that store off
+        # no series store on the memory backend: the JAX server's answers
         assert doc["budgets"]["disabled"] is True
-        assert "not ported" in doc["budgets"]["reason"]
+        assert doc["budgets"] == jserver._budget_block()
         assert "budgets" not in json.loads(
             _get(srv.port, "/slo?budgets=0")[1])
         code, body = _get(srv.port, "/metrics/history")
@@ -285,6 +288,60 @@ def test_ops_endpoints_roundtrip(clean):
         assert code == 404 and b"unknown path" in body
     finally:
         srv.close()
+
+
+def test_ops_endpoints_with_a_series_store_answer_as_jax(clean, tmp_path,
+                                                        monkeypatch):
+    """With a telemetry home, /metrics/history and /slo's budgets block
+    answer as the JAX server's do over a copy of the same spool: the same
+    points, sources and budget verdicts."""
+    from firebird_tpu.obs import server as jserver
+
+    now = time.time()
+    home = {}
+    for name in ("port", "jax"):
+        d = tmp_path / name
+        d.mkdir()
+        with open(d / "spool.worker.42.0.jsonl", "w") as f:
+            f.write(json.dumps({"kind": "header", "role": "worker",
+                                "pid": 42, "run_id": "r", "segment": 0,
+                                "t": now - 100}) + "\n")
+            for i in range(6):
+                f.write(json.dumps({
+                    "kind": "snap", "t": now - 60 + 10 * i, "role": "worker",
+                    "pid": 42, "metrics": {
+                        "counters": {"jobs": float(i), "probe_attempts":
+                                     10.0 * i, "probe_failures": float(i)},
+                        "gauges": {}, "histograms": {}}}) + "\n")
+        home[name] = d
+    answers = {}
+    for name, mod in (("port", obs_server), ("jax", jserver)):
+        monkeypatch.setenv("FIREBIRD_TELEMETRY_DIR", str(home[name]))
+        monkeypatch.setenv("FIREBIRD_SLO_BUDGET", "probe_errors@99/1h")
+        srv = mod.start_ops_server(0, None, host="127.0.0.1")
+        try:
+            code, body = _get(srv.port, "/metrics/history?res=10&window=600")
+            assert code == 200
+            hist = json.loads(body)
+            code, body = _get(srv.port, "/slo")
+            assert code == 200
+            answers[name] = (hist, json.loads(body)["budgets"])
+        finally:
+            srv.close()
+    (hist, budgets), (jhist, jbudgets) = answers["port"], answers["jax"]
+    assert set(hist) == set(jhist)
+    assert hist["sources"] == jhist["sources"] == ["worker:42"]
+    assert hist["points"] == jhist["points"] and len(hist["points"]) == 6
+    assert set(budgets) == set(jbudgets) and budgets["spec"] == \
+        jbudgets["spec"] == "probe_errors@99/1h"
+    for k in ("ok", "violations", "sources"):
+        assert budgets[k] == jbudgets[k], k
+    (b,), (jb,) = budgets["budgets"], jbudgets["budgets"]
+    assert {k: v for k, v in b.items() if k != "windows"} == \
+        {k: v for k, v in jb.items() if k != "windows"}
+    assert b["total"] == 50.0 and b["bad"] == 5.0
+    assert [f.name for f in sorted(home["port"].glob("series/*"))] == \
+        [f.name for f in sorted(home["jax"].glob("series/*"))]
 
 
 def test_post_profile_opens_a_window(clean, tmp_path):

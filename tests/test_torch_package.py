@@ -127,7 +127,8 @@ PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
                   "driver/stream.py", "rf/__init__.py", "rf/features.py",
                   "rf/forest.py", "rf/pipeline.py", "products.py",
                   "faults.py", "fleet/worker.py", "fleet/policy.py",
-                  "fleet/supervisor.py", "obs/spool.py", "obs/collect.py")
+                  "fleet/supervisor.py", "obs/spool.py", "obs/collect.py",
+                  "obs/series.py", "validate.py", "ccd/flops.py")
 
 
 @pytest.mark.parametrize("rel", PORTED_MODULES)
@@ -328,7 +329,7 @@ def test_cli_stream_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("field, value", [
-    ("compile_cache", "/x"), ("object_root", "/x"), ("slo_budget", "x")])
+    ("compile_cache", "/x"), ("object_root", "/x")])
 def test_stream_refuses_each_not_ported_knob(field, value):
     from firebird_tpu_torch.config import NOT_PORTED, Config
     from firebird_tpu_torch.driver import stream
@@ -386,7 +387,8 @@ def stream_ops_run(tmp_path_factory):
     port = free_port()
     cfg = Config(**base, trace="1", ops_port=port, ops_host="127.0.0.1",
                  stall_sec=600.0, obs_report=str(root / "r" / "report.json"),
-                 profile=0.05, flightrec=0, slo="batch_p95=30;freshness=600")
+                 profile=0.05, flightrec=0, slo="batch_p95=30;freshness=600",
+                 slo_budget="probe_errors@99/1d")
     seen = dict(served=[], armed=0)
     start, arm = obs_server.start_ops_server, flightrec.arm
 
@@ -422,8 +424,9 @@ def stream_ops_run(tmp_path_factory):
 
 @pytest.mark.parametrize("field", [
     "trace", "ops_port", "stall_sec", "obs_report", "profile", "profile_dir",
-    "flightrec", "slo"])
-def test_stream_honours_each_ported_ops_knob(stream_ops_run, field):
+    "flightrec", "slo", "slo_budget"])
+def test_stream_honours_each_ported_ops_knob(stream_ops_run, field,
+                                             monkeypatch):
     import json
 
     from firebird_tpu_torch.config import NOT_PORTED
@@ -455,6 +458,18 @@ def test_stream_honours_each_ported_ops_knob(stream_ops_run, field):
         assert list((root / "pd").glob("*.trace.json.gz"))
     elif field == "flightrec":
         assert seen["armed"] == 1       # the second run's, not the first's
+    elif field == "slo_budget":
+        # the run that set it was not refused, and the budget readers
+        # evaluate the configured spec over the run's telemetry home
+        from firebird_tpu_torch import __main__ as tmain
+        from firebird_tpu_torch.config import Config
+
+        assert rep["run"]["bootstrapped"] == 1
+        monkeypatch.setenv("FIREBIRD_STORE_PATH", str(root / "s.db"))
+        monkeypatch.setenv("FIREBIRD_SLO_BUDGET", "probe_errors@99/1d")
+        doc = tmain._status_doc(Config.from_env())
+        assert list(doc["budgets"]["budgets"]) == ["probe_errors"]
+        assert (root / "telemetry" / "series").is_dir()
     else:
         assert rep["slo"]["spec"] == "batch_p95=30;freshness=600"
         assert [o["name"] for o in rep["slo"]["objectives"]] == [

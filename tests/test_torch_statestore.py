@@ -89,7 +89,9 @@ def _loaded(st, side):
 
 
 def test_layout_constants_equal_jax():
-    assert ss.STATE_FIELDS == jss.STATE_FIELDS
+    from firebird_tpu_torch.ccd import incremental
+
+    assert ss.STATE_FIELDS == jss.STATE_FIELDS == incremental.STATE_FIELDS
     assert ss.SIDE_FIELDS == jss.SIDE_FIELDS
     assert ss._layout(10, 7, 8) == jss._layout(10, 7, 8)
     for name in ("STATESTORE_SCHEMA", "FILE_MAGIC", "FILE_VERSION",
