@@ -193,13 +193,42 @@ From the root of a checkout, on a machine with a CUDA card:
    step loop replayed under ``torch.profiler`` (its kernels' own time,
    and so their busy share of the wall), statestore load and save ms a
    chip, publish and alert seconds; the peak memory;
-14. the float64 route (``f64_phase``): one full chip through
+14. stream ingest under the fleet and the object tier (``ingest_phase``,
+   right after ``stream_phase``, on its first two chips, the second
+   stepped): ``driver.fetch.fetch`` mirrors them, cut to 1985-2015, into a
+   ``FileSource`` archive in a temporary directory, and the archive's
+   newest acquisition is published on its ``scenes.jsonl``; with
+   FIREBIRD_OBJECT_ROOT set (restored after), ``AcquisitionWatcher.
+   poll_once`` over that tile, then a ``FleetWorker`` in this process on
+   the card drains the queue; then 2016-2017 land (``save_chip``), their
+   last acquisition is published, and a second poll and drain follow (the
+   repair roll-up off in both legs).  (a) The first poll enqueues a
+   ``detect`` bootstrap and a ``stream`` job a chip, each stream job dep'd
+   on its chip's bootstrap, and a second watcher on the same
+   ``watcher.db`` enqueues nothing.  (b) Every job ends done, none dead;
+   the bootstraps launch route 0's three kernels and nothing else
+   launches; the update steps state that lives on the card.  (c) A serial
+   leg (``driver.stream.stream`` over the same two ranges, no watcher,
+   fleet or object tier) has the same (cx, cy, px, py, break_day) alert
+   rows, no duplicates, the same checkpoint bytes (``serialize_state``'s
+   canonical layout) and the same chip, pixel and segment rows key for
+   key; the stepped chip alerts on every pixel its bootstrap left
+   monitoring a standard-procedure model.  (d) Each checkpoint object
+   equals its packed slot byte for byte, the object store's mirror reads
+   back the sqlite rows key for key, ``objectstore census`` counts those
+   objects with no orphan, ``objectstore scrub --dry-run --grace 0``
+   reclaims nothing, and ``status`` shows the watcher cursor (2 scenes)
+   and the object census with no error entry.  (e)
+   ``acquisition_to_alert_seconds`` has an observation and ``slo
+   --no-record`` over the phase's home evaluates ``alert_freshness``.
+   Printed: each step's and check's seconds and the phase's;
+15. the float64 route (``f64_phase``): one full chip through
    ``detect_packed(dtype=torch.float64)`` on the card, which must launch
    no kernel; on 256 of its pixels drawn from the seed every decision must
    equal the port's ``reference.detect`` (run in 8 processes) and the
    floats be within tests/test_ccd_kernel.py's tolerances.  Printed: its
    wall and its decision agreement with f32 route 0 on the whole chip;
-15. the parity audit (``validate_phase``, right after ``f64_phase``):
+16. the parity audit (``validate_phase``, right after ``f64_phase``):
    ``validate.validate`` on the default synthetic chip (100, 200), 10 000
    pixels of 7 bands over 1985-2017, 100 pixels drawn from seed 0
    replayed through ``ccd/reference.py`` in the f64 phase's pool of 8
@@ -211,7 +240,7 @@ From the root of a checkout, on a machine with a CUDA card:
    to the f64 oracle on a full chip).  Then ``flops.bench_detail`` for
    route 0 on that chip (P, T, W and the measured round counts, the
    H100's peaks) beside the kernel phase's bounds of the three kernels;
-16. classification and the product rasters (``classify_phase``, run
+17. classification and the product rasters (``classify_phase``, run
    right after ``driver_phase`` on its sqlite store of 24 detected chips):
    ``driver.core.classification`` at the driver's point over 1985-2017 on
    the card, at the JAX package's width (500 trees, depth 8, 64 bins), the
@@ -234,7 +263,7 @@ From the root of a checkout, on a machine with a CUDA card:
    bin, draw and grow (CUDA events), train, model save, predict, write),
    rows/s trained and classified, the card's spans' share of the wall,
    the peak device memory, each check's seconds and the wall;
-17. every kernel instance's registers, stack and spills, and the total
+18. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -246,6 +275,7 @@ them, and the device JSON.  A longer report goes to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -257,7 +287,7 @@ import sys
 import tempfile
 import time
 import types
-from concurrent.futures import ProcessPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -2234,7 +2264,7 @@ def forest_diff(a, b):
 
 def classify_phase(smi, cfg, seed, dev):
     """Classification on the card over the driver phase's store (the module
-    docstring's item 16)."""
+    docstring's item 17)."""
     from firebird_tpu_torch import products
     from firebird_tpu_torch.rf import features, forest, pipeline
 
@@ -3347,6 +3377,365 @@ def stream_phase(smi, chips, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Stream ingest: the watcher-fed fleet stream path under the object tier
+# ---------------------------------------------------------------------------
+
+INGEST_CHIPS = 2
+
+
+def _canonical_payload(state_dir, cid):
+    """A chip's checkpoint as the canonical ``serialize_state`` bytes of
+    its live slot."""
+    from firebird_tpu_torch.streamops import statestore as sst
+
+    st = sst.TileStateStore(state_dir)
+    try:
+        a = st.peek_arrays(cid)
+    finally:
+        st.close()
+    P, B, K = a["coefs"].shape
+    return b"".join(sst._canonical(n, a[n], d, sh).tobytes()
+                    for n, d, sh in sst._layout(P, B, K))
+
+
+def _sorted_rows(store, table):
+    """``table``'s rows, a tuple each in sorted column order, sorted by the
+    primary key: two stores hold the same rows key for key when these are
+    equal."""
+    from firebird_tpu_torch.store.schema import primary_key
+
+    d = store.read(table)
+    cols = sorted(d)
+    at = [cols.index(k) for k in primary_key(table)]
+    rows = list(zip(*(d[c] for c in cols)))
+    rows.sort(key=lambda r: tuple(r[i] for i in at))
+    return cols, rows
+
+
+def _sqlite_diff(a, b, table):
+    """(rows of ``table`` in sqlite file ``a``, in ``b``, rows in one of
+    them and not the other): every column compared in sqlite, so 0 means
+    equal key for key."""
+    import sqlite3
+
+    from firebird_tpu_torch.store.schema import columns
+
+    cols = ", ".join(f'"{c}"' for c in columns(table))
+    con = sqlite3.connect(a)
+    try:
+        con.execute("ATTACH DATABASE ? AS other", (b,))
+        n = [con.execute(f'SELECT COUNT(*) FROM {db}."{table}"').fetchone()[0]
+             for db in ("main", "other")]
+        diff = sum(con.execute(
+            f'SELECT COUNT(*) FROM (SELECT {cols} FROM {x}."{table}" '
+            f'EXCEPT SELECT {cols} FROM {y}."{table}")').fetchone()[0]
+            for x, y in (("main", "other"), ("other", "main")))
+    finally:
+        con.close()
+    return n[0], n[1], diff
+
+
+def _alert_rows(path):
+    import sqlite3
+
+    con = sqlite3.connect(path)
+    try:
+        return sorted(con.execute(
+            "SELECT cx, cy, px, py, break_day FROM alerts").fetchall())
+    finally:
+        con.close()
+
+
+@contextlib.contextmanager
+def _environ(env):
+    """The process environment with ``env`` set, restored on exit."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _command(argv, env):
+    """(exit code, stdout) of ``python -m firebird_tpu_torch`` ``argv`` run
+    in this process under ``env``."""
+    import io
+
+    from firebird_tpu_torch import __main__ as tmain
+
+    out = io.StringIO()
+    try:
+        with _environ(env), contextlib.redirect_stdout(out):
+            tmain.main(argv)
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    return code, out.getvalue()
+
+
+def ingest_phase(smi, chips, dev):
+    """Stream ingest on the card (the module docstring's item 14)."""
+    from firebird_tpu_torch.alerts import alert_db_path
+    from firebird_tpu_torch.driver import fetch as dfetch
+    from firebird_tpu_torch.driver import stream as sdrv
+    from firebird_tpu_torch.fleet import FleetWorker, make_queue
+    from firebird_tpu_torch.ingest import FileSource
+    from firebird_tpu_torch.obs import metrics as obs_metrics
+    from firebird_tpu_torch.obs import spool as obs_spool
+    from firebird_tpu_torch.store import objectstore as objlib
+    from firebird_tpu_torch.streamops import (AcquisitionWatcher,
+                                              SceneCursor, TileStateStore,
+                                              watch_db_path)
+
+    t_phase = time.perf_counter()
+    secs = {}
+    cids = list(chips)[:INGEST_CHIPS]
+    step_cid = cids[-1]
+    data = {c: chips[c] for c in cids}
+    data[step_cid] = stepped(data[step_cid])
+    days = data[cids[0]].dates
+    boot_end = dt.to_ordinal(STREAM_BOOT.split("/")[1])
+    boot_last = int(days[days <= boot_end].max())
+    full_last = int(days[days <= dt.to_ordinal(END)].max())
+    acq = lambda last: f"{START}/{dt.to_iso(last + 1)}"     # noqa: E731
+    base = dict(store_backend="sqlite", max_obs=0, fetch_retries=0,
+                chips_per_batch=INGEST_CHIPS, alert_repair=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        archive, objects = str(tmp / "archive"), str(tmp / "objects")
+        # The serial leg: the stream driver alone, no watcher, fleet or
+        # object tier, on the same chips from memory.
+        t1 = time.perf_counter()
+        scfg = Config(store_path=str(tmp / "serial" / "fb.db"), **base)
+        serial, serial_stages = [], []
+        for last in (boot_last, full_last):
+            serial.append(sdrv.stream(
+                *DRIVER_POINT, acquired=acq(last), number=INGEST_CHIPS,
+                cfg=scfg, source=RangeSource(data), device=dev))
+            serial_stages.append(sdrv.stream_stage_seconds())
+        torch.cuda.synchronize()
+        secs["serial"] = time.perf_counter() - t1
+
+        # The store's mirror follows the environment, the checkpoints'
+        # the config: both name the object root.
+        with _environ({"FIREBIRD_OBJECT_ROOT": objects}):
+            # Land the archive to STREAM_BOOT, then its newest scene.
+            t1 = time.perf_counter()
+            got = dfetch.fetch(*DRIVER_POINT, archive, STREAM_BOOT,
+                               number=INGEST_CHIPS,
+                               cfg=Config(store_backend="memory",
+                                          input_parallelism=INGEST_CHIPS),
+                               source=RangeSource(data))
+            check(got == (INGEST_CHIPS, INGEST_CHIPS), f"fetch wrote {got}")
+            fs = FileSource(archive)
+            fs.append_scene(f"LC08_{dt.to_iso(boot_last)}",
+                            date=dt.to_iso(boot_last))
+            secs["fetch"] = time.perf_counter() - t1
+            cfg = Config(store_path=str(tmp / "fleet" / "fb.db"),
+                         source_backend="file", source_path=archive,
+                         object_root=objects, **base)
+            queue = make_queue(cfg)
+            # (a) One bootstrap and one stream job a chip, the stream job
+            # dep'd on its chip's bootstrap; a second watcher on the same
+            # watcher.db enqueues nothing.
+            t1 = time.perf_counter()
+            w = AcquisitionWatcher(cfg, *DRIVER_POINT, number=INGEST_CHIPS,
+                                   acquired_start=START, queue=queue)
+            s1 = w.poll_once()
+            boot = queue.open_jobs("detect")
+            strm = queue.open_jobs("stream")
+            check(s1["scenes_new"] == 1 and s1["jobs"] == 2 * INGEST_CHIPS
+                  and set(boot) == set(strm) == set(cids)
+                  and all(queue.job(strm[c])["depends_on"] == [boot[c]]
+                          and queue.job(boot[c])["payload"]["bootstrap"]
+                          for c in cids),
+                  f"watcher poll 1: {s1}, bootstraps {boot}, streams {strm}")
+            before = queue.counts()
+            w2 = AcquisitionWatcher(
+                cfg, *DRIVER_POINT, number=INGEST_CHIPS, acquired_start=START,
+                queue=queue, cursor=SceneCursor(watch_db_path(cfg)))
+            s2 = w2.poll_once()
+            w2.cursor.close()
+            check(s2["jobs"] == 0 and s2["scenes_new"] == 0
+                  and queue.counts() == before,
+                  f"a second watcher on the same cursor enqueued: {s2}")
+            secs["a"] = time.perf_counter() - t1
+            # (b) The drain on the card: the bootstraps launch route 0's
+            # kernels; the update's step runs on the card's state.
+            seen = []
+            real_step = incremental.step
+
+            def step_on(st, *a, **kw):
+                seen.append(st.coefs.device.type)
+                return real_step(st, *a, **kw)
+
+            t1 = time.perf_counter()
+            worker = FleetWorker(cfg, queue, poll_sec=0.05)
+            obs_spool.arm(cfg, "worker", worker.run_id)
+            try:
+                cuda_ops.reset_launches()
+                d1 = worker.run(until_drained=True)
+                torch.cuda.synchronize()
+                l1 = dict(cuda_ops.LAUNCHES)
+                secs["drain_bootstrap"] = time.perf_counter() - t1
+                live = TileStateStore(sdrv.sstore_mod.state_dir(cfg))
+                standard = int(live.peek_arrays(step_cid)["active"].sum())
+                live.close()
+                t2 = time.perf_counter()
+                with ThreadPoolExecutor(INGEST_CHIPS) as ex:
+                    list(ex.map(fs.save_chip,
+                                [RangeSource(data).chip(*c, ACQUIRED)
+                                 for c in cids]))
+                fs.append_scene(f"LC08_{dt.to_iso(full_last)}",
+                                date=dt.to_iso(full_last))
+                secs["land"] = time.perf_counter() - t2
+                s3 = w.poll_once()
+                check(s3["jobs"] == INGEST_CHIPS
+                      and not queue.open_jobs("detect")
+                      and set(queue.open_jobs("stream")) == set(cids),
+                      f"watcher poll 2: {s3}")
+                t2 = time.perf_counter()
+                incremental.step = step_on
+                try:
+                    d2 = worker.run(until_drained=True)
+                finally:
+                    incremental.step = real_step
+                torch.cuda.synchronize()
+                secs["drain_update"] = time.perf_counter() - t2
+            finally:
+                obs_spool.disarm()
+            w.close()
+            l2 = dict(cuda_ops.LAUNCHES)
+            launched = {k for k, n in l2.items() if n > 0}
+            counts = queue.counts()
+            check(counts == {"pending": 0, "leased": 0,
+                             "done": 3 * INGEST_CHIPS, "dead": 0}
+                  and not d2["wedged"],
+                  f"the drain left {counts} ({d1}, {d2})")
+            check(launched == ROUTE_0 and l1 == l2,
+                  f"the drains launched {l2} (bootstraps {l1}), expected "
+                  f"{sorted(ROUTE_0)} from the bootstraps alone")
+            check(seen and set(seen) == {"cuda"},
+                  f"the update stepped state on {sorted(set(seen))}")
+            queue.close()
+            secs["b"] = time.perf_counter() - t1
+            # (c) The fleet leg against the serial leg.
+            t1 = time.perf_counter()
+            fleet_alerts = _alert_rows(alert_db_path(cfg))
+            keys = [r[2:] for r in fleet_alerts]
+            check(fleet_alerts == _alert_rows(alert_db_path(scfg))
+                  and len(set(keys)) == len(keys),
+                  f"alerts: fleet {len(fleet_alerts)}, serial "
+                  f"{len(_alert_rows(alert_db_path(scfg)))}, "
+                  f"{len(keys) - len(set(keys))} duplicates")
+            sdir, fdir = (sdrv.sstore_mod.state_dir(c) for c in (scfg, cfg))
+            payloads = {c: _canonical_payload(fdir, c) for c in cids}
+            check(all(payloads[c] == _canonical_payload(sdir, c)
+                      for c in cids), "checkpoint bytes differ from the "
+                  "serial leg's")
+            fstore = SqliteStore(cfg.store_path, cfg.keyspace())
+            sstore = SqliteStore(scfg.store_path, scfg.keyspace())
+            n_rows = {}
+            for table in ("chip", "pixel", "segment"):
+                n, m, diff = _sqlite_diff(fstore.path, sstore.path, table)
+                n_rows[table] = n
+                check(n == m > 0 and diff == 0,
+                      f"the fleet's {table} rows ({n}) differ from the "
+                      f"serial leg's ({m}) in {diff}")
+            sstore.close()
+            # The step chip: an alert on every pixel its bootstrap left
+            # monitoring a standard-procedure model.
+            step_alerts = sum(1 for r in fleet_alerts
+                              if (r[0], r[1]) == step_cid)
+            check(step_alerts == standard > 0,
+                  f"the stepped chip raised {step_alerts} alerts for its "
+                  f"{standard} standard pixels")
+            secs["c"] = time.perf_counter() - t1
+            # (d) The object tier: the checkpoints, the rows, the census,
+            # the scrub and status.
+            t1 = time.perf_counter()
+            ostore = objlib.open_object_root(root=objects)
+            scope = objlib.scope_for_path(fdir)
+            check(all(ostore.get(f"{scope}/state/chip_{c[0]}_{c[1]}")[0]
+                      == payloads[c] for c in cids),
+                  "a checkpoint object differs from its packed slot")
+            mirror = objlib.ObjectBackedStore(
+                ostore, objlib.scope_for_path(cfg.store_path),
+                cfg.keyspace(), read_only=True)
+            for table in n_rows:
+                check(_sorted_rows(mirror, table)
+                      == _sorted_rows(fstore, table),
+                      f"the object mirror's {table} rows differ")
+            fstore.close()
+            n_objects = len(ostore.list())
+            env = {"FIREBIRD_STORE_BACKEND": "sqlite",
+                   "FIREBIRD_STORE_PATH": cfg.store_path,
+                   "FIREBIRD_OBJECT_ROOT": objects}
+            code, out = _command(["objectstore", "census"], env)
+            census = json.loads(out)
+            check(code == 0 and census["keys"] == n_objects > 0
+                  and census["orphan_chunks"] == 0 and census["junk"] == 0,
+                  f"objectstore census: {census} ({n_objects} objects)")
+            code, out = _command(["objectstore", "scrub", "--dry-run",
+                                  "--grace", "0"], env)
+            scrub = json.loads(out)
+            check(code == 0 and scrub["removed"] == 0
+                  and scrub["referenced"] == census["chunks"],
+                  f"objectstore scrub --dry-run: {scrub}")
+            code, out = _command(["status"], env)
+            status = json.loads(out)
+            wstat = status.get("streamops", {}).get("watcher", {})
+            check(code == 0 and wstat.get("scenes") == 2
+                  and status.get("object", {}).get("keys") == n_objects
+                  and not [k for k, v in status.items()
+                           if isinstance(v, dict) and "error" in v],
+                  f"status: watcher {wstat}, object "
+                  f"{status.get('object')}")
+            secs["d"] = time.perf_counter() - t1
+            # (e) Freshness: publish -> alert observed, and the budget over
+            # the phase's home evaluates alert_freshness.
+            t1 = time.perf_counter()
+            fresh = obs_metrics.histogram(
+                "acquisition_to_alert_seconds").snapshot()
+            code, out = _command(["slo", "--no-record"], env)
+            budgets = {b["name"]: b for b in json.loads(out)["budgets"]}
+            af = budgets.get("alert_freshness", {})
+            check(fresh["count"] >= 1 and af.get("ok") is not None,
+                  f"freshness: {fresh['count']} observations, "
+                  f"alert_freshness {af}")
+            secs["e"] = time.perf_counter() - t1
+    out = dict(chips=len(cids), scenes=2, jobs=dict(counts), rows=n_rows,
+               launches=l2, alerts=len(fleet_alerts),
+               step_chip_alerts=step_alerts, serial=serial,
+               serial_stages=serial_stages,
+               census=census, scrub=scrub,
+               acquisition_to_alert=fresh, alert_freshness=af,
+               seconds=secs, phase_seconds=time.perf_counter() - t_phase)
+    print(f"ingest on {smi}: {len(cids)} chips fetched to {STREAM_BOOT}, "
+          f"scene {dt.to_iso(boot_last)} -> {s1['jobs']} jobs (the second "
+          f"watcher {s2['jobs']}), 2016-2017 landed, scene "
+          f"{dt.to_iso(full_last)} -> {s3['jobs']} jobs; drained on "
+          f"{dev}: {counts}, launches {l2}; {len(fleet_alerts)} alerts "
+          f"({step_alerts} on the stepped chip) = the serial leg's, "
+          f"checkpoints and rows equal; {n_objects} objects, census "
+          f"{census['keys']} keys {census['chunks']} chunks, scrub removed "
+          f"{scrub['removed']}; acquisition_to_alert_seconds n="
+          f"{fresh['count']} p95={fresh.get('p95')}, alert_freshness ok "
+          f"{af.get('ok')}; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + "; the serial leg's stages (s) "
+          + " / ".join(", ".join(f"{k} {v:.2f}" for k, v in st.items() if v)
+                       for st in serial_stages)
+          + f"; phase {out['phase_seconds']:.1f} s", flush=True)
+    return out
+
+
 F64_SAMPLE = 256
 
 
@@ -3356,7 +3745,7 @@ def _reference(kw):
 
 def f64_phase(smi, seed, dev, pool):
     """One full chip on the float64 route (the module docstring's item
-    14); the reference runs in ``pool`` (spawned processes)."""
+    15); the reference runs in ``pool`` (spawned processes)."""
     src = SyntheticSource(seed, start=START, end=END)
     packed = pack([src.chip(1000, 2000)], bucket=64)
     cuda_ops.reset_launches()
@@ -3422,7 +3811,7 @@ VALIDATE_PIXELS = 100
 
 
 def validate_phase(smi, dev, kernels, pool):
-    """The parity audit on one full chip (the module docstring's item 15):
+    """The parity audit on one full chip (the module docstring's item 16):
     ``validate.validate`` on the default synthetic chip in float64, then
     float32, each with the launch counters set to 0 just before and read
     just after, the oracle replayed in ``pool``; then route 0's roofline
@@ -3608,6 +3997,8 @@ def main(argv=None):
         rf = classify_phase(smi, drv_cfg, args.seed, dev)
     torch.cuda.empty_cache()
     strm = stream_phase(smi, chips, dev)
+    torch.cuda.empty_cache()
+    ingest = ingest_phase(smi, chips, dev)
     del chips
     torch.cuda.empty_cache()
     # One pool of spawned processes for the reference replays: each
@@ -3629,7 +4020,7 @@ def main(argv=None):
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
         sentinel2=s2, driver=drv, ops=ops, fleet=fleet, history=history,
-        classify=rf, stream=strm,
+        classify=rf, stream=strm, ingest=ingest,
         f64=f64, validate=audit,
         ptxas_instances=instances,
         ptxas=ptxas,

@@ -32,6 +32,12 @@
     python -m firebird_tpu_torch top [-i INTERVAL] [-n ITERATIONS]
     python -m firebird_tpu_torch slo [-b SPEC] [--fast S] [--slow S] \
         [--burn R] [--record | --no-record]
+    python -m firebird_tpu_torch fetch -x X -y Y -o OUTDIR [-a ACQUIRED] \
+        [-n NUMBER] [--aux]
+    python -m firebird_tpu_torch watch -x X -y Y [-n NUMBER] \
+        [--acquired-start DATE] [-i INTERVAL] [--once] [--ops-port P]
+    python -m firebird_tpu_torch objectstore scrub [--grace S] [--dry-run]
+    python -m firebird_tpu_torch objectstore census
 
 ``changedetection`` is the JAX package's command of that name: the tile
 at the point (x, y), its first ``NUMBER`` chips in chunks of
@@ -123,9 +129,10 @@ none initialises CUDA.  ``products`` lists the product names; ``tiles``
 prints the tiles covering the bounds points as CSV (``-s i/n`` a strided
 shard; a bad shard exits 2); ``status`` prints the store's tables and
 chips, quarantine, the fleet queue, the alert log, the stream checkpoint
-store, the error budgets and, with ``-x/-y``, one tile's progress (the
-acquisition watcher, serving and object-tier views are not ported: absent
-where there is no such state, an error entry where there is); ``top``
+store and the acquisition watcher's cursor, the object tier's census
+(with FIREBIRD_OBJECT_ROOT), the error budgets and, with ``-x/-y``, one
+tile's progress (the serving view is not ported: absent where there is no
+such state, an error entry where there is); ``top``
 renders the queue, the alert log, the spools' merged metrics and the
 series store's sparklines; ``slo`` ingests the spools into the series
 store (``series/`` in the spool directory) and prints the error budgets'
@@ -136,6 +143,29 @@ detector over one chip at ``--dtype`` (default float64) on the card
 (``--device cpu`` runs the plain versions; without a card it raises),
 replays ``-n`` sampled pixels through ``ccd/reference.py`` and prints the
 agreement report, exiting 2 when the structure does not agree 100 %.
+
+The ingest and object-tier commands answer as the JAX package's do, on
+the host only.  ``fetch`` mirrors the tile's first ``NUMBER`` chips from
+the configured source into a ``FileSource`` archive in OUTDIR (with
+``--aux`` their AUX layers too), dead-letters the chips that exhaust their
+retries to ``OUTDIR/quarantine.json`` and exits 3 when one failed.
+``watch`` polls the configured source's acquisition manifest
+(``list_acquisitions``: the synthetic and file sources) and keeps the
+fleet queue fed: each new scene becomes at most one open ``stream`` job a
+chip of the tile at (x, y), behind a ``detect`` bootstrap job where the
+chip has no stream checkpoint yet; scene ids dedupe against the durable
+cursor ``watcher.db`` next to the store (or FIREBIRD_WATCH_DB).  With
+``--once`` it polls once and prints the poll's summary; without, it polls
+every ``--interval`` seconds until signalled, with the ops surface
+(``/progress`` gains a ``streamops`` block; this loads torch, never
+CUDA, as ``fleet supervise`` does) and prints the watcher's status.  The
+jobs run on the card of the ``fleet work`` process that claims them.
+``objectstore census`` prints the key, manifest, chunk and orphan counts
+of FIREBIRD_OBJECT_ROOT; ``objectstore scrub`` reclaims the orphaned
+chunks older than ``--grace`` seconds (FIREBIRD_OBJECT_SCRUB_GRACE_SEC),
+reporting without deleting under ``--dry-run``.  Both exit 1 without an
+object root.  ``fetch``, ``watch --once`` and the ``objectstore``
+commands load neither torch nor the detector.
 """
 
 from __future__ import annotations
@@ -583,12 +613,11 @@ def _not_ported(what: str) -> str:
 def _status_doc(cfg, x=None, y=None) -> dict:
     """The ``status`` document: the store's tables and chips, quarantine,
     the fleet queue, the alert log, the stream checkpoint store, the error
-    budgets and (with x, y) one tile's progress — the JAX command's
-    sections, each guarded so a broken one degrades alone.  A section
-    whose subsystem the port lacks (the acquisition watcher, the serving
-    fleet, the object tier) is absent where the JAX command finds no such
-    state, and an error entry naming what is not ported where it finds
-    some."""
+    budgets, the watcher's cursor, the object root's census and (with x,
+    y) one tile's progress — the JAX command's sections, each guarded so
+    a broken one degrades alone.  The serving view, whose subsystem the
+    port lacks, is absent where the JAX command finds no such state, and
+    an error entry naming what is not ported where it finds some."""
     import collections
     import os
 
@@ -687,10 +716,18 @@ def _status_doc(cfg, x=None, y=None) -> dict:
         finally:
             sstore.close()
         out["streamops"] = {"statestore": scan}
-        wpath = cfg.watch_db or (home and os.path.join(home, "watcher.db"))
-        if wpath and os.path.exists(wpath):
-            out["streamops"]["watcher"] = {"path": wpath, "error": _not_ported(
-                "the acquisition watcher (streamops/watcher.py)")}
+        from firebird_tpu_torch.streamops.watcher import (SceneCursor,
+                                                          watch_db_path)
+        try:
+            wpath = watch_db_path(cfg)
+        except ValueError:
+            wpath = None
+        if wpath is not None and os.path.exists(wpath):
+            cur = SceneCursor(wpath)
+            try:
+                out["streamops"]["watcher"] = cur.status()
+            finally:
+                cur.close()
     except Exception as e:
         out["streamops"] = {"error": f"{type(e).__name__}: {e}"}
     from firebird_tpu_torch.serve import changefeed as _cflib
@@ -704,9 +741,20 @@ def _status_doc(cfg, x=None, y=None) -> dict:
         out["serving"] = {"error": _not_ported(
             "the serving view (serve/changefeed.py's replicas, "
             "serve/pyramid.py)") + f"; found {', '.join(found)}"}
+    # Object-tier view: the census of the configured object root, which
+    # never raises; anything else degrades this section alone.
     if cfg.object_root:
-        out["object"] = {"root": cfg.object_root, "error": _not_ported(
-            "the object tier (store/objectstore.py)")}
+        try:
+            from firebird_tpu_torch.store import open_object_root
+
+            ostore = open_object_root(cfg=cfg)
+            try:
+                out["object"] = {"backend": "local-dir", **ostore.census()}
+            finally:
+                ostore.close()
+        except Exception as e:
+            out["object"] = {"root": cfg.object_root,
+                             "error": f"{type(e).__name__}: {e}"}
     # Error-budget view: the multi-window burn verdict over the durable
     # metric series next to the telemetry spools — read-only here (no
     # event recording; that belongs to `slo` and the ops endpoint).
@@ -962,6 +1010,160 @@ def slo(args) -> None:
     print(json.dumps(verdict, indent=1))
     if not verdict.get("ok", True):
         raise SystemExit(1)
+
+
+def fetch_cmd(args) -> None:
+    """Mirror a tile's chips into a FileSource archive (driver.fetch);
+    exits 3 when a chip failed permanently."""
+    import sys
+
+    from firebird_tpu_torch.driver import fetch as dfetch
+
+    n, attempted = dfetch.fetch(x=args.x, y=args.y, outdir=args.outdir,
+                                acquired=args.acquired, number=args.number,
+                                aux=args.aux)
+    print(f"{n} chips written to {args.outdir}")
+    if n < attempted:
+        print(f"WARNING: {attempted - n} chips failed permanently — the "
+              "archive is incomplete", file=sys.stderr)
+        raise SystemExit(3)
+
+
+def watch(args) -> None:
+    """The acquisition watcher over the tile at (x, y): one poll with
+    ``--once``, else a standing loop until SIGINT/SIGTERM."""
+    import signal
+    import threading
+
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.obs import spool as obs_spool
+    from firebird_tpu_torch.streamops import AcquisitionWatcher
+
+    overrides = {"ops_port": args.ops_port} \
+        if args.ops_port is not None else {}
+    cfg = Config.from_env(**overrides)
+    watcher = AcquisitionWatcher(cfg, args.x, args.y, number=args.number,
+                                 acquired_start=args.acquired_start)
+    if args.once:
+        obs_spool.arm(cfg, "watcher")
+        try:
+            summary = watcher.poll_once()
+        finally:
+            obs_spool.disarm()
+            watcher.close()
+        print(json.dumps(summary, indent=1))
+        return
+    # The standing loop's ops surface is the driver's, host only (no
+    # CUDA query, no device profiler), as the supervisor's is.
+    from firebird_tpu_torch.driver import core
+    from firebird_tpu_torch.obs import Counters, jsonlog
+
+    run_id = jsonlog.new_run_id()
+    run_block = {"kind": "watcher", "run_id": run_id,
+                 "host": jsonlog.HOST, "tile_h": watcher.tile["h"],
+                 "tile_v": watcher.tile["v"]}
+    _, srv, wd = core.start_ops(cfg, run_id, "watcher", chips_total=0,
+                                counters=Counters(), run_block=run_block,
+                                streamops=watcher.status, host_only=True)
+    obs_spool.arm(cfg, "watcher", run_id)
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        summary = watcher.run(interval=args.interval, stop=stop)
+    finally:
+        obs_spool.disarm()
+        core.stop_ops(srv, wd)
+        watcher.close()
+    print(json.dumps(summary, indent=1))
+
+
+def _object_root_or_die():
+    """(config, the wired object root); exits 1 without
+    FIREBIRD_OBJECT_ROOT, as the JAX command does."""
+    import sys
+
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.store import open_object_root
+
+    cfg = Config.from_env()
+    if not cfg.object_root:
+        print("Error: no object root: set FIREBIRD_OBJECT_ROOT",
+              file=sys.stderr)
+        raise SystemExit(1)
+    return cfg, open_object_root(cfg=cfg)
+
+
+def objectstore_scrub(args) -> None:
+    """Reclaim orphaned chunks (no retained manifest references them)
+    older than the grace; referenced chunks and manifests are never
+    touched, so it is safe against a live fleet."""
+    cfg, store = _object_root_or_die()
+    try:
+        rep = store.scrub(
+            grace_sec=cfg.object_scrub_grace_sec if args.grace is None
+            else args.grace, dry_run=args.dry_run)
+    finally:
+        store.close()
+    print(json.dumps(rep, indent=1))
+
+
+def objectstore_census(args) -> None:
+    """Key, manifest, chunk and orphan counts over the object root."""
+    _cfg, store = _object_root_or_die()
+    try:
+        print(json.dumps(store.census(), indent=1))
+    finally:
+        store.close()
+
+
+def _ingest_parsers(sub) -> None:
+    """``fetch``, ``watch`` and the ``objectstore`` group (the JAX command
+    line's options)."""
+    f = sub.add_parser("fetch", help="mirror a tile's chips into a local "
+                       "file archive")
+    f.add_argument("-x", "--x", type=float, required=True)
+    f.add_argument("-y", "--y", type=float, required=True)
+    f.add_argument("-a", "--acquired", default=None)
+    f.add_argument("-n", "--number", type=int, default=2500)
+    f.add_argument("-o", "--outdir", required=True,
+                   help="directory for the .npz chip archive")
+    f.add_argument("--aux", action="store_true",
+                   help="also mirror the AUX layers (training inputs)")
+    w = sub.add_parser("watch", help="watch the source's acquisition "
+                       "manifest and keep the fleet queue fed")
+    w.add_argument("-x", "--x", type=float, required=True)
+    w.add_argument("-y", "--y", type=float, required=True)
+    w.add_argument("-n", "--number", type=int, default=2500,
+                   help="chips of the tile the watcher covers (testing)")
+    w.add_argument("--acquired-start", default="1982-01-01",
+                   help="archive start date for the jobs' acquired ranges "
+                        "(ends derive from each scene's date, half-open)")
+    w.add_argument("-i", "--interval", type=float, default=None,
+                   help="manifest poll interval seconds; overrides "
+                        "FIREBIRD_WATCH_INTERVAL")
+    w.add_argument("--once", action="store_true",
+                   help="one poll, print its summary JSON, exit (the "
+                        "cron/test mode; the default is a standing loop)")
+    w.add_argument("--ops-port", type=int, default=None,
+                   help="live ops endpoints for the watcher (adds a "
+                        "`streamops` block to /progress); overrides "
+                        "FIREBIRD_OPS_PORT")
+    o = sub.add_parser("objectstore", help="chunked object-tier "
+                       "maintenance over FIREBIRD_OBJECT_ROOT")
+    osub = o.add_subparsers(dest="objectstore_cmd", required=True)
+    sc = osub.add_parser("scrub", help="reclaim orphaned chunks")
+    sc.add_argument("--grace", type=float, default=None,
+                    help="minimum orphan age in seconds before reclaim "
+                         "(default: FIREBIRD_OBJECT_SCRUB_GRACE_SEC)")
+    sc.add_argument("--dry-run", action="store_true",
+                    help="report what would be reclaimed without deleting")
+    osub.add_parser("census", help="key/manifest/chunk/orphan counts over "
+                    "the object root")
+
+
+INGEST = dict(fetch=fetch_cmd, watch=watch)
+OBJECTSTORE = dict(scrub=objectstore_scrub, census=objectstore_census)
 
 
 def _read_parsers(sub) -> None:
@@ -1233,6 +1435,7 @@ def main(argv=None) -> None:
                         "rebalancing ring)")
     _fleet_parsers(sub)
     _read_parsers(sub)
+    _ingest_parsers(sub)
     args = ap.parse_args(_attach_points(
         list(sys.argv[1:] if argv is None else argv)))
     if args.cmd == "fleet":
@@ -1241,6 +1444,10 @@ def main(argv=None) -> None:
         run = trace_collect
     elif args.cmd in READ:
         run = READ[args.cmd]
+    elif args.cmd == "objectstore":
+        run = OBJECTSTORE[args.objectstore_cmd]
+    elif args.cmd in INGEST:
+        run = INGEST[args.cmd]
     else:
         run = dict(changedetection=changedetection, stream=stream,
                    classification=classification, save=save,

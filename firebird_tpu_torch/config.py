@@ -5,10 +5,8 @@ only): the same knob registry, the same :class:`Config` fields, defaults,
 ``from_env`` parsing and validation, and the same ``keyspace()``, so that a
 store one package writes names the tables the other reads.  The drivers
 refuse a run that sets a knob whose subsystem is not ported
-(:data:`NOT_PORTED`).  The knobs that stay refused, and why:
+(:data:`NOT_PORTED`).  The knob that stays refused, and why:
 
-- ``object_root``: the object store (``store/objectstore.py``) is not
-  ported;
 - ``compile_cache``: XLA's compilation cache has no counterpart; this
   package builds its kernels with nvcc into ``build/``, keyed by a hash
   of their sources.
@@ -1193,12 +1191,10 @@ class Config:
 # than the field's default) is refused by the driver
 # (driver.core.refuse_not_ported); none is ignored quietly.
 NOT_PORTED = {
-    "object_root": "the object store (store/objectstore.py)",
     "compile_cache": "the compile cache (this package compiles its kernels "
                      "with nvcc and caches them under build/)",
 }
 # Store backends this package does not port yet.
 NOT_PORTED_BACKENDS = {
-    "object": "the object store (store/objectstore.py)",
     "cassandra": "the Cassandra store (store/backends.CassandraStore)",
 }

@@ -54,6 +54,9 @@ endpoint (FIREBIRD_OPS_PORT), and at the run's end the span trace
 ``pack``) are host time and add no synchronisation with the card; device
 time comes from the profiler.
 
+:func:`fetch` (with the source factories, in ``driver/fetch.py``, which
+imports no torch) mirrors a tile's chips into a ``FileSource`` archive.
+
 The entry points run on CUDA unless the caller passes ``device="cpu"``;
 without a card and without that argument they raise (a multi-process run
 takes this process's card, ``parallel.dist.local_device``).  Knobs whose
@@ -83,8 +86,9 @@ from firebird_tpu_torch.ccd import format as ccdformat
 from firebird_tpu_torch.config import (NOT_PORTED, NOT_PORTED_BACKENDS,
                                        Config)
 from firebird_tpu_torch.driver import quarantine as qlib
-from firebird_tpu_torch.ingest import (ChipmunkSource, FileSource,
-                                       SyntheticSource, pack)
+from firebird_tpu_torch.driver.fetch import (fetch, make_aux_source,
+                                             make_source, with_retries)
+from firebird_tpu_torch.ingest import pack
 from firebird_tpu_torch.ingest.packer import PackedChips, bucket_capacity
 from firebird_tpu_torch.obs import Counters, flightrec, jsonlog, logger
 from firebird_tpu_torch.obs import metrics as obs_metrics
@@ -299,33 +303,6 @@ def build_kernels(dev: torch.device, cfg: Config, log) -> None:
     obs_metrics.histogram("kernel_build_seconds").observe(tm.elapsed)
 
 
-def make_source(cfg: Config, kind: str | None = None):
-    """Source factory (cfg.source_backend): chipmunk | synthetic | file."""
-    kind = kind or cfg.source_backend
-    if kind == "chipmunk":
-        return ChipmunkSource(cfg.ard_url,
-                              band_parallelism=cfg.band_parallelism,
-                              timeout=cfg.http_timeout)
-    if kind == "synthetic":
-        from firebird_tpu_torch.ccd.sensor import SENSORS
-
-        return SyntheticSource(seed=0, sensor=SENSORS[cfg.synth_sensor])
-    if kind == "file":
-        return FileSource(cfg.source_path)
-    raise ValueError(f"unknown source backend: {kind!r}")
-
-
-def make_aux_source(cfg: Config, kind: str | None = None):
-    """AUX source factory: the Chipmunk service at ``cfg.aux_url``, or the
-    ARD source of the same kind (synthetic and file sources serve both)."""
-    kind = kind or cfg.source_backend
-    if kind == "chipmunk":
-        return ChipmunkSource(cfg.aux_url,
-                              band_parallelism=cfg.band_parallelism,
-                              timeout=cfg.http_timeout)
-    return make_source(cfg, kind)
-
-
 def robustness_setup(cfg: Config, run_id: str, *, source=None, store=None):
     """The drivers' shared graceful-degradation bring-up (one code path
     for batch, stream and the fleet's detect jobs): the (usually absent)
@@ -425,15 +402,6 @@ def resolve_batching(cfg: Config, acquired: str, device=None) -> Config:
         return cfg
     return dataclasses.replace(
         cfg, chips_per_batch=auto_chips_per_batch(cfg, acquired, device))
-
-
-def _with_retries(cfg: Config, log, what: str, fn, policy=None):
-    """Run fn() under the driver's transient-failure policy (a one-off
-    ``RetryPolicy(cfg.fetch_retries)`` without a run-scoped ``policy``);
-    raises the last error when the retries run out."""
-    if policy is None:
-        policy = retrylib.RetryPolicy(cfg.fetch_retries)
-    return policy.run(log, what, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -731,7 +699,7 @@ def detect_chunk(cids, *, source, writer, acquired, cfg, counters, log,
             with tracing.activate(ctx):
                 try:
                     with obs_metrics.timer() as tm:
-                        chip = _with_retries(
+                        chip = with_retries(
                             cfg, log, f"chip ({xy[0]},{xy[1]}) fetch",
                             lambda: source.chip(xy[0], xy[1], acquired),
                             policy=policy)
@@ -1017,7 +985,7 @@ def stage_seconds() -> dict:
     return {k: snap.get(v, {}).get("sum", 0.0) for k, v in names.items()}
 
 
-__all__ = ["make_source", "make_aux_source", "robustness_setup", "estimate_obs",
+__all__ = ["fetch", "make_source", "make_aux_source", "robustness_setup", "estimate_obs",
            "auto_chips_per_batch", "resolve_batching", "StagedBatch",
            "stage_batch", "detect_batch", "fetch_results",
            "write_batch_frames", "drain_batch", "detect_chunk", "run_chunk",

@@ -30,9 +30,11 @@ tail segment and extends it one acquisition at a time
 A checkpoint holds the StreamState arrays, the tail segments' identity
 (sday, curqa), the design anchor and the horizon (the last ingested
 ordinal day).  Entry points run on CUDA unless the caller passes
-``device="cpu"``; knobs whose subsystems are not ported
-(``config.NOT_PORTED``: the object store, the SLO budgets, the compile
-cache) make :func:`stream` refuse the run.  In a
+``device="cpu"``; a knob whose subsystem is not ported
+(``config.NOT_PORTED``: the compile cache) makes :func:`stream` refuse
+the run.  With FIREBIRD_OBJECT_ROOT set, the store's rows and the
+checkpoints are mirrored to the object tier (``store/objectstore.py``).
+In a
 multi-process run each process takes its strided share of the tile's
 chips (``driver.core.host_shard``) on its own card, with one run id.  The
 run carries the batch driver's ops surface (``driver.core.start_ops``):
@@ -334,7 +336,7 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
 
     def fetch_chip(cid, rng_iso):
         try:
-            chip = dcore._with_retries(
+            chip = dcore.with_retries(
                 cfg, log, f"chip ({cid[0]},{cid[1]}) fetch",
                 lambda: source.chip(cid[0], cid[1], rng_iso),
                 policy=policy)

@@ -8,8 +8,10 @@ aux source, store backend and async writer in thin proxies that raise
 realistic errors on a deterministic schedule, so a drill can show that an
 ingest brownout or a store blip costs retries, never results.  The wrap
 sites are the drivers' ``robustness_setup`` (driver/core.py: source,
-store, writer), ``classification``'s aux source, and the fleet worker's
-lease heartbeats (fleet/worker.py).
+store, writer), ``fetch``'s sources (driver/fetch.py),
+``classification``'s aux source, the fleet worker's lease heartbeats
+(fleet/worker.py), the watcher's poll (streamops/watcher.py) and every
+object root (store/objectstore.open_object_root).
 
 Plan grammar (scopes separated by ``;``, options by ``,``)::
 
@@ -29,11 +31,16 @@ scope target            what the injector wraps
                         partitioned from the queue (a zombie)
 ``serve``               ``/v1`` request handling (the JAX package's
                         serve/api.py)
-``watch``               the acquisition watcher's poll (the JAX package's
-                        streamops/watcher.py)
-``object``              every object-tier operation (the JAX package's
-                        store/objectstore.py); ``chip=`` is rejected here:
-                        object ops carry no chip identity
+``watch``               ``watcher.poll_once`` (streamops/watcher.py): an
+                        injected failure aborts the poll before any scene
+                        is mapped, so the landing zone backs up (a stalled
+                        watcher)
+``object``              every object-tier operation
+                        (store/objectstore.py): puts/gets/heads/lists
+                        fail per the schedule; the ``torn`` kind (puts
+                        only) also leaves a *torn upload* behind (see
+                        below).  ``chip=`` is rejected here: object ops
+                        carry no chip identity
 ======================  =====================================================
 
 ======================  =====================================================
@@ -51,13 +58,19 @@ option                  meaning
 ``timeout``             raise :class:`InjectedTimeout` (TimeoutError)
 ``conn``                raise :class:`InjectedConnError` (ConnectionError)
 ``ioerror``             raise :class:`InjectedFault` (OSError) — the default
-``torn``                object scope only: raise :class:`TornUpload`
+``torn``                object scope only: raise :class:`TornUpload` AND
+                        leave a torn upload on disk — occurrences alternate
+                        between committing a truncated chunk (the manifest
+                        promises bytes that are not there) and dropping the
+                        manifest write (the chunks upload, the object never
+                        becomes visible).  NonRetryable: the damage must
+                        persist for the reader's recovery, not be healed by
+                        the retry wrapper
 ======================  =====================================================
 
-The ``serve``, ``watch`` and ``object`` scopes parse and validate as in
-the JAX package, but this package has nothing for them to wrap yet: the
-serving API, the acquisition watcher and the object store are not ported
-(ROADMAP A7), so a plan naming them injects nothing.
+The ``serve`` scope parses and validates as in the JAX package, but this
+package has no serving API for it to wrap yet, so a plan naming it injects
+nothing.
 
 With ``FIREBIRD_FAULTS`` unset, :func:`wrap_source` / :func:`wrap_store` /
 :func:`wrap_writer` return their argument unchanged — no proxy object, no
@@ -93,10 +106,13 @@ class InjectedConnError(ConnectionError):
 
 
 class TornUpload(OSError, retrylib.NonRetryable):
-    """A fault-plan-injected torn object upload (``object`` scope; the
-    object store is not ported).  NonRetryable, as in the JAX package: a
-    torn upload's damage is the reader's recovery drill, not something a
-    retry wrapper should heal."""
+    """A fault-plan-injected torn object upload (``object`` scope).
+
+    NonRetryable on purpose: the proxy has already left real damage on
+    disk (a truncated chunk under a committed manifest, or uploaded
+    chunks with the manifest write dropped), and the drill is the
+    *reader's* recovery path — a retry wrapper silently re-putting would
+    erase the very state under test."""
 
 
 _ERRORS = {"ioerror": InjectedFault, "timeout": InjectedTimeout,
@@ -346,6 +362,62 @@ class FaultyWriter:
         return getattr(self._inner, name)
 
 
+class FaultyObjectStore:
+    """Object-store proxy (store/objectstore.py protocol).
+
+    ``put`` always rides the injector; the read-side ops (get/head/list/
+    delete) ride it only for the transient kinds — a ``torn`` schedule
+    is about *uploads*, and firing it on reads would raise TornUpload
+    from operations that cannot tear anything.
+
+    On a TornUpload the proxy first performs the damaged put for real —
+    alternating deterministically between a truncated final chunk
+    (``_torn="chunk"``: manifest commits over missing bytes) and a
+    dropped manifest (``_torn="manifest"``: chunks land, the object
+    never becomes visible) — then re-raises, so the on-disk state
+    matches what a crashed uploader leaves behind."""
+
+    def __init__(self, inner, injector: FaultInjector):
+        self._inner = inner
+        self._inj = injector
+        self._torn_lock = threading.Lock()
+        self._torn_count = 0
+
+    def _fire_transient(self):
+        if self._inj.spec.kind != "torn":
+            self._inj.fire()
+
+    def put(self, key, data, **kw):
+        try:
+            self._inj.fire()
+        except TornUpload:
+            with self._torn_lock:
+                mode = "chunk" if self._torn_count % 2 == 0 else "manifest"
+                self._torn_count += 1
+            self._inner.put(key, data, **{**kw, "_torn": mode})
+            raise
+        return self._inner.put(key, data, **kw)
+
+    def get(self, key):
+        self._fire_transient()
+        return self._inner.get(key)
+
+    def head(self, key):
+        self._fire_transient()
+        return self._inner.head(key)
+
+    def list(self, prefix=""):
+        self._fire_transient()
+        return self._inner.list(prefix)
+
+    def delete(self, key):
+        self._fire_transient()
+        return self._inner.delete(key)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
 def wrap_source(source, plan: FaultPlan | None, scope: str = "ingest"):
     """Source under the plan's ``scope`` injector; the source itself
     (zero indirection) when no plan covers either the scope or ``aux``
@@ -372,3 +444,9 @@ def wrap_writer(writer, plan: FaultPlan | None):
     inj = plan.injector("writer")
     return writer if inj is None else FaultyWriter(writer, inj)
 
+
+def wrap_objectstore(store, plan: FaultPlan | None):
+    if plan is None:
+        return store
+    inj = plan.injector("object")
+    return store if inj is None else FaultyObjectStore(store, inj)

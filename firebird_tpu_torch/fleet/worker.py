@@ -56,6 +56,7 @@ from firebird_tpu_torch.obs import metrics as obs_metrics
 from firebird_tpu_torch.obs import server as obs_server
 from firebird_tpu_torch.obs import spool as obs_spool
 from firebird_tpu_torch.obs import tracing
+from firebird_tpu_torch.store.objectstore import StaleObjectFence
 
 
 # `fleet work`/`fleet supervise` exit status for a WEDGED queue
@@ -286,7 +287,7 @@ class FleetWorker:
             obs_spool.mark("job_acked", trace=ctx.batch_id,
                            job=lease.job_id, type=lease.job_type)
             self.log.info("acked job %d (%.2fs)", lease.job_id, tm.elapsed)
-        except (StaleFence, LeaseLost) as e:
+        except (StaleFence, StaleObjectFence, LeaseLost) as e:
             # The job is a successor's now: abandon it quietly — no
             # fail() (our token could not record one anyway), no
             # quarantine records, just the loss accounting.
@@ -305,7 +306,7 @@ class FleetWorker:
             stop_heartbeat()
             try:
                 state = self.queue.fail(lease, e)
-            except StaleFence:
+            except (StaleFence, StaleObjectFence):
                 self.tallies["lost"] += 1
                 flightrec.mark("fleet_lease_lost", job=lease.job_id,
                                fence=lease.fence, error=type(e).__name__)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import base64
 import json
 import os
+import threading
+import time
 import urllib.parse
 import urllib.request
 
@@ -136,6 +138,27 @@ class SyntheticSource:
         return ChipData(cx=int(cx), cy=int(cy), dates=t, spectra=spectra,
                         qas=qas, sensor=sn)
 
+    def list_acquisitions(self, since: float = 0.0) -> list[dict]:
+        """The acquisition manifest (streamops/watcher.py contract):
+        ``[{scene_id, published, date, bbox}, ...]`` with ``published >
+        since``.  One deterministic scene per cadence date covering the
+        whole grid (bbox None); ``published`` is the fabricated
+        timestamp ``ordinal * 86400`` — monotone in acquisition date,
+        so cursor tests are reproducible (the FileSource manifest
+        carries real wall-clock publish times)."""
+        t = synthetic.acquisition_dates(self.start, self.end,
+                                        self.cadence_days)
+        out = []
+        for d in t:
+            published = float(d) * 86400.0
+            if published <= since:
+                continue
+            iso = dt.to_iso(int(d))
+            out.append({"scene_id": f"synthetic-{self.seed}-{iso}",
+                        "published": published, "date": iso,
+                        "bbox": None})
+        return out
+
     def aux(self, cx: int, cy: int, acquired: str | None = None) -> dict:
         """AUX layers: one [100,100] array per AUX_NAMES entry, drawn from
         the chip's own generator (salt 1) in the JAX package's order."""
@@ -162,9 +185,23 @@ class SyntheticSource:
 class FileSource:
     """Chips stored as .npz files in a directory: chip_{cx}_{cy}.npz with
     arrays dates/spectra/qas, aux_{cx}_{cy}.npz with the AUX names (the
-    layout the JAX package's ``driver.core.fetch`` mirrors a tile into).
-    The acquisition manifest of the stream path (``scenes.jsonl``) is not
-    ported yet."""
+    layout ``driver.fetch.fetch`` mirrors a tile into).
+
+    The directory doubles as a landing zone for the acquisition watcher: a
+    ``scenes.jsonl`` manifest next to the chips records each delivered
+    scene (one JSON line: scene_id, published, date, bbox), appended by
+    :meth:`append_scene` after the chip archives are updated — so a
+    watcher listing the manifest never sees a scene whose pixels have not
+    landed yet.
+
+    A chip archive is an uncompressed npz (the JAX package's
+    ``np.savez_compressed`` deflates it): the same format, read by either
+    package's ``np.load``.  A landing zone rewrites a chip's whole archive
+    for every scene, and the stream reads it back for every update;
+    deflate made each of those cost seconds a full chip, for an archive
+    about two thirds the size."""
+
+    SCENES_FILE = "scenes.jsonl"
 
     def __init__(self, root: str):
         self.root = root
@@ -186,14 +223,50 @@ class FileSource:
         """Atomic archive write (tmp + rename): a reader fetching the
         chip mid-landing sees the previous archive, never a torn one."""
         path = self._path("chip", c.cx, c.cy)
-        tmp = f"{path}.tmp.{os.getpid()}"
+        tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
         with open(tmp, "wb") as f:
-            np.savez_compressed(f, dates=c.dates, spectra=c.spectra,
-                                qas=c.qas)
+            np.savez(f, dates=c.dates, spectra=c.spectra, qas=c.qas)
         os.replace(tmp, path)
 
     def save_aux(self, cx: int, cy: int, aux: dict) -> None:
         np.savez_compressed(self._path("aux", cx, cy), **aux)
+
+    def append_scene(self, scene_id: str, *, date: str,
+                     published: float | None = None, bbox=None) -> dict:
+        """Publish one scene on the manifest (AFTER its chip archives
+        landed — see class docstring).  Returns the manifest record."""
+        rec = {"scene_id": str(scene_id),
+               "published": float(published if published is not None
+                                  else time.time()),
+               "date": str(date),
+               "bbox": None if bbox is None else [float(v) for v in bbox]}
+        with open(os.path.join(self.root, self.SCENES_FILE), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        return rec
+
+    def list_acquisitions(self, since: float = 0.0) -> list[dict]:
+        """The acquisition manifest (streamops/watcher.py contract):
+        scenes with ``published > since`` from ``scenes.jsonl``.  A
+        truncated trailing line (a writer mid-append) is skipped — it
+        re-lists complete on the next poll."""
+        path = os.path.join(self.root, self.SCENES_FILE)
+        out = []
+        try:
+            with open(path) as f:
+                lines = f.readlines()
+        except OSError:
+            return out
+        for line in lines:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue            # torn tail append; next poll has it
+            if float(rec.get("published", 0.0)) > since:
+                out.append(rec)
+        return out
 
 
 # ---------------------------------------------------------------------------

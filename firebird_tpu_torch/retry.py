@@ -2,7 +2,8 @@
 and a circuit breaker on the ingest source.
 
 The port's own copy of the JAX package's ``retry.py``, shared by the
-batch driver (driver/core.py ``_with_retries``) and the async writer
+drivers (driver/fetch.py ``with_retries``), the object tier
+(store/objectstore.py) and the async writer
 (store/writer.py):
 
 - **Decorrelated jitter** (the AWS backoff result): each delay is drawn
@@ -317,6 +318,26 @@ class RetryPolicy:
                    counter_name="store_write_retries",
                    counter_help=("transient store-write failures retried "
                                  "by the async writer"))
+
+    @classmethod
+    def for_object(cls, cfg, *, budget: RetryBudget | None = None,
+                   breaker: CircuitBreaker | None = None,
+                   sleep=None) -> "RetryPolicy":
+        """Object-tier operations (store/objectstore.py): the store
+        writes' attempt count and budget; NonRetryable losses
+        (PreconditionFailed, StaleObjectFence, TornUpload) re-raise
+        without spending budget."""
+        # Registered now, so the series reads zero from the first scrape.
+        obs_metrics.counter("objectstore_retries",
+                            help=("transient object-store operation "
+                                  "failures retried under the shared "
+                                  "budget"))
+        return cls(cfg.fetch_retries, budget=budget, breaker=breaker,
+                   sleep=sleep,
+                   counter_name="objectstore_retries",
+                   counter_help=("transient object-store operation "
+                                 "failures retried under the shared "
+                                 "budget"))
 
 
 def make_breaker(cfg) -> CircuitBreaker | None:

@@ -54,6 +54,20 @@ def _first(v):
     return v
 
 
+def _first_column(colv, idx: np.ndarray) -> np.ndarray:
+    """``np.float32(_first(v))`` (NaN for None) of ``colv[i]`` for each i
+    of ``idx``, a column at a time: the cells become float64 (None and
+    empty sequences NaN), then round once to float32 — the same float32
+    as rounding each cell, since a cell is a double."""
+    out = np.empty(idx.size, np.float64)
+    vals = [colv[i] for i in idx]
+    try:
+        out[:] = vals                    # scalar cells; None -> NaN
+    except (TypeError, ValueError):      # sequence cells: first(x)
+        out[:] = [np.nan if v is None else _first(v) for v in vals]
+    return out.astype(np.float32)
+
+
 def segment_window(seg: dict, msday: int, meday: int) -> np.ndarray:
     """Row mask: training window 'sday >= msday AND eday <= meday'
     (ccdc/randomforest.py:69), on ISO-string day columns."""
@@ -91,9 +105,7 @@ def assemble(seg: dict, aux: dict, cx: int, cy: int,
         if name in AUX_FEATURES:
             X[:, j] = np.asarray(aux[name], np.float32)[row, col]
         else:
-            colv = seg[name]
-            X[:, j] = [np.float32(_first(colv[i])) if colv[i] is not None
-                       else np.nan for i in idx]
+            X[:, j] = _first_column(seg[name], idx)
 
     meta = {k: [seg[k][i] for i in idx]
             for k in ("cx", "cy", "px", "py", "sday", "eday")}

@@ -1,9 +1,11 @@
 """Keyed, idempotent result sinks (the port's own copy of the JAX
 package's ``store``): the chip, pixel, segment and tile tables over
-memory, sqlite and parquet backends, with the same keys, column types and
-sqlite file layout, so either package reads what the other wrote.  Writes
-are upserts on the primary key.  The object store, its mirror and
-Cassandra are not ported yet.
+memory, sqlite, parquet and object backends, with the same keys, column
+types, sqlite file layout and object layout, so either package reads what
+the other wrote.  Writes are upserts on the primary key.  With
+FIREBIRD_OBJECT_ROOT set, a local store's writes are mirrored to the
+object tier (``objectstore.MirroredStore``).  Cassandra is not ported
+yet.
 
 Writes drain through an :class:`AsyncWriter` on host threads, so the
 card's compute overlaps egress.
@@ -11,8 +13,18 @@ card's compute overlaps egress.
 
 from firebird_tpu_torch.store.backends import (MemoryStore, ParquetStore,
                                                SqliteStore, open_store)
+from firebird_tpu_torch.store.objectstore import (LocalObjectStore,
+                                                  MirroredStore,
+                                                  ObjectBackedStore,
+                                                  ObjectStoreError,
+                                                  PreconditionFailed,
+                                                  StaleObjectFence,
+                                                  open_object_root)
 from firebird_tpu_torch.store.schema import TABLES, primary_key
 from firebird_tpu_torch.store.writer import AsyncWriter
 
 __all__ = ["TABLES", "primary_key", "MemoryStore", "SqliteStore",
-           "ParquetStore", "open_store", "AsyncWriter"]
+           "ParquetStore", "open_store", "LocalObjectStore",
+           "ObjectBackedStore", "MirroredStore", "ObjectStoreError",
+           "PreconditionFailed", "StaleObjectFence", "open_object_root",
+           "AsyncWriter"]

@@ -1,8 +1,9 @@
-"""Store backends: memory, sqlite, parquet.
+"""Store backends: memory, sqlite, parquet, and the object tier.
 
 The port's own copy of the JAX package's ``store/backends.py``, less the
-Cassandra store (not ported yet; :func:`open_store` refuses it and the
-object store by name).
+Cassandra store (not ported yet; :func:`open_store` refuses it by name).
+The object backend and the write-through mirror live in
+``store/objectstore.py``.
 
 The Store interface: ``write(table, frame)`` upserts a dict-of-columns
 frame; ``read(table, where=None)`` returns a dict of columns (optionally
@@ -108,6 +109,24 @@ def _decode_cell(v, typ: str):
     if typ in schema.PACKED_DTYPES:
         return np.frombuffer(v, schema.PACKED_DTYPES[typ]).tolist()
     return v
+
+
+def _decode_column(col, typ: str) -> list:
+    """A whole column decoded at once: :func:`_decode_cell` of each
+    cell."""
+    if typ == "JSON":
+        return [None if v is None else json.loads(v) for v in col]
+    if typ in schema.PACKED_DTYPES:
+        dt = np.dtype(schema.PACKED_DTYPES[typ])
+        sizes = {None if v is None else len(v) for v in col}
+        if len(sizes) == 1 and None not in sizes and sizes != {0}:
+            # One blob length: one frombuffer over the column's bytes.
+            k = sizes.pop() // dt.itemsize
+            return np.frombuffer(b"".join(col), dt).reshape(
+                len(col), k).tolist()
+        return [None if v is None else np.frombuffer(v, dt).tolist()
+                for v in col]
+    return list(col)
 
 
 class MemoryStore:
@@ -262,12 +281,14 @@ class SqliteStore:
         if where:
             sql += " WHERE " + " AND ".join(f'"{k}" = ?' for k in where)
             args = list(where.values())
-        cur = self._conn().execute(sql, args)
-        out: dict[str, list] = {c: [] for c in cols}
-        for row in cur:
-            for c, v in zip(cols, row):
-                out[c].append(_decode_cell(v, types[c]))
-        return out
+        rows = self._conn().execute(sql, args).fetchall()
+        if not rows:
+            return {c: [] for c in cols}
+        # Decoded a column at a time: the scalar columns pass through as
+        # sqlite gave them, only JSON and packed cells are decoded (a
+        # per-cell decode call dominated a chip's read).
+        return {c: _decode_column(col, types[c])
+                for c, col in zip(cols, zip(*rows))}
 
     def count(self, table: str) -> int:
         return self._conn().execute(
@@ -390,23 +411,55 @@ def open_store(backend: str, path: str, keyspace: str,
     """The store of a backend name (cfg.store_backend): 'sqlite' (its rows
     in the keyspace-suffixed file next to ``path``, :class:`SqliteStore`),
     'parquet' (:class:`ParquetStore`; needs pyarrow, imported at first
-    use) or 'memory'.  ``read_only=True`` opens a sqlite replica
-    connection; the other backends refuse it.  The object store and
-    Cassandra are not ported yet: naming them raises."""
+    use), 'memory', or 'object' (``objectstore.ObjectBackedStore`` over
+    FIREBIRD_OBJECT_ROOT, ``path`` scoping its keys).  ``read_only=True``
+    opens a sqlite replica connection or a read-only object handle; the
+    other backends refuse it.  With FIREBIRD_OBJECT_ROOT set, a local
+    backend's writes also publish to the object tier, object first
+    (:func:`_maybe_mirror`).  Cassandra is not ported yet: naming it
+    raises."""
     from firebird_tpu_torch.config import NOT_PORTED_BACKENDS
 
     if backend in NOT_PORTED_BACKENDS:
         raise ValueError(f"store backend {backend!r}: "
                          f"{NOT_PORTED_BACKENDS[backend]} is not ported to "
                          f"firebird_tpu_torch yet")
-    if read_only and backend != "sqlite":
+    if read_only and backend not in ("sqlite", "object"):
         raise ValueError(
             f"read_only is a sqlite replica mode; backend {backend!r} "
             "has no writer lock for replicas to avoid")
+    if backend == "object":
+        # Object-native: shards, manifests and fencing all live in the
+        # object tier; ``path`` only scopes the key prefix so distinct
+        # logical stores share one root safely.
+        from firebird_tpu_torch.store import objectstore as objlib
+        return objlib.ObjectBackedStore(
+            objlib.open_object_root(), objlib.scope_for_path(path),
+            keyspace, read_only=read_only)
     if backend == "sqlite":
-        return SqliteStore(path, keyspace, read_only=read_only)
+        store = SqliteStore(path, keyspace, read_only=read_only)
+        return _maybe_mirror(store, path, keyspace, read_only)
     if backend == "memory":
-        return MemoryStore(keyspace)
+        return _maybe_mirror(MemoryStore(keyspace), path, keyspace, False)
     if backend == "parquet":
-        return ParquetStore(path, keyspace)
+        return _maybe_mirror(ParquetStore(path, keyspace), path, keyspace,
+                             False)
     raise ValueError(f"unknown store backend: {backend!r}")
+
+
+def _maybe_mirror(store, path: str, keyspace: str, read_only: bool):
+    """Wrap a local store in the object tier's write-through mirror
+    (``objectstore.MirroredStore``) when FIREBIRD_OBJECT_ROOT is set, as
+    the JAX package does: every ``open_store`` call site (driver, stream,
+    fleet workers, the command line) inherits the mirror from the
+    environment.  Local files stay read-authoritative; writes publish to
+    the object tier first, so a zombie's stale-fence write is rejected
+    there before any local byte lands.  Read-only replicas never write,
+    so they are not wrapped."""
+    from firebird_tpu_torch.config import env_knob
+    if read_only or not env_knob("FIREBIRD_OBJECT_ROOT"):
+        return store
+    from firebird_tpu_torch.store import objectstore as objlib
+    mirror = objlib.ObjectBackedStore(
+        objlib.open_object_root(), objlib.scope_for_path(path), keyspace)
+    return objlib.MirroredStore(store, mirror)

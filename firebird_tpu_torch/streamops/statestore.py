@@ -6,9 +6,10 @@ double-bank protocol, the checksums and the canonical payload), so a
 checkpoint either package wrote loads in the other: that checkpoint is
 how stream state crosses between them.  Loads give
 ``incremental.StreamState`` tensors on the store's ``device``; saves take
-tensors on any device (or arrays).  The object tier's statestores wait
-for the port's object store: a config that sets ``object_root`` is
-refused by name.
+tensors on any device (or arrays).  With ``object_root`` set, every
+checkpoint publish is also mirrored to the object tier
+(:class:`MirroredStateStore` over :class:`ObjectStateStore`), its payload
+the same canonical bytes.
 
 The per-chip ``.npz`` checkpoint layout (one file per chip) costs 2500
 files per tile — ~1.8M small files at CONUS scale, which no shared
@@ -701,6 +702,143 @@ class TileStateStore:
             self._geom.clear()
 
 
+# ---------------------------------------------------------------------------
+# The object-tier statestore (store/objectstore.py)
+# ---------------------------------------------------------------------------
+
+class ObjectStateStore:
+    """Stream checkpoints as versioned objects: one object per chip.
+
+    The double-bank CRC slot protocol maps onto the object tier's
+    retained generations — a publish is a new manifest generation, and a
+    torn newest (truncated chunk, dropped manifest) falls back one
+    generation inside ``objectstore.get`` exactly as the ``.fbss`` path
+    falls back one bank.  The payload is the same canonical
+    ``serialize_state`` byte layout, so object and packed checkpoints
+    are byte-comparable; geometry and the scheduling horizon ride the
+    manifest user metadata so ``exists``/``peek_horizon`` are head-only.
+    Loads give tensors on ``device``; torch is imported only there (the
+    ``_wrap_state`` contract).
+    """
+
+    backend = "object"
+
+    def __init__(self, objstore, scope: str, device="cpu"):
+        self._obj = objstore
+        self.scope = scope
+        self.device = device        # a torch device or its name
+        self.tallies = {"saves": 0, "loads": 0}
+
+    def _key(self, cid) -> str:
+        return f"{self.scope}/state/chip_{int(cid[0])}_{int(cid[1])}"
+
+    def save(self, cid, st, side: dict) -> None:
+        self.save_arrays(cid, None, st=st, side=side)
+
+    def save_arrays(self, cid, arrays: dict | None, *, st=None,
+                    side=None) -> None:
+        if arrays is not None:
+            coefs = np.asarray(arrays["coefs"])
+            P, B, K = coefs.shape
+            payload = b"".join(
+                _canonical(n, arrays[n], d, s).tobytes()
+                for n, d, s in _layout(P, B, K))
+        else:
+            payload = serialize_state(st, side)
+            P, B, K = st.coefs.shape
+        horizon = struct.unpack("<d", payload[-8:])[0]
+        self._obj.put(self._key(cid), payload,
+                      meta={"geom": [int(P), int(B), int(K)],
+                            "horizon": float(horizon)})
+        self.tallies["saves"] += 1
+
+    def _load_arrays(self, cid) -> dict:
+        try:
+            payload, meta = self._obj.get(self._key(cid))
+        except KeyError:
+            raise KeyError(f"no object state for chip "
+                           f"({int(cid[0])},{int(cid[1])})") from None
+        self.tallies["loads"] += 1
+        return deserialize_state(payload, *meta.meta["geom"])
+
+    def peek_arrays(self, cid) -> dict:
+        return self._load_arrays(cid)
+
+    def load(self, cid):
+        return _wrap_state(self._load_arrays(cid), self.device)
+
+    def exists(self, cid) -> bool:
+        return self._obj.head(self._key(cid)) is not None
+
+    def peek_horizon(self, cid) -> float | None:
+        h = self._obj.head(self._key(cid))
+        if h is None or "horizon" not in h.meta:
+            return None
+        return float(h.meta["horizon"])
+
+    def chips(self) -> list:
+        import re
+
+        out = []
+        for key in self._obj.list(f"{self.scope}/state/chip_"):
+            m = re.fullmatch(r"chip_(-?\d+)_(-?\d+)",
+                             key.rsplit("/", 1)[-1])
+            if m:
+                out.append((int(m.group(1)), int(m.group(2))))
+        return sorted(out)
+
+    def void(self, cid) -> None:
+        self._obj.delete(self._key(cid))
+
+    def status(self) -> dict:
+        return {"backend": self.backend, "scope": self.scope,
+                "chips": len(self.chips()), **self.tallies}
+
+    def close(self) -> None:
+        close = getattr(self._obj, "close", None)
+        if close is not None:
+            close()
+
+
+class MirroredStateStore:
+    """Write-through mirror: the local packed store stays
+    read-authoritative, every checkpoint publish ALSO lands in the
+    object tier (local first here — checkpoints carry no fencing
+    precondition, and the stream driver re-reads its own writes
+    locally on the hot path)."""
+
+    backend = "packed+object"
+
+    def __init__(self, local, mirror: ObjectStateStore):
+        self._local = local
+        self._mirror = mirror
+
+    def save(self, cid, st, side: dict) -> None:
+        self._local.save(cid, st, side)
+        self._mirror.save(cid, st, side)
+
+    def save_arrays(self, cid, arrays, *, st=None, side=None) -> None:
+        self._local.save_arrays(cid, arrays, st=st, side=side)
+        self._mirror.save_arrays(cid, arrays, st=st, side=side)
+
+    def void(self, cid) -> None:
+        self._local.void(cid)
+        self._mirror.void(cid)
+
+    def status(self) -> dict:
+        return {**self._local.status(), "backend": self.backend,
+                "object_scope": self._mirror.scope}
+
+    def close(self) -> None:
+        try:
+            self._mirror.close()
+        finally:
+            self._local.close()
+
+    def __getattr__(self, name):
+        return getattr(self._local, name)
+
+
 def open_statestore(cfg, root: str | None = None, device="cpu"):
     """The config's stream checkpoint store: packed (default) or the
     legacy per-chip npz layout (``FIREBIRD_STREAM_STATESTORE=npz``), its
@@ -711,15 +849,17 @@ def open_statestore(cfg, root: str | None = None, device="cpu"):
     slots losslessly, and a supported dtype must not crash at its
     first checkpoint save just because the layout default changed.
 
-    ``FIREBIRD_OBJECT_ROOT`` (the object tier's write-through mirror) is
-    not ported: such a config is refused."""
-    if getattr(cfg, "object_root", ""):
-        raise ValueError(
-            "not ported to firebird_tpu_torch yet: object_root="
-            f"{cfg.object_root!r} (the object store's statestore mirror, "
-            "streamops/statestore.py)")
+    With ``FIREBIRD_OBJECT_ROOT`` set, the packed store is wrapped in
+    the object tier's write-through mirror (npz mode is not: its f64
+    payloads are what the canonical object layout refuses to round)."""
     root = root or state_dir(cfg)
     mode = getattr(cfg, "stream_statestore", "packed")
     if mode == "npz" or getattr(cfg, "dtype", "float32") == "float64":
         return LegacyNpzStore(root, device)
-    return TileStateStore(root, device=device)
+    store = TileStateStore(root, device=device)
+    if getattr(cfg, "object_root", ""):
+        from firebird_tpu_torch.store import objectstore as objlib
+        mirror = ObjectStateStore(objlib.open_object_root(cfg=cfg),
+                                  objlib.scope_for_path(root), device)
+        return MirroredStateStore(store, mirror)
+    return store

@@ -95,14 +95,52 @@ def test_config_knob_registry_and_keyspace_equal_jax():
 
 
 @pytest.mark.parametrize("override", [
-    dict(object_root="/tmp/obj"), dict(compile_cache="/tmp/cc"),
-    dict(store_backend="cassandra")])
+    dict(compile_cache="/tmp/cc"), dict(store_backend="cassandra")])
 def test_driver_refuses_unported_knobs(override):
     cfg = tconfig.Config(**override)
     with pytest.raises(ValueError, match="not ported"):
         tcore.refuse_not_ported(cfg)
     with pytest.raises(ValueError, match="not ported"):
         tcore.changedetection(0, 0, cfg=cfg, device="cpu")
+
+
+def test_driver_honours_the_object_root(tmp_path, monkeypatch):
+    """``object_root`` is ported: a changedetection run under
+    FIREBIRD_OBJECT_ROOT mirrors every row it stores into the object tier
+    (object first), where the JAX package's object store reads the rows
+    the sqlite store holds, key for key."""
+    from firebird_tpu.store import objectstore as jobj
+    from firebird_tpu_torch.store import open_store
+
+    root = str(tmp_path / "objects")
+    monkeypatch.setenv("FIREBIRD_OBJECT_ROOT", root)
+    cfg = tconfig.Config.from_env(env=dict(
+        FIREBIRD_STORE_BACKEND="sqlite",
+        FIREBIRD_STORE_PATH=str(tmp_path / "fb.db"),
+        FIREBIRD_SOURCE="synthetic", FIREBIRD_SYNTH_SENSOR="landsat-ard-tiny",
+        FIREBIRD_DTYPE="float64", FIREBIRD_OBJECT_ROOT=root))
+    tcore.refuse_not_ported(cfg)
+    done = tcore.changedetection(100, 200, "1995-01-01/1997-01-01",
+                                 number=2, chunk_size=2, cfg=cfg,
+                                 device="cpu")
+    assert len(done) == 2
+    local = open_store("sqlite", cfg.store_path, cfg.keyspace(),
+                       read_only=True)
+    mirror = jobj.ObjectBackedStore(jobj.open_object_root(root=root),
+                                    jobj.scope_for_path(cfg.store_path),
+                                    cfg.keyspace())
+    for table in ("chip", "pixel", "segment"):
+        want = local.read(table)
+        got = mirror.read(table)
+        assert len(want["cx"]) > 0 and sorted(got) == sorted(want)
+        key = [c for c in ("cx", "cy", "px", "py", "sday")
+               if c in want]
+        order = lambda f: sorted(range(len(f["cx"])), key=lambda i: tuple(
+            f[c][i] for c in key))                      # noqa: E731
+        for c in want:
+            assert [got[c][i] for i in order(got)] \
+                == [want[c][i] for i in order(want)], (table, c)
+    local.close()
 
 
 def test_driver_honours_the_fault_plan():

@@ -128,7 +128,8 @@ PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
                   "rf/forest.py", "rf/pipeline.py", "products.py",
                   "faults.py", "fleet/worker.py", "fleet/policy.py",
                   "fleet/supervisor.py", "obs/spool.py", "obs/collect.py",
-                  "obs/series.py", "validate.py", "ccd/flops.py")
+                  "obs/series.py", "validate.py", "ccd/flops.py",
+                  "store/objectstore.py", "streamops/watcher.py")
 
 
 @pytest.mark.parametrize("rel", PORTED_MODULES)
@@ -328,8 +329,7 @@ def test_cli_stream_raises_without_a_card(monkeypatch):
         tmain.main(["stream", "-x", "100", "-y", "200", "-n", "1"])
 
 
-@pytest.mark.parametrize("field, value", [
-    ("compile_cache", "/x"), ("object_root", "/x")])
+@pytest.mark.parametrize("field, value", [("compile_cache", "/x")])
 def test_stream_refuses_each_not_ported_knob(field, value):
     from firebird_tpu_torch.config import NOT_PORTED, Config
     from firebird_tpu_torch.driver import stream
@@ -388,7 +388,8 @@ def stream_ops_run(tmp_path_factory):
     cfg = Config(**base, trace="1", ops_port=port, ops_host="127.0.0.1",
                  stall_sec=600.0, obs_report=str(root / "r" / "report.json"),
                  profile=0.05, flightrec=0, slo="batch_p95=30;freshness=600",
-                 slo_budget="probe_errors@99/1d")
+                 slo_budget="probe_errors@99/1d",
+                 object_root=str(root / "objects"))
     seen = dict(served=[], armed=0)
     start, arm = obs_server.start_ops_server, flightrec.arm
 
@@ -410,8 +411,11 @@ def stream_ops_run(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(obs_server, "start_ops_server", start_and_probe)
         mp.setattr(flightrec, "arm", counting_arm)
+        # the store's mirror reads the environment, as JAX's does
+        mp.setenv("FIREBIRD_OBJECT_ROOT", cfg.object_root)
         s1 = stream.stream(100, 200, acquired=BOOT, number=1, cfg=cfg,
                            source=StepSource(), device="cpu")
+        mp.delenv("FIREBIRD_OBJECT_ROOT")
         s2 = stream.stream(100, 200, acquired=BOOT, number=1,
                            cfg=Config(**base, profile_dir=str(root / "pd")),
                            source=StepSource(), device="cpu")
@@ -424,7 +428,7 @@ def stream_ops_run(tmp_path_factory):
 
 @pytest.mark.parametrize("field", [
     "trace", "ops_port", "stall_sec", "obs_report", "profile", "profile_dir",
-    "flightrec", "slo", "slo_budget"])
+    "flightrec", "slo", "slo_budget", "object_root"])
 def test_stream_honours_each_ported_ops_knob(stream_ops_run, field,
                                              monkeypatch):
     import json
@@ -470,6 +474,30 @@ def test_stream_honours_each_ported_ops_knob(stream_ops_run, field,
         doc = tmain._status_doc(Config.from_env())
         assert list(doc["budgets"]["budgets"]) == ["probe_errors"]
         assert (root / "telemetry" / "series").is_dir()
+    elif field == "object_root":
+        # the bootstrap's rows and its checkpoint were mirrored to the
+        # object tier, where the JAX package reads them
+        from firebird_tpu.store import objectstore as jobj
+        from firebird_tpu.streamops import statestore as jss
+        from firebird_tpu_torch.store import SqliteStore
+        from firebird_tpu_torch.streamops import statestore as tss
+
+        objects = jobj.open_object_root(root=str(root / "objects"))
+        mirror = jobj.ObjectBackedStore(
+            objects, jobj.scope_for_path(str(root / "s.db")), "ccdc_0_2_0")
+        local = SqliteStore(str(root / "s.db"), "ccdc_0_2_0")
+        assert mirror.count("segment") == local.count("segment") > 0
+        assert mirror.chip_ids() == local.chip_ids()
+        [cid] = local.chip_ids()
+        state = jss.ObjectStateStore(
+            objects, jobj.scope_for_path(str(root / "state")))
+        packed = tss.TileStateStore(str(root / "state"))
+        want, got = packed.peek_arrays(cid), state.peek_arrays(cid)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        packed.close()
+        local.close()
     else:
         assert rep["slo"]["spec"] == "batch_p95=30;freshness=600"
         assert [o["name"] for o in rep["slo"]["objectives"]] == [

@@ -235,29 +235,68 @@ def test_status_memory_backend_as_jax(tmp_path, monkeypatch, capsys):
 
 def test_status_names_the_views_it_does_not_port(tmp_path, monkeypatch,
                                                  capsys):
-    """Where JAX's status would read a watcher cursor, the serving fleet
-    or an object root, the port's names what it does not port and keeps
-    every other section."""
+    """Where JAX's status would read the serving fleet (a pyramid
+    directory or a changefeed db), the port's names what it does not port
+    and keeps every other section; the watcher and object views are
+    ported (below)."""
     env = {"FIREBIRD_STORE_BACKEND": "sqlite",
            "FIREBIRD_STORE_PATH": str(tmp_path / "fb.db")}
-    (tmp_path / "watcher.db").write_bytes(b"")
     (tmp_path / "pyramid").mkdir()
     code, out = _port(["status"], monkeypatch, env, capsys)
     assert code == 0
     doc = json.loads(out)
-    assert "not ported" in doc["streamops"]["watcher"]["error"]
     assert "statestore" in doc["streamops"]
+    assert "watcher" not in doc["streamops"]
     assert "not ported" in doc["serving"]["error"]
     assert str(tmp_path / "pyramid") in doc["serving"]["error"]
     assert "object" not in doc and doc["budgets"]["ok"] is True
-    # an object root: its view and the checkpoint store's mirror refused
-    code, out = _port(["status"], monkeypatch, dict(
-        env, FIREBIRD_OBJECT_ROOT=str(tmp_path / "objects")), capsys)
-    doc = json.loads(out)
-    assert code == 0 and doc["object"]["root"] == str(tmp_path / "objects")
-    assert "not ported" in doc["object"]["error"]
-    assert "not ported" in doc["streamops"]["error"]
-    assert doc["tables"]["segment"] == 0 and doc["budgets"]["ok"] is True
+    assert doc["tables"]["segment"] == 0
+
+
+@pytest.mark.parametrize("view", ["watcher", "object"])
+def test_status_shows_the_watcher_and_object_views_as_jax(
+        tmp_path, monkeypatch, capsys, view):
+    """The acquisition watcher's cursor (a ``watcher.db`` next to the
+    store, written by the JAX package's SceneCursor) and the object
+    root's census (objects both packages wrote, one orphaned upload)
+    read as JAX's status reads them, section for section."""
+    from firebird_tpu.store.objectstore import LocalObjectStore
+    from firebird_tpu.streamops.watcher import SceneCursor as JCursor
+    from firebird_tpu_torch.store import objectstore as tobj
+
+    env = {"FIREBIRD_STORE_BACKEND": "sqlite",
+           "FIREBIRD_STORE_PATH": str(tmp_path / "fb.db")}
+    if view == "watcher":
+        cur = JCursor(str(tmp_path / "watcher.db"))
+        for i, date in enumerate(("2016-01-01", "2016-01-17")):
+            cur.record({"scene_id": f"S{i}", "published": 100.0 + i,
+                        "date": date, "bbox": [0, 0, 3000, 3000]},
+                       chips=2, jobs=2 * (1 - i))
+        cur.close()
+    else:
+        env["FIREBIRD_OBJECT_ROOT"] = str(tmp_path / "objects")
+        LocalObjectStore(env["FIREBIRD_OBJECT_ROOT"], 32).put(
+            "a/b", bytes(range(100)))
+        o = tobj.LocalObjectStore(env["FIREBIRD_OBJECT_ROOT"], 32)
+        o.put("a/c", b"c" * 70)
+        o.put("a/d", bytes(range(100, 160)), _torn="manifest")
+    code, out = _port(["status"], monkeypatch, env, capsys)
+    jcode, jout = _jax(["status"], env)
+    assert code == jcode == 0, jout
+    mine, theirs = json.loads(out), json.loads(jout)
+    same_keys(mine, theirs)
+    assert list(mine) == list(theirs)
+    if view == "watcher":
+        assert mine["streamops"] == theirs["streamops"]
+        w = mine["streamops"]["watcher"]
+        assert w["scenes"] == 2 and w["jobs"] == 2 and w["cursor"] == 101.0
+        assert w["last_scene"]["scene_id"] == "S1"
+        assert "object" not in mine
+    else:
+        assert mine["object"] == theirs["object"]
+        assert mine["object"]["keys"] == 2
+        assert mine["object"]["orphan_chunks"] == 2
+        assert "error" not in mine["object"]
 
 
 _JAX_FRAME = ("import json; from firebird_tpu import cli; "
@@ -353,19 +392,37 @@ def test_read_commands_never_touch_cuda(home, argv, monkeypatch, capsys):
     ["status", "-x", str(POINT[0]), "-y", str(POINT[1])],
     ["top", "-n", "1"],
     ["slo", "--no-record"],
-    ["tiles", "-b", "542000,1650000"]])
-def test_read_commands_start_without_torch(home, argv):
+    ["tiles", "-b", "542000,1650000"],
+    ["fetch", "-x", str(POINT[0]), "-y", str(POINT[1]), "-n", "1", "-a",
+     "1995-01-01/1995-06-01", "-o", "{tmp}/archive"],
+    ["watch", "-x", str(POINT[0]), "-y", str(POINT[1]), "-n", "1",
+     "--once"],
+    ["objectstore", "scrub", "--dry-run"],
+    ["objectstore", "census"]])
+def test_read_commands_start_without_torch(home, argv, tmp_path):
     """The host-only commands load neither torch nor the detector: a
     console an operator polls costs a python start-up, not a CUDA
-    library load."""
+    library load.  ``fetch``, ``watch --once`` and the ``objectstore``
+    commands run in a home of their own (a synthetic source, an object
+    root) and must exit 0; the sources read the detector's parameters,
+    whose chi2 thresholds come from scipy, so those may load scipy."""
     root, env = home
+    ingest = argv[0] in ("fetch", "watch", "objectstore")
+    heavy = ("torch", "firebird_tpu_torch.ccd.kernel") if ingest \
+        else ("torch", "scipy", "firebird_tpu_torch.ccd.kernel")
+    if ingest:
+        env = {"FIREBIRD_STORE_BACKEND": "sqlite",
+               "FIREBIRD_STORE_PATH": str(tmp_path / "fb.db"),
+               "FIREBIRD_SOURCE": "synthetic",
+               "FIREBIRD_OBJECT_ROOT": str(tmp_path / "objects")}
+        argv = [a.format(tmp=tmp_path) for a in argv]
     r = subprocess.run(
         [sys.executable, "-c",
          "import sys; from firebird_tpu_torch import __main__ as m; "
          "m.main(sys.argv[1:]); "
-         "print('loaded', sorted(n for n in ('torch', 'scipy', "
-         "'firebird_tpu_torch.ccd.kernel') if n in sys.modules))"] + argv,
+         f"print('loaded', sorted(n for n in {heavy!r} "
+         "if n in sys.modules))"] + argv,
         env=dict(_jax_env(env), PYTHONPATH=ROOT), capture_output=True,
         text=True, timeout=120)
-    assert r.returncode in (0, 1), r.stderr[-2000:]
+    assert r.returncode in ((0,) if ingest else (0, 1)), r.stderr[-2000:]
     assert r.stdout.strip().splitlines()[-1] == "loaded []"

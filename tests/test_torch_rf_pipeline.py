@@ -191,6 +191,45 @@ def test_classification_counts_and_stages(monkeypatch):
                                        "draw", "grow", "train", "predict"))
 
 
+@pytest.mark.parametrize("kind", ["memory", "sqlite", "cells"])
+def test_assemble_equals_jax(tmp_path, kind):
+    """features.assemble gives JAX's X bit for bit (NaN where JAX has
+    NaN) and JAX's meta, on frames as the memory and sqlite stores read
+    them and on hand-made cells: None, NaN, numpy scalars and arrays,
+    empty sequences, ints."""
+    from firebird_tpu.rf import features as jfeatures
+    from firebird_tpu_torch.store import SqliteStore
+
+    (cx, cy), = tile_chips(1)
+    frame = segment_frames(8, [(cx, cy)], pixels=200)[0]
+    if kind == "sqlite":
+        st = SqliteStore(str(tmp_path / "fb.db"), "ks")
+        st.write("segment", frame)
+        frame = st.read("segment")
+        st.close()
+    elif kind == "cells":
+        n = len(frame["sday"])
+        frame["blmag"][0] = None
+        frame["grmag"][1] = float("nan")
+        frame["remag"][2] = np.float32(1.5)
+        frame["nimag"][3] = 7
+        frame["blcoef"][0] = []
+        frame["grcoef"][1] = None
+        frame["recoef"][2] = np.asarray([0.25, 1.0])
+        frame["nicoef"][3] = (2.0,)
+        frame["s1coef"] = [1.0 + i for i in range(n)]
+    aux = SyntheticSource(seed=4).aux(cx, cy)
+    for mask in (None, features.real_rows(frame)):
+        X, meta = features.assemble(frame, aux, cx, cy, row_mask=mask)
+        jX, jmeta = jfeatures.assemble(frame, aux, cx, cy, row_mask=mask)
+        assert X.dtype == jX.dtype == np.float32
+        assert np.array_equal(X, jX, equal_nan=True)
+        assert np.isnan(X).any() == np.isnan(jX).any()
+        assert meta.keys() == jmeta.keys()
+        for k in meta:
+            assert np.array_equal(np.asarray(meta[k]), np.asarray(jmeta[k]))
+
+
 def test_no_features_returns_none_in_both():
     """A training window that excludes every segment trains nothing
     (randomforest.py:76) and writes nothing."""
@@ -279,11 +318,44 @@ def test_entry_points_need_cuda_unless_told(monkeypatch):
 
 
 def test_classification_refuses_what_is_not_ported():
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="not ported.*compile_cache"):
         core.classification(*POINT, msday=MSDAY, meday=MEDAY,
                             cfg=Config(store_backend="memory",
-                                       object_root="/x"),
+                                       compile_cache="/x"),
                             device="cpu")
+
+
+def test_classification_honours_the_object_root(tmp_path, monkeypatch):
+    """``object_root`` is ported: classification over a sqlite store
+    under FIREBIRD_OBJECT_ROOT runs, and its writes (the model's tile row,
+    the scored segments' votes) land in the object tier too, where the
+    JAX package's object store reads them as the sqlite store holds
+    them."""
+    from firebird_tpu.store import objectstore as jobj
+    from firebird_tpu_torch.store import open_store
+
+    narrow_forest(monkeypatch, **TRAIN_KW)
+    root = str(tmp_path / "objects")
+    monkeypatch.setenv("FIREBIRD_OBJECT_ROOT", root)
+    cfg = Config.from_env(env=dict(
+        FIREBIRD_STORE_BACKEND="sqlite",
+        FIREBIRD_STORE_PATH=str(tmp_path / "fb.db"),
+        FIREBIRD_OBJECT_ROOT=root))
+    core.refuse_not_ported(cfg)
+    store = open_store(cfg.store_backend, cfg.store_path, cfg.keyspace())
+    for f in segment_frames(5, tile_chips(1)):
+        store.write("segment", f)
+    m = core.classification(*POINT, msday=MSDAY, meday=MEDAY, acquired=ACQ,
+                            cfg=cfg, aux_source=SyntheticSource(seed=4),
+                            store=store, device="cpu")
+    assert m is not None
+    mirror = jobj.ObjectBackedStore(jobj.open_object_root(root=root),
+                                    jobj.scope_for_path(cfg.store_path),
+                                    cfg.keyspace())
+    for table in ("tile", "segment"):
+        assert _rows(mirror, table) == _rows(store, table), table
+    assert any(v is not None for v in store.read("segment")["rfrawp"])
+    store.close()
 
 
 def test_classification_honours_the_fault_plan(monkeypatch):

@@ -324,8 +324,14 @@ def test_open_statestore_modes(tmp_path):
                       ss.LegacyNpzStore)
     assert isinstance(jss.open_statestore(JConfig(**kw, dtype="float64")),
                       jss.LegacyNpzStore)
-    with pytest.raises(ValueError, match="not ported.*object_root"):
-        ss.open_statestore(Config(**kw, object_root=str(tmp_path / "obj")))
+    # the object tier's write-through mirror, as JAX's
+    mirrored = ss.open_statestore(Config(**kw,
+                                         object_root=str(tmp_path / "obj")))
+    assert isinstance(mirrored, ss.MirroredStateStore)
+    assert isinstance(jss.open_statestore(JConfig(
+        **kw, object_root=str(tmp_path / "obj"))), jss.MirroredStateStore)
+    assert isinstance(mirrored._local, ss.TileStateStore)
+    mirrored.close()
     assert ss.state_dir(Config(store_path="/x/s.db")) == "/x/s.db.stream"
 
 

@@ -8,6 +8,7 @@ writer's contract (keyed order, flush, close, peek_error).
 """
 
 import importlib.util
+import json
 import threading
 
 import numpy as np
@@ -121,10 +122,38 @@ def test_upsert_idempotence(tmp_path, backend):
     store.close()
 
 
-@pytest.mark.parametrize("backend", ["object", "cassandra"])
+@pytest.mark.parametrize("backend", ["cassandra"])
 def test_open_store_refuses_unported_backends(tmp_path, backend):
     with pytest.raises(ValueError, match="not ported"):
         open_store(backend, str(tmp_path / "st"), "ks")
+
+
+def test_open_store_opens_the_object_backend(tmp_path, monkeypatch):
+    """The ``object`` backend is ported: over FIREBIRD_OBJECT_ROOT it
+    upserts and reads like the local backends, and the JAX package's
+    object backend reads what it wrote."""
+    from firebird_tpu.store import open_store as jopen_store
+    from firebird_tpu_torch.store import ObjectBackedStore
+
+    monkeypatch.setenv("FIREBIRD_OBJECT_ROOT", str(tmp_path / "objects"))
+    store = open_store("object", str(tmp_path / "st"), "ks")
+    assert isinstance(store, ObjectBackedStore)
+    _fill(store)
+    store.write("segment", seg_frame(chprob=0.9))
+    want = {t: _canon(store.read(t)) for t in ("chip", "pixel", "segment",
+                                                 "tile")}
+    assert store.read("segment")["chprob"].count(0.9) == 1
+    store.close()
+    jstore = jopen_store("object", str(tmp_path / "st"), "ks")
+    assert {t: _canon(jstore.read(t)) for t in want} == want
+    jstore.close()
+
+
+def _canon(frame: dict) -> list:
+    cols = sorted(frame)
+    n = len(frame[cols[0]]) if cols else 0
+    return sorted(json.dumps([(c, frame[c][i]) for c in cols],
+                             sort_keys=True) for i in range(n))
 
 
 def test_open_store_read_only_is_sqlite_only(tmp_path):
@@ -264,3 +293,28 @@ def test_parquet_rewrite_idempotent(tmp_path):
     store.write("segment", seg_frame(cx=5, cy=6, chprob=0.7))
     out = store.read("segment", {"cx": 5})
     assert len(out["cx"]) == 1 and out["chprob"][0] == 0.7
+
+
+def test_sqlite_read_decodes_each_column_as_jax(tmp_path):
+    """The column-at-a-time read equals JAX's cell-at-a-time read on one
+    file, with NULLs, a packed column of mixed lengths, JSON cells and a
+    filter that matches nothing."""
+    path = str(tmp_path / "fb.db")
+    port = SqliteStore(path, "ks")
+    f = seg_frame(cx=1, cy=2)
+    for k in f:
+        f[k] = f[k] * 4
+    f["px"] = [3, 4, 5, 6]
+    f["blcoef"] = [[0.1, 0.2], None, [0.3], []]
+    f["grcoef"] = [None] * 4
+    f["rfrawp"] = [None, [1.0, 2.0], [], [0.5]]
+    f["chprob"] = [1.0, None, float("nan"), 0.25]
+    port.write("segment", f)
+    jax_store = JSqliteStore(path, "ks")
+    for where in (None, {"cx": 1, "cy": 2}, {"cx": 9}):
+        got, want = port.read("segment", where), jax_store.read(
+            "segment", where)
+        assert got == want, where
+    assert port.read("segment")["blcoef"] == [[0.1, 0.2], None, [0.3], []]
+    port.close()
+    jax_store.close()

@@ -298,9 +298,46 @@ def test_void_on_unrecoverable_checkpoint(runs, tmp_path):
 
 
 def test_stream_refuses_what_is_not_ported(tmp_path):
-    for knob in (dict(compile_cache="/x"), dict(object_root="/x")):
-        with pytest.raises(ValueError, match="not ported"):
-            port(tmp_path, BOOT, **knob)
+    with pytest.raises(ValueError, match="not ported.*compile_cache"):
+        port(tmp_path, BOOT, compile_cache="/x")
+
+
+def test_stream_mirrors_to_the_object_root(tmp_path, monkeypatch):
+    """``object_root`` is ported: a bootstrap and an update under it
+    publish each checkpoint to the object tier as the canonical
+    ``serialize_state`` bytes of the packed slot, readable by the JAX
+    package's ObjectStateStore, and the alert-bearing update's rows land
+    in the object tier's mirror of the store."""
+    from firebird_tpu.store import objectstore as jobj
+    from firebird_tpu_torch.store import SqliteStore
+    from firebird_tpu_torch.store import objectstore as tobj
+
+    root = str(tmp_path / "objects")
+    monkeypatch.setenv("FIREBIRD_OBJECT_ROOT", root)
+    objects = jobj.open_object_root(root=root)
+    scope = jobj.scope_for_path(str(tmp_path / "state"))
+    key = f"{scope}/state/chip_{CID[0]}_{CID[1]}"
+    for acquired, gen in ((BOOT, 1), (FULL, 2)):
+        s = port(tmp_path, acquired, object_root=root)
+        payload, meta = objects.get(key)
+        assert meta.generation == gen
+        packed = tss.TileStateStore(str(tmp_path / "state"))
+        a = packed.peek_arrays(CID)
+        P, B, K = a["coefs"].shape
+        assert payload == b"".join(
+            jss._canonical(n, a[n], d, sh).tobytes()
+            for n, d, sh in jss._layout(P, B, K))
+        packed.close()
+        st, side = jss.ObjectStateStore(objects, scope).load(CID)
+        assert float(side["horizon"]) == float(a["horizon"])
+    assert s["updated"] == 1 and s["alerts_emitted"] > 0
+    local = SqliteStore(str(tmp_path / "s.db"), Config().keyspace())
+    mirror = tobj.ObjectBackedStore(
+        tobj.open_object_root(root=root),
+        tobj.scope_for_path(str(tmp_path / "s.db")), Config().keyspace())
+    for table in ("chip", "pixel", "segment"):
+        assert _table(mirror, table) == _table(local, table), table
+    local.close()
 
 
 def test_stream_retries_an_injected_store_blip(runs, tmp_path, monkeypatch):
