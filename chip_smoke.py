@@ -125,8 +125,9 @@ From the root of a checkout, on a machine with a CUDA card:
    ``SyntheticSource(--seed)``, served from ``.npz`` files through
    FIREBIRD_SOURCE=file) enqueued with ``python -m firebird_tpu_torch
    fleet enqueue -n 8 -c 2`` as 4 detect jobs, then a classify job
-   (1985-2017) on them and a product job (seglength, ccd, curveqa and
-   cover at 2010-06-01) on it, through ``FleetQueue.enqueue``,
+   (1985-2017) on them, a product job (seglength, ccd, curveqa and
+   cover at 2010-06-01) on it and a ``pyramid`` job (those rasters' quadkey
+   tiles, 2 levels) on that, through ``FleetQueue.enqueue``,
    then drained by ``fleet supervise --until-drained`` with
    FIREBIRD_FLEET_MIN_WORKERS = FIREBIRD_FLEET_MAX_WORKERS = 2 (two ``fleet
    work`` processes on cuda:0), a 10 s lease, the telemetry spool on, a
@@ -141,8 +142,10 @@ From the root of a checkout, on a machine with a CUDA card:
    queue recorded the lease's expiry or a fence rejection; the 8 chips'
    chip, pixel and segment rows equal the driver phase's, key for key
    (all columns but the classify job's rfrawp).  (c) The full-width model
-   is stored, every real segment row of the 8 chips holds its votes, and
-   each product raster equals ``chip_product`` of the stored rows.  (d)
+   is stored, every real segment row of the 8 chips holds its votes,
+   each product raster equals ``chip_product`` of the stored rows, each
+   base tile of the pyramid job is its chip's raster and each parent tile
+   the 2x selection of its four children.  (d)
    ``trace collect`` over the spool: the supervisor and every worker (the
    frozen one too) among the processes, each job's ack mark with a claim
    mark under its trace id, ``dispatch`` and ``drain`` spans on worker
@@ -263,7 +266,29 @@ From the root of a checkout, on a machine with a CUDA card:
    bin, draw and grow (CUDA events), train, model save, predict, write),
    rows/s trained and classified, the card's spans' share of the wall,
    the peak device memory, each check's seconds and the wall;
-18. every kernel instance's registers, stack and spills, and the total
+18. serving over the card's results (``serve_phase``, right after
+   ``classify_phase`` on its store): two ``python -m firebird_tpu_torch
+   serve --port 0`` replicas as subprocesses sharing the store, one
+   changefeed db (0.5 s poll) and one pyramid directory.  (a) Every
+   stored raster of the 24 chips at 2010-06-01 is served by both replicas
+   equal, byte for byte, to the row ``products.save`` wrote; ``/v1/pixel``
+   at 8 seeded points equals those rasters; ``serve_product_computes`` is
+   0.  (b) 16 concurrent identical cold ``cover`` requests at 2012-06-01
+   compute once, and the persisted row is ``chip_product`` of the stored
+   rows through the stored model's classes.  (c) ``pyramid build`` over
+   the 24 chips, 2 levels: base tiles are the rasters, parents the 2x
+   selection of their children; ``/v1/pyramid`` answers 200 with the
+   tile file's bytes, then 304 on its ETag.  (d) A clipped
+   ``products.save`` of one chip in this process reaches both replicas
+   within one poll and 1 s: new bytes under a new ETag, the chip's base
+   tile stale-stamped and rebuilt at the next version; ``status`` shows
+   both replicas, none behind.  (e) ``export`` of curveqa over the area
+   equals the mosaic of the stored rows.  (f) 8 threads x 100 warm GETs
+   over kept-alive connections, every body the stored raster's.  The
+   card's compute apps do not rise while the replicas run.  Printed: the
+   replicas' start-up, the coherence delays, req/s with p50/p99, each
+   check's seconds and the phase's;
+19. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -2412,20 +2437,33 @@ def classify_phase(smi, cfg, seed, dev):
         rasters["name"], rasters["cx"], rasters["cy"], rasters["cells"])}
     n_cover = 0
     for (cx, cy), seg in segs.items():
+        # The chip's rows parsed once for its four rasters, as ``save``
+        # parses them (``chip_product`` takes the parsed rows or a frame).
+        arrays = products.ChipSegmentArrays(cx, cy, seg)
         for name in products.PRODUCTS:
-            want = products.chip_product(name, d, cx, cy, seg,
+            want = products.chip_product(name, d, cx, cy, arrays,
                                          classes=model.classes)
             check(np.array_equal(cells[(name, cx, cy)], want),
                   f"{name} raster of chip ({cx},{cy}) differs")
         # cover: the vote argmax of the segment holding the date, mapped
-        # through the stored classes.
+        # through the stored classes (one pixel_index call a chip; where
+        # two rows held one pixel, the later row's label stands, as a
+        # row-by-row assignment leaves it).
         cover = np.zeros(products.PIXELS, np.int32)
-        for i, (s, e) in enumerate(zip(seg["sday"], seg["eday"])):
-            if s != "0001-01-01" and s <= PRODUCT_DATE <= e:
-                r, c = features.pixel_index(cx, cy, [seg["px"][i]],
-                                            [seg["py"][i]])
-                cover[r[0] * products.CHIP_SIDE + c[0]] = stored.classes[
-                    int(np.argmax(seg["rfrawp"][i]))]
+        sday, eday = np.asarray(seg["sday"]), np.asarray(seg["eday"])
+        rows = np.flatnonzero((sday != "0001-01-01")
+                              & (sday <= PRODUCT_DATE)
+                              & (eday >= PRODUCT_DATE))
+        if rows.size:
+            r, c = features.pixel_index(cx, cy,
+                                        np.asarray(seg["px"])[rows],
+                                        np.asarray(seg["py"])[rows])
+            pix = r * products.CHIP_SIDE + c
+            labels = stored.classes[np.argmax(np.asarray(
+                [seg["rfrawp"][i] for i in rows]), axis=1)]
+            _, first_rev = np.unique(pix[::-1], return_index=True)
+            last = pix.size - 1 - first_rev
+            cover[pix[last]] = labels[last]
         check(np.array_equal(cells[("cover", cx, cy)], cover),
               f"cover raster of chip ({cx},{cy}) differs")
         n_cover += int((cover > 0).sum())
@@ -2477,6 +2515,359 @@ def classify_phase(smi, cfg, seed, dev):
 
 
 # ---------------------------------------------------------------------------
+# Serving: two replicas over the card's results
+# ---------------------------------------------------------------------------
+
+SERVE_REPLICAS, SERVE_POLL_S, SERVE_APPLY_S = 2, 0.5, 1.0
+SERVE_COLD_DATE, SERVE_COLD_N = "2012-06-01", 16
+SERVE_POINTS, SERVE_THREADS, SERVE_GETS = 8, 8, 100
+SERVE_LEVELS = 2
+
+
+def _prom_value(text, name):
+    """A counter's value in a Prometheus exposition (0 when absent)."""
+    prom = f"firebird_{name}_total "
+    return sum(float(line.split()[-1]) for line in text.splitlines()
+               if line.startswith(prom))
+
+
+def _http(base, path, headers=None):
+    """(status, body, headers) of a GET."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, headers=headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def _npy(cells):
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, np.asarray(cells, np.int32).reshape(100, 100))
+    return buf.getvalue()
+
+
+def serve_phase(smi, cfg, tmp, seed):
+    """Serving over the card's results (the module docstring's item 18):
+    two ``serve`` replicas over ``driver_phase``'s store after
+    ``classify_phase`` wrote its rows.  Returns the report."""
+    import http.client
+    import signal
+    import threading
+
+    from firebird_tpu_torch import products
+    from firebird_tpu_torch.rf.tilemodel import model_classes
+    from firebird_tpu_torch.serve import pyramid as pyrlib
+
+    t_phase = time.perf_counter()
+    home = Path(tmp)
+    store = SqliteStore(cfg.store_path, cfg.keyspace())
+    rasters = store.read("product", {"date": PRODUCT_DATE})
+    cells = {(n, cx, cy): np.asarray(v, np.int32) for n, cx, cy, v in zip(
+        rasters["name"], rasters["cx"], rasters["cy"], rasters["cells"])}
+    cids = sorted(store.chip_ids("segment"))
+    check(len(cells) == len(products.PRODUCTS) * len(cids),
+          f"serve: {len(cells)} stored rasters for {len(cids)} chips")
+    (x0, y0), (x1, y1) = cids[0], cids[-1]
+    bounds = [(min(x0, x1) + 1.0, max(y0, y1) - 1.0),
+              (max(x0, x1) + 2999.0, min(y0, y1) - 2999.0)]
+    env = dict(os.environ, FIREBIRD_STORE_BACKEND="sqlite",
+               FIREBIRD_STORE_PATH=cfg.store_path,
+               FIREBIRD_CHANGEFEED_DB=str(home / "changefeed.db"),
+               FIREBIRD_SERVE_PYRAMID_DIR=str(home / "pyramid"),
+               FIREBIRD_SERVE_FEED_POLL=str(SERVE_POLL_S))
+    feed_cfg = dataclasses.replace(
+        cfg, changefeed_db=env["FIREBIRD_CHANGEFEED_DB"])
+    apps0 = len(_gpu_apps())
+    apps_most, done = [apps0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            apps_most[0] = max(apps_most[0], len(_gpu_apps()))
+            time.sleep(0.25)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    check_s, procs, bases = {}, [], []
+    t0 = time.perf_counter()
+    for i in range(SERVE_REPLICAS):
+        log = open(home / f"serve_{i}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "firebird_tpu_torch", "serve", "--port",
+             "0", "--host", "127.0.0.1", "--replica-id", f"replica-{i}"],
+            env=env, stdout=log, stderr=subprocess.STDOUT, text=True), log))
+    try:
+        for i, (proc, _) in enumerate(procs):
+            path = home / f"serve_{i}.log"
+            while True:
+                m = re.search(r" on port (\d+) ", path.read_text())
+                if m:
+                    bases.append(f"http://127.0.0.1:{m.group(1)}")
+                    break
+                check(proc.poll() is None and
+                      time.perf_counter() - t0 < 60,
+                      f"serve: replica {i} did not come up: "
+                      f"{path.read_text()[-3000:]}")
+                time.sleep(0.02)
+        # The first product request loads the product math (numpy, scipy
+        # through the detector's parameters): warm both replicas at once.
+        with ThreadPoolExecutor(len(bases)) as ex:
+            check(list(ex.map(lambda b: _http(b, "/v1/products")[0], bases))
+                  == [200] * len(bases), "serve: /v1/products")
+        startup_s = time.perf_counter() - t0
+
+        # (a) every stored raster served equal, byte for byte, by both
+        # replicas; /v1/pixel at seeded points; nothing computed
+        t1 = time.perf_counter()
+        for (name, cx, cy), want in cells.items():
+            for base in bases:
+                code, body, h = _http(
+                    base, f"/v1/product/{name}?cx={cx}&cy={cy}"
+                          f"&date={PRODUCT_DATE}&format=npy")
+                check(code == 200 and body == _npy(want),
+                      f"serve: {name} of chip ({cx},{cy}) from {base}: "
+                      f"{code}")
+        rng = np.random.default_rng(seed)
+        points = []
+        for k in range(SERVE_POINTS):
+            cx, cy = cids[int(rng.integers(len(cids)))]
+            row, col = (int(v) for v in rng.integers(0, 100, 2))
+            x, y = cx + 30 * col + 15.0, cy - 30 * row - 15.0
+            code, body, _ = _http(bases[k % len(bases)],
+                                  f"/v1/pixel?x={x}&y={y}"
+                                  f"&date={PRODUCT_DATE}")
+            doc = json.loads(body)
+            check(code == 200 and doc["pixel"] == {"row": row, "col": col}
+                  and doc["products"] == {
+                      n: int(cells[(n, cx, cy)][row * 100 + col])
+                      for n in products.PRODUCTS},
+                  f"serve: /v1/pixel at ({x}, {y}): {code} {doc}")
+            points.append([x, y])
+        computes = [_prom_value(_http(b, "/metrics")[1].decode(),
+                                "serve_product_computes") for b in bases]
+        check(computes == [0] * len(bases),
+              f"serve: stored rasters were computed: {computes}")
+        check_s["a"] = time.perf_counter() - t1
+
+        # (b) concurrent identical cold misses compute once, and persist
+        # chip_product of the stored rows
+        t1 = time.perf_counter()
+        cx, cy = cids[len(cids) // 3]
+        t = grid.tile(cx, cy)
+        classes = model_classes(store, t["x"], t["y"])
+        seg = store.read("segment", {"cx": cx, "cy": cy})
+        want_cold = products.chip_product(
+            "cover", dt.to_ordinal(SERVE_COLD_DATE), cx, cy, seg,
+            classes=classes)
+        path = (f"/v1/product/cover?cx={cx}&cy={cy}"
+                f"&date={SERVE_COLD_DATE}&format=npy")
+        with ThreadPoolExecutor(SERVE_COLD_N) as ex:
+            res = list(ex.map(lambda _: _http(bases[0], path),
+                              range(SERVE_COLD_N)))
+        check(all(c == 200 and b == _npy(want_cold) for c, b, _ in res),
+              f"serve: cold cover answers {[c for c, _, _ in res]}")
+        computes = [_prom_value(_http(b, "/metrics")[1].decode(),
+                                "serve_product_computes") for b in bases]
+        check(computes == [1] + [0] * (len(bases) - 1),
+              f"serve: {SERVE_COLD_N} identical cold misses computed "
+              f"{computes}")
+        row = store.read("product", {"name": "cover", "date": SERVE_COLD_DATE,
+                                     "cx": cx, "cy": cy})["cells"]
+        check(len(row) == 1 and np.array_equal(row[0], want_cold)
+              and (want_cold > 0).any(),
+              "serve: the persisted cold row is not chip_product's")
+        check_s["b"] = time.perf_counter() - t1
+
+        # (c) pyramid build over the chips: base tiles are the rasters,
+        # parents the 2x selection of their children; /v1/pyramid 200,
+        # then 304 on its ETag
+        t1 = time.perf_counter()
+        argv = ["pyramid", "build", "-l", str(SERVE_LEVELS)]
+        for x, y in bounds:
+            argv += ["-b", f"{x},{y}"]
+        for name in products.PRODUCTS:
+            argv += ["-p", name]
+        code, out = _command(argv + ["-d", PRODUCT_DATE], env)
+        built = json.loads(out)
+        check(code == 0 and built["chips"] == len(cids),
+              f"serve: pyramid build exited {code}: {out[-2000:]}")
+        tiles = pyramid_census(home / "pyramid", cells, cids,
+                               products.PRODUCTS, SERVE_LEVELS, "serve")
+        pyr = pyrlib.TilePyramid(str(home / "pyramid"))
+        bx, by = pyrlib.tile_of_chip(*cids[0])
+        for z, x, y in pyrlib.ancestors(pyrlib.Z_BASE, bx, by)[:2]:
+            p = f"/v1/pyramid/ccd/{z}/{x}/{y}?date={PRODUCT_DATE}"
+            code, body, h = _http(bases[1], p)
+            npy, _ = pyr.tile_paths("ccd", PRODUCT_DATE, z, x, y)
+            check(code == 200 and body == Path(npy).read_bytes(),
+                  f"serve: {p} answered {code}")
+            code, body, _ = _http(bases[0], p, {"If-None-Match": h["ETag"]})
+            check((code, body) == (304, b""),
+                  f"serve: {p} with its ETag answered {code}")
+        check_s["c"] = time.perf_counter() - t1
+
+        # (d) a clipped products.save of one chip in this process reaches
+        # both replicas within one poll and one apply: new bytes, new
+        # ETag, the chip's tile stale-stamped and rebuilt
+        t1 = time.perf_counter()
+        cx, cy = cids[-1]
+        p_prod = (f"/v1/product/curveqa?cx={cx}&cy={cy}"
+                  f"&date={PRODUCT_DATE}&format=npy")
+        tags = [_http(b, p_prod)[2]["ETag"] for b in bases]
+        tile = (pyrlib.Z_BASE, *pyrlib.tile_of_chip(cx, cy))
+        version = pyr.peek_meta("curveqa", PRODUCT_DATE, *tile)["version"]
+        clip = [(cx + 300.0, cy - 300.0), (cx + 2400.0, cy - 1800.0)]
+        products.save(clip, ["curveqa"], [PRODUCT_DATE], clip=True,
+                      cfg=feed_cfg, store=store, device="cpu")
+        # From the feed's append (save's last step) to each replica's
+        # first answer with the new bytes.
+        t_save = time.perf_counter()
+        new = np.asarray(store.read("product", {
+            "name": "curveqa", "date": PRODUCT_DATE, "cx": cx,
+            "cy": cy})["cells"][0], np.int32)
+        check(not np.array_equal(new, cells[("curveqa", cx, cy)])
+              and (new == params.FILL_VALUE).any(),
+              "serve: the clipped save changed nothing")
+        seen = [None] * len(bases)
+        while None in seen and time.perf_counter() - t_save < 30:
+            for i, b in enumerate(bases):
+                if seen[i] is None:
+                    code, body, h = _http(b, p_prod,
+                                          {"If-None-Match": tags[i]})
+                    if code == 200:
+                        check(body == _npy(new) and h["ETag"] != tags[i],
+                              f"serve: replica {i} served the old bytes "
+                              "under a new ETag")
+                        seen[i] = time.perf_counter() - t_save
+            time.sleep(0.01)
+        check(None not in seen and max(seen) <= SERVE_POLL_S + SERVE_APPLY_S,
+              f"serve: the clipped save reached the replicas after {seen} s"
+              f" (one poll {SERVE_POLL_S} s and one apply {SERVE_APPLY_S} s)")
+        meta = pyr.peek_meta("curveqa", PRODUCT_DATE, *tile)
+        check(meta["stale"], "serve: the chip's base tile was not stamped")
+        p_tile = f"/v1/pyramid/curveqa/{tile[0]}/{tile[1]}/{tile[2]}" \
+                 f"?date={PRODUCT_DATE}&format=npy"
+        code, body, h = _http(bases[0], p_tile)
+        check(code == 200 and body == _npy(new)
+              and h["X-Firebird-Tile-Version"] == str(version + 1),
+              f"serve: the stale tile answered {code}, version "
+              f"{h.get('X-Firebird-Tile-Version')} after {version}")
+        code, out = _command(["status"], env)
+        feed = json.loads(out)["serving"]["changefeed"]
+        check(code == 0 and feed["replicas_seen"] == SERVE_REPLICAS
+              and all(r["writes_behind"] == 0 for r in feed["replicas"]),
+              f"serve: status shows {feed}")
+        cells[("curveqa", cx, cy)] = new
+        check_s["d"] = time.perf_counter() - t1
+
+        # (e) export of one product over the area: the mosaic of the
+        # stored rows
+        t1 = time.perf_counter()
+        argv = ["export", "-p", "curveqa", "-d", PRODUCT_DATE, "-f", "npy",
+                "-o", str(home / "export")]
+        for x, y in bounds:
+            argv += ["-b", f"{x},{y}"]
+        code, out = _command(argv, env)
+        check(code == 0, f"serve: export exited {code}")
+        got = np.load(home / "export" / f"curveqa_{PRODUCT_DATE}.npy")
+        side = json.loads((home / "export" /
+                           f"curveqa_{PRODUCT_DATE}.json").read_text())
+        ulx = min(c[0] for c in cids)
+        uly = max(c[1] for c in cids)
+        want = np.full(got.shape, params.FILL_VALUE, np.int32)
+        for c in cids:
+            r0, c0 = (uly - c[1]) // 30, (c[0] - ulx) // 30
+            want[r0:r0 + 100, c0:c0 + 100] = \
+                cells[("curveqa", *c)].reshape(100, 100)
+        check(np.array_equal(got, want) and (side["ulx"], side["uly"])
+              == (ulx, uly), "serve: the export differs from the mosaic "
+              "of the stored rows")
+        check_s["e"] = time.perf_counter() - t1
+
+        # (f) warm GETs from 8 threads, kept-alive connections: every
+        # body the stored raster's
+        t1 = time.perf_counter()
+        keys = sorted(cells)
+        lat = [[] for _ in range(SERVE_THREADS)]
+        bad = []
+
+        def client(k):
+            conns = [http.client.HTTPConnection(b[len("http://"):],
+                                                timeout=30) for b in bases]
+            try:
+                for j in range(SERVE_GETS):
+                    name, cx, cy = keys[(k * SERVE_GETS + j) % len(keys)]
+                    conn = conns[j % len(conns)]
+                    t2 = time.perf_counter()
+                    conn.request("GET", f"/v1/product/{name}?cx={cx}&cy={cy}"
+                                        f"&date={PRODUCT_DATE}&format=npy")
+                    r = conn.getresponse()
+                    body = r.read()
+                    lat[k].append(time.perf_counter() - t2)
+                    if r.status != 200 or body != _npy(cells[(name, cx, cy)]):
+                        bad.append((name, cx, cy, r.status))
+            finally:
+                for conn in conns:
+                    conn.close()
+
+        t2 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_THREADS) as ex:
+            list(ex.map(client, range(SERVE_THREADS)))
+        load_s = time.perf_counter() - t2
+        check(not bad, f"serve: {len(bad)} warm GETs wrong: {bad[:4]}")
+        all_lat = np.sort(np.concatenate([np.asarray(v) for v in lat]))
+        n_get = SERVE_THREADS * SERVE_GETS
+        warm = dict(requests=n_get, seconds=load_s, rps=n_get / load_s,
+                    p50_ms=1e3 * float(np.percentile(all_lat, 50)),
+                    p99_ms=1e3 * float(np.percentile(all_lat, 99)))
+        check_s["f"] = time.perf_counter() - t1
+    finally:
+        done.set()
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        codes = []
+        for proc, log in procs:
+            try:
+                codes.append(proc.wait(timeout=30))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes.append(proc.wait())
+            log.close()
+        sampler.join(timeout=5)
+        store.close()
+    check(codes == [0] * SERVE_REPLICAS, f"serve: replicas exited {codes}")
+    check(apps_most[0] <= apps0,
+          f"serve: {apps_most[0]} compute apps on the card while the "
+          f"replicas ran, {apps0} before")
+    out = dict(replicas=SERVE_REPLICAS, chips=len(cids),
+               rasters=len(cells), points=points, cold_date=SERVE_COLD_DATE,
+               cold_requests=SERVE_COLD_N, pyramid_build=built,
+               pyramid_tiles=tiles, coherence_seconds=seen,
+               poll_sec=SERVE_POLL_S, gpu_apps_before=apps0,
+               gpu_apps_most=apps_most[0], warm=warm,
+               startup_seconds=startup_s, check_seconds=check_s,
+               seconds=time.perf_counter() - t_phase)
+    print(f"serve: {SERVE_REPLICAS} replicas up in {startup_s:.2f} s over "
+          f"{len(cids)} chips; {len(cells)} stored rasters served byte for "
+          f"byte; {SERVE_COLD_N} cold cover misses computed once; pyramid "
+          f"tiles {tiles}; a clipped save reached the replicas after "
+          + ", ".join(f"{v:.3f}" for v in seen)
+          + f" s; warm: {n_get} GETs from {SERVE_THREADS} threads, "
+          f"{warm['rps']:.1f} req/s, p50 {warm['p50_ms']:.2f} ms, p99 "
+          f"{warm['p99_ms']:.2f} ms; compute apps {apps0} before, at most "
+          f"{apps_most[0]} during; checks (s) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in check_s.items())
+          + f"; phase {out['seconds']:.1f} s on {smi}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The fleet: lease queue, supervisor, workers, zombie drill, telemetry
 # ---------------------------------------------------------------------------
 
@@ -2487,6 +2878,50 @@ FLEET_CHIPS, FLEET_CHUNK, FLEET_WORKERS, FLEET_LEASE_S = 8, 2, 2, 10
 # under a second): the window then has to outlast the hold (at most the
 # lease) and still catch the rest of the first round's kernels.
 FLEET_PROFILE_S, FLEET_TICK_S = FLEET_LEASE_S + 5, 0.5
+FLEET_PYRAMID_LEVELS = 2
+
+
+def pyramid_census(root, cells, cids, names, levels, what):
+    """Hold a pyramid directory built over chips ``cids`` at
+    PRODUCT_DATE to the rasters ``cells`` ({(name, cx, cy): flat cells}):
+    every base tile of a chip is its raster, and every parent tile up to
+    ``levels`` levels holds the 2x selection of its four children's
+    persisted tiles.  Returns the tiles checked by level."""
+    from firebird_tpu_torch.serve import pyramid as pyrlib
+
+    pyr = pyrlib.TilePyramid(str(root))
+    zb, half = pyrlib.Z_BASE, pyrlib.TILE_SIDE // 2
+    counted = {}
+
+    def load(name, z, x, y):
+        npy, _ = pyr.tile_paths(name, PRODUCT_DATE, z, x, y)
+        meta = pyr.peek_meta(name, PRODUCT_DATE, z, x, y)
+        check(meta is not None and not meta["stale"] and os.path.exists(npy),
+              f"{what}: pyramid tile {name} z{z}/{x}/{y} missing or stale")
+        return np.load(npy)
+
+    for name in names:
+        level = sorted({pyrlib.tile_of_chip(cx, cy) for cx, cy in cids})
+        for cx, cy in cids:
+            got = load(name, zb, *pyrlib.tile_of_chip(cx, cy))
+            check(np.array_equal(got.ravel(), cells[(name, cx, cy)]),
+                  f"{what}: base tile of {name} chip ({cx},{cy}) differs "
+                  f"from its raster")
+        counted[str(zb)] = counted.get(str(zb), 0) + len(level)
+        for z in range(zb - 1, zb - levels, -1):
+            level = sorted({(x >> 1, y >> 1) for x, y in level})
+            for x, y in level:
+                got = load(name, z, x, y)
+                for cz, kx, ky in pyrlib.children(z, x, y):
+                    dx, dy = kx - 2 * x, ky - 2 * y
+                    check(np.array_equal(
+                        got[dy * half:(dy + 1) * half,
+                            dx * half:(dx + 1) * half],
+                        pyrlib.downsample2x(load(name, cz, kx, ky))),
+                        f"{what}: {name} tile z{z}/{x}/{y} is not the 2x "
+                        f"selection of its child z{cz}/{kx}/{ky}")
+            counted[str(z)] = counted.get(str(z), 0) + len(level)
+    return counted
 
 
 def _spool_marks(directory):
@@ -2584,6 +3019,14 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
                     "products": list(products.PRODUCTS),
                     "product_dates": [PRODUCT_DATE], "acquired": ACQUIRED},
         depends_on=plan["classify"])]
+    # The serving pyramid's tiles over the product rasters (pyramid/ next
+    # to the fleet's store), built by a worker that holds cuda:0.
+    plan["pyramid"] = [q.enqueue(
+        "pyramid", {"bounds": [[min(xs), max(ys)], [max(xs), min(ys)]],
+                    "products": list(products.PRODUCTS),
+                    "product_dates": [PRODUCT_DATE],
+                    "levels": FLEET_PYRAMID_LEVELS},
+        depends_on=plan["product"])]
     q.close()
     enqueue_s = time.perf_counter() - t0
 
@@ -2697,7 +3140,7 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
     q = FleetQueue(str(root / "fleet.db"))
     counts = q.counts()
     jobs = {j: q.job(j) for j in plan["detect"] + plan["classify"]
-            + plan["product"]}
+            + plan["product"] + plan["pyramid"]}
     check(counts == {"pending": 0, "leased": 0, "done": len(jobs),
                      "dead": 0}, f"fleet: queue {counts}")
     check_s["a"] = time.perf_counter() - t1
@@ -2766,6 +3209,11 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
             check(np.array_equal(cells[(name, cx, cy)], want),
                   f"fleet: {name} raster of chip ({cx},{cy}) differs")
     store.close()
+    # ... and the pyramid job's tiles: each base tile is its chip's
+    # stored raster, each parent the 2x selection of its four children.
+    pyramid_tiles = pyramid_census(root / "pyramid", cells, cids,
+                                   products.PRODUCTS,
+                                   FLEET_PYRAMID_LEVELS, "fleet")
     check_s["c"] = time.perf_counter() - t1
 
     # (d) trace collect over the spool
@@ -2878,6 +3326,7 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
         supervisor_summary={k: v for k, v in summary.items()
                             if k != "decisions"},
         decisions=summary.get("decisions"), rows=rows,
+        pyramid_tiles=pyramid_tiles,
         gpu_pids=sorted(gpu_seen), gpu_contexts_most=gpu_most[0],
         gpu_checked_by="pid" if by_pid else "context count",
         progress_answers=answers,
@@ -2891,7 +3340,7 @@ def fleet_phase(smi, chips, ref_cfg, tmp, seed):
                    hold_s=drill.get("hold_s"), collect_s=collect_s),
         check_seconds=check_s, seconds=time.perf_counter() - t_phase)
     print(f"fleet: {len(jobs)} jobs ({n_detect} detect of {FLEET_CHUNK} "
-          f"chips, classify, product) drained by {len(workers)} workers on "
+          f"chips, classify, product, pyramid) drained by {len(workers)} workers on "
           f"one card under a supervisor in {drain_s:.1f} s; worker "
           f"{drill['pid']} frozen {drill.get('hold_s', 0):.1f} s on job "
           f"{drill['job']} (history {events}, {rejects} fence rejects, "
@@ -3995,6 +4444,7 @@ def main(argv=None):
         fleet, fleet_env = fleet_phase(smi, chips, drv_cfg, tmp, args.seed)
         history = history_phase(smi, fleet, fleet_env)
         rf = classify_phase(smi, drv_cfg, args.seed, dev)
+        serve = serve_phase(smi, drv_cfg, tmp, args.seed)
     torch.cuda.empty_cache()
     strm = stream_phase(smi, chips, dev)
     torch.cuda.empty_cache()
@@ -4020,7 +4470,7 @@ def main(argv=None):
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
         sentinel2=s2, driver=drv, ops=ops, fleet=fleet, history=history,
-        classify=rf, stream=strm, ingest=ingest,
+        classify=rf, serve=serve, stream=strm, ingest=ingest,
         f64=f64, validate=audit,
         ptxas_instances=instances,
         ptxas=ptxas,

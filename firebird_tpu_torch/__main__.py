@@ -38,6 +38,14 @@
         [--acquired-start DATE] [-i INTERVAL] [--once] [--ops-port P]
     python -m firebird_tpu_torch objectstore scrub [--grace S] [--dry-run]
     python -m firebird_tpu_torch objectstore census
+    python -m firebird_tpu_torch export -b X,Y [-b X,Y ...] -p NAME [-p ...] \
+        -d DATE [-d ...] -o OUTDIR [-f {envi,npy}] [-s SENSOR]
+    python -m firebird_tpu_torch serve [--port P] [--host H] \
+        [--cache-entries N] [--cache-dir D] [--no-compute] [--read-only] \
+        [--replica-id ID] [--pyramid-dir D]
+    python -m firebird_tpu_torch pyramid build -b X,Y [-b X,Y ...] \
+        -p NAME [-p ...] -d DATE [-d ...] [-l LEVELS] [--refresh] \
+        [--no-compute] [--enqueue]
 
 ``changedetection`` is the JAX package's command of that name: the tile
 at the point (x, y), its first ``NUMBER`` chips in chunks of
@@ -129,10 +137,10 @@ none initialises CUDA.  ``products`` lists the product names; ``tiles``
 prints the tiles covering the bounds points as CSV (``-s i/n`` a strided
 shard; a bad shard exits 2); ``status`` prints the store's tables and
 chips, quarantine, the fleet queue, the alert log, the stream checkpoint
-store and the acquisition watcher's cursor, the object tier's census
-(with FIREBIRD_OBJECT_ROOT), the error budgets and, with ``-x/-y``, one
-tile's progress (the serving view is not ported: absent where there is no
-such state, an error entry where there is); ``top``
+store and the acquisition watcher's cursor, the serving view (the
+changefeed's replicas with their cursor lag, the pyramid's tile census),
+the object tier's census (with FIREBIRD_OBJECT_ROOT), the error budgets
+and, with ``-x/-y``, one tile's progress; ``top``
 renders the queue, the alert log, the spools' merged metrics and the
 series store's sparklines; ``slo`` ingests the spools into the series
 store (``series/`` in the spool directory) and prints the error budgets'
@@ -166,6 +174,24 @@ chunks older than ``--grace`` seconds (FIREBIRD_OBJECT_SCRUB_GRACE_SEC),
 reporting without deleting under ``--dry-run``.  Both exit 1 without an
 object root.  ``fetch``, ``watch --once`` and the ``objectstore``
 commands load neither torch nor the detector.
+
+The serving commands answer as the JAX package's do, on the host only:
+they load neither torch nor the detector (the rows they serve are the
+ones the card wrote).  ``export`` mosaics the stored product rows over
+the bounds area into one georeferenced raster per (product, date)
+(``envi``: .dat + .hdr; ``npy``: .npy + .json) and prints each path.
+``serve`` runs the query API (``/v1/segments``, ``/v1/pixel``,
+``/v1/product/<name>``, ``/v1/tile/<name>``,
+``/v1/pyramid/<name>/<z>/<x>/<y>``, ``/healthz``, ``/metrics``) until
+SIGINT/SIGTERM: a cold product computes once per key (single-flight) and
+persists; answers carry strong ETags; a changefeed consumer tails the
+alert log and the product_writes feed (``changefeed.db`` next to the
+store, or FIREBIRD_CHANGEFEED_DB) so N replicas and a live writer stay
+coherent.  The change-alert feed is not ported: ``/v1/alerts``,
+``/v1/alerts/stream`` and ``/v1/alerts/webhooks`` answer 404 naming
+``alerts/feed.py``.  ``pyramid build`` materializes the quadkey tiles
+over the bounds area, base upward, and prints the per-level summary;
+with ``--enqueue`` it enqueues a fleet ``pyramid`` job instead.
 """
 
 from __future__ import annotations
@@ -606,18 +632,13 @@ def validate_cmd(args) -> None:
         raise SystemExit(2)
 
 
-def _not_ported(what: str) -> str:
-    return f"NotImplementedError: {what} is not ported to firebird_tpu_torch"
-
-
 def _status_doc(cfg, x=None, y=None) -> dict:
     """The ``status`` document: the store's tables and chips, quarantine,
-    the fleet queue, the alert log, the stream checkpoint store, the error
-    budgets, the watcher's cursor, the object root's census and (with x,
-    y) one tile's progress — the JAX command's sections, each guarded so
-    a broken one degrades alone.  The serving view, whose subsystem the
-    port lacks, is absent where the JAX command finds no such state, and
-    an error entry naming what is not ported where it finds some."""
+    the fleet queue, the alert log, the stream checkpoint store, the
+    serving view (changefeed replicas, pyramid census), the error budgets,
+    the watcher's cursor, the object root's census and (with x, y) one
+    tile's progress — the JAX command's sections, each guarded so a
+    broken one degrades alone."""
     import collections
     import os
 
@@ -703,9 +724,6 @@ def _status_doc(cfg, x=None, y=None) -> dict:
         except Exception as e:
             out["alerts"] = {"path": apath,
                              "error": f"{type(e).__name__}: {e}"}
-    from firebird_tpu_torch.driver.quarantine import _artifact_dir
-
-    home = _artifact_dir(cfg)
     try:
         from firebird_tpu_torch.streamops import open_statestore
 
@@ -730,17 +748,37 @@ def _status_doc(cfg, x=None, y=None) -> dict:
                 cur.close()
     except Exception as e:
         out["streamops"] = {"error": f"{type(e).__name__}: {e}"}
-    from firebird_tpu_torch.serve import changefeed as _cflib
+    # Serving view: the replica fleet as the shared changefeed db sees it
+    # and the pyramid's tile census by level, guarded like the others.
+    try:
+        from firebird_tpu_torch.serve import changefeed as _cflib
+        from firebird_tpu_torch.serve import pyramid as _pyrlib
 
-    proot = cfg.serve_pyramid_dir or (
-        os.path.join(cfg.serve_cache_dir, "pyramid") if cfg.serve_cache_dir
-        else home and os.path.join(home, "pyramid"))
-    found = [p for p in (_cflib.changefeed_db_path(cfg), proot)
-             if p and os.path.exists(p)]
-    if found:
-        out["serving"] = {"error": _not_ported(
-            "the serving view (serve/changefeed.py's replicas, "
-            "serve/pyramid.py)") + f"; found {', '.join(found)}"}
+        serving: dict = {}
+        fpath = _cflib.changefeed_db_path(cfg)
+        if fpath is not None and os.path.exists(fpath):
+            pw = _cflib.ProductWrites(fpath)
+            try:
+                reps = pw.replicas()
+                serving["changefeed"] = {
+                    "path": fpath,
+                    "latest_cursor": pw.latest_cursor(),
+                    "replicas_seen": len(reps),
+                    "replicas": reps,
+                }
+            finally:
+                pw.close()
+        proot = _pyrlib.pyramid_root(cfg)
+        pstorage = None if proot is None \
+            else _pyrlib.pyramid_storage(cfg, proot)
+        if pstorage is not None or (proot is not None
+                                    and os.path.isdir(proot)):
+            serving["pyramid"] = _pyrlib.TilePyramid(
+                proot, storage=pstorage).status()
+        if serving:
+            out["serving"] = serving
+    except Exception as e:
+        out["serving"] = {"error": f"{type(e).__name__}: {e}"}
     # Object-tier view: the census of the configured object root, which
     # never raises; anything else degrades this section alone.
     if cfg.object_root:
@@ -1117,6 +1155,230 @@ def objectstore_census(args) -> None:
         store.close()
 
 
+def export_cmd(args) -> None:
+    """Mosaic stored product rows over the bounds area into one
+    georeferenced raster per (product, date) (export.export); prints each
+    path written."""
+    from firebird_tpu_torch import export
+    from firebird_tpu_torch.ccd.sensor import SENSORS
+
+    for p in export.export(args.products, args.product_dates,
+                           _parse_points(args.bounds), args.outdir,
+                           fmt=args.format, sensor=SENSORS[args.sensor]):
+        print(p)
+
+
+def serve(args) -> None:
+    """The query API over the configured results store, with the quadkey
+    pyramid and the changefeed consumer, until SIGINT/SIGTERM."""
+    import os
+    import signal
+    import sys
+    import threading
+
+    from firebird_tpu_torch.alerts import AlertLog, alert_db_path
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.obs import spool as obs_spool
+    from firebird_tpu_torch.serve import api as serve_api
+    from firebird_tpu_torch.serve import changefeed as cflib
+    from firebird_tpu_torch.serve import pyramid as pyrlib
+    from firebird_tpu_torch.store import open_store
+
+    overrides = {k: v for k, v in
+                 (("serve_port", args.port), ("serve_host", args.host),
+                  ("serve_cache_entries", args.cache_entries),
+                  ("serve_cache_dir", args.cache_dir),
+                  ("serve_replica", args.replica_id),
+                  ("serve_pyramid_dir", args.pyramid_dir)) if v is not None}
+    # --port 0 means "ephemeral bind", which Config rejects as a
+    # deploy-time port; thread it past validation separately.
+    bind_port = overrides.pop("serve_port", None)
+    cfg = Config.from_env(**overrides)
+    if bind_port is None:
+        bind_port = cfg.serve_port
+    store = open_store(cfg.store_backend, cfg.store_path, cfg.keyspace(),
+                       read_only=args.read_only)
+    # The changefeed consumer tails the alert log next to the store (as
+    # the JAX command opens it, creating it where a stream writer will
+    # append); the feed that would serve it over /v1/alerts is not ported.
+    alog = None
+    if cfg.alerts_enabled:
+        apath = alert_db_path(cfg)
+        if apath is not None:
+            existed = os.path.exists(apath)
+            try:
+                alog = AlertLog(apath)
+            except Exception as e:
+                print(f"WARNING: alert log {apath} unavailable "
+                      f"({type(e).__name__}: {e}); the changefeed does not "
+                      "tail it", file=sys.stderr)
+            else:
+                if existed:
+                    print(f"WARNING: {serve_api.ALERTS_NOT_PORTED}: "
+                          "/v1/alerts answers 404; the changefeed still "
+                          f"tails {apath}", file=sys.stderr)
+    proot = pyrlib.pyramid_root(cfg)
+    pyr = pyrlib.TilePyramid(
+        proot, storage=pyrlib.pyramid_storage(cfg, proot)) \
+        if proot else None
+    consumer = None
+    service = serve_api.ServeService(
+        store, cfg, compute_on_miss=not args.no_compute
+        and not args.read_only, pyramid=pyr)
+    try:
+        fpath = cflib.changefeed_db_path(cfg)
+        wfeed = cflib.ProductWrites(fpath) if fpath else None
+        if wfeed is not None or alog is not None:
+            consumer = cflib.ChangefeedConsumer(
+                service.gens, feed=wfeed, alerts=alog,
+                replica=cflib.default_replica_id(cfg),
+                poll_sec=cfg.serve_feed_poll_sec).start()
+            service.changefeed = consumer
+    except Exception as e:
+        print(f"WARNING: changefeed unavailable ({type(e).__name__}: {e}); "
+              "serving with in-process invalidation only", file=sys.stderr)
+    obs_spool.arm(cfg, "serve")
+    srv = serve_api.start_serve_server(bind_port, service,
+                                       host=cfg.serve_host)
+    print(f"serving {cfg.store_backend}:{cfg.store_path} "
+          f"[{cfg.keyspace()}] on port {srv.port} (ctrl-c to stop)",
+          flush=True)
+    stop = threading.Event()
+    signal.signal(signal.SIGINT, lambda *_: stop.set())
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    try:
+        stop.wait()
+    finally:
+        obs_spool.disarm()
+        srv.close()
+        if consumer is not None:
+            consumer.stop()
+        if alog is not None:
+            alog.close()
+        store.close()
+
+
+def pyramid_build(args) -> None:
+    """Materialize pyramid tiles over the bounds area, bottom-up (or
+    enqueue a fleet ``pyramid`` job with ``--enqueue``); prints the
+    build's summary as JSON."""
+    from firebird_tpu_torch import products as prodlib
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.serve import pyramid as pyrlib
+    from firebird_tpu_torch.store import open_store
+
+    for p in args.products:
+        if p not in prodlib.PRODUCTS:
+            raise _UsageError(
+                f"unknown product {p!r}; available: {prodlib.PRODUCTS}")
+    cfg = Config.from_env()
+    bounds = _parse_points(args.bounds)
+    if args.enqueue:
+        from firebird_tpu_torch.fleet import make_queue
+
+        queue = make_queue(cfg)
+        try:
+            jid = queue.enqueue("pyramid", {
+                "bounds": [list(b) for b in bounds],
+                "products": list(args.products),
+                "product_dates": list(args.product_dates),
+                "levels": int(args.levels), "refresh": bool(args.refresh),
+                "compute": not args.no_compute,
+            }, max_attempts=cfg.fleet_max_attempts)
+            print(json.dumps({"queue": queue.path, "job": jid}))
+        finally:
+            queue.close()
+        return
+    root = pyrlib.pyramid_root(cfg)
+    if root is None:
+        import sys
+
+        print("Error: no pyramid root: set FIREBIRD_SERVE_PYRAMID_DIR (or "
+              "use a file-backed store for the next-to-store default)",
+              file=sys.stderr)
+        raise SystemExit(1)
+    store = open_store(cfg.store_backend, cfg.store_path, cfg.keyspace())
+    try:
+        pyr = pyrlib.TilePyramid(
+            root, pyrlib.store_read_chip(store, compute=not args.no_compute),
+            storage=pyrlib.pyramid_storage(cfg, root))
+        summary = pyr.build_area(list(args.products),
+                                 list(args.product_dates), bounds,
+                                 levels=args.levels, refresh=args.refresh)
+    finally:
+        store.close()
+    print(json.dumps({"root": root, **summary}, indent=1))
+
+
+def _serve_parsers(sub) -> None:
+    """``export``, ``serve`` and the ``pyramid`` group (the JAX command
+    line's options)."""
+    x = sub.add_parser("export", help="export stored product rasters as "
+                       "georeferenced files")
+    x.add_argument("-b", "--bounds", action="append", required=True,
+                   help="x,y projection point; repeat to extend the area")
+    x.add_argument("-p", "--products", action="append", required=True,
+                   help="product name; repeat for several")
+    x.add_argument("-d", "--product_dates", action="append", required=True,
+                   help="ISO query date; repeat for several")
+    x.add_argument("-o", "--outdir", required=True,
+                   help="directory for the raster files")
+    x.add_argument("-f", "--format", default="envi", choices=("envi", "npy"),
+                   help="envi: .dat+.hdr (opens in QGIS/GDAL); npy: "
+                        ".npy+.json")
+    x.add_argument("-s", "--sensor", default="landsat-ard", type=_sensor,
+                   help="campaign sensor spec (chip/pixel geometry)")
+    s = sub.add_parser("serve", help="serve the query API over the "
+                       "configured results store")
+    s.add_argument("-p", "--port", type=int, default=None,
+                   help="listen port; overrides FIREBIRD_SERVE_PORT "
+                        "(default 8080); 0 binds an ephemeral port")
+    s.add_argument("--host", default=None,
+                   help="bind address; overrides FIREBIRD_SERVE_HOST")
+    s.add_argument("--cache-entries", type=int, default=None,
+                   help="in-memory cache bound (entries); overrides "
+                        "FIREBIRD_SERVE_CACHE_ENTRIES")
+    s.add_argument("--cache-dir", default=None,
+                   help="disk spill tier for evicted cache entries; "
+                        "overrides FIREBIRD_SERVE_CACHE_DIR")
+    s.add_argument("--no-compute", action="store_true",
+                   help="disable compute-on-miss: absent product rows "
+                        "answer 404")
+    s.add_argument("--read-only", action="store_true",
+                   help="open the store as a read-only replica connection; "
+                        "implies --no-compute")
+    s.add_argument("--replica-id", default=None,
+                   help="stable changefeed replica id (cursor resume "
+                        "across restarts); overrides FIREBIRD_SERVE_REPLICA")
+    s.add_argument("--pyramid-dir", default=None,
+                   help="quadkey tile-pyramid root for /v1/pyramid; "
+                        "overrides FIREBIRD_SERVE_PYRAMID_DIR")
+    py = sub.add_parser("pyramid", help="quadkey tile-pyramid precompute")
+    psub = py.add_subparsers(dest="pyramid_cmd", required=True)
+    b = psub.add_parser("build", help="materialize pyramid tiles over an "
+                        "area, bottom-up")
+    b.add_argument("-b", "--bounds", action="append", required=True,
+                   help="x,y projection point; repeat to extend the area")
+    b.add_argument("-p", "--products", action="append", required=True,
+                   help="product name; repeat for several")
+    b.add_argument("-d", "--product_dates", action="append", required=True,
+                   help="ISO query date; repeat for several")
+    b.add_argument("-l", "--levels", type=int, default=2,
+                   help="pyramid levels to materialize, base upward "
+                        "(1 = base tiles only)")
+    b.add_argument("--refresh", action="store_true",
+                   help="rebuild fresh tiles too (default: skip them)")
+    b.add_argument("--no-compute", action="store_true",
+                   help="render only stored product rows; chips without one "
+                        "render as fill")
+    b.add_argument("--enqueue", action="store_true",
+                   help="enqueue a fleet `pyramid` job instead of building "
+                        "inline")
+
+
+SERVE = dict(export=export_cmd, serve=serve)
+
+
 def _ingest_parsers(sub) -> None:
     """``fetch``, ``watch`` and the ``objectstore`` group (the JAX command
     line's options)."""
@@ -1436,6 +1698,7 @@ def main(argv=None) -> None:
     _fleet_parsers(sub)
     _read_parsers(sub)
     _ingest_parsers(sub)
+    _serve_parsers(sub)
     args = ap.parse_args(_attach_points(
         list(sys.argv[1:] if argv is None else argv)))
     if args.cmd == "fleet":
@@ -1448,6 +1711,10 @@ def main(argv=None) -> None:
         run = OBJECTSTORE[args.objectstore_cmd]
     elif args.cmd in INGEST:
         run = INGEST[args.cmd]
+    elif args.cmd == "pyramid":
+        run = pyramid_build
+    elif args.cmd in SERVE:
+        run = SERVE[args.cmd]
     else:
         run = dict(changedetection=changedetection, stream=stream,
                    classification=classification, save=save,

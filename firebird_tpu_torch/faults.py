@@ -10,8 +10,9 @@ ingest brownout or a store blip costs retries, never results.  The wrap
 sites are the drivers' ``robustness_setup`` (driver/core.py: source,
 store, writer), ``fetch``'s sources (driver/fetch.py),
 ``classification``'s aux source, the fleet worker's lease heartbeats
-(fleet/worker.py), the watcher's poll (streamops/watcher.py) and every
-object root (store/objectstore.open_object_root).
+(fleet/worker.py), the watcher's poll (streamops/watcher.py), every
+object root (store/objectstore.open_object_root) and the query API's
+``/v1`` requests (serve/api.py).
 
 Plan grammar (scopes separated by ``;``, options by ``,``)::
 
@@ -29,8 +30,7 @@ scope target            what the injector wraps
                         injected failure drops the beat, so the lease ages
                         toward expiry — ``lease:p=1`` models a worker
                         partitioned from the queue (a zombie)
-``serve``               ``/v1`` request handling (the JAX package's
-                        serve/api.py)
+``serve``               ``/v1`` request handling (serve/api.py)
 ``watch``               ``watcher.poll_once`` (streamops/watcher.py): an
                         injected failure aborts the poll before any scene
                         is mapped, so the landing zone backs up (a stalled
@@ -68,9 +68,9 @@ option                  meaning
                         the retry wrapper
 ======================  =====================================================
 
-The ``serve`` scope parses and validates as in the JAX package, but this
-package has no serving API for it to wrap yet, so a plan naming it injects
-nothing.
+The ``serve`` scope wraps the query API as in the JAX package: a plan
+naming it fires the injector on every ``/v1`` request before admission,
+and an injected failure answers 503 (serve/api.py).
 
 With ``FIREBIRD_FAULTS`` unset, :func:`wrap_source` / :func:`wrap_store` /
 :func:`wrap_writer` return their argument unchanged — no proxy object, no

@@ -16,8 +16,10 @@ on that device:
   random-forest pipeline; **product** jobs run ``products.save``;
   **repair** jobs run the stream's cold-path repair — one queue, with
   fleet/plan.py's dependency edges sequencing them per tile.
-- **pyramid** and **fanout** jobs fail with an error naming what is not
-  ported (the serving pyramid and the alert fanout).
+- **pyramid** jobs build the serving pyramid's tiles over their bounds
+  (serve/pyramid.py ``build_area``) on the host, from the rows the card
+  wrote; **fanout** jobs fail with an error naming what is not ported
+  (the alert fanout).
 - Re-delivery fast path: a detect job claims chips already stored and
   skips them (the ``--resume`` presence rule at job granularity), so a
   re-delivered job pays only for the work its dead predecessor did not
@@ -518,12 +520,36 @@ class FleetWorker:
             raw.close()
 
     def _run_pyramid(self, payload: dict, lease: Lease) -> None:
-        """Precompute pyramid tiles: the JAX package's serving pyramid
-        (serve/pyramid.py) is not ported, so the job fails (and
-        dead-letters after its attempts) instead of acking undone."""
-        raise NotImplementedError(
-            "pyramid jobs need the serving pyramid (serve/pyramid.py), "
-            "which firebird_tpu_torch does not port yet")
+        """Precompute pyramid tiles over the job's bounds
+        (serve/pyramid.py build_area) — the hot-region materializer the
+        serving fleet's cold-miss depth floor points at.  Product rows
+        computed along the way persist through the FENCED store (a
+        zombie's store writes reject); the tile files themselves are
+        idempotent atomic replaces, safe under re-delivery.  Host work:
+        the rows it reads are the ones the detector wrote on the card."""
+        from firebird_tpu_torch.serve import pyramid as pyrlib
+
+        root = payload.get("root") or pyrlib.pyramid_root(self.cfg)
+        if root is None:
+            raise ValueError(
+                "pyramid job has no root: set FIREBIRD_SERVE_PYRAMID_DIR "
+                "(or a file-backed store) or put 'root' in the payload")
+        raw, fenced = self._fenced_store(lease)
+        try:
+            pyr = pyrlib.TilePyramid(
+                root, pyrlib.store_read_chip(
+                    fenced, compute=bool(payload.get("compute", True))),
+                storage=pyrlib.pyramid_storage(self.cfg, root))
+            summary = pyr.build_area(
+                list(payload["products"]),
+                list(payload["product_dates"]),
+                [tuple(b) for b in payload["bounds"]],
+                levels=int(payload.get("levels", 2)),
+                refresh=bool(payload.get("refresh", False)))
+            self.log.info("pyramid job %d built: %s", lease.job_id,
+                          summary)
+        finally:
+            raw.close()
 
     def _run_fanout(self, payload: dict, lease: Lease) -> None:
         """Drain one alert-fanout shard: the JAX package's fanout

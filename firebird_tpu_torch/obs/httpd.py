@@ -1,11 +1,10 @@
 """Shared stdlib HTTP plumbing for the embedded servers.
 
-The port's own copy of the JAX package's ``obs/httpd.py``.  In the
-JAX package two subsystems embed a ThreadingHTTPServer on a daemon
-thread: the ops surface (obs/server.py — /healthz /readyz /metrics
-/progress /report) and the query/serving layer (serve/api.py — /v1/*);
-this package ports the first.  The byte-level send helpers and the
-start/close/port lifecycle live here (HTTP/1.1 keep-alive framing, JSON
+The port's own copy of the JAX package's ``obs/httpd.py``.  Two
+subsystems embed a ThreadingHTTPServer on a daemon thread: the ops
+surface (obs/server.py — /healthz /readyz /metrics /progress /report) and
+the query/serving layer (serve/api.py — /v1/*).  The byte-level send
+helpers and the start/close/port lifecycle live here (HTTP/1.1 keep-alive framing, JSON
 error envelopes, daemon-thread shutdown).
 
 - :class:`JsonHandler` — BaseHTTPRequestHandler with ``_send`` /
@@ -14,8 +13,8 @@ error envelopes, daemon-thread shutdown).
   ``_route(path, query)`` under the standard error envelope (a broken
   endpoint reports a 500 JSON body; it must never kill the server
   thread — the surface exists to diagnose trouble).  (The JAX package's
-  server-sent-event helpers serve its ``/v1`` feed, which is not
-  ported.)
+  server-sent-event helpers serve its ``/v1/alerts/stream`` feed, which
+  is not ported.)
 - :class:`Httpd` — ThreadingHTTPServer with daemon worker threads, a
   ``port`` property (useful with port 0 ephemeral binds in tests and
   smokes), and ``start()``/``close()`` managing the serve_forever thread.

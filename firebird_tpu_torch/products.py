@@ -240,11 +240,12 @@ def tile_classes(store, cx: int, cy: int,
     if cache is None:
         cache = {}
     if key not in cache:
-        from firebird_tpu_torch.rf import pipeline as rf_pipeline
+        # The class order alone, read without the forest (torch): a serve
+        # replica computes a cold cover raster on the host.
+        from firebird_tpu_torch.rf.tilemodel import model_classes
 
-        m = rf_pipeline.load_model(store, key[0], key[1])
-        cache[key] = None if m is None else m.classes
-        if m is None:
+        cache[key] = model_classes(store, key[0], key[1])
+        if cache[key] is None:
             log.warning("cover: no trained model stored for tile "
                         "(%d, %d); run the classification command first",
                         *key)

@@ -10,6 +10,20 @@ left commented out at ccdc/core.py:190-240).
   so a seed trains the same forest in both packages.
 - :mod:`firebird_tpu_torch.rf.pipeline` — train / classify orchestration
   against the keyed store.
+- :mod:`firebird_tpu_torch.rf.tilemodel` — the stored model's format and
+  class order, read with numpy alone (the serving layer's ``cover``).
+
+``RandomForest`` and ``train`` load :mod:`~firebird_tpu_torch.rf.forest`
+(and torch) on first use, so importing ``rf.features`` or
+``rf.tilemodel`` stays host-only.
 """
 
-from firebird_tpu_torch.rf.forest import RandomForest, train  # noqa: F401
+__all__ = ["RandomForest", "train"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from firebird_tpu_torch.rf import forest
+
+        return getattr(forest, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

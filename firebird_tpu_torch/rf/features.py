@@ -20,8 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from firebird_tpu_torch.ccd.format import BAND_PREFIX
 from firebird_tpu_torch.ingest.packer import CHIP_SIDE, PIXEL_SIZE_M
+from firebird_tpu_torch.store.schema import BAND_PREFIX
 from firebird_tpu_torch.utils import dates as dt
 
 AUX_FEATURES = ("dem", "aspect", "slope", "mpw", "posidex")

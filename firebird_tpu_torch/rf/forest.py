@@ -51,13 +51,11 @@ import torch
 from firebird_tpu_torch.ccd.kernel import _exact_f32, resolve_device
 from firebird_tpu_torch.obs import metrics as obs_metrics
 from firebird_tpu_torch.rf import prng
+from firebird_tpu_torch.rf.tilemodel import FORMAT, decode_array, parse
 
 NUM_TREES = 500          # randomforest.py:38
 DEFAULT_DEPTH = 8
 DEFAULT_BINS = 64
-# The tile table's model format, shared with the JAX package: a model
-# stored by either package loads in the other.
-FORMAT = "firebird_tpu.rf.v1"
 # Trees a dense inference step evaluates together (the JAX package's).
 DENSE_CHUNK = 8
 
@@ -103,14 +101,11 @@ class RandomForest:
 
     @classmethod
     def loads(cls, s: str) -> "RandomForest":
-        d = json.loads(s)
-        if d.get("format") != FORMAT:
-            raise ValueError(f"unknown model format: {d.get('format')!r}")
-        def dec(e):
-            a = np.frombuffer(base64.b64decode(e["data"]), dtype=e["dtype"])
-            return a.reshape(e["shape"]).copy()
-        return cls(feature=dec(d["feature"]), threshold=dec(d["threshold"]),
-                   leaf_proba=dec(d["leaf_proba"]), classes=dec(d["classes"]))
+        d = parse(s)
+        return cls(feature=decode_array(d["feature"]),
+                   threshold=decode_array(d["threshold"]),
+                   leaf_proba=decode_array(d["leaf_proba"]),
+                   classes=decode_array(d["classes"]))
 
     # -- inference --
 

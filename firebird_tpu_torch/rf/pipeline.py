@@ -34,10 +34,9 @@ from firebird_tpu_torch.ccd.kernel import resolve_device
 from firebird_tpu_torch.obs import Counters, logger
 from firebird_tpu_torch.obs import metrics as obs_metrics
 from firebird_tpu_torch.rf import features, forest
+from firebird_tpu_torch.rf.tilemodel import MODEL_NAME, read_model
 from firebird_tpu_torch.store import AsyncWriter
 from firebird_tpu_torch.utils.fn import take
-
-MODEL_NAME = "random-forest"
 
 # The stages of a classification run and their histograms: store read,
 # feature assembly, binning, the bootstrap draw and the tree growth (spans
@@ -159,9 +158,8 @@ def load_model(store, tx: int, ty: int,
                name: str = MODEL_NAME) -> forest.RandomForest | None:
     """Read a model back from the tile table (completes the reference's
     empty randomforest.read stub, ccdc/randomforest.py:21-22)."""
-    rows = store.read("tile", where={"tx": int(tx), "ty": int(ty),
-                                     "name": name})
-    return forest.RandomForest.loads(rows["model"][0]) if rows["model"] else None
+    text = read_model(store, tx, ty, name)
+    return None if text is None else forest.RandomForest.loads(text)
 
 
 def classify_chip(model, seg: dict, aux: dict, cx: int, cy: int,
@@ -254,6 +252,6 @@ def classify_tile(x, y, *, msday: int, meday: int, acquired: str,
     return model
 
 
-__all__ = ["MODEL_NAME", "STAGES", "classification_stage_seconds",
-           "training_data", "train_tile", "save_model", "load_model",
-           "classify_chip", "classify_tile"]
+__all__ = ["MODEL_NAME", "read_model", "STAGES",
+           "classification_stage_seconds", "training_data", "train_tile",
+           "save_model", "load_model", "classify_chip", "classify_tile"]

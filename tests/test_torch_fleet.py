@@ -719,18 +719,63 @@ def test_zombie_worker_writes_are_rejected_and_counted(tmp_path, queue,
     assert queue.job(jid)["state"] == "done"
 
 
-def test_unported_job_types_fail_naming_what_is_missing(tmp_path, queue):
-    cfg = Config(store_backend="sqlite", store_path=str(tmp_path / "s.db"))
-    p = queue.enqueue("pyramid", {"bounds": []}, max_attempts=1)
-    f = queue.enqueue("fanout", {"shard": "0", "upto": 1}, max_attempts=1)
+@pytest.mark.parametrize("job", ["fanout", "pyramid"])
+def test_unported_job_types_fail_naming_what_is_missing(tmp_path, queue,
+                                                        job):
+    """A ``fanout`` job dead-letters naming the alert fanout, which is not
+    ported; a ``pyramid`` job (ported with the serving layer) builds
+    ``build_area``'s tiles through the fenced store, equal file for file
+    to the JAX package's build over the same rows."""
+    from firebird_tpu.serve import pyramid as jpyr
+    from firebird_tpu.store import open_store as jopen_store
+    from firebird_tpu_torch.serve import pyramid as tpyr
+
+    cfg = Config(store_backend="sqlite", store_path=str(tmp_path / "s.db"),
+                 serve_pyramid_dir=str(tmp_path / "pyr"))
+    cx, cy = (int(v) for v in grid.snap(100, 200)["chip"]["proj-pt"])
+    rng = np.random.default_rng(17)
+    seg = {"cx": [cx] * 5, "cy": [cy] * 5,
+           "px": [cx + 30 * int(i) for i in rng.permutation(5)],
+           "py": [cy - 30] * 5, "sday": ["1995-01-01"] * 5,
+           "eday": ["1999-01-01"] * 5, "bday": ["1997-06-01"] * 5,
+           "chprob": [1.0] * 5,
+           "curqa": [int(v) for v in rng.integers(1, 16, 5)],
+           "rfrawp": [None] * 5}
+    payload = {"bounds": [[cx + 1.0, cy - 1.0]], "products": ["curveqa"],
+               "product_dates": ["1996-01-01"], "levels": 2}
+    if job == "fanout":
+        jid = queue.enqueue("fanout", {"shard": "0", "upto": 1},
+                            max_attempts=1)
+    else:
+        store = SqliteStore(cfg.store_path, cfg.keyspace())
+        store.write("segment", seg)
+        store.close()
+        jid = queue.enqueue("pyramid", payload, max_attempts=1)
     w = FleetWorker(cfg, queue, worker_id="t:1", sleep=lambda s: None,
                     device="cpu")
     summary = w.run(until_drained=True)
-    assert summary["dead"] == 2
-    for jid, what in ((p, "serve/pyramid.py"), (f, "alerts/fanout.py")):
+    if job == "fanout":
+        assert summary["dead"] == 1
         last = queue.job(jid)["history"][-2]
         assert last["error"] == "NotImplementedError"
-        assert what in last["message"]
+        assert "alerts/fanout.py" in last["message"]
+        return
+    assert summary["acked"] == 1 and summary["dead"] == 0
+    assert queue.job(jid)["state"] == "done"
+    jstore = jopen_store("memory", "", "t")
+    jstore.write("segment", seg)
+    jpyr.TilePyramid(str(tmp_path / "jpyr"), jpyr.store_read_chip(
+        jstore)).build_area(payload["products"], payload["product_dates"],
+                            [tuple(b) for b in payload["bounds"]], levels=2)
+    bx, by = tpyr.tile_of_chip(cx, cy)
+    tiles = [(tpyr.Z_BASE, bx, by), tpyr.parent(tpyr.Z_BASE, bx, by)]
+    port, jax = (tpyr.TilePyramid(str(tmp_path / d))
+                 for d in ("pyr", "jpyr"))
+    for t in tiles:
+        assert port.peek_meta("curveqa", "1996-01-01", *t)["version"] == 1
+        for mine, theirs in zip(port.tile_paths("curveqa", "1996-01-01", *t),
+                                jax.tile_paths("curveqa", "1996-01-01", *t)):
+            assert open(mine, "rb").read() == open(theirs, "rb").read(), t
 
 
 def test_worker_without_a_card_raises_unless_told(monkeypatch, tmp_path,

@@ -129,7 +129,9 @@ PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
                   "faults.py", "fleet/worker.py", "fleet/policy.py",
                   "fleet/supervisor.py", "obs/spool.py", "obs/collect.py",
                   "obs/series.py", "validate.py", "ccd/flops.py",
-                  "store/objectstore.py", "streamops/watcher.py")
+                  "store/objectstore.py", "streamops/watcher.py",
+                  "serve/flight.py", "serve/cache.py", "serve/pyramid.py",
+                  "serve/api.py", "export.py")
 
 
 @pytest.mark.parametrize("rel", PORTED_MODULES)

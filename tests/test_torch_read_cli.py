@@ -26,6 +26,7 @@ from firebird_tpu_torch import __main__ as tmain
 from firebird_tpu_torch import grid
 from firebird_tpu_torch.config import Config
 from firebird_tpu_torch.obs import metrics as obs_metrics
+from firebird_tpu_torch.store import open_store
 
 from test_torch_series import _snap, _write_spool
 
@@ -235,22 +236,53 @@ def test_status_memory_backend_as_jax(tmp_path, monkeypatch, capsys):
 
 def test_status_names_the_views_it_does_not_port(tmp_path, monkeypatch,
                                                  capsys):
-    """Where JAX's status would read the serving fleet (a pyramid
-    directory or a changefeed db), the port's names what it does not port
-    and keeps every other section; the watcher and object views are
-    ported (below)."""
+    """The serving view (a changefeed db with two replicas' checkpoints
+    and a pyramid directory, written through the JAX package's serving
+    layer) reads as JAX's status reads it, key for key; the clock-free
+    values are equal."""
+    from firebird_tpu.serve import changefeed as jcf
+    from firebird_tpu.serve import pyramid as jpyr
+    from firebird_tpu.store import open_store as jopen_store
+
     env = {"FIREBIRD_STORE_BACKEND": "sqlite",
-           "FIREBIRD_STORE_PATH": str(tmp_path / "fb.db")}
-    (tmp_path / "pyramid").mkdir()
+           "FIREBIRD_STORE_PATH": str(tmp_path / "fb.db"),
+           "FIREBIRD_CHANGEFEED_DB": str(tmp_path / "changefeed.db")}
+    cx, cy = (int(v) for v in grid.snap(100, 200)["chip"]["proj-pt"])
+    feed = jcf.ProductWrites(env["FIREBIRD_CHANGEFEED_DB"])
+    feed.append("product", [(cx, cy), (cx + 3000, cy)])
+    feed.checkpoint("replica-a", alert_cursor=0, writes_cursor=2,
+                    lag_sec=0.5)
+    feed.checkpoint("replica-b", alert_cursor=0, writes_cursor=1)
+    feed.close()
+    store = jopen_store("memory", "", "t")
+    store.write("segment", {
+        "cx": [cx], "cy": [cy], "px": [cx], "py": [cy - 30],
+        "sday": ["1995-01-01"], "eday": ["1999-01-01"],
+        "bday": ["1997-06-01"], "chprob": [1.0], "curqa": [8],
+        "rfrawp": [None]})
+    pyr = jpyr.TilePyramid(str(tmp_path / "pyramid"),
+                           jpyr.store_read_chip(store))
+    pyr.build_area(["curveqa"], ["1996-01-01"], [(cx + 1.0, cy - 1.0)],
+                   levels=2)
+    pyr.invalidate_chip(cx, cy)
     code, out = _port(["status"], monkeypatch, env, capsys)
-    assert code == 0
-    doc = json.loads(out)
-    assert "statestore" in doc["streamops"]
-    assert "watcher" not in doc["streamops"]
-    assert "not ported" in doc["serving"]["error"]
-    assert str(tmp_path / "pyramid") in doc["serving"]["error"]
-    assert "object" not in doc and doc["budgets"]["ok"] is True
-    assert doc["tables"]["segment"] == 0
+    jcode, jout = _jax(["status"], env)
+    assert code == jcode == 0, jout
+    mine, theirs = json.loads(out), json.loads(jout)
+    same_keys(mine, theirs)
+    assert list(mine) == list(theirs)
+    serving, jserving = mine["serving"], theirs["serving"]
+    assert serving["pyramid"] == jserving["pyramid"]
+    assert serving["pyramid"]["tiles_by_level"] == {
+        "10": {"tiles": 1, "stale": 1}, "11": {"tiles": 4, "stale": 1}}
+    cf, jcf_ = serving["changefeed"], jserving["changefeed"]
+    assert cf["replicas_seen"] == jcf_["replicas_seen"] == 2
+    assert cf["latest_cursor"] == jcf_["latest_cursor"] == 2
+    for r, jr in zip(cf["replicas"], jcf_["replicas"]):
+        assert {k: v for k, v in r.items() if k != "updated_age_sec"} == \
+            {k: v for k, v in jr.items() if k != "updated_age_sec"}
+    assert [r["writes_behind"] for r in cf["replicas"]] == [0, 1]
+    assert "watcher" not in mine["streamops"] and "object" not in mine
 
 
 @pytest.mark.parametrize("view", ["watcher", "object"])
@@ -398,31 +430,72 @@ def test_read_commands_never_touch_cuda(home, argv, monkeypatch, capsys):
     ["watch", "-x", str(POINT[0]), "-y", str(POINT[1]), "-n", "1",
      "--once"],
     ["objectstore", "scrub", "--dry-run"],
-    ["objectstore", "census"]])
+    ["objectstore", "census"],
+    ["export", "-b", "542000,1650000", "-p", "curveqa", "-d", "2000-06-01",
+     "-o", "{tmp}/rasters", "-f", "envi"],
+    ["pyramid", "build", "-b", "542000,1650000", "-p", "curveqa", "-p",
+     "seglength", "-d", "2000-06-01", "-l", "2"],
+    ["serve", "--port", "0", "--host", "127.0.0.1"]])
 def test_read_commands_start_without_torch(home, argv, tmp_path):
     """The host-only commands load neither torch nor the detector: a
     console an operator polls costs a python start-up, not a CUDA
-    library load.  ``fetch``, ``watch --once`` and the ``objectstore``
-    commands run in a home of their own (a synthetic source, an object
-    root) and must exit 0; the sources read the detector's parameters,
-    whose chi2 thresholds come from scipy, so those may load scipy."""
+    library load.  ``fetch``, ``watch --once``, the ``objectstore``
+    commands and the serving commands run in a home of their own (a
+    synthetic source, an object root, a store with one chip's segment
+    rows) and must exit 0; the sources and the product math read the
+    detector's parameters, whose chi2 thresholds come from scipy, so
+    those may load scipy.  ``serve`` is started, asked for a cold product
+    raster (computed on the host and persisted) and stopped with
+    SIGTERM."""
     root, env = home
-    ingest = argv[0] in ("fetch", "watch", "objectstore")
-    heavy = ("torch", "firebird_tpu_torch.ccd.kernel") if ingest \
+    own = argv[0] in ("fetch", "watch", "objectstore", "export", "pyramid",
+                      "serve")
+    heavy = ("torch", "firebird_tpu_torch.ccd.kernel") if own \
         else ("torch", "scipy", "firebird_tpu_torch.ccd.kernel")
-    if ingest:
+    if own:
         env = {"FIREBIRD_STORE_BACKEND": "sqlite",
                "FIREBIRD_STORE_PATH": str(tmp_path / "fb.db"),
                "FIREBIRD_SOURCE": "synthetic",
                "FIREBIRD_OBJECT_ROOT": str(tmp_path / "objects")}
         argv = [a.format(tmp=tmp_path) for a in argv]
-    r = subprocess.run(
-        [sys.executable, "-c",
-         "import sys; from firebird_tpu_torch import __main__ as m; "
-         "m.main(sys.argv[1:]); "
-         f"print('loaded', sorted(n for n in {heavy!r} "
-         "if n in sys.modules))"] + argv,
-        env=dict(_jax_env(env), PYTHONPATH=ROOT), capture_output=True,
-        text=True, timeout=120)
-    assert r.returncode in ((0,) if ingest else (0, 1)), r.stderr[-2000:]
-    assert r.stdout.strip().splitlines()[-1] == "loaded []"
+        cx, cy = grid.chips(grid.tile(*POINT))[0]
+        store = open_store("sqlite", env["FIREBIRD_STORE_PATH"],
+                           Config().keyspace())
+        store.write("segment", {
+            "cx": [cx], "cy": [cy], "px": [cx], "py": [cy],
+            "sday": ["2000-01-01"], "eday": ["2005-01-01"],
+            "bday": ["2005-01-01"], "chprob": [1.0], "curqa": [8]})
+        store.close()
+    cmd = [sys.executable, "-c",
+           "import sys; from firebird_tpu_torch import __main__ as m; "
+           "m.main(sys.argv[1:]); "
+           f"print('loaded', sorted(n for n in {heavy!r} "
+           "if n in sys.modules))"] + argv
+    penv = dict(_jax_env(env), PYTHONPATH=ROOT)
+    if argv[0] != "serve":
+        r = subprocess.run(cmd, env=penv, capture_output=True, text=True,
+                           timeout=120)
+        assert r.returncode in ((0,) if own else (0, 1)), r.stderr[-2000:]
+        assert r.stdout.strip().splitlines()[-1] == "loaded []"
+        return
+    import signal
+    import urllib.request
+
+    proc = subprocess.Popen(cmd, env=penv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert " on port " in line, proc.stderr.read()[-2000:]
+        port = int(line.split(" on port ")[1].split()[0])
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/v1/product/seglength?cx={cx}"
+                f"&cy={cy}&date=2003-01-01", timeout=60) as r:
+            assert r.status == 200 and sum(json.loads(r.read())["cells"])
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err[-2000:]
+    assert out.strip().splitlines()[-1] == "loaded []"

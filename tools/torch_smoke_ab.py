@@ -34,7 +34,7 @@ MARKERS = (("build", "build: "), ("kernels", "route '0' vs "),
            ("sentinel2", "sentinel2 route 'lasso"),
            ("driver", "driver: "), ("ops", "ops: "), ("fleet", "fleet: "),
            ("history", "history: "), ("classify", "classify: "),
-           ("stream", "stream on "), ("ingest", "ingest on "),
+           ("serve", "serve: "), ("stream", "stream on "), ("ingest", "ingest on "),
            ("f64", "f64 route: "), ("validate", "roofline, "),
            ("end", "chip_smoke: "))
 PHASE_RE = re.compile(r"phase ([0-9.]+) s")
