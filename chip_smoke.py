@@ -288,7 +288,36 @@ From the root of a checkout, on a machine with a CUDA card:
    card's compute apps do not rise while the replicas run.  Printed: the
    replicas' start-up, the coherence delays, req/s with p50/p99, each
    check's seconds and the phase's;
-19. every kernel instance's registers, stack and spills, and the total
+19. alert delivery and the canary (``alert_phase``, inside
+   ``ingest_phase``'s temporary directory after its check (e), over what
+   it left: the store and the alert log its watcher-fed stream jobs wrote
+   on the card, its queue, archive and in-process ``FleetWorker`` on
+   ``cuda:0``).  One ``python -m firebird_tpu_torch serve --port 0``
+   replica runs as a subprocess over that store with a 0.5 s fanout
+   rollup poll (FIREBIRD_FANOUT_POLL).  (a) ``/v1/alerts?since=0`` paged
+   to the end equals ``AlertLog.since`` over the whole log, record for
+   record, and one ``bbox`` + ``t0``/``t1`` query equals the brute-force
+   filter of the same rows.  (b) Three local sinks register through
+   ``POST /v1/alerts/webhooks`` (``all``: no AOI, immediate; ``aoi``: the
+   upper half of the stepped chip, batch; ``far``: an AOI 600 km east,
+   digest); the replica's coordinator enqueues ``fanout`` jobs and the
+   worker drains them, launching nothing; each sink's distinct record ids
+   equal the records its AOI contains (``far`` none), the duplicate POSTs
+   are printed, ``status`` shows lag 0 and no open fanout job, and a
+   second rollup enqueues nothing.  (c) ``python -m firebird_tpu_torch
+   probe`` runs as a subprocess over the replica and the archive for one
+   probe chip (the tile's third), while this process polls an
+   ``AcquisitionWatcher`` covering it and drains the worker, until an
+   alert probe and a webhook probe resolve and the ``all`` sink holds the
+   probe chip's alerts: the prober's spool then shows no failure,
+   attempts on the serve, alert and webhook surfaces, a 304 and a latency
+   sample each for the alert and webhook probes; the probe chip's jobs
+   launch route 0's three kernels and nothing else; its 10 000 alerts are
+   in the log and on the ``all`` sink.  (d) The card's compute apps do
+   not rise while the replica and the prober run.  Printed: the records,
+   the sinks' distinct and duplicate records, the prober's counters and
+   latencies, each step's seconds and the phase's;
+20. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -3929,7 +3958,8 @@ def _command(argv, env):
 
 
 def ingest_phase(smi, chips, dev):
-    """Stream ingest on the card (the module docstring's item 14)."""
+    """Stream ingest on the card (the module docstring's item 14), then
+    ``alert_phase`` (item 19) over what it left; the two reports."""
     from firebird_tpu_torch.alerts import alert_db_path
     from firebird_tpu_torch.driver import fetch as dfetch
     from firebird_tpu_torch.driver import stream as sdrv
@@ -4072,7 +4102,6 @@ def ingest_phase(smi, chips, dev):
                   f"{sorted(ROUTE_0)} from the bootstraps alone")
             check(seen and set(seen) == {"cuda"},
                   f"the update stepped state on {sorted(set(seen))}")
-            queue.close()
             secs["b"] = time.perf_counter() - t1
             # (c) The fleet leg against the serial leg.
             t1 = time.perf_counter()
@@ -4159,28 +4188,414 @@ def ingest_phase(smi, chips, dev):
                   f"freshness: {fresh['count']} observations, "
                   f"alert_freshness {af}")
             secs["e"] = time.perf_counter() - t1
-    out = dict(chips=len(cids), scenes=2, jobs=dict(counts), rows=n_rows,
-               launches=l2, alerts=len(fleet_alerts),
-               step_chip_alerts=step_alerts, serial=serial,
-               serial_stages=serial_stages,
-               census=census, scrub=scrub,
-               acquisition_to_alert=fresh, alert_freshness=af,
-               seconds=secs, phase_seconds=time.perf_counter() - t_phase)
-    print(f"ingest on {smi}: {len(cids)} chips fetched to {STREAM_BOOT}, "
-          f"scene {dt.to_iso(boot_last)} -> {s1['jobs']} jobs (the second "
-          f"watcher {s2['jobs']}), 2016-2017 landed, scene "
-          f"{dt.to_iso(full_last)} -> {s3['jobs']} jobs; drained on "
-          f"{dev}: {counts}, launches {l2}; {len(fleet_alerts)} alerts "
-          f"({step_alerts} on the stepped chip) = the serial leg's, "
-          f"checkpoints and rows equal; {n_objects} objects, census "
-          f"{census['keys']} keys {census['chunks']} chunks, scrub removed "
-          f"{scrub['removed']}; acquisition_to_alert_seconds n="
-          f"{fresh['count']} p95={fresh.get('p95')}, alert_freshness ok "
-          f"{af.get('ok')}; seconds "
+            out = dict(chips=len(cids), scenes=2, jobs=dict(counts),
+                       rows=n_rows, launches=l2, alerts=len(fleet_alerts),
+                       step_chip_alerts=step_alerts, serial=serial,
+                       serial_stages=serial_stages, census=census,
+                       scrub=scrub, acquisition_to_alert=fresh,
+                       alert_freshness=af, seconds=secs,
+                       phase_seconds=time.perf_counter() - t_phase)
+            print(f"ingest on {smi}: {len(cids)} chips fetched to "
+                  f"{STREAM_BOOT}, scene {dt.to_iso(boot_last)} -> "
+                  f"{s1['jobs']} jobs (the second watcher {s2['jobs']}), "
+                  f"2016-2017 landed, scene {dt.to_iso(full_last)} -> "
+                  f"{s3['jobs']} jobs; drained on {dev}: {counts}, launches "
+                  f"{l2}; {len(fleet_alerts)} alerts ({step_alerts} on the "
+                  f"stepped chip) = the serial leg's, checkpoints and rows "
+                  f"equal; {n_objects} objects, census {census['keys']} keys "
+                  f"{census['chunks']} chunks, scrub removed "
+                  f"{scrub['removed']}; acquisition_to_alert_seconds n="
+                  f"{fresh['count']} p95={fresh.get('p95')}, alert_freshness "
+                  f"ok {af.get('ok')}; seconds "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+                  + "; the serial leg's stages (s) "
+                  + " / ".join(", ".join(f"{k} {v:.2f}"
+                                         for k, v in st.items() if v)
+                               for st in serial_stages)
+                  + f"; phase {out['phase_seconds']:.1f} s", flush=True)
+            # The alert feed, the fanout plane and the canary over what
+            # this phase left: its store and alert log, queue, archive and
+            # worker on the card.
+            try:
+                alert = alert_phase(smi, cfg, queue, worker, archive, tmp,
+                                    env)
+            finally:
+                queue.close()
+    return out, alert
+
+
+
+ALERT_POLL_S = 0.5          # the replica's rollup and changefeed polls
+ALERT_PROBE_TIMEOUT = 30.0  # the prober's per-request timeout
+ALERT_PROBE_WAIT = 90.0     # the longest the canary may take to resolve
+ALERT_DATE = "2010-01-01"   # the prober's pixel and pyramid date
+
+
+class _Sink:
+    """A local webhook receiver: every POST's record ids, in order."""
+
+    def __init__(self):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.posts: list = []
+        self.lock = threading.Lock()
+        sink = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(
+                    int(self.headers.get("Content-Length") or 0))
+                doc = json.loads(body)
+                with sink.lock:
+                    sink.posts.append([(int(r["id"]), int(r["cx"]),
+                                        int(r["cy"]))
+                                       for r in doc.get("alerts", ())])
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+        self.url = f"http://127.0.0.1:{self.srv.server_address[1]}/hook"
+
+    def ids(self):
+        """(distinct record ids, records received, POSTs)."""
+        with self.lock:
+            recs = [r for post in self.posts for r in post]
+            return {r[0] for r in recs}, len(recs), len(self.posts)
+
+    def chip_ids(self, cid):
+        with self.lock:
+            return {r[0] for post in self.posts for r in post
+                    if (r[1], r[2]) == tuple(cid)}
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
+
+
+def _prober_metrics(directory):
+    """The last metric snapshot of the prober's spool (counters and
+    histograms), or empty ones before its first."""
+    from firebird_tpu_torch.obs import collect as obs_collect
+
+    snaps = [ev for ev in obs_collect.read_events(str(directory))
+             if ev.get("kind") == "snap" and ev.get("role") == "prober"]
+    if not snaps:
+        return {}, {}
+    m = max(snaps, key=lambda ev: ev["t"])["metrics"]
+    return m.get("counters", {}), m.get("histograms", {})
+
+
+def _log_after(alog, cursor):
+    """Every record of the alert log past ``cursor``, paged."""
+    out = []
+    while True:
+        page = alog.since(out[-1]["id"] if out else cursor, limit=10_000)
+        if not page:
+            return out
+        out += page
+
+
+def _mean(hist):
+    return hist.get("sum", 0.0) / max(hist.get("count", 0), 1)
+
+
+def alert_phase(smi, cfg, queue, worker, archive, tmp, env):
+    """Alert delivery and the canary over ``ingest_phase``'s home (the
+    module docstring's item 19).  Returns the report."""
+    import collections
+    import signal
+    import threading
+    import urllib.request
+
+    from firebird_tpu_torch.alerts import AlertLog, alert_db_path, rollup
+    from firebird_tpu_torch.alerts import subindex
+    from firebird_tpu_torch.serve import pyramid as pyrlib
+    from firebird_tpu_torch.streamops import AcquisitionWatcher
+
+    t_phase = time.perf_counter()
+    secs = {}
+    home = Path(tmp)
+    apath = alert_db_path(cfg)
+    alog = AlertLog(apath)
+    latest0 = alog.latest_cursor()
+    logged = _log_after(alog, 0)
+    check(len(logged) == alog.count() == latest0 > 0,
+          f"alert: the log holds {alog.count()} records, paged "
+          f"{len(logged)}, latest {latest0}")
+    proot = home / "pyramid"
+    # The replica reads the store's sqlite file, not the object mirror.
+    senv = {k: v for k, v in os.environ.items()
+            if k != "FIREBIRD_OBJECT_ROOT"}
+    senv.update(FIREBIRD_STORE_BACKEND="sqlite",
+                FIREBIRD_STORE_PATH=cfg.store_path, FIREBIRD_ALERT_DB=apath,
+                FIREBIRD_FLEET_DB=queue.path,
+                FIREBIRD_SERVE_PYRAMID_DIR=str(proot),
+                FIREBIRD_FANOUT_POLL=str(ALERT_POLL_S),
+                FIREBIRD_SERVE_FEED_POLL=str(ALERT_POLL_S),
+                FIREBIRD_TELEMETRY_DIR=str(home / "serve_spool"))
+    penv = dict(senv, FIREBIRD_TELEMETRY_DIR=str(home / "probe_spool"))
+    apps0 = len(_gpu_apps())
+    apps_most, done = [apps0], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            apps_most[0] = max(apps_most[0], len(_gpu_apps()))
+            time.sleep(0.25)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    procs, sinks = [], {}
+    t0 = time.perf_counter()
+    slog = open(home / "alert_serve.log", "w")
+    procs.append((subprocess.Popen(
+        [sys.executable, "-m", "firebird_tpu_torch", "serve", "--port", "0",
+         "--host", "127.0.0.1"], env=senv, stdout=slog,
+        stderr=subprocess.STDOUT, text=True), slog))
+    try:
+        while True:
+            m = re.search(r" on port (\d+) ",
+                          (home / "alert_serve.log").read_text())
+            if m:
+                base = f"http://127.0.0.1:{m.group(1)}"
+                break
+            check(procs[0][0].poll() is None
+                  and time.perf_counter() - t0 < 60,
+                  "alert: the replica did not come up: "
+                  + (home / "alert_serve.log").read_text()[-3000:])
+            time.sleep(0.02)
+        secs["startup"] = time.perf_counter() - t0
+
+        # (a) /v1/alerts paged to the end = AlertLog.since over the whole
+        # log; one bbox + t0/t1 query = the brute-force filter.
+        t1 = time.perf_counter()
+        pulled, cursor, pages = [], 0, 0
+        while True:
+            code, body, _ = _http(base, f"/v1/alerts?since={cursor}"
+                                        "&limit=10000")
+            doc = json.loads(body)
+            check(code == 200, f"alert: /v1/alerts answered {code}")
+            pages += 1
+            pulled += doc["alerts"]
+            if doc["cursor"] == cursor:
+                break
+            cursor = doc["cursor"]
+        check(pulled == logged and doc["latest"] == latest0,
+              f"alert: /v1/alerts paged {len(pulled)} records over {pages} "
+              f"pages, the log {len(logged)}")
+        # The chip with the most alerts (the stepped one); a box over its
+        # upper half, and the earlier half of the break days.
+        step = collections.Counter(
+            (r["cx"], r["cy"]) for r in logged).most_common(1)[0][0]
+        half = (step[0] + 1.0, step[1] - 1499.0, step[0] + 2999.0,
+                step[1] - 1.0)
+        days = sorted(r["break_day"] for r in logged)
+        t0q, t1q = (dt.to_iso(int(d)) for d in (days[0],
+                                                 days[len(days) // 2]))
+        lo, hi = dt.to_ordinal(t0q), dt.to_ordinal(t1q)
+        code, body, _ = _http(
+            base, "/v1/alerts?since=0&limit=10000&bbox="
+                  + ",".join(str(v) for v in half) + f"&t0={t0q}&t1={t1q}")
+        got_q = [r["id"] for r in json.loads(body)["alerts"]]
+        want_q = [r["id"] for r in logged
+                  if subindex.aoi_contains(half, r["px"], r["py"])
+                  and lo <= r["break_day"] <= hi]
+        check(code == 200 and got_q == want_q and want_q,
+              f"alert: the bbox/t0/t1 query gave {len(got_q)} records, the "
+              f"brute-force filter {len(want_q)}")
+        secs["a"] = time.perf_counter() - t1
+
+        # (b) Three sinks registered through the endpoint; the
+        # coordinator's fanout jobs drained by this process's worker.
+        t1 = time.perf_counter()
+        far = (half[0] + 600_000.0, half[1], half[2] + 600_000.0, half[3])
+        regs = {"all": "", "aoi": "&bbox=" + ",".join(map(str, half))
+                + "&mode=batch&max_n=400",
+                "far": "&bbox=" + ",".join(map(str, far))
+                + "&mode=digest&window=60"}
+        for name, extra in regs.items():
+            sinks[name] = _Sink()
+            req = urllib.request.Request(
+                f"{base}/v1/alerts/webhooks?url={sinks[name].url}"
+                f"&since={latest0}{extra}", data=b"", method="POST")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                check(r.status == 200, f"alert: registering {name}")
+        while alog.rollup_cursor() < latest0:
+            check(time.perf_counter() - t1 < 30,
+                  f"alert: rollup at {alog.rollup_cursor()} of {latest0}")
+            time.sleep(0.05)
+        cuda_ops.reset_launches()
+        fan = worker.run(until_drained=True)["acked"]
+        torch.cuda.synchronize()
+        fan_launches = {k: n for k, n in cuda_ops.LAUNCHES.items() if n}
+        want = {"all": {r["id"] for r in logged},
+                "aoi": {r["id"] for r in logged
+                        if subindex.aoi_contains(half, r["px"], r["py"])},
+                "far": set()}
+        delivered = {}
+        for name, sink in sinks.items():
+            ids, n_recs, n_posts = sink.ids()
+            delivered[name] = dict(distinct=len(ids), records=n_recs,
+                                   posts=n_posts,
+                                   duplicates=n_recs - len(ids))
+            check(ids == want[name],
+                  f"alert: sink {name} holds {len(ids)} distinct records "
+                  f"of {len(want[name])} its AOI contains")
+        check(not fan_launches,
+              f"alert: the fanout drain launched {fan_launches}")
+        code, out = _command(["status"], env)
+        ablock = json.loads(out).get("alerts", {})
+        lags = [s["lag"] for s in ablock.get("subscribers", ())]
+        check(code == 0 and lags == [0, 0, 0]
+              and ablock.get("fanout", {}).get("open_jobs") == 0,
+              f"alert: status's alerts block: lags {lags}, fanout "
+              f"{ablock.get('fanout')}")
+        again = rollup(alog, queue, cfg)
+        check(again == [], f"alert: a second rollup enqueued {again}")
+        secs["b"] = time.perf_counter() - t1
+
+        # (c) The canary over one probe chip, the tile's chip
+        # INGEST_CHIPS: its scenes drive the watcher, the bootstrap and
+        # stream jobs on the card, the alert log, SSE and the webhooks.
+        t1 = time.perf_counter()
+        (probe_cid,) = [tuple(int(v) for v in c) for c in grid.chips(
+            grid.tile(*DRIVER_POINT))[INGEST_CHIPS:INGEST_CHIPS + 1]]
+        w = AcquisitionWatcher(cfg, *DRIVER_POINT, number=INGEST_CHIPS + 1,
+                               acquired_start=START, queue=queue)
+        # The root tile the prober revalidates (/v1/pyramid/ccd/0/0/0), as
+        # a CONUS-wide ``pyramid build`` persists it (this one holds no
+        # data), once the replica's changefeed has replayed the log: each
+        # alert stale-stamps its chip's ancestors, the root among them, so
+        # the probe chip's alerts will stale it again.
+        t2 = time.perf_counter()
+        while _prom_value(_http(base, "/metrics")[1].decode(),
+                          "changefeed_records_applied") < latest0:
+            check(time.perf_counter() - t2 < 30,
+                  "alert: the replica's changefeed did not replay the log")
+            time.sleep(0.05)
+        pyrlib.TilePyramid(str(proot))._persist(
+            "ccd", ALERT_DATE, 0, 0, 0,
+            np.full((pyrlib.TILE_SIDE, pyrlib.TILE_SIDE), pyrlib.FILL_VALUE,
+                    np.int32))
+        root_tile = f"/v1/pyramid/ccd/0/0/0?date={ALERT_DATE}"
+        check(_http(base, root_tile)[0] == 200,
+              "alert: the replica does not serve the persisted root tile")
+        plog = open(home / "alert_probe.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "firebird_tpu_torch", "probe",
+             "--serve-url", base, "--landing", archive, "-x",
+             str(DRIVER_POINT[0]), "-y", str(DRIVER_POINT[1]),
+             "--chip-offset", str(INGEST_CHIPS), "--chips", "1", "-i", "1",
+             "--timeout", str(int(ALERT_PROBE_TIMEOUT))], env=penv,
+            stdout=plog, stderr=subprocess.STDOUT, text=True), plog))
+        cuda_ops.reset_launches()
+        drains = 0
+        while True:
+            w.poll_once()
+            drains += worker.run(until_drained=True)["acked"]
+            counters, _ = _prober_metrics(home / "probe_spool")
+            probe_ids = {r["id"] for r in _log_after(alog, latest0)
+                         if (r["cx"], r["cy"]) == probe_cid}
+            if counters.get("probe_attempts_alert", 0) >= 1 \
+                    and counters.get("probe_attempts_webhook", 0) >= 1 \
+                    and probe_ids \
+                    and sinks["all"].chip_ids(probe_cid) == probe_ids:
+                break
+            check(procs[1][0].poll() is None
+                  and time.perf_counter() - t1 < ALERT_PROBE_WAIT,
+                  f"alert: the canary did not resolve: {counters}; "
+                  + (home / "alert_probe.log").read_text()[-2000:])
+            time.sleep(0.2)
+        torch.cuda.synchronize()
+        probe_launches = {k: n for k, n in cuda_ops.LAUNCHES.items() if n}
+        procs[1][0].send_signal(signal.SIGTERM)
+        check(procs[1][0].wait(timeout=60) == 0,
+              "alert: the prober exited "
+              + (home / "alert_probe.log").read_text()[-2000:])
+        w.close()
+        counters, hists = _prober_metrics(home / "probe_spool")
+        probe_alerts = [r for r in _log_after(alog, latest0)
+                        if (r["cx"], r["cy"]) == probe_cid]
+        check(set(probe_launches) == ROUTE_0,
+              f"alert: the probe chip's jobs launched {probe_launches}, "
+              f"expected {sorted(ROUTE_0)}")
+        check(counters.get("probe_failures", 0) == 0
+              and all(counters.get(f"probe_attempts_{k}", 0) > 0
+                      for k in ("serve", "alert", "webhook"))
+              and counters.get("probe_etag_304", 0) >= 1,
+              f"alert: the prober's counters {counters}")
+        lat = {k: hists.get(f"probe_{k}_seconds", {})
+               for k in ("serve", "alert", "webhook")}
+        check(all(lat[k].get("count", 0) >= 1 for k in ("alert", "webhook")),
+              f"alert: the prober's latencies {lat}")
+        n_chip = 100 * 100
+        check(len(probe_alerts) == n_chip
+              and sinks["all"].chip_ids(probe_cid)
+              == {r["id"] for r in probe_alerts},
+              f"alert: the probe chip raised {len(probe_alerts)} alerts, "
+              f"{len(sinks['all'].chip_ids(probe_cid))} on the all sink")
+        secs["c"] = time.perf_counter() - t1
+    finally:
+        done.set()
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+        codes = []
+        for proc, log in procs:
+            try:
+                codes.append(proc.wait(timeout=60))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                codes.append(proc.wait())
+            log.close()
+        for sink in sinks.values():
+            sink.close()
+        alog.close()
+    sampler.join()
+    # (d) Neither the replica nor the prober opened a CUDA context.
+    check(codes == [0, 0], f"alert: the replica and the prober exited "
+          f"{codes}")
+    check(apps_most[0] <= apps0,
+          f"alert: the card's compute apps rose from {apps0} to "
+          f"{apps_most[0]} while the replica and the prober ran")
+    for name, sink in sinks.items():
+        ids, n_recs, n_posts = sink.ids()
+        delivered[name] = dict(delivered[name], final_distinct=len(ids),
+                               final_records=n_recs, final_posts=n_posts,
+                               final_duplicates=n_recs - len(ids))
+    out = dict(records=len(logged), pages=pages, query=len(want_q),
+               delivered=delivered, fanout_drain=fan,
+               probe_chip=list(probe_cid), probe_alerts=len(probe_alerts),
+               probe_counters=counters,
+               probe_seconds={k: {q: v.get(q) for q in
+                                  ("count", "sum", "p50", "max")}
+                              for k, v in lat.items()},
+               launches=probe_launches, jobs_acked=drains,
+               compute_apps=[apps0, apps_most[0]], seconds=secs,
+               phase_seconds=time.perf_counter() - t_phase)
+    print(f"alert on {smi}: /v1/alerts {len(pulled)} records in {pages} "
+          f"pages = the log, the bbox/t0/t1 query {len(want_q)}; sinks "
+          + ", ".join(f"{k} {v['distinct']} distinct ({v['duplicates']} "
+                      f"duplicate records in {v['posts']} POSTs)"
+                      for k, v in delivered.items())
+          + f", 0 open fanout jobs, no launch; canary: probe chip "
+          f"{probe_cid} {len(probe_alerts)} alerts, launches "
+          f"{probe_launches}, attempts serve "
+          f"{counters.get('probe_attempts_serve')} alert "
+          f"{counters.get('probe_attempts_alert')} webhook "
+          f"{counters.get('probe_attempts_webhook')}, failures "
+          f"{counters.get('probe_failures', 0)}, 304s "
+          f"{counters.get('probe_etag_304')}, seconds "
+          + ", ".join(f"{k} mean {_mean(lat[k]):.3f} (n="
+                      f"{lat[k].get('count', 0)})" for k in lat)
+          + f"; all sink at the end: {delivered['all']['final_distinct']} "
+          f"distinct of {delivered['all']['final_records']} records; "
+          f"compute apps {apps0} -> {apps_most[0]}; seconds "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
-          + "; the serial leg's stages (s) "
-          + " / ".join(", ".join(f"{k} {v:.2f}" for k, v in st.items() if v)
-                       for st in serial_stages)
           + f"; phase {out['phase_seconds']:.1f} s", flush=True)
     return out
 
@@ -4448,7 +4863,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     strm = stream_phase(smi, chips, dev)
     torch.cuda.empty_cache()
-    ingest = ingest_phase(smi, chips, dev)
+    ingest, alert = ingest_phase(smi, chips, dev)
     del chips
     torch.cuda.empty_cache()
     # One pool of spawned processes for the reference replays: each
@@ -4470,7 +4885,7 @@ def main(argv=None):
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
         sentinel2=s2, driver=drv, ops=ops, fleet=fleet, history=history,
-        classify=rf, serve=serve, stream=strm, ingest=ingest,
+        classify=rf, serve=serve, stream=strm, ingest=ingest, alert=alert,
         f64=f64, validate=audit,
         ptxas_instances=instances,
         ptxas=ptxas,

@@ -46,6 +46,9 @@
     python -m firebird_tpu_torch pyramid build -b X,Y [-b X,Y ...] \
         -p NAME [-p ...] -d DATE [-d ...] [-l LEVELS] [--refresh] \
         [--no-compute] [--enqueue]
+    python -m firebird_tpu_torch probe [--serve-url URL] [--landing DIR \
+        -x X -y Y] [--chip-offset N] [--chips N] [-i INTERVAL] \
+        [--timeout S] [-n CYCLES] [--pyramid-product NAME]
 
 ``changedetection`` is the JAX package's command of that name: the tile
 at the point (x, y), its first ``NUMBER`` chips in chunks of
@@ -187,11 +190,27 @@ SIGINT/SIGTERM: a cold product computes once per key (single-flight) and
 persists; answers carry strong ETags; a changefeed consumer tails the
 alert log and the product_writes feed (``changefeed.db`` next to the
 store, or FIREBIRD_CHANGEFEED_DB) so N replicas and a live writer stay
-coherent.  The change-alert feed is not ported: ``/v1/alerts``,
-``/v1/alerts/stream`` and ``/v1/alerts/webhooks`` answer 404 naming
-``alerts/feed.py``.  ``pyramid build`` materializes the quadkey tiles
-over the bounds area, base upward, and prints the per-level summary;
-with ``--enqueue`` it enqueues a fleet ``pyramid`` job instead.
+coherent.  Where the store has an alert log (``alerts.db`` next to the
+store, or FIREBIRD_ALERT_DB), ``serve`` mounts the change-alert feed:
+``/v1/alerts`` (cursor pull), ``/v1/alerts/stream`` (SSE push) and
+``/v1/alerts/webhooks`` (registration, listing), with the flat webhook
+deliverer on a background thread and, when FIREBIRD_FANOUT is on, the
+fanout coordinator enqueueing one ``fanout`` fleet job per quadkey shard
+(a ``fleet work`` process drains them); an unavailable log or queue
+degrades with a warning.  ``pyramid build`` materializes the quadkey
+tiles over the bounds area, base upward, and prints the per-level
+summary; with ``--enqueue`` it enqueues a fleet ``pyramid`` job instead.
+
+``probe`` is the JAX package's black-box canary (obs/prober.py), on the
+host only: every ``-i`` seconds (FIREBIRD_PROBE_SEC) it GETs the serve
+replica's ``/v1/pixel`` and ``/v1/pyramid`` with ETag revalidation and,
+with ``--landing`` and ``-x/-y``, drives synthetic scenes for the probe
+chips (``--chip-offset``, ``--chips`` of the watched tile's chip list)
+through the landing zone, the watcher, the fleet's jobs on the card and
+the alert log to the SSE stream and a local webhook sink; it spools its
+``probe_*`` metrics under role ``prober`` and prints its status when it
+stops (after ``-n`` cycles, or on SIGINT/SIGTERM).  A bad combination of
+options exits 2.
 """
 
 from __future__ import annotations
@@ -1170,13 +1189,13 @@ def export_cmd(args) -> None:
 
 def serve(args) -> None:
     """The query API over the configured results store, with the quadkey
-    pyramid and the changefeed consumer, until SIGINT/SIGTERM."""
-    import os
+    pyramid, the changefeed consumer, the alert feed and its webhook
+    deliverer, and the fanout coordinator, until SIGINT/SIGTERM."""
     import signal
     import sys
     import threading
 
-    from firebird_tpu_torch.alerts import AlertLog, alert_db_path
+    from firebird_tpu_torch.alerts import AlertFeed, AlertLog, alert_db_path
     from firebird_tpu_torch.config import Config
     from firebird_tpu_torch.obs import spool as obs_spool
     from firebird_tpu_torch.serve import api as serve_api
@@ -1198,25 +1217,40 @@ def serve(args) -> None:
         bind_port = cfg.serve_port
     store = open_store(cfg.store_backend, cfg.store_path, cfg.keyspace(),
                        read_only=args.read_only)
-    # The changefeed consumer tails the alert log next to the store (as
-    # the JAX command opens it, creating it where a stream writer will
-    # append); the feed that would serve it over /v1/alerts is not ported.
+    # Mount the alert feed where this store has an alert log behind it:
+    # /v1/alerts endpoints + background webhook delivery.  An unavailable
+    # or corrupt log degrades to a serve layer without alerts, not a dead
+    # server.
+    feed = None
     alog = None
     if cfg.alerts_enabled:
         apath = alert_db_path(cfg)
         if apath is not None:
-            existed = os.path.exists(apath)
             try:
                 alog = AlertLog(apath)
+                feed = AlertFeed(alog, cfg)
+                feed.deliverer.start()
             except Exception as e:
                 print(f"WARNING: alert log {apath} unavailable "
-                      f"({type(e).__name__}: {e}); the changefeed does not "
-                      "tail it", file=sys.stderr)
-            else:
-                if existed:
-                    print(f"WARNING: {serve_api.ALERTS_NOT_PORTED}: "
-                          "/v1/alerts answers 404; the changefeed still "
-                          f"tails {apath}", file=sys.stderr)
+                      f"({type(e).__name__}: {e}); serving without "
+                      "/v1/alerts", file=sys.stderr)
+                feed = alog = None
+    # The fanout rollup coordinator: poll the alert log, enqueue
+    # per-shard ``fanout`` fleet jobs that delivery workers drain.  Without
+    # a fleet queue (or with FIREBIRD_FANOUT=0) the serve layer degrades to
+    # the flat in-process deliverer only.
+    coordinator = None
+    if alog is not None and cfg.fanout_enabled:
+        try:
+            from firebird_tpu_torch.alerts.fanout import FanoutCoordinator
+            from firebird_tpu_torch.fleet.worker import make_queue
+
+            coordinator = FanoutCoordinator(
+                alog, make_queue(cfg), cfg).start()
+        except Exception as e:
+            print(f"WARNING: fanout rollup unavailable "
+                  f"({type(e).__name__}: {e}); webhook delivery runs "
+                  "unsharded", file=sys.stderr)
     proot = pyrlib.pyramid_root(cfg)
     pyr = pyrlib.TilePyramid(
         proot, storage=pyrlib.pyramid_storage(cfg, proot)) \
@@ -1224,7 +1258,7 @@ def serve(args) -> None:
     consumer = None
     service = serve_api.ServeService(
         store, cfg, compute_on_miss=not args.no_compute
-        and not args.read_only, pyramid=pyr)
+        and not args.read_only, alerts=feed, pyramid=pyr)
     try:
         fpath = cflib.changefeed_db_path(cfg)
         wfeed = cflib.ProductWrites(fpath) if fpath else None
@@ -1251,10 +1285,13 @@ def serve(args) -> None:
     finally:
         obs_spool.disarm()
         srv.close()
+        if coordinator is not None:
+            coordinator.stop()
+            coordinator.queue.close()
         if consumer is not None:
             consumer.stop()
-        if alog is not None:
-            alog.close()
+        if feed is not None:
+            feed.close()
         store.close()
 
 
@@ -1310,9 +1347,39 @@ def pyramid_build(args) -> None:
     print(json.dumps({"root": root, **summary}, indent=1))
 
 
+def probe(args) -> None:
+    """The black-box canary over a serve replica and a landing zone until
+    ``-n`` cycles or SIGINT/SIGTERM; prints the prober's status as JSON.
+    Host only (obs/prober.py)."""
+    import signal
+    import threading
+
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.obs import prober as obs_prober
+
+    cfg = Config.from_env()
+    try:
+        p = obs_prober.CanaryProber(
+            cfg, serve_url=args.serve_url, landing=args.landing, x=args.x,
+            y=args.y, chip_offset=args.chip_offset, chips=args.chips,
+            interval=args.interval, timeout=args.timeout,
+            pyramid_product=args.pyramid_product)
+    except ValueError as e:
+        raise _UsageError(str(e)) from e
+    stop = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: stop.set())
+    p.arm()
+    try:
+        p.run(stop=stop, cycles=args.cycles or None)
+    finally:
+        p.close()
+        print(json.dumps(p.status()), flush=True)
+
+
 def _serve_parsers(sub) -> None:
-    """``export``, ``serve`` and the ``pyramid`` group (the JAX command
-    line's options)."""
+    """``export``, ``serve``, the ``pyramid`` group and ``probe`` (the JAX
+    command line's options)."""
     x = sub.add_parser("export", help="export stored product rasters as "
                        "georeferenced files")
     x.add_argument("-b", "--bounds", action="append", required=True,
@@ -1374,9 +1441,41 @@ def _serve_parsers(sub) -> None:
     b.add_argument("--enqueue", action="store_true",
                    help="enqueue a fleet `pyramid` job instead of building "
                         "inline")
+    pr = sub.add_parser("probe", help="black-box canary prober over a serve "
+                        "replica and a landing zone")
+    pr.add_argument("--serve-url", default=None,
+                    help="serve base URL to probe from outside "
+                         "(e.g. http://127.0.0.1:8080)")
+    pr.add_argument("--landing", default=None,
+                    help="FileSource landing zone directory: arms the "
+                         "end-to-end alert probe (synthetic scenes through "
+                         "the real watcher/fleet/alert path)")
+    pr.add_argument("-x", "--x", type=float, default=None,
+                    help="watched tile x (required with --landing)")
+    pr.add_argument("-y", "--y", type=float, default=None,
+                    help="watched tile y (required with --landing)")
+    pr.add_argument("--chip-offset", type=int, default=8,
+                    help="first probe chip's index in the tile chip list: "
+                         "reserve probe chips inside the watcher's -n "
+                         "window but past the production chips")
+    pr.add_argument("--chips", type=int, default=24,
+                    help="probe-chip reserve (each end-to-end alert probe "
+                         "consumes one; the prober stops attempting when "
+                         "spent)")
+    pr.add_argument("-i", "--interval", type=float, default=None,
+                    help="seconds between probe cycles (default "
+                         "FIREBIRD_PROBE_SEC)")
+    pr.add_argument("--timeout", type=float, default=None,
+                    help="per-request timeout seconds (default "
+                         "FIREBIRD_PROBE_TIMEOUT)")
+    pr.add_argument("-n", "--cycles", type=int, default=0,
+                    help="probe cycles before exiting (0 = until "
+                         "SIGTERM/ctrl-c)")
+    pr.add_argument("--pyramid-product", default="ccd",
+                    help="product name for the pyramid tile probe")
 
 
-SERVE = dict(export=export_cmd, serve=serve)
+SERVE = dict(export=export_cmd, serve=serve, probe=probe)
 
 
 def _ingest_parsers(sub) -> None:

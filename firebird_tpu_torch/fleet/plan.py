@@ -9,8 +9,8 @@ cross-stage scheduling, not phase barriers across the fleet), and
 optional ``product`` jobs blocked on the classify (or directly on
 detection when no classification is requested); ``fleet enqueue`` is
 the command-line face.  :func:`enqueue_repairs` schedules the stream's
-cold-path repair jobs.  The alert fanout's plan (``enqueue_fanout``)
-waits for the alert fanout's port.
+cold-path repair jobs and :func:`enqueue_fanout` the alert fanout's
+per-shard delivery jobs.
 """
 
 from __future__ import annotations
@@ -124,3 +124,46 @@ def enqueue_repairs(queue: FleetQueue, chips: dict, *, acquired: str,
                  "an open (pending/leased) repair job").inc(skipped)
     return ids
 
+
+def enqueue_fanout(queue: FleetQueue, shards, *, max_attempts: int = 3,
+                   run_id: str | None = None,
+                   rolled_at: float | None = None) -> list[int]:
+    """Enqueue one ``fanout`` job per rollup shard ({shard, since,
+    upto, count} dicts from AlertLog.shards_since) whose OPEN fanout
+    job does
+    not already cover ``upto`` — the repair-plan idempotence rule,
+    shard-keyed: the rollup poll re-reporting the same alerts (its
+    watermark advances only after enqueue) cannot flood the queue, and
+    an uncovered duplicate is harmless anyway because delivery drains
+    forward-only per-subscriber cursors.  Returns the NEW job ids."""
+    open_by_shard: dict[str, int] = {}
+    for _, payload in queue.open_payloads("fanout"):
+        s = payload.get("shard")
+        if s is not None:
+            open_by_shard[s] = max(open_by_shard.get(s, 0),
+                                   int(payload.get("upto", 0)))
+    ids: list[int] = []
+    skipped = 0
+    for sh in sorted(shards, key=lambda s: s["shard"]):
+        if open_by_shard.get(sh["shard"], -1) >= int(sh["upto"]):
+            skipped += 1
+            continue
+        ids.append(queue.enqueue(
+            "fanout",
+            {"shard": sh["shard"], "upto": int(sh["upto"]),
+             "since": int(sh.get("since", 0)),
+             "count": int(sh.get("count", 0)),
+             "rolled_at": float(rolled_at) if rolled_at is not None
+             else None, "run_id": run_id},
+            max_attempts=max_attempts))
+    if ids:
+        obs_metrics.counter(
+            "fanout_jobs_enqueued",
+            help="fanout delivery jobs enqueued on the fleet queue "
+                 "(one per quadkey shard with new alerts)").inc(len(ids))
+    if skipped:
+        obs_metrics.counter(
+            "fanout_jobs_skipped_open",
+            help="fanout enqueues skipped because an open job already "
+                 "covers the shard's rollup watermark").inc(skipped)
+    return ids

@@ -18,8 +18,9 @@ on that device:
   fleet/plan.py's dependency edges sequencing them per tile.
 - **pyramid** jobs build the serving pyramid's tiles over their bounds
   (serve/pyramid.py ``build_area``) on the host, from the rows the card
-  wrote; **fanout** jobs fail with an error naming what is not ported
-  (the alert fanout).
+  wrote; **fanout** jobs drain one quadkey shard's alert delivery
+  (alerts/fanout.py) on the host: the process holds its card, the
+  handler never touches it.
 - Re-delivery fast path: a detect job claims chips already stored and
   skips them (the ``--resume`` presence rule at job granularity), so a
   re-delivered job pays only for the work its dead predecessor did not
@@ -552,13 +553,41 @@ class FleetWorker:
             raw.close()
 
     def _run_fanout(self, payload: dict, lease: Lease) -> None:
-        """Drain one alert-fanout shard: the JAX package's fanout
-        deliverer (alerts/fanout.py) is not ported, so the job fails
-        (and dead-letters after its attempts) instead of acking
-        undelivered."""
-        raise NotImplementedError(
-            "fanout jobs need the alert fanout (alerts/fanout.py), which "
-            "firebird_tpu_torch does not port yet")
+        """Drain one quadkey shard's alert fanout (alerts/fanout.py):
+        the job's audience (cell-index probe of its alert window) plus
+        the shard's stragglers advance from their durable per-shard
+        cursors to the job's ``upto`` bound.  No FencedStore — webhook
+        POSTs are not fenceable writes; re-delivery safety is the
+        forward-only cursor + record-id contract, so a SIGKILLed
+        worker's successor (or an overlapping zombie) resumes delivery
+        without duplicating records at the receiver.  Host only: the
+        worker's card is not touched."""
+        from firebird_tpu_torch.alerts import fanout as fanoutlib
+        from firebird_tpu_torch.alerts.log import AlertLog, alert_db_path
+
+        path = alert_db_path(self.cfg)
+        if path is None:
+            raise ValueError(
+                "fanout job has no alert log: set FIREBIRD_ALERT_DB "
+                "(or a file-backed store)")
+        alog = AlertLog(path)
+        try:
+            deliverer = fanoutlib.FanoutDeliverer(alog, self.cfg)
+            delivered = deliverer.drain_shard(
+                payload["shard"], int(payload["upto"]),
+                since=int(payload.get("since", 0)))
+        finally:
+            alog.close()
+        rolled = payload.get("rolled_at")
+        if rolled is not None:
+            obs_metrics.histogram(
+                "fanout_completion_seconds",
+                help="rollup-to-drained latency of one shard fanout "
+                     "job (the fanout_p99 SLO's metric)").observe(
+                max(time.time() - float(rolled), 0.0))
+        self.log.info("fanout job %d drained shard %r to %d "
+                      "(%d records delivered)", lease.job_id,
+                      payload["shard"], int(payload["upto"]), delivered)
 
     def _restore_status(self) -> None:
         """Re-register the worker's process-global obs state after a

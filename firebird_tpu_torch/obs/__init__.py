@@ -12,8 +12,9 @@ FIREBIRD_PROFILE / FIREBIRD_PROFILE_DIR, on ``torch.profiler``), the ops
 endpoint (:mod:`.server`, FIREBIRD_OPS_PORT), the stall watchdog
 (:mod:`.watchdog`, FIREBIRD_STALL_SEC), the crash flight recorder
 (:mod:`.flightrec`, FIREBIRD_FLIGHTREC) and the live SLO evaluation
-(:mod:`.slo`, FIREBIRD_SLO).  The JAX package's telemetry spool, series
-store and collector are not ported.
+(:mod:`.slo`, FIREBIRD_SLO), the telemetry spool (:mod:`.spool`), the
+series store (:mod:`.series`), the collector (:mod:`.collect`) and the
+black-box canary prober (:mod:`.prober`).
 """
 
 from __future__ import annotations

@@ -12,9 +12,11 @@ error envelopes, daemon-thread shutdown).
   ``do_GET`` that parses the URL once and dispatches to the subclass's
   ``_route(path, query)`` under the standard error envelope (a broken
   endpoint reports a 500 JSON body; it must never kill the server
-  thread — the surface exists to diagnose trouble).  (The JAX package's
-  server-sent-event helpers serve its ``/v1/alerts/stream`` feed, which
-  is not ported.)
+  thread — the surface exists to diagnose trouble).  Long-lived
+  chunk-less streaming responses (the ``/v1/alerts/stream`` SSE feed)
+  go through ``_start_stream`` / ``_stream_event``: headers first, body
+  incrementally, connection closed at the end — the only framing a
+  response without a Content-Length can honestly offer.
 - :class:`Httpd` — ThreadingHTTPServer with daemon worker threads, a
   ``port`` property (useful with port 0 ephemeral binds in tests and
   smokes), and ``start()``/``close()`` managing the serve_forever thread.
@@ -64,6 +66,55 @@ class JsonHandler(http.server.BaseHTTPRequestHandler):
                    headers: dict | None = None) -> None:
         self._send(code, json.dumps(obj, default=str).encode(),
                    "application/json", headers)
+
+    # -- long-lived / streaming responses (SSE) -----------------------------
+
+    def _start_stream(self, ctype: str = "text/event-stream",
+                      headers: dict | None = None) -> None:
+        """Begin a long-lived response: headers go out now, the body is
+        written incrementally by the caller, and the connection CLOSES
+        when the handler returns — no Content-Length means HTTP/1.1
+        keep-alive framing cannot survive this response, so advertising
+        the close is what keeps clients in sync."""
+        self.send_response(200)
+        self.send_header("Content-Type", ctype)
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("Connection", "close")
+        headers = headers or {}
+        for k, v in headers.items():
+            self.send_header(k, str(v))
+        ctx = tracing.current_context()
+        if ctx is not None and "X-Firebird-Trace" not in headers:
+            self.send_header("X-Firebird-Trace", ctx.batch_id)
+        self.close_connection = True
+        self.end_headers()
+
+    def _stream_event(self, data: str, *, event: str | None = None,
+                      event_id=None) -> bool:
+        """Write one server-sent event; False when the client is gone
+        (the caller's loop should end quietly — a consumer hanging up is
+        the normal way an SSE session finishes)."""
+        buf = []
+        if event:
+            buf.append(f"event: {event}")
+        if event_id is not None:
+            buf.append(f"id: {event_id}")
+        for line in (data.splitlines() or [""]):
+            buf.append(f"data: {line}")
+        return self._stream_raw(("\n".join(buf) + "\n\n").encode())
+
+    def _stream_comment(self, text: str = "keepalive") -> bool:
+        """An SSE comment line — the keep-alive beat that lets both ends
+        notice a dead peer between real events."""
+        return self._stream_raw(f": {text}\n\n".encode())
+
+    def _stream_raw(self, payload: bytes) -> bool:
+        try:
+            self.wfile.write(payload)
+            self.wfile.flush()
+            return True
+        except (BrokenPipeError, ConnectionResetError, OSError):
+            return False
 
     def do_GET(self):  # noqa: N802 (stdlib handler naming)
         self._dispatch_safely(self._route)

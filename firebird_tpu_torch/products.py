@@ -65,12 +65,18 @@ def available() -> tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 def _ordinals(iso_col) -> np.ndarray:
-    return np.array([dt.to_ordinal(s[:10]) for s in iso_col], np.int64)
+    # One parse per distinct date: a chip's rows share a few hundred.
+    ords = {s: dt.to_ordinal(s[:10]) for s in set(iso_col)}
+    return np.array(list(map(ords.__getitem__, iso_col)), np.int64)
 
 
 class ChipSegmentArrays:
     """A chip's segment rows parsed once (ISO dates -> ordinals, pixel
-    indices bounds-checked) and shared by every (product, date) raster."""
+    indices bounds-checked) and shared by every (product, date) raster.
+    ``COLUMNS`` are the segment columns it reads."""
+
+    COLUMNS = ("px", "py", "sday", "eday", "bday", "chprob", "curqa",
+               "rfrawp")
 
     def __init__(self, cx: int, cy: int, seg: dict):
         from firebird_tpu_torch.rf.features import pixel_index
@@ -96,9 +102,14 @@ class ChipSegmentArrays:
             raw = [None] * len(seg["sday"])
         # `v is not None and len(v)` rather than truthiness: rfrawp columns
         # may hold numpy arrays (no store round-trip), whose bool() raises.
-        self.rfidx = np.array(
-            [int(np.argmax(v)) if v is not None and len(v) else -1
-             for v in raw], np.int64)
+        voted = np.array([v is not None and len(v) > 0 for v in raw], bool)
+        self.rfidx = np.full(len(raw), -1, np.int64)
+        if voted.any():
+            votes = [raw[i] for i in np.flatnonzero(voted)]
+            try:
+                self.rfidx[voted] = np.asarray(votes).argmax(axis=1)
+            except ValueError:   # vote vectors of several lengths
+                self.rfidx[voted] = [np.argmax(v) for v in votes]
         self.real = self.sday > 1
 
 
@@ -342,7 +353,8 @@ def save(bounds, products, product_dates, acquired: str | None = None,
 
     written = []
     for cx, cy in cids:
-        seg = store.read("segment", {"cx": cx, "cy": cy})
+        seg = store.read("segment", {"cx": cx, "cy": cy},
+                         columns=ChipSegmentArrays.COLUMNS)
         if not seg["px"]:
             log.warning("no segments stored for chip (%d, %d); skipping",
                         cx, cy)

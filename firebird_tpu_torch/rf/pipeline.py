@@ -35,7 +35,7 @@ from firebird_tpu_torch.obs import Counters, logger
 from firebird_tpu_torch.obs import metrics as obs_metrics
 from firebird_tpu_torch.rf import features, forest
 from firebird_tpu_torch.rf.tilemodel import MODEL_NAME, read_model
-from firebird_tpu_torch.store import AsyncWriter
+from firebird_tpu_torch.store import AsyncWriter, ColumnUpdate
 from firebird_tpu_torch.utils.fn import take
 
 # The stages of a classification run and their histograms: store read,
@@ -177,7 +177,9 @@ def classify_chip(model, seg: dict, aux: dict, cx: int, cy: int,
     rfrawp = list(seg["rfrawp"])
     for k, i in enumerate(np.flatnonzero(mask)):
         rfrawp[i] = [float(v) for v in raw[k]]   # dedensify, randomforest.py:106-123
-    out = dict(seg)
+    # The rows as read with rfrawp joined back: only that column
+    # changed (store.ColumnUpdate).
+    out = ColumnUpdate(seg, ("rfrawp",))
     out["rfrawp"] = rfrawp
     return out
 

@@ -31,11 +31,11 @@ processing-and-analysis split in arXiv:1703.10979):
     read of the persisted versioned ``.npy`` — no store, no decode —
     and cold tiles near the base compute through the same single-flight
     path.  THE map-traffic endpoint.
-``/v1/alerts``, ``/v1/alerts/stream``, ``/v1/alerts/webhooks``
-    The JAX package's change-alert feed over the durable alert log.  Its
-    feed, SSE push and webhook delivery (``alerts/feed.py``) are not
-    ported: these paths answer 404 naming it, through the path the JAX
-    package takes for a store with no alert log behind it.
+``/v1/alerts?since=&bbox=&t0=&t1=``, ``/v1/alerts/stream``,
+``/v1/alerts/webhooks``
+    The change-alert feed over the durable alert log the card's stream
+    jobs append to (firebird_tpu_torch.alerts): cursor pull, live SSE
+    push, and webhook subscriber registration/listing.
 ``/v1/products``, ``/healthz``, ``/metrics``
     Discovery, liveness (``degraded`` while the store breaker is open),
     and the Prometheus exposition of the shared obs registry — the
@@ -83,12 +83,6 @@ from firebird_tpu_torch.serve.flight import (AdmissionControl,
 log = logger("serve")
 
 
-# What /v1/alerts* answer (404): the feed they serve is not ported.
-ALERTS_NOT_PORTED = ("the change-alert feed (alerts/feed.py: /v1/alerts, "
-                     "/v1/alerts/stream, /v1/alerts/webhooks) is not ported "
-                     "to firebird_tpu_torch")
-
-
 class BadRequest(ValueError):
     """Malformed query parameters (400)."""
 
@@ -130,7 +124,7 @@ class ServeService:
     def __init__(self, store, cfg=None, *, cache: LRUCache | None = None,
                  gens: StoreGenerations | None = None,
                  admission: AdmissionControl | None = None,
-                 breaker=None, compute_on_miss: bool = True,
+                 breaker=None, compute_on_miss: bool = True, alerts=None,
                  pyramid=None, changefeed=None):
         from firebird_tpu_torch.config import Config
         from firebird_tpu_torch.retry import CircuitBreaker
@@ -150,6 +144,9 @@ class ServeService:
                                      name="serve-store")
         self.breaker = breaker
         self.compute_on_miss = bool(compute_on_miss)
+        # Alert feed (alerts/feed.AlertFeed) — None when the store has
+        # no alert log; the /v1/alerts endpoints then answer 404.
+        self.alerts = alerts
         # Quadkey tile pyramid (serve/pyramid.TilePyramid) — None when
         # no pyramid root is configured; /v1/pyramid then answers 404.
         # The pyramid shares this service's SingleFlight, so concurrent
@@ -471,11 +468,15 @@ class ServeService:
     # -- alert feed ---------------------------------------------------------
 
     def alert_feed(self):
-        """The change-alert feed behind ``/v1/alerts*``: NotFound (404)
-        always — the JAX package's feed (``alerts/feed.py``: cursor
-        pull, SSE push, webhook delivery) is not ported, so this is the
-        path the JAX package takes when no alert log is mounted."""
-        raise NotFound(ALERTS_NOT_PORTED)
+        """The mounted alerts/feed.AlertFeed; NotFound (404) when this
+        store has no alert log behind it (streaming never ran, or
+        FIREBIRD_ALERTS=0)."""
+        if self.alerts is None:
+            raise NotFound(
+                "no alert log behind this endpoint — run the streaming "
+                "driver against this store, or set FIREBIRD_ALERT_DB "
+                "(docs/ALERTS.md)")
+        return self.alerts
 
 
 # ---------------------------------------------------------------------------
@@ -545,12 +546,12 @@ class _ServeHandler(httpd.JsonHandler):
             self._send_json(200, {"products": list(PRODUCTS)})
             return
         if path == "/v1/alerts/stream":
-            # The SSE session's own envelope in the JAX package (kept out
-            # of serve_request_seconds); here it answers 404 at once.
-            obs_metrics.counter(
-                "serve_requests_alerts_stream",
-                help="/v1/alerts/stream SSE sessions opened").inc()
-            self._alerts_not_ported()
+            # Long-lived SSE: its own envelope — same admission gate and
+            # trace minting as _v1, but the session intentionally spans
+            # the deadline window and must not land a multi-second
+            # "latency" in serve_request_seconds (it would poison the
+            # serve_p99 SLO with sessions that are SUPPOSED to be long).
+            self._v1_alert_stream(svc, query)
             return
         if path.startswith("/v1/"):
             self._v1(svc, path, query)
@@ -564,26 +565,54 @@ class _ServeHandler(httpd.JsonHandler):
                       "/v1/alerts/stream", "/v1/alerts/webhooks"]})
 
     def _route_post(self, path: str, query: dict) -> None:
-        """POST /v1/alerts/webhooks registers a webhook subscriber in the
-        JAX package; the feed is not ported, so it answers 404 naming
-        it (counted as every /v1 request is)."""
+        """POST /v1/alerts/webhooks?url=… registers a webhook subscriber
+        (idempotent on url — re-registering keeps the durable cursor but
+        replaces AOI and policy); ``bbox=minx,miny,maxx,maxy`` scopes it
+        to an AOI through the quadkey subscription index,
+        ``mode=immediate|digest|batch`` with ``window``/``max_n`` picks
+        the delivery policy (docs/ALERTS.md "Fanout plane").  DELETE is
+        deliberately absent: unsubscribing is an operator action on the
+        alert db, not an open endpoint."""
+        svc: ServeService = self.server.service
         if path != "/v1/alerts/webhooks":
             super()._route_post(path, query)
             return
-        self._alerts_not_ported()
-
-    def _alerts_not_ported(self) -> None:
-        svc: ServeService = self.server.service
-        with tracing.activate(self._req_ctx()):
+        ctx = self._req_ctx()
+        status = "ok"
+        with tracing.activate(ctx):
             try:
-                svc.alert_feed()
-            except NotFound as e:
-                self._send_json(404, {"error": str(e)})
-        obs_metrics.counter("serve_requests_total",
-                            help="/v1 requests served").inc()
-        obs_metrics.counter(
-            "serve_errors_total",
-            help="/v1 requests answered with a non-200 status").inc()
+                try:
+                    feed = svc.alert_feed()
+                    url = _one(query, "url", str)
+                    since = _one(query, "since", int, required=False)
+                    aoi = self._bbox(query)
+                    mode = _one(query, "mode", str,
+                                required=False) or "immediate"
+                    window = _one(query, "window", float, required=False)
+                    max_n = _one(query, "max_n", int, required=False)
+                    sid = feed.log.subscribe(
+                        url, cursor=since, aoi=aoi, mode=mode,
+                        window_sec=window, max_n=max_n,
+                        max_cells=svc.cfg.fanout_max_cells)
+                except NotFound as e:
+                    status = "not_found"
+                    self._send_json(404, {"error": str(e)})
+                    return
+                except (BadRequest, ValueError) as e:
+                    status = "bad_request"
+                    self._send_json(400, {"error": str(e)})
+                    return
+                self._send_json(200, {"id": sid, "url": url,
+                                      "mode": mode, "aoi": aoi,
+                                      "latest": feed.log.latest_cursor()})
+            finally:
+                obs_metrics.counter("serve_requests_total",
+                                    help="/v1 requests served").inc()
+                if status != "ok":
+                    obs_metrics.counter(
+                        "serve_errors_total",
+                        help="/v1 requests answered with a non-200 "
+                             "status").inc()
 
     def _v1(self, svc: ServeService, path: str, query: dict) -> None:
         from firebird_tpu_torch.serve.flight import Deadline
@@ -760,9 +789,15 @@ class _ServeHandler(httpd.JsonHandler):
             obs_metrics.counter(
                 "serve_requests_alerts",
                 help="/v1/alerts cursor-pull requests").inc()
-            svc.alert_feed()
+            self._send_json(200, svc.alert_feed().pull(
+                _one(query, "since", int, required=False) or 0,
+                limit=_one(query, "limit", int, required=False) or 1000,
+                bbox=self._bbox(query),
+                t0=self._alert_date(query, "t0"),
+                t1=self._alert_date(query, "t1")))
         elif path == "/v1/alerts/webhooks":
-            svc.alert_feed()
+            self._send_json(
+                200, {"subscribers": svc.alert_feed().log.subscribers()})
         else:
             raise NotFound(f"unknown path {path!r}")
 
@@ -822,6 +857,152 @@ class _ServeHandler(httpd.JsonHandler):
                 "shape": list(cells.shape),
                 "cells": cells.tolist()}, edge)
 
+    # -- alert feed transport ------------------------------------------------
+
+    @staticmethod
+    def _bbox(query: dict):
+        from firebird_tpu_torch.alerts.feed import parse_bbox
+
+        raw = _one(query, "bbox", str, required=False)
+        if raw is None:
+            return None
+        try:
+            return parse_bbox(raw)
+        except ValueError as e:
+            raise BadRequest(str(e)) from e
+
+    @staticmethod
+    def _alert_date(query: dict, name: str):
+        """An ISO t0/t1 bound, validated HERE: the SSE path must reject
+        a malformed date BEFORE the 200 stream headers go out (an error
+        mid-stream writes a second status line into the event body),
+        and the pull path owes a 400, not a 500 from deep inside
+        since()."""
+        from firebird_tpu_torch.utils import dates as dt
+
+        raw = _one(query, name, str, required=False)
+        if raw is None:
+            return None
+        try:
+            dt.to_ordinal(raw)
+        except (ValueError, TypeError) as e:
+            raise BadRequest(f"bad {name}={raw!r}: {e}") from e
+        return raw
+
+    def _v1_alert_stream(self, svc: ServeService, query: dict) -> None:
+        """``/v1/alerts/stream``: live push over SSE.  Every event's
+        ``id:`` is the record's cursor, so a reconnecting client resumes
+        with ``since=<last id>`` and misses nothing.  The session holds
+        ONE admission slot and is bounded by the request deadline: at
+        the window's end the server closes cleanly (clients auto-
+        reconnect per the SSE contract) — a slot can be occupied, never
+        leaked."""
+        from firebird_tpu_torch.serve.flight import Deadline
+
+        ctx = self._req_ctx()
+        status = "ok"
+        with tracing.activate(ctx):
+            obs_metrics.counter(
+                "serve_requests_alerts_stream",
+                help="/v1/alerts/stream SSE sessions opened").inc()
+            try:
+                try:
+                    feed = svc.alert_feed()
+                    since = _one(query, "since", int, required=False)
+                    bbox = self._bbox(query)
+                    t0 = self._alert_date(query, "t0")
+                    t1 = self._alert_date(query, "t1")
+                except BadRequest as e:
+                    status = "bad_request"
+                    self._send_json(400, {"error": str(e)})
+                    return
+                except NotFound as e:
+                    status = "not_found"
+                    self._send_json(404, {"error": str(e)})
+                    return
+                # Default: new alerts only.  since=0 replays the log.
+                cursor = feed.log.latest_cursor() if since is None \
+                    else int(since)
+                try:
+                    deadline = Deadline(svc.admission.deadline_sec)
+                    with svc.admission.admit(deadline):
+                        self._start_stream()
+                        gauge = obs_metrics.gauge(
+                            "alert_sse_clients",
+                            help="live /v1/alerts/stream subscribers")
+                        gauge.inc()
+                        try:
+                            self._sse_loop(feed, cursor, deadline,
+                                           bbox=bbox, t0=t0, t1=t1)
+                        except Exception as e:
+                            # Headers are out: an error now must CLOSE
+                            # the stream, not let _dispatch_safely write
+                            # a second '500' status line into the event
+                            # body (e.g. the alert db closing under a
+                            # live session at serve shutdown).  The
+                            # client reconnects from its cursor.
+                            status = "stream_error"
+                            log.warning(
+                                "SSE alert session ended by error "
+                                "(%s: %s)", type(e).__name__, e)
+                        finally:
+                            gauge.dec()
+                except Overload as e:
+                    status = "rejected"
+                    self._send_json(
+                        429, {"error": str(e)},
+                        {"Retry-After": f"{e.retry_after_sec:.0f}"})
+                except DeadlineExceeded as e:
+                    status = "deadline"
+                    self._send_json(504, {"error": str(e)})
+            finally:
+                # The documented counter contract (docs/OBSERVABILITY.md)
+                # covers EVERY /v1 request; only the latency histogram is
+                # exempt here (a deliberately long session is not tail
+                # latency).
+                obs_metrics.counter("serve_requests_total",
+                                    help="/v1 requests served").inc()
+                if status != "ok":
+                    obs_metrics.counter(
+                        "serve_errors_total",
+                        help="/v1 requests answered with a non-200 "
+                             "status").inc()
+
+    def _sse_loop(self, feed, cursor: int, deadline, *, bbox, t0, t1,
+                  poll_sec: float = 0.25, page: int = 256) -> None:
+        import json as _json
+        import time as _time
+
+        filtered = bbox is not None or t0 is not None or t1 is not None
+        while True:
+            # Captured BEFORE the query: with filters on, a short page
+            # means the whole tail up to this head held no more matches,
+            # so the scan cursor may jump past it — without this, every
+            # poll of a quiet filtered session re-scans the entire
+            # unmatched tail (O(log depth), forever).  Rows landing
+            # after the capture have higher ids and are not skipped.
+            head = feed.log.latest_cursor() if filtered else 0
+            recs = feed.log.since(cursor, limit=page, bbox=bbox,
+                                  t0=t0, t1=t1)
+            for r in recs:
+                if not self._stream_event(_json.dumps(r), event="alert",
+                                          event_id=r["id"]):
+                    return                 # client hung up: normal end
+                cursor = r["id"]
+            if filtered and len(recs) < page:
+                cursor = max(cursor, head)
+            left = deadline.remaining()
+            if left <= poll_sec:
+                # Window over: say so and close cleanly — the client
+                # reconnects with since=<last id> and misses nothing.
+                self._stream_comment("window over; reconnect to resume")
+                return
+            if len(recs) == page:
+                continue      # a full page means backlog: replay flat out
+            if not recs and not self._stream_comment():
+                return
+            _time.sleep(min(poll_sec, left))
+
 
 class ServeServer(httpd.Httpd):
     """The serving endpoint server (shared lifecycle: obs/httpd.py)."""
@@ -846,7 +1027,9 @@ def start_serve_server(port: int, service: ServeService,
     srv = ServeServer((host, int(port)), service).start()
     log.info("serve endpoint up on %s:%d (/healthz /metrics /v1/products "
              "/v1/segments /v1/pixel /v1/product/<name> /v1/tile/<name>"
-             "%s)", host, srv.port,
+             "%s%s)", host, srv.port,
              " /v1/pyramid/<name>/<z>/<x>/<y>"
-             if service.pyramid is not None else "")
+             if service.pyramid is not None else "",
+             " /v1/alerts /v1/alerts/stream /v1/alerts/webhooks"
+             if service.alerts is not None else "")
     return srv

@@ -11,8 +11,9 @@ Writes drain through an :class:`AsyncWriter` on host threads, so the
 card's compute overlaps egress.
 """
 
-from firebird_tpu_torch.store.backends import (MemoryStore, ParquetStore,
-                                               SqliteStore, open_store)
+from firebird_tpu_torch.store.backends import (ColumnUpdate, MemoryStore,
+                                               ParquetStore, SqliteStore,
+                                               open_store)
 from firebird_tpu_torch.store.objectstore import (LocalObjectStore,
                                                   MirroredStore,
                                                   ObjectBackedStore,
@@ -23,8 +24,8 @@ from firebird_tpu_torch.store.objectstore import (LocalObjectStore,
 from firebird_tpu_torch.store.schema import TABLES, primary_key
 from firebird_tpu_torch.store.writer import AsyncWriter
 
-__all__ = ["TABLES", "primary_key", "MemoryStore", "SqliteStore",
-           "ParquetStore", "open_store", "LocalObjectStore",
+__all__ = ["TABLES", "primary_key", "ColumnUpdate", "MemoryStore",
+           "SqliteStore", "ParquetStore", "open_store", "LocalObjectStore",
            "ObjectBackedStore", "MirroredStore", "ObjectStoreError",
            "PreconditionFailed", "StaleObjectFence", "open_object_root",
            "AsyncWriter"]

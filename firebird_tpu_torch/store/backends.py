@@ -6,14 +6,17 @@ The object backend and the write-through mirror live in
 ``store/objectstore.py``.
 
 The Store interface: ``write(table, frame)`` upserts a dict-of-columns
-frame; ``read(table, where=None)`` returns a dict of columns (optionally
-filtered by exact-match key values).  Frames are dicts of equal-length numpy
+frame; ``read(table, where=None, columns=None)`` returns a dict of columns
+(optionally filtered by exact-match key values, and optionally only the
+named columns).  Frames are dicts of equal-length numpy
 arrays / lists, as produced by firebird_tpu_torch.ccd.format.chip_frames.
 
 Idempotence: rows are keyed by the table's primary key (schema.py);
 re-writing the same key replaces the row — the reference's rerun-upsert
 semantics (mode('append') onto Cassandra PKs, ccdc/cassandra.py:62-63,
-SURVEY.md §5).
+SURVEY.md §5).  A :class:`ColumnUpdate` frame (rows read back from the
+store with some columns changed) is upserted the same way by every
+backend; the sqlite store writes its changed columns alone.
 """
 
 from __future__ import annotations
@@ -60,6 +63,19 @@ def _normalize(v):
     if isinstance(v, np.ndarray):
         return v.tolist()
     return v
+
+
+class ColumnUpdate(dict):
+    """A whole frame of rows read from the store in which only ``columns``
+    changed: every other cell equals the stored row's.  Upserting it and
+    updating those columns of the keyed rows leave the same table, so
+    :meth:`SqliteStore.write` updates just those columns (and upserts
+    the frame when a row is no longer there); the other backends upsert
+    it like any frame."""
+
+    def __init__(self, frame: dict, columns):
+        super().__init__(frame)
+        self.columns = tuple(columns)
 
 
 def _col_types(table: str) -> dict[str, str]:
@@ -118,14 +134,20 @@ def _decode_column(col, typ: str) -> list:
         return [None if v is None else json.loads(v) for v in col]
     if typ in schema.PACKED_DTYPES:
         dt = np.dtype(schema.PACKED_DTYPES[typ])
-        sizes = {None if v is None else len(v) for v in col}
-        if len(sizes) == 1 and None not in sizes and sizes != {0}:
-            # One blob length: one frombuffer over the column's bytes.
-            k = sizes.pop() // dt.itemsize
-            return np.frombuffer(b"".join(col), dt).reshape(
-                len(col), k).tolist()
-        return [None if v is None else np.frombuffer(v, dt).tolist()
-                for v in col]
+        nulls = col.count(None)
+        blobs = col if not nulls else [v for v in col if v is not None]
+        sizes = set(map(len, blobs))
+        if len(sizes) != 1 or 0 in sizes:
+            return [None if v is None else np.frombuffer(v, dt).tolist()
+                    for v in col]
+        # One blob length: one frombuffer over the column's bytes, the
+        # NULL cells put back in place.
+        vecs = np.frombuffer(b"".join(blobs), dt).reshape(
+            len(blobs), sizes.pop() // dt.itemsize).tolist()
+        if not nulls:
+            return vecs
+        it = iter(vecs)
+        return [None if v is None else next(it) for v in col]
     return list(col)
 
 
@@ -147,11 +169,12 @@ class MemoryStore:
                 self._tables[table][tuple(row[k] for k in key)] = row
         return n
 
-    def read(self, table: str, where: dict | None = None) -> dict:
+    def read(self, table: str, where: dict | None = None,
+             columns=None) -> dict:
         with self._lock:
             rows = [r for r in self._tables[table].values()
                     if not where or all(r.get(k) == v for k, v in where.items())]
-        cols = schema.columns(table)
+        cols = list(columns or schema.columns(table))
         return {c: [r.get(c) for r in rows] for c in cols}
 
     def count(self, table: str) -> int:
@@ -263,19 +286,43 @@ class SqliteStore:
         types = _col_types(table)
         cols = list(types)
         n = len(next(iter(frame.values())))
+        con = self._conn()
+        if isinstance(frame, ColumnUpdate) and self._update(
+                con, table, frame, types, n):
+            return n
         rows = list(zip(*(_encode_column(frame, c, types[c], n)
                           for c in cols)))
         ph = ", ".join("?" * len(cols))
-        con = self._conn()
         con.executemany(
             f'INSERT OR REPLACE INTO "{table}" ({", ".join(cols)}) VALUES ({ph})',
             rows)
         con.commit()
         return n
 
-    def read(self, table: str, where: dict | None = None) -> dict:
+    @staticmethod
+    def _update(con, table: str, frame: ColumnUpdate, types: dict,
+                n: int) -> bool:
+        """``frame``'s changed columns written onto its keyed rows in one
+        transaction; False (nothing written) when a row is missing, and
+        the caller upserts the whole frame instead."""
+        key = list(schema.primary_key(table))
+        sets = [c for c in frame.columns if c not in key]
+        rows = list(zip(*(_encode_column(frame, c, types[c], n)
+                          for c in sets + key)))
+        cur = con.executemany(
+            f'UPDATE "{table}" SET '
+            + ", ".join(f'"{c}" = ?' for c in sets) + " WHERE "
+            + " AND ".join(f'"{k}" = ?' for k in key), rows)
+        if cur.rowcount != n:
+            con.rollback()
+            return False
+        con.commit()
+        return True
+
+    def read(self, table: str, where: dict | None = None,
+             columns=None) -> dict:
         types = _col_types(table)
-        cols = list(types)
+        cols = list(columns or types)
         sql = f'SELECT {", ".join(cols)} FROM "{table}"'
         args: list = []
         if where:
@@ -353,10 +400,11 @@ class ParquetStore:
         pq.write_table(pa.table(cols), self._file(table, frame))
         return len(next(iter(frame.values())))
 
-    def read(self, table: str, where: dict | None = None) -> dict:
+    def read(self, table: str, where: dict | None = None,
+             columns=None) -> dict:
         import pyarrow.parquet as pq
         d = os.path.join(self.root, table)
-        cols = schema.columns(table)
+        cols = list(columns or schema.columns(table))
         out: dict[str, list] = {c: [] for c in cols}
         if not os.path.isdir(d):
             return out

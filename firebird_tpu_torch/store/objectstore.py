@@ -673,9 +673,10 @@ class ObjectBackedStore:
     def _shards(self, table: str) -> list[str]:
         return self._obj.list(f"{self._prefix}/{table}/")
 
-    def read(self, table: str, where: dict | None = None) -> dict:
+    def read(self, table: str, where: dict | None = None,
+             columns=None) -> dict:
         types = _col_types(table)
-        cols = list(types)
+        cols = list(columns or types)
         keyp = schema.primary_key(table)[:_PART[table]]
         if where and all(k in where for k in keyp):
             part = tuple(_normalize(where[k]) for k in keyp)
@@ -684,6 +685,8 @@ class ObjectBackedStore:
         else:
             keys = self._shards(table)
         out: dict[str, list] = {c: [] for c in cols}
+        decode = cols + [k for k in where or () if k in types
+                         and k not in cols]
         for skey in keys:
             try:
                 data, _ = self._obj.get(skey)
@@ -691,7 +694,7 @@ class ObjectBackedStore:
                 continue
             for row in json.loads(data).get("rows", {}).values():
                 vals = {c: _decode_cell_json(row.get(c), types[c])
-                        for c in cols}
+                        for c in decode}
                 if where and any(vals.get(k) != _normalize(v)
                                  for k, v in where.items()):
                     continue

@@ -722,10 +722,13 @@ def test_zombie_worker_writes_are_rejected_and_counted(tmp_path, queue,
 @pytest.mark.parametrize("job", ["fanout", "pyramid"])
 def test_unported_job_types_fail_naming_what_is_missing(tmp_path, queue,
                                                         job):
-    """A ``fanout`` job dead-letters naming the alert fanout, which is not
-    ported; a ``pyramid`` job (ported with the serving layer) builds
+    """A ``fanout`` job drains its quadkey shard on the host (the POSTs,
+    the cursors and the drained watermark equal to the JAX package's
+    worker over a copy of the same alert log, as tests/test_fanout.py's
+    ``test_worker_runs_fanout_job``); a ``pyramid`` job builds
     ``build_area``'s tiles through the fenced store, equal file for file
-    to the JAX package's build over the same rows."""
+    to the JAX package's build over the same rows.  Both job types were
+    the ones the port's worker refused before they were ported."""
     from firebird_tpu.serve import pyramid as jpyr
     from firebird_tpu.store import open_store as jopen_store
     from firebird_tpu_torch.serve import pyramid as tpyr
@@ -744,8 +747,7 @@ def test_unported_job_types_fail_naming_what_is_missing(tmp_path, queue,
     payload = {"bounds": [[cx + 1.0, cy - 1.0]], "products": ["curveqa"],
                "product_dates": ["1996-01-01"], "levels": 2}
     if job == "fanout":
-        jid = queue.enqueue("fanout", {"shard": "0", "upto": 1},
-                            max_attempts=1)
+        return _fanout_job_drains_its_shard(tmp_path, queue, rng)
     else:
         store = SqliteStore(cfg.store_path, cfg.keyspace())
         store.write("segment", seg)
@@ -754,12 +756,6 @@ def test_unported_job_types_fail_naming_what_is_missing(tmp_path, queue,
     w = FleetWorker(cfg, queue, worker_id="t:1", sleep=lambda s: None,
                     device="cpu")
     summary = w.run(until_drained=True)
-    if job == "fanout":
-        assert summary["dead"] == 1
-        last = queue.job(jid)["history"][-2]
-        assert last["error"] == "NotImplementedError"
-        assert "alerts/fanout.py" in last["message"]
-        return
     assert summary["acked"] == 1 and summary["dead"] == 0
     assert queue.job(jid)["state"] == "done"
     jstore = jopen_store("memory", "", "t")
@@ -777,6 +773,66 @@ def test_unported_job_types_fail_naming_what_is_missing(tmp_path, queue,
                                 jax.tile_paths("curveqa", "1996-01-01", *t)):
             assert open(mine, "rb").read() == open(theirs, "rb").read(), t
 
+
+
+def _fanout_job_drains_its_shard(tmp_path, queue, rng):
+    """Five alerts in one shard rolled into one ``fanout`` job, drained by
+    the port's worker and, over a copy of the log, by the JAX package's."""
+    import shutil
+
+    from firebird_tpu.alerts import fanout as jfanout
+    from firebird_tpu.alerts.log import AlertLog as JAlertLog
+    from firebird_tpu.fleet.queue import FleetQueue as JQueue
+    from firebird_tpu.fleet.worker import FleetWorker as JWorker
+    from firebird_tpu_torch.alerts import fanout as tfanout
+    from firebird_tpu_torch.alerts.log import AlertLog
+
+    cx, cy = (int(v) for v in grid.snap(100, 200)["chip"]["proj-pt"])
+    src = str(tmp_path / "src.db")
+    al = AlertLog(src)
+    sid = al.subscribe("http://sink/hook")
+    al.append([{"cx": cx, "cy": cy,
+                "px": cx + 30 * int(rng.integers(0, 100)),
+                "py": cy - 30 * int(rng.integers(0, 100)),
+                "break_day": float(1000 + i)} for i in range(5)])
+    al.close()
+    got = {}
+    for name, Log, fan, Q, W in (
+            ("jax", JAlertLog, jfanout, JQueue, JWorker),
+            ("torch", AlertLog, tfanout, None, FleetWorker)):
+        db = str(tmp_path / f"{name}.alerts.db")
+        shutil.copy(src, db)
+        C = JConfig if name == "jax" else Config
+        cfg = C(store_backend="memory", fetch_retries=1, alert_db=db)
+        q = queue if Q is None else Q(str(tmp_path / "jfleet.db"),
+                                     lease_sec=300.0)
+        alog = Log(db)
+        posts = []
+        orig = fan._default_post
+        fan._default_post = (lambda url, body, timeout:
+                             posts.append(json.loads(body)) or 200)
+        try:
+            assert len(fan.rollup(alog, q, cfg)) == 1
+            kw = dict(device="cpu") if Q is None else {}
+            summary = W(cfg, q, worker_id="t:1", sleep=lambda s: None,
+                        **kw).run(until_drained=True)
+            shard = posts[0]["shard"]
+            got[name] = (summary["acked"], summary["dead"],
+                         summary["queue"]["done"],
+                         [[{k: v for k, v in a.items() if k != "detected_at"}
+                           for a in doc["alerts"]] for doc in posts],
+                         alog.fanout_cursor(sid, shard),
+                         alog.shard_drained(shard), alog.rollup_cursor())
+        finally:
+            fan._default_post = orig
+            alog.close()
+            if Q is not None:
+                q.close()
+    assert got["torch"] == got["jax"]
+    acked, dead, done, posts, cursor, drained, rolled = got["torch"]
+    assert (acked, dead, done, cursor, drained, rolled) == (1, 0, 1, 0, 5, 5)
+    assert sum(len(doc) for doc in posts) == 5
+    assert not torch.cuda.is_initialized()
 
 def test_worker_without_a_card_raises_unless_told(monkeypatch, tmp_path,
                                                   queue):

@@ -131,7 +131,8 @@ PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
                   "obs/series.py", "validate.py", "ccd/flops.py",
                   "store/objectstore.py", "streamops/watcher.py",
                   "serve/flight.py", "serve/cache.py", "serve/pyramid.py",
-                  "serve/api.py", "export.py")
+                  "serve/api.py", "export.py", "alerts/feed.py",
+                  "alerts/fanout.py", "obs/prober.py")
 
 
 @pytest.mark.parametrize("rel", PORTED_MODULES)

@@ -75,6 +75,41 @@ def test_chip_product_equals_jax(name):
         products.chip_product("nope", 1, 0, 0, frames[0])
 
 
+@pytest.mark.parametrize("votes", ["lists", "arrays", "ties", "ragged",
+                                   "none", "absent"])
+def test_chip_segment_arrays_equal_jax(votes):
+    """A chip's parsed rows equal the JAX package's, field for field, with
+    the vote vectors as lists, as numpy arrays, with tied maxima, of
+    several lengths, all NULL, or without an rfrawp column."""
+    frames, _ = _voted(seed=13, n_chips=1)
+    f = dict(frames[0])
+    rng = np.random.default_rng(3)
+    if votes == "arrays":
+        f["rfrawp"] = [None if v is None else np.asarray(v)
+                       for v in f["rfrawp"]]
+    elif votes == "ties":
+        f["rfrawp"] = [None if v is None else
+                       rng.integers(0, 2, 5).astype(float).tolist()
+                       for v in f["rfrawp"]]
+    elif votes == "ragged":
+        f["rfrawp"] = [None if v is None else v[:int(rng.integers(1, 6))]
+                       for v in f["rfrawp"]]
+    elif votes == "none":
+        f["rfrawp"] = [None] * len(f["sday"])
+    elif votes == "absent":
+        del f["rfrawp"]
+    cx, cy = f["cx"][0], f["cy"][0]
+    got = products.ChipSegmentArrays(cx, cy, f)
+    want = jproducts.ChipSegmentArrays(cx, cy, f)
+    for k in ("pix", "sday", "eday", "bday", "chprob", "curqa", "rfidx",
+              "real"):
+        a, b = getattr(got, k), getattr(want, k)
+        assert a.dtype == b.dtype, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    if votes in ("lists", "ties"):
+        assert (got.rfidx >= 0).any()
+
+
 @pytest.mark.parametrize("bounds", [
     [(-15570.0, 14790.0)],
     [(-15000.0, 14000.0), (-14000.0, 12500.0)],

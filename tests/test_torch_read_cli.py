@@ -435,7 +435,10 @@ def test_read_commands_never_touch_cuda(home, argv, monkeypatch, capsys):
      "-o", "{tmp}/rasters", "-f", "envi"],
     ["pyramid", "build", "-b", "542000,1650000", "-p", "curveqa", "-p",
      "seglength", "-d", "2000-06-01", "-l", "2"],
-    ["serve", "--port", "0", "--host", "127.0.0.1"]])
+    ["serve", "--port", "0", "--host", "127.0.0.1"],
+    ["probe", "--serve-url", "http://127.0.0.1:9", "--landing", "{tmp}",
+     "-x", str(POINT[0]), "-y", str(POINT[1]), "--chip-offset", "0",
+     "--chips", "1", "-n", "1", "--timeout", "2"]])
 def test_read_commands_start_without_torch(home, argv, tmp_path):
     """The host-only commands load neither torch nor the detector: a
     console an operator polls costs a python start-up, not a CUDA
@@ -444,12 +447,15 @@ def test_read_commands_start_without_torch(home, argv, tmp_path):
     synthetic source, an object root, a store with one chip's segment
     rows) and must exit 0; the sources and the product math read the
     detector's parameters, whose chi2 thresholds come from scipy, so
-    those may load scipy.  ``serve`` is started, asked for a cold product
-    raster (computed on the host and persisted) and stopped with
-    SIGTERM."""
+    those may load scipy.  ``serve`` (with its alert feed, webhook
+    deliverer and fanout coordinator over the alert log next to the
+    store) is started, asked for a cold product raster (computed on the
+    host and persisted) and stopped with SIGTERM.  ``probe`` runs one
+    cycle against a dead serve URL and lands one synthetic probe scene in
+    the home's landing zone."""
     root, env = home
     own = argv[0] in ("fetch", "watch", "objectstore", "export", "pyramid",
-                      "serve")
+                      "serve", "probe")
     heavy = ("torch", "firebird_tpu_torch.ccd.kernel") if own \
         else ("torch", "scipy", "firebird_tpu_torch.ccd.kernel")
     if own:

@@ -191,6 +191,59 @@ def test_classification_counts_and_stages(monkeypatch):
                                        "draw", "grow", "train", "predict"))
 
 
+@pytest.mark.parametrize("kind", ["memory", "sqlite"])
+@pytest.mark.parametrize("window", ["whole", "part"])
+def test_classify_tile_writes_rfrawp_onto_the_rows_read(
+        monkeypatch, tmp_path, window, kind):
+    """Each chip's scored rows go to the store as a ColumnUpdate of rfrawp
+    over the rows the scoring pass read (one frame a chip; on sqlite the
+    UPDATE of that column, on memory an upsert), and the rows stored
+    equal the JAX package's, with the training window over every real
+    row (``whole``) or a part of them (``part``)."""
+    from firebird_tpu_torch.store import ColumnUpdate
+
+    jstore, store = filled_stores(seed=6, n_chips=3)
+    if kind == "sqlite":
+        mem, store = store, SqliteStore(str(tmp_path / "fb.db"), "test")
+        store.write("segment", mem.read("segment"))
+    frames, updated = [], []
+    real_write = store.write
+
+    def write(table, frame):
+        if table == "segment":
+            frames.append((type(frame), getattr(frame, "columns", None)))
+        return real_write(table, frame)
+
+    monkeypatch.setattr(store, "write", write)
+    real_update = SqliteStore._update
+
+    def update(*args):
+        updated.append(real_update(*args))
+        return updated[-1]
+
+    monkeypatch.setattr(SqliteStore, "_update", staticmethod(update))
+    kw = dict(msday=MSDAY, meday=MEDAY if window == "whole"
+              else dt.to_ordinal("2010-01-01"), acquired=ACQ, **TRAIN_KW)
+    with jax.enable_x64(False):
+        jpipeline.classify_tile(
+            *POINT, cfg=JConfig(store_backend="memory"),
+            aux_source=JSource(seed=4), store=jstore, **kw)
+    m = pipeline.classify_tile(*POINT, aux_source=SyntheticSource(seed=4),
+                               store=store, device="cpu", **kw)
+    assert m is not None
+    n_chips = len(store.chip_ids("segment"))
+    assert frames == [(ColumnUpdate, ("rfrawp",))] * n_chips
+    assert updated == ([True] * n_chips if kind == "sqlite" else [])
+    rows, jrows = _rows(store, "segment"), _rows(jstore, "segment")
+    assert rows.keys() == jrows.keys()
+    for k, row in rows.items():
+        got, want = row.pop("rfrawp"), jrows[k].pop("rfrawp")
+        assert row == jrows[k]
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_allclose(got, want, atol=1e-4)
+
+
 @pytest.mark.parametrize("kind", ["memory", "sqlite", "cells"])
 def test_assemble_equals_jax(tmp_path, kind):
     """features.assemble gives JAX's X bit for bit (NaN where JAX has

@@ -7,8 +7,9 @@ seed with numpy) and held to each other: the two-tier cache and its
 spill files, generations, single-flight, admission control, degraded
 mode, compute-on-miss, and the HTTP surface, where status codes, JSON
 bodies, ``.npy`` bodies and ETags must be equal.  Beyond JAX's cases:
-the change-alert endpoints, whose feed is not ported, answer 404 naming
-it; the ``serve`` fault scope answers 503; and a cold ``cover`` miss
+the change-alert endpoints answer as JAX's do with an alert log and
+without one (tests/test_torch_alert_feed.py holds the feed case for
+case); the ``serve`` fault scope answers 503; and a cold ``cover`` miss
 computes on the host without loading torch.
 """
 
@@ -763,22 +764,66 @@ def test_tile_mosaic_json(served):
     assert int(np.asarray(doc["cells"]).sum()) == 16
 
 
-def test_alert_endpoints_answer_404_naming_the_feed(served):
-    """The change-alert feed (alerts/feed.py) is not ported: /v1/alerts,
-    its SSE stream and its webhooks answer 404 naming it, as JAX's answer
-    404 for a store with no alert log behind them, and count as /v1
-    requests that failed."""
+def test_alert_endpoints_answer_404_naming_the_feed(served, tmp_path):
+    """The change-alert feed: over a store with an alert log, /v1/alerts,
+    its SSE stream (a bad date, refused before the stream opens), its
+    webhook list and a webhook registration answer as JAX's do, and count
+    as /v1 requests; with the log absent, both packages answer 404 with
+    JAX's text, which names no module of the port."""
+    import shutil
+
+    from firebird_tpu.alerts import AlertFeed as JFeed
+    from firebird_tpu.alerts import AlertLog as JLog
+    from firebird_tpu_torch.alerts import AlertFeed as TFeed
+    from firebird_tpu_torch.alerts import AlertLog as TLog
+
+    rng = np.random.default_rng(4)
+    src = str(tmp_path / "alerts.db")
+    al = JLog(src)
+    al.append([{"cx": CX, "cy": CY, "px": CX + 30 * int(rng.integers(100)),
+                "py": CY - 30 * int(rng.integers(100)),
+                "break_day": float(730000 + 16 * i)} for i in range(4)])
+    al.close()
+    srvs, bases = [], {}
+    for P, Log, Feed in ((JAX, JLog, JFeed), (PORT, TLog, TFeed)):
+        db = str(tmp_path / f"{P.name}.db")
+        shutil.copy(src, db)
+        svc, _ = make_service(P, alerts=Feed(Log(db), P.Config(
+            store_backend="memory")))
+        srv = P.api.start_serve_server(0, svc, host="127.0.0.1")
+        srvs.append((srv, svc))
+        bases[P.name] = f"http://127.0.0.1:{srv.port}"
+    try:
+        for path in ("/v1/alerts", "/v1/alerts?since=2&limit=1",
+                     "/v1/alerts/stream?t0=garbage", "/v1/alerts/webhooks"):
+            j, t = (_get(bases[n], path) for n in ("jax", "torch"))
+            assert t[0] == j[0] and json.loads(t[1]) == json.loads(j[1]), path
+        code, body = _post(bases["torch"],
+                           "/v1/alerts/webhooks?url=http://x/hook&since=1")
+        assert (code, json.loads(body)) == (lambda r: (r[0], json.loads(
+            r[1])))(_post(bases["jax"],
+                          "/v1/alerts/webhooks?url=http://x/hook&since=1"))
+        assert code == 200 and json.loads(body)["latest"] == 4
+        assert _settled(tmetrics, "serve_requests_total", 5)
+        assert _settled(tmetrics, "serve_errors_total", 1)
+        assert tmetrics.counter("serve_requests_alerts_stream").value == 1
+    finally:
+        for srv, svc in srvs:
+            srv.close()
+            svc.alerts.close()
+    tmetrics.reset_registry()
     base = served["torch"][2]
     for path in ("/v1/alerts", "/v1/alerts?since=0",
                  "/v1/alerts/stream", "/v1/alerts/webhooks"):
         code, body, _ = _get(base, path)
-        jcode, _, _ = _get(served["jax"][2], path)
+        jcode, jbody, _ = _get(served["jax"][2], path)
         assert code == jcode == 404, path
-        assert "alerts/feed.py" in json.loads(body)["error"], path
+        assert json.loads(body) == json.loads(jbody), path
+        assert "alerts/feed.py" not in json.loads(body)["error"], path
     code, body = _post(base, "/v1/alerts/webhooks?url=http://x/hook")
-    assert code == _post(served["jax"][2],
-                         "/v1/alerts/webhooks?url=http://x/hook")[0] == 404
-    assert "alerts/feed.py" in json.loads(body)["error"]
+    jcode, jbody = _post(served["jax"][2],
+                         "/v1/alerts/webhooks?url=http://x/hook")
+    assert code == jcode == 404 and json.loads(body) == json.loads(jbody)
     assert _settled(tmetrics, "serve_requests_total", 5)
     assert _settled(tmetrics, "serve_errors_total", 5)
     assert tmetrics.counter("serve_requests_alerts_stream").value == 1

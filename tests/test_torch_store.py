@@ -9,6 +9,7 @@ writer's contract (keyed order, flush, close, peek_error).
 
 import importlib.util
 import json
+import os
 import threading
 
 import numpy as np
@@ -318,3 +319,145 @@ def test_sqlite_read_decodes_each_column_as_jax(tmp_path):
     assert port.read("segment")["blcoef"] == [[0.1, 0.2], None, [0.3], []]
     port.close()
     jax_store.close()
+
+
+def _chip_rows(rng, n):
+    """``n`` segment rows of chip (1, 2) at distinct pixels."""
+    f = seg_frame(cx=1, cy=2)
+    for k in f:
+        f[k] = f[k] * n
+    f["px"] = [int(v) for v in rng.permutation(1000)[:n]]
+    f["blcoef"] = rng.normal(0, 1, (n, 8)).tolist()
+    return f
+
+
+def test_column_update_writes_its_columns_as_an_upsert_would(tmp_path):
+    """A ColumnUpdate frame (rows read back with rfrawp changed) leaves the
+    sqlite table an upsert of the whole frame leaves, row for row and in
+    the order a chip's read returns them, and the JAX package reads it
+    alike; with a row gone from the store it upserts the whole frame."""
+    from firebird_tpu_torch.store import ColumnUpdate
+
+    rng = np.random.default_rng(5)
+    n = 30
+    f = _chip_rows(rng, n)
+    stores = [SqliteStore(str(tmp_path / d / "fb.db"), "ks")
+              for d in ("update", "upsert")]
+    for st in stores:
+        st.write("segment", f)
+    seg = stores[0].read("segment", {"cx": 1, "cy": 2})
+    votes = [None if i % 7 == 0 else rng.random(4).tolist()
+             for i in range(n)]
+    upd = ColumnUpdate(seg, ("rfrawp",))
+    upd["rfrawp"] = votes
+    whole = dict(seg, rfrawp=votes)
+    assert stores[0].write("segment", upd) == stores[1].write("segment",
+                                                              whole) == n
+    reads = [st.read("segment", {"cx": 1, "cy": 2}) for st in stores]
+    assert reads[0] == reads[1]
+    assert reads[0]["rfrawp"] == votes
+    jax_store = JSqliteStore(str(tmp_path / "update" / "fb.db"), "ks")
+    assert jax_store.read("segment") == stores[1].read("segment")
+    jax_store.close()
+    # A row deleted under the frame: the whole frame is upserted instead.
+    con = stores[0]._conn()
+    con.execute('DELETE FROM "segment" WHERE px = ?', (seg["px"][3],))
+    con.commit()
+    upd["rfrawp"] = [[0.5] * 4] * n
+    assert stores[0].write("segment", upd) == n
+    got = stores[0].read("segment", {"cx": 1, "cy": 2})
+    assert sorted(got["px"]) == sorted(seg["px"])
+    assert got["rfrawp"] == [[0.5] * 4] * n
+    for st in stores:
+        st.close()
+
+
+@pytest.mark.parametrize("wrap", ["fenced", "mirrored", "async", "all"])
+def test_column_update_keeps_its_update_through_wrappers(
+        tmp_path, monkeypatch, wrap):
+    """A ColumnUpdate handed to the fleet's fenced store, the object
+    mirror, the async writer, or all three stacked as a fleet classify
+    job stacks them, reaches the sqlite store as a ColumnUpdate: the
+    sqlite store takes its UPDATE path, and the rows (the mirror's too)
+    carry the new column."""
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.fleet.queue import FencedStore, FleetQueue
+    from firebird_tpu_torch.store import ColumnUpdate
+    from firebird_tpu_torch.store import objectstore as tobj
+
+    rng = np.random.default_rng(7)
+    n = 20
+    local = SqliteStore(str(tmp_path / "fb.db"), "ks")
+    local.write("segment", _chip_rows(rng, n))
+    seg = local.read("segment", {"cx": 1, "cy": 2})
+    updated = []
+    real_update = SqliteStore._update
+
+    def spy(*args):
+        updated.append(real_update(*args))
+        return updated[-1]
+
+    monkeypatch.setattr(SqliteStore, "_update", staticmethod(spy))
+    q = FleetQueue(str(tmp_path / "q.db"), lease_sec=30)
+    q.enqueue("classify", {"n": 1})
+    lease = q.claim("w:1")
+    root = str(tmp_path / "objects")
+    mirror = tobj.ObjectBackedStore(tobj.open_object_root(
+        root=root, cfg=Config.from_env(env=dict(
+            os.environ, FIREBIRD_OBJECT_ROOT=root))), "scope", "ks")
+    store = local
+    if wrap in ("mirrored", "all"):
+        store = tobj.MirroredStore(local, mirror)
+    if wrap in ("fenced", "all"):
+        store = FencedStore(store, q, lease)
+    votes = [rng.random(4).tolist() for _ in range(n)]
+    upd = ColumnUpdate(seg, ("rfrawp",))
+    upd["rfrawp"] = votes
+    if wrap in ("async", "all"):
+        writer = AsyncWriter(store)
+        writer.write("segment", upd)
+        writer.close()
+    else:
+        store.write("segment", upd)
+    assert updated == [True]
+    got = local.read("segment", {"cx": 1, "cy": 2})
+    assert got == dict(seg, rfrawp=votes)
+    if wrap in ("mirrored", "all"):
+        rows = mirror.read("segment", {"cx": 1, "cy": 2})
+        by_px = dict(zip(rows["px"], rows["rfrawp"]))
+        assert [by_px[p] for p in seg["px"]] == votes
+    mirror.close()
+    q.close()
+    local.close()
+
+
+@pytest.mark.parametrize("backend", ["memory", "sqlite", "object"])
+def test_read_of_named_columns_equals_the_whole_read(
+        tmp_path, monkeypatch, backend):
+    """``read(columns=...)`` gives the named columns of the whole read, in
+    that order, with the same filter; on sqlite, a packed column with
+    NULL cells between vectors of one length decodes as the JAX package
+    reads it."""
+    monkeypatch.setenv("FIREBIRD_OBJECT_ROOT", str(tmp_path / "objects"))
+    rng = np.random.default_rng(9)
+    store = open_store(backend, str(tmp_path / "st"), "ks")
+    for cx in (1, 5):
+        f = _chip_rows(rng, 25)
+        f["cx"] = [cx] * 25
+        f["rfrawp"] = [None if i % 4 == 0 else rng.random(3).tolist()
+                       for i in range(25)]
+        store.write("segment", f)
+    where = {"cx": 1, "cy": 2}
+    whole = store.read("segment", where)
+    names = ("rfrawp", "px", "sday", "blcoef", "chprob")
+    part = store.read("segment", where, columns=names)
+    assert list(part) == list(names)
+    assert part == {c: whole[c] for c in names}
+    assert len(part["px"]) == 25
+    assert store.read("segment", {"cx": 9, "cy": 2}, columns=names) == {
+        c: [] for c in names}
+    if backend == "sqlite":
+        jstore = JSqliteStore(str(tmp_path / "st"), "ks")
+        assert jstore.read("segment", where) == whole
+        jstore.close()
+    store.close()

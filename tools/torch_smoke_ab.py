@@ -35,6 +35,7 @@ MARKERS = (("build", "build: "), ("kernels", "route '0' vs "),
            ("driver", "driver: "), ("ops", "ops: "), ("fleet", "fleet: "),
            ("history", "history: "), ("classify", "classify: "),
            ("serve", "serve: "), ("stream", "stream on "), ("ingest", "ingest on "),
+           ("alert", "alert on "),
            ("f64", "f64 route: "), ("validate", "roofline, "),
            ("end", "chip_smoke: "))
 PHASE_RE = re.compile(r"phase ([0-9.]+) s")
