@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA detector on one GPU.
 
     python3 chip_smoke.py [--seed N] [--chips 8] [--reps 20]
+    python3 chip_smoke.py --only-mp-ring    # build, sharded path, item 20
 
 From the root of a checkout, on a machine with a CUDA card:
 
@@ -100,7 +101,12 @@ From the root of a checkout, on a machine with a CUDA card:
    (pixels over the wall from the first fetch to the writer's close),
    each stage's seconds, the peak device memory a batch beside
    ``kernel.working_set_bytes``, and the batch that
-   ``auto_chips_per_batch`` picks on this card;
+   ``auto_chips_per_batch`` picks on this card.  The native data plane
+   (``native.available()`` must hold): the 24 chips packed natively (in
+   a thread beside the rows' check) must equal the packer's NumPy packs
+   (those the rows' check runs, as the driver packs) byte for byte;
+   printed: the driver's ``pipeline_pack`` seconds and both packs'
+   seconds;
 10. one process per card and the ops surface (``ops_phase``, right after
    ``driver_phase``): ``python -m torch.distributed.run --nproc-per-node 2
    -m firebird_tpu_torch changedetection`` on the one card (both processes
@@ -317,7 +323,36 @@ From the root of a checkout, on a machine with a CUDA card:
    not rise while the replica and the prober run.  Printed: the records,
    the sinks' distinct and duplicate records, the prober's counters and
    latencies, each step's seconds and the phase's;
-20. every kernel instance's registers, stack and spills, and the total
+20. the ring between processes (``mp_ring_phase``, right after
+   ``classify_phase``): two processes of this script (``--mp-ring-child``)
+   on ``cuda:0``, started before ``classify_phase`` so that their imports,
+   CUDA contexts, kernels, gloo group, chips and check (c) come up behind
+   it, then released through the group's store.  They form a global mesh
+   of two shards (``parallel.make_mesh``), process p holding chips [4p,
+   4p+4) of the sharded path's ragged batch at full width, and run
+   ``detect_sharded`` over it, route 0 with compaction and the ring on,
+   both hops of each ring exchange crossing the processes.  (a) Every
+   store field of each process's chips and its ``lanes_migrated`` equal
+   the one-process sharded path's (more than 0 lanes migrate).  (b) Each
+   process launches route 0's kernels and ``ring_remote_copy`` and
+   nothing else, ``ring_remote_copy`` 3 times a dispatch.  (c) The
+   cross-process hop of ``ring_row``'s full-width payload (drawn on the
+   card from the seed, so that each process remakes the other's) equals
+   its plain cross-process version (gloo, host-staged) and its source,
+   byte for byte.  (d) The median of 20 CUDA-event-timed launches of each
+   sender into the other's IPC-opened buffer, the processes in turn, the
+   hop their sum, beside its bound (bytes) and ``torch._foreach_copy_``
+   into the IPC-opened views; then the median wall of 5 whole hops
+   (``ring_remote_copy`` over the mesh: exports, mappings and the store's
+   messages) and of 5 agreements of the dispatch.  (e) The card's compute
+   apps rise by exactly the two processes and fall back.  (f) A second
+   dispatch at a segment capacity 2 above the first's (another payload
+   signature) gives the same segment counts, and once each dispatch's
+   result is gone, at most 64 MiB more is allocated on the card than
+   before the first (a receive buffer kept would be 191 MB).  Printed: the
+   dispatches' seconds, the launches, the hop's times, the memory held,
+   the wait for the children and the phase's visible seconds;
+21. every kernel instance's registers, stack and spills, and the total
    seconds.
 
 Any failed check raises before the result.  The last three lines are the
@@ -331,9 +366,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import datetime
 import json
 import multiprocessing
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -347,7 +384,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from firebird_tpu_torch import grid
+from firebird_tpu_torch import grid, native
 from firebird_tpu_torch.ccd import (cuda_ops, flops as flops_model,
                                     format as fmt, incremental, kernel,
                                     params, synthetic)
@@ -360,7 +397,7 @@ from firebird_tpu_torch.config import Config
 from firebird_tpu_torch.driver import core as driver
 from firebird_tpu_torch.driver import quarantine as qlib
 from firebird_tpu_torch.ingest import SyntheticSource, pack, pixel_timeseries
-from firebird_tpu_torch.ingest.packer import PackedChips
+from firebird_tpu_torch.ingest.packer import QA_FILL_PACKED, PackedChips
 from firebird_tpu_torch.obs import Counters
 from firebird_tpu_torch.store import MemoryStore, SqliteStore
 from firebird_tpu_torch.parallel import detect_sharded
@@ -1239,34 +1276,42 @@ def mega_row(staged, W, kw_mon, report, sensor, mixed=False):
             dict(reps=3, plain_reps=1, plain_warm=0, tensor_flops=tensor))
 
 
+def ring_payload(ints, bits, flts, T, chips=4, bucket=2048, B=7):
+    """The leaves of one shard's migration-out payload at full width: a
+    stage-2 carry of ``chips`` 100x100 chips at the ``bucket``-lane bucket
+    (route 0's loop state, result buffers and residents, the permutation),
+    its designs and its donation mask, each drawn by ``ints(hi, shape,
+    dtype)``, ``bits(shape)`` or ``flts(shape)``."""
+    C, P, S = chips, bucket, kernel.MAX_SEGMENTS
+    resident = dict(vario=lambda: flts((C, P, B)),
+                    Yt=lambda: ints(8000, (C, B, T, P), np.int16),
+                    Yd=lambda: ints(8000, (C, 5, T, P), np.int16))
+    return [ints(3, (C, P)), ints(T, (C, P)), ints(T, (C, P)),
+            bits((C, T, P)), bits((C, T, P)), flts((C, P, B, 8)),
+            flts((C, P, B)), ints(T, (C, P)), bits((C, P)),
+            ints(S + 1, (C, P)),
+            *(flts((C, P, S) + k) for k in ((6,), (B,), (B,), (B, 8))),
+            *(resident[k]() for k in kernel.resident_keys(0)),
+            ints(P, (C, P), np.int64), ints(P, (C,)),
+            flts((C, T, 8)), flts((C, T, 5)), flts((C, T)), bits((C, P))]
+
+
 def ring_row(seed, T, dev, report, chips=4, bucket=2048):
     """``ring_remote_copy`` at full width: the migration-out hop of the
     sharded path's two shards of ``chips`` chips on the card, each
     shard's payload a stage-2 carry at the 2048-lane bucket of 100x100
-    chips (route 0's loop state, result buffers and residents, the
-    permutation), its designs and its donation mask, drawn from the seed.
-    Byte-equal to the plain per-tensor copy and to the sources; the
-    library call is one ``torch._foreach_copy_`` over the same tensors."""
+    chips (:func:`ring_payload`), drawn from the seed.  Byte-equal to the
+    plain per-tensor copy and to the sources; the library call is one
+    ``torch._foreach_copy_`` over the same tensors."""
     rng = np.random.default_rng(seed + 2)
     g = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    C, P, B, S = chips, bucket, 7, kernel.MAX_SEGMENTS
     ints = lambda hi, shape, dt=np.int32: g(rng.integers(0, hi, shape)
                                             .astype(dt))
     bits = lambda shape: g(rng.random(shape) < 0.5)
     flts = lambda shape: g(rng.standard_normal(shape).astype(np.float32))
-    resident = dict(vario=lambda: flts((C, P, B)),
-                    Yt=lambda: ints(8000, (C, B, T, P), np.int16),
-                    Yd=lambda: ints(8000, (C, 5, T, P), np.int16))
 
     def payload():
-        return [ints(3, (C, P)), ints(T, (C, P)), ints(T, (C, P)),
-                bits((C, T, P)), bits((C, T, P)), flts((C, P, B, 8)),
-                flts((C, P, B)), ints(T, (C, P)), bits((C, P)),
-                ints(S + 1, (C, P)),
-                *(flts((C, P, S) + k) for k in ((6,), (B,), (B,), (B, 8))),
-                *(resident[k]() for k in kernel.resident_keys(0)),
-                ints(P, (C, P), np.int64), ints(P, (C,)),
-                flts((C, T, 8)), flts((C, T, 5)), flts((C, T)), bits((C, P))]
+        return ring_payload(ints, bits, flts, T, chips, bucket)
 
     payloads = [payload() for _ in range(SHARDS)]
     raw = lambda t: t.reshape(-1).view(torch.uint8)
@@ -1461,7 +1506,7 @@ def store_diff(seg, base):
             if not torch.equal(getattr(seg, f), getattr(base, f))]
 
 
-def sharded_path(packed, smi):
+def sharded_path(packed, smi, keep=None):
     """The sharded main path: ``detect_sharded`` over two shards on the
     card (route 0, compaction and the rebalancing ring on), the launch
     counters set to 0 just before and read just after.  The ring must
@@ -1469,7 +1514,8 @@ def sharded_path(packed, smi):
     shard a dispatch; the store fields must equal the ring-off dispatch
     and the unsharded "0+compact" route on the same batch, and the same
     dispatch through the plain versions must agree in the decisions of
-    at least 0.999 of the pixels."""
+    at least 0.999 of the pixels.  ``keep`` (a dict) receives the store
+    fields and ``lanes_migrated`` as numpy arrays."""
     C, B, P, T = packed.spectra.shape
     devices = ["cuda:0"] * SHARDS
     torch.cuda.reset_peak_memory_stats()
@@ -1492,6 +1538,11 @@ def sharded_path(packed, smi):
     check(sum(migrated) > 0, f"the ring migrated no lanes: {migrated}")
     check_result(seg, C, P, T)
     occ = occupancy_summary(seg, P)
+    if keep is not None:
+        # The store fields and migrated lanes, for mp_ring_phase's (a).
+        keep.update({f: getattr(seg, f).cpu().numpy()
+                     for f in STORE_FIELDS + ("lanes_migrated",)},
+                    T=T, dispatches=n_dispatches(seg, packed))
 
     t0 = time.perf_counter()
     off = detect_sharded(packed, devices, rebalance=False, **SHARDED)
@@ -1985,17 +2036,29 @@ def driver_phase(smi, chips, gen_s, dev, tmp):
           and not any(cuda_ops.LAUNCHES.values())
           and {t: store.count(t) for t in counts} == counts,
           "the second resume fetched, wrote or launched")
-    # Every stored row against detect_packed + batch_frames on the
-    # same batches.
+    # Every stored row against detect_packed + batch_frames on the same
+    # batches, packed as the driver packs them (NumPy).  The native data
+    # plane packs the same chips in a thread meanwhile, and its arrays must
+    # equal the packer's, byte for byte.
+    check(native.available(), "native.available() is false on the card")
+    batches = [[chips[c] for c in cids[i:i + DRIVER_BATCH]]
+               for i in range(0, DRIVER_CHIPS, DRIVER_BATCH)]
+    t0 = time.perf_counter()
+    packs = [pack(b, bucket=cfg.obs_bucket, max_obs=cfg.max_obs)
+             for b in batches]
+    native_pack = dict(numpy_seconds=time.perf_counter() - t0,
+                       chips=DRIVER_CHIPS)
     want = MemoryStore("want")
-    for i in range(0, DRIVER_CHIPS, DRIVER_BATCH):
-        packed = pack([chips[c] for c in cids[i:i + DRIVER_BATCH]],
-                      bucket=cfg.obs_bucket, max_obs=cfg.max_obs)
-        seg = kernel.segments_to_numpy(kernel.detect_packed(
-            packed, device=dev))
-        for _, frames in fmt.batch_frames(packed, seg):
-            for table in ("chip", "pixel", "segment"):
-                want.write(table, frames[table])
+    with ThreadPoolExecutor(1) as ex:
+        natives = ex.submit(native_packed, batches, packs)
+        for packed in packs:
+            seg = kernel.segments_to_numpy(kernel.detect_packed(
+                packed, device=dev))
+            for _, frames in fmt.batch_frames(packed, seg):
+                for table in ("chip", "pixel", "segment"):
+                    want.write(table, frames[table])
+        native_pack["native_seconds"] = natives.result()
+    del packs
     for table in ("chip", "pixel", "segment"):
         check(_rows(store, table) == _rows(want, table),
               f"driver's {table} rows differ from detect_packed's")
@@ -2013,7 +2076,8 @@ def driver_phase(smi, chips, gen_s, dev, tmp):
                pixels_per_s=snap.get("pixels_per_sec", 0.0),
                stage_seconds=stages, launches=launches, peak_bytes=peak,
                working_set_bytes_batch=ws, result_bytes_batch=res,
-               auto_chips_per_batch=auto, store_rows=counts)
+               auto_chips_per_batch=auto, store_rows=counts,
+               native_pack=native_pack)
     print(f"driver: {snap.get('chips', 0)} of {DRIVER_CHIPS} chips (one "
           f"quarantined, drained on resume), {snap.get('pixels', 0)} px in "
           f"{snap['elapsed_sec']:.3f} s: {out['pixels_per_s']:.1f} px/s on "
@@ -2025,7 +2089,35 @@ def driver_phase(smi, chips, gen_s, dev, tmp):
           f"and result_bytes {res / 2**30:.2f} GiB a batch; "
           f"auto_chips_per_batch {auto}; chips made in {gen_s:.1f} s; "
           f"rows {counts}", flush=True)
+    print(f"driver: pipeline_pack {stages.get('pack', 0.0):.3f} s (NumPy); "
+          f"the {DRIVER_CHIPS} chips packed by the packer in "
+          f"{native_pack['numpy_seconds']:.3f} s, natively in "
+          f"{native_pack['native_seconds']:.3f} s (beside the rows' check), "
+          f"byte-equal", flush=True)
     return out, cfg
+
+
+def native_packed(batches, packs):
+    """Each batch's chips packed by the native data plane
+    (``native.pack_spectra`` and ``native.pack_qa``), held to the packer's
+    arrays in ``packs`` byte for byte; returns the native calls' seconds."""
+    secs = 0.0
+    for chips, p in zip(batches, packs):
+        B, npix, cap = p.spectra.shape[1:]
+        for i, c in enumerate(chips):
+            T = int(p.n_obs[i])
+            t0 = time.perf_counter()
+            spectra = native.pack_spectra(
+                c.spectra[:, :T].reshape(B, T, npix), cap, params.FILL_VALUE)
+            qas = native.pack_qa(c.qas[:T].reshape(T, npix), cap,
+                                 int(QA_FILL_PACKED))
+            secs += time.perf_counter() - t0
+            check(np.array_equal(spectra.view(np.uint8),
+                                 p.spectra[i].view(np.uint8))
+                  and np.array_equal(qas.view(np.uint8),
+                                     p.qas[i].view(np.uint8)),
+                  f"the native pack of chip {i} differs from the packer's")
+    return secs
 
 
 # ---------------------------------------------------------------------------
@@ -4767,14 +4859,336 @@ def validate_phase(smi, dev, kernels, pool):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The ring across processes
+# ---------------------------------------------------------------------------
+
+MP_RING_PROCS = 2
+MP_RING_REPS = 20
+# Whole hops and agreements timed by the host's clock.
+MP_RING_CALLS = 5
+MP_RING_TIMEOUT_S = 600
+# What a dispatch may leave allocated on the card once its result is gone:
+# caches of a few kernels' constants, far below one receive buffer (a
+# stage-2 carry, 191 MB a shard at this size).
+MP_RING_HELD_BYTES = 64 << 20
+
+
+def held_bytes(dev, base):
+    """The device memory allocated beyond ``base``, once the buffers that
+    other processes released by CUDA IPC are freed."""
+    torch.cuda.synchronize()
+    torch.cuda.ipc_collect()
+    return torch.cuda.memory_allocated(dev) - base
+
+
+def wall_ms(fn, reps):
+    """Median milliseconds of ``fn`` (and the card's work it queued) over
+    ``reps`` runs, by the host's clock."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _torch_makers(seed, shard, dev):
+    """``ring_payload``'s draws on the card from a generator seeded by
+    (seed, shard): any process remakes any shard's payload."""
+    gen = torch.Generator(device=dev).manual_seed(1000 * seed + shard)
+    tdt = lambda dt: torch.from_numpy(np.empty(0, dt)).dtype
+    ints = lambda hi, shape, dt=np.int32: torch.randint(
+        0, hi, shape, generator=gen, device=dev, dtype=tdt(dt))
+    bits = lambda shape: torch.rand(shape, generator=gen, device=dev) < 0.5
+    flts = lambda shape: torch.randn(shape, generator=gen, device=dev)
+    return ints, bits, flts
+
+
+def mp_ring_start(seed, chips, T, tmp):
+    """Start ``mp_ring_phase``'s two processes (``--mp-ring-child``) on the
+    card.  They bring up their gloo group, CUDA contexts, kernels and chips
+    and hold the cross-process hop to its plain version, then wait on the
+    run's store until :func:`mp_ring_phase` releases them."""
+    port = _free_ports(1)
+    directory = Path(tmp) / "mp_ring"
+    directory.mkdir()
+    apps = len(_gpu_apps())
+    procs, logs = [], []
+    for pid in range(MP_RING_PROCS):
+        logs.append(open(directory / f"child{pid}.log", "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--chips", str(chips), "--mp-ring-child", str(pid),
+             "--mp-ring-coord", f"127.0.0.1:{port}", "--mp-ring-dir",
+             str(directory), "--mp-ring-T", str(T)],
+            stdout=logs[-1], stderr=subprocess.STDOUT,
+            env=dict(os.environ, OMP_NUM_THREADS="2")))
+    return dict(procs=procs, logs=logs, port=port, dir=directory,
+                apps=apps, t_start=time.perf_counter())
+
+
+def mp_ring_stop(mp):
+    """Kill what is left of :func:`mp_ring_start`'s processes."""
+    for p in mp["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in mp["logs"]:
+        f.close()
+
+
+def mp_ring_child(args):
+    """One process of ``mp_ring_phase`` (``--mp-ring-child PID``): its half
+    of the sharded batch (``--chips`` / 2 chips, the second half keeping
+    the ragged strip), one shard on ``cuda:0`` of a global mesh of two.
+    Writes ``result.PID.json`` and ``fields.PID.npz`` into
+    ``--mp-ring-dir``."""
+    from firebird_tpu_torch.parallel import dist, make_mesh
+
+    pid, out = args.mp_ring_child, Path(args.mp_ring_dir)
+    check(dist.init_distributed(args.mp_ring_coord, MP_RING_PROCS, pid),
+          "the gloo group did not come up")
+    dev = dist.local_device()
+    torch.zeros(1, device=dev)
+    cuda_ops.build()
+    store = dist.store()
+    store.set(f"mp_ring/up/{pid}", "1")
+    # The chips one at a time, on few threads: this runs beside the
+    # host-bound classification.
+    torch.set_num_threads(2)
+    per = args.chips // MP_RING_PROCS
+    src = SyntheticSource(args.seed, start=START, end=END)
+    packed = pack([src.chip(1000 * c, 2000)
+                   for c in range(pid * per, (pid + 1) * per)],
+                  bucket=args.mp_ring_T)
+    if pid * per >= args.chips // SHARDS:        # ragged_batch's half
+        qas = packed.qas.copy()
+        qas[:, qas.shape[1] // 10:, :] = 1 << params.QA_FILL_BIT
+        packed = dataclasses.replace(packed, qas=qas)
+    mesh = make_mesh(timeout_s=MP_RING_TIMEOUT_S)
+    check(len(mesh) == MP_RING_PROCS and list(mesh.local) == [pid],
+          f"mesh {mesh}")
+    # (c) ring_row's payload across the processes: the kernel into the
+    # receiver's IPC-mapped buffer and the plain gloo send of the same
+    # bytes, each against the sender's source remade here.
+    T = packed.spectra.shape[-1]
+    mine = ring_payload(*_torch_makers(args.seed, pid, dev), T)
+    theirs = ring_payload(*_torch_makers(args.seed, 1 - pid, dev), T)
+    got = cuda_ops.ring_remote_copy([mine], +1, mesh=mesh)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = cuda_ops.ring_remote_copy_plain([mine], +1, mesh=mesh)[0]
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    raw = lambda t: t.reshape(-1).view(torch.uint8)
+    for k, (a, b, c) in enumerate(zip(got, want, theirs)):
+        check(torch.equal(raw(a), raw(b)) and torch.equal(raw(a), raw(c)),
+              f"process {pid}: the cross-process hop's tensor {k} differs")
+    del got, want, theirs
+    # For (d): a receive buffer for the other process's payload, exported
+    # to it, and the other's mapped here.
+    plan = cuda_ops.ring_plan(mine)
+    recv = torch.empty(plan.total, dtype=torch.uint8, device=dev)
+    store.set(f"mp_ring/mem/{pid}",
+              pickle.dumps(recv.untyped_storage()._share_cuda_()))
+    store.wait([f"mp_ring/mem/{1 - pid}"],
+               datetime.timedelta(seconds=MP_RING_TIMEOUT_S))
+    dst = cuda_ops.ipc_destination(
+        pickle.loads(store.get(f"mp_ring/mem/{1 - pid}")), dev)
+    store.set(f"mp_ring/ready/{pid}", "1")
+    store.wait(["mp_ring/go"],
+               datetime.timedelta(seconds=MP_RING_TIMEOUT_S))
+    # (a), (b): the sharded main path over the global mesh.  The device
+    # memory allocated before it, and after it once its result is gone.
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    cuda_ops.reset_launches()
+    seg = detect_sharded(packed, mesh, rebalance=True, **SHARDED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    np.savez(out / f"fields.{pid}.npz",
+             **{f: getattr(seg, f).cpu().numpy()
+                for f in STORE_FIELDS + ("lanes_migrated",)})
+    # (f) a second dispatch at another segment capacity (another payload
+    # signature): the same segment counts, and neither dispatch leaves a
+    # receive buffer or a mapping on the card.
+    held = [held_bytes(dev, base)]
+    dispatches, S1 = n_dispatches(seg, packed), seg.seg_meta.shape[2]
+    S = S1 + 2
+    n_seg = seg.n_segments
+    del seg
+    held.append(held_bytes(dev, base))
+    seg = detect_sharded(packed, mesh, rebalance=True,
+                         **dict(SHARDED, max_segments=S))
+    check(seg.seg_meta.shape[2] == S and torch.equal(seg.n_segments, n_seg),
+          f"process {pid}: the dispatch at capacity {S} differs")
+    del seg, n_seg
+    held.append(held_bytes(dev, base))
+    check(max(held[1:]) <= MP_RING_HELD_BYTES,
+          f"process {pid}: {held} bytes held on the card after the "
+          f"dispatches, more than {MP_RING_HELD_BYTES}")
+    # (d) the hop into the other process's buffer, each process in turn:
+    # MP_RING_REPS launches of the kernel and of torch._foreach_copy_ into
+    # the IPC-opened views; then a whole hop, ring_remote_copy over the
+    # mesh (the exports, the mappings, the store's messages), and one
+    # agreement of the dispatch, both processes together.
+    timing = {}
+    for turn in range(MP_RING_PROCS):
+        if turn == pid:
+            views = cuda_ops.ring_views(dst, plan)
+            timing = dict(
+                ms=cuda_ms(lambda: cuda_ops._ring_launch(mine, plan, dst,
+                                                         dev), MP_RING_REPS),
+                foreach_ms=cuda_ms(lambda: torch._foreach_copy_(views, mine),
+                                   MP_RING_REPS))
+            torch.cuda.synchronize()
+            del views
+            store.set(f"mp_ring/timed/{turn}", "1")
+        else:
+            store.wait([f"mp_ring/timed/{turn}"],
+                       datetime.timedelta(seconds=MP_RING_TIMEOUT_S))
+    del dst
+    timing["call_ms"] = wall_ms(
+        lambda: cuda_ops.ring_remote_copy([mine], +1, mesh=mesh),
+        MP_RING_CALLS)
+    timing["agree_ms"] = wall_ms(
+        lambda: mesh.agree("a timed agreement", "x"), MP_RING_CALLS)
+    (out / f"result.{pid}.json").write_text(json.dumps(dict(
+        pid=pid, chips=per, seconds=secs, launches=launches,
+        dispatches=dispatches, plain_seconds=plain_s,
+        payload_bytes=nbytes(*mine), tensors=len(mine), held_bytes=held,
+        capacities=[S1, S], **timing)))
+    store.set(f"mp_ring/done/{pid}", "1")
+    # The group's store lives in process 0: it leaves last.
+    store.wait([f"mp_ring/done/{p}" for p in range(MP_RING_PROCS)],
+               datetime.timedelta(seconds=60))
+    print(f"mp_ring child {pid}: ok", flush=True)
+    dist.shutdown()
+
+
+def mp_ring_phase(smi, mp, ref):
+    """The ring between processes on the card (the module docstring's item
+    20): releases :func:`mp_ring_start`'s processes and checks what they
+    did against ``sharded_path``'s one-process ring (``ref``)."""
+    import torch.distributed as tdist
+
+    t0 = time.perf_counter()
+    try:
+        client = tdist.TCPStore("127.0.0.1", mp["port"], is_master=False,
+                                timeout=datetime.timedelta(seconds=120))
+        client.wait([f"mp_ring/ready/{p}" for p in range(MP_RING_PROCS)],
+                    datetime.timedelta(seconds=MP_RING_TIMEOUT_S))
+        waited = time.perf_counter() - t0
+        client.set("mp_ring/go", "1")
+        # (e) the two processes' contexts are on the card (sampled while
+        # they dispatch).
+        apps_up = len(_gpu_apps())
+        for p in mp["procs"]:
+            p.wait(timeout=MP_RING_TIMEOUT_S)
+    finally:
+        mp_ring_stop(mp)
+    logs = [(mp["dir"] / f"child{p}.log").read_text()
+            for p in range(MP_RING_PROCS)]
+    for p, (proc, log) in enumerate(zip(mp["procs"], logs)):
+        check(proc.returncode == 0, f"mp_ring child {p} exited "
+              f"{proc.returncode}:\n{log[-4000:]}")
+    apps_after = len(_gpu_apps())
+    check(apps_up == mp["apps"] + MP_RING_PROCS and apps_after == mp["apps"],
+          f"compute apps {mp['apps']} -> {apps_up} -> {apps_after}, "
+          f"expected +{MP_RING_PROCS} and back")
+    res = [json.loads((mp["dir"] / f"result.{p}.json").read_text())
+           for p in range(MP_RING_PROCS)]
+    expect = ROUTE_0 | {"ring_remote_copy"}
+    per = res[0]["chips"]
+    for p, r in enumerate(res):
+        # (a) the store fields and migrated lanes of the process's chips.
+        got = np.load(mp["dir"] / f"fields.{p}.npz")
+        for f in STORE_FIELDS + ("lanes_migrated",):
+            check(np.array_equal(got[f], ref[f][p * per:(p + 1) * per]),
+                  f"mp_ring process {p}: {f} differs from the one-process "
+                  f"ring's")
+        # (b) route 0's kernels and three hops a dispatch.
+        launched = {k for k, n in r["launches"].items() if n > 0}
+        check(launched == expect, f"mp_ring process {p} launched "
+              f"{sorted(launched)}, expected {sorted(expect)}")
+        check(r["launches"]["ring_remote_copy"] == 3 * r["dispatches"],
+              f"mp_ring process {p}: {r['launches']['ring_remote_copy']} "
+              f"ring_remote_copy launches for {r['dispatches']} dispatches")
+    check(ref["lanes_migrated"].sum() > 0, "the ring migrated no lanes")
+    hop_bytes = sum(r["payload_bytes"] for r in res)
+    b_ms = 2 * hop_bytes / HBM_BYTES_S * 1e3
+    out = dict(processes=MP_RING_PROCS, chips_per_process=per,
+               dispatch_seconds=[r["seconds"] for r in res],
+               dispatches=res[0]["dispatches"],
+               launches=[r["launches"] for r in res],
+               lanes_migrated=ref["lanes_migrated"].tolist(),
+               hop_bytes=hop_bytes, tensors=res[0]["tensors"],
+               sender_ms=[r["ms"] for r in res],
+               sender_foreach_ms=[r["foreach_ms"] for r in res],
+               ms=sum(r["ms"] for r in res),
+               foreach_copy_ms=sum(r["foreach_ms"] for r in res),
+               bound_ms=b_ms, plain_seconds=[r["plain_seconds"] for r in res],
+               call_ms=[r["call_ms"] for r in res],
+               agree_ms=[r["agree_ms"] for r in res],
+               held_bytes=[r["held_bytes"] for r in res],
+               capacities=res[0]["capacities"],
+               compute_apps=[mp["apps"], apps_up, apps_after],
+               waited_seconds=waited,
+               startup_seconds=t0 - mp["t_start"],
+               seconds=time.perf_counter() - t0)
+    print(f"mp_ring: {MP_RING_PROCS} processes on cuda:0, {per} chips each, "
+          f"one shard each: store fields and lanes migrated "
+          f"{out['lanes_migrated']} equal the one-process ring's; launches "
+          f"{out['launches']} ({out['dispatches']} dispatches); dispatch "
+          f"{', '.join(f'{v:.3f}' for v in out['dispatch_seconds'])} s; "
+          f"compute apps {out['compute_apps']}; waited {waited:.3f} s for "
+          f"the children started {out['startup_seconds']:.1f} s before; "
+          f"phase {out['seconds']:.3f} s on {smi}", flush=True)
+    print(f"ring_remote_copy across processes: {hop_bytes / 1e6:.1f} MB a "
+          f"hop ({res[0]['tensors']} tensors a process) into IPC-mapped "
+          f"buffers, byte-equal to the plain gloo hop and the sources; "
+          f"median of {MP_RING_REPS} launches a sender "
+          f"{', '.join(f'{v:.4f}' for v in out['sender_ms'])} ms, the hop "
+          f"{out['ms']:.4f} ms beside its bound {b_ms:.4f} ms (bytes); "
+          f"torch._foreach_copy_ into the IPC-opened views "
+          f"{out['foreach_copy_ms']:.4f} ms; the plain hop (host-staged "
+          f"gloo) {', '.join(f'{v:.3f}' for v in out['plain_seconds'])} s "
+          f"on {smi}", flush=True)
+    print(f"ring_remote_copy across processes, whole: a hop over the mesh "
+          f"(median of {MP_RING_CALLS}, host clock) "
+          f"{', '.join(f'{v:.3f}' for v in out['call_ms'])} ms a process, "
+          f"an agreement {', '.join(f'{v:.3f}' for v in out['agree_ms'])} "
+          f"ms; capacities {out['capacities']}: bytes held on the card "
+          f"after the first dispatch, once its result is gone, after the "
+          f"second {out['held_bytes']} (at most {MP_RING_HELD_BYTES})",
+          flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--chips", type=int, default=8)
     ap.add_argument("--reps", type=int, default=20)
+    # One process of mp_ring_phase (the script starts them itself).
+    ap.add_argument("--mp-ring-child", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mp-ring-coord", help=argparse.SUPPRESS)
+    ap.add_argument("--mp-ring-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--mp-ring-T", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--only-mp-ring", action="store_true",
+                    help="build, run the sharded path and mp_ring_phase "
+                         "only, and stop (no result lines)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    if args.mp_ring_child is not None:
+        return mp_ring_child(args)
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4795,6 +5209,17 @@ def main(argv=None):
     packed, staged, gen_s = make_batch(args.seed, args.chips, dev)
     print(f"batch: {packed.spectra.shape} int16 made in {gen_s:.1f} s",
           flush=True)
+    if args.only_mp_ring:
+        sharded_ref = {}
+        sharded_path(ragged_batch(packed), smi, sharded_ref)
+        del packed, staged
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            mp_ring_phase(smi, mp_ring_start(
+                args.seed, args.chips, sharded_ref["T"], tmp), sharded_ref)
+        print(f"chip_smoke --only-mp-ring: "
+              f"{time.perf_counter() - t_start:.1f} s on {smi}", flush=True)
+        return
     inp = kernel_inputs(args.seed, staged, kernel.window_cap(packed))
     kernels, kreport = kernel_phase(inp, staged, args.reps, args.seed,
                                     mixed=True)
@@ -4841,7 +5266,8 @@ def main(argv=None):
                                                     segs["0"])
     del segs
     torch.cuda.empty_cache()
-    paths["sharded"] = sharded_path(ragged_batch(packed), smi)
+    sharded_ref = {}
+    paths["sharded"] = sharded_path(ragged_batch(packed), smi, sharded_ref)
     small = small_input(args.seed, dev)
     fuzz = fuzz_phase(dev)
     for name, row in kernels.items():
@@ -4858,7 +5284,15 @@ def main(argv=None):
         ops = ops_phase(smi, chips, drv_cfg, tmp)
         fleet, fleet_env = fleet_phase(smi, chips, drv_cfg, tmp, args.seed)
         history = history_phase(smi, fleet, fleet_env)
-        rf = classify_phase(smi, drv_cfg, args.seed, dev)
+        # mp_ring_phase's processes come up behind the host-bound
+        # classification.
+        mp = mp_ring_start(args.seed, args.chips, sharded_ref["T"], tmp)
+        try:
+            rf = classify_phase(smi, drv_cfg, args.seed, dev)
+        except BaseException:
+            mp_ring_stop(mp)
+            raise
+        mp_ring = mp_ring_phase(smi, mp, sharded_ref)
         serve = serve_phase(smi, drv_cfg, tmp, args.seed)
     torch.cuda.empty_cache()
     strm = stream_phase(smi, chips, dev)
@@ -4885,7 +5319,8 @@ def main(argv=None):
         kernel_report=kreport, main_paths=paths, small_input=small,
         fuzz_chip=fuzz, redesign=redesign,
         sentinel2=s2, driver=drv, ops=ops, fleet=fleet, history=history,
-        classify=rf, serve=serve, stream=strm, ingest=ingest, alert=alert,
+        classify=rf, mp_ring=mp_ring, serve=serve, stream=strm,
+        ingest=ingest, alert=alert,
         f64=f64, validate=audit,
         ptxas_instances=instances,
         ptxas=ptxas,

@@ -49,6 +49,9 @@
     python -m firebird_tpu_torch probe [--serve-url URL] [--landing DIR \
         -x X -y Y] [--chip-offset N] [--chips N] [-i INTERVAL] \
         [--timeout S] [-n CYCLES] [--pyramid-product NAME]
+    python -m firebird_tpu_torch schema [-k KEYSPACE] [-r REPLICATION]
+    python -m firebird_tpu_torch lint [--json PATH] [--rules R] \
+        [--update-baseline] [--no-baseline] [--list-rules] [-q]
 
 ``changedetection`` is the JAX package's command of that name: the tile
 at the point (x, y), its first ``NUMBER`` chips in chunks of
@@ -211,6 +214,16 @@ the alert log to the SSE stream and a local webhook sink; it spools its
 ``probe_*`` metrics under role ``prober`` and prints its status when it
 stops (after ``-n`` cycles, or on SIGINT/SIGTERM).  A bad combination of
 options exits 2.
+
+``schema`` prints the JAX command's Cassandra DDL byte for byte: one CQL
+statement a line (keyspace, then each result table), the keyspace
+``Config.from_env().keyspace()`` unless ``-k`` names one.  ``lint`` is
+the port's firebird-lint (``analysis/``): the knob-registry,
+metrics-contract and thread-ownership families over
+``firebird_tpu_torch/`` against the port's registries and its baseline
+``analysis/lint_baseline.json``, every option passed through (``lint
+--help``); ``--rules jax-hotpath`` exits 2 (not ported: the port has no
+jitted code).  Both load neither torch nor the detector.
 """
 
 from __future__ import annotations
@@ -1689,6 +1702,29 @@ FLEET = dict(enqueue=fleet_enqueue, work=fleet_work,
 _POINT_OPTIONS = ("-b", "--bounds", "-t", "--tile")
 
 
+def schema_cmd(args) -> None:
+    """``schema``: the Cassandra DDL of the result tables as CQL, one
+    statement a line with its ``;`` (the JAX command's output; pipe it to
+    cqlsh).  Host only: it loads neither torch nor the detector."""
+    from firebird_tpu_torch.config import Config
+    from firebird_tpu_torch.store.backends import cassandra_ddl
+
+    keyspace = args.keyspace
+    if keyspace is None:
+        keyspace = Config.from_env().keyspace()
+    for stmt in cassandra_ddl(keyspace, args.replication):
+        print(stmt + ";")
+
+
+def lint(argv: list) -> int:
+    """``lint``: the port's firebird-lint over ``firebird_tpu_torch/``
+    (``analysis.main``; every option passes through, as the JAX command's
+    do).  Host only: it loads neither torch nor the detector."""
+    from firebird_tpu_torch.analysis import main as lint_main
+
+    return lint_main(argv)
+
+
 def _attach_points(argv: list) -> list:
     """``argv`` with each point option's value attached (``-b=-543585,...``)
     so a negative x parses as the JAX command line's does."""
@@ -1794,12 +1830,24 @@ def main(argv=None) -> None:
                    help="shard the chips over N shards, round-robin over the "
                         "visible cards (FIREBIRD_REBALANCE=1 turns on the "
                         "rebalancing ring)")
+    sc = sub.add_parser("schema", help="print the Cassandra DDL for the "
+                        "result tables as CQL")
+    sc.add_argument("-k", "--keyspace", default=None,
+                    help="keyspace name; defaults to Config.keyspace() "
+                         "(derived from input URLs + version)")
+    sc.add_argument("-r", "--replication", type=int, default=1)
+    sub.add_parser("lint", add_help=False,
+                   help="the static contract checker over "
+                        "firebird_tpu_torch/ (options: lint --help)")
     _fleet_parsers(sub)
     _read_parsers(sub)
     _ingest_parsers(sub)
     _serve_parsers(sub)
-    args = ap.parse_args(_attach_points(
-        list(sys.argv[1:] if argv is None else argv)))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv[:1] == ["lint"]:
+        # Every option passes through to the linter's own parser.
+        raise SystemExit(lint(argv[1:]))
+    args = ap.parse_args(_attach_points(argv))
     if args.cmd == "fleet":
         run = FLEET[args.fleet_cmd]
     elif args.cmd == "trace":
@@ -1814,6 +1862,8 @@ def main(argv=None) -> None:
         run = pyramid_build
     elif args.cmd in SERVE:
         run = SERVE[args.cmd]
+    elif args.cmd == "schema":
+        run = schema_cmd
     else:
         run = dict(changedetection=changedetection, stream=stream,
                    classification=classification, save=save,

@@ -89,6 +89,7 @@ from firebird_tpu_torch.ccd.round_state import (PHASE_DONE, PHASE_INIT,
                                                  PHASE_MONITOR, init_zeros,
                                                  next_state)
 from firebird_tpu_torch.ccd.sensor import LANDSAT_ARD
+from firebird_tpu_torch.obs import metrics as obs_metrics
 
 K = params.MAX_COEFS
 NT = params.TMASK_COEFS
@@ -183,6 +184,12 @@ def _lib_path(unit: str) -> Path:
     return BUILD_DIR / f"{unit}-{h.hexdigest()[:12]}.so"
 
 
+def _cache_hit() -> None:
+    obs_metrics.counter(
+        "compile_cache_hits",
+        help="kernel build units found built in the build cache").inc()
+
+
 def _compile(unit: str) -> Path:
     """Build one unit's library unless it exists.  Safe under several
     processes on one ``build/`` (one process per card): the build holds an
@@ -192,12 +199,18 @@ def _compile(unit: str) -> Path:
     its ``.ptxas.txt`` land by an atomic rename."""
     out = _lib_path(unit)
     if out.exists():
+        _cache_hit()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / f"{unit}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():
+            _cache_hit()
             return out
+        obs_metrics.counter(
+            "compile_cache_misses",
+            help="kernel build units compiled by nvcc (no library of "
+                 "their sources and flags in the build cache)").inc()
         pid = os.getpid()
         tmp = out.with_suffix(f".{pid}.tmp.so")
         src = CSRC / f"{source_of(unit)}.cu"
@@ -1620,9 +1633,12 @@ def _shard_device(leaves, i) -> torch.device:
     return dev
 
 
-def ring_remote_copy_plain(payloads, shift):
+def ring_remote_copy_plain(payloads, shift, mesh=None):
     """Plain version of :func:`ring_remote_copy`: ``dst.copy_(src)`` for
-    each tensor, into a buffer allocated on the receiver's device."""
+    each tensor, into a buffer allocated on the receiver's device; across
+    processes (``mesh``), the flat bytes by gloo send/receive."""
+    if mesh is not None:
+        return _hop_across(payloads, shift, mesh, kernel=False)
     n = len(payloads)
     devs = [_shard_device(p, i) for i, p in enumerate(payloads)]
     out = [None] * n
@@ -1652,6 +1668,9 @@ def _enable_peer(device: int, peer: int) -> None:
 def _ring_launch(leaves, plan, buf, src):
     """One launch copying ``leaves`` into ``buf`` by ``plan``'s spans, on
     the current stream of ``src`` (the current device)."""
+    if len(leaves) > RING_MAX_LEAVES:
+        raise ValueError(f"ring_remote_copy: {len(leaves)} tensors in a "
+                         f"payload, at most {RING_MAX_LEAVES}")
     if len(plan.spans):
         srcs = np.fromiter((t.data_ptr() for t in leaves), dtype=np.int64,
                            count=len(leaves))
@@ -1660,7 +1679,38 @@ def _ring_launch(leaves, plan, buf, src):
                 _ptr(buf))
 
 
-def ring_remote_copy(payloads, shift):
+def _copy_to(leaves, src: torch.device, dst_dev: torch.device):
+    """One source shard's payload copied by one launch into a new flat
+    buffer on ``dst_dev``: on one device in its current stream's order;
+    across devices (after peer access is enabled) on the source's current
+    stream, the receiver's current stream waiting on an event recorded
+    after the launch.  Returns ``(buffer, plan)``."""
+    if src != dst_dev:
+        _enable_peer(src.index, dst_dev.index)
+    plan = ring_plan(leaves)
+    buf = torch.empty(plan.total, dtype=torch.uint8, device=dst_dev)
+    if src == dst_dev and src.index == torch.cuda.current_device():
+        # One device: the copy runs on its current stream, in order.
+        _ring_launch(leaves, plan, buf, src)
+        return buf, plan
+    recv = torch.cuda.current_stream(dst_dev)
+    with torch.cuda.device(src):
+        send = torch.cuda.current_stream(src)
+        if send != recv:
+            # The receiver's buffer was allocated in its stream order.
+            ready = torch.cuda.Event()
+            ready.record(recv)
+            send.wait_event(ready)
+        _ring_launch(leaves, plan, buf, src)
+        if send != recv:
+            done = torch.cuda.Event()
+            done.record(send)
+            recv.wait_event(done)
+            buf.record_stream(send)
+    return buf, plan
+
+
+def ring_remote_copy(payloads, shift, mesh=None):
     """One hop of the rebalancing ring: every shard sends its payload to
     the shard ``shift`` places along the ring and receives the payload of
     the shard ``shift`` places back — ``lax.ppermute`` with the pairs
@@ -1670,59 +1720,233 @@ def ring_remote_copy(payloads, shift):
     Args:
         payloads: one list of contiguous tensors per shard, every tensor
             of a shard on that shard's device (several shards may share a
-            device).
+            device).  With ``mesh``, this process's shards' payloads only.
         shift: the ring offset (+1 rightward, -1 leftward).
+        mesh: a ``parallel.mesh.Mesh`` whose ring spans processes (None:
+            every shard is in this process).
     Returns:
         A list whose entry ``(i+shift) % n`` holds shard ``i``'s tensors,
         copied into new buffers on the receiving shard's device (views of
-        one flat buffer a shard, :func:`ring_views`).
+        one flat buffer a shard, :func:`ring_views`); with ``mesh``, what
+        this process's shards received, in their order.
 
     On CUDA shards, one launch per source shard writes every tensor into
     the receiver's buffer, on the source device's current stream; the
     receiver's current stream waits on an event recorded after it.  Across
     two devices the source must have peer access to the receiver, or the
-    call raises."""
+    call raises.  A receiver in another process gets the same launch into
+    its own buffer, mapped by CUDA IPC (:func:`_hop_across`)."""
     n = len(payloads)
     devs = [_shard_device(p, i) for i, p in enumerate(payloads)]
     if all(d.type == "cpu" for d in devs):
-        return ring_remote_copy_plain(payloads, shift)
+        return ring_remote_copy_plain(payloads, shift, mesh)
     if any(d.type != "cuda" for d in devs):
         raise ValueError(f"ring_remote_copy: shards on {devs}: all on the "
                          f"CPU or all on CUDA devices")
+    if mesh is not None:
+        return _hop_across(payloads, shift, mesh, kernel=True)
     out, received = [None] * n, []
     for i, leaves in enumerate(payloads):
         j = (i + shift) % n
-        src, dst_dev = devs[i], devs[j]
-        if len(leaves) > RING_MAX_LEAVES:
-            raise ValueError(f"ring_remote_copy: {len(leaves)} tensors in a "
-                             f"payload, at most {RING_MAX_LEAVES}")
-        if src != dst_dev:
-            _enable_peer(src.index, dst_dev.index)
-        plan = ring_plan(leaves)
-        buf = torch.empty(plan.total, dtype=torch.uint8, device=dst_dev)
-        if src == dst_dev and src.index == torch.cuda.current_device():
-            # One device: the copy runs on its current stream, in order.
-            _ring_launch(leaves, plan, buf, src)
-        else:
-            recv = torch.cuda.current_stream(dst_dev)
-            with torch.cuda.device(src):
-                send = torch.cuda.current_stream(src)
-                if send != recv:
-                    # The receiver's buffer was allocated in its stream
-                    # order.
-                    ready = torch.cuda.Event()
-                    ready.record(recv)
-                    send.wait_event(ready)
-                _ring_launch(leaves, plan, buf, src)
-                if send != recv:
-                    done = torch.cuda.Event()
-                    done.record(send)
-                    recv.wait_event(done)
-                    buf.record_stream(send)
-        received.append((j, buf, plan))
+        received.append((j, *_copy_to(leaves, devs[i], devs[j])))
     # The receive views, carved while the copies run.
     for j, buf, plan in received:
         out[j] = ring_views(buf, plan)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ring_remote_copy between processes
+# ---------------------------------------------------------------------------
+#
+# A hop whose neighbour lives in another process (a global mesh,
+# parallel.mesh.make_mesh).  On the card it is the same launch of the same
+# kernel, fb_ring_remote_copy, writing straight into the receiver's flat
+# buffer, which the receiver exports by CUDA IPC and the sender maps for
+# the hop.
+# Two interprocess events do the work of the Pallas kernel's two DMA
+# semaphores: the receiver records "buffer ready" on its stream and the
+# sender's stream waits on it before the launch; the sender records "copy
+# done" after it and the receiver's stream waits on that before any read.
+# The handles and the payload signature travel through the run's store
+# (the mesh's post/take).  A receiver plans its buffer from its own payload
+# (every shard's payload has one signature), and the sender checks the
+# receiver's signature before it writes: a mismatch, or a handle that does
+# not open, raises in the sender and, through the store, in the receiver.
+# There is no host-staged detour on the card.  The plain version moves the
+# same flat bytes by gloo send/receive (host-staged for CUDA shards).
+#
+# A receive buffer is allocated for its hop and exported then, as the
+# one-process hop allocates one: the views a hop returns hold it, nothing
+# else does, and no later hop writes into it.  The sender maps it for its
+# hop alone and, before it drops the mapping at the hop's end, waits for
+# its "copy done" on the host, so no mapping closes under a copy.  What a
+# process keeps across hops is its interprocess events, by role and pair,
+# and the peers' events it opened, by handle: a few a pair of shards.
+
+_IPC_EVENTS: dict = {}
+_IPC_PEER_EVENTS: dict = {}
+
+
+def ring_signature(leaves) -> str:
+    """A digest of a payload's leaves' shapes and dtypes, in order: the
+    layout of its flat receive buffer (:func:`ring_plan`)."""
+    sig = repr([(tuple(t.shape), str(t.dtype)) for t in leaves])
+    return hashlib.sha1(sig.encode()).hexdigest()
+
+
+def _ipc_event(role: tuple, dev: torch.device) -> torch.cuda.Event:
+    ev = _IPC_EVENTS.get(role)
+    if ev is None:
+        with torch.cuda.device(dev):
+            ev = _IPC_EVENTS[role] = torch.cuda.Event(interprocess=True)
+    return ev
+
+
+def _peer_event(handle: bytes, dev: torch.device) -> torch.cuda.Event:
+    ev = _IPC_PEER_EVENTS.get(handle)
+    if ev is None:
+        ev = _IPC_PEER_EVENTS[handle] = torch.cuda.Event.from_ipc_handle(
+            dev, handle)
+    return ev
+
+
+def _ipc_receive(pair: tuple, leaves, dev: torch.device, msg: dict):
+    """The receiver's half before the copy: a new flat buffer for this
+    payload, exported, and "buffer ready" recorded on the receiver's
+    current stream; ``msg`` gets the buffer's and the event's handles."""
+    plan = ring_plan(leaves)
+    buf = torch.empty(plan.total, dtype=torch.uint8, device=dev)
+    ready = _ipc_event(("ready",) + pair, dev)
+    ready.record(torch.cuda.current_stream(dev))
+    msg.update(mem=buf.untyped_storage()._share_cuda_(),
+               ready=ready.ipc_handle())
+    return buf, plan
+
+
+def ipc_destination(handle: tuple, dev: torch.device) -> torch.Tensor:
+    """The receiver's flat buffer (``handle``: its storage's
+    ``_share_cuda_()``) mapped into this process on ``dev``; raises where
+    the handle does not open.  The mapping lasts as long as the tensor:
+    the caller drops it only once what it launched into it is done."""
+    storage = torch.UntypedStorage._new_shared_cuda(*handle)
+    return torch.empty(0, dtype=torch.uint8, device=dev).set_(
+        storage, 0, (storage.nbytes(),), (1,))
+
+
+def _ipc_send(pair: tuple, leaves, src: torch.device, ready: dict,
+              msg: dict):
+    """The sender's half: map the receiver's buffer, make this stream wait
+    on its "buffer ready", launch the copy into it, record "copy done";
+    ``msg`` gets the done event's handle.  Returns the mapping and the
+    done event, for :func:`_hop_across` to release."""
+    plan = ring_plan(leaves)
+    with torch.cuda.device(src):
+        dst = ipc_destination(ready["mem"], src)
+        if dst.numel() < plan.total:
+            raise ValueError(f"ring_remote_copy: the receive buffer holds "
+                             f"{dst.numel()} bytes, the payload "
+                             f"{plan.total}")
+        stream = torch.cuda.current_stream(src)
+        stream.wait_event(_peer_event(ready["ready"], src))
+        _ring_launch(leaves, plan, dst, src)
+        done = _ipc_event(("done",) + pair, src)
+        done.record(stream)
+    msg["done"] = done.ipc_handle()
+    return dst, done
+
+
+def _hop_across(payloads, shift, mesh, kernel: bool):
+    """One hop of a ring that spans processes (``mesh``: this process
+    holds shards ``mesh.local`` of ``len(mesh)``).  Every process first
+    posts, for each of its shards whose left (``shift``) neighbour lives
+    in another process, a ready message (its signature, and on the card
+    its buffer's and event's handles); then sends: to a shard of its own
+    by :func:`_copy_to` (or the plain copy), to another process's after
+    taking that shard's ready message, by :func:`_ipc_send` on the card
+    or gloo on the CPU, then posts a done message; then completes its
+    receives.  Every wait is the store's, bounded by the mesh's timeout."""
+    import torch.distributed as tdist
+
+    n, me, local = len(mesh), mesh.process, list(mesh.local)
+    if len(payloads) != len(local):
+        raise ValueError(f"ring_remote_copy: {len(payloads)} payloads for "
+                         f"this process's {len(local)} shards")
+    devs = [_shard_device(p, i) for i, p in enumerate(payloads)]
+    seq = mesh.next_seq()
+    tag = seq % (1 << 30)
+    key = lambda s, r, what: f"fb/ring/{seq}/{s}>{r}/{what}"
+    out, recvs, opened = [None] * len(local), [], []
+    for a, r in enumerate(local):
+        s = (r - shift) % n
+        if mesh.owners[s] == me:
+            continue
+        msg = dict(sig=ring_signature(payloads[a]))
+        if kernel:
+            buf, plan = _ipc_receive((s, r), payloads[a], devs[a], msg)
+            work = None
+        else:
+            plan = ring_plan(payloads[a])
+            buf = torch.empty(plan.total, dtype=torch.uint8)
+            work = tdist.irecv(buf, src=mesh.owners[s], tag=tag)
+        mesh.post(key(s, r, "ready"), msg)
+        recvs.append((a, s, r, buf, plan, work))
+    try:
+        for a, g in enumerate(local):
+            d = (g + shift) % n
+            if mesh.owners[d] == me:
+                b = d - local[0]
+                if kernel:
+                    buf, plan = _copy_to(payloads[a], devs[a], devs[b])
+                    out[b] = ring_views(buf, plan)
+                else:
+                    out[b] = [torch.empty(t.shape, dtype=t.dtype,
+                                          device=devs[b]).copy_(t)
+                              for t in payloads[a]]
+                continue
+            ready = mesh.take(key(g, d, "ready"),
+                              f"ring hop {seq}: shard {d}'s receive buffer")
+            done = {}
+            try:
+                sig = ring_signature(payloads[a])
+                if ready["sig"] != sig:
+                    raise ValueError(
+                        f"ring_remote_copy: the payload signature differs "
+                        f"across processes: shard {g} sends {sig}, shard {d} "
+                        f"(process {mesh.owners[d]}) planned {ready['sig']}")
+                if kernel:
+                    opened.append(_ipc_send((g, d), payloads[a], devs[a],
+                                            ready, done))
+                else:
+                    plan = ring_plan(payloads[a])
+                    flat = torch.empty(plan.total, dtype=torch.uint8)
+                    for v, t in zip(ring_views(flat, plan), payloads[a]):
+                        v.copy_(t)
+                    tdist.isend(flat, dst=mesh.owners[d], tag=tag).wait()
+            except Exception as e:
+                mesh.post(key(g, d, "done"), dict(error=f"{type(e).__name__}: "
+                                                        f"{e}"))
+                raise
+            mesh.post(key(g, d, "done"), done)
+        for a, s, r, buf, plan, work in recvs:
+            done = mesh.take(key(s, r, "done"), f"ring hop {seq}: shard "
+                                                f"{s}'s copy into shard {r}")
+            if "error" in done:
+                raise RuntimeError(f"ring_remote_copy: shard {s} (process "
+                                   f"{mesh.owners[s]}) failed to send to "
+                                   f"shard {r}: {done['error']}")
+            if kernel:
+                torch.cuda.current_stream(devs[a]).wait_event(
+                    _peer_event(done["done"], devs[a]))
+            else:
+                work.wait()
+                buf = buf.to(devs[a])
+            out[a] = ring_views(buf, plan)
+    finally:
+        # This process's copies into other processes' buffers are done
+        # before their mappings close.
+        for _, done in opened:
+            done.synchronize()
     return out
 
 

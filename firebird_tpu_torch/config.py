@@ -1194,7 +1194,5 @@ NOT_PORTED = {
     "compile_cache": "the compile cache (this package compiles its kernels "
                      "with nvcc and caches them under build/)",
 }
-# Store backends this package does not port yet.
-NOT_PORTED_BACKENDS = {
-    "cassandra": "the Cassandra store (store/backends.CassandraStore)",
-}
+# Store backends this package does not port yet (every backend is ported).
+NOT_PORTED_BACKENDS: dict[str, str] = {}

@@ -11,8 +11,12 @@
 // device after fb_ring_enable_peer (cudaDeviceEnablePeerAccess), the NVLink
 // stores taking the place of the remote DMA.  The wrapper records an event
 // after the launch and makes the receiver's stream wait on it: that is the
-// receive semaphore's part.  There is no other path: a pair of devices
-// without peer access is refused.
+// receive semaphore's part.  A receiver in another process (a global mesh)
+// exports its buffer by CUDA IPC and the sender launches this same kernel
+// into the mapping; two interprocess events, "buffer ready" recorded by the
+// receiver and "copy done" by the sender, play the Pallas kernel's two DMA
+// semaphores (cuda_ops._hop_across).  There is no other path: a pair of
+// devices without peer access, or a handle that does not open, is refused.
 //
 // Bound: bytes.  Every payload byte is read once and written once.  The
 // payload is cut into equal spans, each inside one leaf (the last of a leaf

@@ -98,7 +98,6 @@ from firebird_tpu_torch.obs import server as obs_server
 from firebird_tpu_torch.obs import tracing
 from firebird_tpu_torch.obs import watchdog as obs_watchdog
 from firebird_tpu_torch.parallel import detect_sharded, dist
-from firebird_tpu_torch.parallel.mesh import refuse_cross_process_ring
 from firebird_tpu_torch.store import AsyncWriter, open_store
 from firebird_tpu_torch.utils import dates as dt
 from firebird_tpu_torch.utils.fn import partition_all, take
@@ -294,13 +293,20 @@ def run_device(device=None) -> torch.device:
 def build_kernels(dev: torch.device, cfg: Config, log) -> None:
     """Build the CUDA kernels a float32 run on a card launches (nothing for
     the CPU or float64), before the ops surface comes up: a short
-    FIREBIRD_STALL_SEC must not be tripped by ``nvcc``."""
+    FIREBIRD_STALL_SEC must not be tripped by ``nvcc``.  This is the
+    port's warm start (the JAX package's ``warm_compile``): the first
+    dispatch then finds every kernel built."""
     if dev.type != "cuda" or cfg.dtype != "float32":
         return
-    with obs_metrics.timer() as tm:
+    with tracing.span("warm_compile"), obs_metrics.timer() as tm:
         cuda_ops.build()
     log.info("CUDA kernels built in %.1f s", tm.elapsed)
-    obs_metrics.histogram("kernel_build_seconds").observe(tm.elapsed)
+    obs_metrics.histogram(
+        "warm_compile_seconds",
+        help="the CUDA kernels' build (nvcc, or the build cache) before "
+             "the first dispatch").observe(tm.elapsed)
+    obs_metrics.counter("warm_compiles",
+                        help="warm-start kernel builds completed").inc()
 
 
 def robustness_setup(cfg: Config, run_id: str, *, source=None, store=None):
@@ -857,7 +863,6 @@ def changedetection(x, y, acquired: str | None = None, number: int = 2500,
     first)."""
     cfg = cfg or Config.from_env()
     refuse_not_ported(cfg)
-    refuse_cross_process_ring()
     dev = run_device(device)
     acquired = acquired or dt.default_acquired()
     cfg = resolve_batching(cfg, acquired, dev)

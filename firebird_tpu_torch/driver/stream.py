@@ -283,7 +283,6 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
     quarantined."""
     cfg = cfg or Config.from_env()
     dcore.refuse_not_ported(cfg)
-    dcore.refuse_cross_process_ring()
     dev = dcore.run_device(device)
     acquired = acquired or dt.default_acquired()
     cfg = dcore.resolve_batching(cfg, acquired, dev)
@@ -332,7 +331,6 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
     # be drained by the success path below.
     failed_cids: set = set()
     counters = Counters() if counters is None else counters
-    hist = obs_metrics.histogram
 
     def fetch_chip(cid, rng_iso):
         try:
@@ -362,7 +360,9 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
     def save(cid, st, side):
         with obs_metrics.timer() as tm:
             sstore.save(cid, st, side)
-        hist("statestore_save_seconds").observe(tm.elapsed)
+        obs_metrics.histogram(
+            "statestore_save_seconds",
+            help="one chip's checkpoint save").observe(tm.elapsed)
 
     hi_iso = acquired.split("/")[1]
     boot = [c for c in cids if not sstore.exists(c)]
@@ -413,7 +413,7 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                             obs_metrics.timer() as tm:
                         fetched = list(ex.map(
                             lambda c: fetch_chip(c, acquired), bids))
-                    hist("pipeline_fetch_seconds").observe(tm.elapsed)
+                    obs_metrics.histogram("pipeline_fetch_seconds").observe(tm.elapsed)
                     keep = [(cid, ch) for cid, ch in zip(bids, fetched)
                             if ch is not None]
                     if not keep:
@@ -422,7 +422,7 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                             obs_metrics.timer() as tm:
                         p = pack([ch for _, ch in keep],
                                  bucket=cfg.obs_bucket, max_obs=cfg.max_obs)
-                    hist("pipeline_pack_seconds").observe(tm.elapsed)
+                    obs_metrics.histogram("pipeline_pack_seconds").observe(tm.elapsed)
                     return keep, dcore.stage_batch(
                         p, torch.float32, cfg.device_sharding, device=dev)
 
@@ -436,7 +436,7 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                         staged.packed, torch.float32, cfg.device_sharding,
                         check_capacity=True, staged=staged,
                         compact=cfg.compact, device=dev)
-                hist("pipeline_dispatch_seconds").observe(tm.elapsed)
+                obs_metrics.histogram("pipeline_dispatch_seconds").observe(tm.elapsed)
                 obs_server.batch_dispatched()
                 with tracing.span("drain", chips=n_real), \
                         obs_metrics.timer() as tm:
@@ -455,7 +455,7 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                         quarantine.discard(cid)
                         summary["pixels_need_batch"] += int(
                             st.needs_batch.sum())
-                hist("pipeline_drain_seconds").observe(tm.elapsed)
+                obs_metrics.histogram("pipeline_drain_seconds").observe(tm.elapsed)
                 return n_real
 
             nxt = prefetch_ex.submit(prepare, batches[0], ctxs[0]) \
@@ -480,7 +480,9 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
             try:
                 with obs_metrics.timer() as tm:
                     st, side = sstore.load(cid)
-                hist("statestore_load_seconds").observe(tm.elapsed)
+                obs_metrics.histogram(
+                    "statestore_load_seconds",
+                    help="one chip's checkpoint load").observe(tm.elapsed)
             except sstore_mod.StateStoreError as e:
                 # Every bank failed its checksum: void the slot so that
                 # `exists` turns False and the next run re-bootstraps the
@@ -506,7 +508,7 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                     if chip is not None:
                         p = pack([chip], bucket=cfg.obs_bucket,
                                  max_obs=cfg.max_obs)
-                hist("stream_fetch_seconds").observe(tm.elapsed)
+                obs_metrics.histogram("stream_fetch_seconds").observe(tm.elapsed)
             new_idx = np.zeros(0, np.int64)
             if p is not None:
                 T = int(p.n_obs[0])
@@ -535,9 +537,9 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                     if ev is not None:
                         ev[1].record()
                     st = st_dev.to("cpu")
-                hist("stream_step_seconds").observe(tm.elapsed)
+                obs_metrics.histogram("stream_step_seconds").observe(tm.elapsed)
                 if ev is not None:
-                    hist("stream_step_device_seconds").observe(
+                    obs_metrics.histogram("stream_step_device_seconds").observe(
                         ev[0].elapsed_time(ev[1]) / 1e3)
                 side = dict(side, horizon=np.float64(t[-1]))
                 # Alert BEFORE the checkpoint saves: a crash between them
@@ -555,16 +557,16 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                                               alerts=len(recs)):
                                 ins, dup = alog.append(recs, run_id=run_id,
                                                        trace=trace_id)
-                    hist("stream_alert_seconds").observe(tm.elapsed)
+                    obs_metrics.histogram("stream_alert_seconds").observe(tm.elapsed)
                     if recs:
-                        hist("alert_visible_seconds",
+                        obs_metrics.histogram("alert_visible_seconds",
                              help="stream-update ingest start to durable "
                                   "alert commit (the alert_freshness SLO "
                                   "feed)").observe(time.monotonic() - t_seen)
                         acq_to_alert = None
                         if published is not None:
                             acq_to_alert = max(time.time() - published, 0.0)
-                            hist("acquisition_to_alert_seconds",
+                            obs_metrics.histogram("acquisition_to_alert_seconds",
                                  help="scene publish time to durable "
                                       "alert-log append (the end-to-end "
                                       "alert_freshness SLO feed)").observe(
@@ -585,7 +587,7 @@ def stream(x, y, acquired: str | None = None, number: int = 2500,
                     writer.write("segment", publish_frame(p, st, side),
                                  key=tuple(cid))
                     save(cid, st, side)
-                hist("stream_publish_seconds").observe(tm.elapsed)
+                obs_metrics.histogram("stream_publish_seconds").observe(tm.elapsed)
                 summary["updated"] += 1
                 summary["obs_applied"] += int(new_idx.size)
             n_need = int(st.needs_batch.sum())

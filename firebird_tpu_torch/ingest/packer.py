@@ -8,7 +8,12 @@ padded to a bucket size, so the detector sees few distinct shapes.
 
 Padding convention: padded observations carry QA = fill (bit 0 set) and
 spectra = FILL_VALUE, so the detector's QA triage drops them with no
-special cases.
+special cases.  The [B,T,side,side] -> [B,P,cap] layout change is a
+NumPy transpose on one core, where the JAX package's packer calls the
+native data plane: the native transpose (``native.pack_spectra``, on every
+core at each call) takes the cores that the batch driver's drain and
+writer threads run on beside the pack, and the driver loses more
+throughput than the faster pack gains (PERF.md, "Where the time goes").
 """
 
 from __future__ import annotations

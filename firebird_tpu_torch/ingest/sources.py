@@ -10,7 +10,6 @@
 
 from __future__ import annotations
 
-import base64
 import json
 import os
 import threading
@@ -20,6 +19,7 @@ import urllib.request
 
 import numpy as np
 
+from firebird_tpu_torch import native
 from firebird_tpu_torch.ccd import harmonic, params, synthetic
 from firebird_tpu_torch.ingest.packer import CHIP_SIDE, ChipData
 from firebird_tpu_torch.obs import logger
@@ -325,16 +325,20 @@ def decode_raster(rec: dict, dtype=np.int16, side: int = CHIP_SIDE) -> np.ndarra
     """Decode one chip record's base64 payload to a [side,side] array.
 
     The payload is little-endian (int16 spectra, uint16 QA, float32/byte
-    AUX), the wire format of the recorded Chipmunk responses.  Decoded
-    with the standard library and numpy (the JAX package's native decoder
-    is not ported yet)."""
-    raw = base64.b64decode(rec["data"])
+    AUX), the wire format of the recorded Chipmunk responses.  The decode
+    runs in the native data plane, straight into the result buffer, and is
+    strict: whitespace is skipped, any other character outside the
+    alphabet raises ValueError (``native.b64_decode_into``).
+    """
+    data = rec["data"]
     wire = np.dtype(dtype).newbyteorder("<")
-    if len(raw) % wire.itemsize:
+    out = np.empty(len(data) * 3 // 4 // wire.itemsize + 1, wire)
+    n = native.b64_decode_into(data, out)
+    if n % wire.itemsize:
         raise ValueError(
-            f"chip payload of {len(raw)} bytes is not a multiple of the "
+            f"chip payload of {n} bytes is not a multiple of the "
             f"{wire.itemsize}-byte wire dtype — truncated or corrupt")
-    a = np.frombuffer(raw, wire)
+    a = out[:n // wire.itemsize]
     if wire != np.dtype(dtype):  # big-endian host: swap to native order
         a = a.astype(dtype)
     return a.reshape(side, side)

@@ -14,8 +14,12 @@ pipeline on its strided share of the tile's chips
 (``driver.core.host_shard``) on its own card (:func:`local_device`), and
 what the processes exchange is a host scalar or a string — the run id
 through the store's key-value API (``driver.core.fleet_run_id``), the
-report shards on disk.  So the group is gloo, never NCCL: NCCL refuses two
-ranks on one card, and nothing here moves a tensor between cards.
+report shards on disk.  A global mesh (``parallel.mesh.make_mesh``) also
+agrees on a few host scalars through the store, and its rebalancing ring
+moves the stage-2 carry between processes: on the card by CUDA IPC into
+the receiver's buffer (``ccd.cuda_ops.ring_remote_copy``), on the CPU by
+gloo send/receive.  So the group is gloo, never NCCL: NCCL refuses two
+ranks on one card.
 """
 
 from __future__ import annotations
@@ -125,6 +129,15 @@ def global_device_count() -> int:
     return min(process_count(), n) if n else 0
 
 
+def store():
+    """The bring-up's key-value store (multi-process runs only): the
+    global mesh's agreements and the ring's messages travel through it."""
+    if "store" not in _state:
+        raise RuntimeError("torch.distributed is not brought up: call "
+                           "parallel.init_distributed first")
+    return _state["store"]
+
+
 def kv_set(key: str, value: str) -> None:
     """Set ``key`` in the bring-up's store (multi-process runs only)."""
     _state["store"].set(key, value)
@@ -148,4 +161,4 @@ def shutdown() -> None:
 
 __all__ = ["init_distributed", "is_initialized", "process_count",
            "process_index", "local_device", "global_device_count",
-           "kv_set", "kv_get", "shutdown"]
+           "store", "kv_set", "kv_get", "shutdown"]

@@ -10,19 +10,23 @@ shards' phases in turn: each shard's stage-1 loop, then (with the ring on)
 the exchange at the stage-2 boundary, each shard's tail, the exchange
 back, and each shard's result.
 
-Across processes (one process per card, ``parallel.dist``).  In the JAX
-package a mesh may span processes (``spans_processes``), and then two
-things need agreement across them: the window cap
-(``_wcap_global_max``) and the capacity retry (``read_worst``).  Both
-exist because every process must trace the same XLA program and build one
-global array.  This package compiles nothing per shape, and its results
-stay in the process that computed them, so its device lists are always
-process-local: a "global mesh" is each process's own local dispatch over
-its own chips (``driver.core.host_shard``) with no exchange — CCDC needs
-no collective.  The one cross-process step the JAX package has on this
-path, the ring's hop between processes, needs a tensor exchange between
-cards and is not ported: :func:`rebalance_spec` refuses the ring in a
-multi-process run.
+Across processes (one process per card, ``parallel.dist``).  A device
+list is process-local: the driver's per-process dispatch
+(``driver.core.host_shard``) runs over its own chips and never
+synchronizes, as the JAX package's host-local meshes must not.  A global
+mesh (:func:`make_mesh` after ``init_distributed``) lists every process's
+shards in ring order, as JAX's global mesh does; :func:`detect_sharded`
+over it takes the process's local chip slice (JAX's
+``make_array_from_process_local_data``) and returns that slice's
+ChipSegments on the process's device.  Only then do the processes agree,
+through the run's store, each wait bounded by the mesh's timeout: on the
+dispatch's shape and route, on the window cap (``_wcap_global_max``, a
+MAX), on the capacity retry (``read_worst``, a MAX), and, with the ring
+on, on the stage-2 carry's signature (shapes and dtypes).  A mismatch
+raises by name in every process.  The ring's hop to a shard of another
+process is ``cuda_ops.ring_remote_copy`` into the receiver's buffer
+mapped by CUDA IPC (gloo send/receive on the CPU), where JAX uses
+``lax.ppermute`` or the Pallas remote DMA.
 
 The ring (``mesh.py``'s block comment): compaction leaves each shard with
 its own residue of working lanes, so without migration every shard waits
@@ -42,6 +46,10 @@ the migration back.
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import functools
+import itertools
+import pickle
 from typing import Callable
 
 import numpy as np
@@ -90,11 +98,13 @@ class RebalanceSpec:
     hop: Callable | None = None
 
     def _move(self, trees, shift):
+        # Every shard's nest has one structure (across processes the
+        # signature agreement holds it), so each receiver rebuilds what
+        # arrived with its own.
         flat = [_flatten(t) for t in trees]
         moved = (self.hop or cuda_ops.ring_remote_copy)(
             [leaves for leaves, _ in flat], shift)
-        return [flat[(j - shift) % self.n][1](iter(moved[j]))
-                for j in range(self.n)]
+        return [build(iter(m)) for (_, build), m in zip(flat, moved)]
 
     def to_right(self, trees):
         """One hop rightward: shard i's nest lands on shard i+1; returns,
@@ -107,24 +117,11 @@ class RebalanceSpec:
         return self._move(trees, -1)
 
 
-def refuse_cross_process_ring(rebalance=None) -> None:
-    """Raise NotImplementedError when the ring is on (``rebalance``; None
-    reads FIREBIRD_REBALANCE) in a multi-process run: its hop between
-    processes is not ported."""
-    from firebird_tpu_torch.parallel import dist
-
-    if dist.process_count() > 1 and kernel.rebalance_mode(rebalance):
-        raise NotImplementedError(
-            "FIREBIRD_REBALANCE in a multi-process run: the rebalancing "
-            "ring's hop between processes (a tensor exchange between cards) "
-            "is not ported to firebird_tpu_torch")
-
-
 def rebalance_spec(devices, rebalance=None) -> RebalanceSpec | None:
-    """The dispatch's ring, or None when it is off (``rebalance``; None
-    reads FIREBIRD_REBALANCE, default off) or there is one shard.  Raises
-    NotImplementedError for the ring in a multi-process run."""
-    refuse_cross_process_ring(rebalance)
+    """The dispatch's ring over ``devices`` (a device list, or a
+    :class:`Mesh`: every process's shards), or None when it is off
+    (``rebalance``; None reads FIREBIRD_REBALANCE, default off) or there is
+    one shard."""
     if not kernel.rebalance_mode(rebalance) or len(devices) < 2:
         return None
     return RebalanceSpec(n=len(devices),
@@ -202,6 +199,139 @@ def rebalance_tail_back(stcats, donated, spec: RebalanceSpec, C: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The global mesh: every process's shards, and agreement across processes
+# ---------------------------------------------------------------------------
+
+# The number of the next cross-process exchange.  Every process of a run
+# makes the same exchanges in the same order (meshes, agreements, ring
+# hops), so the numbers agree and name the store's keys.
+_SEQ = itertools.count()
+# How long any exchange waits for another process before it raises.
+MESH_TIMEOUT_S = 300.0
+
+
+class MeshMismatch(ValueError):
+    """The processes of a global mesh disagree on something every one of
+    them must hold alike (the dispatch, the ring's payload)."""
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A 1-D data mesh over every process's shards, in ring order (process
+    0's shards, then process 1's, ...): ``devices[k]`` is shard ``k``'s
+    device as its process names it, ``owners[k]`` that process; this
+    process is ``process``.  :func:`make_mesh` builds it; every exchange
+    through it waits at most ``timeout_s``."""
+
+    devices: tuple
+    owners: tuple
+    process: int
+    timeout_s: float = MESH_TIMEOUT_S
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    @property
+    def local(self) -> range:
+        """This process's shards: a contiguous run of ring positions."""
+        mine = [k for k, o in enumerate(self.owners) if o == self.process]
+        return range(mine[0], mine[-1] + 1)
+
+    @property
+    def local_devices(self) -> list:
+        return [torch.device(self.devices[k]) for k in self.local]
+
+    # ---- the store's messages (multi-process runs) ----
+
+    def next_seq(self) -> int:
+        return next(_SEQ)
+
+    def post(self, key: str, value) -> None:
+        from firebird_tpu_torch.parallel import dist
+
+        dist.store().set(key, pickle.dumps(value))
+
+    def take(self, key: str, what: str):
+        """Wait for ``key`` (at most ``timeout_s``), read it and delete it;
+        raises TimeoutError naming ``what``."""
+        from firebird_tpu_torch.parallel import dist
+
+        store = dist.store()
+        try:
+            store.wait([key], datetime.timedelta(seconds=self.timeout_s))
+        except Exception as e:
+            raise TimeoutError(f"global mesh: {what}: no answer within "
+                               f"{self.timeout_s:g} s ({key})") from e
+        value = pickle.loads(store.get(key))
+        store.delete_key(key)
+        return value
+
+    def gather(self, what: str, value) -> list:
+        """Every process's ``value`` for one exchange, in process order."""
+        from firebird_tpu_torch.parallel import dist
+
+        seq, store = self.next_seq(), dist.store()
+        store.set(f"fb/mesh/{seq}/{self.process}", pickle.dumps(value))
+        procs = sorted(set(self.owners))
+        keys = [f"fb/mesh/{seq}/{p}" for p in procs]
+        try:
+            store.wait(keys, datetime.timedelta(seconds=self.timeout_s))
+        except Exception as e:
+            raise TimeoutError(f"global mesh: {what}: not every process "
+                               f"answered within {self.timeout_s:g} s") from e
+        return [pickle.loads(store.get(k)) for k in keys]
+
+    def global_max(self, what: str, v: int) -> int:
+        """The MAX of a host integer over the processes."""
+        return max(int(x) for x in self.gather(what, int(v)))
+
+    def agree(self, what: str, value) -> None:
+        """Raise :class:`MeshMismatch`, in every process, unless every
+        process holds the same ``value`` (a string or a plain nest)."""
+        got = self.gather(what, value)
+        if any(g != got[0] for g in got):
+            raise MeshMismatch(f"global mesh: {what} differs across "
+                               f"processes: "
+                               + "; ".join(f"process {p}: {g}" for p, g in
+                                           zip(sorted(set(self.owners)),
+                                               got)))
+
+
+def make_mesh(devices=None, timeout_s: float = MESH_TIMEOUT_S) -> Mesh:
+    """The data mesh over every process's shards: this process's
+    ``devices`` (default :func:`shard_devices`' — in a multi-process run,
+    this process's card) and, after ``parallel.init_distributed``, every
+    other process's, exchanged through the run's store, in process order.
+    Every process of the run calls it together.  Sets the
+    ``mesh_devices`` gauge."""
+    from firebird_tpu_torch.obs import metrics as obs_metrics
+    from firebird_tpu_torch.parallel import dist
+
+    local = [str(d) for d in shard_devices(devices)]
+    me = dist.process_index()
+    if dist.process_count() > 1:
+        mesh = Mesh((), tuple(range(dist.process_count())), me, timeout_s)
+        lists = mesh.gather("the devices of every process", local)
+    else:
+        lists = [local]
+    mesh = Mesh(tuple(d for ds in lists for d in ds),
+                tuple(p for p, ds in enumerate(lists) for _ in ds), me,
+                timeout_s)
+    # Topology gauge for /metrics and the fleet report (merge "max": the
+    # same on every process of a global mesh).
+    obs_metrics.gauge("mesh_devices",
+                      help="devices in the active data mesh").set(len(mesh))
+    return mesh
+
+
+def spans_processes(mesh) -> bool:
+    """True when ``mesh`` holds shards of other processes: the one
+    predicate deciding whether a dispatch takes its local chip slice and
+    agrees across processes.  A device list never does."""
+    return isinstance(mesh, Mesh) and len(set(mesh.owners)) > 1
+
+
 def shard_devices(devices=None) -> list:
     """The shards' devices: ``devices`` as given (repeats allowed), or
     every visible CUDA device once — in a multi-process run, this
@@ -239,13 +369,20 @@ def _concat(segs, migrated, dev):
     return kernel.ChipSegments(**out)
 
 
-def _dispatch(staged, devs, spec, **kw):
+def _dispatch(staged, devs, spec, mesh=None, **kw):
     """One dispatch of every shard: stage 1 each, the tails (through the
-    ring when ``spec`` is given), the results."""
+    ring when ``spec`` is given), the results.  Over a global ``mesh``
+    with the ring on, the processes first agree on the stage-2 carry's
+    signature (none where the shards skip the bucketed tail)."""
     with torch.no_grad():
         loops = [kernel.staged_loop(*args, **kw) for args in staged]
         st2s = [loop.stage1() for loop in loops]
         migrated = None
+        if mesh is not None and spec is not None:
+            mesh.agree("the ring's payload signature (the stage-2 carry)",
+                       "none" if st2s[0] is None else
+                       cuda_ops.ring_signature(
+                           _flatten((st2s[0], loops[0].shared))[0]))
         if st2s[0] is not None:          # every shard has the same width
             if spec is not None:
                 cats, shcats, donated, migrated = rebalance_tail_out(
@@ -272,7 +409,15 @@ def detect_sharded(packed, devices=None, *, compact=None, fused=None,
     sharded over ``devices`` (default: every visible CUDA device once) ->
     ChipSegments [C, P, ...] on the first shard's device.
 
-    The chip count must divide evenly over the shards.  ``compact``,
+    ``devices`` may be a :class:`Mesh` (:func:`make_mesh`).  One that spans
+    processes takes ``packed`` as this process's local chip slice, runs it
+    on this process's shards with every other process's (the ring's hops
+    crossing between processes), and returns that slice's ChipSegments on
+    this process's first device; the processes agree on the dispatch, the
+    window cap and the capacity retry.  One that does not is its local
+    device list.
+
+    The chip count must divide evenly over the (local) shards.  ``compact``,
     ``fused``, ``pallas``, ``ops``, ``mixed``, ``dtype``, ``max_segments``,
     ``check_capacity`` and ``variogram_mode`` are
     :func:`kernel.detect_packed`'s; the
@@ -282,15 +427,20 @@ def detect_sharded(packed, devices=None, *, compact=None, fused=None,
     the bucketed tail.  ``rounds`` and ``round_counts`` are each shard's,
     on its chips; ``compactions`` sits on each shard's first chip;
     ``lanes_migrated`` is None with the ring off."""
+    mesh = devices if spans_processes(devices) else None
+    if isinstance(devices, Mesh):
+        devices = devices.local_devices
     devs = shard_devices(devices)
     n, C = len(devs), packed.n_chips
     if C % n:
         raise ValueError(f"chip batch ({C}) must divide evenly over {n} "
                          f"shards — pad the batch")
     route = kernel.pallas_components(pallas, ops, mixed, dtype)
-    spec = rebalance_spec(devs, rebalance)
+    spec = rebalance_spec(devs if mesh is None else mesh, rebalance)
     if spec is not None:
-        spec = dataclasses.replace(spec, hop=route.ring_remote_copy)
+        spec = dataclasses.replace(
+            spec, hop=route.ring_remote_copy if mesh is None else
+            functools.partial(route.ring_remote_copy, mesh=mesh))
     per = C // n
     staged = [tuple(torch.from_numpy(np.ascontiguousarray(a[i * per:
                                                             (i + 1) * per]))
@@ -301,13 +451,25 @@ def detect_sharded(packed, devices=None, *, compact=None, fused=None,
               variogram_mode=variogram_mode, ops=route,
               fused=kernel.fused_mode(fused),
               compact=kernel.compact_mode(compact))
+    read_worst = lambda seg: int(seg.n_segments.max())
+    if mesh is not None:
+        # Every process runs one program of hops and retries: agree on
+        # its shape first, then on the window cap, and on every retry.
+        mesh.agree("the sharded dispatch", repr((
+            tuple(packed.spectra.shape[1:]), per, kw["sensor"].name,
+            str(route.dtype), route.components, route.mixed,
+            route.ring_remote_copy.__name__, kw["fused"],
+            kw["compact"], variogram_mode, spec is not None,
+            check_capacity)))
+        kw["W"] = mesh.global_max("the window cap", kw["W"])
+        read_worst = lambda seg: mesh.global_max(
+            "the capacity retry's deepest pixel", int(seg.n_segments.max()))
     dispatch = lambda S: kernel.record_first_call(
         ("sharded", tuple(packed.spectra.shape), tuple(map(str, devs)),
          str(route.dtype), kw["W"], kw["sensor"].name, S, kw["compact"],
-         kw["fused"], route.mixed, spec is not None),
-        lambda: _dispatch(staged, devs, spec, max_segments=S, **kw))
+         kw["fused"], route.mixed, spec is not None, mesh is not None),
+        lambda: _dispatch(staged, devs, spec, mesh, max_segments=S, **kw))
     if not check_capacity:
         return dispatch(max(max_segments, 1))
-    return kernel.capacity_retry(dispatch,
-                                 lambda seg: int(seg.n_segments.max()),
-                                 max_segments, kernel.capacity_bound(packed))
+    return kernel.capacity_retry(dispatch, read_worst, max_segments,
+                                 kernel.capacity_bound(packed))

@@ -395,7 +395,10 @@ def train(X: np.ndarray, y: np.ndarray, *, n_trees: int = NUM_TREES,
     with obs_metrics.timer() as tm:
         edges = _bin_edges(X, n_bins)
         Xb_host = _binize(X, edges)
-    obs_metrics.histogram("rf_bin_seconds").observe(tm.elapsed)
+    obs_metrics.histogram(
+        "rf_bin_seconds",
+        help="the forest's feature binning on the host, per train call"
+    ).observe(tm.elapsed)
     Xb = torch.as_tensor(Xb_host).to(dev).long()
     yt = torch.as_tensor(y_idx).to(dev).long()
     mtry = max(1, int(np.sqrt(X.shape[1])))

@@ -1,8 +1,7 @@
-"""Store backends: memory, sqlite, parquet, and the object tier.
+"""Store backends: memory, sqlite, parquet, Cassandra and the object tier.
 
-The port's own copy of the JAX package's ``store/backends.py``, less the
-Cassandra store (not ported yet; :func:`open_store` refuses it by name).
-The object backend and the write-through mirror live in
+The port's own copy of the JAX package's ``store/backends.py``.  The
+object backend and the write-through mirror live in
 ``store/objectstore.py``.
 
 The Store interface: ``write(table, frame)`` upserts a dict-of-columns
@@ -16,7 +15,9 @@ re-writing the same key replaces the row — the reference's rerun-upsert
 semantics (mode('append') onto Cassandra PKs, ccdc/cassandra.py:62-63,
 SURVEY.md §5).  A :class:`ColumnUpdate` frame (rows read back from the
 store with some columns changed) is upserted the same way by every
-backend; the sqlite store writes its changed columns alone.
+backend; the sqlite store writes its changed columns alone.  Every
+backend's ``read`` takes ``columns=``, a parameter the JAX package's
+stores lack.
 """
 
 from __future__ import annotations
@@ -454,24 +455,185 @@ class ParquetStore:
         pass
 
 
+def sanitize_keyspace(keyspace: str) -> str:
+    """A valid unquoted CQL keyspace identifier (cqlstr semantics,
+    ccdc/__init__.py:44; CQL's unquoted-identifier grammar requires a
+    leading *letter*, so digit- and underscore-leading names are prefixed
+    ``ks_``).  A non-letter-leading name could never have been created
+    unquoted by Cassandra itself, so the prefix cannot orphan existing
+    data."""
+    from firebird_tpu_torch.config import _cqlstr
+
+    ks = _cqlstr(keyspace) or "default"
+    return ks if ks[0].isalpha() else f"ks_{ks}"
+
+
+def cassandra_ddl(keyspace: str, replication: int = 1) -> list[str]:
+    """The CQL DDL statements for the result tables — the reference ships
+    these as resources/schema.cql and loads them with `make db-schema`
+    (Makefile:24-39); here the single source of truth is schema.TABLES and
+    this generator (printed by the ``schema`` command, executed verbatim
+    by CassandraStore._ensure_schema)."""
+    ks = sanitize_keyspace(keyspace)
+    stmts = [
+        f"CREATE KEYSPACE IF NOT EXISTS {ks} WITH replication"
+        f" = {{'class': 'SimpleStrategy', 'replication_factor': "
+        f"{int(replication)}}}"]
+    for t, spec in schema.TABLES.items():
+        cols = ", ".join(f"{c} {CassandraStore._TYPES[typ]}"
+                         for c, typ in spec["columns"])
+        key = spec["key"]
+        pk = (f"(({key[0]}, {key[1]})"
+              + ("".join(f", {k}" for k in key[2:])) + ")")
+        stmts.append(f"CREATE TABLE IF NOT EXISTS {ks}.{t} "
+                     f"({cols}, PRIMARY KEY {pk})")
+    return stmts
+
+
+class CassandraStore:
+    """Store over Apache Cassandra — the reference's production sink.
+
+    Parity with ccdc/cassandra.py + resources/schema.cql:
+    - same four (+product) tables; partition key = the first two key
+      columns, remaining key columns clustering — the natural-key PKs that
+      make rerun writes idempotent upserts (schema.cql:34,54,142;
+      mode('append'), cassandra.py:62-63).
+    - QUORUM consistency and bounded concurrent writes (cassandra.py:20-26,
+      reference default 2 concurrent writes).
+    - keyspace per inputs+version (ccdc/__init__.py:29-44 — Config.keyspace).
+
+    Array-valued columns are JSON-encoded text (uniform with the sqlite
+    backend) rather than frozen<list<...>>; the key design, not the cell
+    encoding, carries the durability semantics.  A :class:`ColumnUpdate`
+    is upserted as whole rows, as any frame; ``read(..., columns=)``
+    selects the named columns alone.
+
+    ``session`` is injectable (the tests pass a recording fake).  Without
+    it, the DataStax ``cassandra-driver`` package is required and a clear
+    error is raised when absent — the driver is not bundled.
+    """
+
+    _TYPES = {"INTEGER": "bigint", "REAL": "double", "TEXT": "text",
+              "JSON": "text", "BITS": "blob", "F64S": "blob", "I32S": "blob"}
+
+    def __init__(self, contact_points=("127.0.0.1",), port: int = 9042,
+                 keyspace: str = "default", username: str = "",
+                 password: str = "", concurrent_writes: int = 2,
+                 replication: int = 1, session=None):
+        self.keyspace = sanitize_keyspace(keyspace)
+        self.concurrent_writes = max(int(concurrent_writes), 1)
+        self._replication = int(replication)
+        self._cluster = None
+        if session is None:
+            session = self._connect(contact_points, port, username, password)
+        self.session = session
+        self._prepared: dict[str, object] = {}
+        self._ensure_schema()
+
+    def _connect(self, contact_points, port, username, password):
+        try:
+            from cassandra.cluster import Cluster
+        except ImportError as e:
+            raise RuntimeError(
+                "store backend 'cassandra' needs the cassandra-driver "
+                "package (or pass an explicit session=); install it or use "
+                "the sqlite/parquet backends") from e
+        auth = None
+        if username:
+            from cassandra.auth import PlainTextAuthProvider
+            auth = PlainTextAuthProvider(username=username, password=password)
+        self._cluster = Cluster(list(contact_points), port=port,
+                                auth_provider=auth)
+        session = self._cluster.connect()
+        from cassandra import ConsistencyLevel
+        session.default_consistency_level = ConsistencyLevel.QUORUM
+        return session
+
+    def _ensure_schema(self):
+        for stmt in cassandra_ddl(self.keyspace, self._replication):
+            self.session.execute(stmt)
+
+    def _prepare(self, table: str):
+        if table not in self._prepared:
+            cols = schema.columns(table)
+            ph = ", ".join("?" * len(cols))
+            self._prepared[table] = self.session.prepare(
+                f"INSERT INTO {self.keyspace}.{table} "
+                f"({', '.join(cols)}) VALUES ({ph})")
+        return self._prepared[table]
+
+    def write(self, table: str, frame: dict) -> int:
+        types = _col_types(table)
+        cols = list(types)
+        stmt = self._prepare(table)
+        n = len(next(iter(frame.values())))
+        rows = zip(*(_encode_column(frame, c, types[c], n) for c in cols))
+        # Bounded in-flight async writes (the reference's
+        # spark.cassandra.output.concurrent.writes, ccdc/__init__.py:20).
+        pending = []
+        for row in rows:
+            pending.append(self.session.execute_async(stmt, row))
+            if len(pending) >= self.concurrent_writes:
+                pending.pop(0).result()
+        for f in pending:
+            f.result()
+        return n
+
+    def read(self, table: str, where: dict | None = None,
+             columns=None) -> dict:
+        types = _col_types(table)
+        cols = list(columns or types)
+        cql = f"SELECT {', '.join(cols)} FROM {self.keyspace}.{table}"
+        params: tuple = ()
+        if where:
+            cql += " WHERE " + " AND ".join(f"{k} = %s" for k in where)
+            cql += " ALLOW FILTERING"
+            params = tuple(_normalize(v) for v in where.values())
+        out: dict[str, list] = {c: [] for c in cols}
+        for row in self.session.execute(cql, params):
+            for c, v in zip(cols, row):
+                out[c].append(_decode_cell(v, types[c]))
+        return out
+
+    def count(self, table: str) -> int:
+        rows = self.session.execute(
+            f"SELECT COUNT(*) FROM {self.keyspace}.{table}", ())
+        return int(next(iter(rows))[0])
+
+    def chip_ids(self, table: str = "segment") -> set[tuple[int, int]]:
+        # The first two key columns are exactly the partition key, so
+        # DISTINCT reads only partition keys — a full-row scan here would
+        # stream millions of segment rows just to dedupe chips (the resume
+        # path, driver/core.py).
+        k1, k2 = schema.primary_key(table)[:2]
+        rows = self.session.execute(
+            f"SELECT DISTINCT {k1}, {k2} FROM {self.keyspace}.{table}", ())
+        return {(r[0], r[1]) for r in rows}
+
+    def close(self):
+        if self._cluster is not None:
+            self._cluster.shutdown()
+
+
 def open_store(backend: str, path: str, keyspace: str,
                read_only: bool = False):
     """The store of a backend name (cfg.store_backend): 'sqlite' (its rows
     in the keyspace-suffixed file next to ``path``, :class:`SqliteStore`),
     'parquet' (:class:`ParquetStore`; needs pyarrow, imported at first
-    use), 'memory', or 'object' (``objectstore.ObjectBackedStore`` over
+    use), 'memory', 'cassandra' (:class:`CassandraStore`; needs
+    cassandra-driver), or 'object' (``objectstore.ObjectBackedStore`` over
     FIREBIRD_OBJECT_ROOT, ``path`` scoping its keys).  ``read_only=True``
     opens a sqlite replica connection or a read-only object handle; the
     other backends refuse it.  With FIREBIRD_OBJECT_ROOT set, a local
     backend's writes also publish to the object tier, object first
-    (:func:`_maybe_mirror`).  Cassandra is not ported yet: naming it
-    raises."""
-    from firebird_tpu_torch.config import NOT_PORTED_BACKENDS
+    (:func:`_maybe_mirror`).
 
-    if backend in NOT_PORTED_BACKENDS:
-        raise ValueError(f"store backend {backend!r}: "
-                         f"{NOT_PORTED_BACKENDS[backend]} is not ported to "
-                         f"firebird_tpu_torch yet")
+    For the 'cassandra' backend, connection settings come from the
+    reference's env contract (ccdc/__init__.py:17-22): CASSANDRA
+    (contact host[,host...]), CASSANDRA_PORT, CASSANDRA_USER,
+    CASSANDRA_PASS, CASSANDRA_OUTPUT_CONCURRENT_WRITES — credentials stay
+    in the environment, not in Config.
+    """
     if read_only and backend not in ("sqlite", "object"):
         raise ValueError(
             f"read_only is a sqlite replica mode; backend {backend!r} "
@@ -487,6 +649,16 @@ def open_store(backend: str, path: str, keyspace: str,
     if backend == "sqlite":
         store = SqliteStore(path, keyspace, read_only=read_only)
         return _maybe_mirror(store, path, keyspace, read_only)
+    if backend == "cassandra":
+        hosts = os.environ.get("CASSANDRA", "127.0.0.1").split(",")
+        return CassandraStore(
+            contact_points=[h.strip() for h in hosts if h.strip()],
+            port=int(os.environ.get("CASSANDRA_PORT", "9042")),
+            keyspace=keyspace,
+            username=os.environ.get("CASSANDRA_USER", ""),
+            password=os.environ.get("CASSANDRA_PASS", ""),
+            concurrent_writes=int(
+                os.environ.get("CASSANDRA_OUTPUT_CONCURRENT_WRITES", "2")))
     if backend == "memory":
         return _maybe_mirror(MemoryStore(keyspace), path, keyspace, False)
     if backend == "parquet":

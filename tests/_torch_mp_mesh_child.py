@@ -2,13 +2,13 @@
 the counterpart of tests/_mp_mesh_child.py.
 
 Each of two processes joins one gloo process group (parallel.dist) and runs
-parallel.detect_sharded over ITS OWN chips on its own two CPU shards: the
-port's device lists are process-local, so a "global mesh" is each
-process's local dispatch with no exchange.  The two processes pack their
+parallel.detect_sharded over ITS OWN chips on its own two CPU shards: a
+device list is process-local, so this dispatch makes no exchange.  The two processes pack their
 chips at different acquisition cadences (so their window caps differ) and
 start at max_segments=1 (so the capacity retry fires); each process's
 results must equal kernel.detect_packed on its chips.  The rebalancing
-ring must be refused by name in a multi-process run.
+ring over a process-local list runs in the process alone and equals the
+ring-off dispatch (a global mesh's ring: test_torch_global_mesh.py).
 """
 
 import os
@@ -47,12 +47,15 @@ def main() -> int:
         np.testing.assert_array_equal(got, want, err_msg=name)
     # the capacity retry fired (it started at 1)
     assert seg.seg_meta.shape[2] >= 2, seg.seg_meta.shape
-    try:
-        detect_sharded(packed, ["cpu", "cpu"], rebalance=True)
-    except NotImplementedError as e:
-        assert "FIREBIRD_REBALANCE" in str(e), e
-    else:
-        raise AssertionError("the ring ran in a multi-process run")
+    # The ring over a process-local device list runs in this process
+    # alone and leaves the store fields as the ring-off dispatch does.
+    ringed = detect_sharded(packed, ["cpu", "cpu"], rebalance=True,
+                            max_segments=1)
+    for name in ("n_segments", "seg_meta", "seg_coef", "seg_rmse", "mask"):
+        np.testing.assert_array_equal(getattr(ringed, name).numpy(),
+                                      getattr(seg, name).numpy(),
+                                      err_msg=name)
+    assert ringed.lanes_migrated.shape == (2,)
     print(f"wcap_local={kernel.window_cap(packed)} CHILD_OK {pid}",
           flush=True)
     dist.shutdown()

@@ -264,9 +264,11 @@ def test_two_processes_build_a_unit_once(tmp_path):
 
 def test_a_multi_process_run_without_a_card_raises(monkeypatch):
     """A process of a multi-process run takes its card, and without one
-    raises unless the caller names the CPU; the ring is refused by name
-    across processes."""
+    raises unless the caller names the CPU; FIREBIRD_REBALANCE is honoured
+    there as in the JAX package: the process's host-local mesh of one
+    device takes no ring, and nothing refuses the knob."""
     from firebird_tpu_torch.parallel import dist
+    from firebird_tpu_torch.parallel import mesh as tmesh
 
     monkeypatch.setattr(dist, "_state", dict(world=2, rank=1, local_rank=1))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -275,6 +277,7 @@ def test_a_multi_process_run_without_a_card_raises(monkeypatch):
     assert tcore.run_device("cpu").type == "cpu"
     assert tcore.host_shard(list(range(5))) == [1, 3]
     monkeypatch.setenv("FIREBIRD_REBALANCE", "1")
-    with pytest.raises(NotImplementedError, match="FIREBIRD_REBALANCE"):
-        tcore.changedetection(0, 0, cfg=Config(store_backend="memory"),
-                              device="cpu")
+    tcore.refuse_not_ported(Config(store_backend="memory"))
+    assert tmesh.rebalance_spec([torch.device("cpu")]) is None
+    assert tmesh.rebalance_spec(["cpu", "cpu"]).n == 2
+    assert not tmesh.spans_processes(["cpu"])

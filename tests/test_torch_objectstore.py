@@ -631,7 +631,7 @@ def test_object_root_is_honoured_by_the_drivers(tmp_path, monkeypatch):
     assert "object_root" not in NOT_PORTED
     assert "object" not in NOT_PORTED_BACKENDS
     assert set(NOT_PORTED) == {"compile_cache"}
-    assert set(NOT_PORTED_BACKENDS) == {"cassandra"}
+    assert NOT_PORTED_BACKENDS == {}
     core.refuse_not_ported(Config(store_backend="object",
                                   object_root=str(tmp_path / "o")))
 

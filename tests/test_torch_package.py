@@ -132,7 +132,10 @@ PORTED_MODULES = ("__about__.py", "config.py", "grid.py", "retry.py",
                   "store/objectstore.py", "streamops/watcher.py",
                   "serve/flight.py", "serve/cache.py", "serve/pyramid.py",
                   "serve/api.py", "export.py", "alerts/feed.py",
-                  "alerts/fanout.py", "obs/prober.py")
+                  "alerts/fanout.py", "obs/prober.py", "native/__init__.py",
+                  "analysis/__init__.py", "analysis/__main__.py",
+                  "analysis/engine.py", "analysis/knobs.py",
+                  "analysis/metrics_contract.py", "analysis/ownership.py")
 
 
 @pytest.mark.parametrize("rel", PORTED_MODULES)

@@ -34,7 +34,7 @@ MARKERS = (("build", "build: "), ("kernels", "route '0' vs "),
            ("sentinel2", "sentinel2 route 'lasso"),
            ("driver", "driver: "), ("ops", "ops: "), ("fleet", "fleet: "),
            ("history", "history: "), ("classify", "classify: "),
-           ("serve", "serve: "), ("stream", "stream on "), ("ingest", "ingest on "),
+           ("mp_ring", "mp_ring: "), ("serve", "serve: "), ("stream", "stream on "), ("ingest", "ingest on "),
            ("alert", "alert on "),
            ("f64", "f64 route: "), ("validate", "roofline, "),
            ("end", "chip_smoke: "))
