@@ -35,11 +35,24 @@ From the root of a checkout, on a machine with a CUDA card:
    ``params.MIXED_ULP_BUDGET`` scaled ulps on at least 0.999 of the
    pixels, the count outside printed), timed beside their f32 instances,
    their bound the split dots at the bf16 tensor rate and the rest at the
-   float32 rate;
+   float32 rate; then the skip guard (``active=``) of the eight kernels
+   that take one (``guard_phase``; its seconds printed): at 100, 30, 2 and
+   0 % of each chip's lanes active (a dense prefix), the guarded launch
+   equals the unguarded one with ``cuda_ops.guard``'s fill over the tiles
+   without an active lane bit for bit, and its guarded plain version bit
+   for bit on those tiles (the mixed instances too); on the inputs a
+   compacted loop hands over (the other lanes with no window, no
+   monitoring, no INIT, no fit, no close) guarded equals unguarded on
+   every lane the loop reads, each timed at 100, 30 and 2 % beside the
+   share of dead tiles, and a row "<kernel>+guard" at 30 %;
 4. main paths, one for each route: the round routes ``fused`` 0, 1 and
    "mon", the whole-loop route ``pallas="mega"`` and the component route
    ``pallas="lasso,monitor,tmask"``, all with compaction off, route 0
-   with compaction on ("0+compact"), and routes 0, 1, "mon" and mega with
+   with compaction on ("0+compact"), routes 1, "mon" and the component
+   route with it on ("1+compact", "mon+compact", "components+compact":
+   every guarded kernel runs guarded on a main path; one run each, its
+   launches read around it, every field equal to its compaction-off
+   route's bit for bit), and routes 0, 1, "mon" and mega with
    ``mixed=True`` ("0+mixed", ...: their fitting kernels' mixed instances
    launch, no f32 one).  Each is ``SyntheticSource`` ->
    ``pack`` -> ``detect_packed`` on the card for the same full-size
@@ -81,7 +94,8 @@ From the root of a checkout, on a machine with a CUDA card:
 8. the Sentinel-2 path (bench.py's rung: one 300x300-pixel chip of 12
    bands, 2019-2020, T=64): every kernel's 12-band instance on that chip's
    round states against its plain version (the pixels that disagree
-   counted) and timed, the mixed instances too, then routes 0, 1, "mon",
+   counted) and timed, the mixed instances too, one bit check of each
+   guarded instance's skip guard at 30 % active, then routes 0, 1, "mon",
    mega, the component route, "0+mixed" and "mon+mixed", each with its
    launches read around it and against its plain route, held to the
    Landsat paths' rules;
@@ -427,10 +441,13 @@ ROUTE_0 = {"lasso_fit", "monitor_chain_scored", "init_window"}
 # Each main path: its detect_packed arguments and the kernels it launches
 # (the routes after "0" fit the prologue's snow / insufficient-clear
 # pixels with lasso_fit; the component route with lasso_cd).  The five
-# routes run with compaction off, "0+compact" is route 0 with it on; the
-# "+mixed" routes are routes 0, 1, "mon" and mega with the mixed-precision
-# Gram, which launch the mixed instances of their fitting kernels and no
-# f32 instance of one.
+# routes run with compaction off, "0+compact" is route 0 with it on, and
+# "1+compact", "mon+compact" and "components+compact" routes 1, "mon" and
+# the component route with it on (with compaction every kernel of a route
+# but detect_mega runs its skip guard, cuda_ops.guard); the "+mixed"
+# routes are routes 0, 1, "mon" and mega with the mixed-precision Gram,
+# which launch the mixed instances of their fitting kernels and no f32
+# instance of one.
 ROUTES = {
     "0": (dict(pallas="1", fused=0, compact=False), ROUTE_0),
     "1": (dict(pallas="1", fused=1, compact=False),
@@ -441,7 +458,16 @@ ROUTES = {
     COMPONENTS: (dict(pallas=COMPONENTS, fused=0, compact=False),
                  {"lasso_cd", "monitor_chain", "tmask_bad"}),
     "0+compact": (dict(pallas="1", fused=0, compact=True), ROUTE_0),
+    "1+compact": (dict(pallas="1", fused=1, compact=True),
+                  ROUTE_0 | {"fused_fit_close"}),
+    "mon+compact": (dict(pallas="1", fused="mon", compact=True),
+                    {"lasso_fit", "init_window", "fused_round"}),
+    "components+compact": (dict(pallas=COMPONENTS, fused=0, compact=True),
+                           {"lasso_cd", "monitor_chain", "tmask_bad"}),
 }
+# The compacted routes held by compact_path to their compaction-off route.
+COMPACT_OF = {"1+compact": "1", "mon+compact": "mon",
+              "components+compact": COMPONENTS}
 # Every route names its precision: FIREBIRD_MIXED_PRECISION decides none.
 for _r in ROUTES.values():
     _r[0]["mixed"] = False
@@ -465,6 +491,19 @@ HOME_ROUTE = {"lasso_fit": "0", "monitor_chain_scored": "0",
               "detect_mega": "mega", "ring_remote_copy": "sharded"}
 HOME_ROUTE.update({cuda_ops.unit_of(k, True): HOME_ROUTE[k] + MIXED
                    for k in cuda_ops.MIXED_SOURCES})
+# The kernels with a skip guard (``active=``), their rows ("<name>+guard":
+# the guarded launch at GUARD_ROW_SHARE of the lanes active) and the
+# compacted route whose main-path launches those rows report.
+GUARDED = ("lasso_fit", "monitor_chain_scored", "init_window",
+           "fused_fit_close", "fused_round", "lasso_cd", "monitor_chain",
+           "tmask_bad")
+GUARD_SUFFIX = "+guard"
+HOME_ROUTE.update({k + GUARD_SUFFIX: r for k, r in (
+    ("lasso_fit", "0+compact"), ("monitor_chain_scored", "0+compact"),
+    ("init_window", "0+compact"), ("fused_fit_close", "1+compact"),
+    ("fused_round", "mon+compact"), ("lasso_cd", "components+compact"),
+    ("monitor_chain", "components+compact"),
+    ("tmask_bad", "components+compact"))})
 SEGMENT_FIELDS = ("n_segments", "seg_meta", "seg_rmse", "seg_mag",
                   "seg_coef", "mask", "procedure", "rounds", "vario",
                   "round_counts")
@@ -587,13 +626,17 @@ def window_sizes(inp):
     return torch.where(has_i & has_w & inp["in_init"], n, torch.zeros_like(n))
 
 
-def kernel_phase(inp, staged, reps, seed, ring=True, mixed=False):
+def kernel_phase(inp, staged, reps, seed, ring=True, mixed=False,
+                 guards=None):
     """Every kernel at full width on ``inp``'s round states (its sensor's
     band layout), held to its plain version, then timed beside it; the
     ring's row only where ``ring``; where ``mixed``, the fitting kernels'
-    mixed instances too (:func:`mixed_rows`).  Returns the rows by kernel
-    and the phase's report (each kernel's count of pixels whose decisions
-    differ from the plain version's under ``disagreeing_pixels``)."""
+    mixed instances too (:func:`mixed_rows`); then the skip guards
+    (:func:`guard_phase`, "full" or "bits"; None: not).  Returns the rows by
+    kernel (with the guard rows where ``guards`` is "full") and the phase's
+    report (each kernel's count of pixels whose decisions differ from the
+    plain version's under ``disagreeing_pixels``; the guards' under
+    ``guard``)."""
     C, B, T, P = inp["Yt"].shape
     sensor = inp["sensor"]
     rows, report = [], {}
@@ -611,14 +654,9 @@ def kernel_phase(inp, staged, reps, seed, ring=True, mixed=False):
               for i in range(2))
     dis["lasso_fit"] = int(check_floats("lasso_fit", zip(got, want), FIT_TOL,
                                         sensor).sum())
-    # The Gram over the weighted steps, the CD loop of every pixel with a
-    # weight (the others' fit is zero), the RMSE pass.
-    nnz = float(inp["w"].sum())
-    n_fit = float((inp["w"].sum(1) > 0).sum())
-    fl = nnz * (36 * 2 + B * 17 + 1) + n_fit * B * 50 * 8 * 20 \
-        + nnz * B * 19
-    by = nnz * B * 2 + nbytes(inp["w"], inp["X"], inp["coefmask"], *got)
-    rows.append(("lasso_fit", a, {}, err, rel, fl, by, dict(fit_obs=nnz)))
+    fl, by = kernel_work("lasso_fit", a, got, inp)
+    rows.append(("lasso_fit", a, {}, err, rel, fl, by,
+                 dict(fit_obs=float(inp["w"].sum()))))
 
     # ---- monitor_chain_scored ----
     a = (inp["Yd"], inp["coefs_d"], inp["dden"], inp["X"], inp["alive"],
@@ -632,14 +670,7 @@ def kernel_phase(inp, staged, reps, seed, ring=True, mixed=False):
     for k in want:
         n_diff = int((got[k] != want[k]).sum())
         check(n_diff == 0, f"monitor_chain_scored {k}: {n_diff} differ")
-    # The detection bands at the monitoring pixels' alive observations,
-    # their alive / included columns and model, the vectors and the
-    # partition planes out.
-    n_alive = float((inp["alive"] & inp["in_mon"][:, None, :]).sum())
-    n_mon = float(inp["in_mon"].sum())
-    fl = n_alive * 5 * 19
-    by = (n_alive * 5 * 2 + n_mon * (2 * T + 5 * 8 * 4 + 5 * 4)
-          + nbytes(inp["X"], *a[6:], *got.values()))
+    fl, by = kernel_work("monitor_chain_scored", a, got, inp)
     rows.append(("monitor_chain_scored", a, kw_mon, 0.0, 0.0, fl, by))
 
     # ---- init_window ----
@@ -659,7 +690,7 @@ def kernel_phase(inp, staged, reps, seed, ring=True, mixed=False):
           f"init_window stability verdicts: {verdict}")
     report["init_window_verdict_disagreement"] = verdict
     err = max(float((got[k].int() - want[k].int()).abs().max()) for k in want)
-    fl, by = init_work(inp, a, got)
+    fl, by = kernel_work("init_window", a, got, inp)
     rows.append(("init_window", a, kw_init, err, 0.0, fl, by,
                  dict(fit_obs=float(window_sizes(inp).sum()))))
     report["init_window_late_round"] = init_late_round(inp, a, kw_init, seed,
@@ -704,11 +735,236 @@ def kernel_phase(inp, staged, reps, seed, ring=True, mixed=False):
               f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}, library "
               f"{library_ms} ms), max abs err {err}, max rel err {rel}, "
               f"pixels disagreeing {dis.get(name)}{f32}", flush=True)
+    if guards:
+        out.update(guard_phase(rows, inp, reps, report, full=guards == "full"))
     return out, report
 
 
 INIT_EXACT = ("init_nowin", "init_tm", "has_adv", "i_next_tm", "i_adv", "j",
               "n_ok", "w_stab", "alive_init")
+
+
+# ---------------------------------------------------------------------------
+# The skip guards (cuda_ops.guard)
+# ---------------------------------------------------------------------------
+
+# The active shares of the guards' bit checks, of their timings, and of
+# their rows: each chip's lanes a dense prefix, as compaction leaves them.
+GUARD_SHARES = (1.0, 0.3, 0.02, 0.0)
+GUARD_TIMED = (1.0, 0.3, 0.02)
+GUARD_ROW_SHARE = 0.3
+MONITORS = ("monitor_chain_scored", "monitor_chain")
+# INIT's cursor fields, which a pixel that does not initialize computes too
+# (the loop reads them where in_init).
+INIT_CURSOR = ("i_next_tm", "i_adv", "j", "has_adv")
+
+
+def gcall(fns, name, a, kw, active):
+    """Kernel ``name`` of ``fns`` (cuda_ops.KERNELS or PLAIN) on the
+    arguments ``a``, the fused kernels' buffers (their last argument)
+    cloned first: they are updated in place."""
+    if name in ("fused_fit_close", "fused_round"):
+        a = a[:-1] + (tuple(b.clone() for b in a[-1]),)
+    return getattr(fns, name)(*a, **kw, active=active)
+
+
+def out_leaves(out):
+    """An output's tensors in order (a dict's by key, a tuple's by place)."""
+    if torch.is_tensor(out):
+        return [out]
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    return [t for o in out for t in out_leaves(o)]
+
+
+def lanes_of(v, mask):
+    """The [C,P] lanes ``mask`` of an output: [C,P,...] or a [C,T,P]
+    plane."""
+    return v[mask] if v.shape[:2] == mask.shape else v.transpose(1, 2)[mask]
+
+
+def bits(v):
+    return v.view(torch.int32) if v.dtype == torch.float32 else v
+
+
+def n_differing(got, want, mask=None):
+    """Elements whose bits differ between two outputs (``mask``: the [C,P]
+    lanes to compare; all where None)."""
+    n = 0
+    for g, w in zip(out_leaves(got), out_leaves(want)):
+        if mask is not None:
+            g, w = lanes_of(g, mask), lanes_of(w, mask)
+        n += int((bits(g) != bits(w)).sum())
+    return n
+
+
+def reader_view(name, out, a):
+    """What the loop reads of an output: the monitors' fields of monitoring
+    pixels (the kernel zeroes the others, the plain version keeps the
+    Pallas values there), INIT's cursor fields of initializing pixels."""
+    if name in MONITORS:
+        return cuda_ops.monitoring_only(out, a[-1])
+    if name == "init_window":
+        return {k: (torch.where(a[2], v, torch.zeros_like(v))
+                    if k in INIT_CURSOR else v) for k, v in out.items()}
+    return out
+
+
+def inert_args(name, a, keep):
+    """The arguments as a compacted loop hands them over: the lanes outside
+    ``keep`` [C,P] (each chip's dense prefix) with an empty window, no
+    monitoring, no INIT, no fit and no close; and the lane set the caller
+    guards with (kernel.BatchLoop)."""
+    a, plane = list(a), keep[:, None, :]
+    if name == "lasso_fit":
+        a[1] = a[1] * plane
+        return a, a[1].sum(1) > 0
+    if name == "lasso_cd":
+        z = lambda v: torch.where(keep.reshape(keep.shape + (1,) * (
+            v.dim() - 2)), v, torch.zeros_like(v))
+        a[0], a[1] = z(a[0]), z(a[1])
+        a[2] = torch.where(keep[..., None], a[2], torch.full_like(a[2], 1e-12))
+        return a, (a[1] != 0).flatten(2).any(-1)
+    if name == "tmask_bad":
+        a[2] = a[2] * keep[..., None]
+        return a, a[2].sum(-1) > 0
+    if name in MONITORS:
+        a[-1] = a[-1] & keep
+        return a, a[-1]
+    if name == "init_window":
+        a[2] = a[2] & keep
+        return a, a[2]
+    if name == "fused_fit_close":
+        a[3] = a[3] * plane
+        for i in (4, 10, 11):
+            a[i] = a[i] & keep
+        return a, a[4] | a[10] | a[11]
+    a[7], a[11], a[12] = a[7] & keep, a[11] & keep, a[12] & plane
+    return a, a[7] | a[11]
+
+
+def dead_tile_share(active, flat):
+    """The share of the launch's tiles with no active lane."""
+    live = cuda_ops.tile_live(active, flat=flat)
+    heads = (live.reshape(-1)[::cuda_ops.TILE] if flat
+             else live[:, ::cuda_ops.TILE])
+    return 1.0 - float(heads.float().mean())
+
+
+def guard_phase(rows, inp, reps, report, full):
+    """The skip guard of each guarded kernel of ``rows`` (the kernel phase's
+    f32 rows and mixed instances), on their full-width inputs:
+
+    - bit checks, at every share of GUARD_SHARES (each chip's first lanes
+      active) where ``full``, else at GUARD_ROW_SHARE: the guarded launch
+      equals the unguarded launch with cuda_ops.guard's fill laid over the
+      tiles without an active lane, bit for bit on every output (at 0 % the
+      fill alone, the in-place buffers untouched); and its guarded plain
+      version on those tiles, bit for bit (on the others the kernel phase's
+      row holds the two);
+    - where ``full``, the f32 kernels on the inputs a compacted loop hands
+      over (:func:`inert_args`) at GUARD_TIMED shares: guarded against
+      unguarded bit for bit on every lane the loop reads, each timed (median
+      of ``reps`` CUDA-event launches) beside the dead-tile share, and a
+      row "<name>+guard" at GUARD_ROW_SHARE (its plain version, the guarded
+      plain; its bound, the work of those inputs).
+
+    Returns the rows by name; the checks go under ``report["guard"]``."""
+    t0 = time.perf_counter()
+    C, B, T, P = inp["Yt"].shape
+    sensor = inp["sensor"]
+    rep = report["guard"] = {}
+    out = {}
+    for name, a, kw, *_ in rows:
+        src = cuda_ops.source_of(name)
+        if src not in GUARDED:
+            continue
+        flat = src in cuda_ops.FLAT_TILES
+        r = rep[name] = dict(bits={})
+        u = gcall(cuda_ops.KERNELS, src, a, kw, None)
+        for share in GUARD_SHARES if full else (GUARD_ROW_SHARE,):
+            act = torch.arange(P, device=inp["Yt"].device).expand(
+                C, P) < int(share * P)
+            g = gcall(cuda_ops.KERNELS, src, a, kw, act)
+            n_fill = n_differing(g, cuda_ops.guard(src, u, act, a))
+            dead = ~cuda_ops.tile_live(act, flat=flat)
+            n_plain = 0
+            if bool(dead.any()):
+                p = gcall(cuda_ops.PLAIN, src, a, kw, act)
+                if src in MONITORS:
+                    p = cuda_ops.monitoring_only(p, a[-1])
+                n_plain = n_differing(g, p, dead)
+            torch.cuda.synchronize()
+            r["bits"][share] = dict(not_the_fill=n_fill,
+                                    dead_not_the_plain=n_plain,
+                                    dead_tile_share=dead_tile_share(act, flat))
+            check(n_fill == 0 and n_plain == 0,
+                  f"guard {name} ({sensor.name}) at {share}: {n_fill} "
+                  f"elements off the guarded fill, {n_plain} off the guarded "
+                  f"plain version on the dead tiles")
+        if not full or name != src:
+            print(f"guard {name} ({sensor.name}, {B} bands): bit checks at "
+                  f"{sorted(r['bits'])} of the lanes active: "
+                  f"{r['bits']}", flush=True)
+            continue
+        # The inputs a compacted loop hands over, timed.
+        r["timed"] = {}
+        for share in GUARD_TIMED:
+            keep = torch.arange(P, device=inp["Yt"].device).expand(
+                C, P) < int(share * P)
+            ai, act = inert_args(src, a, keep)
+            ai = tuple(ai)
+            gi = gcall(cuda_ops.KERNELS, src, ai, kw, act)
+            ui = gcall(cuda_ops.KERNELS, src, ai, kw, None)
+            n_diff = n_differing(reader_view(src, gi, ai),
+                                 reader_view(src, ui, ai))
+            check(n_diff == 0, f"guard {name} at {share}: {n_diff} elements "
+                  f"of the guarded launch differ from the unguarded one")
+            timed = ai[:-1] + (tuple(b.clone() for b in ai[-1]),) \
+                if src in ("fused_fit_close", "fused_round") else ai
+            fn = getattr(cuda_ops.KERNELS, src)
+            ms = cuda_ms(lambda: fn(*timed, **kw, active=act), reps)
+            ms_u = cuda_ms(lambda: fn(*timed, **kw), reps)
+            r["timed"][share] = dict(
+                guarded_ms=ms, unguarded_ms=ms_u,
+                active_lanes_share=float(act.float().mean()),
+                dead_tile_share=dead_tile_share(act, flat))
+            if share != GUARD_ROW_SHARE:
+                continue
+            p = gcall(cuda_ops.PLAIN, src, ai, kw, act)
+            plain_ms = cuda_ms(
+                lambda: gcall(cuda_ops.PLAIN, src, ai, kw, act), 3, warm=0)
+            if src in MONITORS:
+                p = cuda_ops.monitoring_only(p, ai[-1])
+            diffs = [(g.double() - w.double()).abs()
+                     for g, w in zip(out_leaves(gi), out_leaves(p))]
+            err = max(float(d.max()) for d in diffs if d.numel())
+            scale = max(float(w.double().abs().max())
+                        for w in out_leaves(p) if w.numel())
+            fl, by = kernel_work(src, ai, gi, inp)
+            b_ms, b_by = bound(by, fl)
+            out[src + GUARD_SUFFIX] = dict(
+                name=src + GUARD_SUFFIX, route="cuda",
+                source=f"firebird_tpu_torch/csrc/{src}.cu",
+                replaces=KERNEL_INFO[src], max_abs_err=err,
+                max_rel_err=err / max(scale, 1e-30), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, bytes=by, flops=fl, tensor_flops=0.0,
+                active_share=share, unguarded_ms=ms_u, timed=r["timed"])
+        print(f"guard {name} ({sensor.name}, {B} bands): " + "; ".join(
+            f"{100 * sh:g} % active: guarded {v['guarded_ms']:.3f} ms, "
+            f"unguarded {v['unguarded_ms']:.3f} ms, dead tiles "
+            f"{100 * v['dead_tile_share']:.1f} %"
+            for sh, v in r["timed"].items())
+            + f"; bound at {100 * GUARD_ROW_SHARE:g} % "
+            f"{out[src + GUARD_SUFFIX]['bound_ms']:.4f} ms by "
+            f"{out[src + GUARD_SUFFIX]['bound_by']}, guarded plain "
+            f"{out[src + GUARD_SUFFIX]['plain_ms']:.3f} ms; bit checks at "
+            f"{sorted(r['bits'])} of the lanes active: exact", flush=True)
+    rep["seconds"] = time.perf_counter() - t0
+    print(f"guard checks ({sensor.name}): {rep['seconds']:.1f} s",
+          flush=True)
+    return out
 
 
 def init_work(inp, a, got):
@@ -823,14 +1079,89 @@ def fit_flops(w, do_fit, B):
     return nnz * (36 * 2 + B * 17 + 1) + n_fit * B * 50 * 8 * 20 + nnz * B * 19
 
 
+def kernel_work(name, a, got, inp):
+    """The float operations and bytes of guarded kernel ``name`` on its
+    arguments ``a`` (its outputs ``got``), counted from this call's data;
+    ``inp`` supplies the shapes (and init_window's state).  The work of a
+    pixel that does nothing (no weight, not monitoring, not initializing,
+    no fit or close) is its inputs' and outputs' bytes alone."""
+    C, B, T, P = inp["Yt"].shape
+    if name == "lasso_fit":
+        # The Gram over the weighted steps, the CD loop of every pixel with
+        # a weight (the others' fit is zero), the RMSE pass.
+        w = a[1]
+        nnz, n_fit = float(w.sum()), float((w.sum(1) > 0).sum())
+        fl = (nnz * (36 * 2 + B * 17 + 1) + n_fit * B * 50 * 8 * 20
+              + nnz * B * 19)
+        return fl, nnz * B * 2 + nbytes(w, a[2], a[3], *got)
+    if name == "monitor_chain_scored":
+        # The detection bands at the monitoring pixels' alive observations,
+        # their alive / included columns and model, the vectors and the
+        # partition planes out.
+        n_alive = float((a[4] & a[8][:, None, :]).sum())
+        n_mon = float(a[8].sum())
+        return n_alive * 5 * 19, (
+            n_alive * 5 * 2 + n_mon * (2 * T + 5 * 8 * 4 + 5 * 4)
+            + nbytes(a[3], *a[6:], *got.values()))
+    if name == "init_window":
+        return init_work(dict(inp, alive=a[0], cur_i=a[1], in_init=a[2]), a,
+                         got)
+    if name == "lasso_cd":
+        by, fl, _ = cd_work(a, got)
+        return fl, by
+    if name == "monitor_chain":
+        # The score plane at the monitoring pixels' alive observations.
+        # Integer counts and threshold compares only: no float arithmetic.
+        n_alive = float((a[1] & a[5][:, None, :]).sum())
+        return 0.0, n_alive * 4 + nbytes(*a[1:], *got.values())
+    if name == "tmask_bad":
+        # The members' design rows and Tmask-band values, the initializing
+        # pixels' slot weights and variograms, and the flags.
+        n = a[2].sum(-1).double()
+        return tmask_flops(n[n > 0]), (
+            float(a[2].sum()) * (5 + 2) * 4
+            + float((n > 0).sum()) * (a[2].shape[-1] + 2) * 4 + nbytes(got))
+    K, S = 8, inp["bufs"][0].shape[2]
+    row_bytes = (6 + 2 * B + B * K) * 4
+    vec_bytes = C * P * (B * K + B) * 4 * 2      # model in and out
+    if name == "fused_fit_close":
+        # The fitting pixels' window spectra and f32 weight columns, the
+        # closing pixels' included columns, the written rows and the rest.
+        w_fit, do_fit, nseg = a[3], a[4], a[15]
+        close = a[10] | a[11]
+        n_rows = float((close & (nseg < S)).sum())
+        return fit_flops(w_fit, do_fit, B), (
+            float((w_fit * do_fit[:, None, :]).sum()) * B * 2
+            + float(do_fit.sum()) * T * 4 + float(close.sum()) * T
+            + n_rows * row_bytes + vec_bytes + C * P * (B * 4 + 4 * 7)
+            + nbytes(a[1], a[2]))
+    assert name == "fused_round"
+    # Spectra: the 5 detection bands where the monitor or the fit reads
+    # them, the other bands in the fit windows only.  Weights: the init-ok
+    # pixels' u8 w_stab columns; a refit reads back its own included_mon
+    # output.  Then the alive / included planes in and out, the written
+    # rows and the rest.
+    ev, init_ok, nseg = got[4], a[11], a[15]
+    w_round = torch.where(init_ok[:, None, :], a[12],
+                          ev["included_mon"] & ev["is_refit"][:, None, :])
+    mon_obs = a[3] & a[7][:, None, :]
+    fit_obs = w_round & ev["do_fit"][:, None, :]
+    close = ev["is_tail"] | ev["is_brk"]
+    n_rows = float((close & (nseg < S)).sum())
+    fl = (fit_flops(w_round.float(), ev["do_fit"], B)
+          + float(mon_obs.sum()) * 5 * 19)
+    return fl, (2 * (5 * float((mon_obs | fit_obs).sum())
+                     + (B - 5) * float(fit_obs.sum()))
+                + float(init_ok.sum()) * T + 4 * C * T * P
+                + n_rows * row_bytes + vec_bytes + C * P * (B * 4 + 4 * 12)
+                + nbytes(a[1], a[2]))
+
+
 def fused_rows(inp, mon, init, kw_mon, report):
     """The fused kernels at full width on one round: the events and the
     INIT handoff come from the plain monitor and init_window results of
     the kernel phase's states.  Buffers are cloned for each call (the
     kernels write them in place)."""
-    C, B, T, P = inp["Yt"].shape
-    K = 8
-    S = inp["bufs"][0].shape[2]
     dis = report["disagreeing_pixels"]
     clone = lambda: tuple(b.clone() for b in inp["bufs"])
     in_mon, init_ok, is_refit = inp["in_mon"], init["init_ok"], mon["is_refit"]
@@ -838,10 +1169,6 @@ def fused_rows(inp, mon, init, kw_mon, report):
     do_fit = init_ok | is_refit
     w_fit = torch.where(init_ok[:, None, :], init["w_stab"],
                         incm & is_refit[:, None, :]).float()
-    close = mon["is_tail"] | mon["is_brk"]
-    n_rows = float((close & (inp["nseg"] < S)).sum())
-    row_bytes = (6 + 2 * B + B * K) * 4
-    vec_bytes = C * P * (B * K + B) * 4 * 2      # model in and out
     rows = []
 
     # ---- fused_fit_close ----
@@ -864,13 +1191,7 @@ def fused_rows(inp, mon, init, kw_mon, report):
     err = max(float((got[i] - want[i]).abs().max()) for i in (2, 3))
     rel = max(float((got[i] - want[i]).abs().max() / want[i].abs().max())
               for i in (2, 3))
-    # The fitting pixels' window spectra and f32 weight columns, the
-    # closing pixels' included columns, the written rows and the rest.
-    fl = fit_flops(w_fit, do_fit, B)
-    by = (float((w_fit * do_fit[:, None, :]).sum()) * B * 2
-          + float(do_fit.sum()) * T * 4 + float(close.sum()) * T
-          + n_rows * row_bytes + vec_bytes + C * P * (B * 4 + 4 * 7)
-          + nbytes(inp["X"], inp["t"]))
+    fl, by = kernel_work("fused_fit_close", a, got, inp)
     rows.append(("fused_fit_close", a + (clone(),), {}, err, rel, fl, by,
                  dict(fit_obs=float((w_fit * do_fit[:, None, :]).sum()))))
 
@@ -906,26 +1227,11 @@ def fused_rows(inp, mon, init, kw_mon, report):
     report["fused_round_events"] = {
         k: int(want[4][k].sum()) for k in ("is_tail", "is_brk", "is_refit",
                                            "do_fit")}
-    do_fit_r = want[4]["do_fit"]
+    fl, by = kernel_work("fused_round", a, want, inp)
     w_round = torch.where(init_ok[:, None, :], init["w_stab"],
                           want[4]["included_mon"]
                           & want[4]["is_refit"][:, None, :])
-    fl = fit_flops(w_round.float(), do_fit_r, B)
-    # Spectra: the 5 detection bands where the monitor or the fit reads
-    # them, the other bands in the fit windows only.  Weights: the init-ok
-    # pixels' u8 w_stab columns; a refit reads back its own included_mon
-    # output.  Then the alive / included planes in and out, the written
-    # rows and the rest.
-    mon_obs = inp["alive"] & in_mon[:, None, :]
-    fit_obs = w_round & do_fit_r[:, None, :]
-    n_alive_mon = float(mon_obs.sum())
-    close_r = want[4]["is_tail"] | want[4]["is_brk"]
-    n_rows = float((close_r & (inp["nseg"] < S)).sum())
-    fl += n_alive_mon * 5 * 19
-    by = (2 * (5 * float((mon_obs | fit_obs).sum())
-               + (B - 5) * float(fit_obs.sum()))
-          + float(init_ok.sum()) * T + 4 * C * T * P + n_rows * row_bytes
-          + vec_bytes + C * P * (B * 4 + 4 * 12) + nbytes(inp["X"], inp["t"]))
+    fit_obs = w_round & want[4]["do_fit"][:, None, :]
     rows.append(("fused_round", a + (clone(),), kw_round, err, rel, fl, by,
                  dict(fit_obs=float(fit_obs.sum()))))
     return rows
@@ -1136,7 +1442,8 @@ def component_rows(inp, kw_mon, report, seed, reps):
                           .flatten(2).any(-1).sum())
     n_bits = n_not_bit_equal(got, want)
     err = float((got - want).abs().max())
-    by, fl, fl_all = cd_work(a, got)
+    fl, by = kernel_work("lasso_cd", a, got, inp)
+    fl_all = cd_work(a, got)[2]
     report["lasso_cd"] = dict(pixels_not_bit_equal=n_bits, flops=fl,
                               flops_every_system=fl_all,
                               bound_every_system_ms=bound(by, fl_all)[0])
@@ -1161,11 +1468,8 @@ def component_rows(inp, kw_mon, report, seed, reps):
     for k in want:
         n_diff = int((got[k] != want[k]).sum())
         check(n_diff == 0, f"monitor_chain {k}: {n_diff} differ")
-    # The score plane at the monitoring pixels' alive observations.
-    # Integer counts and threshold compares only: no float arithmetic.
-    n_alive = float((inp["alive"] & inp["in_mon"][:, None, :]).sum())
-    rows.append(("monitor_chain", a, kw_mon, 0.0, 0.0, 0.0,
-                 n_alive * 4 + nbytes(*a[1:], *got.values())))
+    rows.append(("monitor_chain", a, kw_mon, 0.0, 0.0,
+                 *kernel_work("monitor_chain", a, got, inp)))
 
     # ---- tmask_bad ----
     win = cuda_ops.init_window_gather(
@@ -1178,12 +1482,8 @@ def component_rows(inp, kw_mon, report, seed, reps):
     n_diff = int((got != want).sum())
     dis["tmask_bad"] = int((got != want).any(-1).sum())
     check(n_diff == 0, f"tmask_bad: {n_diff} flags differ")
-    n = win["n_win"].double()
-    # The members' design rows and Tmask-band values, the initializing
-    # pixels' slot weights and variograms, and the flags.
-    by = (float(win["valid_w"].sum()) * (5 + 2) * 4
-          + float((n > 0).sum()) * (inp["W"] + 2) * 4 + nbytes(got))
-    rows.append(("tmask_bad", a, {}, 0.0, 0.0, tmask_flops(n[n > 0]), by))
+    rows.append(("tmask_bad", a, {}, 0.0, 0.0,
+                 *kernel_work("tmask_bad", a, got, inp)))
     return rows
 
 
@@ -1462,12 +1762,48 @@ def route_path(packed, staged, smi, name, label=""):
                      pixels_disagreeing=n_dis, occupancy=occ)
 
 
+def compact_path(packed, staged, smi, name, base):
+    """A compacted route (COMPACT_OF): ``detect_packed`` once on the card
+    with the launch counters read around it (every kernel of the route
+    runs its skip guard), its occupancy, and every result field against
+    the same route with compaction off (``base``, from :func:`route_path`):
+    equal, and the float fields equal bit for bit."""
+    C, B, P, T = packed.spectra.shape
+    kw, expect = ROUTES[name]
+    cuda_ops.reset_launches()
+    t0 = time.perf_counter()
+    seg = kernel.detect_packed(packed, staged=staged, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(cuda_ops.LAUNCHES)
+    launched = {k for k, n in launches.items() if n > 0}
+    check(launched == expect, f"route {name!r} launched {sorted(launched)}, "
+          f"expected {sorted(expect)}")
+    check_result(seg, C, P, T)
+    occ = occupancy_summary(seg, P)
+    label = f"route {name!r} vs route {COMPACT_OF[name]!r}"
+    vs = compare_routes(seg, base, label, ())
+    n_bits = sum(int((bits(getattr(seg, f)) != bits(getattr(base, f))).sum())
+                 for f in SEGMENT_FIELDS)
+    check(n_bits == 0, f"{label}: {n_bits} elements differ in their bits")
+    print(f"main path, route {name!r}: {C} chips x {P} px, T={T}: "
+          f"{secs:.3f} s on {smi}, rounds {seg.rounds.tolist()}, launches "
+          f"{launches}; {occ}", flush=True)
+    return dict(route=name, chips=C, pixels=C * P, T=T, seconds=secs,
+                pixels_per_s=C * P / secs, rounds=seg.rounds.tolist(),
+                round_counts=seg.round_counts.tolist(),
+                segments=int(seg.n_segments.sum()), launches=launches,
+                occupancy=occ, **{f"vs_route_{COMPACT_OF[name]}": vs},
+                bits_differing=n_bits)
+
+
 def occupancy_summary(seg, P):
     """A compacted run's compactions and occupancy: the lane-rounds that
-    entered a round still working, those the per-block skip guards would
-    pay for (this port runs no guards: its kernels compute every lane of
-    the current width), the padded width's, and per chip the rounds whose
-    paid lanes fit the stage-2 bucket (the bucketed tail's rounds)."""
+    entered a round still working, those the JAX package's per-block
+    (512-lane) guards would pay for (compact.paid_lanes: this port's
+    kernels skip per 32-pixel tile, so an upper bound on what they pay),
+    the padded width's, and per chip the rounds whose paid lanes fit the
+    stage-2 bucket (the bucketed tail's rounds)."""
     occ = seg.occupancy.double()
     bucket = kernel.tail_bucket(P, kernel.compact_floor())
     ran = (torch.arange(occ.shape[1], device=occ.device)[None, :]
@@ -1909,7 +2245,7 @@ def sentinel2_phase(smi, reps, dev):
     inp = kernel_inputs(S2_SOURCE["seed"], staged, kernel.window_cap(packed),
                         SENTINEL2)
     kernels, kreport = kernel_phase(inp, staged, reps, S2_SOURCE["seed"],
-                                    ring=False, mixed=True)
+                                    ring=False, mixed=True, guards="bits")
     del inp
     torch.cuda.empty_cache()
     paths, segs = {}, {}
@@ -5222,12 +5558,13 @@ def main(argv=None):
         return
     inp = kernel_inputs(args.seed, staged, kernel.window_cap(packed))
     kernels, kreport = kernel_phase(inp, staged, args.reps, args.seed,
-                                    mixed=True)
+                                    mixed=True, guards="full")
     del inp
     torch.cuda.empty_cache()
     paths, segs = {}, {}
     for name in ROUTES:
-        segs[name], paths[name] = route_path(packed, staged, smi, name)
+        if name not in COMPACT_OF:
+            segs[name], paths[name] = route_path(packed, staged, smi, name)
     paths["0"].update(egress(segs["0"], packed),
                       chip_generation_seconds=gen_s)
     for name, base, allowed in (
@@ -5248,9 +5585,22 @@ def main(argv=None):
           f"{agree} < 0.999")
     paths[COMPONENTS]["vs_route_0"] = dict(decision_agreement=agree,
                                           pixels_disagreeing=n_dis)
-    # Compaction leaves every result field as it was.
+    # Compaction leaves every result field as it was, with the skip guards
+    # of every route's kernels live.
     paths["0+compact"]["vs_route_0"] = compare_routes(
         segs["0+compact"], segs["0"], "route '0+compact' vs route '0'", ())
+    # A compacted route that differs from its compaction-off route fails
+    # the run at its end, after every other phase has run and printed.
+    late = []
+    t0 = time.perf_counter()
+    for name, base in COMPACT_OF.items():
+        try:
+            paths[name] = compact_path(packed, staged, smi, name, segs[base])
+        except AssertionError as e:
+            late.append(str(e))
+            print(f"FAILED {e}", flush=True)
+    print(f"compacted routes {', '.join(COMPACT_OF)}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # The mixed routes: the same identities, and route 0's decisions.
     for name, base, allowed in (
             ("1", "0", ()), ("mon", "0", ("seg_mag",)),
@@ -5271,7 +5621,9 @@ def main(argv=None):
     small = small_input(args.seed, dev)
     fuzz = fuzz_phase(dev)
     for name, row in kernels.items():
-        row["launches"] = paths[HOME_ROUTE[name]]["launches"][name]
+        home = paths.get(HOME_ROUTE[name])
+        row["launches"] = (None if home is None else
+                           home["launches"][name.removesuffix(GUARD_SUFFIX)])
     redesign = redesign_report(kernels, paths, packed.spectra.shape[-1], smi)
     del packed, staged
     torch.cuda.empty_cache()
@@ -5326,6 +5678,7 @@ def main(argv=None):
         ptxas=ptxas,
         seconds=time.perf_counter() - t_start), indent=1))
 
+    check(not late, f"failed earlier in the run: {late}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -110,9 +110,11 @@ def block_widths(P: int) -> np.ndarray:
 def paid_lanes(phase):
     """Per-chip lanes [C] int32 a round pays for under the per-block skip
     guards: the COMPACT_LANE_BLOCK-wide blocks that hold a lane with phase
-    != DONE, weighted by their widths — kernel._paid_lanes.  This is the
-    guards' accounting model: this package runs no per-block guards, so
-    its kernels compute every lane of the current width."""
+    != DONE, weighted by their widths — kernel._paid_lanes, the JAX
+    package's accounting model, kept equal to it.  This package's kernels
+    skip per tile of cuda_ops.TILE (32) pixels (cuda_ops.guard), a finer
+    grain than these blocks, so the model is an upper bound on the lanes
+    they pay for."""
     C, P = phase.shape
     widths = block_widths(P)
     nb = widths.shape[0]

@@ -83,8 +83,7 @@ from firebird_tpu_torch.ccd.primitives import (coefmask_for, dot_cols, fdiv,
                                                first_at_or_after, last_true,
                                                masked_median, take_plane,
                                                take_t, tree_sum)
-# The plain version of :func:`tmask_bad`.
-from firebird_tpu_torch.ccd.primitives import tmask_bad as tmask_bad_plain
+from firebird_tpu_torch.ccd.primitives import tmask_bad as tmask_screen
 from firebird_tpu_torch.ccd.round_state import (PHASE_DONE, PHASE_INIT,
                                                  PHASE_MONITOR, init_zeros,
                                                  next_state)
@@ -127,15 +126,17 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# The eight kernels with a skip guard take ``active`` as their last pointer
+# before the integers (null: unguarded).
 _ARGTYPES = {
-    "fb_lasso_fit": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "fb_monitor_chain_scored": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _P],
-    "fb_init_window": [_P] * 13 + [_I] * 6 + [_P],
-    "fb_fused_fit_close": [_P] * 23 + [_I] * 5 + [_P],
-    "fb_fused_round": [_P] * 27 + [_I] * 5 + [_F, _F, _P],
-    "fb_lasso_cd": [_P] * 5 + [_I] * 2 + [_P],
-    "fb_monitor_chain": [_P] * 9 + [_I] * 3 + [_F, _F, _P],
-    "fb_tmask_bad": [_P] * 5 + [_I] * 3 + [_P],
+    "fb_lasso_fit": [_P] * 7 + [_I, _I, _I, _I, _I, _P],
+    "fb_monitor_chain_scored": [_P] * 13 + [_I, _I, _I, _I, _F, _F, _P],
+    "fb_init_window": [_P] * 14 + [_I] * 6 + [_P],
+    "fb_fused_fit_close": [_P] * 24 + [_I] * 5 + [_P],
+    "fb_fused_round": [_P] * 28 + [_I] * 5 + [_F, _F, _P],
+    "fb_lasso_cd": [_P] * 6 + [_I] * 2 + [_P],
+    "fb_monitor_chain": [_P] * 10 + [_I] * 3 + [_F, _F, _P],
+    "fb_tmask_bad": [_P] * 6 + [_I] * 3 + [_P],
     "fb_detect_mega": [_P] * 19 + [_I] * 8 + [_F, _F, _P],
     "fb_ring_remote_copy": [_P, _I, _P, _I, _P, _P],
 }
@@ -438,6 +439,120 @@ def _check_smem(name: str, smem: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The per-tile skip guard (pallas_ops._block_counts / _when_active)
+# ---------------------------------------------------------------------------
+#
+# The eight kernels that take a guard in the JAX package take ``active``, a
+# [C,P] bool lane set (None: unguarded).  A tile (TILE neighbouring pixels
+# of one chip, the last one ragged; for lasso_cd and tmask_bad, whose
+# kernels tile the flattened C*P pixels, TILE of those) with no active lane
+# writes its fill and computes nothing (csrc/tile.cuh's fb::tile_active):
+# zeros for the fits, the monitors and tmask_bad; for init_window zeros and
+# alive passed through; for the fused kernels the segment counts, the model
+# and (fused_round) the included and alive planes passed through with zero
+# events, the in-place buffers untouched.  The plain versions apply the
+# same fill at the same tiles (:func:`guard`), so a guarded kernel relates
+# to its guarded plain version as the unguarded ones do, and equals its own
+# unguarded output with the fill laid over it, bit for bit, on any input.
+# The callers (kernel.BatchLoop under compaction) give inactive lanes the
+# inputs whose computed outputs are that fill (an empty window, in_mon and
+# in_init false), so there the guard changes no output they read.
+
+# The kernels whose tiles run over the flattened C*P pixels.
+FLAT_TILES = ("lasso_cd", "tmask_bad")
+
+
+def tile_live(active, flat=False):
+    """Whether each lane's tile holds an active lane: ``active`` [C,P] bool
+    -> [C,P] bool, over tiles of TILE pixels of one chip (the last one
+    ragged), or where ``flat`` over tiles of TILE of the flattened C*P
+    pixels (:data:`FLAT_TILES`)."""
+    C, P = active.shape
+    a = active.reshape(1, C * P) if flat else active
+    n = a.shape[1]
+    nt = -(-n // TILE)
+    pad = a.new_zeros(a.shape[0], nt * TILE - n)
+    live = torch.cat([a, pad], 1).reshape(a.shape[0], nt, TILE).any(-1)
+    return live.repeat_interleave(TILE, 1)[:, :n].reshape(C, P)
+
+
+def _px(live, v, fill=None):
+    """``v`` [C,P,...] where the lane's tile is live, else ``fill`` (zeros
+    unless given)."""
+    m = live.reshape(live.shape + (1,) * (v.dim() - 2))
+    return torch.where(m, v, torch.zeros_like(v) if fill is None else fill)
+
+
+def _plane(live, v, fill=None):
+    """A [C,T,P] plane ``v`` where the lane's tile is live, else ``fill``
+    (zeros unless given)."""
+    return torch.where(live[:, None, :], v,
+                       torch.zeros_like(v) if fill is None else fill)
+
+
+_PLANE_KEYS = ("inc_q", "rem_q", "w_stab", "alive_init", "included_mon",
+               "alive_mon")
+
+
+def _zero_dict(live, d, passed=None):
+    """Every field of an output dict zero on the dead tiles, but those in
+    ``passed`` (key -> the input plane they pass through)."""
+    passed = passed or {}
+    return {k: (_plane if k in _PLANE_KEYS else _px)(live, v, passed.get(k))
+            for k, v in d.items()}
+
+
+def _guard_fused(live, out, args, coefs_at, passed=None):
+    """A fused kernel's outputs on the dead tiles: the buffers as given
+    (args[16]), the segment counts (args[15]) and model (args[coefs_at],
+    args[coefs_at + 1]) passed through; with ``passed``, fused_round's
+    event dict too."""
+    bufs, nseg, coefs, rmse = out[:4]
+    res = (tuple(_px(live, b, b0) for b, b0 in zip(bufs, args[16])),
+           _px(live, nseg, args[15]), _px(live, coefs, args[coefs_at]),
+           _px(live, rmse, args[coefs_at + 1]))
+    return res if passed is None else res + (_zero_dict(live, out[4],
+                                                        passed),)
+
+
+_GUARDS = {
+    "lasso_fit": lambda live, out, args: tuple(_px(live, v) for v in out),
+    "lasso_cd": lambda live, out, args: _px(live, out),
+    "tmask_bad": lambda live, out, args: _px(live, out),
+    "monitor_chain_scored": lambda live, out, args: _zero_dict(live, out),
+    "monitor_chain": lambda live, out, args: _zero_dict(live, out),
+    "init_window": lambda live, out, args: _zero_dict(
+        live, out, dict(alive_init=args[0])),
+    "fused_fit_close": lambda live, out, args: _guard_fused(live, out, args,
+                                                            7),
+    "fused_round": lambda live, out, args: _guard_fused(
+        live, out, args, 8, dict(included_mon=args[4], alive_mon=args[3])),
+}
+
+
+def guard(name, out, active, args):
+    """Kernel ``name``'s unguarded outputs ``out`` under the skip guard
+    ``active`` [C,P] (None: ``out`` as it is): the fill on every lane of a
+    tile with no active lane (:func:`tile_live`).  ``args`` are the
+    wrapper's positional arguments (the fused kernels' ``bufs`` as they
+    were before the call), which supply what passes through."""
+    if active is None:
+        return out
+    live = tile_live(active, flat=name in FLAT_TILES)
+    return _GUARDS[name](live, out, args)
+
+
+def _check_active(active, shape, device):
+    if active is not None:
+        _check(active, "active", torch.bool, shape, device)
+
+
+def _opt_ptr(t) -> ctypes.c_void_p:
+    """A tensor's pointer, or null for None."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+# ---------------------------------------------------------------------------
 # lasso_fit
 # ---------------------------------------------------------------------------
 
@@ -487,11 +602,12 @@ def gram_plain(Yt, w, X, mixed=False):
             torch.stack(cs, 2).contiguous(), n)
 
 
-def lasso_cd_plain(G, c, diag, coefmask):
+def lasso_cd_plain(G, c, diag, coefmask, active=None):
     """Plain version of :func:`lasso_cd` — kernel._lasso_cd_lax: LASSO_ITERS
     cyclic coordinate-descent sweeps (soft threshold LASSO_ALPHA, intercept
     unpenalized, coordinates outside ``coefmask`` held at zero), each
-    coordinate's dot over the Gram row summed column by column."""
+    coordinate's dot over the Gram row summed column by column; zero on the
+    tiles without an ``active`` lane (:func:`guard`)."""
     diag = [diag[..., j][..., None] for j in range(K)]
     mask = [coefmask[..., j][..., None] for j in range(K)]
     Gjk = [[G[..., j, k][..., None] for k in range(K)] for j in range(K)]
@@ -510,7 +626,8 @@ def lasso_cd_plain(G, c, diag, coefmask):
                 bj = torch.sign(rho) * (rho.abs() - params.LASSO_ALPHA
                                         ).clamp_min(0.0) / diag[j]
             b[j] = torch.where(mask[j], bj, zero)
-    return torch.stack(b, -1)                                   # [C,P,B,K]
+    return guard("lasso_cd", torch.stack(b, -1), active,        # [C,P,B,K]
+                 (G, c, diag, coefmask))
 
 
 def rmse_plain(Yt, w, X, beta, n):
@@ -527,28 +644,30 @@ def rmse_plain(Yt, w, X, beta, n):
 
 
 def lasso_fit_plain(Yt, w, X, coefmask, with_rmse=True, *, mixed=False,
-                    cd=None):
+                    cd=None, active=None):
     """Plain version of :func:`lasso_fit` — kernel._fit_lasso's math:
     :func:`gram_plain` (its mixed branch where ``mixed``), the CD loop
     ``cd`` on the Gram with its diagonal floored at 1e-12
-    (:func:`lasso_cd_plain` unless given), then :func:`rmse_plain`.
+    (:func:`lasso_cd_plain` unless given), then :func:`rmse_plain`; zeros
+    on the tiles without an ``active`` lane (:func:`guard`).
 
     ``cd`` is how the ``lasso`` component route fits: kernel.pallas_components
     passes the :func:`lasso_cd` kernel, and the Gram and the RMSE around
     it are PyTorch ops on the card, as XLA computes them around the Pallas
-    CD kernel in the JAX package (kernel._fit_lasso_coefs)."""
+    CD kernel in the JAX package (kernel._fit_lasso_coefs; that route
+    guards the ``cd`` it passes, kernel._ComponentsRoute)."""
     cd = lasso_cd_plain if cd is None else cd
     C, B, T, P = Yt.shape
     G, c, n = gram_plain(Yt, w, X, mixed)
     tiny = torch.tensor(1e-12, dtype=G.dtype, device=G.device)
     diag = torch.maximum(torch.diagonal(G, dim1=-2, dim2=-1), tiny)
     beta = cd(G, c, diag.contiguous(), coefmask)
-    if not with_rmse:
-        return beta, torch.zeros(C, P, B, dtype=w.dtype, device=w.device)
-    return beta, rmse_plain(Yt, w, X, beta, n)
+    rmse = (rmse_plain(Yt, w, X, beta, n) if with_rmse
+            else torch.zeros(C, P, B, dtype=w.dtype, device=w.device))
+    return guard("lasso_fit", (beta, rmse), active, (Yt, w, X, coefmask))
 
 
-def lasso_fit(Yt, w, X, coefmask, with_rmse=True, mixed=False):
+def lasso_fit(Yt, w, X, coefmask, with_rmse=True, mixed=False, active=None):
     """Per-pixel weighted Lasso fit of every band, and its RMSE.
 
     Args:
@@ -557,6 +676,8 @@ def lasso_fit(Yt, w, X, coefmask, with_rmse=True, mixed=False):
         X: [C,T,8] float32 designs.
         coefmask: [C,P,8] bool allowed coefficients.
         mixed: the mixed-precision Gram (the ``lasso_fit_mixed`` instance).
+        active: [C,P] bool skip guard or None (:func:`guard`): a tile with
+            no active pixel gets the zero fit.
     Returns:
         (coefs [C,P,B,8], rmse [C,P,B]) float32; rmse is zero when
         ``with_rmse`` is False.
@@ -567,19 +688,21 @@ def lasso_fit(Yt, w, X, coefmask, with_rmse=True, mixed=False):
     _check(w, "w", torch.float32, (C, T, P), dev)
     _check(X, "X", torch.float32, (C, T, K), dev)
     _check(coefmask, "coefmask", torch.bool, (C, P, K), dev)
+    _check_active(active, (C, P), dev)
     if dev.type == "cpu":
-        return lasso_fit_plain(Yt, w, X, coefmask, with_rmse, mixed=mixed)
+        return lasso_fit_plain(Yt, w, X, coefmask, with_rmse, mixed=mixed,
+                               active=active)
     _nb_instance(B, "lasso_fit")
     _check_smem("lasso_fit", lasso_fit_smem_bytes(T))
     coefs = torch.empty(C, P, B, K, dtype=torch.float32, device=dev)
     rmse = torch.empty(C, P, B, dtype=torch.float32, device=dev)
     _launch(unit_of("lasso_fit", mixed), _ptr(Yt), _ptr(w), _ptr(X),
-            _ptr(coefmask), _ptr(coefs), _ptr(rmse), C, B, T, P,
-            int(bool(with_rmse)))
+            _ptr(coefmask), _ptr(coefs), _ptr(rmse), _opt_ptr(active), C, B,
+            T, P, int(bool(with_rmse)))
     return coefs, rmse
 
 
-def lasso_cd(G, c, diag, coefmask):
+def lasso_cd(G, c, diag, coefmask, active=None):
     """The Lasso coordinate-descent loop on precomputed Gram systems, per
     pixel and band: LASSO_ITERS cyclic sweeps, soft threshold LASSO_ALPHA,
     intercept unpenalized, coordinates outside ``coefmask`` held at zero.
@@ -592,6 +715,9 @@ def lasso_cd(G, c, diag, coefmask):
         c: [C,P,B,8] float32 normalised correlations per band.
         diag: [C,P,8] float32 Gram diagonals, floored.
         coefmask: [C,P,8] bool allowed coefficients.
+        active: [C,P] bool skip guard or None (:func:`guard`; the tiles
+            run over the flattened C*P pixels): a tile with no active
+            pixel gets +0.
     Returns:
         beta [C,P,B,8] float32.
     """
@@ -601,8 +727,9 @@ def lasso_cd(G, c, diag, coefmask):
     _check(c, "c", torch.float32, (C, P, B, K), dev)
     _check(diag, "diag", torch.float32, (C, P, K), dev)
     _check(coefmask, "coefmask", torch.bool, (C, P, K), dev)
+    _check_active(active, (C, P), dev)
     if dev.type == "cpu":
-        return lasso_cd_plain(G, c, diag, coefmask)
+        return lasso_cd_plain(G, c, diag, coefmask, active)
     _nb_instance(B, "lasso_cd")
     for nm, v in (("G", G), ("c", c), ("diag", diag)):
         if v.data_ptr() % 16:
@@ -610,7 +737,7 @@ def lasso_cd(G, c, diag, coefmask):
                              f"start on a 16-byte boundary")
     beta = torch.empty(C, P, B, K, dtype=torch.float32, device=dev)
     _launch("lasso_cd", _ptr(G), _ptr(c), _ptr(diag), _ptr(coefmask),
-            _ptr(beta), C * P, B)
+            _ptr(beta), _opt_ptr(active), C * P, B)
     return beta
 
 
@@ -630,14 +757,15 @@ def score_plain(Yd, coefs_d, dden, X):
 
 
 def monitor_chain_plain(s, alive, included, cur_k, n_last_fit, in_mon, *,
-                        change_thr, outlier_thr):
+                        change_thr, outlier_thr, active=None):
     """The MONITOR event logic on a score plane — kernel._monitor_chain.
 
     All planes [C,T,P]; vectors [C,P].  Ranks count the alive sequence;
     a break needs PEEK_SIZE consecutive exceedances (reverse cummin of the
     next non-exceeding rank), a refit fires where the absorbed count
     crosses REFIT_FACTOR x the last fit's count; then the tail / break /
-    refit choice and the include/remove partitions."""
+    refit choice and the include/remove partitions.  Zeros on the tiles
+    without an ``active`` lane (:func:`guard`)."""
     T = s.shape[1]
     dev = s.device
     ar = torch.arange(T, device=dev)[None, :, None]
@@ -683,27 +811,33 @@ def monitor_chain_plain(s, alive, included, cur_k, n_last_fit, in_mon, *,
     n_exceed = tail_ex.sum(1, dtype=i32)
     pos_ev = torch.where(is_brk, b_abs, f_abs).to(i32)
     n_rf = take_plane(n_inc, pos_ev)
-    return dict(m=m, is_tail=is_tail, is_brk=is_brk, is_refit=is_refit,
-                ev_rank=ev_rank.to(i32), pos_ev=pos_ev,
-                n_exceed=n_exceed, n_rf=n_rf.to(i32), inc_q=inc_q,
-                rem_q=rem_q)
+    return guard("monitor_chain", dict(
+        m=m, is_tail=is_tail, is_brk=is_brk, is_refit=is_refit,
+        ev_rank=ev_rank.to(i32), pos_ev=pos_ev, n_exceed=n_exceed,
+        n_rf=n_rf.to(i32), inc_q=inc_q, rem_q=rem_q), active,
+        (s, alive, included, cur_k, n_last_fit, in_mon))
 
 
 def monitor_chain_scored_plain(Yd, coefs_d, dden, X, alive, included, cur_k,
                                n_last_fit, in_mon, *, change_thr,
-                               outlier_thr, chain=None):
+                               outlier_thr, chain=None, active=None):
     """Plain version of :func:`monitor_chain_scored`: the score plane
     (:func:`score_plain`), then the event chain ``chain``
-    (:func:`monitor_chain_plain` unless given).
+    (:func:`monitor_chain_plain` unless given); zeros on the tiles without
+    an ``active`` lane (:func:`guard`).
 
     ``chain`` is how the ``monitor`` component route scores:
     kernel.pallas_components passes the :func:`monitor_chain` kernel, and
     the score plane is PyTorch ops on the card, as XLA computes it before
-    the Pallas chain kernel in the JAX package (kernel._mon_block)."""
+    the Pallas chain kernel in the JAX package (kernel._mon_block; that
+    route guards the ``chain`` it passes, kernel._ComponentsRoute)."""
     chain = monitor_chain_plain if chain is None else chain
     s = score_plain(Yd, coefs_d, dden, X)
-    return chain(s, alive, included, cur_k, n_last_fit, in_mon,
-                 change_thr=change_thr, outlier_thr=outlier_thr)
+    return guard("monitor_chain_scored",
+                 chain(s, alive, included, cur_k, n_last_fit, in_mon,
+                       change_thr=change_thr, outlier_thr=outlier_thr),
+                 active, (Yd, coefs_d, dden, X, alive, included, cur_k,
+                          n_last_fit, in_mon))
 
 
 _MON_KEYS = ("m", "is_tail", "is_brk", "is_refit", "ev_rank", "pos_ev",
@@ -728,7 +862,7 @@ def _mon_outputs(out, inc_q, rem_q):
 
 
 def monitor_chain(s, alive, included, cur_k, n_last_fit, in_mon, *,
-                  change_thr, outlier_thr):
+                  change_thr, outlier_thr, active=None):
     """The MONITOR event logic on a precomputed score plane: locate each
     pixel's first event (break / refit / tail) and partition the
     observations before it.
@@ -737,6 +871,8 @@ def monitor_chain(s, alive, included, cur_k, n_last_fit, in_mon, *,
         s: [C,T,P] float32 score plane.
         alive, included: [C,T,P] bool.
         cur_k, n_last_fit: [C,P] int32; in_mon: [C,P] bool.
+        active: [C,P] bool skip guard or None (:func:`guard`): a tile with
+            no active pixel gets the zero outputs.
     Returns:
         :func:`monitor_chain_scored`'s dict.  The alive ranks are counted
         inside (the Pallas kernel takes them as an input plane).  As
@@ -752,23 +888,25 @@ def monitor_chain(s, alive, included, cur_k, n_last_fit, in_mon, *,
     for nm, v in (("cur_k", cur_k), ("n_last_fit", n_last_fit)):
         _check(v, nm, torch.int32, (C, P), dev)
     _check(in_mon, "in_mon", torch.bool, (C, P), dev)
+    _check_active(active, (C, P), dev)
     if dev.type == "cpu":
         return monitor_chain_plain(s, alive, included, cur_k, n_last_fit,
                                    in_mon, change_thr=change_thr,
-                                   outlier_thr=outlier_thr)
+                                   outlier_thr=outlier_thr, active=active)
     _check_smem("monitor_chain", monitor_chain_smem_bytes(T))
     out = torch.empty(len(_MON_KEYS), C, P, dtype=torch.int32, device=dev)
     inc_q = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     rem_q = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     _launch("monitor_chain", _ptr(s), _ptr(alive), _ptr(included),
             _ptr(cur_k), _ptr(n_last_fit), _ptr(in_mon), _ptr(out),
-            _ptr(inc_q), _ptr(rem_q), C, T, P, float(change_thr),
-            float(outlier_thr))
+            _ptr(inc_q), _ptr(rem_q), _opt_ptr(active), C, T, P,
+            float(change_thr), float(outlier_thr))
     return _mon_outputs(out, inc_q, rem_q)
 
 
 def monitor_chain_scored(Yd, coefs_d, dden, X, alive, included, cur_k,
-                         n_last_fit, in_mon, *, change_thr, outlier_thr):
+                         n_last_fit, in_mon, *, change_thr, outlier_thr,
+                         active=None):
     """The MONITOR round: score every observation against the current
     model and locate each pixel's first event (break / refit / tail).
 
@@ -779,6 +917,8 @@ def monitor_chain_scored(Yd, coefs_d, dden, X, alive, included, cur_k,
         X: [C,T,8] float32 designs.
         alive, included: [C,T,P] bool.
         cur_k, n_last_fit: [C,P] int32; in_mon: [C,P] bool.
+        active: [C,P] bool skip guard or None (:func:`guard`): a tile with
+            no active pixel gets the zero outputs.
     Returns:
         kernel._monitor_chain's dict: m, ev_rank, pos_ev, n_exceed, n_rf
         [C,P] int32; is_tail, is_brk, is_refit [C,P] bool; inc_q, rem_q
@@ -798,10 +938,11 @@ def monitor_chain_scored(Yd, coefs_d, dden, X, alive, included, cur_k,
     for nm, v in (("cur_k", cur_k), ("n_last_fit", n_last_fit)):
         _check(v, nm, torch.int32, (C, P), dev)
     _check(in_mon, "in_mon", torch.bool, (C, P), dev)
+    _check_active(active, (C, P), dev)
     if dev.type == "cpu":
         return monitor_chain_scored_plain(
             Yd, coefs_d, dden, X, alive, included, cur_k, n_last_fit, in_mon,
-            change_thr=change_thr, outlier_thr=outlier_thr)
+            change_thr=change_thr, outlier_thr=outlier_thr, active=active)
     if nb != 5:
         raise ValueError(f"monitor_chain_scored is built for 5 detection "
                          f"bands, got {nb}")
@@ -812,7 +953,8 @@ def monitor_chain_scored(Yd, coefs_d, dden, X, alive, included, cur_k,
     _launch("monitor_chain_scored", _ptr(Yd), _ptr(coefs_d), _ptr(dden),
             _ptr(X), _ptr(alive), _ptr(included), _ptr(cur_k),
             _ptr(n_last_fit), _ptr(in_mon), _ptr(out), _ptr(inc_q),
-            _ptr(rem_q), C, nb, T, P, float(change_thr), float(outlier_thr))
+            _ptr(rem_q), _opt_ptr(active), C, nb, T, P, float(change_thr),
+            float(outlier_thr))
     return _mon_outputs(out, inc_q, rem_q)
 
 
@@ -882,20 +1024,23 @@ def tmask_args(win, vario, sensor=LANDSAT_ARD):
 
 
 def init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
-                      sensor=LANDSAT_ARD, mixed=False, fit=None, tmask=None):
+                      sensor=LANDSAT_ARD, mixed=False, fit=None, tmask=None,
+                      active=None):
     """Plain version of :func:`init_window` — the XLA body of
     kernel._init_block: :func:`init_window_gather`, the Tmask screen
     ``tmask`` (:func:`tmask_bad_plain` unless given), the 4-coefficient
     stability fit ``fit`` (:func:`lasso_fit_plain`, with the mixed Gram
     where ``mixed``, unless given), the stability test and the cursor
-    advances.
+    advances; on the tiles without an ``active`` lane zeros, and alive
+    passed through (:func:`guard`).
 
     ``fit`` and ``tmask`` are how the ``tmask`` component route
     initializes: kernel.pallas_components passes the :func:`tmask_bad`
     kernel and the route's fit (which carries the route's precision, so
     ``mixed`` must then stay False), and the rest of the block is PyTorch
     ops on the card, as it is XLA around the Pallas Tmask kernel in the
-    JAX package (kernel._init_block)."""
+    JAX package (kernel._init_block; that route guards the ``fit`` and
+    ``tmask`` it passes, kernel._ComponentsRoute)."""
     if fit is None:
         fit = functools.partial(lasso_fit_plain, mixed=mixed)
     elif mixed:
@@ -952,10 +1097,12 @@ def init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
     i_next_tm = torch.where(ex_tm, i_next_tm, torch.full_like(i_next_tm, T))
     has_adv, i_adv = first_at_or_after(alive, i + 1)
     i32 = torch.int32
-    return dict(init_nowin=init_nowin, init_tm=init_tm, init_ok=init_ok,
-                init_bad=init_bad, has_adv=has_adv, i_next_tm=i_next_tm.to(i32),
-                i_adv=i_adv.to(i32), j=j.to(i32), w_stab=w_stab,
-                n_ok=w_stab.sum(1, dtype=i32), alive_init=alive & ~bad)
+    return guard("init_window", dict(
+        init_nowin=init_nowin, init_tm=init_tm, init_ok=init_ok,
+        init_bad=init_bad, has_adv=has_adv, i_next_tm=i_next_tm.to(i32),
+        i_adv=i_adv.to(i32), j=j.to(i32), w_stab=w_stab,
+        n_ok=w_stab.sum(1, dtype=i32), alive_init=alive & ~bad), active,
+        (alive, cur_i, in_init, t, X, Xt, Yt, vario))
 
 
 _INIT_KEYS = ("init_nowin", "init_tm", "init_ok", "init_bad", "has_adv",
@@ -964,7 +1111,7 @@ _INIT_BOOL = ("init_nowin", "init_tm", "init_ok", "init_bad", "has_adv")
 
 
 def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
-                sensor=LANDSAT_ARD, mixed=False):
+                sensor=LANDSAT_ARD, mixed=False, active=None):
     """The INIT round per pixel: find the initialization window (MEOW_SIZE
     alive observations spanning INIT_DAYS from the cursor), screen it with
     the Tmask IRLS, test the 4-coefficient fit's stability, and advance the
@@ -977,6 +1124,10 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
         W: bound on the window's member count (kernel.window_cap).
         mixed: the stability fit's mixed-precision Gram (the
             ``init_window_mixed`` instance).
+        active: [C,P] bool skip guard or None (:func:`guard`): a tile with
+            no active pixel gets zeros, and alive_init = alive (the fields
+            i_next_tm, i_adv, j and has_adv, which an inactive pixel
+            computes too, are read only where in_init).
     Returns:
         kernel._init_block's dict: init_nowin, init_tm, init_ok, init_bad,
         has_adv [C,P] bool; i_next_tm, i_adv, j, n_ok [C,P] int32;
@@ -993,9 +1144,11 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
     _check(Xt, "Xt", torch.float32, (C, T, NT), dev)
     _check(Yt, "Yt", torch.int16, (C, B, T, P), dev)
     _check(vario, "vario", torch.float32, (C, P, B), dev)
+    _check_active(active, (C, P), dev)
     if dev.type == "cpu":
         return init_window_plain(alive, cur_i, in_init, t, X, Xt, Yt, vario,
-                                 W=W, sensor=sensor, mixed=mixed)
+                                 W=W, sensor=sensor, mixed=mixed,
+                                 active=active)
     roles, _keep = band_roles(sensor, B, "init_window")
     w_max = _w_instance(W, "init_window")
     flags = torch.empty(len(_INIT_BOOL), C, P, dtype=torch.bool, device=dev)
@@ -1005,8 +1158,8 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
     alive_init = torch.empty(C, T, P, dtype=torch.bool, device=dev)
     _launch(unit_of("init_window", mixed), _ptr(alive), _ptr(cur_i),
             _ptr(in_init), _ptr(t), _ptr(X), _ptr(Xt), _ptr(Yt), _ptr(vario),
-            _ptr(flags), _ptr(out), _ptr(w_stab), _ptr(alive_init), roles, C,
-            B, T, P, W, w_max)
+            _ptr(flags), _ptr(out), _ptr(w_stab), _ptr(alive_init), roles,
+            _opt_ptr(active), C, B, T, P, W, w_max)
     d = dict(zip(_INIT_KEYS, (*flags, *out)))
     return dict(d, w_stab=w_stab, alive_init=alive_init)
 
@@ -1015,7 +1168,16 @@ def init_window(alive, cur_i, in_init, t, X, Xt, Yt, vario, *, W,
 # tmask_bad
 # ---------------------------------------------------------------------------
 
-def tmask_bad(Xtw, Y2, w, vario2):
+def tmask_bad_plain(Xtw, Y2, w, vario2, active=None):
+    """Plain version of :func:`tmask_bad`: the screen of
+    primitives.tmask_bad (kernel._tmask_bad), all false on the tiles
+    without an ``active`` lane (:func:`guard`, over the flattened C*P
+    pixels)."""
+    return guard("tmask_bad", tmask_screen(Xtw, Y2, w, vario2), active,
+                 (Xtw, Y2, w, vario2))
+
+
+def tmask_bad(Xtw, Y2, w, vario2, active=None):
     """The Tmask IRLS screen on gathered windows (kernel._tmask_bad):
     TMASK_IRLS_ITERS Huber reweightings of a 5x5 SPD solve per Tmask band,
     MAD sigma, a flag where the final residual exceeds TMASK_CONST x the
@@ -1026,6 +1188,9 @@ def tmask_bad(Xtw, Y2, w, vario2):
         Y2: [C,P,2,W] float32 Tmask-band values.
         w: [C,P,W] float32 0/1 slot validity.
         vario2: [C,P,2] float32 the Tmask bands' variogram.
+        active: [C,P] bool skip guard or None (:func:`guard`; the tiles
+            run over the flattened C*P pixels): a tile with no active
+            pixel gets all-false flags.
     Returns:
         [C,P,W] bool flags.
     """
@@ -1035,12 +1200,13 @@ def tmask_bad(Xtw, Y2, w, vario2):
     _check(Y2, "Y2", torch.float32, (C, P, 2, W), dev)
     _check(w, "w", torch.float32, (C, P, W), dev)
     _check(vario2, "vario2", torch.float32, (C, P, 2), dev)
+    _check_active(active, (C, P), dev)
     if dev.type == "cpu":
-        return tmask_bad_plain(Xtw, Y2, w, vario2)
+        return tmask_bad_plain(Xtw, Y2, w, vario2, active)
     w_max = _w_instance(W, "tmask_bad")
     bad = torch.empty(C, P, W, dtype=torch.bool, device=dev)
     _launch("tmask_bad", _ptr(Xtw), _ptr(Y2), _ptr(w), _ptr(vario2),
-            _ptr(bad), C * P, W, w_max)
+            _ptr(bad), _opt_ptr(active), C * P, W, w_max)
     return bad
 
 
@@ -1130,11 +1296,17 @@ def _check_bufs(bufs, C, P, B, dev):
 
 def fused_fit_close_plain(Yt, X, t, w_fit, do_fit, n_full, included_mon,
                           coefs, rmse, mags, is_tail, is_brk, pos_ev,
-                          n_exceed, first_seg, nseg, bufs, mixed=False):
+                          n_exceed, first_seg, nseg, bufs, mixed=False,
+                          active=None):
     """Plain version of :func:`fused_fit_close`: the close row write
     (kernel._close_block with the given magnitudes), the Lasso fit of
     :func:`lasso_fit_plain` over ``w_fit`` (the mixed Gram where
-    ``mixed``), and the ``do_fit`` merge."""
+    ``mixed``), and the ``do_fit`` merge.  On the tiles without an
+    ``active`` lane no pixel closes or fits, which leaves the buffers, the
+    segment counts and the model as they were: :func:`guard`'s fill."""
+    if active is not None:
+        live = tile_live(active)
+        is_tail, is_brk, do_fit = is_tail & live, is_brk & live, do_fit & live
     meta = close_meta(t, included_mon, is_brk, pos_ev, n_exceed, first_seg)
     mag_new = torch.where(is_brk[..., None], mags, torch.zeros_like(mags))
     bufs, nseg_n = write_slot(bufs, nseg, is_tail | is_brk,
@@ -1157,7 +1329,7 @@ def _refit(Yt, w, X, n_full, do_fit, coefs, rmse, mixed):
 
 def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
                     rmse, mags, is_tail, is_brk, pos_ev, n_exceed, first_seg,
-                    nseg, bufs, mixed=False):
+                    nseg, bufs, mixed=False, active=None):
     """One round's segment close and shared Lasso refit in one launch.
 
     The closing pixels (``is_tail | is_brk``) append their segment — the
@@ -1179,6 +1351,9 @@ def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
             coef [C,P,S,B,8]) float32, updated in place.
         mixed: the refit's mixed-precision Gram (the
             ``fused_fit_close_mixed`` instance).
+        active: [C,P] bool skip guard or None (:func:`guard`): a tile with
+            no active pixel passes nseg and the model through and leaves
+            the buffers untouched.
     Returns:
         (bufs, nseg' [C,P] int32, coefs' [C,P,B,8], rmse' [C,P,B]).
     """
@@ -1199,11 +1374,12 @@ def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
                   ("n_exceed", n_exceed), ("nseg", nseg)):
         _check(v, nm, torch.int32, (C, P), dev)
     S = _check_bufs(bufs, C, P, B, dev)
+    _check_active(active, (C, P), dev)
     if dev.type == "cpu":
         return fused_fit_close_plain(Yt, X, t, w_fit, do_fit, n_full,
                                      included_mon, coefs, rmse, mags, is_tail,
                                      is_brk, pos_ev, n_exceed, first_seg,
-                                     nseg, bufs, mixed)
+                                     nseg, bufs, mixed, active)
     _nb_instance(B, "fused_fit_close")
     _check_smem("fused_fit_close", fused_fit_close_smem_bytes(T))
     nseg_o = torch.empty_like(nseg)
@@ -1212,7 +1388,7 @@ def fused_fit_close(Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs,
     _launch(unit_of("fused_fit_close", mixed), *map(_ptr, (
         Yt, X, t, w_fit, do_fit, n_full, included_mon, coefs, rmse, mags,
         is_tail, is_brk, pos_ev, n_exceed, first_seg, nseg, *bufs, nseg_o,
-        coefs_o, rmse_o)), C, B, T, P, S)
+        coefs_o, rmse_o)), _opt_ptr(active), C, B, T, P, S)
     return bufs, nseg_o, coefs_o, rmse_o
 
 
@@ -1305,13 +1481,19 @@ _EV_BOOL = ("is_tail", "is_brk", "is_refit", "do_fit")
 def fused_round_plain(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon,
                       coefs, rmse, vario, init_ok, w_stab, n_ok, first_seg,
                       nseg, bufs, *, change_thr, outlier_thr,
-                      sensor=LANDSAT_ARD, mixed=False):
+                      sensor=LANDSAT_ARD, mixed=False, active=None):
     """Plain version of :func:`fused_round`: :func:`monitor_chain_scored_plain`
     with the event outputs zeroed where a pixel does not monitor
     (kernel._mon_zeros), the include/remove update, the PEEK-run close
     (:func:`peek_run_mags`, :func:`close_meta`, :func:`write_slot`), then
     :func:`lasso_fit_plain` on the init-ok / refit windows (the mixed
-    Gram where ``mixed``)."""
+    Gram where ``mixed``).  On the tiles without an ``active`` lane no
+    pixel monitors or initialized, which passes everything through with
+    zero events and leaves the buffers as they were: :func:`guard`'s
+    fill."""
+    if active is not None:
+        live = tile_live(active)
+        in_mon, init_ok = in_mon & live, init_ok & live
     det = list(sensor.detection_bands)
     dden = torch.maximum(rmse, vario)[:, :, det].contiguous()
     mon = monitor_chain_scored_plain(
@@ -1347,7 +1529,8 @@ def fused_round_plain(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon,
 
 def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
                 rmse, vario, init_ok, w_stab, n_ok, first_seg, nseg, bufs, *,
-                change_thr, outlier_thr, sensor=LANDSAT_ARD, mixed=False):
+                change_thr, outlier_thr, sensor=LANDSAT_ARD, mixed=False,
+                active=None):
     """The whole post-INIT round in one launch: the monitoring pixels'
     score and event chain, the segment close of the pixels that end in a
     tail or a break (magnitudes from the PEEK run), and the shared Lasso
@@ -1365,6 +1548,9 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
         bufs: the four [C,P,S,k] result buffers, updated in place.
         mixed: the refit's mixed-precision Gram (the ``fused_round_mixed``
             instance).
+        active: [C,P] bool skip guard or None (:func:`guard`): a tile with
+            no active pixel passes nseg, the model, included and alive
+            through with zero events and leaves the buffers untouched.
     Returns:
         (bufs, nseg', coefs', rmse', ev): ``ev`` holds is_tail, is_brk,
         is_refit, do_fit [C,P] bool, pos_ev, n_full [C,P] int32 (0 for a
@@ -1389,12 +1575,13 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
     for nm, v in (("rmse", rmse), ("vario", vario)):
         _check(v, nm, torch.float32, (C, P, B), dev)
     S = _check_bufs(bufs, C, P, B, dev)
+    _check_active(active, (C, P), dev)
     if dev.type == "cpu":
         return fused_round_plain(
             Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
             rmse, vario, init_ok, w_stab, n_ok, first_seg, nseg, bufs,
             change_thr=change_thr, outlier_thr=outlier_thr, sensor=sensor,
-            mixed=mixed)
+            mixed=mixed, active=active)
     roles, _keep = band_roles(sensor, B, "fused_round")
     fused_round_geometry(T)             # refuses a T whose block won't fit
     nseg_o = torch.empty_like(nseg)
@@ -1406,8 +1593,8 @@ def fused_round(Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs,
     _launch(unit_of("fused_round", mixed), *map(_ptr, (
         Yt, X, t, alive, included, cur_k, n_last_fit, in_mon, coefs, rmse,
         vario, init_ok, w_stab, n_ok, first_seg, nseg, *bufs, nseg_o,
-        coefs_o, rmse_o, ev, incm, alm)), roles, C, B, T, P, S,
-        float(change_thr), float(outlier_thr))
+        coefs_o, rmse_o, ev, incm, alm)), roles, _opt_ptr(active), C, B, T,
+        P, S, float(change_thr), float(outlier_thr))
     d = {k: (ev[i] != 0 if k in _EV_BOOL else ev[i])
          for i, k in enumerate(_EV_KEYS)}
     return bufs, nseg_o, coefs_o, rmse_o, dict(d, included_mon=incm,

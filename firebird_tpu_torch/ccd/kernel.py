@@ -245,6 +245,20 @@ def _with_precision(fn, mixed):
     return functools.partial(fn, mixed=True) if mixed else fn
 
 
+class _ComponentsRoute(functools.partial):
+    """A component route's block: ``func`` (the XLA program around the
+    component kernels in the JAX package) with its kernels bound as
+    keywords, each handed the caller's skip guard ``active`` —
+    kernel._fit_lasso_coefs, _mon_block and _init_block pass ``active`` to
+    the Pallas ``lasso_cd``, ``monitor_chain``, ``tmask_bad`` and the
+    stability fit, never to the XLA ops around them."""
+
+    def __call__(self, *args, active=None, **kw):
+        return self.func(*args, **kw, **{
+            k: functools.partial(f, active=active)
+            for k, f in self.keywords.items()})
+
+
 def _loop_route(names, base, v, mixed, dtype,
                 default=False) -> types.SimpleNamespace:
     """The round loop's route from the component ``names`` (FIREBIRD_PALLAS
@@ -274,13 +288,13 @@ def _loop_route(names, base, v, mixed, dtype,
     # program, not plain versions standing in for a kernel.
     fits = functools.partial(_with_precision, mixed=mixed)
     fit = (fits(base.lasso_fit) if comps[0] == "fit"
-           else functools.partial(cuda_ops.lasso_fit_plain, cd=base.lasso_cd))
+           else _ComponentsRoute(cuda_ops.lasso_fit_plain, cd=base.lasso_cd))
     mon = (base.monitor_chain_scored if comps[1] == "score"
-           else functools.partial(cuda_ops.monitor_chain_scored_plain,
-                                  chain=base.monitor_chain))
+           else _ComponentsRoute(cuda_ops.monitor_chain_scored_plain,
+                                 chain=base.monitor_chain))
     init = (fits(base.init_window) if comps[2] == "init"
-            else functools.partial(cuda_ops.init_window_plain, fit=fit,
-                                   tmask=base.tmask_bad))
+            else _ComponentsRoute(cuda_ops.init_window_plain, fit=fit,
+                                  tmask=base.tmask_bad))
     return types.SimpleNamespace(
         components=comps, mega=False, mixed=mixed, dtype=dtype,
         lasso_fit=fit,
@@ -636,10 +650,12 @@ def _qa_bit(qa, bit):
     return ((qa >> bit) & 1) == 1
 
 
-def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
+def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops,
+              guards=False):
     """Pre-loop work for all chips: QA triage, usable sets, the one-shot
     snow / insufficient-clear fit, variogram and the standard procedure's
-    start state — kernel._prologue in its wire-resident form.
+    start state — kernel._prologue in its wire-resident form.  ``guards``
+    (compaction on) hands the fit its pixels as the skip guard.
 
     ``Yt`` [C,B,T,P] int16, ``qa`` [C,T,P]; the designs' dtype is the
     run's.  Returns (res, state)."""
@@ -699,7 +715,8 @@ def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
     alt_fit = is_alt & (alt_n >= params.MEOW_SIZE)
     alt_mask = alt_usable & alt_fit[:, None, :]
     alt_coefs, alt_rmse = ops.lasso_fit(Yt, alt_mask.to(fdt), X,
-                                        coefmask_for(alt_n), with_rmse=True)
+                                        coefmask_for(alt_n), with_rmse=True,
+                                        active=alt_fit if guards else None)
     _, first_i = first_at_or_after(alt_usable, torch.zeros_like(alt_n))
     last_i = last_true(alt_usable)
     alt_meta = torch.stack([
@@ -736,9 +753,12 @@ def _prologue(X, Xt, t, valid, Yt, qa, *, sensor, S, variogram_mode, ops):
     return res, state
 
 
-def _mon_block(res, st, *, sensor, change_thr, outlier_thr, ops):
+def _mon_block(res, st, *, sensor, change_thr, outlier_thr, ops,
+               guards=False):
     """The MONITOR block: score and event chain, then the include/remove
-    updates of the monitoring pixels — kernel._mon_block."""
+    updates of the monitoring pixels — kernel._mon_block.  ``guards``
+    (compaction on) hands the monitor the monitoring pixels as the skip
+    guard."""
     det = list(sensor.detection_bands)
     alive, included = st["alive"], st["included"]
     in_mon = st["phase"] == PHASE_MONITOR
@@ -746,7 +766,8 @@ def _mon_block(res, st, *, sensor, change_thr, outlier_thr, ops):
     mon = ops.monitor_chain_scored(
         res["Yd"], st["coefs"][:, :, det].contiguous(), dden, res["X"], alive,
         included, st["cur_k"], st["n_last_fit"], in_mon,
-        change_thr=change_thr, outlier_thr=outlier_thr)
+        change_thr=change_thr, outlier_thr=outlier_thr,
+        active=in_mon if guards else None)
     inc_abs = mon["inc_q"] & in_mon[:, None, :]
     rem_abs = mon["rem_q"] & in_mon[:, None, :]
     return dict(mon, included_mon=included | inc_abs,
@@ -868,13 +889,17 @@ class BatchLoop:
         self.C, self.P, self.W, self.sensor = C, P, W, sensor
         self.ops, self.fused = ops, fused
         self.thr = chi2_thresholds(len(sensor.detection_bands))
+        # Compaction, and with it the kernels' skip guards (the JAX
+        # package's ``guards=compact_on``: on every guarded call of the
+        # loop, its stage-2 tail and the prologue's fit).
+        self.compact = bool(compact) and not ops.mega
         self.res, st = _prologue(X, Xt, t, valid, Yt, qa, sensor=sensor,
                                  S=max_segments,
-                                 variogram_mode=variogram_mode, ops=ops)
+                                 variogram_mode=variogram_mode, ops=ops,
+                                 guards=self.compact)
         self.max_rounds = 2 * T + 8
         self.rounds, self.counts, self.occ = 0, [0, 0, 0], []
         self.ncomp, self.at_tail, self.mega_out = 0, False, None
-        self.compact = bool(compact) and not ops.mega
         self.every = compact_every()
         self.bucket = tail_bucket(P, compact_floor() if self.compact else 0.0)
         self.cascade = (self.compact and 0 < self.bucket < P
@@ -1026,12 +1051,15 @@ class BatchLoop:
         phase = st["phase"]
         in_init = phase == PHASE_INIT
         in_mon = phase == PHASE_MONITOR
+        # The skip guard of each kernel under compaction (None off it).
+        guard = (lambda a: a) if self.compact else (lambda a: None)
 
         any_init = bool(in_init.any())
         if any_init:
             init = ops.init_window(st["alive"], st["cur_i"], in_init, r["t"],
                                    r["X"], r["Xt"], r["Yt"], r["vario"],
-                                   W=self.W, sensor=sensor)
+                                   W=self.W, sensor=sensor,
+                                   active=guard(in_init))
         else:
             init = init_zeros(st)
         init_ok = init["init_ok"]
@@ -1047,7 +1075,7 @@ class BatchLoop:
                     st["rmse"], r["vario"], init_ok, init["w_stab"],
                     init["n_ok"], st["first_seg"], st["nseg"], st["bufs"],
                     change_thr=change_thr, outlier_thr=outlier_thr,
-                    sensor=sensor)
+                    sensor=sensor, active=guard(in_mon | init_ok))
             else:
                 bufs, nseg, coefs_n, rmse_n, mon = _round_zeros(st)
             is_tail, is_brk = mon["is_tail"], mon["is_brk"]
@@ -1058,7 +1086,8 @@ class BatchLoop:
         else:
             if bool(in_mon.any()):
                 mon = _mon_block(r, st, sensor=sensor, change_thr=change_thr,
-                                 outlier_thr=outlier_thr, ops=ops)
+                                 outlier_thr=outlier_thr, ops=ops,
+                                 guards=self.compact)
             else:
                 mon = _mon_zeros(st)
             is_tail, is_brk = mon["is_tail"], mon["is_brk"]
@@ -1084,7 +1113,7 @@ class BatchLoop:
                 r["Yt"], r["X"], r["t"], w_fit(), do_fit, n_full,
                 mon["included_mon"], st["coefs"], st["rmse"], mags, is_tail,
                 is_brk, mon["pos_ev"], mon["n_exceed"], st["first_seg"],
-                st["nseg"], st["bufs"])
+                st["nseg"], st["bufs"], active=guard(do_fit | close))
         elif fused:
             bufs, nseg = st["bufs"], st["nseg"]
             coefs_n, rmse_n = st["coefs"], st["rmse"]
@@ -1095,7 +1124,8 @@ class BatchLoop:
                 bufs, nseg = st["bufs"], st["nseg"]
             if any_fit:
                 cfull, rfull = ops.lasso_fit(r["Yt"], w_fit(), r["X"],
-                                             coefmask_for(n_full))
+                                             coefmask_for(n_full),
+                                             active=guard(do_fit))
                 coefs_n = torch.where(do_fit[..., None, None], cfull,
                                       st["coefs"])
                 rmse_n = torch.where(do_fit[..., None], rfull, st["rmse"])

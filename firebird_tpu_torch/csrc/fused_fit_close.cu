@@ -29,6 +29,9 @@
 //      (fb::dense_fit).
 // A tile with no closing and no fitting pixel writes only its segment
 // counts and the copied model (pallas_ops._fused_fit_close_block's skip).
+// With ``active`` (that skip's guard, the compacted loop's do_fit | close),
+// a tile with no active pixel writes just that and stages nothing
+// (fb::tile_active): the buffers are not touched.
 #include "dense_fit.cuh"
 #include "segment_close.cuh"
 
@@ -61,8 +64,8 @@ fused_fit_close_kernel(
     const int* __restrict__ pos_ev, const int* __restrict__ n_exceed,
     const uint8_t* __restrict__ first_seg, const int* __restrict__ nseg,
     fb::SegBufs bufs, int* __restrict__ nseg_out,
-    float* __restrict__ coefs_out, float* __restrict__ rmse_out, int T,
-    int P) {
+    float* __restrict__ coefs_out, float* __restrict__ rmse_out,
+    const uint8_t* __restrict__ active, int T, int P) {
   using namespace fb;
   extern __shared__ __align__(16) float smem[];
   const int W = (T + 31) / 32;
@@ -81,6 +84,19 @@ fused_fit_close_kernel(
   const size_t TP = (size_t)T * P;
   const int p0 = blockIdx.x * TILE;
   const int16_t* Yc = Yt + (size_t)c * B * TP;
+  const int n_px = min(TILE, P - p0);
+  const size_t row0 = (size_t)c * P + p0;
+
+  // The guard: a tile with no active pixel passes its segment counts and
+  // model through (its rows are contiguous).
+  if (!tile_active(active, row0, n_px)) {
+    if (tid < n_px) nseg_out[row0 + tid] = nseg[row0 + tid];
+    for (int k = tid; k < n_px * B * K; k += THREADS)
+      coefs_out[row0 * B * K + k] = coefs[row0 * B * K + k];
+    for (int k = tid; k < n_px * B; k += THREADS)
+      rmse_out[row0 * B + k] = rmse[row0 * B + k];
+    return;
+  }
 
   // 0. Stage; the words, thread (q, i): pixel i, words q, q + TILE_Q, ...
   stage(Xs, X + (size_t)c * T * K, T * K);
@@ -127,10 +143,7 @@ fused_fit_close_kernel(
     fitting[i] = fit;
   }
   __syncthreads();
-  // The model of the pixels that do not fit: the tile's rows are
-  // contiguous.
-  const int n_px = min(TILE, P - p0);
-  const size_t row0 = (size_t)c * P + p0;
+  // The model of the pixels that do not fit.
   for (int k = tid; k < n_px * B * K; k += THREADS)
     if (!fitting[k / (B * K)])
       coefs_out[row0 * B * K + k] = coefs[row0 * B * K + k];
@@ -151,8 +164,8 @@ fused_fit_close_kernel(
 
 template <int B>
 int launch(const void* const* a, const fb::SegBufs& bufs, void* nseg_out,
-           void* coefs_out, void* rmse_out, int C, int T, int P,
-           cudaStream_t stream) {
+           void* coefs_out, void* rmse_out, const void* active, int C, int T,
+           int P, cudaStream_t stream) {
   const size_t smem = smem_words(T) * 4;
   cudaError_t e = cudaFuncSetAttribute(
       fused_fit_close_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -166,7 +179,7 @@ int launch(const void* const* a, const fb::SegBufs& bufs, void* nseg_out,
       (const float*)a[9], (const uint8_t*)a[10], (const uint8_t*)a[11],
       (const int*)a[12], (const int*)a[13], (const uint8_t*)a[14],
       (const int*)a[15], bufs, (int*)nseg_out, (float*)coefs_out,
-      (float*)rmse_out, T, P);
+      (float*)rmse_out, (const uint8_t*)active, T, P);
   return (int)cudaGetLastError();
 }
 
@@ -177,8 +190,10 @@ int launch(const void* const* a, const fb::SegBufs& bufs, void* nseg_out,
 // rmse/mags [C,P,nb] f32, is_tail/is_brk [C,P] u8, pos_ev/n_exceed [C,P]
 // i32, first_seg [C,P] u8, nseg [C,P] i32; buffers meta [C,P,S,6],
 // rmse_b/mag_b [C,P,S,nb], coef_b [C,P,S,nb,8] f32 (updated in place)
-// -> nseg_out [C,P] i32, coefs_out [C,P,nb,8], rmse_out [C,P,nb] f32; nb
-// one of fb::with_nb's band counts.
+// active [C,P] u8 or null
+// -> nseg_out [C,P] i32, coefs_out [C,P,nb,8], rmse_out [C,P,nb] f32 (on a
+// tile with no active pixel nseg, coefs and rmse, the buffers untouched);
+// nb one of fb::with_nb's band counts.
 extern "C" int fb_fused_fit_close(
     const void* Yt, const void* X, const void* t, const void* w,
     const void* do_fit, const void* n_full, const void* incm,
@@ -186,8 +201,8 @@ extern "C" int fb_fused_fit_close(
     const void* is_tail, const void* is_brk, const void* pos_ev,
     const void* n_exceed, const void* first_seg, const void* nseg,
     void* meta_b, void* rmse_b, void* mag_b, void* coef_b, void* nseg_out,
-    void* coefs_out, void* rmse_out, int C, int nb, int T, int P, int S,
-    void* stream) {
+    void* coefs_out, void* rmse_out, const void* active, int C, int nb,
+    int T, int P, int S, void* stream) {
   const void* a[] = {Yt,   X,      t,       w,      do_fit,   n_full,
                      incm, coefs,  rmse,    mags,   is_tail,  is_brk,
                      pos_ev, n_exceed, first_seg, nseg};
@@ -195,7 +210,7 @@ extern "C" int fb_fused_fit_close(
                          (float*)coef_b, S};
   return fb::with_nb(nb, [&](auto nbc) {
     return launch<decltype(nbc)::value>(a, bufs, nseg_out, coefs_out,
-                                        rmse_out, C, T, P,
+                                        rmse_out, active, C, T, P,
                                         (cudaStream_t)stream);
   });
 }

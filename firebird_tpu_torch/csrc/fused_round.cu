@@ -20,6 +20,10 @@
 //      lasso_fit): the coefficients and RMSE are lasso_fit's, bit for
 //      bit.
 //
+// With ``active`` (pallas_ops._fused_round_block's skip guard, the
+// compacted loop's in_mon | init_ok), a tile with no active pixel passes
+// through (fb::tile_active): its segment counts, model, included and alive
+// planes copied, its events zero, the buffers untouched, nothing staged.
 // The detection bands are the sensor's (fb::Roles); NB bands a pixel.
 // Bound: bytes (the monitoring pixels' detection bands at the observations
 // scored, the fitting pixels' windows, the planes in and out); the CD loop's
@@ -54,8 +58,9 @@ fused_round_kernel(
     fb::SegBufs bufs, int* __restrict__ nseg_out,
     float* __restrict__ coefs_out, float* __restrict__ rmse_out,
     int* __restrict__ ev, uint8_t* __restrict__ incm_out,
-    uint8_t* __restrict__ alm_out, fb::Roles roles, int C, int T, int P,
-    float change_thr, float outlier_thr) {
+    uint8_t* __restrict__ alm_out, const uint8_t* __restrict__ active,
+    fb::Roles roles, int C, int T, int P, float change_thr,
+    float outlier_thr) {
   using namespace fb;
   constexpr int ND = NDET;
   extern __shared__ __align__(16) float smem[];
@@ -68,6 +73,24 @@ fused_round_kernel(
   const int tid = threadIdx.x;
   const size_t TP = (size_t)T * P;
   const int16_t* Yc = Yt + (size_t)c * B * TP;
+  const int p0 = blockIdx.x * TILE;
+  const int n_px = min(TILE, P - p0);
+  const size_t row0 = (size_t)c * P + p0;
+
+  // The guard: a tile with no active pixel passes through.
+  if (!tile_active(active, row0, n_px)) {
+    if (tid < n_px) {
+      nseg_out[row0 + tid] = nseg[row0 + tid];
+      for (int k = 0; k < 6; ++k) ev[k * (size_t)C * P + row0 + tid] = 0;
+    }
+    for (int k = tid; k < n_px * B * K; k += THREADS)
+      coefs_out[row0 * B * K + k] = coefs[row0 * B * K + k];
+    for (int k = tid; k < n_px * B; k += THREADS)
+      rmse_out[row0 * B + k] = rmse[row0 * B + k];
+    fill_plane(incm_out + c * TP, included + c * TP, T, P, p0, n_px);
+    fill_plane(alm_out + c * TP, alive + c * TP, T, P, p0, n_px);
+    return;
+  }
 
   // 0. Stage the design and the days.
   stage(Xs, X + (size_t)c * T * K, T * K);
@@ -78,10 +101,10 @@ fused_round_kernel(
   TilePixel px;
   px.i = tid % TILE;
   px.q = tid / TILE;
-  px.p = blockIdx.x * TILE + px.i;
+  px.p = p0 + px.i;
   px.valid = px.p < P;
   px.cp = (size_t)c * P + (px.valid ? px.p : 0);
-  px.cp0 = (size_t)c * P + blockIdx.x * TILE;
+  px.cp0 = row0;
   px.mon = px.valid && in_mon[px.cp] != 0;
   px.ck = px.valid ? cur_k[px.cp] : 0;
   const size_t cp = px.cp;
@@ -129,8 +152,8 @@ fused_round_kernel(
 
 template <int B>
 int launch(const void* const* a, void* const* o, const fb::SegBufs& bufs,
-           const fb::Roles& roles, int C, int T, int P, float change_thr,
-           float outlier_thr, cudaStream_t stream) {
+           const void* active, const fb::Roles& roles, int C, int T, int P,
+           float change_thr, float outlier_thr, cudaStream_t stream) {
   const size_t smem = smem_words(T) * 4;
   cudaError_t e = cudaFuncSetAttribute(
       fused_round_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -144,8 +167,8 @@ int launch(const void* const* a, void* const* o, const fb::SegBufs& bufs,
       (const float*)a[9], (const float*)a[10], (const uint8_t*)a[11],
       (const uint8_t*)a[12], (const int*)a[13], (const uint8_t*)a[14],
       (const int*)a[15], bufs, (int*)o[0], (float*)o[1], (float*)o[2],
-      (int*)o[3], (uint8_t*)o[4], (uint8_t*)o[5], roles, C, T, P, change_thr,
-      outlier_thr);
+      (int*)o[3], (uint8_t*)o[4], (uint8_t*)o[5], (const uint8_t*)active,
+      roles, C, T, P, change_thr, outlier_thr);
   return (int)cudaGetLastError();
 }
 
@@ -156,11 +179,12 @@ int launch(const void* const* a, void* const* o, const fb::SegBufs& bufs,
 // [C,P,nb] f32, init_ok [C,P] u8, w_stab [C,T,P] u8, n_ok [C,P] i32,
 // first_seg [C,P] u8, nseg [C,P] i32; buffers meta [C,P,S,6], rmse_b/mag_b
 // [C,P,S,nb], coef_b [C,P,S,nb,8] f32 (updated in place); roles the host
-// array of the sensor's band roles (fb::roles_from)
+// array of the sensor's band roles (fb::roles_from); active [C,P] u8 or null
 // -> nseg_out [C,P] i32, coefs_out [C,P,nb,8], rmse_out [C,P,nb] f32,
 //    ev [6,C,P] i32 (is_tail, is_brk, is_refit, pos_ev, do_fit, n_full),
-//    incm/alm [C,T,P] u8 (included_mon, alive_mon).  nb is one of
-//    fb::with_nb's band counts.
+//    incm/alm [C,T,P] u8 (included_mon, alive_mon); a tile with no active
+//    pixel passes nseg, the model, included and alive through with zero
+//    events.  nb is one of fb::with_nb's band counts.
 extern "C" int fb_fused_round(
     const void* Yt, const void* X, const void* t, const void* alive,
     const void* included, const void* cur_k, const void* nlast,
@@ -169,8 +193,8 @@ extern "C" int fb_fused_round(
     const void* n_ok, const void* first_seg, const void* nseg, void* meta_b,
     void* rmse_b, void* mag_b, void* coef_b, void* nseg_out,
     void* coefs_out, void* rmse_out, void* ev, void* incm, void* alm,
-    const void* roles_h, int C, int nb, int T, int P, int S,
-    float change_thr, float outlier_thr, void* stream) {
+    const void* roles_h, const void* active, int C, int nb, int T, int P,
+    int S, float change_thr, float outlier_thr, void* stream) {
   const void* a[] = {Yt,     X,      t,     alive, included, cur_k,
                      nlast,  in_mon, coefs, rmse,  vario,    init_ok,
                      w_stab, n_ok,   first_seg, nseg};
@@ -179,7 +203,7 @@ extern "C" int fb_fused_round(
                          (float*)coef_b, S};
   const fb::Roles roles = fb::roles_from(roles_h);
   return fb::with_nb(nb, [&](auto nbc) {
-    return launch<decltype(nbc)::value>(a, o, bufs, roles, C, T, P,
+    return launch<decltype(nbc)::value>(a, o, bufs, active, roles, C, T, P,
                                         change_thr, outlier_thr,
                                         (cudaStream_t)stream);
   });

@@ -30,6 +30,10 @@
 //      slot order by one lane.
 //   5. Warp 0 writes the per-pixel outputs; the block writes the
 //      alive_init and w_stab planes from the words in 32-byte rows.
+// With ``active`` (pallas_ops' per-block skip guard, normally in_init), a
+// tile with no active pixel writes kernel._init_zeros' outputs (the flags
+// and indices zero, w_stab empty) and passes alive through
+// (fb::tile_active); it reads nothing else.
 // The designs and days are read through the read-only cache.  Shared
 // memory grows with T (one word column: 4 T bytes a tile) and W_MAX, and
 // fits the card up to T = 32 767 at W_MAX 128 (smem_words).
@@ -108,8 +112,9 @@ init_kernel(const uint8_t* __restrict__ alive, const int* __restrict__ cur_i,
             const int16_t* __restrict__ Yt, const float* __restrict__ vario,
             uint8_t* __restrict__ flags, int* __restrict__ out,
             uint8_t* __restrict__ w_stab,
-            uint8_t* __restrict__ alive_out, fb::Roles roles, int C, int nb,
-            int T, int P, int W) {
+            uint8_t* __restrict__ alive_out,
+            const uint8_t* __restrict__ active, fb::Roles roles, int C,
+            int nb, int T, int P, int W) {
   using namespace fb;
   constexpr int S = WMAX / 32;
   constexpr int R = WMAX + 1;
@@ -139,6 +144,20 @@ init_kernel(const uint8_t* __restrict__ alive, const int* __restrict__ cur_i,
   const float* Xc = X + (size_t)c * T * K;
   const float* Xtc = Xt + (size_t)c * T * NT;
   const int16_t* Yc = Yt + (size_t)c * nb * TP;
+
+  // The guard: a tile with no active pixel writes the zeros and passes
+  // alive through.
+  if (!tile_active(active, (size_t)c * P + p0, min(TILE, P - p0))) {
+    const size_t CP = (size_t)C * P, cp = (size_t)c * P + p0 + tid;
+    if (tid < TILE && p0 + tid < P) {
+      for (int k = 0; k < 5; ++k) flags[k * CP + cp] = 0;
+      for (int k = 0; k < 4; ++k) out[k * CP + cp] = 0;
+    }
+    fill_plane(w_stab + c * TP, nullptr, T, P, p0, min(TILE, P - p0));
+    fill_plane(alive_out + c * TP, alive + c * TP, T, P, p0,
+               min(TILE, P - p0));
+    return;
+  }
 
   // 0. The alive words, thread (q, i): pixel i, words q, q+Q, ...
   {
@@ -381,8 +400,8 @@ template <int WMAX>
 int launch(const void* alive, const void* cur_i, const void* in_init,
            const void* t, const void* X, const void* Xt, const void* Yt,
            const void* vario, void* flags, void* out, void* w_stab,
-           void* alive_out, const fb::Roles& roles, int C, int nb, int T,
-           int P, int W, cudaStream_t stream) {
+           void* alive_out, const void* active, const fb::Roles& roles,
+           int C, int nb, int T, int P, int W, cudaStream_t stream) {
   const size_t smem = smem_words<WMAX>(T) * 4;
   cudaError_t e = cudaFuncSetAttribute(
       init_kernel<WMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -393,7 +412,8 @@ int launch(const void* alive, const void* cur_i, const void* in_init,
       (const uint8_t*)alive, (const int*)cur_i, (const uint8_t*)in_init,
       (const float*)t, (const float*)X, (const float*)Xt,
       (const int16_t*)Yt, (const float*)vario, (uint8_t*)flags, (int*)out,
-      (uint8_t*)w_stab, (uint8_t*)alive_out, roles, C, nb, T, P, W);
+      (uint8_t*)w_stab, (uint8_t*)alive_out, (const uint8_t*)active, roles,
+      C, nb, T, P, W);
   return (int)cudaGetLastError();
 }
 
@@ -419,17 +439,19 @@ int geometry(int T, int* out) {
 
 // alive [C,T,P] bool, cur_i [C,P] i32, in_init [C,P] bool, t [C,T] f32,
 // X [C,T,8], Xt [C,T,5] f32, Yt [C,nb,T,P] int16, vario [C,P,nb] f32,
-// roles the host array of the sensor's band roles (fb::roles_from)
+// roles the host array of the sensor's band roles (fb::roles_from), active
+// [C,P] bool or null
 // -> flags [5,C,P] bool (init_nowin, init_tm, init_ok, init_bad, has_adv),
 //    out [4,C,P] i32 (i_next_tm, i_adv, j, n_ok), w_stab / alive_out
-//    [C,T,P] bool.
+//    [C,T,P] bool; on a tile with no active pixel zeros, and alive_out =
+//    alive.
 // W is the window cap, w_max the instance (32, 64 or 128) that holds it.
 extern "C" int fb_init_window(const void* alive, const void* cur_i,
                               const void* in_init, const void* t,
                               const void* X, const void* Xt, const void* Yt,
                               const void* vario, void* flags, void* out,
                               void* w_stab, void* alive_out,
-                              const void* roles_h, int C,
+                              const void* roles_h, const void* active, int C,
                               int nb, int T, int P, int W, int w_max,
                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -438,13 +460,16 @@ extern "C" int fb_init_window(const void* alive, const void* cur_i,
   switch (w_max) {
     case 32:
       return launch<32>(alive, cur_i, in_init, t, X, Xt, Yt, vario, flags,
-                        out, w_stab, alive_out, roles, C, nb, T, P, W, s);
+                        out, w_stab, alive_out, active, roles, C, nb, T, P,
+                        W, s);
     case 64:
       return launch<64>(alive, cur_i, in_init, t, X, Xt, Yt, vario, flags,
-                        out, w_stab, alive_out, roles, C, nb, T, P, W, s);
+                        out, w_stab, alive_out, active, roles, C, nb, T, P,
+                        W, s);
     case 128:
       return launch<128>(alive, cur_i, in_init, t, X, Xt, Yt, vario, flags,
-                         out, w_stab, alive_out, roles, C, nb, T, P, W, s);
+                         out, w_stab, alive_out, active, roles, C, nb, T, P,
+                         W, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

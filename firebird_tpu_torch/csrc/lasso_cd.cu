@@ -37,6 +37,10 @@
 //      coordinate.  The component route hands the kernel every pixel of
 //      the chip, most with no weight on a late round: the queue packs the
 //      pixels with weight of many tiles into full warps.
+// With ``active`` (pallas_ops' per-block skip guard), a tile with no active
+// pixel writes +0 betas and goes on to the next before step 1 (it reads
+// nothing and leaves the queue as it was): an inactive pixel's system has
+// zero correlations, whose betas are +0 (fb::tile_active).
 #include "tile.cuh"
 
 namespace {
@@ -203,7 +207,7 @@ __global__ void __launch_bounds__(Shape<B>::threads, Shape<B>::min_blocks)
 lasso_cd_kernel(const float* __restrict__ G, const float* __restrict__ c,
                 const float* __restrict__ diag,
                 const uint8_t* __restrict__ mask, float* __restrict__ beta,
-                int N) {
+                const uint8_t* __restrict__ active, int N) {
   constexpr int THREADS = Shape<B>::threads;
   extern __shared__ __align__(16) float smem[];
   float* Gs = smem;                           // [TILE][GS_STRIDE]
@@ -217,6 +221,14 @@ lasso_cd_kernel(const float* __restrict__ G, const float* __restrict__ c,
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const size_t base = (size_t)tile * TILE;
     const int n = min(TILE, N - (int)base);
+    float4* out4 = reinterpret_cast<float4*>(beta + base * B * K);
+
+    // The guard: a tile with no active pixel writes +0 betas.
+    if (!fb::tile_active(active, base, n)) {
+      for (int k = tid; k < n * B * K / 4; k += THREADS)
+        out4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      continue;
+    }
 
     // 1. Flag the tile's pixels with a chain to run.
     if (tid < TILE) flagged[tid] = 0;
@@ -239,7 +251,6 @@ lasso_cd_kernel(const float* __restrict__ G, const float* __restrict__ c,
       if (tid == 0) *queued = at + __popc(all);
     }
     // The others' betas are +0.
-    float4* out4 = reinterpret_cast<float4*>(beta + base * B * K);
     for (int k = tid; k < n * B * K / 4; k += THREADS)
       if (!flagged[4 * k / (B * K)]) out4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
     __syncthreads();
@@ -253,7 +264,7 @@ lasso_cd_kernel(const float* __restrict__ G, const float* __restrict__ c,
 
 template <int B>
 int launch(const void* G, const void* c, const void* diag, const void* mask,
-           void* beta, int N, cudaStream_t stream) {
+           void* beta, const void* active, int N, cudaStream_t stream) {
   if (N <= 0) return 0;
   const auto kern = lasso_cd_kernel<B>;
   int dev = 0, sms = 0, per_sm = 0;
@@ -270,7 +281,7 @@ int launch(const void* G, const void* c, const void* diag, const void* mask,
   const int grid = tiles < resident ? tiles : resident;
   kern<<<grid, Shape<B>::threads, SMEM_BYTES, stream>>>(
       (const float*)G, (const float*)c, (const float*)diag,
-      (const uint8_t*)mask, (float*)beta, N);
+      (const uint8_t*)mask, (float*)beta, (const uint8_t*)active, N);
   return (int)cudaGetLastError();
 }
 
@@ -290,14 +301,15 @@ int geometry(int* out) {
 
 }  // namespace
 
-// G [N,8,8], c [N,nb,8], diag [N,8] f32, mask [N,8] u8 -> beta [N,nb,8]
-// f32, N the flattened chip x pixel count, nb one of fb::with_nb's band
-// counts; G, c, diag and beta 16-byte aligned.
+// G [N,8,8], c [N,nb,8], diag [N,8] f32, mask [N,8] u8, active [N] u8 or
+// null -> beta [N,nb,8] f32 (+0 on a tile of TILE pixels of the N with no
+// active one), N the flattened chip x pixel count, nb one of fb::with_nb's
+// band counts; G, c, diag and beta 16-byte aligned.
 extern "C" int fb_lasso_cd(const void* G, const void* c, const void* diag,
-                           const void* mask, void* beta, int N, int nb,
-                           void* stream) {
+                           const void* mask, void* beta, const void* active,
+                           int N, int nb, void* stream) {
   return fb::with_nb(nb, [&](auto nbc) {
-    return launch<decltype(nbc)::value>(G, c, diag, mask, beta, N,
+    return launch<decltype(nbc)::value>(G, c, diag, mask, beta, active, N,
                                         (cudaStream_t)stream);
   });
 }

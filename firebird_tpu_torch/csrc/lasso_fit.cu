@@ -19,6 +19,10 @@
 //      (fb::dense_fit, the code of fused_round's refit): the Gram and
 //      correlation sums split over the lanes by sum, never by time, so the
 //      coefficients and RMSE are the one-thread fit's bit for bit.
+// With ``active`` (pallas_ops' per-block skip guard, the compacted loop's
+// fit set), a tile with no active pixel writes its zero fit and stages
+// nothing (fb::tile_active): an inactive pixel's window is empty, so its fit
+// is that zero fill.
 #include "dense_fit.cuh"
 
 namespace {
@@ -43,8 +47,9 @@ template <int B>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 lasso_fit_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ w,
                  const float* __restrict__ X, const uint8_t* __restrict__ mask,
-                 float* __restrict__ coefs, float* __restrict__ rmse, int T,
-                 int P, int with_rmse) {
+                 float* __restrict__ coefs, float* __restrict__ rmse,
+                 const uint8_t* __restrict__ active, int T, int P,
+                 int with_rmse) {
   using namespace fb;
   extern __shared__ __align__(16) float smem[];
   const int W = (T + 31) / 32;
@@ -60,6 +65,17 @@ lasso_fit_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ w,
   const size_t TP = (size_t)T * P;
   const int p0 = blockIdx.x * TILE;
   const int16_t* Yc = Yt + (size_t)c * B * TP;
+  // The tile's rows of the fit are contiguous.
+  const int n_px = min(TILE, P - p0);
+  float* co = coefs + ((size_t)c * P + p0) * B * K;
+  float* ro = rmse + ((size_t)c * P + p0) * B;
+
+  // The guard: a tile with no active pixel writes its zero fit.
+  if (!tile_active(active, (size_t)c * P + p0, n_px)) {
+    for (int k = tid; k < n_px * B * K; k += THREADS) co[k] = 0.f;
+    for (int k = tid; k < n_px * B; k += THREADS) ro[k] = 0.f;
+    return;
+  }
 
   // 0. Stage the design; the weight words, thread (q, i): pixel i, words q,
   // q+Q, ...
@@ -81,10 +97,7 @@ lasso_fit_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ w,
     listed[i] = any != 0;
   }
   __syncthreads();
-  // The others' zero fit: the tile's rows are contiguous.
-  const int n_px = min(TILE, P - p0);
-  float* co = coefs + ((size_t)c * P + p0) * B * K;
-  float* ro = rmse + ((size_t)c * P + p0) * B;
+  // The others' zero fit.
   for (int k = tid; k < n_px * B * K; k += THREADS)
     if (!listed[k / (B * K)]) co[k] = 0.f;
   for (int k = tid; k < n_px * B; k += THREADS)
@@ -105,13 +118,14 @@ lasso_fit_kernel(const int16_t* __restrict__ Yt, const float* __restrict__ w,
 
 }  // namespace
 
-// Yt [C,nb,T,P] int16, w [C,T,P] f32 0/1, X [C,T,8] f32, mask [C,P,8] bool
-// -> coefs [C,P,nb,8] f32, rmse [C,P,nb] f32 (zeros when !with_rmse); nb
-// one of fb::with_nb's band counts.
+// Yt [C,nb,T,P] int16, w [C,T,P] f32 0/1, X [C,T,8] f32, mask [C,P,8] bool,
+// active [C,P] bool or null -> coefs [C,P,nb,8] f32, rmse [C,P,nb] f32
+// (zeros when !with_rmse, and on a tile with no active pixel); nb one of
+// fb::with_nb's band counts.
 extern "C" int fb_lasso_fit(const void* Yt, const void* w, const void* X,
-                            const void* mask, void* coefs, void* rmse, int C,
-                            int nb, int T, int P, int with_rmse,
-                            void* stream) {
+                            const void* mask, void* coefs, void* rmse,
+                            const void* active, int C, int nb, int T, int P,
+                            int with_rmse, void* stream) {
   const size_t smem = smem_words(T) * 4;
   return fb::with_nb(nb, [&](auto nbc) {
     constexpr int B = decltype(nbc)::value;
@@ -122,7 +136,8 @@ extern "C" int fb_lasso_fit(const void* Yt, const void* w, const void* X,
     dim3 grid((P + TILE - 1) / TILE, C);
     lasso_fit_kernel<B><<<grid, THREADS, smem, (cudaStream_t)stream>>>(
         (const int16_t*)Yt, (const float*)w, (const float*)X,
-        (const uint8_t*)mask, (float*)coefs, (float*)rmse, T, P, with_rmse);
+        (const uint8_t*)mask, (float*)coefs, (float*)rmse,
+        (const uint8_t*)active, T, P, with_rmse);
     return (int)cudaGetLastError();
   });
 }

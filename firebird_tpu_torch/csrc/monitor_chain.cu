@@ -27,6 +27,9 @@
 //   2. One thread a pixel runs passes 1-3 on the words (fb::word_event).
 //   3. Every thread writes its steps' rows of the two partition planes
 //      (fb::partition_word), lane = pixel at each step.
+// With ``active`` (pallas_ops' per-block skip guard, normally in_mon), a
+// tile with no active pixel writes the zero outputs and reads nothing
+// (fb::tile_active).
 #include "word_monitor.cuh"
 
 namespace {
@@ -101,8 +104,8 @@ monitor_plane_kernel(const float* __restrict__ s,
                      const int* __restrict__ nlast,
                      const uint8_t* __restrict__ in_mon, int* __restrict__ out,
                      uint8_t* __restrict__ inc_q, uint8_t* __restrict__ rem_q,
-                     int C, int T, int P, float change_thr,
-                     float outlier_thr) {
+                     const uint8_t* __restrict__ active, int C, int T, int P,
+                     float change_thr, float outlier_thr) {
   using namespace fb;
   extern __shared__ __align__(16) uint32_t smw[];
   const int W = (T + 31) / 32;
@@ -116,13 +119,24 @@ monitor_plane_kernel(const float* __restrict__ s,
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
   const size_t TP = (size_t)T * P;
+  const int p0 = blockIdx.x * TILE;
+
+  // The guard: a tile with no active pixel writes the zero outputs.
+  if (!tile_active(active, (size_t)c * P + p0, min(TILE, P - p0))) {
+    const size_t CP = (size_t)C * P;
+    if (tid < TILE && p0 + tid < P)
+      for (int k = 0; k < 8; ++k) out[k * CP + (size_t)c * P + p0 + tid] = 0;
+    fill_plane(inc_q + c * TP, nullptr, T, P, p0, min(TILE, P - p0));
+    fill_plane(rem_q + c * TP, nullptr, T, P, p0, min(TILE, P - p0));
+    return;
+  }
 
   // 1. The words.  Thread (q, i): pixel i, slices q, q+Q, ...
   for (int k = tid; k < 4 * W * TILE; k += THREADS) smw[k] = 0u;
   __syncthreads();
   const int i = tid % TILE;
   const int q = tid / TILE;
-  const int p = blockIdx.x * TILE + i;
+  const int p = p0 + i;
   const bool valid = p < P;
   const size_t cp = (size_t)c * P + (valid ? p : 0);
   const bool mon = valid && in_mon[cp] != 0;
@@ -177,15 +191,16 @@ monitor_plane_kernel(const float* __restrict__ s,
 }  // namespace
 
 // s [C,T,P] f32, alive/included [C,T,P] u8, cur_k/nlast [C,P] i32, in_mon
-// [C,P] u8 -> out [8,C,P] i32 (m, is_tail, is_brk, is_refit, ev_rank,
-// pos_ev, n_exceed, n_rf), inc_q/rem_q [C,T,P] u8; all zero for a pixel
-// that does not monitor.
+// [C,P] u8, active [C,P] u8 or null -> out [8,C,P] i32 (m, is_tail, is_brk,
+// is_refit, ev_rank, pos_ev, n_exceed, n_rf), inc_q/rem_q [C,T,P] u8; all
+// zero for a pixel that does not monitor and on a tile with no active pixel.
 extern "C" int fb_monitor_chain(const void* s, const void* alive,
                                 const void* included, const void* cur_k,
                                 const void* nlast, const void* in_mon,
-                                void* out, void* inc_q, void* rem_q, int C,
-                                int T, int P, float change_thr,
-                                float outlier_thr, void* stream) {
+                                void* out, void* inc_q, void* rem_q,
+                                const void* active, int C, int T, int P,
+                                float change_thr, float outlier_thr,
+                                void* stream) {
   const size_t smem = smem_words(T) * 4;
   cudaError_t e = cudaFuncSetAttribute(
       monitor_plane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -195,7 +210,8 @@ extern "C" int fb_monitor_chain(const void* s, const void* alive,
   monitor_plane_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       (const float*)s, (const uint8_t*)alive, (const uint8_t*)included,
       (const int*)cur_k, (const int*)nlast, (const uint8_t*)in_mon, (int*)out,
-      (uint8_t*)inc_q, (uint8_t*)rem_q, C, T, P, change_thr, outlier_thr);
+      (uint8_t*)inc_q, (uint8_t*)rem_q, (const uint8_t*)active, C, T, P,
+      change_thr, outlier_thr);
   return (int)cudaGetLastError();
 }
 

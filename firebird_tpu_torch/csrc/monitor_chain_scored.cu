@@ -24,6 +24,9 @@
 //   3. Every thread writes its words' rows of the two partition planes.
 // A narrow launch (the bucketed tail) spreads a pixel's walk over TILE_Q
 // threads instead of walking T three times on one.
+// With ``active`` (pallas_ops' per-block skip guard, normally in_mon), a
+// tile with no active pixel writes the zero outputs and stages nothing
+// (fb::tile_active).
 #include "word_monitor.cuh"
 
 namespace {
@@ -49,8 +52,9 @@ monitor_kernel(const int16_t* __restrict__ Yd, const float* __restrict__ coefs_d
                const uint8_t* __restrict__ included,
                const int* __restrict__ cur_k, const int* __restrict__ nlast,
                const uint8_t* __restrict__ in_mon, int* __restrict__ out,
-               uint8_t* __restrict__ inc_q, uint8_t* __restrict__ rem_q, int C,
-               int T, int P, float change_thr, float outlier_thr) {
+               uint8_t* __restrict__ inc_q, uint8_t* __restrict__ rem_q,
+               const uint8_t* __restrict__ active, int C, int T, int P,
+               float change_thr, float outlier_thr) {
   using namespace fb;
   extern __shared__ __align__(16) float smem[];
   const int W = (T + 31) / 32;
@@ -65,6 +69,17 @@ monitor_kernel(const int16_t* __restrict__ Yd, const float* __restrict__ coefs_d
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
   const size_t TP = (size_t)T * P;
+  const int p0 = blockIdx.x * TILE;
+
+  // The guard: a tile with no active pixel writes the zero outputs.
+  if (!tile_active(active, (size_t)c * P + p0, min(TILE, P - p0))) {
+    const size_t CP = (size_t)C * P;
+    if (tid < TILE && p0 + tid < P)
+      for (int k = 0; k < 8; ++k) out[k * CP + (size_t)c * P + p0 + tid] = 0;
+    fill_plane(inc_q + c * TP, nullptr, T, P, p0, min(TILE, P - p0));
+    fill_plane(rem_q + c * TP, nullptr, T, P, p0, min(TILE, P - p0));
+    return;
+  }
 
   // 0. Stage the design.
   stage(Xs, X + (size_t)c * T * K, T * K);
@@ -73,7 +88,7 @@ monitor_kernel(const int16_t* __restrict__ Yd, const float* __restrict__ coefs_d
   // 1. Score once, keep bits.  Thread (q, i): pixel i, words q, q+Q, ...
   const int i = tid % TILE;
   const int q = tid / TILE;
-  const int p = blockIdx.x * TILE + i;
+  const int p = p0 + i;
   const bool valid = p < P;
   const size_t cp = (size_t)c * P + (valid ? p : 0);
   const bool mon = valid && in_mon[cp] != 0;
@@ -135,16 +150,17 @@ monitor_kernel(const int16_t* __restrict__ Yd, const float* __restrict__ coefs_d
 }  // namespace
 
 // Yd [C,nb,T,P] int16, coefs_d [C,P,nb,8], dden [C,P,nb], X [C,T,8] f32,
-// alive/included [C,T,P] u8, cur_k/nlast [C,P] i32, in_mon [C,P] u8
-// -> out [8,C,P] i32 (m, is_tail, is_brk, is_refit, ev_rank, pos_ev,
-//    n_exceed, n_rf), inc_q/rem_q [C,T,P] u8; all zero for a pixel that
-//    does not monitor.  nb is the 5 detection bands.
+// alive/included [C,T,P] u8, cur_k/nlast [C,P] i32, in_mon [C,P] u8, active
+// [C,P] u8 or null -> out [8,C,P] i32 (m, is_tail, is_brk, is_refit,
+//    ev_rank, pos_ev, n_exceed, n_rf), inc_q/rem_q [C,T,P] u8; all zero for
+//    a pixel that does not monitor and on a tile with no active pixel.  nb
+//    is the 5 detection bands.
 extern "C" int fb_monitor_chain_scored(
     const void* Yd, const void* coefs_d, const void* dden, const void* X,
     const void* alive, const void* included, const void* cur_k,
     const void* nlast, const void* in_mon, void* out, void* inc_q,
-    void* rem_q, int C, int nb, int T, int P, float change_thr,
-    float outlier_thr, void* stream) {
+    void* rem_q, const void* active, int C, int nb, int T, int P,
+    float change_thr, float outlier_thr, void* stream) {
   if (nb != ND) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_words(T) * 4;
   cudaError_t e = cudaFuncSetAttribute(
@@ -155,7 +171,7 @@ extern "C" int fb_monitor_chain_scored(
       (const int16_t*)Yd, (const float*)coefs_d, (const float*)dden,
       (const float*)X, (const uint8_t*)alive, (const uint8_t*)included,
       (const int*)cur_k, (const int*)nlast, (const uint8_t*)in_mon,
-      (int*)out, (uint8_t*)inc_q, (uint8_t*)rem_q, C, T, P, change_thr,
-      outlier_thr);
+      (int*)out, (uint8_t*)inc_q, (uint8_t*)rem_q, (const uint8_t*)active, C,
+      T, P, change_thr, outlier_thr);
   return (int)cudaGetLastError();
 }

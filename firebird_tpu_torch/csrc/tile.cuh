@@ -72,12 +72,38 @@ __device__ __forceinline__ uint32_t column_word(const V* col, int P, int w,
   return v;
 }
 
+// A dead tile's planes (the skip guard's fill): for the tile's n pixels
+// from p0 of a [T, P] byte plane, dst = src (a copy) where src is given,
+// else 0; every thread of the block, a 32-byte row of the tile a time step.
+__device__ __forceinline__ void fill_plane(uint8_t* dst, const uint8_t* src,
+                                           int T, int P, int p0, int n) {
+  for (int k = threadIdx.x; k < T * TILE; k += TILE_THREADS) {
+    const int i = k % TILE;
+    if (i >= n) continue;
+    const size_t at = (size_t)(k / TILE) * P + p0 + i;
+    dst[at] = src ? src[at] : 0;
+  }
+}
+
 // Writes word w's bits into a pixel's byte column (col at the pixel,
 // stride P), one byte a time step below T.
 __device__ __forceinline__ void write_word(uint8_t* col, int P, int w, int T,
                                            uint32_t bits) {
   const int hi = min(32, T - 32 * w);
   for (int j = 0; j < hi; ++j) col[(size_t)(32 * w + j) * P] = (bits >> j) & 1u;
+}
+
+// The per-tile skip guard (pallas_ops._when_active on this layout): whether
+// the tile's n pixels from cp0 hold an active lane (active[cp0 + i] != 0,
+// i < n), true where ``active`` is null (the unguarded call).  Called by
+// every thread of the block, before its first barrier of the tile: the
+// answer is the whole block's, so a tile that leaves early leaves whole and
+// no thread is left at a __syncthreads.  Needs at least TILE threads.
+__device__ __forceinline__ bool tile_active(const uint8_t* active, size_t cp0,
+                                            int n) {
+  if (active == nullptr) return true;
+  const int i = threadIdx.x;
+  return __syncthreads_or(i < n && active[cp0 + i] != 0) != 0;
 }
 
 // Run by the TILE threads of warp 0, thread i for pixel i: the block's

@@ -22,6 +22,9 @@
 // needed), one slot a lane; a pixel with no member (no slot of weight > 0)
 // gets all-false flags without a screen, which is exact: a flag is only
 // ever raised on a member; the flags [N, W] go out a slot a lane.
+// With ``active`` (pallas_ops' per-block skip guard, normally the in_init
+// set), a tile with no active pixel writes all-false flags and reads
+// nothing (fb::tile_active).
 #include "tmask_warp.cuh"
 
 namespace {
@@ -42,14 +45,24 @@ template <int WMAX>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 tmask_kernel(const float* __restrict__ xt, const float* __restrict__ y2,
              const float* __restrict__ w, const float* __restrict__ vario2,
-             uint8_t* __restrict__ bad_out, int N, int W) {
+             uint8_t* __restrict__ bad_out,
+             const uint8_t* __restrict__ active, int N, int W) {
   using namespace fb;
   constexpr int S = WMAX / 32;
   extern __shared__ __align__(16) float smem[];
+  const int p0 = blockIdx.x * TILE;
+  const int n_px = min(TILE, N - p0);
+  // The guard: a tile with no active pixel writes all-false flags (its
+  // pixels' rows are contiguous).
+  if (!tile_active(active, p0, n_px)) {
+    for (int k = threadIdx.x; k < n_px * W; k += THREADS)
+      bad_out[(size_t)p0 * W + k] = 0;
+    return;
+  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const TmaskArea A(smem + warp * (TM_ROWS * (WMAX + 1) + TM_SCRATCH), WMAX);
   for (int pi = warp; pi < TILE; pi += NWARP) {
-    const int p = blockIdx.x * TILE + pi;
+    const int p = p0 + pi;
     if (p >= N) break;
     const size_t pw = (size_t)p * W;
     float y0[S], y1[S], wv[S];
@@ -90,7 +103,7 @@ tmask_kernel(const float* __restrict__ xt, const float* __restrict__ y2,
 
 template <int WMAX>
 int launch(const void* xt, const void* y2, const void* w, const void* vario2,
-           void* bad, int N, int W, cudaStream_t stream) {
+           void* bad, const void* active, int N, int W, cudaStream_t stream) {
   const size_t smem = smem_words(WMAX) * 4;
   cudaError_t e = cudaFuncSetAttribute(
       tmask_kernel<WMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -98,7 +111,7 @@ int launch(const void* xt, const void* y2, const void* w, const void* vario2,
   if (e != cudaSuccess) return (int)e;
   tmask_kernel<WMAX><<<(N + TILE - 1) / TILE, THREADS, smem, stream>>>(
       (const float*)xt, (const float*)y2, (const float*)w,
-      (const float*)vario2, (uint8_t*)bad, N, W);
+      (const float*)vario2, (uint8_t*)bad, (const uint8_t*)active, N, W);
   return (int)cudaGetLastError();
 }
 
@@ -122,21 +135,22 @@ int geometry(int* out) {
 
 }  // namespace
 
-// Xtw [N,W,5], Y2 [N,2,W], w [N,W], vario2 [N,2] f32 -> bad [N,W] u8.  N is
-// the flattened chip x pixel count, w_max the instance (32, 64 or 128) that
-// holds W.
+// Xtw [N,W,5], Y2 [N,2,W], w [N,W], vario2 [N,2] f32, active [N] u8 or null
+// -> bad [N,W] u8 (all false on a tile of TILE pixels of the N with no active
+// one).  N is the flattened chip x pixel count, w_max the instance (32, 64 or
+// 128) that holds W.
 extern "C" int fb_tmask_bad(const void* xt, const void* y2, const void* w,
-                            const void* vario2, void* bad, int N, int W,
-                            int w_max, void* stream) {
+                            const void* vario2, void* bad, const void* active,
+                            int N, int W, int w_max, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (W > w_max) return (int)cudaErrorInvalidValue;
   switch (w_max) {
     case 32:
-      return launch<32>(xt, y2, w, vario2, bad, N, W, s);
+      return launch<32>(xt, y2, w, vario2, bad, active, N, W, s);
     case 64:
-      return launch<64>(xt, y2, w, vario2, bad, N, W, s);
+      return launch<64>(xt, y2, w, vario2, bad, active, N, W, s);
     case 128:
-      return launch<128>(xt, y2, w, vario2, bad, N, W, s);
+      return launch<128>(xt, y2, w, vario2, bad, active, N, W, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

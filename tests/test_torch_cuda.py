@@ -19,6 +19,10 @@ from firebird_tpu_torch.ccd.sensor import (LANDSAT_ARD, LANDSAT_ARD_TINY,
                                            SENTINEL2)
 from firebird_tpu_torch.ingest import SyntheticSource, pack
 
+# The guard cases' inputs (tests/_torch_guard_cases.py, found on the path
+# pytest gives this directory).
+import _torch_guard_cases as cases
+
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
@@ -1521,3 +1525,99 @@ def test_statestore_roundtrip_from_card_tensors(dev, tmp_path):
             assert torch.equal(getattr(st, f).cpu(), getattr(host, f)), f
     assert store.load(cid)[0].coefs.device.type == dev.type
     store.close()
+
+
+# ---------------------------------------------------------------------------
+# The per-tile skip guard (active=)
+# ---------------------------------------------------------------------------
+
+GUARD_FRACTIONS = (1.0, 0.3, 0.02, 0.0)
+_FITTING = ("lasso_fit", "init_window", "fused_fit_close", "fused_round")
+_TWELVE = ("lasso_fit", "lasso_cd", "monitor_chain_scored", "init_window",
+           "fused_fit_close", "fused_round")
+GUARD_CASES = ([(n, False, 7) for n in cases.GUARDED]
+               + [(n, True, 7) for n in _FITTING]
+               + [(n, False, 12) for n in _TWELVE]
+               + [(n, True, 12) for n in _FITTING])
+GUARD_IDS = [f"{n}-{b}{'-mixed' if m else ''}" for n, m, b in GUARD_CASES]
+
+
+def _guard_case(name, B, dev, seed=51):
+    sensor = SENTINEL2 if B == 12 else LANDSAT_ARD
+    st, _ = cases.state(seed, C=2, P=141, T=96, B=B, S=4, W=16, dev=dev)
+    return st, sensor
+
+
+def _close_on_live(name, got, want, live):
+    """The kernel against its plain version on the live tiles, as the
+    unguarded tests hold them: the monitors through monitoring_only
+    (exact), INIT's exact fields and at most 2 % of its verdicts, every
+    other integer and boolean exact, the fitted floats within the fit
+    envelope (rtol / atol 1e-2)."""
+    if name in ("monitor_chain_scored", "monitor_chain"):
+        return
+    for (k, g), (_, w) in zip(cases.leaves(got), cases.leaves(want)):
+        g, w = cases.lanes(g, live), cases.lanes(w, live)
+        if k in ("init_ok", "init_bad"):
+            assert int((g != w).sum()) <= 0.02 * g.numel(), k
+        elif g.is_floating_point():
+            torch.testing.assert_close(g, w, rtol=1e-2, atol=1e-2)
+        else:
+            assert torch.equal(g, w), (name, k)
+
+
+@pytest.mark.parametrize("name,mixed,B", GUARD_CASES, ids=GUARD_IDS)
+def test_guard_matches_plain_at_each_share(dev, name, mixed, B):
+    """Each guarded kernel (f32, mixed, 7 and 12 bands) at 100, 30, 2 and
+    0 % of each chip active (a dense prefix; P=141, the last tile ragged),
+    on arbitrary inputs: the guarded launch equals the unguarded launch
+    with cuda_ops.guard's fill over the dead tiles, bit for bit (at 100 %
+    the unguarded output itself), and its guarded plain version bit for bit
+    on the dead tiles and as the unguarded tests hold them on the live
+    ones."""
+    st, sensor = _guard_case(name, B, dev)
+    a, kw = cases.args(name, st, sensor)
+    flat = name in cuda_ops.FLAT_TILES
+    unit = cuda_ops.unit_of(name, mixed)
+    u = cases.call(cuda_ops.KERNELS, name, a, kw, None, mixed)
+    for share in GUARD_FRACTIONS:
+        active = cases.prefix([int(share * 141)] * 2, 141, dev)
+        before = cuda_ops.LAUNCHES[unit]
+        g = cases.call(cuda_ops.KERNELS, name, a, kw, active, mixed)
+        assert cuda_ops.LAUNCHES[unit] == before + 1
+        cases.assert_same(g, cuda_ops.guard(name, u, active, a),
+                          f"{name} at {share}")
+        p = cases.call(cuda_ops.PLAIN, name, a, kw, active, mixed)
+        if name in ("monitor_chain_scored", "monitor_chain"):
+            p = cuda_ops.monitoring_only(p, a[-1])
+        live = cuda_ops.tile_live(active, flat=flat)
+        dead = ~live
+        for (k, x), (_, y) in zip(cases.leaves(g), cases.leaves(p)):
+            x, y = cases.lanes(x, dead), cases.lanes(y, dead)
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), (name, share, k)
+        _close_on_live(name, g, p, live)
+
+
+@pytest.mark.parametrize("name,mixed,B", GUARD_CASES, ids=GUARD_IDS)
+def test_guard_changes_nothing_on_inert_lanes(dev, name, mixed, B):
+    """With the inactive lanes carrying the inputs a compacted loop gives
+    them (30 % and 2 % of each chip a dense prefix) and the caller's lane
+    set as the guard, the guarded launch equals the unguarded one on every
+    lane as the loop reads it, bit for bit (INIT's cursor fields of
+    initializing pixels: an inactive pixel computes them too)."""
+    st0, sensor = _guard_case(name, B, dev, seed=52)
+    for share in (0.3, 0.02):
+        st = cases.inert(st0, cases.prefix([int(share * 141)] * 2, 141, dev))
+        a, kw = cases.args(name, st, sensor)
+        act = cases.caller_active(name, st)
+        g = cases.call(cuda_ops.KERNELS, name, a, kw, act, mixed)
+        u = cases.call(cuda_ops.KERNELS, name, a, kw, None, mixed)
+        if name == "init_window":
+            g, u = ({k: (torch.where(a[2], v, torch.zeros_like(v))
+                         if k in ("i_next_tm", "i_adv", "j", "has_adv")
+                         else v) for k, v in o.items()} for o in (g, u))
+        elif name in ("monitor_chain_scored", "monitor_chain"):
+            g, u = (cuda_ops.monitoring_only(o, a[-1]) for o in (g, u))
+        cases.assert_same(g, u, f"{name} at {share}")
